@@ -1,0 +1,62 @@
+"""Batch preprocessing: raw padded clouds -> voxels -> brick pyramid
+(counterpart of eyoc_tpu/training/pipeline.py).
+
+The B clouds of a batch are concatenated row-wise in per-cloud capacity
+slices; the brick engine keeps the segments independent, so features come
+back as [B*cap, C] aligned with the per-cloud voxel arrays.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from eyoc_tpu_torch.sparse import morton
+from eyoc_tpu_torch.sparse.bricks import BrickPyramid, build_pyramid
+from eyoc_tpu_torch.sparse.types import VoxelizedCloud
+from eyoc_tpu_torch.sparse.voxelize import voxelize
+
+
+class RawBatch(NamedTuple):
+    """One batch of padded raw pairs (tensors, or numpy before `to`)."""
+
+    xyz0: torch.Tensor           # [B, P, 3] f32
+    n0: torch.Tensor             # [B] int32 true point counts
+    xyz1: torch.Tensor           # [B, P, 3]
+    n1: torch.Tensor             # [B]
+    T_gt: torch.Tensor           # [B, 4, 4]
+    frame_distance: torch.Tensor  # [B] int32
+    search_radius: torch.Tensor  # [B] f32
+
+    def to(self, device) -> "RawBatch":
+        return RawBatch(*(torch.as_tensor(x).to(device) for x in self))
+
+
+def brick_caps(caps: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Per-level brick capacities: brick_caps[l] = caps[l+1]; the deepest
+    level gets max(256, caps[-1] // 2)."""
+    return tuple(caps[1:]) + (max(256, caps[-1] // 2),)
+
+
+def preprocess_clouds(xyz: torch.Tensor, counts: torch.Tensor, *,
+                      caps: Tuple[int, ...], voxel_size: float,
+                      window_bits: Tuple[int, int, int] = morton.BITS):
+    """Voxelize + build the brick pyramid for raw clouds [B, P, 3].
+
+    Returns (vox with [B, cap0] fields, BrickPyramid whose level-0 voxel
+    rows are the flattened [B*cap0] vox rows). Voxels dropped by the window
+    or by brick-capacity overflow are invalid in `vox.mask` too."""
+    B, P = xyz.shape[:2]
+    cap = caps[0]
+    pmask = torch.arange(P, device=xyz.device)[None, :] < counts[:, None]
+    clouds = [voxelize(xyz[b], pmask[b], voxel_size, cap, window_bits)
+              for b in range(B)]
+    vox = VoxelizedCloud(*(torch.stack(f) for f in zip(*clouds)))
+    keys = morton.encode(vox.coords, vox.mask, window_bits).reshape(B * cap)
+    mask = vox.mask.reshape(B * cap)
+    pyr: BrickPyramid = build_pyramid(keys, mask, B, brick_caps(caps),
+                                      window_bits)
+    eff = pyr.vox_masks[0].reshape(B, cap)
+    vox = vox._replace(mask=eff, count=eff.sum(1, dtype=torch.int32))
+    return vox, pyr

@@ -1,0 +1,138 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source under `eyoc_tpu_torch/csrc/` with a
+plain C interface. It is compiled with `nvcc` for `sm_90a` into its own
+shared library under `build/kernels/` at first use (or all at once, in
+parallel, by `build_all`) and called through ctypes. The library name
+carries a hash of the source and flags, so an edited source is rebuilt and
+a stale library is never loaded.
+
+Nothing is compiled or loaded at import time: the CPU tests import every
+module on a host without `nvcc`.
+
+`launches` holds one plain integer per kernel; a wrapper adds one exactly
+where it launches its kernel, so a run can show which kernels its main path
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
+           "sc2_seed_counts")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+launches = {name: 0 for name in KERNELS}
+_fns: dict = {}
+
+
+def reset_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile one kernel source (no-op when its library exists)."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> float:
+    """Compile every kernel, one nvcc per source, all started together.
+    Returns the wall time in seconds."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(build, name) for name in KERNELS]:
+            fut.result()
+    return time.perf_counter() - t0
+
+
+def load(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `eyoc_<name>` of kernel `name` (built on demand).
+
+    Raises when the kernel cannot be built or loaded: a wrapper never falls
+    back to its plain version for a CUDA tensor."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, f"eyoc_{name}")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch; count it otherwise."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    launches[name] += 1
+
+
+def require_cuda(name: str, *tensors, dtypes=None) -> None:
+    """Validate the tensors a kernel reads or writes: one CUDA device and
+    contiguous; `dtypes` optionally pins each tensor's dtype (None = any)."""
+    dev = None
+    for i, t in enumerate(tensors):
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: argument {i} is on {t.device}, "
+                             "expected a CUDA tensor")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {i} is not contiguous")
+        if dtypes is not None and dtypes[i] is not None \
+                and t.dtype != dtypes[i]:
+            raise ValueError(f"{name}: argument {i} has dtype {t.dtype}, "
+                             f"expected {dtypes[i]}")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
