@@ -7,18 +7,33 @@ Phases (any failure exits non-zero):
 1. card and build: the card's name and power limit from nvidia-smi; every
    CUDA kernel built from the sources in `eyoc_tpu_torch/csrc/`.
 2. every kernel against its plain PyTorch version on the same CUDA tensors
-   at the main path's shapes: error, kernel time and plain time (CUDA
-   events), and the least time the card could take (bound).
-3. the main path at full width: ResUNetBN2C (random weights from a fixed
+   at the main paths' shapes: error, kernel time and plain time (CUDA
+   events), the least time the card could take (bound) and, where one
+   PyTorch call computes the same function, that call's time. The eval
+   kernels at the test protocol's shapes; the training kernels (the conv
+   backward, the row gather, the masked-BN sums) on the calls recorded
+   during one full-width train step.
+3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
-   every kernel launched (launch counts reset just before, read just after).
+   every kernel of the path launched (launch counts reset just before, read
+   just after).
 4. registration sanity: `sc2_pcr` recovers a known pose from N = 5000
    correspondences with 30% inliers.
+5. the training path at full width: `training.steps.base_train_step`
+   (ResUNetBN2C, hardest-contrastive loss, SGD) on the published recipe's
+   batch of 8 synthetic train-phase pairs at d = 8 m; one warm-up step,
+   then 3 timed steps, each split by stage; a finite loss, positives found,
+   finite and non-zero grads, parameters and BN statistics that moved, and
+   every kernel of the step launched (counts reset just before, read just
+   after). Then where a step's time goes: the conv maps' share and a
+   torch.profiler view of one more step.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-nvidia-smi line; before that, a {"kernels": [...]} line with each kernel's
-numbers. It needs one CUDA device and imports nothing of JAX.
+nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
+each kernel on each path (K1 and K2 run on both: their training rows are
+`sparse_conv_train` and `masked_argmin_train`). It needs one CUDA device
+and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +52,12 @@ N_PAIRS = 4
 PAIR_DIST = 45.0
 N_CORR = 5000
 N_SEEDS = 1000
+# the published training recipe (scripts/train_kitti_EYOC.sh): batch 8,
+# num_pos 1024 * B, num_hn_samples 256 * B, SGD lr 0.1, momentum 0.8
+TRAIN_B = 8
+TRAIN_DIST = 8.0
+TRAIN_STEPS = 3
+PROBE_ROWS, PROBE_COLS = 20480, 256   # proto/proto_pallas_gather.py:24
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s
 HBM_BPS = 3.35e12
@@ -47,6 +68,9 @@ K1_RTOL, K1_ATOL_FRAC = 2e-2, 1e-2   # bf16 output, f32 sums in two orders
 K2_D2_RTOL = 1e-4                    # direct vs Gram-form squared distance
 K2_GAP = 1e-3                        # indices equal where 2nd - 1st > gap
 K3_RTOL, K3_ATOL = 1e-4, 1e-7        # f32 power iteration, summation order
+K5_RTOL, K5_ATOL_FRAC = 1e-3, 1e-3   # f32 dW, f32 sums of bf16 products
+K6B_RTOL, K6B_ATOL = 1e-5, 1e-6      # f32 atomics vs index_add_ order
+K7_REL = 1e-4                        # of the sums of absolute values
 
 
 def log(msg: str) -> None:
@@ -97,7 +121,7 @@ def check_sparse_conv(model, pyr):
 
     unet.sparse_conv = record
     try:
-        model(pyr)
+        model.embed(pyr)
     finally:
         unet.sparse_conv = real
     torch.cuda.synchronize()
@@ -244,6 +268,368 @@ def check_seed_counts(gen):
                 bound_by=by)
 
 
+# ---------------------------------------------------- phase 2, training
+
+
+TRAIN_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "masked_argmin",
+                 "sparse_conv_wgrad", "take_rows", "take_rows_backward",
+                 "masked_channel_sums")
+EVAL_KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
+                "sc2_seed_counts")
+
+
+def make_train_batch():
+    from eyoc_tpu_torch.data.synthetic import SyntheticPairs, collate_items
+    ds = SyntheticPairs(n_pairs=TRAIN_B, n_points=RAW, dist=TRAIN_DIST,
+                        phase="train", voxel_size=0.3)
+    return collate_items([ds[i] for i in range(TRAIN_B)], RAW)
+
+
+def record_train_step(model, opt, batch, cfg, gen):
+    """One train step with every call of the training kernels' wrappers
+    recorded: {wrapper name: [(args, kwargs), ...]}."""
+    import torch
+    from eyoc_tpu_torch.ops import rows
+    from eyoc_tpu_torch.sparse import brick_conv, norm
+    from eyoc_tpu_torch.training import loss, pipeline
+    from eyoc_tpu_torch.training.steps import base_train_step
+
+    sites = [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
+             (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
+             (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
+             (pipeline, "masked_argmin"), (loss, "masked_argmin")]
+    calls = {name: [] for _, name in sites}
+    real = {(mod, name): getattr(mod, name) for mod, name in sites}
+
+    def recorder(mod, name):
+        fn = real[(mod, name)]
+
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return rec
+
+    for mod, name in sites:
+        setattr(mod, name, recorder(mod, name))
+    try:
+        metrics = base_train_step(model, opt, batch, cfg, generator=gen,
+                                  device="cuda")
+    finally:
+        for mod, name in sites:
+            setattr(mod, name, real[(mod, name)])
+    torch.cuda.synchronize()
+    return calls, metrics
+
+
+def check_calls(label, calls, fn, plain, cost, close, library=None):
+    """Kernel against plain version on each recorded call; the times and
+    bounds are summed over the calls."""
+    import torch
+    with torch.no_grad():
+        return _check_calls(label, calls, fn, plain, cost, close, library)
+
+
+def _check_calls(label, calls, fn, plain, cost, close, library):
+    import torch
+    worst = ms = plain_ms = lib_ms = bound = tb = to = 0.0
+    for args, kw in calls:
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        ok, err = close(got, want, *args, **kw)
+        if not ok:
+            shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+            raise AssertionError(f"{label} {shapes} disagrees with its plain "
+                                 f"version: max err {err}")
+        worst = max(worst, err)
+        ms += time_ms(lambda: fn(*args, **kw), reps=5)
+        plain_ms += time_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
+        if library is not None:
+            lib_ms += time_ms(library(*args, **kw), reps=5)
+        nbytes, ops, kind = cost(*args, **kw)
+        tb += nbytes / HBM_BPS * 1e3
+        to += ops / PEAK[kind] * 1e3
+        bound += bound_ms(nbytes, ops, kind)[0]
+    log(f"{label}: {len(calls)} calls, max abs err "
+        f"{worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        + (f"library {lib_ms:.3f} ms, " if library is not None else "")
+        + f"bound {bound:.4f} ms")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if tb >= to else "operations",
+                library_ms=lib_ms if library is not None else None)
+
+
+def _bf16_close(rtol, atol_frac):
+    """K1's tolerance style: rtol of each value plus a fraction of the
+    largest."""
+    def close(got, want, *args, **kw):
+        got, want = got.float(), want.float()
+        if want.numel() == 0:
+            return True, 0.0
+        err = (got - want).abs()
+        scale = max(float(want.abs().max()), 1e-6)
+        return bool((err <= rtol * want.abs() + atol_frac * scale).all()), \
+            float(err.max())
+    return close
+
+
+def _conv_cost(x, W, nmap, x2=None, **_):
+    T, Ci, Co = W.shape
+    M_in, M_out = x.shape[0], nmap.shape[0]
+    taps = int(((nmap >= 0) & (nmap < M_in)).sum())
+    nbytes = M_in * Ci * 2 + T * Ci * Co * 2 + M_out * T * 4 + M_out * Co * 2
+    return nbytes, 2.0 * taps * Ci * Co, "bf16"
+
+
+def _wgrad_cost(x, dy, nmap, x2=None):
+    Ci = x.shape[1] + (0 if x2 is None else x2.shape[1])
+    M_in, (M_out, T), Co = x.shape[0], nmap.shape, dy.shape[1]
+    taps = int(((nmap >= 0) & (nmap < M_in)).sum())
+    nbytes = M_in * Ci * 2 + M_out * Co * 2 + M_out * T * 4 + T * Ci * Co * 4
+    return nbytes, 2.0 * taps * Ci * Co, "bf16"
+
+
+def _gather_cost(src, idx):
+    import torch
+    ok = (idx >= 0) & (idx < src.shape[0])
+    rows = int(torch.unique(idx[ok]).numel())
+    row_bytes = src[0].numel() * src.element_size()
+    return rows * row_bytes + idx.numel() * 4 + idx.numel() * row_bytes, \
+        0.0, "f32"
+
+
+def _scatter_cost(dout, idx, n_src):
+    return (dout.numel() * dout.element_size() + idx.numel() * 4
+            + n_src * dout.shape[1] * 4), float(dout.numel()), "f32"
+
+
+def _sums_cost(x, mask, y=None, shift=None):
+    e = x.element_size()
+    nbytes = x.numel() * e + mask.numel() + (1 + 2 * x.shape[1]) * 4
+    if y is not None:
+        nbytes += y.numel() * e + x.shape[1] * 4
+    return nbytes, 3.0 * x.numel(), "f32"
+
+
+def _argmin_cost(q, qm, r, rm):
+    nq, nr, D = q.shape[0], r.shape[0], q.shape[1]
+    pairs = float(qm.sum()) * float(rm.sum())
+    return (nq + nr) * D * 4 + nq + nr + nq * 8, 2.0 * pairs * D, "f32"
+
+
+def _argmin_close(got, want, q, qm, r, rm):
+    """K2 against the plain version's Gram form: d2 within K2_D2_RTOL plus
+    the Gram form's rounding (1e-6 of |q|^2 + max |r|^2, about 8 f32 ulps of
+    its terms: coordinates reach 76 m); indices equal where the gap between
+    the first and second nearest valid ref (f64, direct form) is clear of
+    K2_GAP and that rounding."""
+    import torch
+    (d_k, i_k), (d_p, i_p) = got, want
+    if d_k.numel() == 0:
+        return True, 0.0
+    gram = 1e-6 * ((q * q).sum(1) + float((r * r).sum(1).max()))
+    err = (d_k - d_p).abs()
+    ok = bool((err <= K2_D2_RTOL * d_p.abs() + gram).all())
+    full = torch.cdist(q.double(), r.double(),
+                       compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    full += torch.where(rm, 0.0, 1e30).double()[None]
+    two = torch.topk(full, 2, largest=False).values
+    del full
+    clear = qm & ((two[:, 1] - two[:, 0]) > K2_GAP + 2 * gram)
+    ok = ok and bool(torch.equal(i_k[clear], i_p[clear]))
+    return ok, float(err[qm].max()) if bool(qm.any()) else 0.0
+
+
+def _sums_close(got, want, x, mask, y=None, shift=None):
+    from eyoc_tpu_torch.sparse.norm import masked_channel_sums_plain
+    yabs = None if y is None else (y.float() - (0 if shift is None
+                                                else shift)).abs()
+    scale = masked_channel_sums_plain(x.float().abs(), mask, yabs)
+    err = (got - want).abs()
+    return bool((err <= K7_REL * scale + 1e-6).all()), float(err.max())
+
+
+def check_train_kernels(calls):
+    """K1 (the train forward), K1 as dgrad, K2 (GT pairs and mining), K5,
+    K6 and its backward, K7 on the recorded calls of one train step, plus
+    K6 at the TPU probes' shape. K1 and K2 also run on the eval path: their
+    rows here carry the suffix `_train`."""
+    import torch
+    from eyoc_tpu_torch.ops import knn, rows
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    from eyoc_tpu_torch.sparse import norm
+
+    conv_close = _bf16_close(K1_RTOL, K1_ATOL_FRAC)
+    out = {}
+    out["sparse_conv_train"] = check_calls(
+        "K1 sparse_conv, train forward of one step", calls["sparse_conv"],
+        bc.sparse_conv, bc.sparse_conv_plain, _conv_cost, conv_close)
+    out["masked_argmin_train"] = check_calls(
+        "K2 masked_argmin, one train step (GT pairs at D = 3, mining at "
+        "D = 32)", calls["masked_argmin"], knn.masked_argmin,
+        knn.masked_argmin_plain, _argmin_cost, _argmin_close)
+    out["sparse_conv_dgrad"] = check_calls(
+        "K1 sparse_conv_dgrad, one train step", calls["sparse_conv_dgrad"],
+        bc.sparse_conv_dgrad,
+        lambda dy, Wt, inv: bc.sparse_conv_plain(dy, Wt, inv), _conv_cost,
+        conv_close)
+    out["sparse_conv_wgrad"] = check_calls(
+        "K5 sparse_conv_wgrad, one train step", calls["sparse_conv_wgrad"],
+        bc.sparse_conv_wgrad, bc.sparse_conv_wgrad_plain, _wgrad_cost,
+        _bf16_close(K5_RTOL, K5_ATOL_FRAC))
+
+    def gather_close(got, want, *a):
+        return bool(torch.equal(got, want)), float(
+            (got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+    def index_select(src, idx):
+        if bool(((idx < 0) | (idx >= src.shape[0])).any()):
+            raise AssertionError("take_rows: a sentinel on the loss path")
+        idx64 = idx.long()
+        return lambda: torch.index_select(src, 0, idx64)
+
+    out["take_rows"] = check_calls(
+        "K6 take_rows, one train step", calls["take_rows_gather"],
+        rows.take_rows_gather,
+        rows.take_rows_plain, _gather_cost, gather_close, index_select)
+
+    def scatter_close(got, want, *a):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        return bool(torch.allclose(got, want, rtol=K6B_RTOL,
+                                   atol=K6B_ATOL)), err
+
+    def index_add(dout, idx, n_src):
+        idx64 = idx.long()
+        d = dout.float()
+        return lambda: torch.zeros((n_src, d.shape[1]), dtype=torch.float32,
+                                   device=d.device).index_add_(0, idx64, d)
+
+    out["take_rows_backward"] = check_calls(
+        "K6 take_rows_backward, one train step", calls["take_rows_backward"],
+        rows.take_rows_backward, rows.take_rows_backward_plain, _scatter_cost,
+        scatter_close, index_add)
+    out["masked_channel_sums"] = check_calls(
+        "K7 masked_channel_sums, one train step",
+        calls["masked_channel_sums"],
+        norm.masked_channel_sums, norm.masked_channel_sums_plain, _sums_cost,
+        _sums_close)
+
+    gen = torch.Generator().manual_seed(4)
+    src = torch.randn(PROBE_ROWS, PROBE_COLS, generator=gen).to(
+        torch.bfloat16).cuda()
+    idx = torch.randint(0, PROBE_ROWS, (PROBE_ROWS,), generator=gen).to(
+        torch.int32).cuda()
+    check_calls(f"K6 take_rows at the TPU probe shape [{PROBE_ROWS}, "
+                f"{PROBE_COLS}] bf16", [((src, idx), {})],
+                rows.take_rows_gather, rows.take_rows_plain, _gather_cost,
+                gather_close, index_select)
+    return out
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def train_phase(model, opt, batch, cfg, gen, smi):
+    """The training path at full width: one warm-up step, then the timed
+    steps with launch counts reset just before them."""
+    import torch
+    from eyoc_tpu_torch.training.steps import base_train_step
+    from eyoc_tpu_torch.utils import kernels
+
+    torch.cuda.reset_peak_memory_stats()     # the peak of this phase alone
+    base_train_step(model, opt, batch, cfg, generator=gen,      # warm-up
+                    device="cuda")
+    torch.cuda.synchronize()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    stage_ms, step_ms = {}, []
+    kernels.reset_counts()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = base_train_step(model, opt, batch, cfg, generator=gen,
+                            device="cuda", timings=stage_ms)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train step {i}: non-finite metrics {vals}")
+        if vals["num_pos_found"] <= 0:
+            raise AssertionError(f"train step {i}: no positive pairs")
+        log(f"train step {i}: loss {vals['loss']:.6f} (pos "
+            f"{vals['pos_loss']:.6f}, neg {vals['neg_loss']:.6f}), "
+            f"{int(vals['num_pos_found'])} positives, {step_ms[-1]:.2f} ms")
+    counts = dict(kernels.launches)
+    log(json.dumps({"train_launch_counts": counts}))
+    missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"train step launched no {missing}")
+
+    grads = [p.grad for p in model.parameters()]
+    if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("a parameter has no or a non-finite grad")
+    if not any(bool((g != 0).any()) for g in grads):
+        raise AssertionError("every grad is zero")
+    after = model.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k])}
+    stats = {k for k in before if k.endswith(("running_mean", "running_var"))}
+    params = set(before) - stats
+    if not (moved & params) or not (moved & stats):
+        raise AssertionError("the step moved no parameter or no BN statistic")
+    log(f"train: {len(moved & params)}/{len(params)} parameters and "
+        f"{len(moved & stats)}/{len(stats)} BN statistics moved")
+    split = ", ".join(f"{k} {v / TRAIN_STEPS:.2f}"
+                      for k, v in stage_ms.items())
+    log(f"train path: ResUNetBN2C, B={TRAIN_B}, {TRAIN_STEPS} steps, "
+        f"{np.mean(step_ms):.2f} ms/step ({split} ms; host clock around "
+        f"synchronized stages), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {smi}")
+    train_breakdown(model, opt, batch, cfg, gen)
+    return counts
+
+
+def train_breakdown(model, opt, batch, cfg, gen):
+    """Where a train step's time goes, after the counted run: the conv maps
+    of one side (with and without their inverses), then torch.profiler over
+    one step (device time, busy share, the kernels with most device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eyoc_tpu_torch.sparse.brick_conv import conv_maps
+    from eyoc_tpu_torch.training.pipeline import preprocess_clouds
+    from eyoc_tpu_torch.training.steps import base_train_step
+
+    _, pyr = preprocess_clouds(batch.xyz0, batch.n0, caps=cfg.caps,
+                               voxel_size=cfg.voxel_size,
+                               window_bits=cfg.window_bits)
+    maps_ms = []
+    for inverse in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv_maps(pyr, 4, 5, inverse=inverse)
+        torch.cuda.synchronize()
+        maps_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"train: conv maps of one side {maps_ms[0]:.2f} ms, with their "
+        f"inverses {maps_ms[1]:.2f} ms (host clock, synchronized)")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        base_train_step(model, opt, batch, cfg, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_ms(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(dev_ms(e) for e in events)
+    log(f"train profiler, one step: wall {wall:.3f} ms (profiler on), "
+        f"device time {total:.3f} ms, busy share {total / wall:.3f}, "
+        f"{sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=lambda e: -dev_ms(e))[:12]:
+        log(f"  {dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -256,7 +642,9 @@ def main() -> int:
     from eyoc_tpu_torch.geometry.metrics import registration_success
     from eyoc_tpu_torch.models import init_unet, load_model
     from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig, sc2_pcr
+    from eyoc_tpu_torch.training.optim import sgd
     from eyoc_tpu_torch.training.pipeline import preprocess_clouds
+    from eyoc_tpu_torch.training.steps import TrainConfig
     from eyoc_tpu_torch.utils import kernels
 
     # ---- phase 1: card and build
@@ -272,6 +660,11 @@ def main() -> int:
     pairs = make_pairs()
     log(f"data: {N_PAIRS} synthetic pairs at d={PAIR_DIST} m, {RAW} raw "
         f"points, {time.perf_counter() - t0:.1f} s on the host")
+    t0 = time.perf_counter()
+    train_batch = make_train_batch().to("cuda")
+    log(f"data: a batch of {TRAIN_B} synthetic train-phase pairs at "
+        f"d={TRAIN_DIST} m, {RAW} raw points, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
 
     spec = load_model("ResUNetBN2C")
     gen = torch.Generator().manual_seed(0)
@@ -290,6 +683,21 @@ def main() -> int:
         "sc2_power_iteration": check_power_iteration(gen),
         "sc2_seed_counts": check_seed_counts(gen),
     }
+    # the training kernels, on the calls of one full-width train step
+    train_model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                            device="cuda")
+    opt = sgd(train_model.parameters(), lr=0.1, momentum=0.8,
+              weight_decay=1e-4)
+    tcfg = TrainConfig(caps=CAPS, voxel_size=0.3, num_pos=1024 * TRAIN_B,
+                       num_hn_samples=256 * TRAIN_B, window_bits=WINDOW_BITS)
+    train_gen = torch.Generator().manual_seed(2)
+    calls, m = record_train_step(train_model, opt, train_batch, tcfg,
+                                 train_gen)
+    log(f"recorded train step: loss {float(m['loss']):.6f}, "
+        + ", ".join(f"{len(v)} {k}" for k, v in calls.items()))
+    results.update(check_train_kernels(calls))
+    del calls
+    torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full width
     noise_gen = torch.Generator().manual_seed(1)
@@ -325,10 +733,10 @@ def main() -> int:
             f"{feat_ms[-1]:.2f} ms, reg {reg_ms[-1]:.2f} ms, RTE "
             f"{float(te):.3f} m, RRE {float(re):.3f} deg")
     counts = dict(kernels.launches)
-    log(json.dumps({"launch_counts": counts}))
-    missing = [k for k, v in counts.items() if v <= 0]
+    log(json.dumps({"eval_launch_counts": counts}))
+    missing = [k for k in EVAL_KERNELS if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
+        raise AssertionError(f"eval path launched no {missing}")
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
         f"(host clock around synchronized calls), RR of the untrained net "
@@ -343,19 +751,44 @@ def main() -> int:
                              f"m, RRE {float(re)} deg")
     log(f"sc2_pcr sanity: RTE {float(te):.4f} m, RRE {float(re):.4f} deg")
 
+    # ---- phase 5: the training path at full width
+    train_counts = train_phase(train_model, opt, train_batch, tcfg,
+                               train_gen, smi)
+
+    # one row per kernel and path: the eval rows take the eval run's
+    # launches (phase 3), the training rows (K1 and K2 with the suffix
+    # `_train`, and the training kernels) the training run's (phase 5);
+    # each row's times are of the calls of that path
+    def launches(name):
+        if name in EVAL_KERNELS:
+            return counts[name]
+        return train_counts[name.removesuffix("_train")]
+
+    source = {"sparse_conv_dgrad": "sparse_conv",
+              "sparse_conv_train": "sparse_conv",
+              "masked_argmin_train": "masked_argmin",
+              "take_rows_backward": "take_rows"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_dgrad": "eyoc_tpu/sparse/brick_conv.py:259",
         "masked_argmin": "eyoc_tpu/ops/knn.py:79",
+        "masked_argmin_train": "eyoc_tpu/ops/knn.py:79",
         "sc2_power_iteration": "eyoc_tpu/registration/sc2pcr.py:276",
         "sc2_seed_counts": "eyoc_tpu/registration/sc2pcr.py:296",
+        "sparse_conv_wgrad": "eyoc_tpu/sparse/brick_conv.py:259",
+        "take_rows": "proto/proto_pallas_gather.py:62",
+        "take_rows_backward": "eyoc_tpu/training/loss.py:94",
+        "masked_channel_sums": "eyoc_tpu/sparse/norm.py:95",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"eyoc_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": counts[name],
+         "source": f"eyoc_tpu_torch/csrc/{source.get(name, name)}.cu",
+         "replaces": replaces[name],
+         "launches": launches(name),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for name, r in results.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

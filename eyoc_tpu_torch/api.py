@@ -44,7 +44,7 @@ def extract_features(model, xyz: np.ndarray, *, voxel_size: float = 0.05,
     counts = torch.tensor([n], dtype=torch.int32, device=device)
     vox, pyr = preprocess_clouds(pts, counts, caps=caps, voxel_size=voxel_size,
                                  window_bits=window_bits)
-    feats = model(pyr)
+    feats = model.embed(pyr)
     mask = vox.mask[0]
     return (vox.xyz[0][mask].cpu().numpy().astype(np.float32),
             feats[mask].cpu().numpy().astype(np.float32))

@@ -69,7 +69,7 @@ def embed_pair(model, batch: RawBatch, cfg: EvalConfig, device=None):
         vox, pyr = preprocess_clouds(xyz, n, caps=cfg.caps,
                                      voxel_size=cfg.voxel_size,
                                      window_bits=cfg.window_bits)
-        feats = model(pyr)
+        feats = model.embed(pyr)
         out += [vox.xyz[0], feats, vox.mask[0]]
     return tuple(out)
 

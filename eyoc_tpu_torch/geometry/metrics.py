@@ -22,6 +22,11 @@ def pdist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
+def pdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise L2 distances, sqrt(pdist2 + 1e-7) (metrics.py:40-41)."""
+    return torch.sqrt(pdist2(a, b) + 1e-7)
+
+
 def rte(T_est: torch.Tensor, T_gt: torch.Tensor) -> torch.Tensor:
     return torch.linalg.norm(T_est[..., :3, 3] - T_gt[..., :3, 3], dim=-1)
 

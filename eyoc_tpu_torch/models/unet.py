@@ -1,4 +1,5 @@
-"""Sparse UNet, eval forward (counterpart of eyoc_tpu/models/unet.py).
+"""Sparse UNet, eval and train forwards (counterpart of
+eyoc_tpu/models/unet.py).
 
 `ResUNet` is an nn.Module whose submodule names mirror the JAX parameter
 tree (conv1, norm1, block1.{conv1,norm1,conv2,norm2}, conv2, ..., conv4_tr,
@@ -6,12 +7,20 @@ norm4_tr, block4_tr, ..., conv1_tr, final), so a JAX checkpoint maps 1:1
 (models/convert.py). Conv weights keep the JAX layout [K^3, Ci, Co] and tap
 order.
 
-This slice runs the eval forward with every BatchNorm folded into the conv
-that feeds it (`_bn_fold`, unet.py:194-198): each conv is one K1 launch
-whose epilogue adds the folded bias, masks invalid voxels, adds the block
-residual and applies ReLU. Activations are stored in the model's compute
-dtype between convs (bf16 on the card, with f32 accumulation inside K1;
-the CPU tests use f32). Train-mode masked BN waits for the training slice.
+`forward` branches on `self.training`:
+- eval (`embed`, which the eval entry points call in either mode): every
+  BatchNorm folded into the conv that feeds it (`_bn_fold`,
+  unet.py:194-198); each conv is one K1 launch whose epilogue adds the
+  folded bias, masks invalid voxels, adds the block residual and applies
+  ReLU. No autograd.
+- train (apply_unet(training=True), unet.py:201-231, 242-380): each conv
+  is a `SparseConvFunction` (K1 forward; K1 over the inverse map and K5
+  backward) with no mask before the masked BatchNorm that follows it
+  (sparse/norm.py, K7 sums), then ReLU, the residual and the masks as plain
+  torch ops in the JAX order. The BN running statistics are updated in
+  place, once per forward.
+Activations are stored in the model's compute dtype between convs (bf16 on
+the card, with f32 sums inside the kernels; the CPU tests use f32).
 """
 
 from __future__ import annotations
@@ -22,8 +31,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from eyoc_tpu_torch.sparse.brick_conv import conv_maps, identity_map, sparse_conv
+from eyoc_tpu_torch.sparse.brick_conv import (SparseConvFunction, conv_maps,
+                                              identity_map, sparse_conv)
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid
+from eyoc_tpu_torch.sparse.norm import masked_batch_norm
 from eyoc_tpu_torch.utils.device import resolve_device
 
 
@@ -56,7 +67,7 @@ class SparseConv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Affine + running statistics of a (masked) BatchNorm; eval only."""
+    """Affine + running statistics of a masked BatchNorm."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -92,15 +103,16 @@ class Final(nn.Module):
 
 
 class ResUNet(nn.Module):
-    """Eval-mode sparse UNet of one UNetSpec (BN-foldable specs only)."""
+    """Sparse UNet of one UNetSpec (BN-foldable specs: the plain-BN ResUNet
+    and SimpleNet families)."""
 
     def __init__(self, spec: UNetSpec, in_channels: int = 1,
                  out_channels: int = 32, conv1_kernel_size: int = 5,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if not can_fold_bn(spec):
-            raise ValueError(f"{spec.name}: only BN-foldable specs have an "
-                             "eval forward in this port so far")
+            raise ValueError(f"{spec.name}: only BN-foldable specs have a "
+                             "forward in this port so far")
         self.spec = spec
         self.conv1_kernel_size = conv1_kernel_size
         self.dtype = dtype
@@ -127,11 +139,17 @@ class ResUNet(nn.Module):
             self.norm1_tr = BatchNorm(tr[0])
         self.final = Final(tr[0], out_channels)
         self._folded = None
+        # eval unless asked: the default of apply_unet (training=False)
+        self.train(False)
 
-    # -- folded weights, cached until the parameters move or reload
+    # -- folded weights, cached until the parameters move, reload or train
     def _apply(self, fn, *args, **kwargs):
         self._folded = None
         return super()._apply(fn, *args, **kwargs)
+
+    def train(self, mode: bool = True):
+        self._folded = None
+        return super().train(mode)
 
     def load_state_dict(self, *args, **kwargs):
         self._folded = None
@@ -168,11 +186,29 @@ class ResUNet(nn.Module):
             self.final.bias.detach().float().contiguous())
         return folded
 
-    @torch.no_grad()
-    def forward(self, pyr: BrickPyramid) -> torch.Tensor:
+    def forward(self, pyr: BrickPyramid, in_feats: torch.Tensor | None = None,
+                bn_momentum: float = 0.05) -> torch.Tensor:
         """L2-normalized features [M0, out_channels] f32 for the level-0
-        voxel rows (zero rows at invalid voxels). The input feature is the
-        occupancy, as in the test protocol."""
+        voxel rows (zero rows at invalid voxels). The input feature is
+        `in_feats` [M0, 1] (e.g. jittered occupancy) masked to the valid
+        voxels, or the occupancy when None (the test protocol). The eval
+        entry points call `embed`, which ignores the mode."""
+        if self.training:
+            return self._forward_train(pyr, in_feats, bn_momentum)
+        return self.embed(pyr, in_feats)
+
+    def _input(self, pyr: BrickPyramid, in_feats) -> torch.Tensor:
+        """JAX's vox_to_fb drops invalid rows (unet.py:326-329)."""
+        m = pyr.vox_masks[0][:, None]
+        x = m if in_feats is None else in_feats * m
+        return x.to(self.dtype).contiguous()
+
+    @torch.no_grad()
+    def embed(self, pyr: BrickPyramid,
+              in_feats: torch.Tensor | None = None) -> torch.Tensor:
+        """The eval forward (apply_unet(training=False)) whatever the
+        module's mode: BN from the running statistics, which it leaves as
+        they are."""
         if self._folded is None:
             self._folded = self._fold()
         fw = self._folded
@@ -198,7 +234,7 @@ class ResUNet(nn.Module):
                 return y, y
             return torch.relu(x), x
 
-        x = masks[0][:, None].to(self.dtype)
+        x = self._input(pyr, in_feats)
         skips = []
         out = conv("conv1", x, maps.first, 0)
         out, skip = level_tail("1", out, 0)
@@ -222,6 +258,70 @@ class ResUNet(nn.Module):
         out = conv("final", out, identity_map(out.shape[0], out.device), 0)
 
         feats = out.float()
+        return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
+
+    def _forward_train(self, pyr: BrickPyramid, in_feats,
+                       bn_momentum: float) -> torch.Tensor:
+        """apply_unet(training=True): unfolded convs, masked BN with batch
+        statistics (running stats updated in place), autograd through the
+        kernels."""
+        spec = self.spec
+        L = spec.num_levels
+        blocks = spec.block_norm_type is not None
+        maps = conv_maps(pyr, L, self.conv1_kernel_size, inverse=True)
+        vmask = maps.vox_masks
+        fmask = [m[:, None].to(self.dtype) for m in vmask]
+
+        def conv(mod, x, nmap, inv, x2=None):
+            return SparseConvFunction.apply(x, x2, mod.weight, nmap, inv)
+
+        def norm(mod, x, level):
+            return masked_batch_norm(x, vmask[level], mod.weight, mod.bias,
+                                     mod.running_mean, mod.running_var,
+                                     momentum=bn_momentum)
+
+        def level_tail(prefix, x, level):
+            """norm (-> block); returns (post-relu, skip) as unet.py:300-322."""
+            x = norm(getattr(self, f"norm{prefix}"), x, level)
+            if not blocks:
+                return torch.relu(x), x         # SimpleNet: pre-relu skip
+            b = getattr(self, f"block{prefix}")
+            nmap, inv = maps.same3[level], maps.inv_same3[level]
+            y = torch.relu(norm(b.norm1, conv(b.conv1, x, nmap, inv), level))
+            y = norm(b.norm2, conv(b.conv2, y, nmap, inv), level)
+            y = torch.relu(y + x) * fmask[level]
+            return y, y
+
+        x = self._input(pyr, in_feats)
+        skips = []
+        out = conv(self.conv1, x, maps.first, None)
+        out, skip = level_tail("1", out, 0)
+        skips.append(skip)
+        for l in range(2, L + 1):
+            out = conv(getattr(self, f"conv{l}"), out, maps.down[l - 2],
+                       maps.inv_down[l - 2])
+            out, skip = level_tail(str(l), out, l - 1)
+            skips.append(skip)
+
+        x2 = None                     # ME.cat(decoder, encoder) skip join
+        for l in range(L, 1, -1):
+            out = conv(getattr(self, f"conv{l}_tr"), out, maps.up[l - 2],
+                       maps.inv_up[l - 2], x2)
+            out, _ = level_tail(f"{l}_tr", out, l - 2)
+            x2 = skips[l - 2]
+
+        if spec.conv1_tr_kernel == 1:
+            nmap = inv = identity_map(out.shape[0], out.device)
+        else:
+            nmap, inv = maps.same3[0], maps.inv_same3[0]
+        out = conv(self.conv1_tr, out, nmap, inv, x2) * fmask[0]
+        if spec.conv1_tr_norm:
+            out = norm(self.norm1_tr, out, 0)
+        out = torch.relu(out)
+        ident = identity_map(out.shape[0], out.device)
+        out = SparseConvFunction.apply(out, None, self.final.weight[None],
+                                       ident, ident)
+        feats = (out.float() + self.final.bias) * fmask[0].float()
         return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
 
 

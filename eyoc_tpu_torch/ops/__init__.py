@@ -1,1 +1,1 @@
-"""Feature matching."""
+"""Feature matching and the row gather."""

@@ -28,12 +28,21 @@ convolution (decision recorded here and in ROADMAP.md):
 - conv_down computes one output per level-l brick (= level-(l+1) voxel)
   from taps at cells [-1, 1]^3 of the brick base; conv_up reads the coarse
   2x2x2 window through `up_slots`; conv1x1 is the identity map.
+
+Training (`SparseConvFunction`): for a fixed tap t every input row is read
+by at most one output row (same: coord(i) = coord(o) + off_t; down:
+coord(i) = 2 coord(o) + off_t; up: coord(o) = 2 coord(i) + off_t; a
+dropped diagonal tap only removes entries), so the map inverts per tap
+(`invert_map`) and the input gradient is K1 itself over the inverse map
+with W[t] transposed: dX[i] = sum_t dY[inv[i, t]] @ W[t]^T, deterministic
+and without atomics. The weight gradient is kernel K5
+(`sparse_conv_wgrad`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,13 +73,20 @@ class ConvMaps(NamedTuple):
     same3[l]: [M_l, 27]; first: [M_0, k^3] of the first conv (k =
     conv1_kernel_size, 125 taps for ResUNetBN2C);
     down[l]: level l -> l+1, [M_{l+1}, 27]; up[l]: level l+1 -> l,
-    [M_l, 27]; vox_masks[l]: [M_l] bool output masks."""
+    [M_l, 27]; vox_masks[l]: [M_l] bool output masks.
+    inv_same3 / inv_down / inv_up: the per-tap inverses (`invert_map`) that
+    the backward's dX needs, or None when not asked for. The first conv's
+    input (the occupancy or jittered features) takes no gradient, so its
+    map has no inverse here."""
 
     same3: Tuple[torch.Tensor, ...]
     first: torch.Tensor
     down: Tuple[torch.Tensor, ...]
     up: Tuple[torch.Tensor, ...]
     vox_masks: Tuple[torch.Tensor, ...]
+    inv_same3: Optional[Tuple[torch.Tensor, ...]] = None
+    inv_down: Optional[Tuple[torch.Tensor, ...]] = None
+    inv_up: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def cell_to_voxel(level: BrickLevel) -> torch.Tensor:
@@ -162,8 +178,9 @@ def conv_up_map(fine: BrickLevel, coarse_c2v: torch.Tensor,
 
 
 def conv_maps(pyr: BrickPyramid, num_levels: int,
-              conv1_kernel_size: int = 5) -> ConvMaps:
-    """Every gather map a UNet of `num_levels` levels needs."""
+              conv1_kernel_size: int = 5, inverse: bool = False) -> ConvMaps:
+    """Every gather map a UNet of `num_levels` levels needs; with
+    `inverse`, also the inverses of the maps whose input takes a gradient."""
     levels = pyr.levels[:num_levels]
     c2v = [cell_to_voxel(lv) for lv in levels]
     same3 = tuple(conv_same_map(lv, 3, c) for lv, c in zip(levels, c2v))
@@ -174,13 +191,43 @@ def conv_maps(pyr: BrickPyramid, num_levels: int,
     up = tuple(conv_up_map(levels[l], c2v[l + 1],
                            levels[l + 1].cellslot.shape[0])
                for l in range(num_levels - 1))
-    return ConvMaps(same3, first, down, up,
+    maps = ConvMaps(same3, first, down, up,
                     tuple(pyr.vox_masks[:num_levels]))
+    if not inverse:
+        return maps
+    M = [lv.cellslot.shape[0] for lv in levels]
+    return maps._replace(
+        inv_same3=tuple(invert_map(m, n) for m, n in zip(same3, M)),
+        inv_down=tuple(invert_map(m, M[l]) for l, m in enumerate(down)),
+        inv_up=tuple(invert_map(m, M[l + 1]) for l, m in enumerate(up)))
 
 
 def identity_map(m: int, device) -> torch.Tensor:
     """[m, 1] map of a per-voxel (1x1) conv."""
     return torch.arange(m, dtype=torch.int32, device=device)[:, None]
+
+
+def invert_map(nmap: torch.Tensor, m_in: int) -> torch.Tensor:
+    """Per-tap inverse of a gather map: nmap [M_out, T] (values outside
+    [0, m_in) read nothing) -> inv [m_in, T] int32 with inv[nmap[o, t], t]
+    = o and the sentinel M_out where no output reads (i, t).
+
+    Raises when two outputs read the same input through the same tap: the
+    dX of `SparseConvFunction` would then need a sum, not a gather."""
+    M_out, T = nmap.shape
+    valid = (nmap >= 0) & (nmap < m_in)
+    slot = torch.where(valid, nmap.long() * T
+                       + torch.arange(T, device=nmap.device), m_in * T)
+    inv = torch.full((m_in * T + 1,), M_out, dtype=torch.int32,
+                     device=nmap.device)
+    rows = torch.arange(M_out, dtype=torch.int32, device=nmap.device)
+    inv[slot.reshape(-1)] = rows[:, None].expand(M_out, T).reshape(-1)
+    inv = inv[:m_in * T].reshape(m_in, T)
+    collisions = int(valid.sum() - (inv < M_out).sum())   # one host sync
+    if collisions:
+        raise ValueError(f"invert_map: {collisions} (input, tap) slots are "
+                         "read by more than one output row")
+    return inv
 
 
 # ---------------------------------------------------------------- kernel K1
@@ -230,6 +277,21 @@ def sparse_conv(x, W, nmap, *, x2=None, bias=None, mask=None, residual=None,
     if x.device.type == "cpu":
         return sparse_conv_plain(x, W, nmap, x2=x2, bias=bias, mask=mask,
                                  residual=residual, relu=relu)
+    return _launch_k1("sparse_conv", x, W, nmap, x2=x2, bias=bias, mask=mask,
+                      residual=residual, relu=relu)
+
+
+def sparse_conv_dgrad(dy, Wt, inv):
+    """The input gradient of a conv: K1 over the inverse map, dX [M_in, Ci]
+    = sum_t dY[inv[:, t]] @ Wt[t] with Wt [T, Co, Ci] = W transposed per
+    tap. Counted apart from the forward, as `sparse_conv_dgrad`."""
+    if dy.device.type == "cpu":
+        return sparse_conv_plain(dy, Wt, inv)
+    return _launch_k1("sparse_conv_dgrad", dy, Wt, inv)
+
+
+def _launch_k1(count_as, x, W, nmap, *, x2=None, bias=None, mask=None,
+               residual=None, relu=False):
     fn = kernels.load("sparse_conv", _K1_ARGS)
     bf16 = torch.bfloat16
     kernels.require_cuda("sparse_conv", x, x2, W, nmap, bias, mask, residual,
@@ -255,5 +317,107 @@ def sparse_conv(x, W, nmap, *, x2=None, bias=None, mask=None, residual=None,
     p = kernels.ptr
     err = fn(p(x), Ca, p(x2), Cb, M_in, p(nmap), T, M_out, p(W), Co, p(bias),
              p(mask), p(residual), int(relu), p(out), kernels.stream_handle())
-    kernels.check_launch("sparse_conv", err)
+    kernels.check_launch(count_as, err)
     return out
+
+
+# ---------------------------------------------------------------- kernel K5
+
+
+def sparse_conv_wgrad_plain(x, dy, nmap, *, x2=None):
+    """Plain PyTorch version of K5: dW [T, Ci, Co] f32 = per tap the
+    gathered inputs transposed times dY, summed in f32."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    M_in, Ci = x.shape
+    xp = torch.cat([x.float(), x.new_zeros((1, Ci), dtype=torch.float32)], 0)
+    idx = torch.where((nmap >= 0) & (nmap < M_in), nmap,
+                      torch.full_like(nmap, M_in)).long()
+    dyf = dy.float()
+    return torch.stack([xp[idx[:, t]].T @ dyf for t in range(nmap.shape[1])])
+
+
+_K5_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p)
+
+
+def _wgrad_splits(m_out: int, T: int, Ci: int, Co: int) -> int:
+    """Row splits (gridDim.z) of a K5 launch: enough blocks to cover the
+    card's 132 SMs about twice, and at least 256 rows per split."""
+    ti = 16 if Ci <= 16 else (32 if Ci <= 32 else 64)
+    to = 32 if Co <= 32 else 64
+    blocks = T * -(-Ci // ti) * -(-Co // to)
+    return max(1, min(-(-264 // blocks), m_out // 256))
+
+
+def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
+    """K5: dW [T, Ca+Cb, Co] f32 = sum_o cat(x, x2)[nmap[o, t]]^T dY[o].
+
+    x [M_in, Ca], x2 [M_in, Cb] (optional), dy [M_out, Co], nmap [M_out, T]
+    int32 (sentinel M_in). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (bf16 x, x2 and dy) or raises."""
+    if x.device.type == "cpu":
+        return sparse_conv_wgrad_plain(x, dy, nmap, x2=x2)
+    fn = kernels.load("sparse_conv_wgrad", _K5_ARGS)
+    bf16 = torch.bfloat16
+    kernels.require_cuda("sparse_conv_wgrad", x, x2, dy, nmap,
+                         dtypes=(bf16, bf16, bf16, torch.int32))
+    M_in, Ca = x.shape
+    Cb = 0 if x2 is None else x2.shape[1]
+    M_out, T = nmap.shape
+    Co = dy.shape[1]
+    if dy.shape[0] != M_out or (x2 is not None and x2.shape[0] != M_in):
+        raise ValueError(f"sparse_conv_wgrad: dy {tuple(dy.shape)}, map "
+                         f"{tuple(nmap.shape)} and inputs disagree in rows")
+    out = torch.empty((T, Ca + Cb, Co), dtype=torch.float32, device=x.device)
+    splits = _wgrad_splits(M_out, T, Ca + Cb, Co)
+    part = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32,
+                        device=x.device) if splits > 1 else out)
+    p = kernels.ptr
+    err = fn(p(x), Ca, p(x2), Cb, M_in, p(nmap), T, M_out, p(dy), Co, splits,
+             p(part), p(out), kernels.stream_handle())
+    kernels.check_launch("sparse_conv_wgrad", err)
+    return out
+
+
+# ------------------------------------------------------------- autograd
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """out [M_out, Co] = sum_t cat(x, x2)[nmap[:, t]] @ W[t], differentiable
+    in x, x2 and W (the raw gathered product: bias, mask, residual and ReLU
+    stay plain torch ops, as the JAX package keeps them outside its matmul).
+
+    W is cast to x's dtype for K1 (bf16 on the card, with f32 sums); dW
+    comes back in W's dtype. The backward casts dY to x's dtype, as JAX's
+    cotangent of a bf16 conv output is bf16 (brick_conv.py:259-261, :307),
+    then dX = K1 over `inv` with W transposed per tap (`sparse_conv_dgrad`)
+    and dW = K5. `inv` (`invert_map(nmap, M_in)`) may be None when neither
+    x nor x2 needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, x2, W, nmap, inv):
+        Wc = W.to(x.dtype).contiguous()
+        ctx.save_for_backward(x, x2, Wc, nmap, inv)
+        ctx.w_dtype = W.dtype
+        return sparse_conv(x, Wc, nmap, x2=x2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, x2, Wc, nmap, inv = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dx2 = dW = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            if inv is None:
+                raise ValueError("SparseConvFunction: dX needs the inverse "
+                                 "map")
+            dcat = sparse_conv_dgrad(dy, Wc.transpose(1, 2).contiguous(), inv)
+            Ca = x.shape[1]
+            dx = dcat[:, :Ca].contiguous()
+            if x2 is not None:
+                dx2 = dcat[:, Ca:].contiguous()
+        if ctx.needs_input_grad[2]:
+            dW = sparse_conv_wgrad(x, dy, nmap, x2=x2).to(ctx.w_dtype)
+        return dx, dx2, dW, None, None

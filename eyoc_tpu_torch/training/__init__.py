@@ -1,1 +1,1 @@
-"""Batch preprocessing for the test protocol."""
+"""Batch preprocessing, the loss, the optimizer and the train step."""

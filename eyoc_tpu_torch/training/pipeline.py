@@ -12,6 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from eyoc_tpu_torch.geometry.se3 import transform_points
+from eyoc_tpu_torch.ops.knn import masked_argmin
 from eyoc_tpu_torch.sparse import morton
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid, build_pyramid
 from eyoc_tpu_torch.sparse.types import VoxelizedCloud
@@ -60,3 +62,34 @@ def preprocess_clouds(xyz: torch.Tensor, counts: torch.Tensor, *,
     eff = pyr.vox_masks[0].reshape(B, cap)
     vox = vox._replace(mask=eff, count=eff.sum(1, dtype=torch.int32))
     return vox, pyr
+
+
+def gt_positive_pairs(vox0: VoxelizedCloud, vox1: VoxelizedCloud,
+                      trans: torch.Tensor, search_radius: torch.Tensor):
+    """GT correspondences (pipeline.py:92-119): per item, warp cloud 0's
+    voxel representatives by `trans`, 1-NN into cloud 1 (kernel K2 at
+    D = 3 on the card), keep pairs within `search_radius`.
+
+    vox fields [B, cap, ...], trans [B, 4, 4], search_radius [B]. Returns
+    (idx0, idx1, valid), each [B, cap]: idx0 is the row index, idx1 int32,
+    valid = m0 & (d2 < r^2)."""
+    B, cap = vox0.mask.shape
+    i1, ok = [], []
+    for b in range(B):
+        warped = transform_points(vox0.xyz[b], trans[b]).contiguous()
+        d2, nn = masked_argmin(warped, vox0.mask[b], vox1.xyz[b].contiguous(),
+                               vox1.mask[b])
+        r = search_radius[b]
+        i1.append(nn)
+        ok.append(vox0.mask[b] & (d2 < r * r))
+    i0 = torch.arange(cap, dtype=torch.int32, device=vox0.mask.device)
+    return i0.expand(B, cap), torch.stack(i1), torch.stack(ok)
+
+
+def flatten_pairs(idx0, idx1, valid, cap0: int, cap1: int):
+    """Per-item pair indices [B, M] -> flat collated indices [B*M] into the
+    [B*cap] feature layout (pipeline.py:122-133)."""
+    B = idx0.shape[0]
+    ar = torch.arange(B, dtype=torch.int32, device=idx0.device)[:, None]
+    return ((idx0 + ar * cap0).reshape(-1), (idx1 + ar * cap1).reshape(-1),
+            valid.reshape(-1))

@@ -10,9 +10,12 @@ a stale library is never loaded.
 Nothing is compiled or loaded at import time: the CPU tests import every
 module on a host without `nvcc`.
 
-`launches` holds one plain integer per kernel; a wrapper adds one exactly
-where it launches its kernel, so a run can show which kernels its main path
-went through.
+`launches` holds one plain integer per counted launch site; a wrapper adds
+one exactly where it launches its kernel, so a run can show which kernels
+its main path went through. A source may hold more than one entry point
+(K6's forward and backward), and one kernel may be counted under two names
+(K1 as the forward conv and as the conv backward's dX), so the counters are
+`COUNTERS`, a superset of the sources in `KERNELS`.
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
-           "sc2_seed_counts")
+           "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
+           "masked_channel_sums")
+COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-launches = {name: 0 for name in KERNELS}
+launches = {name: 0 for name in COUNTERS}
 _fns: dict = {}
 
 
@@ -85,18 +90,20 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `eyoc_<name>` of kernel `name` (built on demand).
+def load(name: str, argtypes, symbol: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry point `eyoc_<symbol>` (default: `eyoc_<name>`) of the
+    kernel source `name` (built on demand).
 
     Raises when the kernel cannot be built or loaded: a wrapper never falls
     back to its plain version for a CUDA tensor."""
-    fn = _fns.get(name)
+    symbol = symbol or name
+    fn = _fns.get(symbol)
     if fn is None:
         lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, f"eyoc_{name}")
+        fn = getattr(lib, f"eyoc_{symbol}")
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[symbol] = fn
     return fn
 
 
