@@ -8,11 +8,15 @@ Phases (any failure exits non-zero):
    CUDA kernel built from the sources in `eyoc_tpu_torch/csrc/`.
 2. every kernel against its plain PyTorch version on the same CUDA tensors
    at the main paths' shapes: error, kernel time and plain time (CUDA
-   events), the least time the card could take (bound) and, where one
-   PyTorch call computes the same function, that call's time. The eval
-   kernels at the test protocol's shapes; the training kernels (the conv
-   backward, the row gather, the masked-BN sums) on the calls recorded
-   during one full-width train step.
+   events over back-to-back calls), the kernel's device time over the same
+   calls (torch.profiler), the least time the card could take (bound) and,
+   where one PyTorch call computes the same function, that call's time
+   (timed in turns with the kernel). K1 (the eval forward, on the calls of
+   one ResUNetBN2C forward) and the training kernels (the train forward,
+   the conv backward, the row gather, the masked-BN sums, on the calls
+   recorded during one full-width train step); K1's time is also split by
+   shape class, and the host cost of one K1 and one K6 launch is measured
+   on its own (host clock over calls that are not waited for).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -32,8 +36,10 @@ Phases (any failure exits non-zero):
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
-`sparse_conv_train` and `masked_argmin_train`). It needs one CUDA device
-and imports nothing of JAX.
+`sparse_conv_train` and `masked_argmin_train`); `ms` is CUDA-event time,
+`device_ms` the profiler's device time of the same calls, so a row whose
+`ms` is well above its `device_ms` is bound by the host's launch path. It
+needs one CUDA device and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ K3_RTOL, K3_ATOL = 1e-4, 1e-7        # f32 power iteration, summation order
 K5_RTOL, K5_ATOL_FRAC = 1e-3, 1e-3   # f32 dW, f32 sums of bf16 products
 K6B_RTOL, K6B_ATOL = 1e-5, 1e-6      # f32 atomics vs index_add_ order
 K7_REL = 1e-4                        # of the sums of absolute values
+SMALL_REPS = 200                     # repetitions of the us-sized kernels
+LIBRARY_ROUNDS = 6                   # kernel / library timing rounds
 
 
 def log(msg: str) -> None:
@@ -91,6 +99,57 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _dev_ms(e) -> float:
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def device_ms(thunks, reps: int):
+    """Device time (torch.profiler) of one pass over `thunks`, the mean of
+    `reps` passes: the kernels' own time, without the host's share. A
+    profile that recorded no device activity at all (now and then, for a
+    short window after long ones) is taken again, up to three times; None
+    if it never records any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for f in thunks:
+        f()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for f in thunks:
+                    f()
+            torch.cuda.synchronize()
+        total = sum(_dev_ms(e) for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        if total > 0:
+            return total / reps
+    return None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.3f} ms"
+
+
+def host_us(thunks, reps: int) -> float:
+    """Host microseconds per call of `thunks`: the host clock over `reps`
+    passes that are not waited for (the launch path alone, while the
+    device runs behind)."""
+    import torch
+    for f in thunks:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in thunks:
+            f()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / (reps * len(thunks)) * 1e6
+
+
 def bound_ms(nbytes: float, ops: float, kind: str):
     tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK[kind] * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -107,7 +166,8 @@ def make_pairs():
 
 
 def check_sparse_conv(model, pyr):
-    """Every sparse_conv call of one ResUNetBN2C forward, kernel vs plain."""
+    """Every sparse_conv call of one ResUNetBN2C eval forward, kernel vs
+    plain; then the host cost of a K1 call over those calls."""
     import torch
     from eyoc_tpu_torch.models import unet
     from eyoc_tpu_torch.sparse.brick_conv import sparse_conv_plain
@@ -116,7 +176,7 @@ def check_sparse_conv(model, pyr):
     real = unet.sparse_conv
 
     def record(x, W, nmap, **kw):
-        calls.append((x, W, nmap, kw))
+        calls.append(((x, W, nmap), kw))
         return real(x, W, nmap, **kw)
 
     unet.sparse_conv = record
@@ -125,37 +185,21 @@ def check_sparse_conv(model, pyr):
     finally:
         unet.sparse_conv = real
     torch.cuda.synchronize()
-
-    worst, ms, plain_ms, bound, tb, to = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
-    for x, W, nmap, kw in calls:
-        got = real(x, W, nmap, **kw).float()
-        want = sparse_conv_plain(x, W, nmap, **kw).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        scale = float(want.abs().max())
-        tol = K1_RTOL * want.abs() + K1_ATOL_FRAC * max(scale, 1e-6)
-        if not bool(torch.all(err <= tol)):
-            raise AssertionError(
-                f"sparse_conv {tuple(x.shape)}x{tuple(W.shape)} disagrees: "
-                f"max err {float(err.max())} at scale {scale}")
-        worst = max(worst, float(err.max()))
-        ms += time_ms(lambda: real(x, W, nmap, **kw), reps=5)
-        plain_ms += time_ms(lambda: sparse_conv_plain(x, W, nmap, **kw),
-                            reps=2, warmup=1)
-        T, Ci, Co = W.shape
-        M_in, M_out = x.shape[0], nmap.shape[0]
-        taps = int(((nmap >= 0) & (nmap < M_in)).sum())
-        nbytes = (M_in * Ci * 2 + T * Ci * Co * 2 + M_out * T * 4
-                  + M_out * Co * 2 + M_out + Co * 4
-                  + (M_out * Co * 2 if kw.get("residual") is not None else 0))
-        tb += nbytes / HBM_BPS * 1e3
-        to += 2.0 * taps * Ci * Co / PEAK["bf16"] * 1e3
-        bound += bound_ms(nbytes, 2.0 * taps * Ci * Co, "bf16")[0]
-    log(f"K1 sparse_conv: {len(calls)} calls of one forward, max abs err "
-        f"{worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if tb >= to else "operations")
+    out = check_calls("K1 sparse_conv, one eval forward", calls, real,
+                      sparse_conv_plain, _conv_cost,
+                      _bf16_close(K1_RTOL, K1_ATOL_FRAC),
+                      classify=_conv_class)
+    # the tap split adds its partials in a fixed order: the same bits twice
+    for a, k in calls:
+        if not torch.equal(real(*a, **k), real(*a, **k)):
+            raise AssertionError(f"sparse_conv {tuple(a[1].shape)} gives "
+                                 "other bits on a second call")
+    log(f"K1 sparse_conv: each of the {len(calls)} calls gives the same bits "
+        "twice")
+    us = host_us([lambda a=a, k=k: real(*a, **k) for a, k in calls], 10)
+    log(f"K1 sparse_conv launch path: {us:.2f} us of host time per call "
+        f"(the {len(calls)} calls of one eval forward, 10 passes)")
+    return out
 
 
 def check_masked_argmin(gen):
@@ -195,10 +239,11 @@ def check_masked_argmin(gen):
     nq, nr = int(qm.sum()), int(rm.sum())
     b, by = bound_ms(2 * N_CORR * D * 4 + 2 * N_CORR + N_CORR * 8,
                      2.0 * nq * nr * D, "f32")
-    log(f"K2 masked_argmin at D={D}: kernel {ms:.3f} ms, plain {plain:.3f} "
-        f"ms, bound {b:.4f} ms")
+    dev = device_ms([lambda: masked_argmin(q, qm, r, rm)], 10)
+    log(f"K2 masked_argmin at D={D}: kernel {ms:.3f} ms (device "
+        f"{fmt_ms(dev)}), plain {plain:.3f} ms, bound {b:.4f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by)
+                bound_by=by, device_ms=dev)
 
 
 def correspondences(gen, n=N_CORR, inlier=0.3, noise=0.01):
@@ -236,10 +281,13 @@ def check_power_iteration(gen):
     nv = int(valid.sum())
     b, by = bound_ms(2 * N_CORR * 12 + N_CORR + N_CORR * 4,
                      20.0 * nv * nv * 24, "f32")
+    dev = device_ms([lambda: sc2_power_iteration(src, tgt, valid, 0.1, 20)],
+                    10)
     log(f"K3 sc2_power_iteration: N={N_CORR}, max err {err:.3e}, kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b:.4f} ms")
+        f"{ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, bound "
+        f"{b:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by)
+                bound_by=by, device_ms=dev)
 
 
 def check_seed_counts(gen):
@@ -262,10 +310,13 @@ def check_seed_counts(gen):
     b, by = bound_ms(2 * N_CORR * 12 + N_CORR + N_SEEDS * 4
                      + N_SEEDS * N_CORR * 4,
                      2.0 * N_SEEDS * nv * nv, "int8")
+    dev = device_ms([lambda: sc2_seed_counts(src, tgt, valid, seeds, 0.1)],
+                    10)
     log(f"K4 sc2_seed_counts: S={N_SEEDS} N={N_CORR}, exact, kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b:.4f} ms")
+        f"{ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, bound "
+        f"{b:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by)
+                bound_by=by, device_ms=dev)
 
 
 # ---------------------------------------------------- phase 2, training
@@ -321,17 +372,24 @@ def record_train_step(model, opt, batch, cfg, gen):
     return calls, metrics
 
 
-def check_calls(label, calls, fn, plain, cost, close, library=None):
+def check_calls(label, calls, fn, plain, cost, close, library=None,
+                reps=5, classify=None):
     """Kernel against plain version on each recorded call; the times and
-    bounds are summed over the calls."""
+    bounds are summed over the calls. With `library`, the kernel and the
+    library call are timed in LIBRARY_ROUNDS rounds that alternate which
+    goes first, and each side takes its median round. With `classify`, the
+    kernel time and bound are also summed by class."""
     import torch
     with torch.no_grad():
-        return _check_calls(label, calls, fn, plain, cost, close, library)
+        return _check_calls(label, calls, fn, plain, cost, close, library,
+                            reps, classify)
 
 
-def _check_calls(label, calls, fn, plain, cost, close, library):
+def _check_calls(label, calls, fn, plain, cost, close, library, reps,
+                 classify):
     import torch
     worst = ms = plain_ms = lib_ms = bound = tb = to = 0.0
+    classes = {}
     for args, kw in calls:
         got = fn(*args, **kw)
         want = plain(*args, **kw)
@@ -342,21 +400,49 @@ def _check_calls(label, calls, fn, plain, cost, close, library):
             raise AssertionError(f"{label} {shapes} disagrees with its plain "
                                  f"version: max err {err}")
         worst = max(worst, err)
-        ms += time_ms(lambda: fn(*args, **kw), reps=5)
+
+        def run():
+            return fn(*args, **kw)
+        if library is None:
+            t = time_ms(run, reps=reps)
+        else:
+            # rounds that alternate which goes first; the median of each
+            # side, so that a burst on the shared host in one round does
+            # not decide a comparison of us-sized calls
+            lib = library(*args, **kw)
+            ks, ls = [], []
+            for r in range(LIBRARY_ROUNDS):
+                order = ((ks, run), (ls, lib)) if r % 2 == 0 else \
+                    ((ls, lib), (ks, run))
+                for out, f in order:
+                    out.append(time_ms(f, reps=reps))
+            t = float(np.median(ks))
+            lib_ms += float(np.median(ls))
+        ms += t
         plain_ms += time_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
-        if library is not None:
-            lib_ms += time_ms(library(*args, **kw), reps=5)
         nbytes, ops, kind = cost(*args, **kw)
         tb += nbytes / HBM_BPS * 1e3
         to += ops / PEAK[kind] * 1e3
-        bound += bound_ms(nbytes, ops, kind)[0]
+        b = bound_ms(nbytes, ops, kind)[0]
+        bound += b
+        if classify is not None:
+            c = classes.setdefault(classify(*args, **kw), [0, 0.0, 0.0])
+            c[0] += 1
+            c[1] += t
+            c[2] += b
+    dev = device_ms([lambda a=a, k=k: fn(*a, **k) for a, k in calls],
+                    min(reps, 50))
     log(f"{label}: {len(calls)} calls, max abs err "
-        f"{worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{worst:.3e}, kernel {ms:.3f} ms (device {fmt_ms(dev)}), plain "
+        f"{plain_ms:.3f} ms, "
         + (f"library {lib_ms:.3f} ms, " if library is not None else "")
         + f"bound {bound:.4f} ms")
+    for name, (n, t, b) in classes.items():
+        log(f"  {name}: {n} calls, kernel {t:.3f} ms, bound {b:.4f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if tb >= to else "operations",
-                library_ms=lib_ms if library is not None else None)
+                library_ms=lib_ms if library is not None else None,
+                device_ms=dev)
 
 
 def _bf16_close(rtol, atol_frac):
@@ -373,12 +459,29 @@ def _bf16_close(rtol, atol_frac):
     return close
 
 
-def _conv_cost(x, W, nmap, x2=None, **_):
+def _conv_cost(x, W, nmap, x2=None, bias=None, mask=None, residual=None,
+               **_):
     T, Ci, Co = W.shape
     M_in, M_out = x.shape[0], nmap.shape[0]
     taps = int(((nmap >= 0) & (nmap < M_in)).sum())
     nbytes = M_in * Ci * 2 + T * Ci * Co * 2 + M_out * T * 4 + M_out * Co * 2
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in (bias, mask, residual) if t is not None)
     return nbytes, 2.0 * taps * Ci * Co, "bf16"
+
+
+def _conv_class(x, W, nmap, **_):
+    """K1's shape classes, from the shape alone: a narrow input (conv1: one
+    channel, which the kernel packs into K), 1x1 (one tap), coarse (fewer
+    64 x 64 output tiles than 264, two for each SM: where the kernel splits
+    the taps) and fine."""
+    T, Ci, Co = W.shape
+    if Ci % 8:
+        return "narrow input (conv1)"
+    if T == 1:
+        return "1x1"
+    tiles = -(-nmap.shape[0] // 64) * -(-Co // 64)
+    return "coarse" if tiles < 264 else "fine"
 
 
 def _wgrad_cost(x, dy, nmap, x2=None):
@@ -463,7 +566,8 @@ def check_train_kernels(calls):
     out = {}
     out["sparse_conv_train"] = check_calls(
         "K1 sparse_conv, train forward of one step", calls["sparse_conv"],
-        bc.sparse_conv, bc.sparse_conv_plain, _conv_cost, conv_close)
+        bc.sparse_conv, bc.sparse_conv_plain, _conv_cost, conv_close,
+        classify=_conv_class)
     out["masked_argmin_train"] = check_calls(
         "K2 masked_argmin, one train step (GT pairs at D = 3, mining at "
         "D = 32)", calls["masked_argmin"], knn.masked_argmin,
@@ -472,7 +576,7 @@ def check_train_kernels(calls):
         "K1 sparse_conv_dgrad, one train step", calls["sparse_conv_dgrad"],
         bc.sparse_conv_dgrad,
         lambda dy, Wt, inv: bc.sparse_conv_plain(dy, Wt, inv), _conv_cost,
-        conv_close)
+        conv_close, classify=_conv_class)
     out["sparse_conv_wgrad"] = check_calls(
         "K5 sparse_conv_wgrad, one train step", calls["sparse_conv_wgrad"],
         bc.sparse_conv_wgrad, bc.sparse_conv_wgrad_plain, _wgrad_cost,
@@ -491,7 +595,8 @@ def check_train_kernels(calls):
     out["take_rows"] = check_calls(
         "K6 take_rows, one train step", calls["take_rows_gather"],
         rows.take_rows_gather,
-        rows.take_rows_plain, _gather_cost, gather_close, index_select)
+        rows.take_rows_plain, _gather_cost, gather_close, index_select,
+        reps=SMALL_REPS)
 
     def scatter_close(got, want, *a):
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -507,12 +612,12 @@ def check_train_kernels(calls):
     out["take_rows_backward"] = check_calls(
         "K6 take_rows_backward, one train step", calls["take_rows_backward"],
         rows.take_rows_backward, rows.take_rows_backward_plain, _scatter_cost,
-        scatter_close, index_add)
+        scatter_close, index_add, reps=SMALL_REPS)
     out["masked_channel_sums"] = check_calls(
         "K7 masked_channel_sums, one train step",
         calls["masked_channel_sums"],
         norm.masked_channel_sums, norm.masked_channel_sums_plain, _sums_cost,
-        _sums_close)
+        _sums_close, reps=SMALL_REPS)
 
     gen = torch.Generator().manual_seed(4)
     src = torch.randn(PROBE_ROWS, PROBE_COLS, generator=gen).to(
@@ -522,7 +627,18 @@ def check_train_kernels(calls):
     check_calls(f"K6 take_rows at the TPU probe shape [{PROBE_ROWS}, "
                 f"{PROBE_COLS}] bf16", [((src, idx), {})],
                 rows.take_rows_gather, rows.take_rows_plain, _gather_cost,
-                gather_close, index_select)
+                gather_close, index_select, reps=SMALL_REPS)
+
+    # the launch path alone: host time per call, not waited for
+    (lsrc, lidx), _ = calls["take_rows_gather"][0]
+    for what, table, at in (
+            (f"a loss call {tuple(lsrc.shape)} -> {tuple(lidx.shape)}", lsrc,
+             lidx), ("the probe shape", src, idx)):
+        at64 = at.long()
+        k = host_us([lambda: rows.take_rows_gather(table, at)], 200)
+        lib = host_us([lambda: torch.index_select(table, 0, at64)], 200)
+        log(f"K6 take_rows launch path at {what}: {k:.2f} us of host time "
+            f"per call, torch.index_select {lib:.2f} us (200 calls)")
     return out
 
 
@@ -617,17 +733,13 @@ def train_breakdown(model, opt, batch, cfg, gen):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_ms(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0)) / 1e3
-
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total = sum(dev_ms(e) for e in events)
+    total = sum(_dev_ms(e) for e in events)
     log(f"train profiler, one step: wall {wall:.3f} ms (profiler on), "
         f"device time {total:.3f} ms, busy share {total / wall:.3f}, "
         f"{sum(e.count for e in events)} device ops")
-    for e in sorted(events, key=lambda e: -dev_ms(e))[:12]:
-        log(f"  {dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
+    for e in sorted(events, key=lambda e: -_dev_ms(e))[:12]:
+        log(f"  {_dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
 
 
 # ------------------------------------------------------------------- main
@@ -788,7 +900,8 @@ def main() -> int:
          "launches": launches(name),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+         "device_ms": r["device_ms"]}
         for name, r in results.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

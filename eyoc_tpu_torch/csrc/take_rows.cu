@@ -15,14 +15,19 @@
 // What bounds it: bytes. The gather moves each output row once and each
 // gathered source row once; it has no arithmetic. On the TPU the probes
 // fought a sequential grid and VMEM indexing; here every row is
-// independent, so the design is the plain one: a grid-stride loop in
-// which neighbouring threads copy neighbouring 16-byte words of a row
-// (8-, 4- or 2-byte words when the row width or the pointers do not allow
-// 16), so that a warp reads whole 128-byte lines of each gathered row.
-// Any row width and element type of 2 or more bytes is taken.
-// The backward adds with f32 atomics: the loss samples with replacement,
-// so several output rows can hit one source row. The order of those adds
-// is not fixed, so the result can differ from run to run in the last bit.
+// independent. Design: each row goes to a group of 2^lg neighbouring
+// threads (the smallest power of two that covers the row's 16-byte words,
+// at most a warp), which read its index once and copy neighbouring 16-byte
+// words (8-, 4- or 2-byte words when the row width or the pointers do not
+// allow 16), so a warp reads whole 128-byte lines of the gathered rows.
+// A thread finds its row and word by shifts, with no division, and the
+// grid has one group per row. Any row width and element type of 2 or more
+// bytes is taken.
+// The backward adds with Hopper's vector float atomics (atomicAdd on
+// float4 or float2, sm_90) where the width and alignment allow, else
+// scalar ones: the loss samples with replacement, so several output rows
+// can hit one source row. The order of those adds is not fixed, so the
+// result can differ from run to run in the last bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,48 +35,73 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long kMaxBlocks = 132 * 16;
+
+// threads per row: the least power of two >= units, at most 32
+int row_lanes_log2(int units) {
+  int lg = 0;
+  while (lg < 5 && (1 << lg) < units) ++lg;
+  return lg;
+}
+
+unsigned grid_for(int n_rows, int lg) {
+  const long per_block = kThreads >> lg;
+  return (unsigned)((n_rows + per_block - 1) / per_block);
+}
 
 template <typename U>
 __global__ void __launch_bounds__(kThreads) gather_rows(
     const U* __restrict__ src, int n_src, const int* __restrict__ idx,
-    int n_out, int units, U* __restrict__ out) {
-  const long total = (long)n_out * units;
-  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const int i = (int)(e / units);
-    const int u = (int)(e - (long)i * units);
-    const int r = __ldg(idx + i);
-    out[e] = (r >= 0 && r < n_src) ? src[(size_t)r * units + u] : U{};
-  }
+    int n_out, int units, int lg, U* __restrict__ out) {
+  const int i = (int)blockIdx.x * (kThreads >> lg) + (threadIdx.x >> lg);
+  if (i >= n_out) return;
+  const int r = __ldg(idx + i);
+  const bool ok = r >= 0 && r < n_src;
+  const U* s = src + (size_t)(ok ? r : 0) * units;
+  U* d = out + (size_t)i * units;
+  for (int u = threadIdx.x & ((1 << lg) - 1); u < units; u += 1 << lg)
+    d[u] = ok ? __ldg(s + u) : U{};
 }
 
+template <int V>
 __global__ void __launch_bounds__(kThreads) scatter_add_rows(
     const float* __restrict__ dout, const int* __restrict__ idx, int n_out,
-    int cols, int n_src, float* __restrict__ dsrc) {
-  const long total = (long)n_out * cols;
-  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const int i = (int)(e / cols);
-    const int c = (int)(e - (long)i * cols);
-    const int r = __ldg(idx + i);
-    if (r >= 0 && r < n_src) atomicAdd(dsrc + (size_t)r * cols + c, dout[e]);
+    int cols, int n_src, int lg, float* __restrict__ dsrc) {
+  const int i = (int)blockIdx.x * (kThreads >> lg) + (threadIdx.x >> lg);
+  if (i >= n_out) return;
+  const int r = __ldg(idx + i);
+  if (r < 0 || r >= n_src) return;
+  const float* s = dout + (size_t)i * cols;
+  float* d = dsrc + (size_t)r * cols;
+  const int units = cols / V;
+  for (int u = threadIdx.x & ((1 << lg) - 1); u < units; u += 1 << lg) {
+    if constexpr (V == 4) {
+      atomicAdd(reinterpret_cast<float4*>(d) + u,
+                __ldg(reinterpret_cast<const float4*>(s) + u));
+    } else if constexpr (V == 2) {
+      atomicAdd(reinterpret_cast<float2*>(d) + u,
+                __ldg(reinterpret_cast<const float2*>(s) + u));
+    } else {
+      atomicAdd(d + u, __ldg(s + u));
+    }
   }
-}
-
-unsigned grid_for(long total) {
-  const long blocks = (total + kThreads - 1) / kThreads;
-  return (unsigned)(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1)
-                                        : kMaxBlocks);
 }
 
 template <typename U>
 void launch_gather(const void* src, int n_src, const int* idx, int n_out,
                    int row_bytes, void* out, cudaStream_t s) {
   const int units = row_bytes / (int)sizeof(U);
-  gather_rows<U><<<grid_for((long)n_out * units), kThreads, 0, s>>>(
-      static_cast<const U*>(src), n_src, idx, n_out, units,
+  const int lg = row_lanes_log2(units);
+  gather_rows<U><<<grid_for(n_out, lg), kThreads, 0, s>>>(
+      static_cast<const U*>(src), n_src, idx, n_out, units, lg,
       static_cast<U*>(out));
+}
+
+template <int V>
+void launch_scatter(const float* dout, const int* idx, int n_out, int cols,
+                    int n_src, float* dsrc, cudaStream_t s) {
+  const int lg = row_lanes_log2(cols / V);
+  scatter_add_rows<V><<<grid_for(n_out, lg), kThreads, 0, s>>>(
+      dout, idx, n_out, cols, n_src, lg, dsrc);
 }
 
 }  // namespace
@@ -97,15 +127,26 @@ extern "C" int eyoc_take_rows(const void* src, int n_src, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// dout [n_out, cols] f32, idx [n_out] int32; dsrc [n_src, cols] f32 must
-// hold zeros (or the sum to add to).
+// dout [n_out, cols] f32, idx [n_out] int32; dsrc [n_src, cols] f32 is
+// set to zeros here (one memset on the stream, cheaper on the host than a
+// separate zeros call), then takes the sums.
 extern "C" int eyoc_take_rows_backward(const void* dout, const void* idx,
                                        int n_out, int cols, int n_src,
                                        void* dsrc, void* stream) {
-  if (n_out <= 0 || cols <= 0) return 0;
-  scatter_add_rows<<<grid_for((long)n_out * cols), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dout), static_cast<const int*>(idx), n_out,
-      cols, n_src, static_cast<float*>(dsrc));
+  if (n_src <= 0 || cols <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(dsrc, 0, (size_t)n_src * cols * sizeof(float), s);
+  if (err != cudaSuccess || n_out <= 0) return (int)err;
+  auto* pd = static_cast<const float*>(dout);
+  auto* pidx = static_cast<const int*>(idx);
+  auto* ps = static_cast<float*>(dsrc);
+  const uintptr_t align = (uintptr_t)dout | (uintptr_t)dsrc;
+  if (cols % 4 == 0 && align % 16 == 0)
+    launch_scatter<4>(pd, pidx, n_out, cols, n_src, ps, s);
+  else if (cols % 2 == 0 && align % 8 == 0)
+    launch_scatter<2>(pd, pidx, n_out, cols, n_src, ps, s);
+  else
+    launch_scatter<1>(pd, pidx, n_out, cols, n_src, ps, s);
   return (int)cudaGetLastError();
 }

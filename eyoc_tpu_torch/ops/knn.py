@@ -48,12 +48,12 @@ def masked_argmin(query, qmask, ref, rmask):
     query [Nq, D] f32, ref [Nr, D] f32, masks bool. Returns (d2 [Nq] f32,
     idx [Nq] int32). A CPU tensor takes the plain version; a CUDA tensor
     launches K2 (D = 3 or 32) or raises."""
-    if query.device.type == "cpu":
+    if query.is_cpu:
         return masked_argmin_plain(query, qmask, ref, rmask)
     fn = kernels.load("masked_argmin", _K2_ARGS)
     f32 = torch.float32
-    kernels.require_cuda("masked_argmin", query, qmask, ref, rmask,
-                         dtypes=(f32, torch.bool, f32, torch.bool))
+    dev = kernels.require_cuda("masked_argmin", query, qmask, ref, rmask,
+                               dtypes=(f32, torch.bool, f32, torch.bool))
     Nq, D = query.shape
     Nr = ref.shape[0]
     if D not in _K2_DIMS or ref.shape[1] != D:
@@ -68,7 +68,7 @@ def masked_argmin(query, qmask, ref, rmask):
     idx = torch.empty(Nq, dtype=torch.int32, device=query.device)
     p = kernels.ptr
     err = fn(p(query), p(qmask), Nq, p(ref), p(rmask), Nr, D, splits,
-             p(part_d), p(part_i), p(d2), p(idx), kernels.stream_handle())
+             p(part_d), p(part_i), p(d2), p(idx), kernels.stream_handle(dev))
     kernels.check_launch("masked_argmin", err)
     return d2, idx
 

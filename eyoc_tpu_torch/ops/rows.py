@@ -12,6 +12,7 @@ indices accumulate, since the loss samples with replacement).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -43,21 +44,28 @@ _SCATTER_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 def take_rows_gather(src, idx):
     """K6 forward on [N, ...] rows of any 2-byte-multiple width. A CPU
     tensor takes the plain version; a CUDA tensor launches or raises."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return take_rows_plain(src, idx)
     fn = kernels.load("take_rows", _GATHER_ARGS)
-    kernels.require_cuda("take_rows", src, idx, dtypes=(None, torch.int32))
+    dev = kernels.require_cuda("take_rows", src, idx,
+                               dtypes=(None, torch.int32))
     if idx.dim() != 1:
         raise ValueError("take_rows: idx must be 1-D")
     N = src.shape[0]
-    row_bytes = src[0].numel() * src.element_size() if N else 0
+    n = idx.shape[0]
+    # the 2-D case without tuple arithmetic on shapes: a few microseconds
+    # of a call that moves a few hundred KB
+    if src.dim() == 2:
+        C = src.shape[1]
+        out = src.new_empty(n, C)
+    else:
+        C = math.prod(src.shape[1:])
+        out = src.new_empty(n, *src.shape[1:])
+    row_bytes = C * src.element_size()
     if row_bytes % 2:
         raise ValueError(f"take_rows: rows of {row_bytes} bytes")
-    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    p = kernels.ptr
-    err = fn(p(src), N, p(idx), idx.shape[0], row_bytes, p(out),
-             kernels.stream_handle())
+    err = fn(src.data_ptr(), N, idx.data_ptr(), n, row_bytes,
+             out.data_ptr(), kernels.stream_handle(dev))
     kernels.check_launch("take_rows", err)
     return out
 
@@ -66,19 +74,19 @@ def take_rows_backward(dout, idx, n_src):
     """K6 backward: dsrc [n_src, C] f32 with dsrc[idx[i]] += dout[i]
     (dout [n, C] f32). A CPU tensor takes the plain version; a CUDA tensor
     launches or raises."""
-    if dout.device.type == "cpu":
+    if dout.is_cpu:
         return take_rows_backward_plain(dout, idx, n_src)
     fn = kernels.load("take_rows", _SCATTER_ARGS, "take_rows_backward")
     if dout.dim() != 2:
         raise ValueError(f"take_rows_backward: dout {tuple(dout.shape)}")
-    kernels.require_cuda("take_rows_backward", dout, idx,
-                         dtypes=(torch.float32, torch.int32))
+    dev = kernels.require_cuda("take_rows_backward", dout, idx,
+                               dtypes=(torch.float32, torch.int32))
     n, C = dout.shape
-    if idx.shape != (n,):
+    if idx.dim() != 1 or idx.shape[0] != n:
         raise ValueError("take_rows_backward: idx shape")
-    dsrc = torch.zeros((n_src, C), dtype=torch.float32, device=dout.device)
-    p = kernels.ptr
-    err = fn(p(dout), p(idx), n, C, n_src, p(dsrc), kernels.stream_handle())
+    dsrc = dout.new_empty(n_src, C)          # zeroed by the C entry point
+    err = fn(dout.data_ptr(), idx.data_ptr(), n, C, n_src, dsrc.data_ptr(),
+             kernels.stream_handle(dev))
     kernels.check_launch("take_rows_backward", err)
     return dsrc
 

@@ -114,12 +114,12 @@ def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
 
     src/tgt [N, 3] f32, valid [N] bool. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return sc2_power_iteration_plain(src, tgt, valid, d_thre, iters)
     fn = kernels.load("sc2_power_iteration", _K3_ARGS)
     f32 = torch.float32
-    kernels.require_cuda("sc2_power_iteration", src, tgt, valid,
-                         dtypes=(f32, f32, torch.bool))
+    dev = kernels.require_cuda("sc2_power_iteration", src, tgt, valid,
+                               dtypes=(f32, f32, torch.bool))
     n = src.shape[0]
     if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,):
         raise ValueError("sc2_power_iteration: expected [N, 3], [N, 3], [N]")
@@ -129,7 +129,7 @@ def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
     v = torch.empty(n, dtype=f32, device=src.device)
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), n, float(d_thre ** 2), int(iters),
-             splits, p(part), p(v), kernels.stream_handle())
+             splits, p(part), p(v), kernels.stream_handle(dev))
     kernels.check_launch("sc2_power_iteration", err)
     return v
 
@@ -160,12 +160,12 @@ def sc2_seed_counts(src, tgt, valid, seeds, d_thre: float):
 
     seeds [S] int32 rows. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return sc2_seed_counts_plain(src, tgt, valid, seeds, d_thre)
     fn = kernels.load("sc2_seed_counts", _K4_ARGS)
     f32 = torch.float32
-    kernels.require_cuda("sc2_seed_counts", src, tgt, valid, seeds,
-                         dtypes=(f32, f32, torch.bool, torch.int32))
+    dev = kernels.require_cuda("sc2_seed_counts", src, tgt, valid, seeds,
+                               dtypes=(f32, f32, torch.bool, torch.int32))
     n = src.shape[0]
     ns = seeds.shape[0]
     if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,):
@@ -174,7 +174,7 @@ def sc2_seed_counts(src, tgt, valid, seeds, d_thre: float):
     out = torch.empty((ns, n), dtype=f32, device=src.device)
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), n, p(seeds), ns, float(d_thre),
-             float(d_thre / 2.0), p(bits), p(out), kernels.stream_handle())
+             float(d_thre / 2.0), p(bits), p(out), kernels.stream_handle(dev))
     kernels.check_launch("sc2_seed_counts", err)
     return out
 

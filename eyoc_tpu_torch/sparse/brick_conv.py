@@ -42,6 +42,7 @@ and without atomics. The weight gradient is kernel K5
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -233,22 +234,19 @@ def invert_map(nmap: torch.Tensor, m_in: int) -> torch.Tensor:
 # ---------------------------------------------------------------- kernel K1
 
 
-def sparse_conv_plain(x, W, nmap, *, x2=None, bias=None, mask=None,
-                      residual=None, relu=False):
-    """Plain PyTorch version of K1: the same sum in f32, the same epilogue,
-    one rounding to x's dtype at the end."""
-    if x2 is not None:
-        x = torch.cat([x, x2], 1)
+def _padded_rows(x, nmap):
+    """(xp [M_in + 1, Ci] f32 with a zero last row, idx [M_out, T] int64):
+    xp[idx[o, t]] is the row that tap t of output o reads."""
     M_in, Ci = x.shape
-    T, _, Co = W.shape
     xp = torch.cat([x.float(), x.new_zeros((1, Ci), dtype=torch.float32)], 0)
     idx = torch.where((nmap >= 0) & (nmap < M_in), nmap,
                       torch.full_like(nmap, M_in)).long()
-    Wf = W.float()
-    acc = torch.zeros((nmap.shape[0], Co), dtype=torch.float32,
-                      device=x.device)
-    for t in range(T):
-        acc += xp[idx[:, t]] @ Wf[t]
+    return xp, idx
+
+
+def _epilogue(acc, dtype, bias, mask, residual, relu):
+    """K1's epilogue on the f32 sum: + bias, * mask, + residual, ReLU, one
+    rounding to `dtype`."""
     if bias is not None:
         acc = acc + bias.float()
     if mask is not None:
@@ -257,13 +255,119 @@ def sparse_conv_plain(x, W, nmap, *, x2=None, bias=None, mask=None,
         acc = acc + residual.float()
     if relu:
         acc = torch.relu(acc)
-    return acc.to(x.dtype)
+    return acc.to(dtype)
 
+
+def sparse_conv_plain(x, W, nmap, *, x2=None, bias=None, mask=None,
+                      residual=None, relu=False):
+    """Plain PyTorch version of K1: the same sum in f32, the same epilogue,
+    one rounding to x's dtype at the end."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    T, _, Co = W.shape
+    xp, idx = _padded_rows(x, nmap)
+    Wf = W.float()
+    acc = torch.zeros((nmap.shape[0], Co), dtype=torch.float32,
+                      device=x.device)
+    for t in range(T):
+        acc += xp[idx[:, t]] @ Wf[t]
+    return _epilogue(acc, x.dtype, bias, mask, residual, relu)
+
+
+# The kernel's reformulations, as plain torch. The CPU tests hold each
+# against `sparse_conv_plain` and the JAX convs; the main path never calls
+# them (on the card the kernel computes them).
+
+
+def sparse_conv_tap_packed_plain(x, W, nmap, *, x2=None, bias=None,
+                                 mask=None, residual=None, relu=False):
+    """K1's narrow-input route: each output row's T taps of Ci channels are
+    one K = T*Ci row, zero-padded to a multiple of K1_BK, times W viewed as
+    [T*Ci, Co] (W's own memory; the padding rows read zero): one product
+    instead of T."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    T, Ci, Co = W.shape
+    M_out = nmap.shape[0]
+    K = T * Ci
+    Kp = -(-K // K1_BK) * K1_BK
+    xp, idx = _padded_rows(x, nmap)
+    a = x.new_zeros((M_out, Kp), dtype=torch.float32)
+    a[:, :K] = xp[idx].reshape(M_out, K)
+    wp = W.new_zeros((Kp, Co), dtype=torch.float32)
+    wp[:K] = W.float().reshape(K, Co)
+    return _epilogue(a @ wp, x.dtype, bias, mask, residual, relu)
+
+
+def sparse_conv_split_plain(x, W, nmap, splits, *, x2=None, bias=None,
+                            mask=None, residual=None, relu=False):
+    """K1's tap split: split s sums taps [s*T//S, (s+1)*T//S) into its own
+    f32 partial; the partials are added in split order, and the epilogue
+    runs once, on the sum."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    T, _, Co = W.shape
+    xp, idx = _padded_rows(x, nmap)
+    Wf = W.float()
+    acc = None
+    for s in range(splits):
+        lo, hi = s * T // splits, (s + 1) * T // splits
+        part = torch.zeros((nmap.shape[0], Co), dtype=torch.float32,
+                           device=x.device)
+        for t in range(lo, hi):
+            part += xp[idx[:, t]] @ Wf[t]
+        acc = part if acc is None else acc + part
+    return _epilogue(acc, x.dtype, bias, mask, residual, relu)
+
+
+# ------------------------------------------------------ K1 launch planner
+
+K1_BK = 32                  # the kernel's k-slice depth (sparse_conv.cu kBK)
+K1_TARGET_BLOCKS = 264      # two blocks for each of the H100's 132 SMs
+K1_MIN_TAPS_PER_SPLIT = 3
+
+
+class K1Plan(NamedTuple):
+    """One K1 launch: `packed` takes the narrow-input route (taps packed
+    into K); (bm, bn) is the output tile of a block; the taps are split
+    over `splits` blocks of each tile (split s: taps [s*T//S, (s+1)*T//S)),
+    whose partials a second pass adds in split order."""
+
+    packed: bool
+    bm: int
+    bn: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_plan(m_out: int, taps: int, ca: int, cb: int, co: int) -> K1Plan:
+    """The tile and tap split of a K1 launch, from its shape alone: 128 x 32
+    tiles for Co <= 32, 64 x 64 for Co <= 64, else 64 x 128; the taps are
+    split only where the row x column tiles would give fewer than
+    K1_TARGET_BLOCKS blocks, with at least K1_MIN_TAPS_PER_SPLIT taps a
+    split. Narrow inputs (a channel count not a multiple of 8, which a
+    16-byte copy cannot gather) pack their taps into K and never split."""
+    packed = ca % 8 != 0 or cb % 8 != 0
+    bm, bn = (128, 32) if co <= 32 else (64, 64) if co <= 64 else (64, 128)
+    tiles = -(-m_out // bm) * -(-co // bn)
+    splits = 1
+    if not packed and tiles < K1_TARGET_BLOCKS:
+        splits = max(1, min(-(-K1_TARGET_BLOCKS // max(tiles, 1)),
+                            taps // K1_MIN_TAPS_PER_SPLIT))
+    return K1Plan(packed, bm, bn, splits)
+
+
+# ---------------------------------------------------------------- kernel K1
 
 _K1_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p)
+_BF16 = torch.bfloat16
+_K1_DTYPES = (_BF16, _BF16, _BF16, torch.int32, torch.float32, torch.bool,
+              _BF16)
 
 
 def sparse_conv(x, W, nmap, *, x2=None, bias=None, mask=None, residual=None,
@@ -273,30 +377,29 @@ def sparse_conv(x, W, nmap, *, x2=None, bias=None, mask=None, residual=None,
     x [M_in, Ca], x2 [M_in, Cb] (optional skip concat), W [T, Ca+Cb, Co],
     nmap [M_out, T] int32 (sentinel M_in), bias [Co] f32, mask [M_out] bool,
     residual [M_out, Co]. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16 activations and weights) or raises."""
-    if x.device.type == "cpu":
+    tensor launches the kernel (bf16 activations and weights, Co a multiple
+    of 8) or raises."""
+    if x.is_cpu:
         return sparse_conv_plain(x, W, nmap, x2=x2, bias=bias, mask=mask,
                                  residual=residual, relu=relu)
-    return _launch_k1("sparse_conv", x, W, nmap, x2=x2, bias=bias, mask=mask,
-                      residual=residual, relu=relu)
+    return _launch_k1("sparse_conv", x, W, nmap, x2, bias, mask, residual,
+                      relu)
 
 
 def sparse_conv_dgrad(dy, Wt, inv):
     """The input gradient of a conv: K1 over the inverse map, dX [M_in, Ci]
     = sum_t dY[inv[:, t]] @ Wt[t] with Wt [T, Co, Ci] = W transposed per
     tap. Counted apart from the forward, as `sparse_conv_dgrad`."""
-    if dy.device.type == "cpu":
+    if dy.is_cpu:
         return sparse_conv_plain(dy, Wt, inv)
-    return _launch_k1("sparse_conv_dgrad", dy, Wt, inv)
+    return _launch_k1("sparse_conv_dgrad", dy, Wt, inv, None, None, None,
+                      None, False)
 
 
-def _launch_k1(count_as, x, W, nmap, *, x2=None, bias=None, mask=None,
-               residual=None, relu=False):
+def _launch_k1(count_as, x, W, nmap, x2, bias, mask, residual, relu):
     fn = kernels.load("sparse_conv", _K1_ARGS)
-    bf16 = torch.bfloat16
-    kernels.require_cuda("sparse_conv", x, x2, W, nmap, bias, mask, residual,
-                         dtypes=(bf16, bf16, bf16, torch.int32, torch.float32,
-                                 torch.bool, bf16))
+    dev = kernels.require_cuda("sparse_conv", x, x2, W, nmap, bias, mask,
+                               residual, dtypes=_K1_DTYPES)
     M_in, Ca = x.shape
     Cb = 0 if x2 is None else x2.shape[1]
     T, Ci, Co = W.shape
@@ -305,6 +408,9 @@ def _launch_k1(count_as, x, W, nmap, *, x2=None, bias=None, mask=None,
         raise ValueError(f"sparse_conv: W {tuple(W.shape)} does not match "
                          f"inputs ({Ca}+{Cb} channels) and map "
                          f"{tuple(nmap.shape)}")
+    if Co % 8:
+        raise ValueError(f"sparse_conv: {Co} output channels, the kernel "
+                         "takes a multiple of 8")
     if x2 is not None and x2.shape[0] != M_in:
         raise ValueError("sparse_conv: x and x2 differ in rows")
     if bias is not None and bias.shape != (Co,):
@@ -313,10 +419,15 @@ def _launch_k1(count_as, x, W, nmap, *, x2=None, bias=None, mask=None,
         raise ValueError("sparse_conv: mask shape")
     if residual is not None and residual.shape != (M_out, Co):
         raise ValueError("sparse_conv: residual shape")
-    out = torch.empty((M_out, Co), dtype=bf16, device=x.device)
+    plan = k1_plan(M_out, T, Ca, Cb, Co)
+    out = x.new_empty(M_out, Co)
+    part = (x.new_empty(plan.splits, M_out, Co, dtype=torch.float32)
+            if plan.splits > 1 else None)
     p = kernels.ptr
-    err = fn(p(x), Ca, p(x2), Cb, M_in, p(nmap), T, M_out, p(W), Co, p(bias),
-             p(mask), p(residual), int(relu), p(out), kernels.stream_handle())
+    err = fn(x.data_ptr(), Ca, p(x2), Cb, M_in, nmap.data_ptr(), T, M_out,
+             W.data_ptr(), Co, p(bias), p(mask), p(residual), int(relu),
+             out.data_ptr(), p(part), plan.splits, plan.bm, plan.bn,
+             int(plan.packed), kernels.stream_handle(dev))
     kernels.check_launch(count_as, err)
     return out
 
@@ -329,10 +440,7 @@ def sparse_conv_wgrad_plain(x, dy, nmap, *, x2=None):
     gathered inputs transposed times dY, summed in f32."""
     if x2 is not None:
         x = torch.cat([x, x2], 1)
-    M_in, Ci = x.shape
-    xp = torch.cat([x.float(), x.new_zeros((1, Ci), dtype=torch.float32)], 0)
-    idx = torch.where((nmap >= 0) & (nmap < M_in), nmap,
-                      torch.full_like(nmap, M_in)).long()
+    xp, idx = _padded_rows(x, nmap)
     dyf = dy.float()
     return torch.stack([xp[idx[:, t]].T @ dyf for t in range(nmap.shape[1])])
 
@@ -358,12 +466,12 @@ def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
     x [M_in, Ca], x2 [M_in, Cb] (optional), dy [M_out, Co], nmap [M_out, T]
     int32 (sentinel M_in). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (bf16 x, x2 and dy) or raises."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return sparse_conv_wgrad_plain(x, dy, nmap, x2=x2)
     fn = kernels.load("sparse_conv_wgrad", _K5_ARGS)
     bf16 = torch.bfloat16
-    kernels.require_cuda("sparse_conv_wgrad", x, x2, dy, nmap,
-                         dtypes=(bf16, bf16, bf16, torch.int32))
+    dev = kernels.require_cuda("sparse_conv_wgrad", x, x2, dy, nmap,
+                               dtypes=(bf16, bf16, bf16, torch.int32))
     M_in, Ca = x.shape
     Cb = 0 if x2 is None else x2.shape[1]
     M_out, T = nmap.shape
@@ -377,7 +485,7 @@ def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
                         device=x.device) if splits > 1 else out)
     p = kernels.ptr
     err = fn(p(x), Ca, p(x2), Cb, M_in, p(nmap), T, M_out, p(dy), Co, splits,
-             p(part), p(out), kernels.stream_handle())
+             p(part), p(out), kernels.stream_handle(dev))
     kernels.check_launch("sparse_conv_wgrad", err)
     return out
 

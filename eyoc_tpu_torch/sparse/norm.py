@@ -52,14 +52,14 @@ def masked_channel_sums(x, mask, y=None, shift=None):
     f32 (only with y). A CPU tensor takes the plain version (any float
     dtype); a CUDA tensor launches the kernel, which takes bf16 x and y
     (the model's compute dtype on the card), or raises."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return masked_channel_sums_plain(x, mask, y, shift)
     fn = kernels.load("masked_channel_sums", _K7_ARGS)
     if shift is not None and y is None:
         raise ValueError("masked_channel_sums: a shift needs y")
     bf = torch.bfloat16
-    kernels.require_cuda("masked_channel_sums", x, y, shift, mask,
-                         dtypes=(bf, bf, torch.float32, torch.bool))
+    dev = kernels.require_cuda("masked_channel_sums", x, y, shift, mask,
+                               dtypes=(bf, bf, torch.float32, torch.bool))
     M, C = x.shape
     if mask.shape != (M,) or (y is not None and y.shape != x.shape) \
             or (shift is not None and shift.shape != (C,)):
@@ -70,7 +70,7 @@ def masked_channel_sums(x, mask, y=None, shift=None):
     out = torch.empty(1 + 2 * C, dtype=torch.float32, device=x.device)
     p = kernels.ptr
     err = fn(p(x), p(y), p(shift), p(mask), M, C, chunks, p(part), p(out),
-             kernels.stream_handle())
+             kernels.stream_handle(dev))
     kernels.check_launch("masked_channel_sums", err)
     return out
 

@@ -16,12 +16,19 @@ its main path went through. A source may hold more than one entry point
 (K6's forward and backward), and one kernel may be counted under two names
 (K1 as the forward conv and as the conv backward's dX), so the counters are
 `COUNTERS`, a superset of the sources in `KERNELS`.
+
+The launch path is part of a small kernel's time: a call that moves a few
+hundred KB runs for a microsecond or two on the card, and the host's work
+around it sets its pace. So the checks every wrapper makes (`require_cuda`)
+read a few attributes per tensor and build their messages only on failure,
+and `stream_handle` reads the raw stream without building a Stream object.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -107,8 +114,18 @@ def load(name: str, argtypes, symbol: str | None = None) -> ctypes._CFuncPtr:
     return fn
 
 
-def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+# The current stream's raw handle for a device index. The public
+# `torch.cuda.current_stream(i).cuda_stream` builds a Stream object on every
+# call, a few microseconds of the launch path of a small kernel; this
+# private binding returns the same integer directly (Triton's launcher
+# reads it the same way). Builds without it take the public call.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(device_index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
 
 
 def check_launch(name: str, err: int) -> None:
@@ -119,9 +136,29 @@ def check_launch(name: str, err: int) -> None:
     launches[name] += 1
 
 
-def require_cuda(name: str, *tensors, dtypes=None) -> None:
-    """Validate the tensors a kernel reads or writes: one CUDA device and
-    contiguous; `dtypes` optionally pins each tensor's dtype (None = any)."""
+def require_cuda(name: str, *tensors, dtypes=None) -> int:
+    """Validate the tensors a kernel reads or writes: CUDA, one device and
+    contiguous; `dtypes` optionally pins each tensor's dtype (None = any).
+    Returns the device index (for `stream_handle`).
+
+    The common case (every check passes) costs a few attribute reads per
+    tensor; the message of a failed check is worked out only then."""
+    dev = -1
+    for t, want in zip(tensors, dtypes or _ANY):
+        if t is None:
+            continue
+        if dev < 0:
+            dev = t.get_device()
+        if not (t.is_cuda and t.is_contiguous() and t.get_device() == dev
+                and (want is None or t.dtype is want)):
+            _refuse(name, tensors, dtypes)
+    return dev
+
+
+_ANY = itertools.repeat(None)      # dtypes=None: any dtype, for every tensor
+
+
+def _refuse(name: str, tensors, dtypes) -> None:
     dev = None
     for i, t in enumerate(tensors):
         if t is None:
