@@ -14,9 +14,11 @@ Phases (any failure exits non-zero):
    (timed in turns with the kernel). K1 (the eval forward, on the calls of
    one ResUNetBN2C forward) and the training kernels (the train forward,
    the conv backward, the row gather, the masked-BN sums, on the calls
-   recorded during one full-width train step); K1's time is also split by
-   shape class, and the host cost of one K1 and one K6 launch is measured
-   on its own (host clock over calls that are not waited for).
+   recorded during one full-width train step); K1's, K5's and K7's times
+   (kernel and device) are also split by shape class, K1 (eval), K5 and K7
+   give the same bits on a second call, and the host cost of one K1, K5,
+   K6 and K7 launch is measured on its own (host clock over calls that are
+   not waited for).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -190,16 +192,32 @@ def check_sparse_conv(model, pyr):
                       _bf16_close(K1_RTOL, K1_ATOL_FRAC),
                       classify=_conv_class)
     # the tap split adds its partials in a fixed order: the same bits twice
-    for a, k in calls:
-        if not torch.equal(real(*a, **k), real(*a, **k)):
-            raise AssertionError(f"sparse_conv {tuple(a[1].shape)} gives "
-                                 "other bits on a second call")
-    log(f"K1 sparse_conv: each of the {len(calls)} calls gives the same bits "
-        "twice")
-    us = host_us([lambda a=a, k=k: real(*a, **k) for a, k in calls], 10)
-    log(f"K1 sparse_conv launch path: {us:.2f} us of host time per call "
-        f"(the {len(calls)} calls of one eval forward, 10 passes)")
+    same_bits_twice("K1 sparse_conv", real, calls)
+    launch_path("K1 sparse_conv", real, calls, "one eval forward", 10)
     return out
+
+
+def same_bits_twice(label, fn, calls):
+    """Every recorded call gives the same bits on a second call: the
+    kernel's sums run in a fixed order."""
+    import torch
+    with torch.no_grad():
+        for a, k in calls:
+            if not torch.equal(fn(*a, **k), fn(*a, **k)):
+                shapes = [tuple(t.shape) for t in a if hasattr(t, "shape")]
+                raise AssertionError(f"{label} {shapes} gives other bits on "
+                                     "a second call")
+    log(f"{label}: each of the {len(calls)} calls gives the same bits twice")
+
+
+def launch_path(label, fn, calls, what, reps):
+    """The host's cost of one call: the host clock over `reps` passes of
+    the recorded calls, not waited for."""
+    import torch
+    with torch.no_grad():
+        us = host_us([lambda a=a, k=k: fn(*a, **k) for a, k in calls], reps)
+    log(f"{label} launch path: {us:.2f} us of host time per call (the "
+        f"{len(calls)} calls of {what}, {reps} passes)")
 
 
 def check_masked_argmin(gen):
@@ -426,10 +444,11 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
         b = bound_ms(nbytes, ops, kind)[0]
         bound += b
         if classify is not None:
-            c = classes.setdefault(classify(*args, **kw), [0, 0.0, 0.0])
+            c = classes.setdefault(classify(*args, **kw), [0, 0.0, 0.0, []])
             c[0] += 1
             c[1] += t
             c[2] += b
+            c[3].append((args, kw))
     dev = device_ms([lambda a=a, k=k: fn(*a, **k) for a, k in calls],
                     min(reps, 50))
     log(f"{label}: {len(calls)} calls, max abs err "
@@ -437,8 +456,11 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
         f"{plain_ms:.3f} ms, "
         + (f"library {lib_ms:.3f} ms, " if library is not None else "")
         + f"bound {bound:.4f} ms")
-    for name, (n, t, b) in classes.items():
-        log(f"  {name}: {n} calls, kernel {t:.3f} ms, bound {b:.4f} ms")
+    for name, (n, t, b, cl) in classes.items():
+        d = device_ms([lambda a=a, k=k: fn(*a, **k) for a, k in cl],
+                      min(reps, 50))
+        log(f"  {name}: {n} calls, kernel {t:.3f} ms (device {fmt_ms(d)}), "
+            f"bound {b:.4f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if tb >= to else "operations",
                 library_ms=lib_ms if library is not None else None,
@@ -492,6 +514,20 @@ def _wgrad_cost(x, dy, nmap, x2=None):
     return nbytes, 2.0 * taps * Ci * Co, "bf16"
 
 
+def _wgrad_class(x, dy, nmap, x2=None):
+    """K5's shape classes, from the shape alone: a narrow input (conv1: one
+    channel, which the kernel packs into M), 1x1 (one tap), coarse (levels
+    2 and 3 at B = 8: fewer than 16384 output rows) and fine."""
+    from eyoc_tpu_torch.sparse.brick_conv import k5_plan
+    M_out, T = nmap.shape
+    cb = 0 if x2 is None else x2.shape[1]
+    if k5_plan(M_out, T, x.shape[1], cb, dy.shape[1]).packed:
+        return "narrow input (conv1)"
+    if T == 1:
+        return "1x1"
+    return "coarse" if M_out < 16384 else "fine"
+
+
 def _gather_cost(src, idx):
     import torch
     ok = (idx >= 0) & (idx < src.shape[0])
@@ -512,6 +548,13 @@ def _sums_cost(x, mask, y=None, shift=None):
     if y is not None:
         nbytes += y.numel() * e + x.shape[1] * 4
     return nbytes, 3.0 * x.numel(), "f32"
+
+
+def _sums_class(x, mask, y=None, shift=None):
+    """K7's shape classes: rows, channels and direction (the forward's
+    statistics, or the backward's with y and shift)."""
+    way = "backward" if y is not None else "forward"
+    return f"{x.shape[0]} x {x.shape[1]} {way}"
 
 
 def _argmin_cost(q, qm, r, rm):
@@ -580,7 +623,12 @@ def check_train_kernels(calls):
     out["sparse_conv_wgrad"] = check_calls(
         "K5 sparse_conv_wgrad, one train step", calls["sparse_conv_wgrad"],
         bc.sparse_conv_wgrad, bc.sparse_conv_wgrad_plain, _wgrad_cost,
-        _bf16_close(K5_RTOL, K5_ATOL_FRAC))
+        _bf16_close(K5_RTOL, K5_ATOL_FRAC), classify=_wgrad_class)
+    # row splits added in split order: the same bits twice
+    same_bits_twice("K5 sparse_conv_wgrad", bc.sparse_conv_wgrad,
+                    calls["sparse_conv_wgrad"])
+    launch_path("K5 sparse_conv_wgrad", bc.sparse_conv_wgrad,
+                calls["sparse_conv_wgrad"], "one train step", 5)
 
     def gather_close(got, want, *a):
         return bool(torch.equal(got, want)), float(
@@ -617,7 +665,12 @@ def check_train_kernels(calls):
         "K7 masked_channel_sums, one train step",
         calls["masked_channel_sums"],
         norm.masked_channel_sums, norm.masked_channel_sums_plain, _sums_cost,
-        _sums_close, reps=SMALL_REPS)
+        _sums_close, reps=SMALL_REPS, classify=_sums_class)
+    # chunk partials added by a fixed tree: the same bits twice
+    same_bits_twice("K7 masked_channel_sums", norm.masked_channel_sums,
+                    calls["masked_channel_sums"])
+    launch_path("K7 masked_channel_sums", norm.masked_channel_sums,
+                calls["masked_channel_sums"], "one train step", 20)
 
     gen = torch.Generator().manual_seed(4)
     src = torch.randn(PROBE_ROWS, PROBE_COLS, generator=gen).to(

@@ -445,19 +445,123 @@ def sparse_conv_wgrad_plain(x, dy, nmap, *, x2=None):
     return torch.stack([xp[idx[:, t]].T @ dyf for t in range(nmap.shape[1])])
 
 
+# K5's reformulations, as plain torch. The CPU tests hold each against
+# `sparse_conv_wgrad_plain` and jax.grad of the JAX convs; the main path
+# never calls them (on the card the kernel computes them).
+
+
+def k5_live_slices(nmap, m_in: int) -> torch.Tensor:
+    """[T, ceil(M_out / K5_BK)] bool: k-slice s of tap t (output rows
+    [s*K5_BK, (s+1)*K5_BK)) has a row whose map entry reads a voxel. K5
+    skips the other slices."""
+    M_out, T = nmap.shape
+    n_sl = -(-M_out // K5_BK)
+    valid = (nmap >= 0) & (nmap < m_in)
+    pad = valid.new_zeros((n_sl * K5_BK - M_out, T))
+    return torch.cat([valid, pad]).reshape(n_sl, K5_BK, T).any(1).T
+
+
+def sparse_conv_wgrad_split_plain(x, dy, nmap, rows_per_split: int, *,
+                                  x2=None):
+    """K5's row split: split z sums output rows [z*R, (z+1)*R) into its own
+    f32 partial, walking them in k-slices of K5_BK rows and skipping every
+    slice whose rows all read the sentinel (`k5_live_slices`); a row whose
+    entry is a sentinel contributes neither its input nor its dY row. The
+    partials are added in split order."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    M_out, T = nmap.shape
+    xp, idx = _padded_rows(x, nmap)
+    valid = idx < x.shape[0]
+    live = k5_live_slices(nmap, x.shape[0])
+    dyf = dy.float()
+    acc = None
+    for lo in range(0, max(M_out, 1), rows_per_split):
+        hi = min(M_out, lo + rows_per_split)
+        part = x.new_zeros((T, x.shape[1], dy.shape[1]), dtype=torch.float32)
+        slc = torch.arange(lo, hi, device=x.device) // K5_BK
+        for t in range(T):
+            keep = valid[lo:hi, t] & live[t, slc]
+            a = xp[idx[lo:hi, t]] * keep[:, None]
+            part[t] = a.T @ (dyf[lo:hi] * keep[:, None])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def sparse_conv_wgrad_tap_packed_plain(x, dy, nmap, *, x2=None):
+    """K5's narrow-input route: each output row's T taps of Ci channels are
+    one row of M = T*Ci gathered scalars, zero-padded to a multiple of
+    K5_PACKED_BM; dW viewed as [T*Ci, Co] (dW's own memory) is that matrix
+    transposed times dY: one product instead of T."""
+    if x2 is not None:
+        x = torch.cat([x, x2], 1)
+    M_out, T = nmap.shape
+    Ci, Co = x.shape[1], dy.shape[1]
+    K = T * Ci
+    Kp = -(-K // K5_PACKED_BM) * K5_PACKED_BM
+    xp, idx = _padded_rows(x, nmap)
+    a = x.new_zeros((M_out, Kp), dtype=torch.float32)
+    a[:, :K] = xp[idx].reshape(M_out, K)
+    return (a.T @ dy.float())[:K].reshape(T, Ci, Co)
+
+
+# ------------------------------------------------------ K5 launch planner
+
+K5_BK = 32                   # the kernel's k-slice: output rows
+K5_PACKED_BM = 128           # the packed route's tile of T*Ci rows of dW
+K5_TARGET_BLOCKS = 1056      # eight blocks for each of the H100's 132 SMs
+K5_MIN_SLICES = 32           # k-slices a split walks at least
+K5_MAX_PART_BYTES = 8 << 20  # the split partials, at most
+
+
+class K5Plan(NamedTuple):
+    """One K5 launch: `packed` takes the narrow-input route (the taps
+    packed into M, one block column for every tap); otherwise a block owns
+    one tap. (bm, bn) is a block's tile of dW (in-channels x out-channels,
+    or rows of [T*Ci, Co] when packed); the output rows split over `splits`
+    blocks of `rows_per_split` rows each (a multiple of K5_BK), whose f32
+    partials a second pass adds in split order."""
+
+    packed: bool
+    bm: int
+    bn: int
+    splits: int
+    rows_per_split: int
+
+
+@functools.lru_cache(maxsize=1024)
+def k5_plan(m_out: int, taps: int, ca: int, cb: int, co: int) -> K5Plan:
+    """The tile, tap grouping, row split and route of a K5 launch, from its
+    shape alone. Tiles: bm = 32 or 64 in-channels (32 where Ci <= 32) and
+    bn = 32 or 64 out-channels likewise; wider channel counts take several
+    tiles, whose blocks keep more of the card busy than one 128-wide tile
+    would (6.1 against 8.1 ms of device time per train step, H100); narrow
+    inputs (a channel count not a multiple of 8, which a 16-byte
+    copy cannot gather) pack their T*Ci scalars into tiles of 128. The rows
+    split until the launch has K5_TARGET_BLOCKS blocks, each split walking
+    at least K5_MIN_SLICES k-slices, with at most K5_MAX_PART_BYTES of
+    partials."""
+    ci = ca + cb
+    packed = ca % 8 != 0 or cb % 8 != 0
+    bm = K5_PACKED_BM if packed else 32 if ci <= 32 else 64
+    bn = 32 if co <= 32 else 64
+    ktot = taps * ci if packed else ci
+    blocks = (1 if packed else taps) * -(-ktot // bm) * -(-co // bn)
+    slices = -(-m_out // K5_BK)
+    size = taps * ci * co * 4
+    splits = max(1, min(-(-K5_TARGET_BLOCKS // blocks),
+                        slices // K5_MIN_SLICES,
+                        K5_MAX_PART_BYTES // max(size, 1)))
+    rows = max(1, -(-slices // splits)) * K5_BK
+    return K5Plan(packed, bm, bn, max(1, -(-m_out // rows)), rows)
+
+
 _K5_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p)
-
-
-def _wgrad_splits(m_out: int, T: int, Ci: int, Co: int) -> int:
-    """Row splits (gridDim.z) of a K5 launch: enough blocks to cover the
-    card's 132 SMs about twice, and at least 256 rows per split."""
-    ti = 16 if Ci <= 16 else (32 if Ci <= 32 else 64)
-    to = 32 if Co <= 32 else 64
-    blocks = T * -(-Ci // ti) * -(-Co // to)
-    return max(1, min(-(-264 // blocks), m_out // 256))
+_K5_DTYPES = (_BF16, _BF16, _BF16, torch.int32)
 
 
 def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
@@ -465,13 +569,13 @@ def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
 
     x [M_in, Ca], x2 [M_in, Cb] (optional), dy [M_out, Co], nmap [M_out, T]
     int32 (sentinel M_in). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16 x, x2 and dy) or raises."""
+    tensor launches the kernel (bf16 x, x2 and dy, Co a multiple of 8) or
+    raises."""
     if x.is_cpu:
         return sparse_conv_wgrad_plain(x, dy, nmap, x2=x2)
     fn = kernels.load("sparse_conv_wgrad", _K5_ARGS)
-    bf16 = torch.bfloat16
     dev = kernels.require_cuda("sparse_conv_wgrad", x, x2, dy, nmap,
-                               dtypes=(bf16, bf16, bf16, torch.int32))
+                               dtypes=_K5_DTYPES)
     M_in, Ca = x.shape
     Cb = 0 if x2 is None else x2.shape[1]
     M_out, T = nmap.shape
@@ -479,13 +583,18 @@ def sparse_conv_wgrad(x, dy, nmap, *, x2=None):
     if dy.shape[0] != M_out or (x2 is not None and x2.shape[0] != M_in):
         raise ValueError(f"sparse_conv_wgrad: dy {tuple(dy.shape)}, map "
                          f"{tuple(nmap.shape)} and inputs disagree in rows")
-    out = torch.empty((T, Ca + Cb, Co), dtype=torch.float32, device=x.device)
-    splits = _wgrad_splits(M_out, T, Ca + Cb, Co)
-    part = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32,
-                        device=x.device) if splits > 1 else out)
+    if Co % 8:
+        raise ValueError(f"sparse_conv_wgrad: {Co} output channels, the "
+                         "kernel takes a multiple of 8")
+    plan = k5_plan(M_out, T, Ca, Cb, Co)
+    out = x.new_empty((T, Ca + Cb, Co), dtype=torch.float32)
+    part = (x.new_empty((plan.splits, T, Ca + Cb, Co), dtype=torch.float32)
+            if plan.splits > 1 else None)
     p = kernels.ptr
-    err = fn(p(x), Ca, p(x2), Cb, M_in, p(nmap), T, M_out, p(dy), Co, splits,
-             p(part), p(out), kernels.stream_handle(dev))
+    err = fn(x.data_ptr(), Ca, p(x2), Cb, M_in, nmap.data_ptr(), T, M_out,
+             dy.data_ptr(), Co, plan.splits, plan.rows_per_split, plan.bm,
+             plan.bn, int(plan.packed), p(part), out.data_ptr(),
+             kernels.stream_handle(dev))
     kernels.check_launch("sparse_conv_wgrad", err)
     return out
 

@@ -15,6 +15,7 @@ forward and in the backward; the elementwise passes are plain torch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,15 +36,60 @@ def masked_channel_sums_plain(x, mask, y=None, shift=None):
     return torch.cat([n, (xf * m).sum(0), (xf * yf * m).sum(0)])
 
 
+# K7's reformulation, as plain torch: the CPU tests hold it against
+# `masked_channel_sums_plain` and the JAX statistics; the main path never
+# calls it (on the card the kernel computes it).
+
+K7_THREADS = 256          # a block's threads (masked_channel_sums.cu)
+K7_ROWS_IN_FLIGHT = 8     # rows a thread loads at once
+K7_MAX_CHUNKS = 256       # chunks: eight for each lane of the final warp
+K7_FINAL_VALUES = 32768   # chunks x (1 + 2C) partials, at most
+K7_MAX_C = 256
+
+
+@functools.lru_cache(maxsize=1024)
+def k7_chunks(m: int, c: int):
+    """(chunks, rows_per_chunk) of a K7 launch, from its shape: a block
+    reads K7_THREADS / L rows at once, L = C/8 rounded up to a power of
+    two; a chunk holds at least K7_ROWS_IN_FLIGHT such passes, and the
+    partials the last block adds stay within K7_FINAL_VALUES."""
+    lanes = 1
+    while lanes < c // 8:
+        lanes *= 2
+    per_pass = K7_THREADS // lanes * K7_ROWS_IN_FLIGHT
+    cap = max(1, min(K7_MAX_CHUNKS, K7_FINAL_VALUES // (1 + 2 * c)))
+    chunks = max(1, min(cap, -(-m // per_pass)))
+    rows = max(1, -(-m // chunks))
+    return max(1, -(-m // rows)), rows
+
+
+def masked_channel_sums_chunked_plain(x, mask, y=None, shift=None):
+    """K7's reduction order: chunk k of `k7_chunks` rows gives its partial
+    [n, sum x, sum x (y - shift)]; lane l of one warp adds chunks l, l + 32,
+    ... in order, then an xor-shuffle tree over the 32 lanes (offsets 16, 8,
+    4, 2, 1) gives lane 0's sum, the output."""
+    M, C = x.shape
+    chunks, rows = k7_chunks(M, C)
+    parts = [masked_channel_sums_plain(x[k * rows:(k + 1) * rows],
+                                       mask[k * rows:(k + 1) * rows], None
+                                       if y is None else
+                                       y[k * rows:(k + 1) * rows], shift)
+             for k in range(chunks)]
+    part = torch.stack(parts)                       # [chunks, 1 + 2C]
+    lanes = part.new_zeros((32, 1 + 2 * C))
+    for k in range(chunks):
+        lanes[k % 32] = lanes[k % 32] + part[k]
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[lane ^ off]
+    return lanes[0]
+
+
 _K7_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
-
-
-def _chunks(m: int) -> int:
-    """Row chunks (gridDim.x) of a K7 launch: about 256 rows each, at most
-    1024 partials to add in the second pass."""
-    return max(1, min(-(-m // 256), 1024))
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p)
+_K7_DTYPES = (torch.bfloat16, torch.bfloat16, torch.float32, torch.bool)
 
 
 def masked_channel_sums(x, mask, y=None, shift=None):
@@ -51,26 +97,31 @@ def masked_channel_sums(x, mask, y=None, shift=None):
     shift[c])] over rows with mask. x, y [M, C], mask [M] bool, shift [C]
     f32 (only with y). A CPU tensor takes the plain version (any float
     dtype); a CUDA tensor launches the kernel, which takes bf16 x and y
-    (the model's compute dtype on the card), or raises."""
+    (the model's compute dtype on the card) with C a multiple of 8 up to
+    256, or raises. One launch per call; the output is a view of the one
+    buffer it allocates, which also holds the chunk partials."""
     if x.is_cpu:
         return masked_channel_sums_plain(x, mask, y, shift)
     fn = kernels.load("masked_channel_sums", _K7_ARGS)
     if shift is not None and y is None:
         raise ValueError("masked_channel_sums: a shift needs y")
-    bf = torch.bfloat16
     dev = kernels.require_cuda("masked_channel_sums", x, y, shift, mask,
-                               dtypes=(bf, bf, torch.float32, torch.bool))
+                               dtypes=_K7_DTYPES)
     M, C = x.shape
     if mask.shape != (M,) or (y is not None and y.shape != x.shape) \
             or (shift is not None and shift.shape != (C,)):
         raise ValueError("masked_channel_sums: shapes")
-    chunks = _chunks(M)
-    part = torch.empty((chunks, 1 + 2 * C), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty(1 + 2 * C, dtype=torch.float32, device=x.device)
+    if C % 8 or C > K7_MAX_C:
+        raise ValueError(f"masked_channel_sums: {C} channels, the kernel "
+                         f"takes a multiple of 8 up to {K7_MAX_C}")
+    chunks, rows = k7_chunks(M, C)
+    W = 1 + 2 * C
+    buf = x.new_empty(W * (chunks + 1), dtype=torch.float32)
+    out = buf[:W]
     p = kernels.ptr
-    err = fn(p(x), p(y), p(shift), p(mask), M, C, chunks, p(part), p(out),
-             kernels.stream_handle(dev))
+    err = fn(x.data_ptr(), p(y), p(shift), mask.data_ptr(), M, C, chunks,
+             rows, buf.data_ptr() + 4 * W, kernels.ticket(dev).data_ptr(),
+             out.data_ptr(), kernels.stream_handle(dev))
     kernels.check_launch("masked_channel_sums", err)
     return out
 

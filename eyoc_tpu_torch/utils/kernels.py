@@ -178,5 +178,19 @@ def _refuse(name: str, tensors, dtypes) -> None:
                              f"expected {dtypes[i]}")
 
 
+_tickets: dict = {}
+
+
+def ticket(device_index: int) -> torch.Tensor:
+    """A zeroed int32 counter on the device, for a kernel whose last block
+    to finish does the final reduction (K7). The kernel resets it before it
+    ends, so calls on one stream can share it; allocated once per device."""
+    t = _tickets.get(device_index)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=f"cuda:{device_index}")
+        _tickets[device_index] = t
+    return t
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
