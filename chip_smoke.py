@@ -15,10 +15,12 @@ Phases (any failure exits non-zero):
    one ResUNetBN2C forward) and the training kernels (the train forward,
    the conv backward, the row gather, the masked-BN sums, on the calls
    recorded during one full-width train step); K1's, K5's and K7's times
-   (kernel and device) are also split by shape class, K1 (eval), K5 and K7
-   give the same bits on a second call, and the host cost of one K1, K5,
-   K6 and K7 launch is measured on its own (host clock over calls that are
-   not waited for).
+   (kernel and device) are also split by shape class, and K2's train row
+   by class (the GT pairs, one batched call a step, and the mining). K1
+   (eval), K2, K3, K5 and K7 give the same bits on a second call; K3 and
+   every K2 call run exactly one device kernel (profiler); the host cost of
+   one K1, K2, K3, K5, K6 and K7 launch is measured on its own (host clock
+   over calls that are not waited for).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -201,9 +203,14 @@ def same_bits_twice(label, fn, calls):
     """Every recorded call gives the same bits on a second call: the
     kernel's sums run in a fixed order."""
     import torch
+
+    def same(x, y):
+        if isinstance(x, (tuple, list)):
+            return all(same(u, w) for u, w in zip(x, y))
+        return torch.equal(x, y)
     with torch.no_grad():
         for a, k in calls:
-            if not torch.equal(fn(*a, **k), fn(*a, **k)):
+            if not same(fn(*a, **k), fn(*a, **k)):
                 shapes = [tuple(t.shape) for t in a if hasattr(t, "shape")]
                 raise AssertionError(f"{label} {shapes} gives other bits on "
                                      "a second call")
@@ -218,6 +225,36 @@ def launch_path(label, fn, calls, what, reps):
         us = host_us([lambda a=a, k=k: fn(*a, **k) for a, k in calls], reps)
     log(f"{label} launch path: {us:.2f} us of host time per call (the "
         f"{len(calls)} calls of {what}, {reps} passes)")
+
+
+def kernels_per_call(label, fn, reps: int = 5) -> float:
+    """Device kernels that one call of `fn` runs, from torch.profiler over
+    `reps` calls (memory copies and fills not counted); the K3 and K2
+    wrappers must run exactly one. A profile that recorded no device
+    activity is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"
+                  and not e.key.startswith(("Memcpy", "Memset"))]
+        n = sum(e.count for e in events)
+        if n > 0:
+            log(f"{label}: {n / reps:g} device kernels a call (profiler, "
+                f"{reps} calls: " + ", ".join(e.key[:60] for e in events)
+                + ")")
+            if n != reps:
+                raise AssertionError(f"{label}: {n / reps:g} device kernels "
+                                     "a call, expected one")
+            return n / reps
+    raise AssertionError(f"{label}: the profiler recorded no device kernel")
 
 
 def check_masked_argmin(gen):
@@ -252,6 +289,13 @@ def check_masked_argmin(gen):
         worst = max(worst, err)
         log(f"K2 masked_argmin: {N_CORR}x{N_CORR}x{D}, {int(clear.sum())} "
             f"clear queries equal, max d2 err {err:.3e}")
+    # the last block of a query tile adds the splits in split order
+    same_bits_twice("K2 masked_argmin (eval)", masked_argmin,
+                    [((q, qm, r, rm), {})])
+    launch_path("K2 masked_argmin (eval)", masked_argmin,
+                [((q, qm, r, rm), {})], f"{N_CORR}x{N_CORR}x{D}", 200)
+    kernels_per_call("K2 masked_argmin (eval)",
+                     lambda: masked_argmin(q, qm, r, rm))
     ms = time_ms(lambda: masked_argmin(q, qm, r, rm))
     plain = time_ms(lambda: masked_argmin_plain(q, qm, r, rm), reps=3)
     nq, nr = int(qm.sum()), int(rm.sum())
@@ -293,17 +337,27 @@ def check_power_iteration(gen):
     err = float((k - p).abs().max())
     if not bool(torch.allclose(k, p, rtol=K3_RTOL, atol=K3_ATOL)):
         raise AssertionError(f"sc2_power_iteration disagrees: {err}")
+    call = [((src, tgt, valid, 0.1, 20), {})]
+    # the partials are added in a fixed order: the same bits twice
+    same_bits_twice("K3 sc2_power_iteration", sc2_power_iteration, call)
+    launch_path("K3 sc2_power_iteration", sc2_power_iteration, call,
+                f"N={N_CORR}", 200)
+    kernels_per_call("K3 sc2_power_iteration",
+                     lambda: sc2_power_iteration(src, tgt, valid, 0.1, 20))
     ms = time_ms(lambda: sc2_power_iteration(src, tgt, valid, 0.1, 20))
     plain = time_ms(lambda: sc2_power_iteration_plain(src, tgt, valid, 0.1,
                                                       20), reps=3)
     nv = int(valid.sum())
-    b, by = bound_ms(2 * N_CORR * 12 + N_CORR + N_CORR * 4,
-                     20.0 * nv * nv * 24, "f32")
+    # SC is symmetric: the least work is each unordered valid pair (and
+    # the diagonal) once per iteration, ~24 flops each
+    nbytes = 2 * N_CORR * 12 + N_CORR + N_CORR * 4
+    b, by = bound_ms(nbytes, 20.0 * nv * (nv + 1) / 2 * 24, "f32")
+    full = bound_ms(nbytes, 20.0 * nv * nv * 24, "f32")[0]
     dev = device_ms([lambda: sc2_power_iteration(src, tgt, valid, 0.1, 20)],
                     10)
     log(f"K3 sc2_power_iteration: N={N_CORR}, max err {err:.3e}, kernel "
         f"{ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, bound "
-        f"{b:.4f} ms")
+        f"{b:.4f} ms (half of SC; the full matrix {full:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, device_ms=dev)
 
@@ -366,7 +420,7 @@ def record_train_step(model, opt, batch, cfg, gen):
     sites = [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
              (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
              (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
-             (pipeline, "masked_argmin"), (loss, "masked_argmin")]
+             (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
     calls = {name: [] for _, name in sites}
     real = {(mod, name): getattr(mod, name) for mod, name in sites}
 
@@ -557,10 +611,35 @@ def _sums_class(x, mask, y=None, shift=None):
     return f"{x.shape[0]} x {x.shape[1]} {way}"
 
 
+def _k2(q, qm, r, rm):
+    """K2 as the main paths call it: batched ([B, N, D], the GT pairs) or
+    one problem (the mining, the eval matching)."""
+    from eyoc_tpu_torch.ops import knn
+    fn = knn.masked_argmin_batched if q.dim() == 3 else knn.masked_argmin
+    return fn(q, qm, r, rm)
+
+
+def _k2_plain(q, qm, r, rm):
+    from eyoc_tpu_torch.ops import knn
+    fn = (knn.masked_argmin_batched_plain if q.dim() == 3
+          else knn.masked_argmin_plain)
+    return fn(q, qm, r, rm)
+
+
 def _argmin_cost(q, qm, r, rm):
-    nq, nr, D = q.shape[0], r.shape[0], q.shape[1]
-    pairs = float(qm.sum()) * float(rm.sum())
+    D = q.shape[-1]
+    nq, nr = qm.numel(), rm.numel()
+    pairs = float((qm.reshape(-1, qm.shape[-1]).sum(1).double()
+                   * rm.reshape(-1, rm.shape[-1]).sum(1).double()).sum())
     return (nq + nr) * D * 4 + nq + nr + nq * 8, 2.0 * pairs * D, "f32"
+
+
+def _argmin_class(q, qm, r, rm):
+    """K2's classes on the train path: the GT pairs (D = 3, all items in
+    one batched call) and the loss's mining (D = 32)."""
+    if q.dim() == 3:
+        return f"GT pairs, D = {q.shape[-1]}, batch {q.shape[0]}"
+    return f"mining, D = {q.shape[-1]}"
 
 
 def _argmin_close(got, want, q, qm, r, rm):
@@ -571,6 +650,11 @@ def _argmin_close(got, want, q, qm, r, rm):
     K2_GAP and that rounding."""
     import torch
     (d_k, i_k), (d_p, i_p) = got, want
+    if q.dim() == 3:               # a batch: each problem on its own
+        res = [_argmin_close((d_k[b], i_k[b]), (d_p[b], i_p[b]), q[b],
+                             qm[b], r[b], rm[b]) for b in range(q.shape[0])]
+        return all(ok for ok, _ in res), max((e for _, e in res),
+                                             default=0.0)
     if d_k.numel() == 0:
         return True, 0.0
     gram = 1e-6 * ((q * q).sum(1) + float((r * r).sum(1).max()))
@@ -611,10 +695,18 @@ def check_train_kernels(calls):
         "K1 sparse_conv, train forward of one step", calls["sparse_conv"],
         bc.sparse_conv, bc.sparse_conv_plain, _conv_cost, conv_close,
         classify=_conv_class)
+    k2_calls = calls["masked_argmin_batched"] + calls["masked_argmin"]
     out["masked_argmin_train"] = check_calls(
-        "K2 masked_argmin, one train step (GT pairs at D = 3, mining at "
-        "D = 32)", calls["masked_argmin"], knn.masked_argmin,
-        knn.masked_argmin_plain, _argmin_cost, _argmin_close)
+        "K2 masked_argmin, one train step (GT pairs at D = 3 in one batched "
+        "call, mining at D = 32)", k2_calls, _k2, _k2_plain, _argmin_cost,
+        _argmin_close, classify=_argmin_class)
+    # the last block of a query tile adds the splits in split order
+    same_bits_twice("K2 masked_argmin (train)", _k2, k2_calls)
+    launch_path("K2 masked_argmin (train)", _k2, k2_calls, "one train step",
+                20)
+    (gq, gqm, gr, grm), _ = calls["masked_argmin_batched"][0]
+    kernels_per_call("K2 masked_argmin_batched (the GT pairs of a step)",
+                     lambda: knn.masked_argmin_batched(gq, gqm, gr, grm))
     out["sparse_conv_dgrad"] = check_calls(
         "K1 sparse_conv_dgrad, one train step", calls["sparse_conv_dgrad"],
         bc.sparse_conv_dgrad,
@@ -860,6 +952,10 @@ def main() -> int:
                                  train_gen)
     log(f"recorded train step: loss {float(m['loss']):.6f}, "
         + ", ".join(f"{len(v)} {k}" for k, v in calls.items()))
+    gt = calls["masked_argmin_batched"]
+    if len(gt) != 1 or gt[0][0][0].shape[0] != TRAIN_B:
+        raise AssertionError("the GT pairs of a step are not one K2 call "
+                             f"over the batch: {len(gt)} calls")
     results.update(check_train_kernels(calls))
     del calls
     torch.cuda.empty_cache()

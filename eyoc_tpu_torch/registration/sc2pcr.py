@@ -3,8 +3,9 @@
 
 Stages, as in the JAX package (reference scripts/SC2_PCR/SC2_PCR.py):
 1. leading eigenvector of the N x N soft compatibility matrix by 20 power
-   iterations -> kernel K3 `sc2_power_iteration` (the matrix is rebuilt
-   from the coordinates inside every matvec and never stored);
+   iterations -> kernel K3 `sc2_power_iteration` (one launch for all
+   iterations; the symmetric matrix is never stored, each of its values
+   rebuilt from the coordinates once per iteration);
 2. NMS seed picking (plain torch);
 3. second-order counts on the seed rows -> kernel K4 `sc2_seed_counts`;
 4. two-stage consensus (k1 top-k -> local SC^2 -> k2 top-k -> k2 x k2
@@ -102,8 +103,51 @@ def sc2_power_iteration_plain(src, tgt, valid, d_thre: float, iters: int):
     return _power_iteration(sc, iters)
 
 
+def sc2_power_iteration_tiled_plain(src, tgt, valid, d_thre: float,
+                                    iters: int, tile: int = 128):
+    """K3's reformulation in plain torch: the tile pairs (I <= J) of the
+    upper triangle, each SC block made once per iteration with the
+    reciprocal of d^2; its row sums go to y_I and (off the diagonal) its
+    column sums to y_J; y_i of tile I adds the partials of pairs (K, I) for
+    K < I and (I, K) for K >= I in the order of K, as the kernel does."""
+    n = src.shape[0]
+    nt = -(-n // tile)
+    inv_d2 = 1.0 / (d_thre * d_thre)
+    vf = valid.to(torch.float32)
+    v = torch.ones(n, dtype=torch.float32, device=src.device)
+    if iters == 0:
+        return v
+    rows = [slice(t * tile, min(n, (t + 1) * tile)) for t in range(nt)]
+    for _ in range(iters):
+        vv = v * vf
+        row_part, col_part = {}, {}
+        for I in range(nt):
+            for J in range(I, nt):
+                a, b = rows[I], rows[J]
+                ds = _norm3(src[a, None, :] - src[None, b, :])
+                dt = _norm3(tgt[a, None, :] - tgt[None, b, :])
+                x = ds - dt
+                sc = torch.clamp(1.0 - (x * x) * inv_d2, min=0.0)
+                row_part[I, J] = sc @ vv[b]
+                if I != J:
+                    col_part[I, J] = vv[a] @ sc
+        ys = []
+        for I in range(nt):
+            y = torch.zeros_like(row_part[I, I])
+            for K in range(nt):
+                y = y + (col_part[K, I] if K < I else row_part[I, K])
+            ys.append(y)
+        y = torch.cat(ys) * vf
+        v = y / (torch.sqrt(torch.sum(y * y)) + 1e-6)
+    return v
+
+
+# K3's tile (rows and columns) of csrc/sc2_power_iteration.cu:kTile; the
+# partials buffer holds two rows of partials for each tile pair, then one
+# sum of squares per tile
+_K3_TILE = 128
 _K3_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p)
 
 
@@ -113,7 +157,8 @@ def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
     v / (|v| + 1e-6) after each of `iters` matvecs from v0 = ones.
 
     src/tgt [N, 3] f32, valid [N] bool. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel (one cooperative launch for
+    all iterations) or raises."""
     if src.is_cpu:
         return sc2_power_iteration_plain(src, tgt, valid, d_thre, iters)
     fn = kernels.load("sc2_power_iteration", _K3_ARGS)
@@ -123,13 +168,13 @@ def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
     n = src.shape[0]
     if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,):
         raise ValueError("sc2_power_iteration: expected [N, 3], [N, 3], [N]")
-    row_blocks = -(-n // 256)
-    splits = max(1, min(-(-264 // max(row_blocks, 1)), -(-n // 256), 64))
-    part = torch.empty((splits, n), dtype=f32, device=src.device)
-    v = torch.empty(n, dtype=f32, device=src.device)
+    nt = -(-n // _K3_TILE)
+    part_len = nt * (nt + 1) * _K3_TILE + nt
+    part = src.new_empty(part_len)
+    v = src.new_empty(n)
     p = kernels.ptr
-    err = fn(p(src), p(tgt), p(valid), n, float(d_thre ** 2), int(iters),
-             splits, p(part), p(v), kernels.stream_handle(dev))
+    err = fn(p(src), p(tgt), p(valid), n, 1.0 / float(d_thre) ** 2,
+             int(iters), p(part), part_len, p(v), kernels.stream_handle(dev))
     kernels.check_launch("sc2_power_iteration", err)
     return v
 

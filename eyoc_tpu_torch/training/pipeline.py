@@ -13,7 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from eyoc_tpu_torch.geometry.se3 import transform_points
-from eyoc_tpu_torch.ops.knn import masked_argmin
+from eyoc_tpu_torch.ops.knn import masked_argmin_batched
 from eyoc_tpu_torch.sparse import morton
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid, build_pyramid
 from eyoc_tpu_torch.sparse.types import VoxelizedCloud
@@ -66,24 +66,21 @@ def preprocess_clouds(xyz: torch.Tensor, counts: torch.Tensor, *,
 
 def gt_positive_pairs(vox0: VoxelizedCloud, vox1: VoxelizedCloud,
                       trans: torch.Tensor, search_radius: torch.Tensor):
-    """GT correspondences (pipeline.py:92-119): per item, warp cloud 0's
-    voxel representatives by `trans`, 1-NN into cloud 1 (kernel K2 at
-    D = 3 on the card), keep pairs within `search_radius`.
+    """GT correspondences (pipeline.py:92-119): warp cloud 0's voxel
+    representatives by `trans`, 1-NN into cloud 1, keep pairs within
+    `search_radius`; the B items in one batched warp and one call of
+    `masked_argmin_batched` (one K2 launch on the card, the JAX `vmap`).
 
     vox fields [B, cap, ...], trans [B, 4, 4], search_radius [B]. Returns
     (idx0, idx1, valid), each [B, cap]: idx0 is the row index, idx1 int32,
     valid = m0 & (d2 < r^2)."""
     B, cap = vox0.mask.shape
-    i1, ok = [], []
-    for b in range(B):
-        warped = transform_points(vox0.xyz[b], trans[b]).contiguous()
-        d2, nn = masked_argmin(warped, vox0.mask[b], vox1.xyz[b].contiguous(),
-                               vox1.mask[b])
-        r = search_radius[b]
-        i1.append(nn)
-        ok.append(vox0.mask[b] & (d2 < r * r))
+    warped = transform_points(vox0.xyz, trans).contiguous()
+    d2, nn = masked_argmin_batched(warped, vox0.mask, vox1.xyz.contiguous(),
+                                   vox1.mask)
+    r2 = (search_radius * search_radius)[:, None]
     i0 = torch.arange(cap, dtype=torch.int32, device=vox0.mask.device)
-    return i0.expand(B, cap), torch.stack(i1), torch.stack(ok)
+    return i0.expand(B, cap), nn, vox0.mask & (d2 < r2)
 
 
 def flatten_pairs(idx0, idx1, valid, cap0: int, cap1: int):

@@ -181,13 +181,15 @@ def _refuse(name: str, tensors, dtypes) -> None:
 _tickets: dict = {}
 
 
-def ticket(device_index: int) -> torch.Tensor:
-    """A zeroed int32 counter on the device, for a kernel whose last block
-    to finish does the final reduction (K7). The kernel resets it before it
-    ends, so calls on one stream can share it; allocated once per device."""
+def ticket(device_index: int, count: int = 1) -> torch.Tensor:
+    """`count` zeroed int32 counters on the device, for a kernel whose last
+    block to finish a tile does that tile's final reduction (K2, K7). The
+    kernel resets each counter before it ends, so calls on one stream can
+    share them; allocated once per device, and again only to grow."""
     t = _tickets.get(device_index)
-    if t is None:
-        t = torch.zeros(1, dtype=torch.int32, device=f"cuda:{device_index}")
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 256), dtype=torch.int32,
+                        device=f"cuda:{device_index}")
         _tickets[device_index] = t
     return t
 
