@@ -11,21 +11,29 @@ Phases (any failure exits non-zero):
    events over back-to-back calls), the kernel's device time over the same
    calls (torch.profiler), the least time the card could take (bound) and,
    where one PyTorch call computes the same function, that call's time
-   (timed in turns with the kernel). K1 (the eval forward, on the calls of
-   one ResUNetBN2C forward) and the training kernels (the train forward,
-   the conv backward, the row gather, the masked-BN sums, on the calls
-   recorded during one full-width train step); K1's, K5's and K7's times
+   (timed in turns with the kernel). K4 on two sets (the registration
+   set, and a tie-heavy one where most keys are 0 and some seeds point at
+   invalid rows): `sc2_seed_counts` bit-equal to its plain version, and
+   `sc2_seed_topk`'s [S, k1] indices bit-equal, in order, to the plain
+   selection (masked plain counts, then `topk`), beside the unfused path
+   on the card (the counts kernel, the mask and the full-row sort) and the
+   cuBLAS time of the bare fp16 [S, N] @ [N, N] product on prebuilt masks
+   (product only, not the same function). K1 (the eval forward, on the
+   calls of one ResUNetBN2C forward) and the training kernels (the train
+   forward, the conv backward, the row gather, the masked-BN sums, on the
+   calls recorded during one full-width train step); K1's, K5's and K7's times
    (kernel and device) are also split by shape class, and K2's train row
    by class (the GT pairs, one batched call a step, and the mining). K1
-   (eval), K2, K3, K5 and K7 give the same bits on a second call; K3 and
-   every K2 call run exactly one device kernel (profiler); the host cost of
-   one K1, K2, K3, K5, K6 and K7 launch is measured on its own (host clock
-   over calls that are not waited for).
+   (eval), K2, K3, K4, K5 and K7 give the same bits on a second call; K3
+   and every K2 call run exactly one device kernel, K4's top k three
+   (profiler); the host cost of one K1, K2, K3, K4, K5, K6 and K7 launch
+   is measured on its own (host clock over calls that are not waited for).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
    every kernel of the path launched (launch counts reset just before, read
-   just after).
+   just after): one `sc2_seed_topk` a pair and no `sc2_seed_counts`, and
+   no sort or top-k over S x N elements in the profiler's view of a pair.
 4. registration sanity: `sc2_pcr` recovers a known pose from N = 5000
    correspondences with 30% inliers.
 5. the training path at full width: `training.steps.base_train_step`
@@ -63,15 +71,22 @@ PAIR_DIST = 45.0
 N_CORR = 5000
 N_SEEDS = 1000
 # the published training recipe (scripts/train_kitti_EYOC.sh): batch 8,
-# num_pos 1024 * B, num_hn_samples 256 * B, SGD lr 0.1, momentum 0.8
+# num_pos 1024 * B, num_hn_samples 256 * B, SGD momentum 0.8; the learning
+# rate is the package default 0.1 (eyoc_tpu/config.py:131), not the
+# script's 0.3 (timing does not depend on it)
 TRAIN_B = 8
 TRAIN_DIST = 8.0
 TRAIN_STEPS = 3
 PROBE_ROWS, PROBE_COLS = 20480, 256   # proto/proto_pallas_gather.py:24
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s
+# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s.
+# b1 (AND + POPC, 2 ops a binary product) has no published rate: it is 8x
+# the int8 peak, as profile_k4_mma.py measures wgmma b1 m64n256k256 at
+# 8.0x wgmma s8 m64n256k32 (15.59-15.72 and 1.94-1.96 P ops/s on an H100
+# 80GB HBM3 at 700 W; the s8 rate is 98-99% of the int8 peak)
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK["b1"] = 8 * PEAK["int8"]
 
 # tolerances of kernel against plain version
 K1_RTOL, K1_ATOL_FRAC = 2e-2, 1e-2   # bf16 output, f32 sums in two orders
@@ -227,11 +242,11 @@ def launch_path(label, fn, calls, what, reps):
         f"{len(calls)} calls of {what}, {reps} passes)")
 
 
-def kernels_per_call(label, fn, reps: int = 5) -> float:
+def kernels_per_call(label, fn, reps: int = 5, expected: int = 1) -> float:
     """Device kernels that one call of `fn` runs, from torch.profiler over
     `reps` calls (memory copies and fills not counted); the K3 and K2
-    wrappers must run exactly one. A profile that recorded no device
-    activity is taken again, up to three times."""
+    wrappers must run exactly one, K4's top k three. A profile that
+    recorded no device activity is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -248,11 +263,12 @@ def kernels_per_call(label, fn, reps: int = 5) -> float:
         n = sum(e.count for e in events)
         if n > 0:
             log(f"{label}: {n / reps:g} device kernels a call (profiler, "
-                f"{reps} calls: " + ", ".join(e.key[:60] for e in events)
+                f"{reps} calls; device ms a call: " + ", ".join(
+                    f"{e.key[:60]} {_dev_ms(e) / reps:.4f}" for e in events)
                 + ")")
-            if n != reps:
+            if n != expected * reps:
                 raise AssertionError(f"{label}: {n / reps:g} device kernels "
-                                     "a call, expected one")
+                                     f"a call, expected {expected}")
             return n / reps
     raise AssertionError(f"{label}: the profiler recorded no device kernel")
 
@@ -362,32 +378,127 @@ def check_power_iteration(gen):
                 bound_by=by, device_ms=dev)
 
 
-def check_seed_counts(gen):
+def seed_sets(gen):
+    """K4's two input sets at the main path's shapes: the registration set
+    (30% inliers) with its last 50 points invalid, and a tie-heavy set (no
+    inliers: most keys are 0) with its last 500 points invalid, so that
+    about one seed in ten points at an invalid row (all its keys 0 or -1)."""
+    import torch
+    out = []
+    for inlier, n_bad in ((0.3, 50), (0.0, 500)):
+        src, tgt, valid, _ = correspondences(gen, inlier=inlier)
+        valid[-n_bad:] = False
+        seeds = torch.randperm(N_CORR, generator=gen)[:N_SEEDS].to(
+            torch.int32).cuda()
+        out.append((src, tgt, valid, seeds))
+    return out
+
+
+def _k4_bound(valid, out_bytes, kind="b1"):
+    """K4's bound: its S x nv x nv binary products at the b1 rate the
+    kernel's MMAs run at (`kind="int8"`: at the int8 peak, the figure
+    K4's bound used before it ran on b1 tensor cores)."""
+    nv = int(valid.sum())
+    return bound_ms(2 * N_CORR * 12 + N_CORR + N_SEEDS * 4 + out_bytes,
+                    2.0 * N_SEEDS * nv * nv, kind)
+
+
+def check_seed_counts(sets):
+    """The counts entry (off the main path): bit-equal to the plain
+    version on both sets."""
     import torch
     from eyoc_tpu_torch.registration.sc2pcr import (
         sc2_seed_counts, sc2_seed_counts_plain)
-    src, tgt, valid, _ = correspondences(gen)
-    valid[-50:] = False
-    seeds = torch.randperm(N_CORR, generator=gen)[:N_SEEDS].to(
-        torch.int32).cuda()
-    k = sc2_seed_counts(src, tgt, valid, seeds, 0.1)
-    p = sc2_seed_counts_plain(src, tgt, valid, seeds, 0.1)
-    err = float((k - p).abs().max())
-    if not bool(torch.equal(k, p)):
-        raise AssertionError(f"sc2_seed_counts not exact: {err}")
+    for src, tgt, valid, seeds in sets:
+        k = sc2_seed_counts(src, tgt, valid, seeds, 0.1)
+        p = sc2_seed_counts_plain(src, tgt, valid, seeds, 0.1)
+        err = float((k - p).abs().max())
+        if not bool(torch.equal(k, p)):
+            raise AssertionError(f"sc2_seed_counts not exact: {err}")
+    src, tgt, valid, seeds = sets[0]
     ms = time_ms(lambda: sc2_seed_counts(src, tgt, valid, seeds, 0.1))
     plain = time_ms(lambda: sc2_seed_counts_plain(src, tgt, valid, seeds,
                                                   0.1), reps=3)
-    nv = int(valid.sum())
-    b, by = bound_ms(2 * N_CORR * 12 + N_CORR + N_SEEDS * 4
-                     + N_SEEDS * N_CORR * 4,
-                     2.0 * N_SEEDS * nv * nv, "int8")
+    b, by = _k4_bound(valid, N_SEEDS * N_CORR * 4)
+    b8 = _k4_bound(valid, N_SEEDS * N_CORR * 4, "int8")[0]
     dev = device_ms([lambda: sc2_seed_counts(src, tgt, valid, seeds, 0.1)],
                     10)
-    log(f"K4 sc2_seed_counts: S={N_SEEDS} N={N_CORR}, exact, kernel "
-        f"{ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, bound "
-        f"{b:.4f} ms")
+    log(f"K4 sc2_seed_counts: S={N_SEEDS} N={N_CORR}, exact on both sets, "
+        f"kernel {ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, "
+        f"bound {b:.4f} ms ({by}, products at the b1 rate; {b8:.4f} ms "
+        "with the int8 peak)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, device_ms=dev)
+
+
+def check_seed_topk(sets, k1):
+    """The main path's K4 entry: indices bit-equal, in order, to the plain
+    selection (the masked plain counts, then `topk`) on both sets; then
+    its times beside the unfused path on the card (the counts kernel, the
+    mask and the full-row sort) and the cuBLAS time of the bare fp16
+    product on prebuilt masks (product only, not the same function)."""
+    import torch
+    from eyoc_tpu_torch.registration.sc2pcr import (
+        _cross, sc2_seed_counts, sc2_seed_topk, sc2_seed_topk_plain, topk)
+    wrong = 0   # indices that differ from the plain selection, both sets
+    for name, (src, tgt, valid, seeds) in zip(("registration", "tie-heavy"),
+                                              sets):
+        got = sc2_seed_topk(src, tgt, valid, seeds, 0.1, k1)
+        want = sc2_seed_topk_plain(src, tgt, valid, seeds, 0.1, k1)
+        if got.shape != (N_SEEDS, k1):
+            raise AssertionError(f"sc2_seed_topk ({name} set): shape "
+                                 f"{tuple(got.shape)}")
+        wrong += int((got != want).sum())
+        if not bool(torch.equal(got, want)):
+            bad = int((got != want).any(1).sum())
+            raise AssertionError(f"sc2_seed_topk ({name} set): {bad} seed "
+                                 "rows differ from the plain selection")
+        log(f"K4 sc2_seed_topk ({name} set): [{N_SEEDS}, {k1}] indices "
+            "bit-equal to the plain selection, first column "
+            f"included; {int((~valid[seeds.long()]).sum())} seeds at "
+            "invalid rows")
+    src, tgt, valid, seeds = sets[0]
+
+    def call():
+        return sc2_seed_topk(src, tgt, valid, seeds, 0.1, k1)
+
+    def unfused_path():
+        sc2 = sc2_seed_counts(src, tgt, valid, seeds, 0.1)
+        sc2 = torch.where(valid[None, :], sc2, torch.full_like(sc2, -1.0))
+        return topk(sc2, k1)[1]
+
+    keys = sc2_seed_counts(src, tgt, valid, seeds, 0.1)
+    keys = torch.where(valid[None, :], keys, torch.full_like(keys, -1.0))
+    same_bits_twice("K4 sc2_seed_topk", sc2_seed_topk,
+                    [((src, tgt, valid, seeds, 0.1, k1), {})])
+    launch_path("K4 sc2_seed_topk", sc2_seed_topk,
+                [((src, tgt, valid, seeds, 0.1, k1), {})],
+                f"S={N_SEEDS} N={N_CORR}", 200)
+    kernels_per_call("K4 sc2_seed_topk", call, expected=3)
+    ms = time_ms(call)
+    plain = time_ms(lambda: sc2_seed_topk_plain(src, tgt, valid, seeds, 0.1,
+                                                k1), reps=3)
+    unfused = time_ms(unfused_path)
+    sort = time_ms(lambda: topk(keys, k1))
+    dev = device_ms([call], 10)
+    # cuBLAS: the bare [S, N] @ [N, N] fp16 product of the masks, built
+    # beforehand (no packing, no hard factor, no selection)
+    pair_ok = valid[:, None] & valid[None, :]
+    tight = ((_cross(src, tgt) < 0.05) & pair_ok).half()
+    rows = tight[seeds.long()].contiguous()
+    cublas = time_ms(lambda: torch.matmul(rows, tight))
+    del tight, rows
+    b, by = _k4_bound(valid, N_SEEDS * k1 * 4)
+    b8 = _k4_bound(valid, N_SEEDS * k1 * 4, "int8")[0]
+    log(f"K4 sc2_seed_topk: S={N_SEEDS} N={N_CORR} k={k1}, kernel "
+        f"{ms:.3f} ms (device {fmt_ms(dev)}), plain {plain:.3f} ms, bound "
+        f"{b:.4f} ms ({by}, products at the b1 rate; {b8:.4f} ms with the "
+        f"int8 peak); unfused on the "
+        f"card (the counts kernel, mask, full-row sort) {unfused:.3f} ms, "
+        f"of which the masked sort "
+        f"{sort:.3f} ms; cuBLAS fp16 [S, N] @ [N, N] on prebuilt masks "
+        f"{cublas:.3f} ms (product only, not the same function)")
+    return dict(max_abs_err=float(wrong), ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, device_ms=dev)
 
 
@@ -398,7 +509,7 @@ TRAIN_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "masked_argmin",
                  "sparse_conv_wgrad", "take_rows", "take_rows_backward",
                  "masked_channel_sums")
 EVAL_KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
-                "sc2_seed_counts")
+                "sc2_seed_topk")
 
 
 def make_train_batch():
@@ -887,6 +998,28 @@ def train_breakdown(model, opt, batch, cfg, gen):
         log(f"  {_dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
 
 
+def largest_sort(model, batch, cfg, gen):
+    """The profiler's view of one eval pair: no sort or top-k on the path
+    runs over as many as S x N elements (the [S, N] counts are gone)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eyoc_tpu_torch.eval import embed_pair, register_pair
+    x = embed_pair(model, batch, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        register_pair(*x, cfg, generator=gen)
+        torch.cuda.synchronize()
+    largest = 0
+    for e in prof.events():
+        if e.name in ("aten::sort", "aten::topk") and e.input_shapes:
+            largest = max(largest, int(np.prod(e.input_shapes[0] or [0])))
+    log(f"eval pair: the largest sort or top-k runs over {largest} elements")
+    if largest >= N_SEEDS * N_CORR:
+        raise AssertionError(f"a sort over {largest} elements on the eval "
+                             "path")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -938,8 +1071,11 @@ def main() -> int:
         "sparse_conv": check_sparse_conv(model, pyr),
         "masked_argmin": check_masked_argmin(gen),
         "sc2_power_iteration": check_power_iteration(gen),
-        "sc2_seed_counts": check_seed_counts(gen),
     }
+    k4_sets = seed_sets(gen)
+    results["sc2_seed_counts"] = check_seed_counts(k4_sets)
+    results["sc2_seed_topk"] = check_seed_topk(k4_sets, cfg.sc2.k1)
+    del k4_sets
     # the training kernels, on the calls of one full-width train step
     train_model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
                             device="cuda")
@@ -998,6 +1134,10 @@ def main() -> int:
     missing = [k for k in EVAL_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"eval path launched no {missing}")
+    if counts["sc2_seed_topk"] != N_PAIRS or counts["sc2_seed_counts"]:
+        raise AssertionError("the eval path is not one sc2_seed_topk a pair "
+                             "and no sc2_seed_counts")
+    largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen)
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
         f"(host clock around synchronized calls), RR of the untrained net "
@@ -1021,14 +1161,15 @@ def main() -> int:
     # `_train`, and the training kernels) the training run's (phase 5);
     # each row's times are of the calls of that path
     def launches(name):
-        if name in EVAL_KERNELS:
+        if name in EVAL_KERNELS or name == "sc2_seed_counts":
             return counts[name]
         return train_counts[name.removesuffix("_train")]
 
     source = {"sparse_conv_dgrad": "sparse_conv",
               "sparse_conv_train": "sparse_conv",
               "masked_argmin_train": "masked_argmin",
-              "take_rows_backward": "take_rows"}
+              "take_rows_backward": "take_rows",
+              "sc2_seed_topk": "sc2_seed_counts"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -1037,6 +1178,7 @@ def main() -> int:
         "masked_argmin_train": "eyoc_tpu/ops/knn.py:79",
         "sc2_power_iteration": "eyoc_tpu/registration/sc2pcr.py:276",
         "sc2_seed_counts": "eyoc_tpu/registration/sc2pcr.py:296",
+        "sc2_seed_topk": "eyoc_tpu/registration/sc2pcr.py:296",
         "sparse_conv_wgrad": "eyoc_tpu/sparse/brick_conv.py:259",
         "take_rows": "proto/proto_pallas_gather.py:62",
         "take_rows_backward": "eyoc_tpu/training/loss.py:94",

@@ -7,8 +7,12 @@ Stages, as in the JAX package (reference scripts/SC2_PCR/SC2_PCR.py):
    iterations; the symmetric matrix is never stored, each of its values
    rebuilt from the coordinates once per iteration);
 2. NMS seed picking (plain torch);
-3. second-order counts on the seed rows -> kernel K4 `sc2_seed_counts`;
-4. two-stage consensus (k1 top-k -> local SC^2 -> k2 top-k -> k2 x k2
+3. second-order counts on the seed rows and each seed's k1 best columns ->
+   kernel K4 `sc2_seed_topk` (the counts on b1 tensor cores, each split of
+   the columns keeping its top k1 in the epilogue, then a merge; the
+   [S, N] counts are never stored). `sc2_seed_counts`, the same product
+   with the counts stored, is off the main path;
+4. two-stage consensus (local SC^2 of the k1 -> k2 top-k -> k2 x k2
    power iteration) + per-seed weighted QCP Kabsch + inlier-count fitness
    (plain torch, batched over the seeds);
 5. IRLS post-refinement with the inlier-count stop: a Python loop with one
@@ -21,8 +25,10 @@ chunks are concatenated in index order). So seeds and consensus sets match
 the JAX package exactly up to float rounding.
 
 Distances that meet a threshold are written as sqrt((dx*dx + dy*dy) +
-dz*dz), the order the kernels use, so kernel and plain version agree bit
-for bit on every threshold test.
+dz*dz), with no fused multiply-add, in the plain versions and in K4, so
+K4 and its plain version agree bit for bit on every threshold test. K3 has
+no threshold: it sums with FMAs and multiplies by 1/d^2, and is held to
+its plain version within a tolerance (chip_smoke.py's K3_RTOL).
 
 Of SC2PCRConfig's TPU tuning switches only the defaults are carried: exact
 top-k (`approx_topk=False`), f32 power iteration (`bf16_power=False`) and
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -193,9 +200,98 @@ def sc2_seed_counts_plain(src, tgt, valid, seeds, d_thre: float):
     return (tight[seeds] @ tight) * hard[seeds].float()
 
 
-_K4_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+def _seed_keys(src, tgt, valid, seeds, d_thre: float):
+    """The consensus's keys [S, N]: the counts, -1 at invalid columns."""
+    SC2 = sc2_seed_counts_plain(src, tgt, valid, seeds, d_thre)
+    return torch.where(valid[None, :], SC2, torch.full_like(SC2, -1.0))
+
+
+def sc2_seed_topk_plain(src, tgt, valid, seeds, d_thre: float, k: int):
+    """The JAX composition: the masked [S, N] counts, then the exact top k
+    (ties to the lowest column); idx [S, min(k, N)] int32."""
+    _, idx = topk(_seed_keys(src, tgt, valid, seeds, d_thre), k)
+    return idx.to(torch.int32)
+
+
+def sc2_seed_topk_tiled_plain(src, tgt, valid, seeds, d_thre: float, k: int,
+                              tile: int):
+    """K4's selection in plain torch: each key becomes the composite
+    (key + 1) * 65536 + 65535 - j (larger is better, no two equal), each
+    chunk of `tile` columns keeps its best k, and the chunks' candidates,
+    concatenated in column order, give the best k; idx as
+    `sc2_seed_topk_plain`. Exact since an element of the global top k is
+    in the top k of its chunk."""
+    keys = _seed_keys(src, tgt, valid, seeds, d_thre).to(torch.int64)
+    n = keys.shape[1]
+    j = torch.arange(n, device=keys.device)
+    comp = (keys + 1) * 65536 + (65535 - j)
+    k = min(k, n)
+    cand = torch.cat([torch.topk(comp[:, c:c + tile],
+                                 min(k, tile, n - c)).values
+                      for c in range(0, n, tile)], dim=1)
+    best = torch.topk(cand, k).values
+    return (65535 - best % 65536).to(torch.int32)
+
+
+# K4's seed rows per block (csrc/sc2_seed_counts.cu:kBM), columns per tile
+# (kBN), and the most splits and list entries the kernels take
+_K4_SEEDS, _K4_COLS, _K4_MAX_SPLITS, _K4_MAX_K = 64, 64, 32, 32
+_K4_MAX_N = 13056            # 64 + 64 packed rows fit in a block's memory
+_K4_COUNTS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p)
+_K4_TOPK_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=None)
+def k4_plan(ns: int, n: int, resident: int) -> tuple[int, int]:
+    """(seed groups, column splits) of a K4 product launch: as many splits
+    as keep every block resident at once (`resident`: occupancy x SMs), at
+    most one per 64-column tile and _K4_MAX_SPLITS."""
+    groups = -(-ns // _K4_SEEDS)
+    splits = min(resident // max(groups, 1), -(-n // _K4_COLS),
+                 _K4_MAX_SPLITS)
+    return groups, max(splits, 1)
+
+
+_k4_resident_blocks: dict = {}
+
+
+def _k4_resident(dev: int, n: int) -> int:
+    """Blocks of K4's product kernel that device `dev` holds at once."""
+    words = -(-n // 256) * 8
+    got = _k4_resident_blocks.get((dev, words))
+    if got is None:
+        fn = kernels.load("sc2_seed_counts", (ctypes.c_int,),
+                          symbol="sc2_seed_resident")
+        with torch.cuda.device(dev):
+            got = fn(n)
+        if got <= 0:
+            raise RuntimeError("sc2_seed_counts: occupancy query failed")
+        _k4_resident_blocks[(dev, words)] = got
+    return got
+
+
+def _k4_args(name, src, tgt, valid, seeds):
+    """Checks K4's inputs; returns (device, n, ns, splits, bits)."""
+    f32 = torch.float32
+    dev = kernels.require_cuda(name, src, tgt, valid, seeds,
+                               dtypes=(f32, f32, torch.bool, torch.int32))
+    n = src.shape[0]
+    if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,) \
+            or seeds.dim() != 1:
+        raise ValueError(f"{name}: expected [N, 3], [N, 3], [N], [S]")
+    if n > _K4_MAX_N:
+        raise ValueError(f"{name}: N = {n} exceeds {_K4_MAX_N}")
+    _, splits = k4_plan(seeds.shape[0], n, _k4_resident(dev, n))
+    words = -(-n // 256) * 8              # the packed tight and hard rows
+    bits = torch.empty((2, 32 * words, words), dtype=torch.int32,
+                       device=src.device)
+    return dev, n, seeds.shape[0], splits, bits
 
 
 def sc2_seed_counts(src, tgt, valid, seeds, d_thre: float):
@@ -204,24 +300,48 @@ def sc2_seed_counts(src, tgt, valid, seeds, d_thre: float):
     valid pairs; exact counts.
 
     seeds [S] int32 rows. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel (the packing, then the product on b1 tensor
+    cores) or raises. Off the main path, which takes `sc2_seed_topk`."""
     if src.is_cpu:
         return sc2_seed_counts_plain(src, tgt, valid, seeds, d_thre)
-    fn = kernels.load("sc2_seed_counts", _K4_ARGS)
-    f32 = torch.float32
-    dev = kernels.require_cuda("sc2_seed_counts", src, tgt, valid, seeds,
-                               dtypes=(f32, f32, torch.bool, torch.int32))
-    n = src.shape[0]
-    ns = seeds.shape[0]
-    if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,):
-        raise ValueError("sc2_seed_counts: expected [N, 3], [N, 3], [N]")
-    bits = torch.empty((n, -(-n // 32)), dtype=torch.int32, device=src.device)
-    out = torch.empty((ns, n), dtype=f32, device=src.device)
+    fn = kernels.load("sc2_seed_counts", _K4_COUNTS_ARGS)
+    dev, n, ns, splits, bits = _k4_args("sc2_seed_counts", src, tgt, valid,
+                                        seeds)
+    out = torch.empty((ns, n), dtype=torch.float32, device=src.device)
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), n, p(seeds), ns, float(d_thre),
-             float(d_thre / 2.0), p(bits), p(out), kernels.stream_handle(dev))
+             float(d_thre / 2.0), splits, p(bits), p(out),
+             kernels.stream_handle(dev))
     kernels.check_launch("sc2_seed_counts", err)
     return out
+
+
+def sc2_seed_topk(src, tgt, valid, seeds, d_thre: float, k: int):
+    """K4 with the consensus's k1 selection: idx [S, min(k, N)] int32, each
+    seed row's columns of largest key = valid[j] ? SC2[s, j] : -1 (SC2 as
+    `sc2_seed_counts`), by key descending, then column ascending (the
+    order of `topk` and `lax.top_k`).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (the packing, the product with each split's top k in its epilogue, the
+    merge of the splits) or raises. No [S, N] tensor is made on the card."""
+    if src.is_cpu:
+        return sc2_seed_topk_plain(src, tgt, valid, seeds, d_thre, k)
+    fn = kernels.load("sc2_seed_counts", _K4_TOPK_ARGS,
+                      symbol="sc2_seed_topk")
+    dev, n, ns, splits, bits = _k4_args("sc2_seed_topk", src, tgt, valid,
+                                        seeds)
+    k = min(k, n)
+    if not 1 <= k <= _K4_MAX_K:
+        raise ValueError(f"sc2_seed_topk: k = {k} not in 1..{_K4_MAX_K}")
+    cand = torch.empty(ns * splits * k, dtype=torch.int32, device=src.device)
+    idx = torch.empty((ns, k), dtype=torch.int32, device=src.device)
+    p = kernels.ptr
+    err = fn(p(src), p(tgt), p(valid), n, p(seeds), ns, float(d_thre),
+             float(d_thre / 2.0), k, splits, p(bits), p(cand), p(idx),
+             kernels.stream_handle(dev))
+    kernels.check_launch("sc2_seed_topk", err)
+    return idx
 
 
 # ------------------------------------------------------------------ stages
@@ -242,11 +362,10 @@ def _take3(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
 
 
-def _seed_transforms(cfg: SC2PCRConfig, seed_ok, SC2, src, tgt, valid):
-    """Two-stage consensus + per-seed Kabsch (reference cal_seed_trans)."""
+def _seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt, valid):
+    """Two-stage consensus + per-seed Kabsch (reference cal_seed_trans),
+    from each seed's k1 columns `knn_idx` [S, k1] (`sc2_seed_topk`)."""
     d = cfg.d_thre
-    SC2 = torch.where(valid[None, :], SC2, torch.full_like(SC2, -1.0))
-    _, knn_idx = topk(SC2, cfg.k1)                           # [S, k1]
     nbr_ok = valid[knn_idx]
     src_knn = src[knn_idx]                                   # [S, k1, 3]
     tgt_knn = tgt[knn_idx]
@@ -321,8 +440,8 @@ def sc2_pcr(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
     seeds, seed_ok = _pick_seeds(src_dist, confidence, cfg.nms_radius,
                                  num_seeds)
     del src_dist, pair_ok
-    SC2 = sc2_seed_counts(src, tgt, valid, seeds, cfg.d_thre)
-    trans, fitness = _seed_transforms(cfg, seed_ok, SC2, src, tgt, valid)
+    knn_idx = sc2_seed_topk(src, tgt, valid, seeds, cfg.d_thre, cfg.k1)
+    trans, fitness = _seed_transforms(cfg, seed_ok, knn_idx, src, tgt, valid)
     trans = _post_refine(cfg, trans, src, tgt, valid)
     return trans, fitness
 

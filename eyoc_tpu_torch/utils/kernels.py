@@ -13,9 +13,10 @@ module on a host without `nvcc`.
 `launches` holds one plain integer per counted launch site; a wrapper adds
 one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
-(K6's forward and backward), and one kernel may be counted under two names
-(K1 as the forward conv and as the conv backward's dX), so the counters are
-`COUNTERS`, a superset of the sources in `KERNELS`.
+(K6's forward and backward, K4's counts and top k), and one kernel may be
+counted under two names (K1 as the forward conv and as the conv
+backward's dX), so the counters are `COUNTERS`, a superset of the sources
+in `KERNELS`.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -43,7 +44,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
            "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
            "masked_channel_sums")
-COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward")
+COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward",
+                      "sc2_seed_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -69,7 +71,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    stem = name.replace("/", "_")
+    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

@@ -94,15 +94,21 @@ def main() -> None:
                      lambda: sc2pcr.sc2_power_iteration(
                          src, tgt, sm, c.d_thre, c.num_iterations)) * sm
         pair_ok = sm[:, None] & sm[None, :]
-        seeds, seed_ok = timed("reg.sc2.nms", lambda: sc2pcr._pick_seeds(
-            torch.where(pair_ok, sc2pcr._pairwise_dist(src),
-                        torch.full((), float("inf"), device=src.device)),
-            conf, c.nms_radius, min(c.num_seeds, src.shape[0])))
-        SC2 = timed("reg.sc2.seed_counts (K4)", lambda: sc2pcr.sc2_seed_counts(
-            src, tgt, sm, seeds, c.d_thre))
-        T, _ = timed("reg.sc2.consensus (k1/k2 top-k, Kabsch, fitness)",
-                     lambda: sc2pcr._seed_transforms(c, seed_ok, SC2, src,
-                                                     tgt, sm))
+        dist = timed("reg.sc2.nms_dist ([N, N] masked distances)",
+                     lambda: torch.where(
+                         pair_ok, sc2pcr._pairwise_dist(src),
+                         torch.full((), float("inf"), device=src.device)))
+        seeds, seed_ok = timed("reg.sc2.nms (pick_seeds)",
+                               lambda: sc2pcr._pick_seeds(
+                                   dist, conf, c.nms_radius,
+                                   min(c.num_seeds, src.shape[0])))
+        knn_idx = timed("reg.sc2.seed_topk (K4: counts and k1 top-k)",
+                        lambda: sc2pcr.sc2_seed_topk(src, tgt, sm, seeds,
+                                                     c.d_thre, c.k1))
+        T, _ = timed("reg.sc2.consensus (local SC2, k2 top-k, Kabsch, "
+                     "fitness)",
+                     lambda: sc2pcr._seed_transforms(c, seed_ok, knn_idx,
+                                                     src, tgt, sm))
         timed("reg.sc2.irls (<= 20 host-synced iterations)",
               lambda: sc2pcr._post_refine(c, T, src, tgt, sm))
 

@@ -82,8 +82,8 @@ class _LoaderDown(RuntimeError):
 
 @pytest.fixture
 def loader_down(monkeypatch):
-    def fail(name, argtypes):
-        raise _LoaderDown(name)
+    def fail(name, argtypes, symbol=None):
+        raise _LoaderDown(symbol or name)
     monkeypatch.setattr(kernels, "load", fail)
 
 
@@ -107,6 +107,10 @@ def test_kernel_wrappers_never_fall_back(loader_down):
         sc2pcr.sc2_seed_counts(meta(8, 3), meta(8, 3),
                                meta(8, dtype=torch.bool),
                                meta(4, dtype=torch.int32), 0.1)
+    with pytest.raises(_LoaderDown, match="sc2_seed_topk"):
+        sc2pcr.sc2_seed_topk(meta(8, 3), meta(8, 3),
+                             meta(8, dtype=torch.bool),
+                             meta(4, dtype=torch.int32), 0.1, 3)
     assert kernels.launches == before
 
 
@@ -123,6 +127,9 @@ def test_cpu_tensors_take_the_plain_versions(loader_down):
     sc2pcr.sc2_power_iteration(src, src, valid, 0.1, 5)
     sc2pcr.sc2_seed_counts(src, src, valid,
                            torch.arange(4, dtype=torch.int32), 0.1)
+    idx = sc2pcr.sc2_seed_topk(src, src, valid,
+                               torch.arange(4, dtype=torch.int32), 0.1, 3)
+    assert idx.shape == (4, 3) and idx.dtype == torch.int32
     assert kernels.launches == before
 
 
