@@ -28,6 +28,14 @@ Phases (any failure exits non-zero):
    and every K2 call run exactly one device kernel, K4's top k three
    (profiler); the host cost of one K1, K2, K3, K4, K5, K6 and K7 launch
    is measured on its own (host clock over calls that are not waited for).
+   The labeling kernels, on the calls recorded during one extension step
+   at the published recipe and one at the demo's gates (phase 6's
+   configurations): K2's matching (both directions of 8 pairs, [16, 16384,
+   32], in one call) and rediscovery, K3 and K4 on the 8 SC2-PCR calls at
+   N = 8000 and S = 1600, K8 (`masked_knn2`, the gated matching's top 2)
+   and K9 (`masked_argmin_excl`, the safe-radius mining at 8192 x 2048,
+   r = 1.5 m); each against its plain version, the same bits twice, its
+   device kernels a call and its host cost.
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -44,11 +52,30 @@ Phases (any failure exits non-zero):
    every kernel of the step launched (counts reset just before, read just
    after). Then where a step's time goes: the conv maps' share and a
    torch.profiler view of one more step.
+6. the EYOC extension step at full width (`training.steps.
+   extension_train_step`) at the published KITTI recipe
+   (scripts/train_kitti_EYOC.sh: feature filter "None", Similarity over
+   the waymo tables at 0.6, SC2-PCR with 8000 points and 1600 seeds,
+   5000 matches a direction, 2 m rediscovery) on phase 5's batch, a fresh
+   student and its labeler (a copy): one warm-up step, then 3 timed
+   steps, each split by stage and followed by the EMA labeler sync (decay
+   0.2); finite metrics, the labeler's BN buffers unchanged by its
+   forwards, its parameters the EMA formula bit for bit after each sync,
+   and the launches of each step (8 K3, 8 K4, one K2 for the matching of
+   all 16 problems, one for the rediscovery, two for the mining); a
+   torch.profiler view of one more step. Then one step at the extension
+   demo's gates (Lowe, Spherical at 40 m, safe-radius mining at 1.5 m,
+   translation floor 0.4): one K8 and two K9 launches. Then `label_pairs`
+   on a known answer at full size (cloud 1 is cloud 0 under a known pose,
+   row for row, the same random features on both sides), feature filters
+   "None" and "Lowe": RTE < 0.05 m, RRE < 0.1 deg, hit ratio >= 0.99, and
+   >= 99% of the rediscovered rows map to themselves.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
-`sparse_conv_train` and `masked_argmin_train`); `ms` is CUDA-event time,
+`sparse_conv_train` and `masked_argmin_train`; K2, K3 and K4 on the
+labeling path are `*_label`); `ms` is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
 needs one CUDA device and imports nothing of JAX.
@@ -56,6 +83,7 @@ needs one CUDA device and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -78,6 +106,17 @@ TRAIN_B = 8
 TRAIN_DIST = 8.0
 TRAIN_STEPS = 3
 PROBE_ROWS, PROBE_COLS = 20480, 256   # proto/proto_pallas_gather.py:24
+# the EYOC extension step (phase 6): SC2-PCR's labeling size at the KITTI
+# config, the steps timed after a warm-up, the labeler's EMA decay, and the
+# extension demo's gates (experiments/extension_demo.py) with the
+# Spherical filter of the nuScenes and Waymo launchers
+LABEL_N, LABEL_S = 8000, 1600
+REDISCOVERY = 5000        # StepConfig.rediscovery_samples
+EXT_STEPS = 3
+EXT_DECAY = 0.2
+GATED = dict(feature_filter="Lowe", spatial_filter="Spherical",
+             filter_radius=40.0, hn_safe_radius=1.5,
+             label_min_translation_frac=0.4)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s.
 # b1 (AND + POPC, 2 ops a binary product) has no published rate: it is 8x
@@ -93,6 +132,7 @@ K1_RTOL, K1_ATOL_FRAC = 2e-2, 1e-2   # bf16 output, f32 sums in two orders
 K2_D2_RTOL = 1e-4                    # direct vs Gram-form squared distance
 K2_GAP = 1e-3                        # indices equal where 2nd - 1st > gap
 K3_RTOL, K3_ATOL = 1e-4, 1e-7        # f32 power iteration, summation order
+K3_F64_FACTOR = 2.0                  # ill-conditioned input: vs f64 plain
 K5_RTOL, K5_ATOL_FRAC = 1e-3, 1e-3   # f32 dW, f32 sums of bf16 products
 K6B_RTOL, K6B_ATOL = 1e-5, 1e-6      # f32 atomics vs index_add_ order
 K7_REL = 1e-4                        # of the sums of absolute values
@@ -245,8 +285,12 @@ def launch_path(label, fn, calls, what, reps):
 def kernels_per_call(label, fn, reps: int = 5, expected: int = 1) -> float:
     """Device kernels that one call of `fn` runs, from torch.profiler over
     `reps` calls (memory copies and fills not counted); the K3 and K2
-    wrappers must run exactly one, K4's top k three. A profile that
-    recorded no device activity is taken again, up to three times."""
+    wrappers must run exactly one, K4's top k three. The profiler also
+    records the runtime's kernel launches on the host (cudaLaunch*): where
+    its device records come short of them (a window after many earlier
+    profiles can miss one ms-long cooperative kernel), the launches are the
+    count. A profile that recorded no device activity at all is taken
+    again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -257,19 +301,23 @@ def kernels_per_call(label, fn, reps: int = 5, expected: int = 1) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type.name == "CUDA"
                   and not e.key.startswith(("Memcpy", "Memset"))]
         n = sum(e.count for e in events)
+        launched = sum(e.count for e in averages
+                       if e.key.startswith(("cudaLaunch", "cuLaunch")))
         if n > 0:
-            log(f"{label}: {n / reps:g} device kernels a call (profiler, "
-                f"{reps} calls; device ms a call: " + ", ".join(
+            log(f"{label}: {max(n, launched) / reps:g} device kernels a call "
+                f"(profiler, {reps} calls: {n} device records, {launched} "
+                "launches; device ms a call: " + ", ".join(
                     f"{e.key[:60]} {_dev_ms(e) / reps:.4f}" for e in events)
                 + ")")
-            if n != expected * reps:
-                raise AssertionError(f"{label}: {n / reps:g} device kernels "
-                                     f"a call, expected {expected}")
-            return n / reps
+            if max(n, launched) != expected * reps:
+                raise AssertionError(f"{label}: {max(n, launched) / reps:g} "
+                                     f"device kernels a call, expected "
+                                     f"{expected}")
+            return max(n, launched) / reps
     raise AssertionError(f"{label}: the profiler recorded no device kernel")
 
 
@@ -519,19 +567,10 @@ def make_train_batch():
     return collate_items([ds[i] for i in range(TRAIN_B)], RAW)
 
 
-def record_train_step(model, opt, batch, cfg, gen):
-    """One train step with every call of the training kernels' wrappers
-    recorded: {wrapper name: [(args, kwargs), ...]}."""
-    import torch
-    from eyoc_tpu_torch.ops import rows
-    from eyoc_tpu_torch.sparse import brick_conv, norm
-    from eyoc_tpu_torch.training import loss, pipeline
-    from eyoc_tpu_torch.training.steps import base_train_step
-
-    sites = [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
-             (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
-             (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
-             (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
+@contextlib.contextmanager
+def recording(sites):
+    """Record every call of the wrappers `sites` [(module, name)] while the
+    block runs: yields {name: [(args, kwargs), ...]}."""
     calls = {name: [] for _, name in sites}
     real = {(mod, name): getattr(mod, name) for mod, name in sites}
 
@@ -546,11 +585,28 @@ def record_train_step(model, opt, batch, cfg, gen):
     for mod, name in sites:
         setattr(mod, name, recorder(mod, name))
     try:
-        metrics = base_train_step(model, opt, batch, cfg, generator=gen,
-                                  device="cuda")
+        yield calls
     finally:
         for mod, name in sites:
             setattr(mod, name, real[(mod, name)])
+
+
+def record_train_step(model, opt, batch, cfg, gen):
+    """One train step with every call of the training kernels' wrappers
+    recorded: {wrapper name: [(args, kwargs), ...]}."""
+    import torch
+    from eyoc_tpu_torch.ops import rows
+    from eyoc_tpu_torch.sparse import brick_conv, norm
+    from eyoc_tpu_torch.training import loss, pipeline
+    from eyoc_tpu_torch.training.steps import base_train_step
+
+    sites = [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
+             (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
+             (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
+             (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
+    with recording(sites) as calls:
+        metrics = base_train_step(model, opt, batch, cfg, generator=gen,
+                                  device="cuda")
     torch.cuda.synchronize()
     return calls, metrics
 
@@ -898,6 +954,290 @@ def check_train_kernels(calls):
     return out
 
 
+# ---------------------------------------------------- phase 2, labeling
+
+
+def ext_config(**over):
+    """The EYOC extension step at the published KITTI recipe
+    (scripts/train_kitti_EYOC.sh:47-65 with eyoc_tpu/training/trainer.py:
+    45-99 and eyoc_tpu/config.py:223-227): feature filter "None",
+    Similarity over the waymo tables at 0.6, hit-ratio threshold 0.3,
+    SC2-PCR at the KITTI config (8000 points, ratio 0.2: 1600 seeds, k1 30,
+    k2 20), 5000 matches a direction, 5000 rediscovery samples within 2 m;
+    `over` replaces fields (the demo's gates: GATED)."""
+    from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig
+    from eyoc_tpu_torch.training.steps import TrainConfig
+    kw = dict(caps=CAPS, voxel_size=0.3, num_pos=1024 * TRAIN_B,
+              num_hn_samples=256 * TRAIN_B, window_bits=WINDOW_BITS,
+              num_corres=5000, feature_filter="None",
+              spatial_filter="Similarity", filter_radius=40.0,
+              similarity_thresh=0.6, hit_ratio_thresh=0.3,
+              sc2=SC2PCRConfig(max_points=LABEL_N),
+              rediscovery_samples=REDISCOVERY)
+    kw.update(over)
+    return TrainConfig(**kw)
+
+
+def ext_models(spec):
+    """A fresh student (phase 5's generator), its SGD and its labeler after
+    the trainer's first sync (a copy): (student, labeler, opt, count)."""
+    import copy
+    import torch
+    from eyoc_tpu_torch.models import init_unet
+    from eyoc_tpu_torch.training.optim import sgd, sync_labeler
+    student = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                        device="cuda")
+    labeler = copy.deepcopy(student)
+    n = sync_labeler(labeler, student, 0)
+    opt = sgd(student.parameters(), lr=0.1, momentum=0.8, weight_decay=1e-4)
+    return student, labeler, opt, n
+
+
+def record_extension_steps(spec, batch, tables):
+    """One extension step at the published recipe and one at the demo's
+    gates (fresh models each), with the labeling kernels' wrapper calls
+    recorded: K2 (the matching, both directions of every pair in one
+    batched call, and the rediscovery), K3 and K4, then K8 and K9."""
+    import torch
+    from eyoc_tpu_torch.ops import matching
+    from eyoc_tpu_torch.registration import sc2pcr
+    from eyoc_tpu_torch.training import loss, steps
+    gen = torch.Generator().manual_seed(6)
+    sites = [(matching, "masked_knn_batched"), (loss, "masked_argmin_excl"),
+             (steps, "masked_argmin_batched"),
+             (sc2pcr, "sc2_power_iteration"), (sc2pcr, "sc2_seed_topk")]
+    calls = {}
+    for cfg in (ext_config(), ext_config(**GATED)):
+        student, labeler, opt, _ = ext_models(spec)
+        with recording(sites) as got:
+            steps.extension_train_step(student, labeler, opt, batch, cfg,
+                                       tables, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        calls[cfg.feature_filter] = got
+    pub, gated = calls["None"], calls["Lowe"]
+    # the matching at k = 1 is masked_argmin_batched (K2) on the card
+    match = [(a[:4], {}) for a, _ in pub["masked_knn_batched"] if a[4] == 1]
+    return {"masked_argmin_label": match + pub["masked_argmin_batched"],
+            "sc2_power_iteration": pub["sc2_power_iteration"],
+            "sc2_seed_topk": pub["sc2_seed_topk"],
+            "masked_knn2": [c for c in gated["masked_knn_batched"]
+                            if c[0][4] == 2],
+            "masked_argmin_excl": gated["masked_argmin_excl"]}
+
+
+def _label_argmin_class(q, qm, r, rm):
+    """K2's classes on the labeling path: the matching (D = 32, both
+    directions of every pair) and the rediscovery (D = 3)."""
+    what = "matching" if q.shape[-1] == 32 else "rediscovery"
+    return f"{what}, D = {q.shape[-1]}, batch {q.shape[0]}"
+
+
+def _power_cost(src, tgt, valid, d_thre, iters):
+    """K3's bound: each unordered valid pair (and the diagonal) once per
+    iteration, ~24 flops each, as check_power_iteration."""
+    n, nv = src.shape[0], int(valid.sum())
+    return (2 * n * 12 + n + n * 4, iters * nv * (nv + 1) / 2 * 24.0,
+            "f32")
+
+
+def _power_close(got, want, src, tgt, valid, d_thre, iters):
+    """K3 within K3_RTOL / K3_ATOL of its plain version or, where the input
+    is ill-conditioned (the labeling's noise correspondences at up to 76 m:
+    an f32 rounding of a ~100 m distance moves an SC value by up to ~4e-4,
+    and a small eigengap carries that into the vector), no further from
+    the plain version run in f64 than twice the f32 plain version is
+    (K3_F64_FACTOR)."""
+    import torch
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_power_iteration_plain
+    err = float((got - want).abs().max())
+    if bool(torch.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL)):
+        return True, err
+    ref = sc2_power_iteration_plain(src.double(), tgt.double(), valid,
+                                    d_thre, iters)
+    e_k = float((got.double() - ref).abs().max())
+    e_p = float((want.double() - ref).abs().max())
+    log(f"  K3 off its f32 plain version by {err:.3e}: the f64 plain "
+        f"version puts the kernel {e_k:.3e} and the f32 plain {e_p:.3e} "
+        "away")
+    return e_k <= K3_F64_FACTOR * e_p + K3_ATOL, err
+
+
+def _topk_cost(src, tgt, valid, seeds, d_thre, k):
+    """K4's bound: its S x nv x nv binary products at the b1 rate."""
+    n, ns, nv = src.shape[0], seeds.shape[0], int(valid.sum())
+    return (2 * n * 12 + n + ns * 4 + ns * k * 4, 2.0 * ns * nv * nv, "b1")
+
+
+def _exact(got, want, *a):
+    import torch
+    return bool(torch.equal(got, want)), float((got != want).sum())
+
+
+def _f64_smallest(q, r, rm, k, chunk=2048):
+    """The k smallest direct-form f64 squared distances [Nq, k] from each
+    query to the valid refs (1e30 past the valid ones)."""
+    import torch
+    out = []
+    rd = r.double()
+    for q0 in range(0, q.shape[0], chunk):
+        d = torch.cdist(q[q0:q0 + chunk].double(), rd,
+                        compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        d += torch.where(rm, 0.0, 1e30).double()[None]
+        out.append(torch.topk(d, k, largest=False).values)
+        del d
+    return torch.cat(out)
+
+
+def _knn2_close(got, want, q, qm, r, rm, k):
+    """K8 against the plain version's Gram form, each problem on its own:
+    d2 within K2_D2_RTOL plus the Gram form's rounding (1e-6 of |q|^2 +
+    max |r|^2) where a valid ref fills the place; the first index equal
+    where the first and second nearest valid refs (f64, direct form) are
+    more than K2_GAP plus that rounding apart, the second index where the
+    second and third are too."""
+    import torch
+    (d_k, i_k), (d_p, i_p) = got, want
+    worst, ok = 0.0, True
+    for b in range(q.shape[0]):
+        gram = 1e-6 * ((q[b] * q[b]).sum(1) + float((r[b] * r[b]).sum(1)
+                                                      .max()))
+        found = qm[b][:, None] & (d_p[b] < 1e29)
+        err = (d_k[b] - d_p[b]).abs()
+        ok &= bool((err <= K2_D2_RTOL * d_p[b].abs() + gram[:, None])
+                   [found].all())
+        ok &= bool(torch.equal(d_k[b][~found], d_p[b][~found]))
+        t = _f64_smallest(q[b], r[b], rm[b], 3)
+        g = K2_GAP + 2 * gram.double()
+        clear0 = qm[b] & (t[:, 1] - t[:, 0] > g)
+        clear1 = clear0 & (t[:, 2] - t[:, 1] > g)
+        ok &= bool(torch.equal(i_k[b][clear0, 0], i_p[b][clear0, 0]))
+        ok &= bool(torch.equal(i_k[b][clear1, 1], i_p[b][clear1, 1]))
+        worst = max(worst, float(err[found].max()) if bool(found.any())
+                    else 0.0)
+    return ok, worst
+
+
+def _knn2_cost(q, qm, r, rm, k):
+    nq, nr, D = qm.numel(), rm.numel(), q.shape[-1]
+    pairs = float((qm.sum(1).double() * rm.sum(1).double()).sum())
+    return (nq + nr) * D * 4 + nq + nr + nq * k * 8, 2.0 * pairs * D, "f32"
+
+
+def _excl_close(got, want, a, c, pxyz, cxyz, r2):
+    """K9 against the plain version: the kernel's exclusion test is the
+    direct form, the plain version's pdist2's Gram form; an exclusion test
+    on which the two disagree must lie within 1e-4 r^2 of the radius (the
+    count of such tests is logged). On every anchor with no test in that
+    band, the every-candidate-excluded flags are equal, and the indices
+    equal where the nearest and second nearest kept candidates (f64,
+    direct form) are more than K2_GAP apart. Returns the count of
+    differing indices on those anchors (0)."""
+    import torch
+    from eyoc_tpu_torch.geometry.metrics import pdist2
+    (i_k, e_k), (i_p, e_p) = got, want
+    d2x = torch.cdist(pxyz.double(), cxyz.double(),
+                      compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    near = d2x < r2
+    band = (d2x - r2).abs() < 1e-4 * r2
+    disagree = near != (pdist2(pxyz, cxyz) < r2)
+    if bool((disagree & ~band).any()):
+        return False, float("inf")
+    sure = ~band.any(1)
+    d = torch.cdist(a.double(), c.double(),
+                    compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    d[near] = float("inf")
+    two = torch.topk(d, 2, largest=False).values
+    clear = sure & (two[:, 1] - two[:, 0] > K2_GAP)
+    wrong = int((i_k[clear] != i_p[clear]).sum())
+    ok = wrong == 0 and bool(torch.equal(e_k[sure], e_p[sure]))
+    log(f"  K9: {int(disagree.sum())} of {disagree.numel()} exclusion tests "
+        f"differ from the Gram form (all within 1e-4 r^2), "
+        f"{int((~sure).sum())} anchors with a test in that band, "
+        f"{int(clear.sum())} clear anchors equal, "
+        f"{int(e_k.sum())} with every candidate excluded")
+    return ok, float(wrong)
+
+
+def _excl_cost(a, c, pxyz, cxyz, r2):
+    P, M, D = a.shape[0], c.shape[0], a.shape[1]
+    return ((P + M) * (D + 3) * 4 + P * 8, P * M * (2.0 * D + 8.0), "f32")
+
+
+def check_label_kernels(calls):
+    """K2 on the labeling path (the matching and the rediscovery of one
+    published-recipe step), K3 and K4 on that step's 8 SC2-PCR calls (N =
+    8000, S = 1600), K8 on the gated step's matching ([2B, 16384, 32]) and
+    K9 on its two minings (num_pos x num_hn_samples, r = 1.5 m)."""
+    from eyoc_tpu_torch.ops import knn
+    from eyoc_tpu_torch.registration import sc2pcr
+
+    out = {}
+    k2 = calls["masked_argmin_label"]
+    shapes = sorted((tuple(a[0].shape)) for a, _ in k2)
+    if shapes != sorted([(2 * TRAIN_B, CAPS[0], 32),
+                         (TRAIN_B, min(REDISCOVERY, CAPS[0]), 3)]):
+        raise AssertionError(f"the labeling's K2 calls are {shapes}, not "
+                             "one batched matching and one rediscovery")
+    out["masked_argmin_label"] = check_calls(
+        "K2 masked_argmin, the labeling of one step (the matching of both "
+        "directions of 8 pairs in one call, the rediscovery in one call)",
+        k2, knn.masked_argmin_batched, knn.masked_argmin_batched_plain,
+        _argmin_cost, _argmin_close, classify=_label_argmin_class)
+    same_bits_twice("K2 masked_argmin (labeling)", knn.masked_argmin_batched,
+                    k2)
+    for name, fn, plain, cost, close, kernels_a_call in (
+            ("sc2_power_iteration", sc2pcr.sc2_power_iteration,
+             sc2pcr.sc2_power_iteration_plain, _power_cost, _power_close, 1),
+            ("sc2_seed_topk", sc2pcr.sc2_seed_topk,
+             sc2pcr.sc2_seed_topk_plain, _topk_cost, _exact, 3)):
+        cl = calls[name]
+        (src, _, _, *rest), _ = cl[0]
+        if len(cl) != TRAIN_B or src.shape[0] != LABEL_N or (
+                name == "sc2_seed_topk" and rest[0].shape[0] != LABEL_S):
+            raise AssertionError(f"{name}: {len(cl)} calls at N = "
+                                 f"{src.shape[0]} in one labeling")
+        label = f"{name} at N = {LABEL_N}" + (
+            f", S = {LABEL_S}" if name == "sc2_seed_topk" else "")
+        a, k = cl[0]
+        kernels_per_call(label, lambda: fn(*a, **k), expected=kernels_a_call)
+        out[f"{name}_label"] = check_calls(
+            f"{label}, the {len(cl)} calls of one labeling", cl, fn, plain,
+            cost, close)
+        same_bits_twice(label, fn, cl)
+        launch_path(label, fn, cl, "one labeling", 20)
+
+    k8 = calls["masked_knn2"]
+    (q, qm, r, rm, _), _ = k8[0]
+    if len(k8) != 1 or tuple(q.shape) != (2 * TRAIN_B, CAPS[0], 32):
+        raise AssertionError(f"K8: {len(k8)} calls, first {tuple(q.shape)}")
+    kernels_per_call("K8 masked_knn2",
+                     lambda: knn.masked_knn_batched(q, qm, r, rm, 2))
+    out["masked_knn2"] = check_calls(
+        f"K8 masked_knn2, the gated step's matching {tuple(q.shape)}", k8,
+        knn.masked_knn_batched, knn.masked_knn_batched_plain, _knn2_cost,
+        _knn2_close)
+    same_bits_twice("K8 masked_knn2", knn.masked_knn_batched, k8)
+    launch_path("K8 masked_knn2", knn.masked_knn_batched, k8,
+                "the gated step's matching", 20)
+    k9 = calls["masked_argmin_excl"]
+    (a, c, px, cx, r2), _ = k9[0]
+    if len(k9) != 2 or a.shape != (1024 * TRAIN_B, 32) \
+            or c.shape != (256 * TRAIN_B, 32):
+        raise AssertionError(f"K9: {len(k9)} calls, first {tuple(a.shape)}"
+                             f" x {tuple(c.shape)}")
+    kernels_per_call("K9 masked_argmin_excl",
+                     lambda: knn.masked_argmin_excl(a, c, px, cx, r2))
+    out["masked_argmin_excl"] = check_calls(
+        f"K9 masked_argmin_excl, the gated step's two minings "
+        f"{tuple(a.shape)} x {tuple(c.shape)}, r^2 = {r2}", k9,
+        knn.masked_argmin_excl, knn.masked_argmin_excl_plain, _excl_cost,
+        _excl_close, reps=SMALL_REPS)
+    same_bits_twice("K9 masked_argmin_excl", knn.masked_argmin_excl, k9)
+    launch_path("K9 masked_argmin_excl", knn.masked_argmin_excl, k9,
+                "the gated step's minings", 200)
+    return out
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -1020,6 +1360,217 @@ def largest_sort(model, batch, cfg, gen):
                              "path")
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+LABEL_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad",
+                 "take_rows", "take_rows_backward", "masked_channel_sums",
+                 "masked_argmin", "sc2_power_iteration", "sc2_seed_topk")
+
+
+def ema_synced(labeler, student, n, before):
+    """The labeler after an EMA sync at count n from the parameters
+    `before` is the formula's, bit for bit, and its BN buffers are the
+    student's."""
+    import torch
+    from eyoc_tpu_torch.training.optim import ema_update
+    for (name, p), q in zip(labeler.named_parameters(), student.parameters()):
+        if not torch.equal(p, ema_update(before[name], q, EXT_DECAY, n)):
+            raise AssertionError(f"labeler {name} is not the EMA formula")
+    for b, c in zip(labeler.buffers(), student.buffers()):
+        if not torch.equal(b, c):
+            raise AssertionError("the labeler's BN buffers are not the "
+                                 "student's after the sync")
+
+
+def extension_phase(spec, batch, tables, smi):
+    """The EYOC extension step at full width and the published recipe: one
+    warm-up step, then EXT_STEPS timed steps, each followed by the EMA
+    labeler sync, with launch counts reset just before them; the batch
+    and shapes of every K2 launch of the run recorded. Returns the
+    counts."""
+    import torch
+    from eyoc_tpu_torch.ops import knn
+    from eyoc_tpu_torch.training.optim import sync_labeler
+    from eyoc_tpu_torch.training.steps import extension_train_step
+    from eyoc_tpu_torch.utils import kernels
+
+    student, labeler, opt, n = ext_models(spec)
+    cfg = ext_config()
+    gen = torch.Generator().manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    extension_train_step(student, labeler, opt, batch, cfg, tables,
+                         generator=gen, device="cuda")      # warm-up
+    n = sync_labeler(labeler, student, n, "EMA", EXT_DECAY)
+    torch.cuda.synchronize()
+    stage_ms, step_ms, k2 = {}, [], []
+    real = knn._launch
+
+    def launch(*args):      # the shapes only: the tensors would add to the peak
+        k2.append(tuple(args[4:8]))
+        return real(*args)
+
+    kernels.reset_counts()
+    knn._launch = launch
+    try:
+        for i in range(EXT_STEPS):
+            buffers = [b.clone() for b in labeler.buffers()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = extension_train_step(student, labeler, opt, batch, cfg,
+                                     tables, generator=gen, device="cuda",
+                                     timings=stage_ms)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(buffers, labeler.buffers())):
+                raise AssertionError("the labeler's forwards changed its BN "
+                                     "buffers")
+            vals = {k: float(v) for k, v in m.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"extension step {i}: non-finite "
+                                     f"metrics {vals}")
+            before = {k: p.detach().clone()
+                      for k, p in labeler.named_parameters()}
+            t0 = time.perf_counter()
+            n_before, n = n, sync_labeler(labeler, student, n, "EMA",
+                                          EXT_DECAY)
+            torch.cuda.synchronize()
+            stage_ms["sync"] = stage_ms.get("sync", 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            ema_synced(labeler, student, n_before, before)
+            log(f"extension step {i}: loss {vals['loss']:.6f} (pos "
+                f"{vals['pos_loss']:.6f}, neg {vals['neg_loss']:.6f}), "
+                f"{int(vals['num_pos_found'])} positives, labeler hit ratio "
+                f"{vals['labeler_hit_ratio']:.4f}, {step_ms[-1]:.2f} ms; "
+                f"labeler buffers unchanged, EMA sync {n_before} exact")
+    finally:
+        knn._launch = real
+    counts = dict(kernels.launches)
+    log(json.dumps({"extension_launch_counts": counts}))
+    missing = [k for k in LABEL_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"extension step launched no {missing}")
+    want = {"sc2_power_iteration": TRAIN_B, "sc2_seed_topk": TRAIN_B,
+            "masked_argmin": 4, "sc2_seed_counts": 0, "masked_knn2": 0,
+            "masked_argmin_excl": 0}
+    bad = {k: counts[k] for k, v in want.items()
+           if counts[k] != v * EXT_STEPS}
+    if bad:
+        raise AssertionError(f"extension launches {bad}, expected a step "
+                             f"{want}")
+    match = (2 * TRAIN_B, CAPS[0], CAPS[0], 32)
+    redisc = (TRAIN_B, min(REDISCOVERY, CAPS[0]), CAPS[0], 3)
+    mine = (1, 1024 * TRAIN_B, 256 * TRAIN_B, 32)
+    if sorted(k2) != sorted([match, redisc, mine, mine] * EXT_STEPS):
+        raise AssertionError(f"K2 launches of the steps: {k2}")
+    log(f"extension: each step's K2 launches (B, Nq, Nr, D): one {match} "
+        f"for the matching of both directions of every pair, one {redisc} "
+        f"for the rediscovery, two {mine} for the mining")
+    split = ", ".join(f"{k} {v / EXT_STEPS:.2f}" for k, v in stage_ms.items())
+    log(f"extension path: ResUNetBN2C, B={TRAIN_B}, {EXT_STEPS} steps, "
+        f"{np.mean(step_ms):.2f} ms/step ({split} ms; host clock around "
+        f"synchronized stages, sc2pcr summed over the {TRAIN_B} pairs), "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {smi}")
+    extension_breakdown(student, labeler, opt, batch, cfg, tables, gen)
+    return counts
+
+
+def extension_breakdown(student, labeler, opt, batch, cfg, tables, gen):
+    """torch.profiler over one more extension step: device time, busy
+    share, the kernels with most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eyoc_tpu_torch.training.steps import extension_train_step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extension_train_step(student, labeler, opt, batch, cfg, tables,
+                             generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(_dev_ms(e) for e in events)
+    log(f"extension profiler, one step: wall {wall:.3f} ms (profiler on), "
+        f"device time {total:.3f} ms, busy share {total / wall:.3f}, "
+        f"{sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=lambda e: -_dev_ms(e))[:12]:
+        log(f"  {_dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
+
+
+def gated_step(spec, batch, tables):
+    """One extension step at the demo's gates (Lowe, Spherical, safe-radius
+    mining, translation floor), counts reset just before: K8 once (both
+    directions of every pair) and K9 twice. Returns the counts."""
+    import torch
+    from eyoc_tpu_torch.training.steps import extension_train_step
+    from eyoc_tpu_torch.utils import kernels
+    student, labeler, opt, _ = ext_models(spec)
+    gen = torch.Generator().manual_seed(8)
+    kernels.reset_counts()
+    m = extension_train_step(student, labeler, opt, batch, ext_config(**GATED),
+                             tables, generator=gen, device="cuda")
+    vals = {k: float(v) for k, v in m.items()}
+    counts = dict(kernels.launches)
+    log(json.dumps({"gated_launch_counts": counts}))
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"gated step: non-finite metrics {vals}")
+    if counts["masked_knn2"] != 1 or counts["masked_argmin_excl"] != 2:
+        raise AssertionError("the gated step is not one K8 and two K9 "
+                             "launches")
+    log(f"gated step ({GATED}): loss {vals['loss']:.6f}, "
+        f"{int(vals['num_pos_found'])} positives, labeler hit ratio "
+        f"{vals['labeler_hit_ratio']:.4f}; K8 1 launch, K9 2")
+    return counts
+
+
+def known_answer(batch):
+    """`label_pairs` at full size on a known answer: cloud 1 is phase 5's
+    voxelized cloud 0 of each pair under a known pose, row for row, and
+    both sides' labeler features are the same random unit vectors; for
+    feature_filter "None" and "Lowe" (spatial_filter "None"), SC2-PCR
+    recovers the pose (RTE < 0.05 m, RRE < 0.1 deg), the labeler's hit
+    ratio is >= 0.99, and >= 99% of the rediscovered valid rows map to
+    themselves and are kept."""
+    import torch
+    from eyoc_tpu_torch.geometry.metrics import rre_deg, rte
+    from eyoc_tpu_torch.geometry.se3 import integrate_trans, transform_points
+    from eyoc_tpu_torch.training.pipeline import preprocess_clouds
+    from eyoc_tpu_torch.training.steps import label_pairs
+    vox, _ = preprocess_clouds(batch.xyz0, batch.n0, caps=CAPS,
+                               voxel_size=0.3, window_bits=WINDOW_BITS)
+    B, cap = vox.mask.shape
+    yaw = 0.3
+    R = torch.tensor([[np.cos(yaw), -np.sin(yaw), 0.0],
+                      [np.sin(yaw), np.cos(yaw), 0.0], [0.0, 0.0, 1.0]],
+                     dtype=torch.float32)
+    T = integrate_trans(R, torch.tensor([6.0, -2.5, 0.3])).cuda()
+    T = T.expand(B, 4, 4).contiguous()
+    x1 = transform_points(vox.xyz, T).contiguous()
+    gen = torch.Generator().manual_seed(9)
+    F = torch.nn.functional.normalize(torch.randn(B, cap, 32, generator=gen),
+                                      dim=-1).cuda() * vox.mask[..., None]
+    noise = torch.rand(B, cap, generator=gen).cuda()
+    for ff in ("None", "Lowe"):
+        lab = label_pairs(ext_config(feature_filter=ff, spatial_filter="None"),
+                          F, vox.mask, vox.xyz, F, vox.mask, x1,
+                          batch.frame_distance, T, noise)
+        te, re = rte(lab.T_est, T), rre_deg(lab.T_est, T)
+        sel_ok = torch.gather(vox.mask, 1, lab.pos_i.long())
+        same = lab.ok & (lab.pos_j == lab.pos_i)
+        share = float(same.sum()) / max(float(sel_ok.sum()), 1.0)
+        hit = float(lab.labeler_hit.min())
+        log(f"known answer, feature_filter {ff}: max RTE "
+            f"{float(te.max()):.2e} m, max RRE {float(re.max()):.2e} deg, "
+            f"min labeler hit {hit:.4f}, {share:.4f} of the "
+            f"{int(sel_ok.sum())} rediscovered rows map to themselves, kept")
+        if not (float(te.max()) < 0.05 and float(re.max()) < 0.1
+                and hit >= 0.99 and share >= 0.99):
+            raise AssertionError(f"label_pairs missed the known answer "
+                                 f"({ff})")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1031,6 +1582,7 @@ def main() -> int:
     from eyoc_tpu_torch.eval import EvalConfig, embed_pair, register_pair
     from eyoc_tpu_torch.geometry.metrics import registration_success
     from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.ops.matching import load_similarity_tables
     from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig, sc2_pcr
     from eyoc_tpu_torch.training.optim import sgd
     from eyoc_tpu_torch.training.pipeline import preprocess_clouds
@@ -1094,6 +1646,12 @@ def main() -> int:
                              f"over the batch: {len(gt)} calls")
     results.update(check_train_kernels(calls))
     del calls
+    # the labeling kernels, on the calls of a published-recipe and a gated
+    # extension step
+    tables = load_similarity_tables("waymo").to("cuda")
+    calls = record_extension_steps(spec, train_batch, tables)
+    results.update(check_label_kernels(calls))
+    del calls
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full width
@@ -1155,27 +1713,49 @@ def main() -> int:
     # ---- phase 5: the training path at full width
     train_counts = train_phase(train_model, opt, train_batch, tcfg,
                                train_gen, smi)
+    del train_model, opt
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the EYOC extension step at full width
+    ext_counts = extension_phase(spec, train_batch, tables, smi)
+    gated_counts = gated_step(spec, train_batch, tables)
+    known_answer(train_batch)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
-    # `_train`, and the training kernels) the training run's (phase 5);
-    # each row's times are of the calls of that path
+    # `_train`, and the training kernels) the training run's (phase 5),
+    # the labeling rows (K2, K3 and K4 with the suffix `_label`) the
+    # extension run's (phase 6), K8 and K9 the gated step's; each row's
+    # times are of the calls of that path
     def launches(name):
         if name in EVAL_KERNELS or name == "sc2_seed_counts":
             return counts[name]
+        if name.endswith("_label"):
+            return ext_counts[name.removesuffix("_label")]
+        if name in ("masked_knn2", "masked_argmin_excl"):
+            return gated_counts[name]
         return train_counts[name.removesuffix("_train")]
 
     source = {"sparse_conv_dgrad": "sparse_conv",
               "sparse_conv_train": "sparse_conv",
               "masked_argmin_train": "masked_argmin",
+              "masked_argmin_label": "masked_argmin",
               "take_rows_backward": "take_rows",
-              "sc2_seed_topk": "sc2_seed_counts"}
+              "sc2_seed_topk": "sc2_seed_counts",
+              "sc2_seed_topk_label": "sc2_seed_counts",
+              "sc2_power_iteration_label": "sc2_power_iteration",
+              "masked_argmin_excl": "masked_knn2"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_dgrad": "eyoc_tpu/sparse/brick_conv.py:259",
         "masked_argmin": "eyoc_tpu/ops/knn.py:79",
         "masked_argmin_train": "eyoc_tpu/ops/knn.py:79",
+        "masked_argmin_label": "eyoc_tpu/ops/knn.py:31",
+        "masked_knn2": "eyoc_tpu/ops/knn.py:58",
+        "masked_argmin_excl": "eyoc_tpu/training/loss.py:97",
+        "sc2_power_iteration_label": "eyoc_tpu/registration/sc2pcr.py:276",
+        "sc2_seed_topk_label": "eyoc_tpu/registration/sc2pcr.py:296",
         "sc2_power_iteration": "eyoc_tpu/registration/sc2pcr.py:276",
         "sc2_seed_counts": "eyoc_tpu/registration/sc2pcr.py:296",
         "sc2_seed_topk": "eyoc_tpu/registration/sc2pcr.py:296",

@@ -37,13 +37,14 @@ class EvalConfig:
 
 
 def random_subset(noise: torch.Tensor, n: int) -> torch.Tensor:
-    """Indices of a uniform random n-subset given i.i.d. uniform `noise`
-    (invalid rows pre-set to 2.0): the exact top-n of -noise, ties to the
-    lowest index. The JAX `_random_subset` takes `approx_max_k` instead
-    (steps.py:94); over i.i.d. noise both select a subset with the same
-    distribution."""
+    """Indices [..., n] of a uniform random n-subset of the last axis given
+    i.i.d. uniform `noise` (invalid rows pre-set to 2.0): the exact top-n
+    of -noise, ties to the lowest index. The JAX `_random_subset` takes
+    `approx_max_k` instead (steps.py:94), which is exact on the CPU; over
+    i.i.d. noise both select a subset with the same distribution."""
     n = min(n, noise.shape[-1])
-    return torch.sort(-noise, descending=True, stable=True).indices[:n]
+    return torch.sort(-noise, dim=-1, descending=True,
+                      stable=True).indices[..., :n]
 
 
 def subset_noise(mask: torch.Tensor,

@@ -2,6 +2,8 @@
 
 RTE/RRE use the reference's diagonal clamp for arccos stability
 (scripts/test_kitti.py:186-212); success is RTE < 2 m and RRE < 5 deg.
+`hit_ratio` is the labeling's share of matches within a threshold under a
+pose (reference lib/trainer.py:421-424).
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from eyoc_tpu_torch.geometry.se3 import transform_points
 
 
 def pdist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,6 +41,18 @@ def rre_deg(T_est: torch.Tensor, T_gt: torch.Tensor) -> torch.Tensor:
     diag = torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1), max=1.0)
     cos_angle = torch.clamp((diag.sum(-1) - 1.0) / 2.0, -1.0, 1.0)
     return torch.arccos(cos_angle) * (180.0 / math.pi)
+
+
+def hit_ratio(xyz0_corr, xyz1_corr, T_gt, thresh: float, mask=None):
+    """Fraction of correspondences [..., M, 3] within `thresh` after
+    warping the first by T_gt [..., 4, 4] (metrics.py:70-84); over the
+    `mask`ed ones when given (0 when none is)."""
+    d = transform_points(xyz0_corr, T_gt) - xyz1_corr
+    hit = (torch.sqrt(torch.sum(d * d, -1)) < thresh).to(torch.float32)
+    if mask is None:
+        return torch.mean(hit, -1)
+    m = mask.to(torch.float32)
+    return torch.sum(hit * m, -1) / torch.clamp(torch.sum(m, -1), min=1.0)
 
 
 def registration_success(T_est, T_gt, rte_thresh: float = 2.0,

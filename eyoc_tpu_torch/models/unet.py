@@ -187,12 +187,14 @@ class ResUNet(nn.Module):
         return folded
 
     def forward(self, pyr: BrickPyramid, in_feats: torch.Tensor | None = None,
-                bn_momentum: float = 0.05) -> torch.Tensor:
+                bn_momentum: float | None = 0.05) -> torch.Tensor:
         """L2-normalized features [M0, out_channels] f32 for the level-0
         voxel rows (zero rows at invalid voxels). The input feature is
         `in_feats` [M0, 1] (e.g. jittered occupancy) masked to the valid
         voxels, or the occupancy when None (the test protocol). The eval
-        entry points call `embed`, which ignores the mode."""
+        entry points call `embed`, which ignores the mode. In train mode
+        with bn_momentum None, BN takes batch statistics and leaves the
+        running ones as they are (the EYOC labeler's forwards)."""
         if self.training:
             return self._forward_train(pyr, in_feats, bn_momentum)
         return self.embed(pyr, in_feats)
@@ -261,7 +263,7 @@ class ResUNet(nn.Module):
         return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
 
     def _forward_train(self, pyr: BrickPyramid, in_feats,
-                       bn_momentum: float) -> torch.Tensor:
+                       bn_momentum: float | None) -> torch.Tensor:
         """apply_unet(training=True): unfolded convs, masked BN with batch
         statistics (running stats updated in place), autograd through the
         kernels."""

@@ -91,8 +91,9 @@ def topk(x: torch.Tensor, k: int):
 
 
 def _power_iteration(M: torch.Tensor, iters: int) -> torch.Tensor:
-    """Leading eigenvector of [..., n, n] in full f32; returns [..., n]."""
-    v = torch.ones(M.shape[:-1] + (1,), dtype=torch.float32, device=M.device)
+    """Leading eigenvector of [..., n, n] in M's dtype (full f32 on the
+    paths); returns [..., n]."""
+    v = torch.ones(M.shape[:-1] + (1,), dtype=M.dtype, device=M.device)
     for _ in range(iters):
         v = M @ v
         v = v / (torch.linalg.norm(v, dim=-2, keepdim=True) + 1e-6)

@@ -167,13 +167,17 @@ class MaskedBatchNormFunction(torch.autograd.Function):
 
 
 def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
-                      momentum: float = 0.05, eps: float = 1e-5):
+                      momentum: float | None = 0.05, eps: float = 1e-5):
     """Train-mode masked BN: x [M, C] (bf16 on the card, bf16 or f32 on
     the CPU), mask [M] bool, scale /
     bias [C] f32 parameters. Returns y [M, C] in x's dtype, zero at invalid
     rows, and updates `running_mean` / `running_var` in place with
-    (1 - momentum) run + momentum batch (unbiased var, as norm.py:60-64)."""
+    (1 - momentum) run + momentum batch (unbiased var, as norm.py:60-64);
+    momentum None leaves them as they are (JAX discarding the new state,
+    as the EYOC labeler's forwards do)."""
     y, n, mean, var = MaskedBatchNormFunction.apply(x, mask, scale, bias, eps)
+    if momentum is None:
+        return y
     with torch.no_grad():
         unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
         running_mean.mul_(1.0 - momentum).add_(momentum * mean)

@@ -17,8 +17,10 @@ On the card the mining runs as kernel K2 (`masked_argmin`) on the detached
 features; the mined distance is then recomputed with autograd from rows
 taken by kernel K6 (`take_rows`): sqrt(sum (posF0 - subF1[ind])^2 + 1e-7).
 Its gradient equals the gradient JAX takes through `jnp.min` of the Gram
-form, up to rounding. `safe_radius > 0` needs a pairwise mask that K2 does
-not take: the plain path carries it on the CPU, and a CUDA tensor raises.
+form, up to rounding. With `safe_radius > 0` the mining is kernel K9
+(`masked_argmin_excl`): K2 that skips each candidate whose coordinates lie
+within the radius of the anchor's partner, and flags an anchor whose every
+candidate was skipped (its mined distance is then 1e9, as in JAX).
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from eyoc_tpu_torch.geometry.metrics import pdist, pdist2
-from eyoc_tpu_torch.ops.knn import masked_argmin
+from eyoc_tpu_torch.ops.knn import masked_argmin, masked_argmin_excl
 from eyoc_tpu_torch.ops.rows import take_rows
 
 _BIG = 1e9          # excluded candidates (loss.py:100)
@@ -77,23 +78,21 @@ def _masked_mean(x, m):
     return torch.sum(x * mf) / torch.clamp(torch.sum(mf), min=1.0)
 
 
-def _mine(anchor, cand, near):
+def _mine(anchor, cand, excl):
     """Hardest candidate per anchor row on detached features: (index [P]
-    int64, chosen-is-excluded [P] bool or None)."""
-    a, c = anchor.detach().float(), cand.detach().float()
-    if near is None:
+    int64, every-candidate-excluded [P] bool or None). `excl` is None or
+    (partner coordinates [P, 3], candidate coordinates [M, 3], r^2)."""
+    a, c = anchor.detach().float().contiguous(), cand.detach().float()
+    c = c.contiguous()
+    if excl is None:
         ones_a = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
         ones_c = torch.ones(c.shape[0], dtype=torch.bool, device=a.device)
-        _, ind = masked_argmin(a.contiguous(), ones_a, c.contiguous(), ones_c)
+        _, ind = masked_argmin(a, ones_a, c, ones_c)
         return ind.long(), None
-    if a.device.type != "cpu":
-        raise NotImplementedError(
-            "hardest_contrastive_loss: safe_radius > 0 is not ported to the "
-            "card yet (ROADMAP queue 1: safe_radius mining on the card)")
-    d = torch.where(near, torch.full_like(near, _BIG, dtype=torch.float32),
-                    pdist(a, c))
-    ind = torch.argmin(d, dim=1)
-    return ind, near.gather(1, ind[:, None])[:, 0]
+    pxyz, cxyz, r2 = excl
+    ind, excluded = masked_argmin_excl(a, c, pxyz.float().contiguous(),
+                                       cxyz.float().contiguous(), r2)
+    return ind.long(), excluded
 
 
 def hardest_contrastive_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
@@ -114,13 +113,13 @@ def hardest_contrastive_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
 
     posF0 = take_rows(F0, pi)
     posF1 = take_rows(F1, pj)
-    near1 = near0 = None
+    excl1 = excl0 = None
     if safe_radius > 0.0 and xyz0 is not None and xyz1 is not None:
         r2 = safe_radius * safe_radius
-        near1 = pdist2(xyz1[pj.long()], xyz1[sel1]) < r2
-        near0 = pdist2(xyz0[pi.long()], xyz0[sel0]) < r2
-    ind01, excl01 = _mine(posF0, take_rows(F1.detach(), sel1), near1)
-    ind10, excl10 = _mine(posF1, take_rows(F0.detach(), sel0), near0)
+        excl1 = (xyz1[pj.long()], xyz1[sel1], r2)
+        excl0 = (xyz0[pi.long()], xyz0[sel0], r2)
+    ind01, excl01 = _mine(posF0, take_rows(F1.detach(), sel1), excl1)
+    ind10, excl10 = _mine(posF1, take_rows(F0.detach(), sel0), excl0)
     neg_j0 = sel1[ind01]
     neg_i1 = sel0[ind10]
 

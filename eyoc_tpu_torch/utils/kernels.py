@@ -13,9 +13,9 @@ module on a host without `nvcc`.
 `launches` holds one plain integer per counted launch site; a wrapper adds
 one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
-(K6's forward and backward, K4's counts and top k), and one kernel may be
-counted under two names (K1 as the forward conv and as the conv
-backward's dX), so the counters are `COUNTERS`, a superset of the sources
+(K6's forward and backward, K4's counts and top k, K8 and K9), and one
+kernel may be counted under two names (K1 as the forward conv and as the
+conv backward's dX), so the counters are `COUNTERS`, a superset of the sources
 in `KERNELS`.
 
 The launch path is part of a small kernel's time: a call that moves a few
@@ -43,9 +43,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
            "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
-           "masked_channel_sums")
+           "masked_channel_sums", "masked_knn2")
 COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward",
-                      "sc2_seed_topk")
+                      "sc2_seed_topk", "masked_argmin_excl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

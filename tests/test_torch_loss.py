@@ -10,7 +10,8 @@
     (rtol 1e-5, atol 1e-6) and the grads with respect to F0 and F1 against
     jax.grad (rtol 1e-4, atol 1e-6; the mined distance is recomputed
     directly instead of through the Gram form), with and without
-    safe_radius;
+    safe_radius; with safe_radius a tensor that is not on the CPU goes to
+    kernel K9, never to the plain mining;
 (f) gt_positive_pairs and flatten_pairs, bit-equal.
 """
 
@@ -31,6 +32,7 @@ from eyoc_tpu_torch.ops.rows import take_rows
 from eyoc_tpu_torch.training import loss as tloss
 from eyoc_tpu_torch.training.pipeline import flatten_pairs, gt_positive_pairs
 from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
+from eyoc_tpu_torch.utils import kernels
 
 # ------------------------------------------------------------- take_rows
 
@@ -174,11 +176,18 @@ def test_safe_radius_excludes_everything_like_jax():
     assert np.array_equal(aux["ind01"].numpy(), jidx["ind01"])
 
 
-def test_safe_radius_mining_refuses_non_cpu_tensors():
+def test_safe_radius_mining_refuses_non_cpu_tensors(monkeypatch):
+    """A tensor that is not on the CPU never takes the plain mining: it
+    goes to kernel K9 (here its loader, which fails)."""
+    def fail(name, argtypes, symbol=None):
+        raise RuntimeError(f"loader: {symbol or name}")
+
+    monkeypatch.setattr(kernels, "load", fail)
     a = torch.empty((8, 32), device="meta")
-    near = torch.empty((8, 4), dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloss._mine(a, torch.empty((4, 32), device="meta"), near)
+    excl = (torch.empty((8, 3), device="meta"),
+            torch.empty((4, 3), device="meta"), 2.25)
+    with pytest.raises(RuntimeError, match="loader: masked_argmin_excl"):
+        tloss._mine(a, torch.empty((4, 32), device="meta"), excl)
 
 
 def test_pair_member_equals_lexicographic_search():
