@@ -6,22 +6,29 @@
 Phases (any failure exits non-zero):
 1. card and build: the card's name and power limit from nvidia-smi; every
    CUDA kernel built from the sources in `eyoc_tpu_torch/csrc/`.
-2. every kernel against its plain PyTorch version on the same CUDA tensors
-   at the main paths' shapes: error, kernel time and plain time (CUDA
-   events over back-to-back calls), the kernel's device time over the same
-   calls (torch.profiler), the least time the card could take (bound) and,
-   where one PyTorch call computes the same function, that call's time
-   (timed in turns with the kernel). K4 on two sets (the registration
-   set, and a tie-heavy one where most keys are 0 and some seeds point at
-   invalid rows): `sc2_seed_counts` bit-equal to its plain version, and
-   `sc2_seed_topk`'s [S, k1] indices bit-equal, in order, to the plain
-   selection (masked plain counts, then `topk`), beside the unfused path
-   on the card (the counts kernel, the mask and the full-row sort) and the
-   cuBLAS time of the bare fp16 [S, N] @ [N, N] product on prebuilt masks
-   (product only, not the same function). K1 (the eval forward, on the
-   calls of one ResUNetBN2C forward) and the training kernels (the train
-   forward, the conv backward, the row gather, the masked-BN sums, on the
-   calls recorded during one full-width train step); K1's, K5's and K7's times
+2. every kernel against its plain PyTorch version on the same CUDA tensors.
+   First the sparse coordinate kernels at the eval shape (one cloud of
+   131072 points) and the train shape (the 8 clouds of a batch side, the
+   maps with their inverses): K10 `voxelize` (two launches around one
+   torch.sort), K11 `brick_pyramid` and K12 `conv_maps` (two launches
+   each), every output bit-equal to the plain version and the same bits
+   twice, with device kernels a call, host us a call and the bound (bytes);
+   then the others at the main paths' shapes: error, kernel time and plain
+   time (CUDA events over back-to-back calls), the kernel's device time
+   over the same calls (torch.profiler), the least time the card could
+   take (bound) and, where one PyTorch call computes the same function,
+   that call's time (timed in turns with the kernel). K4 on two sets (the
+   registration set, and a tie-heavy one where most keys are 0 and some
+   seeds point at invalid rows): `sc2_seed_counts` bit-equal to its plain
+   version, and `sc2_seed_topk`'s [S, k1] indices bit-equal, in order, to
+   the plain selection (masked plain counts, then `topk`), beside the
+   unfused path on the card (the counts kernel, the mask and the full-row
+   sort) and the cuBLAS time of the bare fp16 [S, N] @ [N, N] product on
+   prebuilt masks (product only, not the same function). K1 (the eval
+   forward, on the calls of one ResUNetBN2C forward) and the training
+   kernels (the train forward, the conv backward, the row gather, the
+   masked-BN sums, on the calls recorded during one full-width train
+   step); K1's, K5's and K7's times
    (kernel and device) are also split by shape class, and K2's train row
    by class (the GT pairs, one batched call a step, and the mining). K1
    (eval), K2, K3, K4, K5 and K7 give the same bits on a second call; K3
@@ -40,8 +47,14 @@ Phases (any failure exits non-zero):
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
    every kernel of the path launched (launch counts reset just before, read
-   just after): one `sc2_seed_topk` a pair and no `sc2_seed_counts`, and
-   no sort or top-k over S x N elements in the profiler's view of a pair.
+   just after): one `sc2_seed_topk` a pair and no `sc2_seed_counts`, one
+   K10, K11 and K12 call a cloud, and no sort or top-k over S x N elements
+   in the profiler's view of a pair. Before it, and before phases 5 and 6
+   on their own batch sides (`coord_path_checks`): the device kernels of
+   one `preprocess_clouds` call (K10's 2, the sort's, K11's 2) beside the
+   plain version's on the same tensors, no host sync in it or in
+   `conv_maps(inverse=False)` and at most one in `conv_maps(inverse=True)`,
+   and its peak memory under the plain version's dense grid.
 4. registration sanity: `sc2_pcr` recovers a known pose from N = 5000
    correspondences with 30% inliers.
 5. the training path at full width: `training.steps.base_train_step`
@@ -50,8 +63,9 @@ Phases (any failure exits non-zero):
    then 3 timed steps, each split by stage; a finite loss, positives found,
    finite and non-zero grads, parameters and BN statistics that moved, and
    every kernel of the step launched (counts reset just before, read just
-   after). Then where a step's time goes: the conv maps' share and a
-   torch.profiler view of one more step.
+   after), one K10, K11 and K12 call a side a step. Then where a step's
+   time goes: the conv maps' share and a torch.profiler view of one more
+   step.
 6. the EYOC extension step at full width (`training.steps.
    extension_train_step`) at the published KITTI recipe
    (scripts/train_kitti_EYOC.sh: feature filter "None", Similarity over
@@ -62,7 +76,8 @@ Phases (any failure exits non-zero):
    0.2); finite metrics, the labeler's BN buffers unchanged by its
    forwards, its parameters the EMA formula bit for bit after each sync,
    and the launches of each step (8 K3, 8 K4, one K2 for the matching of
-   all 16 problems, one for the rediscovery, two for the mining); a
+   all 16 problems, one for the rediscovery, two for the mining, two K10
+   and K11, four K12: the labeler's two forwards and the student's); a
    torch.profiler view of one more step. Then one step at the extension
    demo's gates (Lowe, Spherical at 40 m, safe-radius mining at 1.5 m,
    translation floor 0.4): one K8 and two K9 launches. Then `label_pairs`
@@ -282,15 +297,14 @@ def launch_path(label, fn, calls, what, reps):
         f"{len(calls)} calls of {what}, {reps} passes)")
 
 
-def kernels_per_call(label, fn, reps: int = 5, expected: int = 1) -> float:
-    """Device kernels that one call of `fn` runs, from torch.profiler over
-    `reps` calls (memory copies and fills not counted); the K3 and K2
-    wrappers must run exactly one, K4's top k three. The profiler also
-    records the runtime's kernel launches on the host (cudaLaunch*): where
-    its device records come short of them (a window after many earlier
-    profiles can miss one ms-long cooperative kernel), the launches are the
-    count. A profile that recorded no device activity at all is taken
-    again, up to three times."""
+def count_kernels(fn, reps: int = 5):
+    """(device kernels one call of `fn` runs, the profiler's kernel events):
+    torch.profiler over `reps` calls, memory copies and fills not counted.
+    The profiler also records the runtime's kernel launches on the host
+    (cudaLaunch*): where its device records come short of them (a window
+    after many earlier profiles can miss one ms-long cooperative kernel),
+    the launches are the count. A profile that recorded no device activity
+    at all is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -308,17 +322,22 @@ def kernels_per_call(label, fn, reps: int = 5, expected: int = 1) -> float:
         launched = sum(e.count for e in averages
                        if e.key.startswith(("cudaLaunch", "cuLaunch")))
         if n > 0:
-            log(f"{label}: {max(n, launched) / reps:g} device kernels a call "
-                f"(profiler, {reps} calls: {n} device records, {launched} "
-                "launches; device ms a call: " + ", ".join(
-                    f"{e.key[:60]} {_dev_ms(e) / reps:.4f}" for e in events)
-                + ")")
-            if max(n, launched) != expected * reps:
-                raise AssertionError(f"{label}: {max(n, launched) / reps:g} "
-                                     f"device kernels a call, expected "
-                                     f"{expected}")
-            return max(n, launched) / reps
-    raise AssertionError(f"{label}: the profiler recorded no device kernel")
+            return max(n, launched) / reps, events, n, launched
+    raise AssertionError("the profiler recorded no device kernel")
+
+
+def kernels_per_call(label, fn, reps: int = 5, expected: float = 1) -> float:
+    """Device kernels that one call of `fn` runs (`count_kernels`); the K3
+    and K2 wrappers must run exactly one, K4's top k three."""
+    k, events, n, launched = count_kernels(fn, reps)
+    log(f"{label}: {k:g} device kernels a call (profiler, {reps} calls: "
+        f"{n} device records, {launched} launches; device ms a call: "
+        + ", ".join(f"{e.key[:60]} {_dev_ms(e) / reps:.4f}" for e in events)
+        + ")")
+    if k != expected:
+        raise AssertionError(f"{label}: {k:g} device kernels a call, "
+                             f"expected {expected:g}")
+    return k
 
 
 def check_masked_argmin(gen):
@@ -550,14 +569,204 @@ def check_seed_topk(sets, k1):
                 bound_by=by, device_ms=dev)
 
 
+# -------------------------------------------------- phase 2, coordinates
+
+
+def _differ(got, want) -> int:
+    """Elements that differ between two trees of tensors (tuples, named
+    tuples, None); a shape or structure mismatch counts as all of them."""
+    import torch
+    if got is None or want is None:
+        return 0 if got is None and want is None else 1 << 62
+    if not torch.is_tensor(got):
+        if len(got) != len(want):
+            return 1 << 62
+        return sum(_differ(a, b) for a, b in zip(got, want))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return 1 << 62
+    return int((got != want).sum())
+
+
+def _nbytes(tree) -> int:
+    import torch
+    if tree is None:
+        return 0
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    return sum(_nbytes(t) for t in tree)
+
+
+def _coord_row(label, fn, plain, nbytes, expected_kernels, note, reps=10):
+    """One coordinate kernel against its plain version on the card: every
+    output bit-equal, the same bits on a second call, its device kernels a
+    call, its time (CUDA events), device time (profiler), host cost a call
+    and its bound (bytes at HBM_BPS)."""
+    got = fn()
+    want = plain()
+    diff = _differ(got, want)
+    if diff:
+        raise AssertionError(f"{label}: {diff} elements differ from the "
+                             "plain version")
+    if _differ(fn(), got):
+        raise AssertionError(f"{label}: other bits on a second call")
+    k = kernels_per_call(label, fn, reps=3, expected=expected_kernels)
+    ms = time_ms(fn, reps=reps)
+    plain_ms = time_ms(plain, reps=2, warmup=1)
+    dev = device_ms([fn], 5)
+    us = host_us([fn], 20)
+    b, by = bound_ms(nbytes, 0.0, "f32")
+    log(f"{label}: bit-equal to the plain version (every output), the same "
+        f"bits twice; kernel {ms:.3f} ms (device {fmt_ms(dev)}), plain "
+        f"{plain_ms:.3f} ms, bound {b:.4f} ms ({nbytes} bytes at "
+        f"{HBM_BPS / 1e12:.2f} TB/s), {k:g} device kernels a call, "
+        f"{us:.1f} us of host a call; library: none: {note}")
+    return got, dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=by, device_ms=dev, library_ms=None)
+
+
+def sort_kernels(n: int):
+    """(device kernels, device ms) of one torch.sort of n int64 keys: the
+    one library call of K10's path."""
+    import torch
+    keys = torch.randint(0, 1 << 62, (n,), device="cuda")
+    return (count_kernels(lambda: torch.sort(keys), reps=3)[0],
+            device_ms([lambda: torch.sort(keys)], 5))
+
+
+def check_coord_kernels(xyz, counts, inverse: bool, what: str):
+    """K10 (`voxelize_batched`), K11 (`build_pyramid`) and K12
+    (`conv_maps`, with the inverses where `inverse`) on one side of a
+    batch, each against its plain version on the same CUDA tensors.
+    Returns {kernels-line name: row}."""
+    import torch
+    from eyoc_tpu_torch.sparse import bricks, brick_conv, morton
+    from eyoc_tpu_torch.sparse import voxelize as vz
+    from eyoc_tpu_torch.training.pipeline import brick_caps
+    B, P = xyz.shape[:2]
+    cap, bcs = CAPS[0], brick_caps(CAPS)
+    n_sort, sort_ms = sort_kernels(B * P)
+    tag = f"({what}, B = {B}, P = {P})"
+    # torch divides a CUDA tensor by a Python number as a product with its
+    # reciprocal: the points where that moves the quantized coordinate
+    pts = xyz.reshape(-1, 3)
+    moved = int((torch.floor(pts / 0.3) != torch.floor(
+        pts / torch.tensor(0.3, device="cuda"))).any(1).sum())
+    log(f"quantize {tag}: torch's x / 0.3 on the card moves {moved} of "
+        f"{pts.shape[0]} points to another voxel than the IEEE division "
+        "(the plain version and K10 divide by a device tensor, IEEE)")
+    args = (xyz, counts, 0.3, cap, WINDOW_BITS)
+    (vox, keys), r10 = _coord_row(
+        f"K10 voxelize {tag}", lambda: vz.voxelize_batched(*args),
+        lambda: vz.voxelize_batched_plain(*args),
+        xyz.numel() * 4 + B * 4 + B * 4 + B * cap * (12 + 12 + 1 + 4 + 4),
+        2 + n_sort, "no one call quantizes, sorts and compacts with a "
+        "representative point", reps=5)
+    log(f"  K10's torch.sort of {B * P} int64 keys: {n_sort:g} device "
+        f"kernels, device {fmt_ms(sort_ms)}")
+    mask0 = vox.mask.reshape(-1)
+    pargs = (keys, mask0, B, bcs, WINDOW_BITS)
+    pyr, r11 = _coord_row(
+        f"K11 brick_pyramid {tag}", lambda: bricks.build_pyramid(*pargs),
+        lambda: bricks.build_pyramid_plain(*pargs),
+        keys.numel() * 5 + _nbytes(bricks.build_pyramid(*pargs)), 2,
+        "no one call groups sorted keys into bricks and finds neighbours")
+    gx, gy, gz = morton.grid_dims(1, WINDOW_BITS)
+    log(f"  K11 allocates no dense grid; the plain version's level-0 grid "
+        f"is {B * gx * gy * gz * 4 / 2 ** 20:.1f} MiB")
+    margs = (pyr, 4, 5, inverse)
+    _, r12 = _coord_row(
+        f"K12 conv_maps {tag}, inverse {inverse}",
+        lambda: brick_conv.conv_maps(*margs),
+        lambda: brick_conv.conv_maps_plain(*margs),
+        sum(_nbytes((lv.nbr6, lv.cellslot, lv.occ, lv.up_slots))
+            for lv in pyr.levels) + _nbytes(brick_conv.conv_maps(*margs)[:4])
+        + _nbytes(brick_conv.conv_maps(*margs)[5:]), 2,
+        "no one call builds gather maps from a brick pyramid")
+    return {"voxelize": r10, "brick_pyramid": r11, "conv_maps": r12}
+
+
+def coord_path_checks(what, xyz, counts, inverse: bool):
+    """One side of a path's batch through `preprocess_clouds` and
+    `conv_maps`: the device kernels of a preprocess call (K10's 2, the
+    sort's and K11's 2) beside the plain version's (the parent's code) on
+    the same CUDA tensors; no host sync (sync debug mode "error") in
+    preprocess_clouds and conv_maps(inverse=False), at most one in
+    conv_maps(inverse=True) (mode "warn"); the preprocess's peak device
+    memory beside the plain version's and under the plain version's
+    level-0 dense grid."""
+    import warnings
+    import torch
+    from eyoc_tpu_torch.sparse import morton
+    from eyoc_tpu_torch.sparse.brick_conv import conv_maps
+    from eyoc_tpu_torch.training.pipeline import (preprocess_clouds,
+                                                  preprocess_clouds_plain)
+    kw = dict(caps=CAPS, voxel_size=0.3, window_bits=WINDOW_BITS)
+    B, P = xyz.shape[:2]
+    n_sort = sort_kernels(B * P)[0]
+    k = count_kernels(lambda: preprocess_clouds(xyz, counts, **kw), 3)[0]
+    k_plain = count_kernels(lambda: preprocess_clouds_plain(xyz, counts,
+                                                            **kw), 1)[0]
+    if k != 4 + n_sort:
+        raise AssertionError(f"{what}: preprocess_clouds runs {k:g} device "
+                             f"kernels, not K10's 2 + the sort's {n_sort:g} "
+                             "+ K11's 2")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, pyr = preprocess_clouds(xyz, counts, **kw)
+        conv_maps(pyr, 4, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = 0
+    if inverse:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                conv_maps(pyr, 4, 5, inverse=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        if syncs > 1:
+            raise AssertionError(f"{what}: conv_maps(inverse=True) syncs the "
+                                 f"host {syncs} times")
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()          # alive until the peak is read
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        del out
+        return extra
+    mem = peak(lambda: preprocess_clouds(xyz, counts, **kw))
+    mem_plain = peak(lambda: preprocess_clouds_plain(xyz, counts, **kw))
+    gx, gy, gz = morton.grid_dims(1, WINDOW_BITS)
+    grid = B * gx * gy * gz * 4
+    if mem >= grid:
+        raise AssertionError(f"{what}: preprocess_clouds peaks at {mem} "
+                             f"bytes, no less than a {grid}-byte grid")
+    log(f"{what} (B = {B}, P = {P}): preprocess_clouds runs {k:g} device "
+        f"kernels (K10 2, the sort {n_sort:g}, K11 2; the plain version "
+        f"{k_plain:g} on the same tensors), no host sync in it or in "
+        f"conv_maps(inverse=False)"
+        + (f", {syncs} in conv_maps(inverse=True)" if inverse else "")
+        + f"; peak device memory {mem / 2 ** 20:.1f} MiB (the plain "
+        f"version {mem_plain / 2 ** 20:.1f} MiB, its level-0 grid "
+        f"{grid / 2 ** 20:.1f} MiB)")
+
+
 # ---------------------------------------------------- phase 2, training
 
 
+COORD_KERNELS = ("voxelize", "brick_pyramid", "conv_maps")
 TRAIN_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "masked_argmin",
                  "sparse_conv_wgrad", "take_rows", "take_rows_backward",
-                 "masked_channel_sums")
+                 "masked_channel_sums") + COORD_KERNELS
 EVAL_KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
-                "sc2_seed_topk")
+                "sc2_seed_topk") + COORD_KERNELS
 
 
 def make_train_batch():
@@ -1248,6 +1457,8 @@ def train_phase(model, opt, batch, cfg, gen, smi):
     from eyoc_tpu_torch.training.steps import base_train_step
     from eyoc_tpu_torch.utils import kernels
 
+    coord_path_checks("train path, cloud 0 of each pair", batch.xyz0,
+                      batch.n0, inverse=True)
     torch.cuda.reset_peak_memory_stats()     # the peak of this phase alone
     base_train_step(model, opt, batch, cfg, generator=gen,      # warm-up
                     device="cuda")
@@ -1275,6 +1486,10 @@ def train_phase(model, opt, batch, cfg, gen, smi):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"train step launched no {missing}")
+    # both sides' preprocess and train forward (with inverses), each step
+    if any(counts[k] != 2 * TRAIN_STEPS for k in COORD_KERNELS):
+        raise AssertionError("the train steps are not one K10, K11 and K12 "
+                             "call for each side of each step")
 
     grads = [p.grad for p in model.parameters()]
     if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
@@ -1365,7 +1580,8 @@ def largest_sort(model, batch, cfg, gen):
 
 LABEL_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad",
                  "take_rows", "take_rows_backward", "masked_channel_sums",
-                 "masked_argmin", "sc2_power_iteration", "sc2_seed_topk")
+                 "masked_argmin", "sc2_power_iteration",
+                 "sc2_seed_topk") + COORD_KERNELS
 
 
 def ema_synced(labeler, student, n, before):
@@ -1395,6 +1611,8 @@ def extension_phase(spec, batch, tables, smi):
     from eyoc_tpu_torch.training.steps import extension_train_step
     from eyoc_tpu_torch.utils import kernels
 
+    coord_path_checks("extension path, cloud 1 of each pair", batch.xyz1,
+                      batch.n1, inverse=True)
     student, labeler, opt, n = ext_models(spec)
     cfg = ext_config()
     gen = torch.Generator().manual_seed(7)
@@ -1451,9 +1669,12 @@ def extension_phase(spec, batch, tables, smi):
     missing = [k for k in LABEL_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"extension step launched no {missing}")
+    # K12: the labeler's two forwards (no grad: no inverses) and the
+    # student's two
     want = {"sc2_power_iteration": TRAIN_B, "sc2_seed_topk": TRAIN_B,
             "masked_argmin": 4, "sc2_seed_counts": 0, "masked_knn2": 0,
-            "masked_argmin_excl": 0}
+            "masked_argmin_excl": 0, "voxelize": 2, "brick_pyramid": 2,
+            "conv_maps": 4}
     bad = {k: counts[k] for k, v in want.items()
            if counts[k] != v * EXT_STEPS}
     if bad:
@@ -1617,13 +1838,18 @@ def main() -> int:
 
     # ---- phase 2: kernels against their plain versions
     b0 = pairs[0].to("cuda")
+    # the coordinate kernels at the eval shape (the kernels line's rows),
+    # then at the train shape with the inverses
+    results = check_coord_kernels(b0.xyz0, b0.n0, False, "eval")
+    check_coord_kernels(train_batch.xyz0, train_batch.n0, True, "train")
+    torch.cuda.empty_cache()
     _, pyr = preprocess_clouds(b0.xyz0, b0.n0, caps=CAPS, voxel_size=0.3,
                                window_bits=WINDOW_BITS)
-    results = {
+    results.update({
         "sparse_conv": check_sparse_conv(model, pyr),
         "masked_argmin": check_masked_argmin(gen),
         "sc2_power_iteration": check_power_iteration(gen),
-    }
+    })
     k4_sets = seed_sets(gen)
     results["sc2_seed_counts"] = check_seed_counts(k4_sets)
     results["sc2_seed_topk"] = check_seed_topk(k4_sets, cfg.sc2.k1)
@@ -1655,6 +1881,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full width
+    coord_path_checks("eval path, cloud 0 of pair 0", b0.xyz0, b0.n0,
+                      inverse=False)
     noise_gen = torch.Generator().manual_seed(1)
     x = embed_pair(model, b0, cfg)               # warm-up, not timed
     register_pair(*x, cfg, generator=noise_gen)
@@ -1695,6 +1923,9 @@ def main() -> int:
     if counts["sc2_seed_topk"] != N_PAIRS or counts["sc2_seed_counts"]:
         raise AssertionError("the eval path is not one sc2_seed_topk a pair "
                              "and no sc2_seed_counts")
+    if any(counts[k] != 2 * N_PAIRS for k in COORD_KERNELS):
+        raise AssertionError("the eval path is not one K10, K11 and K12 call "
+                             "for each cloud")
     largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen)
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
@@ -1763,6 +1994,9 @@ def main() -> int:
         "take_rows": "proto/proto_pallas_gather.py:62",
         "take_rows_backward": "eyoc_tpu/training/loss.py:94",
         "masked_channel_sums": "eyoc_tpu/sparse/norm.py:95",
+        "voxelize": "eyoc_tpu/sparse/voxelize.py:24",
+        "brick_pyramid": "eyoc_tpu/sparse/bricks.py:232",
+        "conv_maps": "eyoc_tpu/sparse/brick_conv.py:95",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -270,7 +270,13 @@ class ResUNet(nn.Module):
         spec = self.spec
         L = spec.num_levels
         blocks = spec.block_norm_type is not None
-        maps = conv_maps(pyr, L, self.conv1_kernel_size, inverse=True)
+        # the inverses serve the backward's dX only: a forward under no_grad
+        # (the EYOC labeler's) builds none, and K12 then syncs nothing
+        grad = torch.is_grad_enabled()
+        maps = conv_maps(pyr, L, self.conv1_kernel_size, inverse=grad)
+        if not grad:
+            none = (None,) * L
+            maps = maps._replace(inv_same3=none, inv_down=none, inv_up=none)
         vmask = maps.vox_masks
         fmask = [m[:, None].to(self.dtype) for m in vmask]
 

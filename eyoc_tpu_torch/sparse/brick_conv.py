@@ -12,7 +12,11 @@ Every conv kind is one call of kernel K1 (`sparse_conv`):
     out[o] = epilogue(sum_t in[map[o, t]] @ W[t])
 
 through a **gather map** `[M_out, T]` int32 whose sentinel `M_in` reads a
-zero row. `conv_maps` turns a BrickPyramid into those maps.
+zero row. `conv_maps` turns a BrickPyramid into those maps: on the card
+kernel K12 (`csrc/conv_maps.cu`) builds every map of a forward, and the
+inverses of a train forward, in two launches (the JAX package gathers a
+halo instead, `halo_parts`, brick_conv.py:95); `conv_maps_plain` is the
+plain version and `conv_maps_rowtap_plain` K12's reformulation.
 
 Conv semantics follow `eyoc_tpu`, NOT MinkowskiEngine's full 27-tap
 convolution (decision recorded here and in ROADMAP.md):
@@ -178,8 +182,9 @@ def conv_up_map(fine: BrickLevel, coarse_c2v: torch.Tensor,
     return out[:, :27].contiguous()
 
 
-def conv_maps(pyr: BrickPyramid, num_levels: int,
-              conv1_kernel_size: int = 5, inverse: bool = False) -> ConvMaps:
+def conv_maps_plain(pyr: BrickPyramid, num_levels: int,
+                    conv1_kernel_size: int = 5,
+                    inverse: bool = False) -> ConvMaps:
     """Every gather map a UNet of `num_levels` levels needs; with
     `inverse`, also the inverses of the maps whose input takes a gradient."""
     levels = pyr.levels[:num_levels]
@@ -224,11 +229,186 @@ def invert_map(nmap: torch.Tensor, m_in: int) -> torch.Tensor:
     rows = torch.arange(M_out, dtype=torch.int32, device=nmap.device)
     inv[slot.reshape(-1)] = rows[:, None].expand(M_out, T).reshape(-1)
     inv = inv[:m_in * T].reshape(m_in, T)
-    collisions = int(valid.sum() - (inv < M_out).sum())   # one host sync
-    if collisions:
-        raise ValueError(f"invert_map: {collisions} (input, tap) slots are "
-                         "read by more than one output row")
+    _raise_collisions(int(valid.sum() - (inv < M_out).sum()))  # a host sync
     return inv
+
+
+def _raise_collisions(n: int) -> None:
+    if n:
+        raise ValueError(f"invert_map: {n} (input, tap) slots are read by "
+                         "more than one output row")
+
+
+# K12's reformulation in plain torch, for the CPU tests: each map entry
+# from its own (output row, tap), and the inverses with a count of
+# collisions (a slot read by k outputs counts k - 1).
+
+
+def cell_to_voxel_occ_plain(level: BrickLevel) -> torch.Tensor:
+    """`cell_to_voxel` as K12 builds it in one pass without a fill before
+    the scatter: an empty cell (occ false) and the sentinel take M_l, and
+    each valid voxel writes its row at its cell; the two sets of writes
+    are disjoint."""
+    M = level.cellslot.shape[0]
+    nb8 = level.occ.shape[0]
+    dev = level.cellslot.device
+    out = torch.empty(nb8 + 1, dtype=torch.int32, device=dev)
+    empty = torch.cat([~level.occ, level.occ.new_ones(1)])
+    out[empty] = M
+    ok = level.cellslot < nb8
+    out[level.cellslot[ok].long()] = torch.arange(
+        M, dtype=torch.int32, device=dev)[ok]
+    return out
+
+
+def conv_up_map_rowtap_plain(fine: BrickLevel, coarse_c2v: torch.Tensor,
+                             m_coarse: int) -> torch.Tensor:
+    """`conv_up_map` per (output row, tap): tap off of fine cell u reads
+    the coarse voxel at up_slots[brick, c] with c = (u - off) / 2 where
+    u - off is 0 or 2 on every axis, else the sentinel m_coarse."""
+    NBtot = fine.bkeys.shape[0]
+    sent = coarse_c2v.shape[0] - 1
+    up = torch.cat([fine.up_slots, fine.up_slots.new_full((1, 8), sent)],
+                   0).long()
+    brick, u = _cell_coords(fine.cellslot)
+    brick = torch.clamp(brick, max=NBtot).long()
+    off = torch.tensor(_offsets(3), dtype=torch.int32, device=u.device)
+    e = u[:, None, :] - off[None]                              # [R, 27, 3]
+    ok = ((e == 0) | (e == 2)).all(-1)
+    c = e >> 1
+    ci = torch.where(ok, c[..., 0] * 4 + c[..., 1] * 2 + c[..., 2], 0)
+    src = coarse_c2v[up[brick[:, None], ci.long()]]
+    return torch.where(ok, src, torch.full_like(src, m_coarse)).contiguous()
+
+
+def invert_map_counted_plain(nmap: torch.Tensor, m_in: int):
+    """(inv, collisions): `invert_map` without the raise, and the count of
+    extra outputs that read an (input, tap) slot already read."""
+    M_out, T = nmap.shape
+    valid = (nmap >= 0) & (nmap < m_in)
+    slot = nmap.long() * T + torch.arange(T, device=nmap.device)
+    hits = torch.bincount(slot[valid], minlength=m_in * T)
+    collisions = int((hits - 1).clamp(min=0).sum())
+    inv = torch.full((m_in * T,), M_out, dtype=torch.int32,
+                     device=nmap.device)
+    rows = torch.arange(M_out, dtype=torch.int32, device=nmap.device)
+    inv[slot[valid]] = rows[:, None].expand(M_out, T)[valid]
+    return inv.reshape(m_in, T), collisions
+
+
+def conv_maps_rowtap_plain(pyr: BrickPyramid, num_levels: int,
+                           conv1_kernel_size: int = 5,
+                           inverse: bool = False) -> ConvMaps:
+    """`conv_maps_plain` by K12's reformulation; raises as it does when an
+    inverse has a collision."""
+    levels = pyr.levels[:num_levels]
+    c2v = [cell_to_voxel_occ_plain(lv) for lv in levels]
+    same3 = tuple(conv_same_map(lv, 3, c) for lv, c in zip(levels, c2v))
+    first = (conv_same_map(levels[0], conv1_kernel_size, c2v[0])
+             if conv1_kernel_size != 3 else same3[0])
+    down = tuple(conv_down_map(levels[l], c2v[l])
+                 for l in range(num_levels - 1))
+    up = tuple(conv_up_map_rowtap_plain(levels[l], c2v[l + 1],
+                                        levels[l + 1].cellslot.shape[0])
+               for l in range(num_levels - 1))
+    maps = ConvMaps(same3, first, down, up,
+                    tuple(pyr.vox_masks[:num_levels]))
+    if not inverse:
+        return maps
+    M = [lv.cellslot.shape[0] for lv in levels]
+    inv = ([invert_map_counted_plain(m, n) for m, n in zip(same3, M)],
+           [invert_map_counted_plain(m, M[l]) for l, m in enumerate(down)],
+           [invert_map_counted_plain(m, M[l + 1]) for l, m in enumerate(up)])
+    _raise_collisions(sum(n for part in inv for _, n in part))
+    return maps._replace(
+        inv_same3=tuple(i for i, _ in inv[0]),
+        inv_down=tuple(i for i, _ in inv[1]),
+        inv_up=tuple(i for i, _ in inv[2]))
+
+
+# ---------------------------------------------------------------- kernel K12
+
+# the C entry takes a table of kLevelRecord int64 a level and one of
+# kMapRecord int64 a map (csrc/conv_maps.cu); the map kinds
+_K12_SAME, _K12_DOWN, _K12_UP = 0, 1, 2
+_K12_ARGS = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p)
+
+
+def conv_maps(pyr: BrickPyramid, num_levels: int, conv1_kernel_size: int = 5,
+              inverse: bool = False) -> ConvMaps:
+    """Every gather map a UNet of `num_levels` levels needs; with
+    `inverse`, also the inverses of the maps whose input takes a gradient
+    (raises when two outputs read one input through one tap).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K12 (two
+    launches: the cell-to-voxel tables and the inverses' fill, then every
+    map entry and its inverse) or raises. With `inverse` the call reads the
+    collision count back: one host sync a call."""
+    if pyr.levels[0].cellslot.is_cpu:
+        return conv_maps_plain(pyr, num_levels, conv1_kernel_size, inverse)
+    return _launch_k12(pyr, num_levels, conv1_kernel_size, inverse)
+
+
+def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
+    fn = kernels.load("conv_maps", _K12_ARGS)
+    levels = pyr.levels[:num_levels]
+    L = num_levels
+    tensors, dtypes = [], []
+    for l, lv in enumerate(levels):
+        tensors += [lv.nbr6, lv.cellslot, lv.occ,
+                    lv.up_slots if l + 1 < L else None]
+        dtypes += [torch.int32, torch.int32, torch.bool, torch.int32]
+    dev = kernels.require_cuda("conv_maps", *tensors, dtypes=dtypes)
+    M = [lv.cellslot.shape[0] for lv in levels]
+    NB = [lv.bkeys.shape[0] for lv in levels]
+    i32 = dict(dtype=torch.int32, device=levels[0].cellslot.device)
+    c2v = torch.empty(sum(8 * n + 1 for n in NB), **i32).split(
+        [8 * n + 1 for n in NB])
+    # (kind, level, kernel side, rows, input rows) of each map, in
+    # ConvMaps order: same3, first (k != 3), down, up
+    specs = [(_K12_SAME, l, 3, M[l], M[l]) for l in range(L)]
+    if conv1_kernel_size != 3:
+        specs.append((_K12_SAME, 0, conv1_kernel_size, M[0], M[0]))
+    specs += [(_K12_DOWN, l, 3, NB[l], M[l]) for l in range(L - 1)]
+    specs += [(_K12_UP, l, 3, M[l], M[l + 1]) for l in range(L - 1)]
+    sizes = [rows * k ** 3 for _, _, k, rows, _ in specs]
+    maps = [t.view(rows, k ** 3) for t, (_, _, k, rows, _) in zip(
+        torch.empty(sum(sizes), **i32).split(sizes), specs)]
+    # the maps whose input takes a gradient: all but `first`
+    n_first = int(conv1_kernel_size != 3)
+    grads = list(range(L)) + list(range(L + n_first, len(specs)))
+    invs = {}
+    if inverse:
+        isz = [specs[i][4] * 27 for i in grads]
+        invs = {i: t.view(specs[i][4], 27) for i, t in zip(
+            grads, torch.empty(sum(isz), **i32).split(isz))}
+    coll = torch.empty(1, **i32)
+    p = kernels.ptr
+    lrec = []
+    for l, lv in enumerate(levels):
+        lrec += [NB[l], M[l], p(lv.nbr6), p(lv.cellslot), p(lv.occ),
+                 p(lv.up_slots) if l + 1 < L else 0, p(c2v[l])]
+    mrec = []
+    for i, (kind, l, k, rows, m_in) in enumerate(specs):
+        mrec += [kind, l, k, rows, m_in, p(maps[i]), p(invs.get(i)) or 0]
+    err = fn((ctypes.c_longlong * len(lrec))(*lrec), L,
+             (ctypes.c_longlong * len(mrec))(*mrec), len(specs), p(coll),
+             kernels.stream_handle(dev))
+    kernels.check_launch("conv_maps", err)
+    same3 = tuple(maps[:L])
+    first = maps[L] if n_first else same3[0]
+    rest = maps[L + n_first:]
+    out = ConvMaps(same3, first, tuple(rest[:L - 1]), tuple(rest[L - 1:]),
+                   tuple(pyr.vox_masks[:L]))
+    if not inverse:
+        return out
+    _raise_collisions(int(coll))                   # the one host sync
+    inv = [invs[i] for i in grads]
+    return out._replace(inv_same3=tuple(inv[:L]),
+                        inv_down=tuple(inv[L:2 * L - 1]),
+                        inv_up=tuple(inv[2 * L - 1:]))
 
 
 # ---------------------------------------------------------------- kernel K1

@@ -5,8 +5,17 @@ Level-l voxels are grouped into 2x2x2 bricks; the brick lattice of level l
 is the voxel lattice of level l+1, so the pyramid is one recursion of
 first-occurrence flags and prefix sums over Morton-sorted keys. Neighbour
 bricks (`nbr6`) and the transposed conv's coarse window (`up_slots`) are
-resolved through a transient dense z-column grid per level, as in the JAX
-package.
+the bricks at given offsets.
+
+On the card `build_pyramid` is kernel K11 (`csrc/brick_pyramid.cu`), two
+launches: the skeleton of every level (one block a cloud, a prefix count
+per level), then one thread a (brick row, lookup) that binary-searches the
+neighbour's Morton key among its cloud's brick keys, which are sorted. The
+plain version (`build_pyramid_plain`) resolves the lookups through a
+transient dense z-column grid per level, as the JAX package does, of
+B * GX * GY * GZ int32 (134 MB at level 0 for B = 8 and bits (9, 9, 7));
+K11 allocates no grid. `build_pyramid_search_plain` is K11's
+reformulation in plain torch, for the CPU tests.
 
 Sentinels: voxel rows use morton.INVALID_KEY; brick rows use NBtot (one
 past the end); cell slots use NBtot*8. JAX drops out-of-range scatter
@@ -16,11 +25,13 @@ sliced off afterwards.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from eyoc_tpu_torch.sparse import morton, scan
+from eyoc_tpu_torch.utils import kernels
 
 
 class BrickLevel(NamedTuple):
@@ -39,6 +50,7 @@ class BrickLevel(NamedTuple):
 class BrickPyramid(NamedTuple):
     levels: Tuple[BrickLevel, ...]
     vox_masks: Tuple[torch.Tensor, ...]  # [M_l] voxel validity per level
+    counts: Optional[torch.Tensor] = None  # [B] int32 valid level-0 voxels
 
 
 def take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -127,16 +139,12 @@ def _neighbors(sk: _Skeleton, pb_local: Optional[torch.Tensor], B: int,
     bkeys, bmask, bseg = sk.bkeys, sk.bmask, sk.bseg
     dev = bkeys.device
     NBtot = bkeys.shape[0]
-    if brick_cap >= (1 << _ROW_BITS):
-        raise ValueError("brick_cap exceeds the row-pack budget")
     GX, GY, GZ = morton.grid_dims(level + 1, bits)
     ncols = B * GX * GY
     bx, by, bz = morton.axes_of(bkeys)
 
     local_row = torch.arange(NBtot, dtype=torch.int32, device=dev) % brick_cap
     if pb_local is not None:
-        if cap_next is None or cap_next > _PB_MASK:
-            raise ValueError("parent capacity exceeds the row-pack budget")
         packed = local_row | (torch.clamp(pb_local, max=_PB_MASK) << _ROW_BITS)
     else:
         packed = local_row
@@ -188,10 +196,33 @@ def _neighbors(sk: _Skeleton, pb_local: Optional[torch.Tensor], B: int,
     return nbr6, up_slots
 
 
-def build_pyramid(keys0: torch.Tensor, mask0: torch.Tensor, B: int,
-                  brick_caps: Tuple[int, ...],
-                  bits: Tuple[int, int, int] = morton.BITS) -> BrickPyramid:
+def _check_caps(brick_caps) -> None:
+    """The grid values' row-pack budget (a brick row in 15 bits, a parent
+    row under _PB_MASK), level by level: every version refuses what the
+    JAX package's `_neighbors` refuses."""
+    for l, bc in enumerate(brick_caps):
+        if bc >= (1 << _ROW_BITS):
+            raise ValueError("brick_cap exceeds the row-pack budget")
+        if l + 1 < len(brick_caps) and brick_caps[l + 1] > _PB_MASK:
+            raise ValueError("parent capacity exceeds the row-pack budget")
+
+
+def _parent_local(nxt: _Skeleton, cap_next: int) -> torch.Tensor:
+    """[NBtot] parent brick row of each brick within its cloud: level-l
+    brick row r is level-(l+1) voxel row r, whose brick is cellslot >> 3.
+    Parent overflow is marked _PB_MASK: the cellslot sentinel would alias
+    onto a valid row of a later cloud under the modulo."""
+    pb_local = (nxt.cellslot >> 3) % cap_next
+    return torch.where(nxt.cellslot >= nxt.occ.shape[0],
+                       torch.full_like(pb_local, _PB_MASK), pb_local)
+
+
+def build_pyramid_plain(keys0: torch.Tensor, mask0: torch.Tensor, B: int,
+                        brick_caps: Tuple[int, ...],
+                        bits: Tuple[int, int, int] = morton.BITS
+                        ) -> BrickPyramid:
     """All L levels from per-segment-sorted level-0 keys [M0] and mask."""
+    _check_caps(brick_caps)
     L = len(brick_caps)
     skels = []
     keys, mask = keys0, mask0
@@ -204,13 +235,7 @@ def build_pyramid(keys0: torch.Tensor, mask0: torch.Tensor, B: int,
     for l in range(L):
         sk = skels[l]
         if l + 1 < L:
-            nxt = skels[l + 1]
-            pb_local = (nxt.cellslot >> 3) % brick_caps[l + 1]
-            # parent overflow: the cellslot sentinel would alias onto a
-            # valid row of a later segment under the modulo; mark it
-            pb_local = torch.where(nxt.cellslot >= nxt.occ.shape[0],
-                                   torch.full_like(pb_local, _PB_MASK),
-                                   pb_local)
+            pb_local = _parent_local(skels[l + 1], brick_caps[l + 1])
             nbr6, up_slots = _neighbors(sk, pb_local, B, l, brick_caps[l],
                                         brick_caps[l + 1], bits)
         else:
@@ -220,4 +245,192 @@ def build_pyramid(keys0: torch.Tensor, mask0: torch.Tensor, B: int,
             bkeys=sk.bkeys, bmask=sk.bmask, bseg=sk.bseg, occ=sk.occ,
             nbr6=nbr6, cellslot=sk.cellslot, up_slots=up_slots))
     return BrickPyramid(levels=tuple(levels),
-                        vox_masks=tuple(sk.valid_vox for sk in skels))
+                        vox_masks=tuple(sk.valid_vox for sk in skels),
+                        counts=skels[0].valid_vox.reshape(B, -1).sum(
+                            1, dtype=torch.int32))
+
+
+# K11's reformulation in plain torch, for the CPU tests: the skeleton from
+# one prefix count per cloud, and each lookup a binary search among the
+# cloud's brick keys instead of a dense grid.
+
+
+def _skeleton_scan_plain(keys: torch.Tensor, mask: torch.Tensor, B: int,
+                         brick_cap: int) -> _Skeleton:
+    """`_skeleton` as K11's first launch computes it, per cloud: a voxel's
+    brick rank is the inclusive count of first-occurrence flags up to it,
+    minus one (the rank of the most recent first row)."""
+    dev = keys.device
+    k = keys.reshape(B, -1)
+    m = mask.reshape(B, -1)
+    NBtot = B * brick_cap
+    bk = torch.where(m, k >> 3, torch.full_like(k, morton.INVALID_KEY))
+    prev = torch.cat([bk.new_full((B, 1), -1), bk[:, :-1]], 1)
+    first = m & (bk != prev)
+    rank = torch.cumsum(first.to(torch.int32), 1, dtype=torch.int32) - 1
+    brow = torch.arange(B, dtype=torch.int32, device=dev)[:, None] \
+        * brick_cap + rank
+    valid_vox = m & (rank >= 0) & (rank < brick_cap)
+    cellslot = torch.where(valid_vox, brow * 8 + (k & 7),
+                           torch.full_like(brow, NBtot * 8))
+    keep = first & (rank < brick_cap)
+    bkeys = torch.full((NBtot,), morton.INVALID_KEY, dtype=torch.int32,
+                       device=dev)
+    bkeys[brow[keep].long()] = bk[keep]
+    bmask = torch.zeros(NBtot, dtype=torch.bool, device=dev)
+    bmask[brow[keep].long()] = True
+    occ = torch.zeros(NBtot * 8, dtype=torch.bool, device=dev)
+    occ[cellslot[valid_vox].long()] = True
+    bseg = torch.arange(NBtot, dtype=torch.int32, device=dev) // brick_cap
+    return _Skeleton(bkeys, bmask, bseg, occ, cellslot.reshape(-1),
+                     valid_vox.reshape(-1))
+
+
+def _morton3(x, y, z):
+    """Morton key of SHIFTED in-window coords (morton.encode's packing)."""
+    return ((morton._spread3(x) << 2) | (morton._spread3(y) << 1)
+            | morton._spread3(z))
+
+
+def _neighbors_search_plain(sk: _Skeleton, pb_local: Optional[torch.Tensor],
+                            B: int, level: int, brick_cap: int,
+                            cap_next: Optional[int], bits):
+    """`_neighbors` as K11's second launch computes it: the brick at offset
+    o of a valid brick is the lower bound of its Morton key among the
+    cloud's brick keys (sorted, INVALID_KEY last), found where the key
+    matches; an out-of-window offset finds nothing, under `_neighbors`'
+    per-level grid_dims range tests."""
+    bkeys, bmask = sk.bkeys, sk.bmask
+    dev = bkeys.device
+    NBtot = bkeys.shape[0]
+    GX, GY, GZ = morton.grid_dims(level + 1, bits)
+    bx, by, bz = morton.axes_of(bkeys)
+    seg = torch.arange(NBtot, dtype=torch.int32, device=dev) // brick_cap
+    row = torch.arange(NBtot, dtype=torch.int32, device=dev)
+    seg_keys = bkeys.reshape(B, brick_cap)
+
+    def lookup(o):
+        """(found [NBtot] bool, brick row [NBtot]) at offset o."""
+        if o == (0, 0, 0):
+            return bmask, row
+        nx, ny, nz = bx + o[0], by + o[1], bz + o[2]
+        ok = (bmask & (nx >= 0) & (nx < GX) & (ny >= 0) & (ny < GY)
+              & (nz >= 0) & (nz < GZ))
+        key = _morton3(nx, ny, nz).reshape(B, brick_cap)
+        pos = torch.searchsorted(seg_keys, key).reshape(-1).to(torch.int32)
+        hit = seg_keys.reshape(-1)[
+            (seg * brick_cap + torch.clamp(pos, max=brick_cap - 1)).long()]
+        return ok & (hit == key.reshape(-1)), seg * brick_cap + pos
+
+    found = {o: lookup(o) for o in LOOKUP + [(0, 0, 0)]}
+    nbr6 = torch.stack([torch.where(found[o][0], found[o][1],
+                                    torch.full_like(row, NBtot))
+                        for o in FACE_OFFS])
+    if pb_local is None:
+        return nbr6, None
+    sent_next = B * cap_next * 8
+
+    def up_slot(o):
+        ok, r = found[o]
+        pb = torch.clamp(pb_local[torch.where(ok, r, 0).long()],
+                         max=_PB_MASK)
+        ok = ok & (pb < cap_next)       # parent overflow -> no slot
+        cell = ((((bx + o[0]) & 1) << 2) | (((by + o[1]) & 1) << 1)
+                | ((bz + o[2]) & 1))
+        slot = (seg * cap_next + pb) * 8 + cell
+        return torch.where(ok, slot, torch.full_like(slot, sent_next))
+
+    return nbr6, torch.stack([up_slot(o) for o in OCT_OFFS], dim=1)
+
+
+def build_pyramid_search_plain(keys0: torch.Tensor, mask0: torch.Tensor,
+                               B: int, brick_caps: Tuple[int, ...],
+                               bits: Tuple[int, int, int] = morton.BITS
+                               ) -> BrickPyramid:
+    """`build_pyramid_plain` by K11's reformulation (no grid)."""
+    _check_caps(brick_caps)
+    L = len(brick_caps)
+    skels = []
+    keys, mask = keys0, mask0
+    for l in range(L):
+        skels.append(_skeleton_scan_plain(keys, mask, B, brick_caps[l]))
+        keys, mask = skels[-1].bkeys, skels[-1].bmask
+    levels = []
+    for l, sk in enumerate(skels):
+        if l + 1 < L:
+            nbr6, up_slots = _neighbors_search_plain(
+                sk, _parent_local(skels[l + 1], brick_caps[l + 1]), B, l,
+                brick_caps[l], brick_caps[l + 1], bits)
+        else:
+            nbr6, up_slots = _neighbors_search_plain(sk, None, B, l,
+                                                     brick_caps[l], None, bits)
+        levels.append(BrickLevel(
+            bkeys=sk.bkeys, bmask=sk.bmask, bseg=sk.bseg, occ=sk.occ,
+            nbr6=nbr6, cellslot=sk.cellslot, up_slots=up_slots))
+    return BrickPyramid(levels=tuple(levels),
+                        vox_masks=tuple(sk.valid_vox for sk in skels),
+                        counts=skels[0].valid_vox.reshape(B, -1).sum(
+                            1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- kernel K11
+
+# the C entry takes a table of kRecord int64 a level (csrc/brick_pyramid.cu):
+# voxel and brick capacity of a cloud, the brick lattice's grid_dims, the
+# input keys and mask, then the outputs
+_K11_ARGS = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p)
+
+
+def build_pyramid(keys0: torch.Tensor, mask0: torch.Tensor, B: int,
+                  brick_caps: Tuple[int, ...],
+                  bits: Tuple[int, int, int] = morton.BITS) -> BrickPyramid:
+    """All L levels from per-segment-sorted level-0 keys [M0] int32 and
+    mask [M0] bool; `counts` holds each cloud's valid level-0 voxels.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K11 (two
+    launches) or raises."""
+    if keys0.is_cpu:
+        return build_pyramid_plain(keys0, mask0, B, brick_caps, bits)
+    return _launch_k11(keys0, mask0, B, brick_caps, bits)
+
+
+def _launch_k11(keys0, mask0, B, brick_caps, bits) -> BrickPyramid:
+    fn = kernels.load("brick_pyramid", _K11_ARGS)
+    dev = kernels.require_cuda("brick_pyramid", keys0, mask0,
+                               dtypes=(torch.int32, torch.bool))
+    _check_caps(brick_caps)
+    M0 = keys0.shape[0]
+    if mask0.shape != (M0,) or M0 % B:
+        raise ValueError(f"build_pyramid: keys {tuple(keys0.shape)} and "
+                         f"mask {tuple(mask0.shape)} for {B} clouds")
+    L = len(brick_caps)
+    caps = (M0 // B,) + tuple(brick_caps[:-1])       # voxel caps per level
+    nb = [B * bc for bc in brick_caps]
+    m = [B * c for c in caps]
+    # every output in one int32 and one bool allocation (fewer host calls)
+    isz = nb + nb + m + [6 * n for n in nb] + [8 * n for n in nb[:-1]] + [B]
+    ints = torch.empty(sum(isz), dtype=torch.int32,
+                       device=keys0.device).split(isz)
+    bsz = nb + [8 * n for n in nb] + m
+    bools = torch.empty(sum(bsz), dtype=torch.bool,
+                        device=keys0.device).split(bsz)
+    bkeys, bseg, cellslot = ints[:L], ints[L:2 * L], ints[2 * L:3 * L]
+    nbr6 = [t.view(6, n) for t, n in zip(ints[3 * L:4 * L], nb)]
+    ups = [t.view(n, 8) for t, n in zip(ints[4 * L:5 * L - 1], nb)] + [None]
+    counts = ints[-1]
+    bmask, occ, valid = bools[:L], bools[L:2 * L], bools[2 * L:]
+    p = kernels.ptr
+    table = []
+    for l in range(L):
+        table += [caps[l], brick_caps[l], *morton.grid_dims(l + 1, bits),
+                  p(keys0) if l == 0 else p(bkeys[l - 1]),
+                  p(mask0) if l == 0 else p(bmask[l - 1]),
+                  p(bkeys[l]), p(bmask[l]), p(bseg[l]), p(occ[l]),
+                  p(cellslot[l]), p(valid[l]), p(nbr6[l]), p(ups[l]) or 0]
+    err = fn((ctypes.c_longlong * len(table))(*table), B, L, p(counts),
+             kernels.stream_handle(dev))
+    kernels.check_launch("brick_pyramid", err)
+    levels = tuple(BrickLevel(bkeys[l], bmask[l], bseg[l], occ[l], nbr6[l],
+                              cellslot[l], ups[l]) for l in range(L))
+    return BrickPyramid(levels, tuple(valid), counts)

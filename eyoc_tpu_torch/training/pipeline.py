@@ -15,9 +15,11 @@ import torch
 from eyoc_tpu_torch.geometry.se3 import transform_points
 from eyoc_tpu_torch.ops.knn import masked_argmin_batched
 from eyoc_tpu_torch.sparse import morton
-from eyoc_tpu_torch.sparse.bricks import BrickPyramid, build_pyramid
+from eyoc_tpu_torch.sparse.bricks import (BrickPyramid, build_pyramid,
+                                          build_pyramid_plain)
 from eyoc_tpu_torch.sparse.types import VoxelizedCloud
-from eyoc_tpu_torch.sparse.voxelize import voxelize
+from eyoc_tpu_torch.sparse.voxelize import (voxelize_batched,
+                                            voxelize_batched_plain)
 
 
 class RawBatch(NamedTuple):
@@ -44,23 +46,36 @@ def brick_caps(caps: Tuple[int, ...]) -> Tuple[int, ...]:
 def preprocess_clouds(xyz: torch.Tensor, counts: torch.Tensor, *,
                       caps: Tuple[int, ...], voxel_size: float,
                       window_bits: Tuple[int, int, int] = morton.BITS):
-    """Voxelize + build the brick pyramid for raw clouds [B, P, 3].
+    """Voxelize + build the brick pyramid for raw clouds [B, P, 3] (counts
+    [B] int32).
 
     Returns (vox with [B, cap0] fields, BrickPyramid whose level-0 voxel
     rows are the flattened [B*cap0] vox rows). Voxels dropped by the window
-    or by brick-capacity overflow are invalid in `vox.mask` too."""
-    B, P = xyz.shape[:2]
+    or by brick-capacity overflow are invalid in `vox.mask` too. On the
+    card this is K10 (two launches around one torch.sort) and K11 (two
+    launches) and nothing else: no host sync, no dense grid."""
+    return _preprocess(voxelize_batched, build_pyramid, xyz, counts, caps,
+                       voxel_size, window_bits)
+
+
+def preprocess_clouds_plain(xyz: torch.Tensor, counts: torch.Tensor, *,
+                            caps: Tuple[int, ...], voxel_size: float,
+                            window_bits: Tuple[int, int, int] = morton.BITS):
+    """`preprocess_clouds` through the plain versions on any device (one
+    voxelize a cloud, the Morton keys encoded again, the grid pyramid)."""
+    return _preprocess(voxelize_batched_plain, build_pyramid_plain, xyz,
+                       counts, caps, voxel_size, window_bits)
+
+
+def _preprocess(voxelize, pyramid, xyz, counts, caps, voxel_size,
+                window_bits):
+    B = xyz.shape[0]
     cap = caps[0]
-    pmask = torch.arange(P, device=xyz.device)[None, :] < counts[:, None]
-    clouds = [voxelize(xyz[b], pmask[b], voxel_size, cap, window_bits)
-              for b in range(B)]
-    vox = VoxelizedCloud(*(torch.stack(f) for f in zip(*clouds)))
-    keys = morton.encode(vox.coords, vox.mask, window_bits).reshape(B * cap)
-    mask = vox.mask.reshape(B * cap)
-    pyr: BrickPyramid = build_pyramid(keys, mask, B, brick_caps(caps),
-                                      window_bits)
-    eff = pyr.vox_masks[0].reshape(B, cap)
-    vox = vox._replace(mask=eff, count=eff.sum(1, dtype=torch.int32))
+    vox, keys = voxelize(xyz, counts, voxel_size, cap, window_bits)
+    pyr: BrickPyramid = pyramid(keys, vox.mask.reshape(B * cap), B,
+                                brick_caps(caps), window_bits)
+    vox = vox._replace(mask=pyr.vox_masks[0].reshape(B, cap),
+                       count=pyr.counts)
     return vox, pyr
 
 

@@ -16,7 +16,8 @@ its main path went through. A source may hold more than one entry point
 (K6's forward and backward, K4's counts and top k, K8 and K9), and one
 kernel may be counted under two names (K1 as the forward conv and as the
 conv backward's dX), so the counters are `COUNTERS`, a superset of the sources
-in `KERNELS`.
+in `KERNELS`. A wrapper call that makes several launches (K4's top k, K10,
+K11, K12) counts one.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -43,7 +44,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
            "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
-           "masked_channel_sums", "masked_knn2")
+           "masked_channel_sums", "masked_knn2", "voxelize", "brick_pyramid",
+           "conv_maps")
 COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward",
                       "sc2_seed_topk", "masked_argmin_excl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -131,11 +133,18 @@ def stream_handle(device_index: int) -> int:
     return torch.cuda.current_stream(device_index).cuda_stream
 
 
-def check_launch(name: str, err: int) -> None:
-    """Raise on a nonzero cudaError_t from a launch; count it otherwise."""
+def check_error(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch; count it otherwise (a
+    wrapper whose call makes several launches checks the earlier ones with
+    `check_error` and counts the call once, here)."""
+    check_error(name, err)
     launches[name] += 1
 
 
