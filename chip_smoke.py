@@ -42,21 +42,38 @@ Phases (any failure exits non-zero):
    N = 8000 and S = 1600, K8 (`masked_knn2`, the gated matching's top 2)
    and K9 (`masked_argmin_excl`, the safe-radius mining at 8192 x 2048,
    r = 1.5 m); each against its plain version, the same bits twice, its
-   device kernels a call and its host cost.
+   device kernels a call and its host cost. SC2-PCR's K13 `sc2_nms`, K14
+   `sc2_seed_transforms` and K15 `sc2_irls` at the eval shape (B = 1, N =
+   5000, S = 1000: the kernels line's rows), on synthetic problems at the
+   labeling shape (B = 8, N = 8000, S = 1600, 0-8000 valid rows) and on
+   the 8 problems of one recorded labeling (the `_label` rows): K13's
+   seeds bit-equal; K14's consensus sets bit-equal; K14's poses, K15's
+   one-round and final poses held to the same solve in f64 (weights, QCP,
+   IRLS rounds) within 1 mm plus C times the f32 rounding reach 2^-24 *
+   lever * E / gap of each weighted set, C twice the plain version's own
+   largest ratio in the same run, on every seed or problem whose set pins
+   a pose (the others counted and logged); the fitness, best seed and
+   K15's rounds equal but for inlier tests within SC2_EPS of the
+   threshold (f64), or moved across it by those poses; the same bits
+   twice, device kernels a call, host cost; and `sc2_pcr_batched` with no
+   host sync (sync debug mode "error").
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
    every kernel of the path launched (launch counts reset just before, read
    just after): one `sc2_seed_topk` a pair and no `sc2_seed_counts`, one
    K10, K11 and K12 call a cloud, and no sort or top-k over S x N elements
-   in the profiler's view of a pair. Before it, and before phases 5 and 6
+   in the profiler's view of a pair, and one K13, K14 and K15 call a
+   pair. Before it, and before phases 5 and 6
    on their own batch sides (`coord_path_checks`): the device kernels of
    one `preprocess_clouds` call (K10's 2, the sort's, K11's 2) beside the
    plain version's on the same tensors, no host sync in it or in
    `conv_maps(inverse=False)` and at most one in `conv_maps(inverse=True)`,
    and its peak memory under the plain version's dense grid.
-4. registration sanity: `sc2_pcr` recovers a known pose from N = 5000
-   correspondences with 30% inliers.
+4. registration sanity: `sc2_pcr_batched` on three known-pose problems
+   of N = 5000 correspondences (30% and 10% inliers, and 30% with 500
+   valid rows) recovers each pose, and each problem is the same bits as
+   its own B = 1 call (`sc2_pcr`).
 5. the training path at full width: `training.steps.base_train_step`
    (ResUNetBN2C, hardest-contrastive loss, SGD) on the published recipe's
    batch of 8 synthetic train-phase pairs at d = 8 m; one warm-up step,
@@ -75,10 +92,11 @@ Phases (any failure exits non-zero):
    steps, each split by stage and followed by the EMA labeler sync (decay
    0.2); finite metrics, the labeler's BN buffers unchanged by its
    forwards, its parameters the EMA formula bit for bit after each sync,
-   and the launches of each step (8 K3, 8 K4, one K2 for the matching of
-   all 16 problems, one for the rediscovery, two for the mining, two K10
-   and K11, four K12: the labeler's two forwards and the student's); a
-   torch.profiler view of one more step. Then one step at the extension
+   and the launches of each step (8 K3, 8 K4, one K13, K14 and K15 for
+   the 8 problems, one K2 for the matching of all 16 problems, one for
+   the rediscovery, two for the mining, two K10 and K11, four K12: the
+   labeler's two forwards and the student's); a torch.profiler view of
+   one more step. Then one step at the extension
    demo's gates (Lowe, Spherical at 40 m, safe-radius mining at 1.5 m,
    translation floor 0.4): one K8 and two K9 launches. Then `label_pairs`
    on a known answer at full size (cloud 1 is cloud 0 under a known pose,
@@ -89,8 +107,8 @@ Phases (any failure exits non-zero):
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
-`sparse_conv_train` and `masked_argmin_train`; K2, K3 and K4 on the
-labeling path are `*_label`); `ms` is CUDA-event time,
+`sparse_conv_train` and `masked_argmin_train`; K2, K3, K4 and K13-K15 on
+the labeling path are `*_label`); `ms` is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
 needs one CUDA device and imports nothing of JAX.
@@ -766,7 +784,8 @@ TRAIN_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "masked_argmin",
                  "sparse_conv_wgrad", "take_rows", "take_rows_backward",
                  "masked_channel_sums") + COORD_KERNELS
 EVAL_KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
-                "sc2_seed_topk") + COORD_KERNELS
+                "sc2_seed_topk", "sc2_nms", "sc2_seed_transforms",
+                "sc2_irls") + COORD_KERNELS
 
 
 def make_train_batch():
@@ -1163,6 +1182,460 @@ def check_train_kernels(calls):
     return out
 
 
+# ---------------------------------------------------- phase 2, SC2-PCR
+
+
+SC2_KERNELS = ("sc2_nms", "sc2_seed_transforms", "sc2_irls")
+# a fitness or IRLS inlier test may come out otherwise than the plain
+# version's only for a point whose f64 distance lies within SC2_EPS of the
+# threshold, plus (K14) as far as the two poses move it
+SC2_EPS = 1e-4                       # m
+# K14's and K15's poses are held to the same solve in f64 (`_qcp64`, and
+# for K15 every IRLS round, `_irls64`): a valid row moves by at most
+# SC2_DISP plus the f32 rounding reach C * 2^-24 * lever * E / gap, where
+# E = sum w |a - cA| |b - cB| (the moments' terms), gap the Horn matrix's
+# leading eigengap (2 (s2 + s3) for a proper rotation) and lever the valid
+# rows' largest distance from cA. C is read in the same run: SC2_C_FACTOR
+# times the plain version's own largest ratio of its distance from the
+# f64 solve to 2^-24 * lever * E / gap (at least 1), over the seeds whose
+# weighted sets pin a pose
+SC2_DISP = 1e-3                      # m
+SC2_C_FACTOR = 2.0
+# a weighted set pins a pose where its weights keep at least half their
+# mass (K14's |v| + 1e-6 normalization did not swallow them), 3 rows or
+# more carry weight, and the Horn gap is at least SC2_GAP of max|H|
+SC2_GAP = 1e-2
+U32 = 2.0 ** -24
+# the labeling shape's synthetic problems (inlier share, valid rows), the
+# valid rows first as compact_matches leaves them
+LABEL_SPEC = ((0.3, LABEL_N), (0.1, LABEL_N), (0.3, LABEL_N // 2),
+              (0.05, LABEL_N), (0.3, 500), (0.5, 123), (0.3, 10), (0.0, 0))
+
+
+def sc2_problems(gen, n, spec):
+    """Known-pose problems of n correspondences (`correspondences`), one
+    for each (inlier share, valid rows) of `spec`: src, tgt [B, n, 3],
+    valid [B, n], T [B, 4, 4]."""
+    import torch
+    rows = []
+    for inlier, nv in spec:
+        src, tgt, valid, T = correspondences(gen, n=n, inlier=inlier)
+        valid[nv:] = False
+        rows.append((src, tgt, valid, T))
+    return tuple(torch.stack([r[i] for r in rows]) for i in range(4))
+
+
+def sc2_calls(src, tgt, valid, cfg):
+    """K13's, K14's and K15's arguments on B problems, each from the
+    kernels before it, as `sc2_pcr_batched` makes them."""
+    import torch
+    from eyoc_tpu_torch.registration import sc2pcr
+    n = valid.shape[1]
+    conf = torch.stack([sc2pcr.sc2_power_iteration(
+        src[b], tgt[b], valid[b], cfg.d_thre, cfg.num_iterations)
+        for b in range(src.shape[0])]) * valid.float()
+    k13 = (src, valid, conf, cfg.nms_radius, min(cfg.num_seeds, n))
+    seeds, seed_ok = sc2pcr.sc2_nms(*k13)
+    knn = torch.stack([sc2pcr.sc2_seed_topk(src[b], tgt[b], valid[b],
+                                            seeds[b], cfg.d_thre, cfg.k1)
+                       for b in range(src.shape[0])])
+    k14 = (cfg, seed_ok, knn, src, tgt, valid)
+    trans, _, best, _ = sc2pcr.sc2_seed_transforms(*k14)
+    k15 = (cfg, trans, best, src, tgt, valid)
+    return {"sc2_nms": [(k13, {})], "sc2_seed_transforms": [(k14, {})],
+            "sc2_irls": [(k15, {})]}
+
+
+def _nms_close(got, want, *a):
+    bad = _differ(got, want)
+    return bad == 0, float(bad)
+
+
+def _nms_cost(src, valid, scores, radius, num_seeds):
+    """K13's bound: a radius test (9 flops) of each valid row against each
+    valid row of larger score if it is a local maximum, else against one
+    (its suppressor: at least one test); bytes: the points, flags and
+    scores once, the local scores and the seeds."""
+    import torch
+    from eyoc_tpu_torch.registration.sc2pcr import _masked_dist
+    B, n = valid.shape
+    tests = 0.0
+    for b in range(B):
+        v, sc = valid[b], scores[b]
+        larger = (sc[None, :] > sc[:, None]) & v[None, :] & v[:, None]
+        supp = (larger & (_masked_dist(src[b], v) < radius)).any(1)
+        need = torch.where(supp, torch.ones_like(supp, dtype=torch.int64),
+                           larger.sum(1))
+        tests += float(need[v].sum())
+        del larger
+    return B * n * (12 + 1 + 4 + 4) + B * num_seeds * 5, 9.0 * tests, "f32"
+
+
+def _pose_dists(T, s64, t64, chunk=256):
+    """f64 |R s + t - t| [S, M] of poses T [S, 4, 4] on rows s64/t64."""
+    import torch
+    out = []
+    for i in range(0, T.shape[0], chunk):
+        T64 = T[i:i + chunk].double()
+        pred = (torch.einsum("sij,nj->sni", T64[:, :3, :3], s64)
+                + T64[:, None, :3, 3])
+        out.append((pred - t64[None]).norm(dim=-1))
+    return torch.cat(out)
+
+
+def _pose_disp(Ta, Tb, s64, chunk=256):
+    """f64 max over rows s64 of |Ta s - Tb s|, for each pose [S]."""
+    import torch
+    out = []
+    for i in range(0, Ta.shape[0], chunk):
+        D = Ta[i:i + chunk].double() - Tb[i:i + chunk].double()
+        move = (torch.einsum("sij,nj->sni", D[:, :3, :3], s64)
+                + D[:, None, :3, 3])
+        out.append(move.norm(dim=-1).amax(1) if s64.shape[0] else
+                   torch.zeros(D.shape[0], dtype=torch.float64,
+                               device=D.device))
+    return torch.cat(out)
+
+
+def _qcp64(a, b, w):
+    """The plain version's weighted QCP Kabsch (geometry/svd3.kabsch_qcp:
+    centroids, centred moments, max|H| scaling, 12 Newton steps on the
+    quartic, the adjugate column, 2 polish steps) in f64 on a, b [..., n,
+    3], w [..., n]: (T [..., 4, 4]; E / gap [...], the rounding reach but
+    for its lever and 2^-24; cA [..., 3]; whether the set pins a pose
+    [...])."""
+    import torch
+    from eyoc_tpu_torch.geometry import svd3
+    from eyoc_tpu_torch.geometry.se3 import integrate_trans
+    wsum = w.sum(-1, keepdim=True) + 1e-6
+    cA = (a * w[..., None]).sum(-2) / wsum
+    cB = (b * w[..., None]).sum(-2) / wsum
+    am, bm = a - cA[..., None, :], b - cB[..., None, :]
+    H = torch.einsum("...ni,...nj->...ij", am * w[..., None], bm)
+    scale = H.abs().amax(dim=(-1, -2)).clamp(min=1e-12)
+    Hn = H / scale[..., None, None]
+    lam = (w * ((am * am).sum(-1) + (bm * bm).sum(-1))).sum(-1) / (2 * scale)
+    N4 = svd3.horn_profile_matrix(Hn)
+    c2, c1, c0 = svd3.qcp_quartic_coeffs(Hn)
+    x = lam
+    for _ in range(12):
+        x2 = x * x
+        dP = 4 * x2 * x + 2 * c2 * x + c1
+        x = x - (x2 * x2 + c2 * x2 + c1 * x + c0) / torch.where(
+            dP.abs() < 1e-12, torch.full_like(dP, 1e-12), dP)
+    eye = torch.eye(4, dtype=a.dtype, device=a.device)
+    adj = svd3._adjugate4_sym(N4 - x[..., None, None] * eye)
+    col = torch.argmax((adj * adj).sum(-2), -1)
+    q = torch.gather(adj, -1, col[..., None, None].expand(
+        adj.shape[:-1] + (1,)))[..., 0]
+    qn = q.norm(dim=-1, keepdim=True)
+    ident = torch.zeros_like(q)
+    ident[..., 0] = 1.0
+    q = torch.where(qn > 1e-12, q / (qn + 1e-30), ident)
+    M = N4 + lam[..., None, None] * eye
+    for _ in range(2):
+        nq = torch.einsum("...ij,...j->...i", M, q)
+        n2 = (nq * nq).sum(-1, keepdim=True)
+        q = torch.where(n2 > 1e-24, nq * torch.rsqrt(n2.clamp(min=1e-24)), q)
+    R = svd3.quat_to_rotmat(q)
+    T = integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
+    ev = torch.linalg.eigvalsh(N4)
+    gap = ev[..., 3] - ev[..., 2]                  # in units of max|H|
+    E = (w * am.norm(dim=-1) * bm.norm(dim=-1)).sum(-1) / scale
+    pinned = ((w.sum(-1) >= 0.5) & ((w > 0).sum(-1) >= 3)
+              & (gap >= SC2_GAP))
+    return T, E / gap.clamp(min=1e-300), cA, pinned
+
+
+def _consensus64(cfg, knn, src, tgt, valid):
+    """The plain version's consensus (`sc2pcr._consensus`) with its soft
+    matrix, power iteration and weights in f64 (the sets, from exact
+    counts, as in f32): a, b [..., S, k2, 3] and w [..., S, k2], f64."""
+    import torch
+    from eyoc_tpu_torch.registration import sc2pcr
+    fine_sel, a, b, _ = sc2pcr._consensus(cfg, knn, src, tgt, valid)
+    nbr_ok = sc2pcr._seed_rows(valid[..., None], knn.long())[..., 0]
+    fine_ok = torch.gather(nbr_ok, -1, fine_sel)
+    a, b = a.double(), b.double()
+    cross = (sc2pcr._pairwise_dist(a) - sc2pcr._pairwise_dist(b)).abs()
+    sc = torch.clamp(1.0 - cross ** 2 / cfg.d_thre ** 2, min=0.0)
+    k2 = fine_sel.shape[-1]
+    keep = (fine_ok[..., :, None] & fine_ok[..., None, :]
+            & ~torch.eye(k2, dtype=torch.bool, device=a.device))
+    w = sc2pcr._power_iteration(torch.where(keep, sc, torch.zeros_like(sc)),
+                                cfg.num_iterations)
+    w = w.abs() * fine_ok
+    return a, b, w / (w.sum(-1, keepdim=True) + 1e-6)
+
+
+def _lever(c, s64, chunk=256):
+    """The largest distance of the rows s64 [M, 3] from each c [S, 3]."""
+    import torch
+    if not s64.shape[0]:
+        return torch.zeros(c.shape[0], dtype=c.dtype, device=c.device)
+    return torch.cat([torch.cdist(c[i:i + chunk], s64).amax(1)
+                      for i in range(0, c.shape[0], chunk)])
+
+
+def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
+    """K14 against its plain version on the same inputs:
+    - the consensus sets (fine_sel) bit-equal;
+    - on each seed whose weighted set pins a pose (`_qcp64`), the kernel's
+      pose within SC2_DISP plus the rounding reach of the f64 solve of the
+      same consensus, C read from the plain version's poses on the same
+      seeds (and kept in `reading` for K15); the other seeds are counted
+      and logged;
+    - each seed's fitness is the f64 count under the kernel's own pose but
+      for tests within SC2_EPS of the threshold, -1 where the seed is not
+      ok;
+    - against the plain version's fitness, a test may flip only at a point
+      that the two poses move across the threshold: within their largest
+      displacement of a valid point plus SC2_EPS of it (f64);
+    - best is the first argmax of the kernel's fitness and, up to those
+      flips, a largest plain fitness.
+    Returns the largest displacement of a valid row from the f64 pose over
+    the seeds that pin one (m)."""
+    import torch
+    trans_k, fit_k, best_k, fine_k = got
+    trans_p, fit_p, best_p, fine_p = want
+    if not torch.equal(fine_k, fine_p):
+        log("  K14: the consensus sets differ from the plain version's")
+        return False, float("inf")
+    T64, unit, cA, pinned = _qcp64(*_consensus64(cfg, knn, src, tgt, valid))
+    # a problem with no valid row pins nothing: its weights are all 0
+    d_k, d_p, reach = [], [], []
+    for b in range(valid.shape[0]):
+        s64 = src[b][valid[b]].double()
+        reach.append(U32 * unit[b] * _lever(cA[b], s64))
+        d_k.append(_pose_disp(trans_k[b], T64[b], s64))
+        d_p.append(_pose_disp(trans_p[b], T64[b], s64))
+    d_k, d_p, reach = torch.cat(d_k), torch.cat(d_p), torch.cat(reach)
+    pin = pinned.reshape(-1)
+    plain_ratio = float((d_p / reach)[pin].max()) if bool(pin.any()) else 0.0
+    C = SC2_C_FACTOR * max(plain_ratio, 1.0)
+    reading["C"] = C
+    held = bool((d_k <= SC2_DISP + C * reach)[pin].all())
+    kernel_ratio = float((d_k / reach)[pin].max()) if bool(pin.any()) \
+        else 0.0
+    worst = float(d_k[pin].max()) if bool(pin.any()) else 0.0
+    loose = float(d_k[~pin].max()) if bool((~pin).any()) else 0.0
+
+    thr = cfg.inlier_threshold
+    ok, fworst, differ, banded = held, 0.0, 0, 0
+    for b in range(valid.shape[0]):
+        v = valid[b]
+        s64, t64 = src[b][v].double(), tgt[b][v].double()
+        so = seed_ok[b]
+        dist = _pose_dists(trans_k[b], s64, t64)
+        cnt = (dist < thr).sum(1).double()
+        band = ((dist - thr).abs() <= SC2_EPS).sum(1).double()
+        fk, fp = fit_k[b].double(), fit_p[b].double()
+        own = torch.where(so, (fk - cnt).abs() <= band, fk == -1)
+        disp = _pose_disp(trans_k[b], trans_p[b], s64)
+        dist = _pose_dists(trans_p[b], s64, t64)
+        slack = ((dist - thr).abs() <= disp[:, None] + SC2_EPS).sum(1)
+        slack = torch.where(so, slack.double(), torch.zeros_like(fk))
+        agree = (fk - fp).abs() <= slack
+        bk, bp = int(best_k[b]), int(best_p[b])
+        first = bk == int(torch.argmax(fit_k[b]))
+        top = bool(fp[bk] + slack[bk] >= fp[bp] - slack[bp])
+        ok &= bool(own.all()) and bool(agree.all()) and first and top
+        fworst = max(fworst, float((fk - fp).abs().max()))
+        differ += int((fk != fp).sum())
+        banded += int((band > 0).sum())
+        del dist
+    log(f"  K14: consensus sets bit-equal; poses against the f64 solve of "
+        f"the same consensus, on the {int(pin.sum())} of {pin.numel()} "
+        f"seeds whose sets pin a pose: kernel within {worst:.3e} m, "
+        f"largest ratio to 2^-24 * lever * E / gap {kernel_ratio:.3e} "
+        f"(plain {plain_ratio:.3e}; held to {SC2_DISP} m + C = {C:.3e} "
+        f"times it: {'yes' if held else 'NO'}); {int((~pin).sum())} seeds "
+        f"whose sets pin none (weights swallowed by the 1e-6, under 3 rows "
+        f"of weight, or a Horn gap under {SC2_GAP} of max|H|): kernel "
+        f"within {loose:.3e} m; fitness: {differ} of {fit_k.numel()} seeds "
+        f"differ from the plain version's (largest {fworst:g}), {banded} "
+        f"with a test within {SC2_EPS} m of the threshold; best "
+        f"{best_k.tolist()} (plain {best_p.tolist()})")
+    return ok, worst
+
+
+def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
+    """K14's bound: per seed the k1 x k1 distances of both clouds (9 flops
+    each), the counts, the soft k2 x k2 matrix, the power iterations and
+    the QCP solve (~600 flops); per (seed, valid row) the fitness test (25
+    flops); bytes: the points and flags once, the k1 columns, the poses,
+    fitness and best written."""
+    B, S, k1 = knn.shape
+    k2 = min(cfg.k2, k1)
+    n = valid.shape[1]
+    per_seed = (18 + 2) * k1 * k1 + 4 * k2 * k2 + cfg.num_iterations * (
+        2 * k2 * k2 + 3 * k2) + 600
+    ops = B * S * per_seed + 25.0 * S * float(valid.sum())
+    return (B * n * 25 + B * S * (k1 * 4 + 1) + B * S * 68 + B * 4, ops,
+            "f32")
+
+
+def _irls64(cfg, T, src, tgt, valid, it_num=20):
+    """The plain per-problem IRLS (`sc2pcr._post_refine`) in f64 from pose
+    T: (the final pose, its rounds, and for each round (the least distance
+    of a valid row's inlier test from the threshold, the inlier count, the
+    pose it solves, its rounding reach's unit 2^-24 * lever * E / gap,
+    whether its set pins a pose))."""
+    from eyoc_tpu_torch.registration.sc2pcr import _irls_threshold
+    thr = _irls_threshold(cfg)
+    a, b, T = src.double(), tgt.double(), T.double()
+    prev, cur, it, rounds = 0, 0, 0, []
+    while it < it_num and (it == 0 or abs(cur - prev) >= 1):
+        dist = (a @ T[:3, :3].T + T[:3, 3] - b).norm(dim=-1)
+        margin = (float((dist - thr).abs()[valid].min())
+                  if bool(valid.any()) else float("inf"))
+        inlier = (dist < thr) & valid
+        w = (1.0 / (1.0 + (dist / thr) ** 2)) * inlier
+        new, unit, cA, pinned = _qcp64(a[None], b[None], w[None])
+        count = int(inlier.sum())
+        reach = U32 * float(unit[0]) * float(
+            _lever(cA, a[valid])[0]) if count else 0.0
+        rounds.append((margin, count, new[0], reach,
+                       bool(pinned[0]) or count == 0))
+        if count > 0:
+            T = new[0]
+        prev, cur, it = cur, count, it + 1
+    return T, it, rounds
+
+
+def _irls_close(reading, got, want, cfg, trans, best, src, tgt, valid):
+    """K15 against the plain IRLS run in f64 from the same start poses
+    (`_irls64`), with K14's C (`reading`):
+    - one round from the start, where its inlier tests are clear of the
+      threshold by SC2_EPS and its set pins a pose: the kernel's pose within
+      SC2_DISP + C times its rounding reach of the f64 round (the reading of
+      the kernel's f32 moments and solve; the plain version's is logged);
+    - the whole run: the same rounds as the f64 run and the pose within
+      SC2_DISP + C times the last round's reach, every round's set pinning
+      a pose; or, where not, a round of the f64 run whose set pins no pose
+      or whose inlier test lies within
+      SC2_EPS plus C times the round before's reach of the threshold (f32
+      may take another inlier set there), logged with its reaches and
+      margins.
+    Returns the largest displacement of a problem whose run agrees (m)."""
+    from eyoc_tpu_torch.registration import sc2pcr
+    (T_k, it_k), (_, it_p) = got, want
+    C = reading["C"]
+    one_k, _ = sc2pcr.sc2_irls(cfg, trans, best, src, tgt, valid, it_num=1)
+    one_p, _ = sc2pcr.sc2_irls_plain(cfg, trans, best, src, tgt, valid,
+                                     it_num=1)
+    ok, worst, loose, r_k, r_p = True, 0.0, 0, 0.0, 0.0
+    for b in range(valid.shape[0]):
+        v = valid[b]
+        s64 = src[b][v].double()
+        T64, it64, rounds = _irls64(cfg, trans[b, int(best[b])], src[b],
+                                    tgt[b], v)
+        margin, count, T1, reach1, pinned1 = rounds[0]
+        if count and pinned1 and margin > SC2_EPS:
+            dk = float(_pose_disp(one_k[b:b + 1], T1[None], s64)[0])
+            dp = float(_pose_disp(one_p[b:b + 1], T1[None], s64)[0])
+            r_k, r_p = max(r_k, dk / reach1), max(r_p, dp / reach1)
+            ok &= dk <= SC2_DISP + C * reach1
+        disp = float(_pose_disp(T_k[b:b + 1], T64[None], s64)[0])
+        solved = [r for r in rounds if r[1]]
+        last = solved[-1][3] if solved else 0.0
+        if int(it_k[b]) == it64 and all(r[4] for r in rounds) \
+                and disp <= SC2_DISP + C * last:
+            worst = max(worst, disp)
+            continue
+        free = any(not r[4] for r in rounds) or any(
+            rounds[i][0] <= SC2_EPS + C * rounds[i - 1][3]
+            for i in range(1, len(rounds)))
+        log(f"  K15 problem {b}: {int(it_k[b])} rounds (plain "
+            f"{int(it_p[b])}, f64 {it64}), {disp:.3e} m from the f64 pose; "
+            f"the f64 run's rounds (least margin to the threshold, inliers, "
+            f"C times the reach, pins a pose): "
+            + "; ".join(f"{m:.2e} m, {n}, {C * r:.2e} m, {p}"
+                        for m, n, _, r, p in rounds))
+        loose += 1
+        ok &= free
+    log(f"  K15: iterations {it_k.tolist()} (plain {it_p.tolist()}); one "
+        f"round against the f64 recount: largest ratio to 2^-24 * lever * "
+        f"E / gap {r_k:.3e} (plain {r_p:.3e}, held to C = {C:.3e}); "
+        f"{loose} problems whose rounds' sets pin no pose or whose inlier "
+        f"tests f32 rounding can flip (above), the others within "
+        f"{worst:.3e} m of the f64 run")
+    return ok, worst
+
+
+def _irls_cost(cfg, trans, best, src, tgt, valid):
+    """K15's bound: per round of each problem, two passes over its valid
+    rows (45 flops a row) and the QCP solve, for the rounds the plain
+    version runs; bytes: the points and flags once, the start and final
+    poses."""
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_irls_plain
+    _, it = sc2_irls_plain(cfg, trans, best, src, tgt, valid)
+    it = it.double()
+    ops = float((it * (90.0 * valid.sum(1).double() + 600)).sum())
+    B, n = valid.shape
+    return B * n * 25 + B * (64 + 4) + B * 68, ops, "f32"
+
+
+def _sc2_valid(name, args):
+    """The valid rows [B, N] among a K13, K14 or K15 call's arguments."""
+    return args[1] if name == "sc2_nms" else args[-1]
+
+
+def check_sc2_kernels(label, calls, suffix=""):
+    """K13, K14 and K15 each against its plain version on `calls`
+    ({wrapper name: [(args, kwargs)]}); each also gives the same bits
+    twice, and its device kernels a call and host cost are read. Returns
+    {kernels-line name + suffix: row}."""
+    import functools
+    from eyoc_tpu_torch.registration import sc2pcr
+    out, reading = {}, {}
+    for name, fn, plain, cost, close, what in (
+            ("sc2_nms", sc2pcr.sc2_nms, sc2pcr.sc2_nms_plain, _nms_cost,
+             _nms_close, "K13 sc2_nms"),
+            ("sc2_seed_transforms", sc2pcr.sc2_seed_transforms,
+             sc2pcr.seed_transforms_batched_plain, _seed_cost,
+             functools.partial(_seed_close, reading),
+             "K14 sc2_seed_transforms"),
+            ("sc2_irls", sc2pcr.sc2_irls, sc2pcr.sc2_irls_plain, _irls_cost,
+             functools.partial(_irls_close, reading), "K15 sc2_irls")):
+        cl = calls[name]
+        a, k = cl[0]
+        B, n = _sc2_valid(name, a).shape
+        tag = f"{what} ({label}, B = {B}, N = {n})"
+        out[name + suffix] = check_calls(tag, cl, fn, plain, cost, close)
+        same_bits_twice(tag, fn, cl)
+        if name == "sc2_nms":
+            from eyoc_tpu_torch.registration.sc2pcr import _seeds_from_local
+            local = a[2].clone()
+            expected = 2 + count_kernels(
+                lambda: _seeds_from_local(local, a[4]), 3)[0]
+        else:
+            expected = 2 if name == "sc2_seed_transforms" else 1
+        kernels_per_call(tag, lambda: fn(*a, **k), reps=3,
+                         expected=expected)
+        launch_path(tag, fn, cl, label, 20)
+    return out
+
+
+def sc2_no_sync(what, src, tgt, valid, cfg):
+    """`sc2_pcr_batched` on B problems with no host sync (sync debug mode
+    "error")."""
+    import torch
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_pcr_batched
+    sc2_pcr_batched(src, tgt, valid, cfg)        # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trans, fit = sc2_pcr_batched(src, tgt, valid, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(trans).all()):
+        raise AssertionError(f"sc2_pcr_batched ({what}): non-finite poses")
+    log(f"sc2_pcr_batched ({what}, B = {valid.shape[0]}, N = "
+        f"{valid.shape[1]}): no host sync (sync debug mode \"error\")")
+
+
 # ---------------------------------------------------- phase 2, labeling
 
 
@@ -1206,7 +1679,8 @@ def record_extension_steps(spec, batch, tables):
     """One extension step at the published recipe and one at the demo's
     gates (fresh models each), with the labeling kernels' wrapper calls
     recorded: K2 (the matching, both directions of every pair in one
-    batched call, and the rediscovery), K3 and K4, then K8 and K9."""
+    batched call, and the rediscovery), K3, K4 and K13-K15, then K8 and
+    K9."""
     import torch
     from eyoc_tpu_torch.ops import matching
     from eyoc_tpu_torch.registration import sc2pcr
@@ -1214,7 +1688,9 @@ def record_extension_steps(spec, batch, tables):
     gen = torch.Generator().manual_seed(6)
     sites = [(matching, "masked_knn_batched"), (loss, "masked_argmin_excl"),
              (steps, "masked_argmin_batched"),
-             (sc2pcr, "sc2_power_iteration"), (sc2pcr, "sc2_seed_topk")]
+             (sc2pcr, "sc2_power_iteration"), (sc2pcr, "sc2_seed_topk"),
+             (sc2pcr, "sc2_nms"), (sc2pcr, "sc2_seed_transforms"),
+             (sc2pcr, "sc2_irls")]
     calls = {}
     for cfg in (ext_config(), ext_config(**GATED)):
         student, labeler, opt, _ = ext_models(spec)
@@ -1229,6 +1705,8 @@ def record_extension_steps(spec, batch, tables):
     return {"masked_argmin_label": match + pub["masked_argmin_batched"],
             "sc2_power_iteration": pub["sc2_power_iteration"],
             "sc2_seed_topk": pub["sc2_seed_topk"],
+            **{k: pub[k] for k in ("sc2_nms", "sc2_seed_transforms",
+                                   "sc2_irls")},
             "masked_knn2": [c for c in gated["masked_knn_batched"]
                             if c[0][4] == 2],
             "masked_argmin_excl": gated["masked_argmin_excl"]}
@@ -1581,7 +2059,8 @@ def largest_sort(model, batch, cfg, gen):
 LABEL_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad",
                  "take_rows", "take_rows_backward", "masked_channel_sums",
                  "masked_argmin", "sc2_power_iteration",
-                 "sc2_seed_topk") + COORD_KERNELS
+                 "sc2_seed_topk", "sc2_nms", "sc2_seed_transforms",
+                 "sc2_irls") + COORD_KERNELS
 
 
 def ema_synced(labeler, student, n, before):
@@ -1672,6 +2151,7 @@ def extension_phase(spec, batch, tables, smi):
     # K12: the labeler's two forwards (no grad: no inverses) and the
     # student's two
     want = {"sc2_power_iteration": TRAIN_B, "sc2_seed_topk": TRAIN_B,
+            "sc2_nms": 1, "sc2_seed_transforms": 1, "sc2_irls": 1,
             "masked_argmin": 4, "sc2_seed_counts": 0, "masked_knn2": 0,
             "masked_argmin_excl": 0, "voxelize": 2, "brick_pyramid": 2,
             "conv_maps": 4}
@@ -1804,7 +2284,8 @@ def main() -> int:
     from eyoc_tpu_torch.geometry.metrics import registration_success
     from eyoc_tpu_torch.models import init_unet, load_model
     from eyoc_tpu_torch.ops.matching import load_similarity_tables
-    from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig, sc2_pcr
+    from eyoc_tpu_torch.registration.sc2pcr import (SC2PCRConfig, sc2_pcr,
+                                                    sc2_pcr_batched)
     from eyoc_tpu_torch.training.optim import sgd
     from eyoc_tpu_torch.training.pipeline import preprocess_clouds
     from eyoc_tpu_torch.training.steps import TrainConfig
@@ -1854,6 +2335,19 @@ def main() -> int:
     results["sc2_seed_counts"] = check_seed_counts(k4_sets)
     results["sc2_seed_topk"] = check_seed_topk(k4_sets, cfg.sc2.k1)
     del k4_sets
+    # K13-K15 at the eval shape (the kernels line's rows), then on the
+    # labeling shape's synthetic problems (checked and logged)
+    e_set = sc2_problems(gen, N_CORR, ((0.3, N_CORR - 50),))[:3]
+    results.update(check_sc2_kernels("eval shape", sc2_calls(*e_set,
+                                                             cfg.sc2)))
+    sc2_no_sync("eval shape", *e_set, cfg.sc2)
+    l_cfg = ext_config().sc2
+    l_set = sc2_problems(gen, LABEL_N, LABEL_SPEC)[:3]
+    check_sc2_kernels("labeling shape, synthetic",
+                      sc2_calls(*l_set, l_cfg))
+    sc2_no_sync("labeling shape, synthetic", *l_set, l_cfg)
+    del e_set, l_set
+    torch.cuda.empty_cache()
     # the training kernels, on the calls of one full-width train step
     train_model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
                             device="cuda")
@@ -1877,7 +2371,15 @@ def main() -> int:
     tables = load_similarity_tables("waymo").to("cuda")
     calls = record_extension_steps(spec, train_batch, tables)
     results.update(check_label_kernels(calls))
-    del calls
+    sc2 = {k: calls[k] for k in SC2_KERNELS}
+    for k, cl in sc2.items():
+        if len(cl) != 1 or _sc2_valid(k, cl[0][0]).shape != (TRAIN_B,
+                                                              LABEL_N):
+            raise AssertionError(f"{k}: {len(cl)} calls in one labeling, "
+                                 "not one over its 8 problems")
+    results.update(check_sc2_kernels(
+        f"the {TRAIN_B} SC2-PCR problems of one labeling", sc2, "_label"))
+    del calls, sc2
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full width
@@ -1926,6 +2428,9 @@ def main() -> int:
     if any(counts[k] != 2 * N_PAIRS for k in COORD_KERNELS):
         raise AssertionError("the eval path is not one K10, K11 and K12 call "
                              "for each cloud")
+    if any(counts[k] != N_PAIRS for k in SC2_KERNELS):
+        raise AssertionError("the eval path is not one K13, K14 and K15 call "
+                             "a pair")
     largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen)
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
@@ -1933,13 +2438,23 @@ def main() -> int:
         f"{n_ok}/{N_PAIRS}, on {smi}")
 
     # ---- phase 4: registration sanity
-    src, tgt, valid, T_true = correspondences(torch.Generator().manual_seed(3))
-    T_est, _ = sc2_pcr(src, tgt, valid, cfg.sc2)
-    _, te, re = registration_success(T_est, T_true)
-    if not (float(te) < 0.1 and float(re) < 1.0):
-        raise AssertionError(f"sc2_pcr missed a known pose: RTE {float(te)} "
-                             f"m, RRE {float(re)} deg")
-    log(f"sc2_pcr sanity: RTE {float(te):.4f} m, RRE {float(re):.4f} deg")
+    sanity = ((0.3, N_CORR), (0.1, N_CORR), (0.3, N_CORR // 10))
+    src, tgt, valid, T_true = sc2_problems(torch.Generator().manual_seed(3),
+                                           N_CORR, sanity)
+    T_est, fit = sc2_pcr_batched(src, tgt, valid, cfg.sc2)
+    for b, (inlier, nv) in enumerate(sanity):
+        T1, f1 = sc2_pcr(src[b], tgt[b], valid[b], cfg.sc2)
+        if not (torch.equal(T1, T_est[b]) and torch.equal(f1, fit[b])):
+            raise AssertionError(f"sc2_pcr_batched problem {b} differs from "
+                                 "its own B = 1 call")
+        _, te, re = registration_success(T_est[b], T_true[b])
+        if not (float(te) < 0.1 and float(re) < 1.0):
+            raise AssertionError(f"sc2_pcr_batched missed a known pose "
+                                 f"({inlier} inliers, {nv} valid rows): RTE "
+                                 f"{float(te)} m, RRE {float(re)} deg")
+        log(f"sc2_pcr_batched sanity, {inlier} inliers, {nv} of {N_CORR} "
+            f"rows valid: RTE {float(te):.4f} m, RRE {float(re):.4f} deg, "
+            "the same bits as its B = 1 call")
 
     # ---- phase 5: the training path at full width
     train_counts = train_phase(train_model, opt, train_batch, tcfg,
@@ -1975,7 +2490,11 @@ def main() -> int:
               "sc2_seed_topk": "sc2_seed_counts",
               "sc2_seed_topk_label": "sc2_seed_counts",
               "sc2_power_iteration_label": "sc2_power_iteration",
-              "masked_argmin_excl": "masked_knn2"}
+              "masked_argmin_excl": "masked_knn2",
+              "sc2_nms_label": "sc2_nms",
+              "sc2_seed_transforms": "sc2_refine",
+              "sc2_seed_transforms_label": "sc2_refine",
+              "sc2_irls": "sc2_refine", "sc2_irls_label": "sc2_refine"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -1997,6 +2516,12 @@ def main() -> int:
         "voxelize": "eyoc_tpu/sparse/voxelize.py:24",
         "brick_pyramid": "eyoc_tpu/sparse/bricks.py:232",
         "conv_maps": "eyoc_tpu/sparse/brick_conv.py:95",
+        "sc2_nms": "eyoc_tpu/registration/sc2pcr.py:151",
+        "sc2_nms_label": "eyoc_tpu/registration/sc2pcr.py:151",
+        "sc2_seed_transforms": "eyoc_tpu/registration/sc2pcr.py:161",
+        "sc2_seed_transforms_label": "eyoc_tpu/registration/sc2pcr.py:161",
+        "sc2_irls": "eyoc_tpu/registration/sc2pcr.py:219",
+        "sc2_irls_label": "eyoc_tpu/registration/sc2pcr.py:219",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,22 +1,32 @@
 """SC2-PCR: second-order spatial-compatibility registration
 (counterpart of eyoc_tpu/registration/sc2pcr.py).
 
-Stages, as in the JAX package (reference scripts/SC2_PCR/SC2_PCR.py):
+Stages, as in the JAX package (reference scripts/SC2_PCR/SC2_PCR.py), for
+B problems at once in `sc2_pcr_batched` (`sc2_pcr` is its B = 1 case),
+with no host sync from the correspondences to the pose:
 1. leading eigenvector of the N x N soft compatibility matrix by 20 power
-   iterations -> kernel K3 `sc2_power_iteration` (one launch for all
-   iterations; the symmetric matrix is never stored, each of its values
-   rebuilt from the coordinates once per iteration);
-2. NMS seed picking (plain torch);
+   iterations -> kernel K3 `sc2_power_iteration`, one launch a problem (one
+   launch for all iterations; the symmetric matrix is never stored, each
+   of its values rebuilt from the coordinates once per iteration);
+2. NMS seed picking -> kernel K13 `sc2_nms` (each row's local-max flag
+   over the valid rows within the radius, no [N, N] tensor), then the top
+   S of the B problems in one stable sort;
 3. second-order counts on the seed rows and each seed's k1 best columns ->
-   kernel K4 `sc2_seed_topk` (the counts on b1 tensor cores, each split of
-   the columns keeping its top k1 in the epilogue, then a merge; the
-   [S, N] counts are never stored). `sc2_seed_counts`, the same product
-   with the counts stored, is off the main path;
+   kernel K4 `sc2_seed_topk`, one call a problem (the counts on b1 tensor
+   cores, each split of the columns keeping its top k1 in the epilogue,
+   then a merge; the [S, N] counts are never stored). `sc2_seed_counts`,
+   the same product with the counts stored, is off the main path;
 4. two-stage consensus (local SC^2 of the k1 -> k2 top-k -> k2 x k2
    power iteration) + per-seed weighted QCP Kabsch + inlier-count fitness
-   (plain torch, batched over the seeds);
-5. IRLS post-refinement with the inlier-count stop: a Python loop with one
-   host sync per iteration, at most 20.
+   and its argmax -> kernel K14 `sc2_seed_transforms` (one block a seed);
+5. IRLS post-refinement with the inlier-count stop -> kernel K15
+   `sc2_irls` (one block a problem runs the while-loop, starting from the
+   best seed's pose read on the card).
+
+Every kernel has a plain version here (the CPU path and the card's
+oracle); the per-pair `_pick_seeds`, `_seed_transforms` and `_post_refine`
+are the JAX functions' plain counterparts that the batched ones are held
+to.
 
 Top-k: every selection takes the exact top-k with ties to the lowest index,
 which is `lax.top_k`'s order; the JAX `_chunked_topk` returns the same
@@ -25,10 +35,15 @@ chunks are concatenated in index order). So seeds and consensus sets match
 the JAX package exactly up to float rounding.
 
 Distances that meet a threshold are written as sqrt((dx*dx + dy*dy) +
-dz*dz), with no fused multiply-add, in the plain versions and in K4, so
-K4 and its plain version agree bit for bit on every threshold test. K3 has
-no threshold: it sums with FMAs and multiplies by 1/d^2, and is held to
-its plain version within a tolerance (chip_smoke.py's K3_RTOL).
+dz*dz), with no fused multiply-add, in the plain versions and in K4, K13
+and K14, so those kernels and their plain versions agree bit for bit on
+every radius and compatibility test (the local scores, the seeds, the
+consensus sets). The fitness and IRLS inlier tests follow a warped point,
+which the plain version makes with torch.matmul and the kernels with
+their own products: a point within rounding of the threshold may count
+on one side only. K3 has no threshold: it sums with FMAs and multiplies
+by 1/d^2, and is held to its plain version within a tolerance
+(chip_smoke.py's K3_RTOL).
 
 Of SC2PCRConfig's TPU tuning switches only the defaults are carried: exact
 top-k (`approx_topk=False`), f32 power iteration (`bf16_power=False`) and
@@ -348,64 +363,109 @@ def sc2_seed_topk(src, tgt, valid, seeds, d_thre: float, k: int):
 # ------------------------------------------------------------------ stages
 
 
+def _masked_dist(src, valid):
+    """[N, N] distances of the valid pairs, inf elsewhere
+    (eyoc_tpu/registration/sc2pcr.py:291)."""
+    pair_ok = valid[:, None] & valid[None, :]
+    return torch.where(pair_ok, _pairwise_dist(src),
+                       torch.full((), float("inf"), device=src.device))
+
+
 def _pick_seeds(src_dist, scores, radius: float, num_seeds: int):
     """NMS seed selection (reference pick_seeds, SC2_PCR.py:33-59)."""
     relation = (scores[:, None] >= scores[None, :]) | (src_dist >= radius)
     is_local_max = torch.all(relation, dim=-1).to(scores.dtype)
-    local_scores = scores * is_local_max
-    _, seeds = topk(local_scores, num_seeds)
-    seed_ok = local_scores[seeds] > 0
+    return _seeds_from_local(scores * is_local_max, num_seeds)
+
+
+def _seeds_from_local(local, num_seeds: int):
+    """The top `num_seeds` of the local scores [..., N] (ties to the lowest
+    index) and which of them are positive."""
+    _, seeds = topk(local, num_seeds)
+    seed_ok = torch.gather(local, -1, seeds) > 0
     return seeds.to(torch.int32), seed_ok
 
 
-def _take3(x, idx):
-    """x [S, K, 3] rows idx [S, J] -> [S, J, 3]."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+def _gather_rows(x, idx):
+    """x [..., K, C] rows idx [..., J] -> [..., J, C]."""
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape
+                                                     + x.shape[-1:]))
 
 
-def _seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt, valid):
-    """Two-stage consensus + per-seed Kabsch (reference cal_seed_trans),
-    from each seed's k1 columns `knn_idx` [S, k1] (`sc2_seed_topk`)."""
+def _seed_rows(x, idx):
+    """Each seed's rows idx [..., S, k] of its problem's x [..., N, C] ->
+    [..., S, k, C]."""
+    x = x[..., None, :, :].expand(idx.shape[:-1] + x.shape[-2:])
+    return _gather_rows(x, idx)
+
+
+def _consensus(cfg: SC2PCRConfig, knn_idx, src, tgt, valid):
+    """The two-stage consensus (reference cal_seed_trans :61-135) from each
+    seed's k1 columns knn_idx [..., S, k1] of the problems src/tgt
+    [..., N, 3], valid [..., N]: (fine_sel [..., S, k2] positions among the
+    k1 columns, the consensus points src_fine/tgt_fine [..., S, k2, 3],
+    their Kabsch weights w [..., S, k2])."""
     d = cfg.d_thre
-    nbr_ok = valid[knn_idx]
-    src_knn = src[knn_idx]                                   # [S, k1, 3]
-    tgt_knn = tgt[knn_idx]
+    idx = knn_idx.long()
+    nbr_ok = _seed_rows(valid[..., None], idx)[..., 0]
+    src_knn = _seed_rows(src, idx)                          # [..., S, k1, 3]
+    tgt_knn = _seed_rows(tgt, idx)
     cross = torch.abs(_pairwise_dist(src_knn) - _pairwise_dist(tgt_knn))
-    pair_ok = nbr_ok[:, :, None] & nbr_ok[:, None, :]
+    pair_ok = nbr_ok[..., :, None] & nbr_ok[..., None, :]
     local_hard = ((cross < d) & pair_ok).float()
-    local_sc2 = (local_hard[:, :1, :] @ local_hard)[:, 0, :]  # exact counts
+    local_sc2 = (local_hard[..., :1, :] @ local_hard)[..., 0, :]  # exact
 
     local_sc2 = torch.where(nbr_ok, local_sc2, torch.full_like(local_sc2, -1.0))
-    _, fine_sel = topk(local_sc2, cfg.k2)                    # [S, k2]
-    fine_ok = torch.gather(nbr_ok, 1, fine_sel)
-    src_fine = _take3(src_knn, fine_sel)
-    tgt_fine = _take3(tgt_knn, fine_sel)
+    _, fine_sel = topk(local_sc2, cfg.k2)                    # [..., S, k2]
+    fine_ok = torch.gather(nbr_ok, -1, fine_sel)
+    src_fine = _gather_rows(src_knn, fine_sel)
+    tgt_fine = _gather_rows(tgt_knn, fine_sel)
 
     cross = torch.abs(_pairwise_dist(src_fine) - _pairwise_dist(tgt_fine))
     local_sc = torch.clamp(1.0 - cross ** 2 / d ** 2, min=0.0)
-    fine_pair_ok = fine_ok[:, :, None] & fine_ok[:, None, :]
-    eye = torch.eye(cfg.k2, dtype=torch.bool, device=src.device)
-    local_sc = torch.where(fine_pair_ok & ~eye[None], local_sc,
+    fine_pair_ok = fine_ok[..., :, None] & fine_ok[..., None, :]
+    k2 = fine_sel.shape[-1]
+    eye = torch.eye(k2, dtype=torch.bool, device=src.device)
+    local_sc = torch.where(fine_pair_ok & ~eye, local_sc,
                            torch.zeros_like(local_sc))
 
-    w = _power_iteration(local_sc, cfg.num_iterations)      # [S, k2]
+    w = _power_iteration(local_sc, cfg.num_iterations)      # [..., S, k2]
     w = torch.abs(w) * fine_ok
     w = w / (torch.sum(w, -1, keepdim=True) + 1e-6)
-    trans = kabsch_qcp(src_fine, tgt_fine, w)                # [S, 4, 4]
+    return fine_sel, src_fine, tgt_fine, w
 
-    # fitness over the full correspondence set, full f32
-    pred = (torch.einsum("sij,nj->sni", trans[:, :3, :3], src)
-            + trans[:, None, :3, 3])
-    dist = _norm3(pred - tgt[None])
-    fit = torch.sum((dist < cfg.inlier_threshold) & valid[None], -1).float()
-    fit = torch.where(seed_ok, fit, torch.full_like(fit, -1.0))
+
+def _fitness(cfg: SC2PCRConfig, trans, seed_ok, src, tgt, valid):
+    """Inliers of each seed's pose trans [..., S, 4, 4] over the full
+    correspondence set, full f32; -1 where the seed is not ok."""
+    pred = (torch.einsum("...sij,...nj->...sni", trans[..., :3, :3], src)
+            + trans[..., None, :3, 3])
+    dist = _norm3(pred - tgt[..., None, :, :])
+    fit = torch.sum((dist < cfg.inlier_threshold) & valid[..., None, :],
+                    -1).float()
+    return torch.where(seed_ok, fit, torch.full_like(fit, -1.0))
+
+
+def _seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt, valid):
+    """Two-stage consensus + per-seed Kabsch (reference cal_seed_trans) of
+    one problem, from each seed's k1 columns `knn_idx` [S, k1]
+    (`sc2_seed_topk`): (the best seed's pose [4, 4], fitness [S])."""
+    _, src_fine, tgt_fine, w = _consensus(cfg, knn_idx, src, tgt, valid)
+    trans = kabsch_qcp(src_fine, tgt_fine, w)                # [S, 4, 4]
+    fit = _fitness(cfg, trans, seed_ok, src, tgt, valid)
     best = torch.argmax(fit)
     return trans[best], fit
 
 
+def _irls_threshold(cfg: SC2PCRConfig) -> float:
+    """The IRLS inlier threshold (eyoc_tpu/registration/sc2pcr.py:221)."""
+    return 0.10 if cfg.inlier_threshold == 0.10 else 1.2
+
+
 def _post_refine(cfg: SC2PCRConfig, trans, src, tgt, valid, it_num: int = 20):
-    """IRLS refinement with the inlier-count stop (reference :238-278)."""
-    thr = 0.10 if cfg.inlier_threshold == 0.10 else 1.2
+    """IRLS refinement with the inlier-count stop (reference :238-278) of
+    one problem, one host sync per iteration."""
+    thr = _irls_threshold(cfg)
     prev, cur, it = 0, 0, 0
     while it < it_num and (it == 0 or abs(cur - prev) >= 1):
         dist = _norm3(transform_points(src, trans) - tgt)
@@ -419,11 +479,222 @@ def _post_refine(cfg: SC2PCRConfig, trans, src, tgt, valid, it_num: int = 20):
     return trans
 
 
-def sc2_pcr(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
-            cfg: SC2PCRConfig = SC2PCRConfig()):
-    """Register one padded correspondence set: src/tgt [N, 3] f32 matched
-    coordinates, valid [N] bool. Returns (trans [4, 4], fitness [S])."""
-    n = src.shape[0]
+# -------------------------------------------------------------- kernel K13
+
+
+def sc2_nms_plain(src, valid, scores, radius: float, num_seeds: int):
+    """`_pick_seeds` on each problem's masked [N, N] distances, one problem
+    at a time (an [N, N] f32 and bool pair a problem: 320 MB at N = 8000).
+    src [B, N, 3], valid [B, N], scores [B, N] -> (seeds [B, S] int32,
+    seed_ok [B, S] bool)."""
+    out = [_pick_seeds(_masked_dist(src[b], valid[b]), scores[b], radius,
+                       num_seeds) for b in range(src.shape[0])]
+    return (torch.stack([s for s, _ in out]),
+            torch.stack([ok for _, ok in out]))
+
+
+# K13's rows a block (csrc/sc2_nms.cu:kThreads), and the blocks its
+# column splits aim at: enough to fill the card when B * N is small
+_K13_ROWS, _K13_BLOCKS = 128, 1024
+_K13_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p)
+
+
+def k13_splits(B: int, n: int) -> int:
+    """Column splits of a K13 launch: as many as bring B * ceil(n / 128)
+    row blocks to about _K13_BLOCKS, at most one per 128-column tile."""
+    rows = B * -(-n // _K13_ROWS)
+    return max(1, min(-(-n // _K13_ROWS), -(-_K13_BLOCKS // max(rows, 1))))
+
+
+def sc2_nms(src, valid, scores, radius: float, num_seeds: int):
+    """K13: NMS seeds of B problems. local[b, i] = scores[b, i] * flag, flag
+    0 where a valid row j of larger score lies within `radius` of a valid
+    row i; then the top `num_seeds` local scores of each problem (ties to
+    the lowest index) and seed_ok = local > 0 there.
+
+    src [B, N, 3] f32, valid [B, N] bool, scores [B, N] f32 (0 at invalid
+    rows) -> (seeds [B, S] int32, seed_ok [B, S] bool). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (two launches,
+    then one stable sort of the [B, N] scores) or raises."""
+    if src.is_cpu:
+        return sc2_nms_plain(src, valid, scores, radius, num_seeds)
+    return _launch_k13(src, valid, scores, radius, num_seeds)
+
+
+def _launch_k13(src, valid, scores, radius, num_seeds):
+    fn = kernels.load("sc2_nms", _K13_ARGS)
+    f32 = torch.float32
+    dev = kernels.require_cuda("sc2_nms", src, valid, scores,
+                               dtypes=(f32, torch.bool, f32))
+    B, N = valid.shape
+    if src.shape != (B, N, 3) or scores.shape != (B, N):
+        raise ValueError("sc2_nms: expected [B, N, 3], [B, N], [B, N]")
+    splits = k13_splits(B, N)
+    flags = torch.empty(B * splits * N, dtype=torch.uint8, device=src.device)
+    local = torch.empty((B, N), dtype=f32, device=src.device)
+    p = kernels.ptr
+    err = fn(p(src), p(valid), p(scores), B, N, float(radius), splits,
+             p(flags), p(local), kernels.stream_handle(dev))
+    kernels.check_launch("sc2_nms", err)
+    return _seeds_from_local(local, num_seeds)
+
+
+# -------------------------------------------------------------- kernel K14
+
+
+def seed_transforms_batched_plain(cfg: SC2PCRConfig, seed_ok, knn_idx, src,
+                                  tgt, valid):
+    """`_seed_transforms` with a problem axis: knn_idx [B, S, k1], seed_ok
+    [B, S], src/tgt [B, N, 3], valid [B, N] -> (trans [B, S, 4, 4] each
+    seed's pose, fitness [B, S], best [B] int32 the first argmax, fine_sel
+    [B, S, k2] int32 the consensus sets as positions among the k1
+    columns)."""
+    fine_sel, src_fine, tgt_fine, w = _consensus(cfg, knn_idx, src, tgt,
+                                                 valid)
+    trans = kabsch_qcp(src_fine, tgt_fine, w)
+    fit = _fitness(cfg, trans, seed_ok, src, tgt, valid)
+    best = torch.argmax(fit, -1).to(torch.int32)
+    return trans, fit, best, fine_sel.to(torch.int32)
+
+
+# seed_consensus's most k1 (csrc/sc2_refine.cu:kMaxK)
+_K14_MAX_K = 32
+_K14_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int) + (
+    ctypes.c_void_p,) * 5
+
+
+def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
+                        valid):
+    """K14: `seed_transforms_batched_plain` (its outputs and arguments) as
+    one block a (problem, seed) and one argmax block a problem.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (two launches) or raises."""
+    if src.is_cpu:
+        return seed_transforms_batched_plain(cfg, seed_ok, knn_idx, src, tgt,
+                                             valid)
+    return _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid)
+
+
+def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
+    fn = kernels.load("sc2_refine", _K14_ARGS, symbol="sc2_seed_transforms")
+    f32 = torch.float32
+    dev = kernels.require_cuda(
+        "sc2_seed_transforms", src, tgt, valid, knn_idx, seed_ok,
+        dtypes=(f32, f32, torch.bool, torch.int32, torch.bool))
+    B, N = valid.shape
+    S, k1 = knn_idx.shape[1:]
+    if src.shape != (B, N, 3) or tgt.shape != (B, N, 3) \
+            or knn_idx.shape != (B, S, k1) or seed_ok.shape != (B, S):
+        raise ValueError("sc2_seed_transforms: expected [B, N, 3] twice, "
+                         "[B, N], [B, S, k1], [B, S]")
+    k2 = min(cfg.k2, k1)
+    if not 1 <= k1 <= _K14_MAX_K:
+        raise ValueError(f"sc2_seed_transforms: k1 = {k1} not in "
+                         f"1..{_K14_MAX_K}")
+    trans = torch.empty((B, S, 4, 4), dtype=f32, device=src.device)
+    fit = torch.empty((B, S), dtype=f32, device=src.device)
+    best = torch.empty(B, dtype=torch.int32, device=src.device)
+    fine_sel = torch.empty((B, S, k2), dtype=torch.int32, device=src.device)
+    p = kernels.ptr
+    err = fn(p(src), p(tgt), p(valid), p(knn_idx), p(seed_ok), B, N, S, k1,
+             k2, float(cfg.d_thre), float(cfg.d_thre ** 2),
+             float(cfg.inlier_threshold), int(cfg.num_iterations), p(trans),
+             p(fit), p(best), p(fine_sel), kernels.stream_handle(dev))
+    kernels.check_launch("sc2_seed_transforms", err)
+    return trans, fit, best, fine_sel
+
+
+# -------------------------------------------------------------- kernel K15
+
+
+def post_refine_batched_plain(cfg: SC2PCRConfig, trans, src, tgt, valid,
+                              it_num: int = 20):
+    """`_post_refine` for B problems with no host sync: it_num steps, each
+    problem's state frozen by `where` once its stop holds, so each stops
+    where the JAX while-loop stops. trans [B, 4, 4], src/tgt [B, N, 3],
+    valid [B, N] -> (trans [B, 4, 4], iterations [B] int32)."""
+    thr = _irls_threshold(cfg)
+    prev = cur = it = torch.zeros(src.shape[0], dtype=torch.int32,
+                                  device=src.device)
+    for _ in range(it_num):
+        run = (it < it_num) & ((it == 0) | ((cur - prev).abs() >= 1))
+        dist = _norm3(transform_points(src, trans) - tgt)
+        inlier = (dist < thr) & valid
+        w = (1.0 / (1.0 + (dist / thr) ** 2)) * inlier
+        new_trans = kabsch_qcp(src, tgt, w)
+        count = inlier.sum(-1, dtype=torch.int32)
+        new_trans = torch.where((count > 0)[:, None, None], new_trans, trans)
+        trans = torch.where(run[:, None, None], new_trans, trans)
+        prev = torch.where(run, cur, prev)
+        cur = torch.where(run, count, cur)
+        it = torch.where(run, it + 1, it)
+    return trans, it
+
+
+_K15_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 3
+
+
+def sc2_irls_plain(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
+                   it_num: int = 20):
+    """`post_refine_batched_plain` from each problem's pose
+    trans[b, best[b]]."""
+    start = trans[torch.arange(trans.shape[0], device=trans.device),
+                  best.long()]
+    return post_refine_batched_plain(cfg, start, src, tgt, valid, it_num)
+
+
+def sc2_irls(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
+             it_num: int = 20):
+    """K15: IRLS of B problems from each problem's best seed pose
+    trans[b, best[b]] (trans [B, S, 4, 4], best [B] int32) ->
+    (trans [B, 4, 4], iterations [B] int32), as `sc2_irls_plain`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (one persistent block a problem, one launch) or raises."""
+    if src.is_cpu:
+        return sc2_irls_plain(cfg, trans, best, src, tgt, valid, it_num)
+    return _launch_k15(cfg, trans, best, src, tgt, valid, it_num)
+
+
+def _launch_k15(cfg, trans, best, src, tgt, valid, it_num):
+    fn = kernels.load("sc2_refine", _K15_ARGS, symbol="sc2_irls")
+    f32 = torch.float32
+    dev = kernels.require_cuda("sc2_irls", trans, best, src, tgt, valid,
+                               dtypes=(f32, torch.int32, f32, f32,
+                                       torch.bool))
+    B, N = valid.shape
+    S = trans.shape[1]
+    if trans.shape != (B, S, 4, 4) or best.shape != (B,) \
+            or src.shape != (B, N, 3) or tgt.shape != (B, N, 3):
+        raise ValueError("sc2_irls: expected [B, S, 4, 4], [B], [B, N, 3] "
+                         "twice, [B, N]")
+    out = torch.empty((B, 4, 4), dtype=f32, device=src.device)
+    iters = torch.empty(B, dtype=torch.int32, device=src.device)
+    p = kernels.ptr
+    err = fn(p(trans), p(best), p(src), p(tgt), p(valid), B, N, S,
+             _irls_threshold(cfg), int(it_num), p(out), p(iters),
+             kernels.stream_handle(dev))
+    kernels.check_launch("sc2_irls", err)
+    return out, iters
+
+
+# --------------------------------------------------------------- SC2-PCR
+
+
+def sc2_pcr_batched(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
+                    cfg: SC2PCRConfig = SC2PCRConfig()):
+    """Register B padded correspondence sets at once: src/tgt [B, N, 3] f32
+    matched coordinates, valid [B, N] bool. Returns (trans [B, 4, 4],
+    fitness [B, S]); each problem's as `sc2_pcr` on it alone.
+
+    On the card: K3 and K4 once a problem, K13, K14 and K15 once for all,
+    queued with no host sync."""
+    B, n = valid.shape
     if n > cfg.max_points:
         raise ValueError(f"{n} correspondences exceed max_points "
                          f"{cfg.max_points}")
@@ -432,19 +703,28 @@ def sc2_pcr(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
     src = src.float().contiguous()
     tgt = tgt.float().contiguous()
     valid = valid.contiguous()
-    confidence = sc2_power_iteration(src, tgt, valid, cfg.d_thre,
-                                     cfg.num_iterations) * valid.float()
-    num_seeds = min(cfg.num_seeds, n)
-    pair_ok = valid[:, None] & valid[None, :]
-    src_dist = torch.where(pair_ok, _pairwise_dist(src),
-                           torch.full((), float("inf"), device=src.device))
-    seeds, seed_ok = _pick_seeds(src_dist, confidence, cfg.nms_radius,
-                                 num_seeds)
-    del src_dist, pair_ok
-    knn_idx = sc2_seed_topk(src, tgt, valid, seeds, cfg.d_thre, cfg.k1)
-    trans, fitness = _seed_transforms(cfg, seed_ok, knn_idx, src, tgt, valid)
-    trans = _post_refine(cfg, trans, src, tgt, valid)
+    confidence = torch.stack([
+        sc2_power_iteration(src[b], tgt[b], valid[b], cfg.d_thre,
+                            cfg.num_iterations) for b in range(B)])
+    confidence = confidence * valid.float()
+    seeds, seed_ok = sc2_nms(src, valid, confidence, cfg.nms_radius,
+                             min(cfg.num_seeds, n))
+    knn_idx = torch.stack([
+        sc2_seed_topk(src[b], tgt[b], valid[b], seeds[b], cfg.d_thre, cfg.k1)
+        for b in range(B)])
+    trans, fitness, best, _ = sc2_seed_transforms(cfg, seed_ok, knn_idx,
+                                                  src, tgt, valid)
+    trans, _ = sc2_irls(cfg, trans, best, src, tgt, valid)
     return trans, fitness
+
+
+def sc2_pcr(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
+            cfg: SC2PCRConfig = SC2PCRConfig()):
+    """Register one padded correspondence set: src/tgt [N, 3] f32 matched
+    coordinates, valid [N] bool. Returns (trans [4, 4], fitness [S]): the
+    B = 1 case of `sc2_pcr_batched`."""
+    trans, fitness = sc2_pcr_batched(src[None], tgt[None], valid[None], cfg)
+    return trans[0], fitness[0]
 
 
 def sc2_pcr_estimator(src_xyz, src_feat, src_mask, tgt_xyz, tgt_feat,

@@ -40,7 +40,8 @@ from eyoc_tpu_torch.ops.knn import masked_argmin_batched
 from eyoc_tpu_torch.ops.matching import (SimilarityTables, compact_matches,
                                          mutual_topk_matches,
                                          spatial_filter_mask)
-from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig, sc2_pcr
+from eyoc_tpu_torch.registration.sc2pcr import (SC2PCRConfig,
+                                                sc2_pcr_batched)
 from eyoc_tpu_torch.sparse import morton
 from eyoc_tpu_torch.training.loss import LossDraws, hardest_contrastive_loss
 from eyoc_tpu_torch.training.pipeline import (RawBatch, flatten_pairs,
@@ -251,8 +252,9 @@ def label_pairs(cfg: TrainConfig, F0, m0, x0, F1, m1, x1, frame_distance,
     launch), the spatial filter, the hit ratio of the kept matches under
     T_gt; without SC2 filtering, the unfiltered matches and the identity
     pose (:428-432). Otherwise the kept matches compacted to
-    sc2.max_points, SC2-PCR per pair, then the rediscovery: a random
-    subset of cloud 0 warped by the estimated pose, its 1-NN in cloud 1
+    sc2.max_points, SC2-PCR on the B pairs in one batched call (no host
+    sync), then the rediscovery: a random subset of cloud 0 warped by the
+    estimated pose, its 1-NN in cloud 1
     (one batched K2 launch for the B pairs), kept within
     rediscovery_radius when the pair has >= 10 kept matches and a positive
     fitness (and, with label_min_translation_frac > 0, a translation of at
@@ -278,9 +280,8 @@ def label_pairs(cfg: TrainConfig, F0, m0, x0, F1, m1, x1, frame_distance,
     ci0, ci1, cv = compact_matches(idx0, idx1, valid_f, cfg.sc2.max_points)
     src, tgt = _rows(x0, ci0), _rows(x1, ci1)
     stage("filter")
-    fits = [sc2_pcr(src[b], tgt[b], cv[b], cfg.sc2) for b in range(B)]
-    T_est = torch.stack([T for T, _ in fits])
-    fit_max = torch.stack([f.max() for _, f in fits])
+    T_est, fitness = sc2_pcr_batched(src, tgt, cv, cfg.sc2)
+    fit_max = fitness.max(-1).values
     stage("sc2pcr")
     sel = random_subset(torch.where(m0, noise, torch.full_like(noise, 2.0)),
                         cfg.rediscovery_samples)

@@ -13,11 +13,12 @@ module on a host without `nvcc`.
 `launches` holds one plain integer per counted launch site; a wrapper adds
 one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
-(K6's forward and backward, K4's counts and top k, K8 and K9), and one
-kernel may be counted under two names (K1 as the forward conv and as the
-conv backward's dX), so the counters are `COUNTERS`, a superset of the sources
-in `KERNELS`. A wrapper call that makes several launches (K4's top k, K10,
-K11, K12) counts one.
+(K6's forward and backward, K4's counts and top k, K8 and K9, K14 and K15
+in `sc2_refine`), and one kernel may be counted under two names (K1 as
+the forward conv and as the conv backward's dX), so the counters are
+`COUNTERS`: the sources in `KERNELS` with an entry point of their own
+name, and the other entry points. A wrapper call that makes several
+launches (K4's top k, K10, K11, K12, K14) counts one.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -45,9 +46,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
            "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
            "masked_channel_sums", "masked_knn2", "voxelize", "brick_pyramid",
-           "conv_maps")
-COUNTERS = KERNELS + ("sparse_conv_dgrad", "take_rows_backward",
-                      "sc2_seed_topk", "masked_argmin_excl")
+           "conv_maps", "sc2_nms", "sc2_refine")
+COUNTERS = tuple(k for k in KERNELS if k != "sc2_refine") + (
+    "sparse_conv_dgrad", "take_rows_backward", "sc2_seed_topk",
+    "masked_argmin_excl", "sc2_seed_transforms", "sc2_irls")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where the port's test protocol spends its time on one GPU.
 
-    python3 profile_torch_stages.py [--pairs N]
+    python3 profile_torch_stages.py [--pairs N] [--profile-only]
 
 Runs the configuration of chip_smoke.py's main path (ResUNetBN2C, random
 weights, synthetic KITTI-scale pairs at d = 45 m, CAPS (16384, 5120, 1536,
 512), SC2-PCR with 5000 points and 1000 seeds) and prints:
 
 1. per-stage host-clock times, each stage bracketed by
-   torch.cuda.synchronize(), averaged over the pairs;
-2. a torch.profiler view of one whole `test_pair`: wall time, summed device
-   time of all kernels, the device's busy share, the number of kernel
-   launches and the ten kernels with the most device time.
+   torch.cuda.synchronize(), averaged over the pairs (left out with
+   --profile-only, which needs nothing of the port but `eval.test_pair`,
+   so the same script profiles an older tree);
+2. three torch.profiler views of one whole `test_pair` each: wall time,
+   summed device time of all kernels, the device's busy share and the
+   number of kernel launches; for the first two (the process's first
+   `test_pair` and the profiler's start-up in the first) the host ops with
+   the most self time, for the third, the one to read, the ten kernels
+   with the most device time.
 
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
@@ -39,6 +44,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=cs.N_PAIRS)
+    ap.add_argument("--profile-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_stages: no CUDA device")
@@ -90,56 +96,60 @@ def main() -> None:
         tx, tf, tm = x1[sel1], f1[sel1], m1[sel1]
         _, nn = timed("reg.knn (K2)", lambda: masked_argmin(sf, sm, tf, tm))
         tgt = tx[nn.long()]
+        s3, t3, v3 = src[None], tgt[None], sm[None]
         conf = timed("reg.sc2.power_iteration (K3)",
                      lambda: sc2pcr.sc2_power_iteration(
                          src, tgt, sm, c.d_thre, c.num_iterations)) * sm
-        pair_ok = sm[:, None] & sm[None, :]
-        dist = timed("reg.sc2.nms_dist ([N, N] masked distances)",
-                     lambda: torch.where(
-                         pair_ok, sc2pcr._pairwise_dist(src),
-                         torch.full((), float("inf"), device=src.device)))
-        seeds, seed_ok = timed("reg.sc2.nms (pick_seeds)",
-                               lambda: sc2pcr._pick_seeds(
-                                   dist, conf, c.nms_radius,
-                                   min(c.num_seeds, src.shape[0])))
+        seeds, seed_ok = timed("reg.sc2.nms (K13)", lambda: sc2pcr.sc2_nms(
+            s3, v3, conf[None], c.nms_radius,
+            min(c.num_seeds, src.shape[0])))
         knn_idx = timed("reg.sc2.seed_topk (K4: counts and k1 top-k)",
-                        lambda: sc2pcr.sc2_seed_topk(src, tgt, sm, seeds,
+                        lambda: sc2pcr.sc2_seed_topk(src, tgt, sm, seeds[0],
                                                      c.d_thre, c.k1))
-        T, _ = timed("reg.sc2.consensus (local SC2, k2 top-k, Kabsch, "
-                     "fitness)",
-                     lambda: sc2pcr._seed_transforms(c, seed_ok, knn_idx,
-                                                     src, tgt, sm))
-        timed("reg.sc2.irls (<= 20 host-synced iterations)",
-              lambda: sc2pcr._post_refine(c, T, src, tgt, sm))
+        T, _, best, _ = timed("reg.sc2.consensus (K14: local SC2, k2 "
+                              "top-k, Kabsch, fitness, argmax)",
+                              lambda: sc2pcr.sc2_seed_transforms(
+                                  c, seed_ok, knn_idx[None], s3, t3, v3))
+        timed("reg.sc2.irls (K15: <= 20 rounds on the card)",
+              lambda: sc2pcr.sc2_irls(c, T, best, s3, t3, v3))
 
-    one_pair(pairs[0])                                   # warm-up
-    ms.clear()
-    for batch in pairs:
-        one_pair(batch)
     print(f"card: {smi}")
-    print(f"stages, ms per pair (mean of {len(pairs)} pairs, host clock "
-          "around synchronized calls):")
-    for name, v in ms.items():
-        print(f"  {name:55s} {v / len(pairs):9.3f}")
+    if not args.profile_only:
+        one_pair(pairs[0])                               # warm-up
+        ms.clear()
+        for batch in pairs:
+            one_pair(batch)
+        print(f"stages, ms per pair (mean of {len(pairs)} pairs, host clock "
+              "around synchronized calls):")
+        for name, v in ms.items():
+            print(f"  {name:55s} {v / len(pairs):9.3f}")
 
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        teval.test_pair(model, pairs[0], cfg, generator=gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total_us = sum(dev_us(e) for e in events)
-    launches = sum(e.count for e in events)
-    print(f"profiler, one test_pair: wall {wall:.3f} ms (profiler on), "
-          f"device time {total_us / 1e3:.3f} ms, busy share "
-          f"{total_us / 1e3 / wall:.3f}, {launches} device ops")
+    torch.cuda.synchronize()
+    for which in (1, 2, 3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            teval.test_pair(model, pairs[0], cfg, generator=gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        events = [e for e in ev if e.device_type.name == "CUDA"]
+        total_us = sum(dev_us(e) for e in events)
+        launches = sum(e.count for e in events)
+        print(f"profiler, one test_pair (profile {which}): wall {wall:.3f} "
+              f"ms (profiler on), device time {total_us / 1e3:.3f} ms, busy "
+              f"share {total_us / 1e3 / wall:.3f}, {launches} device ops")
+        if which < 3:
+            host = [e for e in ev if e.device_type.name == "CPU"]
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+                print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  "
+                      f"x{e.count:5d}  {e.key[:80]}")
     for e in sorted(events, key=lambda e: -dev_us(e))[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
     print(f"on {smi}")
