@@ -56,7 +56,25 @@ Phases (any failure exits non-zero):
    K15's rounds equal but for inlier tests within SC2_EPS of the
    threshold (f64), or moved across it by those poses; the same bits
    twice, device kernels a call, host cost; and `sc2_pcr_batched` with no
-   host sync (sync debug mode "error").
+   host sync (sync debug mode "error"). RANSAC's and ICP's kernels at the
+   path's shapes (N = 5000 correspondences at 30% inliers, the default
+   RansacConfig; ICP's 32768-point clouds of a scan): K16
+   `ransac_hypotheses` (H = 1048576, a 512-row subset; 2 device kernels
+   a call) with its edge flags bit-equal to the plain version's and, on
+   the first RANSAC_SLICE hypotheses, each pose held to the f64 Kabsch of
+   its triplet (within RANSAC_DISP + RANSAC_ROT / gap * lever) where the
+   Horn gap pins one (the others counted), each coarse count equal to the
+   f64 recount of the kernel's own pose but for tests within RANSAC_EPS of
+   the threshold, and to the plain version's but for tests that the two
+   poses move across it; K17 `ransac_verify` (the top 2048 of K16's own
+   counts over 5000 rows; 2 device kernels) with its counts within the
+   same bands and the first argmax; K18 `ransac_polish` (5 rounds) and
+   `icp_solve` within POLISH_TOL of the plain version and of the f64
+   solve (SVD) over the valid rows, the polish's inlier count equal; K2
+   at ICP's shape (32768 x 32768 x 3) against the f64 nearest neighbour
+   and the plain version's where the gap is clear; each the same bits
+   twice, with its device kernels a call, host cost, bound and plain time
+   (no single library call computes any of them).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -69,11 +87,23 @@ Phases (any failure exits non-zero):
    one `preprocess_clouds` call (K10's 2, the sort's, K11's 2) beside the
    plain version's on the same tensors, no host sync in it or in
    `conv_maps(inverse=False)` and at most one in `conv_maps(inverse=True)`,
-   and its peak memory under the plain version's dense grid.
+   and its peak memory under the plain version's dense grid. Then the
+   same pairs with RANSAC, the test CLI's default estimator
+   (`eval.test_pair` with `use_ransac`): finite poses, exactly one K2,
+   K16, K17 and K18 `ransac_polish` launch a pair and no SC2-PCR kernel,
+   `register_pair` with no host sync (sync debug mode "error"), the
+   registration split by stage (subset, K2, K16, sort, K17, K18), and one
+   pair with `downsample_single` 0.5.
 4. registration sanity: `sc2_pcr_batched` on three known-pose problems
    of N = 5000 correspondences (30% and 10% inliers, and 30% with 500
    valid rows) recovers each pose, and each problem is the same bits as
-   its own B = 1 call (`sc2_pcr`).
+   its own B = 1 call (`sc2_pcr`); RANSAC recovers the same three poses
+   within the same tolerances. ICP (`icp_refine_numpy`: 5 cm voxels,
+   32768 points, r 0.2 m, 100 rounds) on a KITTI-scale scan and the same
+   scan under a known pose, from that pose perturbed by 0.1 m and 0.5
+   deg, reaches RTE < 0.02 m and RRE < 0.1 deg with 101 K2 and 100
+   `icp_solve` launches and no host sync, and the plain path ends within
+   ICP_TOL of it.
 5. the training path at full width: `training.steps.base_train_step`
    (ResUNetBN2C, hardest-contrastive loss, SGD) on the published recipe's
    batch of 8 synthetic train-phase pairs at d = 8 m; one warm-up step,
@@ -108,7 +138,8 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
 `sparse_conv_train` and `masked_argmin_train`; K2, K3, K4 and K13-K15 on
-the labeling path are `*_label`); `ms` is CUDA-event time,
+the labeling path are `*_label`; K2 in ICP is `masked_argmin_icp`); `ms`
+is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
 needs one CUDA device and imports nothing of JAX.
@@ -322,12 +353,15 @@ def count_kernels(fn, reps: int = 5):
     (cudaLaunch*): where its device records come short of them (a window
     after many earlier profiles can miss one ms-long cooperative kernel),
     the launches are the count. A profile that recorded no device activity
-    at all is taken again, up to three times."""
+    at all is taken again, up to five times; if none of them recorded any
+    but they recorded the launches (the profiler's device tracing can stay
+    silent for several windows in a row), the launches of the last are the
+    count. With neither it fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -341,7 +375,12 @@ def count_kernels(fn, reps: int = 5):
                        if e.key.startswith(("cudaLaunch", "cuLaunch")))
         if n > 0:
             return max(n, launched) / reps, events, n, launched
-    raise AssertionError("the profiler recorded no device kernel")
+    if launched > 0:
+        log(f"  the profiler recorded no device kernel in 5 windows; "
+            f"counting its {launched} launch records over {reps} calls")
+        return launched / reps, events, n, launched
+    raise AssertionError("the profiler recorded no device kernel and no "
+                         "launch")
 
 
 def kernels_per_call(label, fn, reps: int = 5, expected: float = 1) -> float:
@@ -1636,6 +1675,594 @@ def sc2_no_sync(what, src, tgt, valid, cfg):
         f"{valid.shape[1]}): no host sync (sync debug mode \"error\")")
 
 
+# ------------------------------------------------- phase 2, RANSAC and ICP
+
+
+RANSAC_KERNELS = ("ransac_hypotheses", "ransac_verify", "ransac_polish")
+# a count test may come out otherwise than under the f64 recount of the
+# kernel's own pose only within RANSAC_EPS of the threshold: the f32 warp
+# rounds at ~2^-24 * 3 * |x|, 1e-5 m at 50 m
+RANSAC_EPS = 1e-4                    # m
+# K16's poses, on the triplets whose Horn gap is at least SC2_GAP of the
+# largest eigenvalue: each triplet point moves from the f64 solve by at most
+# RANSAC_DISP + RANSAC_ROT / gap * lever (lever its distance from the
+# origin; RANSAC_ROT / gap the f32 Jacobi's rotation reach, 2^-24 * 34)
+RANSAC_DISP = 1e-4                   # m
+RANSAC_ROT = 2e-6
+RANSAC_SLICE = 65536                 # K16's poses and counts held on these
+JACOBI_FLOPS = 4300                  # one 4x4 Jacobi solve (48 rotations)
+# the poses of K18 (polish, ICP's solve) and of ICP's runs
+POLISH_TOL = 1e-4                    # m, a valid row's displacement
+ICP_TOL = 5e-3                       # m, kernel against plain ICP
+ICP_N = 32768                        # icp_refine_numpy's cap
+
+
+def _kabsch64(a, b, w):
+    """The weighted Kabsch optimum in f64 by SVD with the determinant
+    correction: a, b [..., n, 3], w [..., n] -> T [..., 4, 4]."""
+    import torch
+    from eyoc_tpu_torch.geometry.se3 import integrate_trans
+    a, b, w = a.double(), b.double(), w.double()
+    ws = w.sum(-1, keepdim=True) + 1e-6
+    cA = (a * w[..., None]).sum(-2) / ws
+    cB = (b * w[..., None]).sum(-2) / ws
+    H = torch.einsum("...ni,...nj->...ij", (a - cA[..., None, :])
+                     * w[..., None], b - cB[..., None, :])
+    # the batched 3x3 decompositions on the host (cuSOLVER refuses batches
+    # of this many)
+    U, _, Vh = (x.to(a.device) for x in torch.linalg.svd(H.cpu()))
+    d = torch.sign(torch.linalg.det((Vh.transpose(-1, -2)
+                                     @ U.transpose(-1, -2)).cpu())
+                   ).to(a.device)
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d),
+                                      d], -1))
+    R = Vh.transpose(-1, -2) @ D @ U.transpose(-1, -2)
+    return integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
+
+
+def _horn_gap64(a, b):
+    """f64 eigen gap of each set's Horn matrix (unit weights) over its
+    largest eigenvalue: a, b [..., n, 3]."""
+    import torch
+    from eyoc_tpu_torch.geometry.svd3 import horn_profile_matrix
+    a, b = a.double(), b.double()
+    am = a - a.mean(-2, keepdim=True)
+    bm = b - b.mean(-2, keepdim=True)
+    H = torch.einsum("...ni,...nj->...ij", am, bm)
+    H = H / H.abs().amax((-1, -2), keepdim=True).clamp(min=1e-12)
+    ev = torch.linalg.eigvalsh(horn_profile_matrix(H).cpu()).to(a.device)
+    return (ev[..., 3] - ev[..., 2]) / ev.abs().amax(-1).clamp(min=1e-30)
+
+
+def _count_band(T, s64, t64, ok, thr, other=None):
+    """(f64 count under each pose T [H, 4, 4] of the rows `ok` within thr,
+    rows within RANSAC_EPS of it, rows that the displacement to the poses
+    `other` moves within RANSAC_EPS of it), chunked."""
+    import torch
+    cnt, band, slack = [], [], []
+    for i in range(0, T.shape[0], 1024):
+        d = _pose_dists(T[i:i + 1024], s64, t64)
+        near = (d - thr).abs()
+        cnt.append(((d < thr) & ok[None]).sum(1))
+        band.append(((near <= RANSAC_EPS) & ok[None]).sum(1))
+        if other is not None:
+            D = (T[i:i + 1024] - other[i:i + 1024]).double()
+            move = (torch.einsum("sij,nj->sni", D[:, :3, :3], s64)
+                    + D[:, None, :3, 3]).norm(dim=-1)
+            slack.append(((near <= RANSAC_EPS + move) & ok[None]).sum(1))
+    return (torch.cat(cnt).double(), torch.cat(band).double(),
+            torch.cat(slack).double() if other is not None else None)
+
+
+def _hyp_close(got, want, src, tgt, valid, u_tri, u_sub, thr, lo):
+    """K16 against its plain version on the same draws: the edge flags
+    bit-equal on every hypothesis; on the first RANSAC_SLICE, each pose
+    held to the f64 Kabsch of its triplet where the triplet pins one (the
+    others counted), and each coarse count equal to the f64 recount under
+    the kernel's own pose but for tests within RANSAC_EPS of the
+    threshold, and to the plain version's but for tests that the two poses
+    move across it."""
+    import torch
+    from eyoc_tpu_torch.registration.ransac import _prefix_rows
+    (trans_k, coarse_k), (trans_p, coarse_p) = got, want
+    if not torch.equal(coarse_k >= 0, coarse_p >= 0):
+        log("  K16: edge flags differ from the plain version's")
+        return False, float("inf")
+    n = src.shape[0]
+    count = valid.sum().clamp(min=1)
+    h = min(RANSAC_SLICE, trans_k.shape[0])
+    tri = _prefix_rows(u_tri[:h], count, n)
+    a, b = src[tri], tgt[tri]
+    gap = _horn_gap64(a, b)
+    pin = gap >= SC2_GAP
+    T64 = _kabsch64(a, b, torch.ones(a.shape[:-1], device=a.device))
+    lever = a.double().norm(dim=-1).amax(-1)
+
+    def disp(T):                 # each triplet point's move from f64
+        D = T.double() - T64
+        return (torch.einsum("hij,hnj->hni", D[:, :3, :3], a.double())
+                + D[:, None, :3, 3]).norm(dim=-1).amax(-1)
+    reach = RANSAC_DISP + RANSAC_ROT / gap.clamp(min=1e-30) * lever
+    d_k, d_p = disp(trans_k[:h]), disp(trans_p[:h])
+    held = bool((d_k <= reach)[pin].all())
+    ratio_k = float(((d_k - RANSAC_DISP) / (reach - RANSAC_DISP))[pin].max())
+    ratio_p = float(((d_p - RANSAC_DISP) / (reach - RANSAC_DISP))[pin].max())
+    sub = _prefix_rows(u_sub, count, n)
+    s64, t64 = src[sub].double(), tgt[sub].double()
+    ones = torch.ones(sub.shape[0], dtype=torch.bool, device=src.device)
+    edge = coarse_k[:h] >= 0
+    cnt, band, slack = _count_band(trans_k[:h], s64, t64, ones, thr,
+                                   trans_p[:h])
+    ck, cp = coarse_k[:h].double(), coarse_p[:h].double()
+    own = ((ck - cnt).abs() <= band)[edge]
+    agree = ((ck - cp).abs() <= slack)[edge]
+    log(f"  K16: edge flags bit-equal ({int((coarse_k >= 0).sum())} of "
+        f"{coarse_k.numel()} pass); on the first {h}: {int(pin.sum())} "
+        f"triplets pin a pose (Horn gap >= {SC2_GAP}), the kernel's points "
+        f"within {float(d_k[pin].max()):.3e} m of the f64 Kabsch, largest "
+        f"ratio to the reach {RANSAC_ROT} / gap * lever {ratio_k:.3f} "
+        f"(plain {ratio_p:.3f}; held to {RANSAC_DISP} m + 1x it: "
+        f"{'yes' if held else 'NO'}); {int((~pin).sum())} triplets pin none "
+        f"(repeated or collinear points: kernel within "
+        f"{float(d_k[~pin].max()) if bool((~pin).any()) else 0.0:.3e} m); "
+        f"coarse counts: {int((ck != cnt)[edge].sum())} differ from the f64 "
+        f"recount of the kernel's pose ({int((band > 0)[edge].sum())} with a "
+        f"test within {RANSAC_EPS} m of the threshold), "
+        f"{int((ck != cp)[edge].sum())} from the plain version's")
+    ok = held and bool(own.all()) and bool(agree.all())
+    return ok, float(d_k[pin].max())
+
+
+def _hyp_cost(src, tgt, valid, u_tri, u_sub, thr, lo):
+    """K16's bound: a Jacobi solve for each hypothesis and, for those that
+    pass the edge check, 27 flops a subset row; bytes: the draws and the
+    points once, the poses and counts written."""
+    import torch
+    from eyoc_tpu_torch.registration.ransac import (edge_ok_plain,
+                                                    sample_triplets_plain)
+    H, S = u_tri.shape[0], u_sub.shape[0]
+    s3, t3 = sample_triplets_plain(u_tri, src, tgt,
+                                   valid.sum().clamp(min=1))
+    passed = float(edge_ok_plain(s3, t3, lo).sum())
+    del s3, t3
+    torch.cuda.empty_cache()
+    ops = H * (JACOBI_FLOPS + 60.0) + passed * S * 27.0
+    return H * 12 + S * 4 + src.shape[0] * 25 + H * 68, ops, "f32"
+
+
+def _verify_close(got, want, trans, coarse, keep, src, tgt, valid, thr):
+    """K17 against its plain version on the same kept set: each count equal
+    to the f64 recount of the same pose but for tests within RANSAC_EPS of
+    the threshold (both sides, so the two differ at most by their bands);
+    -1 where the edge check failed; best the first argmax of the kernel's
+    counts, and within the bands of the plain version's largest."""
+    import torch
+    (ck, bk), (cp, bp) = got, want
+    v = valid
+    s64, t64 = src[v].double(), tgt[v].double()
+    ok_rows = torch.ones(s64.shape[0], dtype=torch.bool, device=src.device)
+    cnt, band, _ = _count_band(trans[keep.long()], s64, t64, ok_rows, thr)
+    edge = coarse[keep.long()] >= 0
+    ckd, cpd = ck.double(), cp.double()
+    own = torch.where(edge, (ckd - cnt).abs() <= band, ckd == -1)
+    agree = (ckd - cpd).abs() <= 2 * band
+    first = int(bk) == int(keep[int(torch.argmax(ck))])
+    j = int(torch.argmax(ck))
+    top = bool(cpd[j] + 2 * band[j] >= cpd.max())
+    log(f"  K17: {int((ckd != cpd).sum())} of {ck.numel()} counts differ "
+        f"from the plain version's, {int((ckd != cnt)[edge].sum())} from the "
+        f"f64 recount ({int((band > 0).sum())} with a test within "
+        f"{RANSAC_EPS} m of the threshold); best row {int(bk)} (plain "
+        f"{int(bp)}), count {float(ck.max()):g}")
+    return (bool(own.all()) and bool(agree.all()) and first and top,
+            float((ckd - cpd).abs().max()))
+
+
+def _verify_cost(trans, coarse, keep, src, tgt, valid, thr):
+    """K17's bound: 27 flops for each (kept hypothesis that passed the edge
+    check, valid row); bytes: the kept poses, flags and indices, the points
+    once, the counts."""
+    edge = float((coarse[keep.long()] >= 0).sum())
+    n = src.shape[0]
+    Hk = keep.shape[0]
+    return Hk * (64 + 4 + 4 + 4) + n * 25 + 4, 27.0 * edge * float(
+        valid.sum()), "f32"
+
+
+def _polish64(T, src, tgt, valid, thr, iters):
+    """The polish (ransac.py:148-160) in f64 from pose T, SVD Kabsch: (T,
+    the least margin of a valid row's inlier test to the threshold over the
+    rounds)."""
+    import torch
+    a, b = src.double(), tgt.double()
+    T = T.double()
+    margin = float("inf")
+    for _ in range(iters + 1):
+        d = (a @ T[:3, :3].T + T[:3, 3] - b).norm(dim=-1)
+        if bool(valid.any()):
+            margin = min(margin, float((d - thr).abs()[valid].min()))
+        w = ((d < thr) & valid).double()
+        if _ == iters:
+            break
+        if float(w.sum()) >= 3:
+            T = _kabsch64(a[None], b[None], w[None])[0]
+    return T, margin
+
+
+def _polish_close(got, want, trans, best, src, tgt, valid, thr, iters):
+    """K18 `ransac_polish` against the plain version and the f64 polish from
+    the same start: a valid row moves at most POLISH_TOL from either pose,
+    and the inlier count is the plain version's, where no round's inlier
+    test lies within RANSAC_EPS of the threshold (logged otherwise)."""
+    (T_k, i_k), (T_p, i_p) = got, want
+    s64 = src[valid].double()
+    T64, margin = _polish64(trans[int(best)], src, tgt, valid, thr, iters)
+    d_p = float(_pose_disp(T_k[None], T_p[None], s64)[0])
+    d_64 = float(_pose_disp(T_k[None], T64[None], s64)[0])
+    clear = margin > RANSAC_EPS
+    log(f"  K18 ransac_polish: {int(i_k)} inliers (plain {int(i_p)}), the "
+        f"pose within {d_p:.3e} m of the plain version's and {d_64:.3e} m of "
+        f"the f64 polish over the valid rows; least margin of an inlier test "
+        f"{margin:.3e} m")
+    ok = (not clear) or (d_p <= POLISH_TOL and d_64 <= POLISH_TOL
+                         and int(i_k) == int(i_p))
+    return ok, max(d_p, d_64)
+
+
+def _polish_cost(trans, best, src, tgt, valid, thr, iters):
+    """K18 polish's bound: per round two passes over the rows (~30 and ~25
+    flops a valid row) and a solve, and the final count; bytes: the points
+    and flags once, the start pose and the outputs."""
+    n, nv = src.shape[0], float(valid.sum())
+    return n * 25 + 64 + 68, iters * (55.0 * nv + JACOBI_FLOPS) + 30.0 * nv, \
+        "f32"
+
+
+def _icp_solve_close(got, want, src, mask, tgt, nn, d2, r2):
+    """K18 `icp_solve` against the plain version and the f64 Kabsch of the
+    same correspondences: a valid source row moves at most POLISH_TOL from
+    either pose, and the warped source is the kernel's pose applied in f64
+    within POLISH_TOL."""
+    import torch
+    (T_k, w_k), (T_p, _) = got, want
+    w = (mask & (d2 < r2)).double()
+    T64 = _kabsch64(src[None], tgt[nn.long()][None], w[None])[0]
+    s64 = src[mask].double()
+    d_p = float(_pose_disp(T_k[None], T_p[None], s64)[0])
+    d_64 = float(_pose_disp(T_k[None], T64[None], s64)[0])
+    warp = (src.double() @ T_k[:3, :3].double().T + T_k[:3, 3].double())
+    d_w = float((w_k.double() - warp).norm(dim=-1).max())
+    log(f"  K18 icp_solve: {int(w.sum())} correspondences; the pose within "
+        f"{d_p:.3e} m of the plain version's, {d_64:.3e} m of the f64 "
+        f"Kabsch; warped source within {d_w:.3e} m of its pose in f64")
+    return max(d_p, d_64, d_w) <= POLISH_TOL, max(d_p, d_64)
+
+
+def _icp_solve_cost(src, mask, tgt, nn, d2, r2):
+    """K18 icp_solve's bound: two passes (~25 flops a correspondence), the
+    solve and the warp (15 flops a row); bytes: the source, mask, nn, d2
+    and matched targets read once, the pose and warped source written."""
+    n = src.shape[0]
+    return n * (12 + 1 + 4 + 4 + 12) + 64 + n * 12, \
+        25.0 * float(mask.sum()) + JACOBI_FLOPS + 15.0 * n, "f32"
+
+
+def _k2_icp_close(got, want, q, qm, r, rm):
+    """K2 at ICP's shape against the f64 nearest neighbour: each valid
+    query's d2 within K2_D2_RTOL (relative, + 1e-6 m^2) of the f64 distance
+    to the reference it names, that reference the f64 nearest where the
+    f64 gap to the second exceeds K2_GAP m^2; and the plain (Gram form)
+    version's index the same where that gap exceeds 1e-2 m^2 (the Gram
+    form rounds at 2^-24 |x|^2, ~2e-4 m^2 at 50 m)."""
+    import torch
+    (d_k, i_k), (_, i_p) = got, want
+    r64 = r.double()
+    big = torch.where(rm, 0.0, float("inf")).double()
+    first, second, true_d = [], [], []
+    for i in range(0, q.shape[0], 2048):
+        d = torch.cdist(q[i:i + 2048].double(), r64) ** 2 + big[None]
+        two = torch.topk(d, 2, largest=False).values
+        first.append(two[:, 0])
+        second.append(two[:, 1])
+        true_d.append(d.gather(1, i_k[i:i + 2048].long()[:, None])[:, 0])
+    first, second, true_d = map(torch.cat, (first, second, true_d))
+    gap = second - first
+    qv = qm
+    d_ok = ((d_k.double() - true_d).abs()
+            <= K2_D2_RTOL * true_d + 1e-6)[qv].all()
+    clear = qv & (gap > K2_GAP)
+    nearest = bool((true_d[clear] <= first[clear]).all())
+    wide = qv & (gap > 1e-2)
+    plain = bool(torch.equal(i_k[wide], i_p[wide]))
+    err = float((d_k.double() - true_d)[qv].abs().max())
+    log(f"  K2 at ICP's shape: {int(clear.sum())} of {int(qv.sum())} queries "
+        f"with an f64 gap over {K2_GAP} m^2 name the f64 nearest; "
+        f"{int(wide.sum())} with a gap over 1e-2 m^2 equal the plain "
+        f"version's; max d2 err against f64 {err:.3e} m^2")
+    return bool(d_ok) and nearest and plain, err
+
+
+def check_ransac_kernels(gen, batch):
+    """K16, K17, K18 (both entries) and K2 at ICP's shape, each against its
+    plain version at the path's shapes (N = 5000 correspondences at 30%
+    inliers, H = 1048576 hypotheses, a 512-row subset, the top 2048; ICP
+    at 32768 x 32768 on `icp_pair(batch)`); each also gives the same bits twice, and its device
+    kernels a call and host cost are read. Returns {kernels-line name:
+    row}."""
+    import torch
+    from eyoc_tpu_torch.ops.knn import masked_argmin, masked_argmin_plain
+    from eyoc_tpu_torch.registration import icp, ransac
+    cfg = ransac.RansacConfig()
+    src, tgt, valid, _ = correspondences(gen)
+    draws = ransac.ransac_draws(cfg, "cuda",
+                                torch.Generator(device="cuda").manual_seed(5))
+    thr, lo = cfg.distance_threshold, cfg.edge_length_ratio
+    k16 = (src, tgt, valid, *draws, thr, lo)
+    trans, coarse = ransac.ransac_hypotheses(*k16)
+    keep = ransac.topk(coarse, cfg.full_verify_top)[1].int()
+    k17 = (trans, coarse, keep, src, tgt, valid, thr)
+    _, best = ransac.ransac_verify(*k17)
+    k18 = (trans, best, src, tgt, valid, thr, cfg.polish_iters)
+    s, sm, t, tm = (torch.from_numpy(a).cuda()
+                    for a in icp.icp_inputs(*icp_pair(batch)[:2]))
+    d2, nn = masked_argmin(s, sm, t, tm)
+    r2 = 0.2 * 0.2
+    kicp = (s, sm, t, nn, d2, r2)
+    out = {}
+    for name, fn, plain, cost, close, args, nk, what, lib in (
+            ("ransac_hypotheses", ransac.ransac_hypotheses,
+             ransac.ransac_hypotheses_plain, _hyp_cost, _hyp_close, k16, 2,
+             "K16 ransac_hypotheses (H = 1048576, subset 512, N = 5000)",
+             "a triplet, an edge check, a Kabsch and a count a hypothesis"),
+            ("ransac_verify", ransac.ransac_verify,
+             ransac.ransac_verify_plain, _verify_cost, _verify_close, k17, 2,
+             "K17 ransac_verify (2048 x 5000)", "a count of the rows within "
+             "a threshold under each of 2048 poses, then a first argmax"),
+            ("ransac_polish", ransac.ransac_polish,
+             ransac.ransac_polish_plain, _polish_cost, _polish_close, k18, 1,
+             "K18 ransac_polish (N = 5000, 5 rounds)",
+             "rounds of a weighted Kabsch on a changing inlier set"),
+            ("icp_solve", icp.icp_solve, icp.icp_solve_plain,
+             _icp_solve_cost, _icp_solve_close, kicp, 1,
+             f"K18 icp_solve (N = {s.shape[0]})",
+             "a gated weighted Kabsch and a warp"),
+            ("masked_argmin_icp", masked_argmin, masked_argmin_plain,
+             _argmin_cost, _k2_icp_close, (s, sm, t, tm), 1,
+             f"K2 masked_argmin at ICP's shape ({s.shape[0]} x {t.shape[0]}"
+             " x 3)", "`cdist` then `argmin` is two calls")):
+        cl = [(args, {})]
+        out[name] = check_calls(what, cl, fn, plain, cost, close)
+        out[name]["library_ms"] = None
+        log(f"  {what}: library: none: {lib}")
+        same_bits_twice(what, fn, cl)
+        kernels_per_call(what, lambda: fn(*args), reps=3, expected=nk)
+        launch_path(what, fn, cl, "the path's shape", 20)
+    del trans, coarse
+    torch.cuda.empty_cache()
+    return out
+
+
+def icp_pair(batch):
+    """(xyz0, xyz1, T_true): a KITTI-scale synthetic scan (cloud 0 of the
+    one-pair batch `batch`, on the host) and the same scan under a known
+    pose (2 deg of yaw, 1.27 m), float32."""
+    from eyoc_tpu_torch.data.synthetic import rotation_about
+    xyz0 = batch.xyz0[0, :int(batch.n0[0])].cpu().numpy()
+    T = np.eye(4)
+    T[:3, :3] = rotation_about(np.array([0.05, -0.02, 1.0]), np.radians(2.0))
+    T[:3, 3] = [1.2, -0.4, 0.05]
+    xyz1 = (xyz0.astype(np.float64) @ T[:3, :3].T + T[:3, 3]).astype(
+        np.float32)
+    return xyz0, xyz1, T
+
+
+def ransac_stages(x, cfg, gen):
+    """One RANSAC eval pair's registration split by stage (host clock
+    around synchronized calls, ms): the subset, K2, K16 with its draws, the
+    sort, K17, K18; as `eval.register_pair` runs them."""
+    import torch
+    from eyoc_tpu_torch import eval as teval
+    from eyoc_tpu_torch.ops.knn import masked_argmin
+    from eyoc_tpu_torch.registration import ransac
+    rc = cfg.ransac_config
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    x0, f0, m0, x1, f1, m1 = x
+    mark()
+    sub = []
+    for xk, fk, mk in ((x0, f0, m0), (x1, f1, m1)):
+        z = teval.subset_noise(mk, gen)
+        sel = teval.random_subset(z, cfg.eval_sample_points)
+        sub += [xk[sel], fk[sel], mk[sel]]
+    sx0, sf0, sm0, sx1, sf1, sm1 = sub
+    mark()
+    _, nn = masked_argmin(sf0, sm0, sf1, sm1)
+    tgt = sx1[nn.long()]
+    mark()
+    u_tri, u_sub = ransac.ransac_draws(rc, "cuda", gen)
+    trans, coarse = ransac.ransac_hypotheses(
+        sx0, tgt, sm0, u_tri, u_sub, rc.distance_threshold,
+        rc.edge_length_ratio)
+    mark()
+    keep = ransac.topk(coarse, rc.full_verify_top)[1]
+    mark()
+    _, best = ransac.ransac_verify(trans, coarse, keep, sx0, tgt, sm0,
+                                   rc.distance_threshold)
+    mark()
+    ransac.ransac_polish(trans, best, sx0, tgt, sm0, rc.distance_threshold,
+                         rc.polish_iters)
+    mark()
+    return np.diff(marks) * 1e3
+
+
+RANSAC_STAGES = ("subset", "K2 masked_argmin", "K16 ransac_hypotheses "
+                 "(with its draws)", "sort (top 2048)", "K17 ransac_verify",
+                 "K18 ransac_polish")
+
+
+def ransac_eval_phase(model, pairs, cfg, smi):
+    """The eval path with RANSAC (`eval.test_pair(use_ransac=True)`) on the
+    eval pairs: finite poses, exactly one K2, K16, K17 and K18 polish launch
+    a pair and no SC2-PCR kernel (counts reset just before, read just
+    after), `register_pair` with no host sync (sync debug mode "error"),
+    the registration split by stage, and one pair with `downsample_single`
+    0.5. Returns the launch counts."""
+    import dataclasses
+    import torch
+    from eyoc_tpu_torch import eval as teval
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.utils import kernels
+    rcfg = dataclasses.replace(cfg, use_ransac=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = teval.embed_pair(model, pairs[0].to("cuda"), rcfg)
+    teval.register_pair(*x, rcfg, generator=gen)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T_est = teval.register_pair(*x, rcfg, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("eval pair with RANSAC: register_pair runs with no host sync (sync "
+        "debug mode \"error\")")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    pair_ms, n_ok = [], 0
+    for batch in pairs:
+        batch = batch.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = teval.test_pair(model, batch, rcfg, generator=gen)
+        torch.cuda.synchronize()
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(out["T_est"]).all()):
+            raise AssertionError(f"non-finite RANSAC T_est {out['T_est']}")
+        ok, te, re = registration_success(out["T_est"], batch.T_gt[0])
+        n_ok += int(ok)
+        log(f"RANSAC pair: test_pair {pair_ms[-1]:.2f} ms, RTE "
+            f"{float(te):.3f} m, RRE {float(re):.3f} deg")
+    counts = dict(kernels.launches)
+    log(json.dumps({"ransac_eval_launch_counts": counts}))
+    for k in ("masked_argmin",) + RANSAC_KERNELS:
+        if counts[k] != len(pairs):
+            raise AssertionError(f"the RANSAC eval path launched {k} "
+                                 f"{counts[k]} times for {len(pairs)} pairs")
+    if any(counts[k] for k in SC2_KERNELS + ("sc2_power_iteration",
+                                             "sc2_seed_topk")):
+        raise AssertionError("the RANSAC eval path launched SC2-PCR kernels")
+    stages = []
+    for batch in pairs:
+        x = teval.embed_pair(model, batch.to("cuda"), rcfg)
+        stages.append(ransac_stages(x, rcfg, gen))
+    mean = np.mean(stages, 0)
+    log("RANSAC eval stages, ms a pair (mean of "
+        f"{len(pairs)}, host clock around synchronized calls): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in zip(RANSAC_STAGES, mean))
+        + f"; reg {float(mean.sum()):.3f}")
+    ds = dataclasses.replace(rcfg, downsample_single=0.5)
+    out = teval.test_pair(model, pairs[0].to("cuda"), ds, generator=gen)
+    if not bool(torch.isfinite(out["T_est"]).all()):
+        raise AssertionError("non-finite RANSAC T_est at downsample 0.5")
+    log(f"RANSAC pair at downsample_single 0.5: RTE {float(out['rte']):.3f} "
+        f"m, RRE {float(out['rre']):.3f} deg")
+    log(f"RANSAC eval path: {len(pairs)} pairs, test_pair "
+        f"{np.mean(pair_ms):.2f} ms a pair (host clock), RR of the untrained "
+        f"net {n_ok}/{len(pairs)}, on {smi}")
+    return counts
+
+
+def ransac_known_answers(sanity, src, tgt, valid, T_true):
+    """RANSAC (the default configuration, draws from a CUDA generator) on
+    phase 4's three known-pose problems recovers each pose within phase 4's
+    tolerances (RTE < 0.1 m, RRE < 1 deg)."""
+    import torch
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.registration import ransac
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for b, (inlier, nv) in enumerate(sanity):
+        T, inl = ransac.ransac_registration(src[b], tgt[b], valid[b],
+                                            generator=gen)
+        _, te, re = registration_success(T, T_true[b])
+        if not (float(te) < 0.1 and float(re) < 1.0):
+            raise AssertionError(f"RANSAC missed a known pose ({inlier} "
+                                 f"inliers, {nv} valid rows): RTE "
+                                 f"{float(te)} m, RRE {float(re)} deg")
+        log(f"RANSAC sanity, {inlier} inliers, {nv} of {N_CORR} rows valid: "
+            f"RTE {float(te):.4f} m, RRE {float(re):.4f} deg, {int(inl)} "
+            "inliers")
+
+
+def icp_known_answer(batch):
+    """ICP (`icp_refine_numpy`: 5 cm voxels, 32768 points, r 0.2 m, 100
+    rounds) on a scan and the same scan under a known pose, from that pose
+    perturbed by 0.1 m and 0.5 deg: RTE < 0.02 m and RRE < 0.1 deg; 101 K2
+    and 100 `icp_solve` launches (counts reset just before, read just
+    after) and no host sync in `icp_point_to_point`; the plain path's pose
+    (Gram-form K2, plain Kabsch, 100 rounds) within ICP_TOL m of the
+    kernels' over the valid rows. Returns the launch counts."""
+    import torch
+    from eyoc_tpu_torch.data.synthetic import rotation_about
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.registration import icp
+    from eyoc_tpu_torch.utils import kernels
+    xyz0, xyz1, T = icp_pair(batch)
+    P = np.eye(4)
+    P[:3, :3] = rotation_about(np.array([0.3, 1.0, 0.2]), np.radians(0.5))
+    P[:3, 3] = np.array([0.06, -0.08, 0.0])            # 0.1 m
+    init = P @ T
+    arrays = icp.icp_inputs(xyz0, xyz1)
+    s, sm, t, tm = (torch.from_numpy(a).cuda() for a in arrays)
+    init_t = torch.from_numpy(init.astype(np.float32)).cuda()
+    icp.icp_point_to_point(s, sm, t, tm, init_t, iterations=2)   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    T_np = icp.icp_refine_numpy(xyz0, xyz1, init)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    if counts["masked_argmin"] != 101 or counts["icp_solve"] != 100:
+        raise AssertionError(f"ICP launched {counts['masked_argmin']} K2 and "
+                             f"{counts['icp_solve']} icp_solve, not 101 and "
+                             "100")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        T_k, fit, rmse = icp.icp_point_to_point(s, sm, t, tm, init_t)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.array_equal(T_k.double().cpu().numpy(), T_np):
+        raise AssertionError("icp_refine_numpy and icp_point_to_point differ")
+    T_true = torch.from_numpy(T).float().cuda()
+    _, te, re = registration_success(T_k, T_true)
+    _, te0, re0 = registration_success(init_t, T_true)
+    t0 = time.perf_counter()
+    T_p, fit_p, _ = icp.icp_point_to_point_plain(s, sm, t, tm, init_t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    gap = float(_pose_disp(T_k[None], T_p[None], s[sm].double())[0])
+    log(f"ICP known answer: {int(sm.sum())} / {int(tm.sum())} points, from "
+        f"RTE {float(te0):.3f} m, RRE {float(re0):.3f} deg to RTE "
+        f"{float(te):.4f} m, RRE {float(re):.4f} deg, fitness "
+        f"{float(fit):.4f} (plain {float(fit_p):.4f}), RMSE "
+        f"{float(rmse):.4f} m; icp_refine_numpy {ms:.2f} ms, "
+        f"icp_point_to_point {run_ms:.2f} ms with no host sync (sync debug "
+        f"mode \"error\"), plain path {plain_ms:.2f} ms, its pose within "
+        f"{gap:.3e} m of the kernels' over the valid rows; launches "
+        f"{counts['masked_argmin']} K2, {counts['icp_solve']} icp_solve")
+    if not (float(te) < 0.02 and float(re) < 0.1):
+        raise AssertionError(f"ICP missed the known pose: RTE {float(te)} m, "
+                             f"RRE {float(re)} deg")
+    if gap > ICP_TOL:
+        raise AssertionError(f"ICP's plain path ends {gap} m from the "
+                             "kernels' pose")
+    return counts
+
+
 # ---------------------------------------------------- phase 2, labeling
 
 
@@ -2348,6 +2975,8 @@ def main() -> int:
     sc2_no_sync("labeling shape, synthetic", *l_set, l_cfg)
     del e_set, l_set
     torch.cuda.empty_cache()
+    # K16-K18 and K2 at ICP's shape (the kernels line's rows)
+    results.update(check_ransac_kernels(gen, pairs[0]))
     # the training kernels, on the calls of one full-width train step
     train_model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
                             device="cuda")
@@ -2436,6 +3065,8 @@ def main() -> int:
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
         f"(host clock around synchronized calls), RR of the untrained net "
         f"{n_ok}/{N_PAIRS}, on {smi}")
+    # the eval path with RANSAC, the test CLI's default estimator
+    ransac_counts = ransac_eval_phase(model, pairs, cfg, smi)
 
     # ---- phase 4: registration sanity
     sanity = ((0.3, N_CORR), (0.1, N_CORR), (0.3, N_CORR // 10))
@@ -2455,6 +3086,8 @@ def main() -> int:
         log(f"sc2_pcr_batched sanity, {inlier} inliers, {nv} of {N_CORR} "
             f"rows valid: RTE {float(te):.4f} m, RRE {float(re):.4f} deg, "
             "the same bits as its B = 1 call")
+    ransac_known_answers(sanity, src, tgt, valid, T_true)
+    icp_counts = icp_known_answer(pairs[0])
 
     # ---- phase 5: the training path at full width
     train_counts = train_phase(train_model, opt, train_batch, tcfg,
@@ -2471,9 +3104,15 @@ def main() -> int:
     # launches (phase 3), the training rows (K1 and K2 with the suffix
     # `_train`, and the training kernels) the training run's (phase 5),
     # the labeling rows (K2, K3 and K4 with the suffix `_label`) the
-    # extension run's (phase 6), K8 and K9 the gated step's; each row's
-    # times are of the calls of that path
+    # extension run's (phase 6), K8 and K9 the gated step's, K16-K18's
+    # polish the RANSAC eval run's (phase 3), `icp_solve` and K2's `_icp`
+    # row ICP's known answer (phase 4); each row's times are of the calls
+    # of that path
     def launches(name):
+        if name in RANSAC_KERNELS:
+            return ransac_counts[name]
+        if name in ("icp_solve", "masked_argmin_icp"):
+            return icp_counts[name.removesuffix("_icp")]
         if name in EVAL_KERNELS or name == "sc2_seed_counts":
             return counts[name]
         if name.endswith("_label"):
@@ -2494,7 +3133,10 @@ def main() -> int:
               "sc2_nms_label": "sc2_nms",
               "sc2_seed_transforms": "sc2_refine",
               "sc2_seed_transforms_label": "sc2_refine",
-              "sc2_irls": "sc2_refine", "sc2_irls_label": "sc2_refine"}
+              "sc2_irls": "sc2_refine", "sc2_irls_label": "sc2_refine",
+              "ransac_hypotheses": "ransac", "ransac_verify": "ransac",
+              "ransac_polish": "ransac", "icp_solve": "ransac",
+              "masked_argmin_icp": "masked_argmin"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -2522,6 +3164,11 @@ def main() -> int:
         "sc2_seed_transforms_label": "eyoc_tpu/registration/sc2pcr.py:161",
         "sc2_irls": "eyoc_tpu/registration/sc2pcr.py:219",
         "sc2_irls_label": "eyoc_tpu/registration/sc2pcr.py:219",
+        "ransac_hypotheses": "eyoc_tpu/registration/ransac.py:55",
+        "ransac_verify": "eyoc_tpu/registration/ransac.py:73",
+        "ransac_polish": "eyoc_tpu/registration/ransac.py:148",
+        "icp_solve": "eyoc_tpu/registration/icp.py:42",
+        "masked_argmin_icp": "eyoc_tpu/registration/icp.py:41",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,14 +1,18 @@
 """The test protocol on one pair (counterpart of the test half of
 eyoc_tpu/training/steps.py: make_embed_step, make_register_step and
-make_test_step, :558-648), with SC2-PCR as the estimator.
+make_test_step, :558-648), with SC2-PCR or RANSAC as the estimator.
 
 embed_pair:    voxelize + brick pyramid + ResUNet eval forward, both clouds
-register_pair: 5000-point random subset of both clouds -> feature 1-NN ->
-               SC2-PCR
+register_pair: optionally each cloud's valid voxels thinned to a share
+               (`downsample_single`), a 5000-point random subset of both
+               clouds, then SC2-PCR (feature 1-NN inside), or with
+               `use_ransac` the feature 1-NN of cloud 0's subset in cloud
+               1's (K2) and RANSAC over those correspondences
 test_pair:     both, plus RTE / RRE against the ground-truth pose
 
-Randomness is explicit: the subset takes its uniform noise as an argument,
-or draws it from a `torch.Generator` when none is given.
+Randomness is explicit: the thinning, the subset and RANSAC take their
+uniforms as arguments (`keep`, `noise`, `draws`), or draw them from a
+`torch.Generator` when they are not given.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import dataclasses
 import torch
 
 from eyoc_tpu_torch.geometry.metrics import rre_deg, rte
+from eyoc_tpu_torch.ops.knn import masked_argmin
+from eyoc_tpu_torch.registration.ransac import (RansacConfig,
+                                                ransac_registration)
 from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig, sc2_pcr_estimator
 from eyoc_tpu_torch.sparse import morton
 from eyoc_tpu_torch.training.pipeline import RawBatch, preprocess_clouds
@@ -34,6 +41,15 @@ class EvalConfig:
     window_bits: tuple = morton.BITS
     eval_sample_points: int = 5000
     sc2: SC2PCRConfig = SC2PCRConfig()
+    use_ransac: bool = False
+    ransac: RansacConfig | None = None     # None: threshold = voxel_size
+    downsample_single: float = 1.0         # share of valid voxels kept
+
+    @property
+    def ransac_config(self) -> RansacConfig:
+        """RANSAC's configuration; its distance threshold is the voxel size
+        unless given (steps.py:575)."""
+        return self.ransac or RansacConfig(distance_threshold=self.voxel_size)
 
 
 def random_subset(noise: torch.Tensor, n: int) -> torch.Tensor:
@@ -47,11 +63,19 @@ def random_subset(noise: torch.Tensor, n: int) -> torch.Tensor:
                       stable=True).indices[..., :n]
 
 
+def uniforms(mask: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """Uniforms of the mask's shape, drawn on the generator's device (the
+    default one's: the mask's) and moved to the mask's."""
+    where = generator.device if generator is not None else mask.device
+    return torch.rand(mask.shape, generator=generator,
+                      device=where).to(mask.device)
+
+
 def subset_noise(mask: torch.Tensor,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """Uniform noise for `random_subset`, 2.0 at invalid rows; drawn on the
-    generator's device and moved to the mask's."""
-    u = torch.rand(mask.shape, generator=generator).to(mask.device)
+    """Uniform noise for `random_subset`, 2.0 at invalid rows."""
+    u = uniforms(mask, generator)
     return torch.where(mask, u, torch.full_like(u, 2.0))
 
 
@@ -77,26 +101,47 @@ def embed_pair(model, batch: RawBatch, cfg: EvalConfig, device=None):
 
 @torch.no_grad()
 def register_pair(x0, f0, m0, x1, f1, m1, cfg: EvalConfig,
-                  noise=None, generator: torch.Generator | None = None):
-    """Random 5000-point subsets of both clouds -> SC2-PCR; returns T_est
-    [4, 4]. `noise` = (noise0 [cap], noise1 [cap]) or None."""
-    if noise is None:
-        noise = (subset_noise(m0, generator), subset_noise(m1, generator))
+                  noise=None, keep=None, draws=None,
+                  generator: torch.Generator | None = None):
+    """Random 5000-point subsets of both clouds -> SC2-PCR, or feature 1-NN
+    -> RANSAC (`cfg.use_ransac`); returns T_est [4, 4].
+
+    noise = (noise0 [cap], noise1 [cap]) orders each cloud's subset (the
+    rows thinned away or invalid take 2.0); keep = (u0 [cap], u1 [cap])
+    thins each cloud to its rows with u < `cfg.downsample_single` (read only
+    below 1.0); draws = RANSAC's (u_tri, u_sub). Any of them not given is
+    drawn from `generator`."""
     n = cfg.eval_sample_points
-    sel0 = random_subset(noise[0].to(m0.device), n)
-    sel1 = random_subset(noise[1].to(m1.device), n)
-    T_est, _, _, _ = sc2_pcr_estimator(
-        x0[sel0], f0[sel0], m0[sel0], x1[sel1], f1[sel1], m1[sel1], cfg.sc2)
+    sub = []
+    for k, (x, f, m) in enumerate(((x0, f0, m0), (x1, f1, m1))):
+        if cfg.downsample_single < 1.0:
+            u = keep[k].to(m.device) if keep is not None \
+                else uniforms(m, generator)
+            m = m & (u < cfg.downsample_single)
+        z = noise[k].to(m.device) if noise is not None \
+            else uniforms(m, generator)
+        sel = random_subset(torch.where(m, z, torch.full_like(z, 2.0)), n)
+        sub += [x[sel], f[sel], m[sel]]
+    sx0, sf0, sm0, sx1, sf1, sm1 = sub
+    if not cfg.use_ransac:
+        return sc2_pcr_estimator(sx0, sf0, sm0, sx1, sf1, sm1, cfg.sc2)[0]
+    _, nn = masked_argmin(sf0.float().contiguous(), sm0,
+                          sf1.float().contiguous(), sm1)
+    T_est, _ = ransac_registration(sx0, sx1[nn.long()], sm0,
+                                   cfg.ransac_config, draws=draws,
+                                   generator=generator)
     return T_est
 
 
 @torch.no_grad()
 def test_pair(model, batch: RawBatch, cfg: EvalConfig, noise=None,
-              generator: torch.Generator | None = None, device=None):
+              keep=None, draws=None, generator: torch.Generator | None = None,
+              device=None):
     """The test protocol on one pair (reference scripts/test_kitti.py:
     128-212). Returns {"T_est", "rte", "rre"}."""
     batch = _on_device(batch, device)
     T_est = register_pair(*embed_pair(model, batch, cfg, batch.xyz0.device),
-                          cfg, noise=noise, generator=generator)
+                          cfg, noise=noise, keep=keep, draws=draws,
+                          generator=generator)
     T_gt = batch.T_gt[0]
     return {"T_est": T_est, "rte": rte(T_est, T_gt), "rre": rre_deg(T_est, T_gt)}

@@ -1,1 +1,1 @@
-"""Rigid transforms, registration metrics and the QCP Kabsch solver."""
+"""Rigid transforms, registration metrics and the Kabsch solvers."""

@@ -1,10 +1,16 @@
-"""Weighted Kabsch through the QCP characteristic quartic
-(counterpart of eyoc_tpu/geometry/svd3.py: kabsch_qcp and its helpers).
+"""Weighted Kabsch through Horn's quaternion method (counterpart of
+eyoc_tpu/geometry/svd3.py), with two solvers of the 4x4 eigenproblem:
 
-The Horn profile matrix's leading eigenvector is found by Newton on the
-closed-form quartic (Theobald 2005), then the largest column of the
-adjugate, polished by two shifted power iterations. Everything is batched
-elementwise arithmetic; the Jacobi `kabsch` waits for a later slice.
+- `kabsch`: the leading eigenvector by `jacobi_eigh`, 8 cyclic sweeps of
+  Givens rotations (RANSAC's hypotheses and polish, ICP);
+- `kabsch_qcp`: Newton on the closed-form characteristic quartic
+  (Theobald 2005), then the largest column of the adjugate, polished by two
+  shifted power iterations (SC2-PCR).
+
+Everything is batched elementwise arithmetic. A Givens rotation updates the
+two rows, then the two columns it touches, each entry as c * x - s * y or
+s * x + c * y: the value of the JAX package's G^T A G product without its
+zero terms, and what the kernels of csrc/ransac.cu compute.
 """
 
 from __future__ import annotations
@@ -29,6 +35,43 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
     ]
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+_JACOBI_SWEEPS = 8
+
+
+def _cyclic_pairs(n: int):
+    return [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int = _JACOBI_SWEEPS):
+    """Eigendecomposition of symmetric [..., n, n] matrices (n small) by
+    cyclic Jacobi: `sweeps` passes over the pairs (0, 1), (0, 2), ...,
+    (n-2, n-1). Returns (eigenvalues [..., n], eigenvectors [..., n, n] in
+    columns), not sorted.
+
+    The rotation angle is branchless, as in the JAX package: no rotation
+    where |a_pq| < 1e-30, and t = sign(tau) / (|tau| + sqrt(1 + tau^2)),
+    so tau = 0 (a_pp = a_qq) rotates by nothing either."""
+    n = A.shape[-1]
+    A = A.float().clone()
+    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    for p, q in _cyclic_pairs(n) * sweeps:
+        apq, app, aqq = A[..., p, q], A[..., p, p], A[..., q, q]
+        small = apq.abs() < 1e-30
+        tau = (aqq - app) / torch.where(small, torch.ones_like(apq),
+                                        2.0 * apq)
+        t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+        t = torch.where(small, torch.zeros_like(t), t)
+        c = 1.0 / torch.sqrt(1.0 + t * t)
+        s = t * c
+        c1, s1 = c[..., None], s[..., None]
+        rp, rq = A[..., p, :], A[..., q, :]           # G^T A: rows p and q
+        A[..., p, :], A[..., q, :] = c1 * rp - s1 * rq, s1 * rp + c1 * rq
+        for M in (A, V):                              # (.) G: columns
+            cp, cq = M[..., :, p], M[..., :, q]
+            M[..., :, p], M[..., :, q] = c1 * cp - s1 * cq, s1 * cp + c1 * cq
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
 
 
 def _entries(H):
@@ -134,6 +177,23 @@ def kabsch_qcp(A: torch.Tensor, B: torch.Tensor,
     """Weighted rigid alignment: trans [..., 4, 4] with B ~ trans(A).
 
     A, B: [..., N, 3]; weights: [..., N] (pad rows -> weight 0)."""
+    weights, cA, cB, Am, Bm, H, scale = _weighted_moments(
+        A, B, weights, weight_threshold)
+    Hn = H / scale
+    GA = torch.sum(weights * torch.sum(Am * Am, -1), -1)
+    GB = torch.sum(weights * torch.sum(Bm * Bm, -1), -1)
+    lam_upper = (GA + GB) / (2.0 * scale[..., 0, 0])
+    N4 = horn_profile_matrix(Hn)
+    c2, c1, c0 = qcp_quartic_coeffs(Hn)
+    q = qcp_leading_quaternion(N4, c2, c1, c0, lam_upper)
+    R = quat_to_rotmat(q)
+    t = cB - torch.einsum("...ij,...j->...i", R, cA)
+    return integrate_trans(R, t)
+
+
+def _weighted_moments(A, B, weights, weight_threshold):
+    """(weights, centroids cA, cB, centred A and B, the cross-covariance H
+    and max(max|H|, 1e-12)) of a weighted Kabsch."""
     A = A.float()
     B = B.float()
     if weights is None:
@@ -144,17 +204,29 @@ def kabsch_qcp(A: torch.Tensor, B: torch.Tensor,
     wsum = torch.sum(weights, -1, keepdim=True) + 1e-6
     cA = torch.sum(A * weights[..., None], -2) / wsum
     cB = torch.sum(B * weights[..., None], -2) / wsum
-    Am = A - cA[..., None, :]
-    Bm = B - cB[..., None, :]
+    Am, Bm = A - cA[..., None, :], B - cB[..., None, :]
     H = torch.einsum("...ni,...nj->...ij", Am * weights[..., None], Bm)
     scale = torch.clamp(H.abs().amax(dim=(-1, -2), keepdim=True), min=1e-12)
-    Hn = H / scale
-    GA = torch.sum(weights * torch.sum(Am * Am, -1), -1)
-    GB = torch.sum(weights * torch.sum(Bm * Bm, -1), -1)
-    lam_upper = (GA + GB) / (2.0 * scale[..., 0, 0])
-    N4 = horn_profile_matrix(Hn)
-    c2, c1, c0 = qcp_quartic_coeffs(Hn)
-    q = qcp_leading_quaternion(N4, c2, c1, c0, lam_upper)
+    return weights, cA, cB, Am, Bm, H, scale
+
+
+def kabsch(A: torch.Tensor, B: torch.Tensor,
+           weights: torch.Tensor | None = None,
+           weight_threshold: float = 0.0) -> torch.Tensor:
+    """Weighted rigid alignment by the Jacobi eigensolver: trans [..., 4, 4]
+    with B ~ trans(A). A, B: [..., N, 3]; weights: [..., N] (pad rows ->
+    weight 0), those under `weight_threshold` taken as 0.
+
+    The centroids divide by sum(w) + 1e-6; the Horn matrix of H / max|H|
+    (H the centred cross-covariance, max|H| at least 1e-12); the quaternion
+    is the eigenvector of the first largest eigenvalue; t = cB - R cA. All
+    weights 0 give the identity."""
+    _, cA, cB, _, _, H, scale = _weighted_moments(A, B, weights,
+                                                  weight_threshold)
+    evals, evecs = jacobi_eigh(horn_profile_matrix(H / scale))
+    idx = torch.argmax(evals, dim=-1)
+    q = torch.gather(evecs, -1, idx[..., None, None].expand(
+        evecs.shape[:-1] + (1,)))[..., 0]
     R = quat_to_rotmat(q)
     t = cB - torch.einsum("...ij,...j->...i", R, cA)
     return integrate_trans(R, t)

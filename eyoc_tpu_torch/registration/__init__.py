@@ -1,1 +1,1 @@
-"""SC2-PCR registration."""
+"""SC2-PCR, RANSAC and ICP registration."""
