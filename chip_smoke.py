@@ -10,9 +10,10 @@ Phases (any failure exits non-zero):
    First the sparse coordinate kernels at the eval shape (one cloud of
    131072 points) and the train shape (the 8 clouds of a batch side, the
    maps with their inverses): K10 `voxelize` (two launches around one
-   torch.sort), K11 `brick_pyramid` and K12 `conv_maps` (two launches
-   each), every output bit-equal to the plain version and the same bits
-   twice, with device kernels a call, host us a call and the bound (bytes);
+   torch.sort, the compaction one block a tile of 2048 sorted keys), K11
+   `brick_pyramid` and K12 `conv_maps` (two launches each), every output
+   bit-equal to the plain version and the same bits twice, with device
+   kernels a call, host us a call and the bound (bytes; the sort's too);
    then the others at the main paths' shapes: error, kernel time and plain
    time (CUDA events over back-to-back calls), the kernel's device time
    over the same calls (torch.profiler), the least time the card could
@@ -58,17 +59,22 @@ Phases (any failure exits non-zero):
    twice, device kernels a call, host cost; and `sc2_pcr_batched` with no
    host sync (sync debug mode "error"). RANSAC's and ICP's kernels at the
    path's shapes (N = 5000 correspondences at 30% inliers, the default
-   RansacConfig; ICP's 32768-point clouds of a scan): K16
-   `ransac_hypotheses` (H = 1048576, a 512-row subset; 2 device kernels
-   a call) with its edge flags bit-equal to the plain version's and, on
-   the first RANSAC_SLICE hypotheses, each pose held to the f64 Kabsch of
-   its triplet (within RANSAC_DISP + RANSAC_ROT / gap * lever) where the
-   Horn gap pins one (the others counted), each coarse count equal to the
-   f64 recount of the kernel's own pose but for tests within RANSAC_EPS of
-   the threshold, and to the plain version's but for tests that the two
-   poses move across it; K17 `ransac_verify` (the top 2048 of K16's own
-   counts over 5000 rows; 2 device kernels) with its counts within the
-   same bands and the first argmax; K18 `ransac_polish` (5 rounds) and
+   RansacConfig; ICP's 32768-point clouds of a scan): K16's two-stage
+   entry `ransac_hypotheses_topk` (H = 1048576, a 512-row subset, the top
+   2048; 6 device kernels a call) with its edge flags bit-equal to the
+   plain version's, its coarse counts the same bits as K16's single-stage
+   entry and its kept poses that entry's rows; on the first RANSAC_SLICE
+   hypotheses, each single-stage pose held to the f64 Kabsch of its
+   triplet (within RANSAC_DISP + RANSAC_ROT / gap * lever) where the Horn
+   gap pins one (the others counted), each coarse count equal to the f64
+   recount of that pose but for tests within RANSAC_EPS of the threshold,
+   and to the plain version's but for tests that the two poses move across
+   it; keep bit-equal to `topk` of the kernel's own coarse, and the kept
+   poses held to the f64 Kabsch as those of the slice; the bound
+   recounted from the survivors (the single-stage count logged beside it);
+   K17 `ransac_verify` (over K16's 2048 kept poses, 5000 rows; 2 device
+   kernels) with its counts within the same bands and the first argmax;
+   K18 `ransac_polish` (5 rounds) and
    `icp_solve` within POLISH_TOL of the plain version and of the f64
    solve (SVD) over the valid rows, the polish's inlier count equal; K2
    at ICP's shape (32768 x 32768 x 3) against the f64 nearest neighbour
@@ -90,10 +96,12 @@ Phases (any failure exits non-zero):
    and its peak memory under the plain version's dense grid. Then the
    same pairs with RANSAC, the test CLI's default estimator
    (`eval.test_pair` with `use_ransac`): finite poses, exactly one K2,
-   K16, K17 and K18 `ransac_polish` launch a pair and no SC2-PCR kernel,
-   `register_pair` with no host sync (sync debug mode "error"), the
-   registration split by stage (subset, K2, K16, sort, K17, K18), and one
-   pair with `downsample_single` 0.5.
+   K16 (two-stage), K17 and K18 `ransac_polish` launch a pair, no
+   single-stage K16 and no SC2-PCR kernel, `register_pair` with no host
+   sync (sync debug mode "error"), its peak device memory logged and below
+   one [H, 4, 4] pose array, no sort over H elements in a profiled pair,
+   the registration split by stage (subset, K2, K16 with the top 2048,
+   K17, K18), and one pair with `downsample_single` 0.5.
 4. registration sanity: `sc2_pcr_batched` on three known-pose problems
    of N = 5000 correspondences (30% and 10% inliers, and 30% with 500
    valid rows) recovers each pose, and each problem is the same bits as
@@ -719,7 +727,9 @@ def check_coord_kernels(xyz, counts, inverse: bool, what: str):
         2 + n_sort, "no one call quantizes, sorts and compacts with a "
         "representative point", reps=5)
     log(f"  K10's torch.sort of {B * P} int64 keys: {n_sort:g} device "
-        f"kernels, device {fmt_ms(sort_ms)}")
+        f"kernels, device {fmt_ms(sort_ms)}, bound "
+        f"{bound_ms(B * P * 16, 0.0, 'f32')[0]:.4f} ms (the keys read once "
+        "and written once)")
     mask0 = vox.mask.reshape(-1)
     pargs = (keys, mask0, B, bcs, WINDOW_BITS)
     pyr, r11 = _coord_row(
@@ -1678,7 +1688,10 @@ def sc2_no_sync(what, src, tgt, valid, cfg):
 # ------------------------------------------------- phase 2, RANSAC and ICP
 
 
-RANSAC_KERNELS = ("ransac_hypotheses", "ransac_verify", "ransac_polish")
+# the two-stage route's kernels (K16's entry `ransac_hypotheses_topk` is
+# the kernels line's `ransac_hypotheses` row)
+RANSAC_KERNELS = ("ransac_hypotheses_topk", "ransac_verify",
+                  "ransac_polish")
 # a count test may come out otherwise than under the f64 recount of the
 # kernel's own pose only within RANSAC_EPS of the threshold: the f32 warp
 # rounds at ~2^-24 * 3 * |x|, 1e-5 m at 50 m
@@ -1754,70 +1767,111 @@ def _count_band(T, s64, t64, ok, thr, other=None):
             torch.cat(slack).double() if other is not None else None)
 
 
-def _hyp_close(got, want, src, tgt, valid, u_tri, u_sub, thr, lo):
-    """K16 against its plain version on the same draws: the edge flags
-    bit-equal on every hypothesis; on the first RANSAC_SLICE, each pose
-    held to the f64 Kabsch of its triplet where the triplet pins one (the
-    others counted), and each coarse count equal to the f64 recount under
-    the kernel's own pose but for tests within RANSAC_EPS of the
-    threshold, and to the plain version's but for tests that the two poses
-    move across it."""
+def _pose_reach(T, a, pin, reach, T64):
+    """(each triplet point's largest move from the f64 Kabsch T64 under the
+    poses T, held: every pinned one within `reach`)."""
+    import torch
+    D = T.double() - T64
+    d = (torch.einsum("hij,hnj->hni", D[:, :3, :3], a.double())
+         + D[:, None, :3, 3]).norm(dim=-1).amax(-1)
+    return d, bool((d <= reach)[pin].all())
+
+
+def _triplets64(src, tgt, valid, u_tri):
+    """(triplet rows a [h, 3, 3], Horn gap, pinned, the reach RANSAC_DISP +
+    RANSAC_ROT / gap * lever, the f64 SVD Kabsch) of the hypotheses u_tri
+    [h, 3]."""
     import torch
     from eyoc_tpu_torch.registration.ransac import _prefix_rows
-    (trans_k, coarse_k), (trans_p, coarse_p) = got, want
+    tri = _prefix_rows(u_tri, valid.sum().clamp(min=1), src.shape[0])
+    a, b = src[tri], tgt[tri]
+    gap = _horn_gap64(a, b)
+    T64 = _kabsch64(a, b, torch.ones(a.shape[:-1], device=a.device))
+    lever = a.double().norm(dim=-1).amax(-1)
+    reach = RANSAC_DISP + RANSAC_ROT / gap.clamp(min=1e-30) * lever
+    return a, gap, gap >= SC2_GAP, reach, T64
+
+
+def _hyp_close(got, want, src, tgt, valid, u_tri, u_sub, thr, lo, k):
+    """K16's two-stage entry against its plain version on the same draws.
+    coarse: the edge flags bit-equal on every hypothesis, and the same bits
+    as the single-stage entry's (whose poses are the same solve); on the
+    first RANSAC_SLICE, each single-stage pose held to the f64 Kabsch of
+    its triplet where the triplet pins one (the others counted), and each
+    coarse count equal to the f64 recount under that pose but for tests
+    within RANSAC_EPS of the threshold, and to the plain version's but for
+    tests that the two poses move across it. keep: bit-equal to `topk` of
+    the kernel's own coarse, the kept counts its coarse there. The kept
+    poses: the single-stage entry's rows keep bit for bit, and each held to
+    the f64 Kabsch where its triplet pins one."""
+    import torch
+    from eyoc_tpu_torch.registration import ransac
+    (kept_t, kept_c, keep, coarse_k), (_, _, _, coarse_p) = got, want
     if not torch.equal(coarse_k >= 0, coarse_p >= 0):
         log("  K16: edge flags differ from the plain version's")
         return False, float("inf")
-    n = src.shape[0]
-    count = valid.sum().clamp(min=1)
-    h = min(RANSAC_SLICE, trans_k.shape[0])
-    tri = _prefix_rows(u_tri[:h], count, n)
-    a, b = src[tri], tgt[tri]
-    gap = _horn_gap64(a, b)
-    pin = gap >= SC2_GAP
-    T64 = _kabsch64(a, b, torch.ones(a.shape[:-1], device=a.device))
-    lever = a.double().norm(dim=-1).amax(-1)
-
-    def disp(T):                 # each triplet point's move from f64
-        D = T.double() - T64
-        return (torch.einsum("hij,hnj->hni", D[:, :3, :3], a.double())
-                + D[:, None, :3, 3]).norm(dim=-1).amax(-1)
-    reach = RANSAC_DISP + RANSAC_ROT / gap.clamp(min=1e-30) * lever
-    d_k, d_p = disp(trans_k[:h]), disp(trans_p[:h])
-    held = bool((d_k <= reach)[pin].all())
+    h = min(RANSAC_SLICE, coarse_k.shape[0])
+    trans_1, coarse_1 = ransac.ransac_hypotheses(src, tgt, valid, u_tri,
+                                                 u_sub, thr, lo)
+    trans_p = ransac.ransac_hypotheses_plain(src, tgt, valid, u_tri[:h],
+                                             u_sub, thr, lo)[0]
+    single = bool(torch.equal(coarse_k, coarse_1)) and bool(torch.equal(
+        kept_t, trans_1[keep.long()]))
+    top = bool(torch.equal(keep.long(), ransac.topk(coarse_k, k)[1])) and \
+        bool(torch.equal(kept_c, coarse_k[keep.long()]))
+    a, gap, pin, reach, T64 = _triplets64(src, tgt, valid, u_tri[:h])
+    d_k, held = _pose_reach(trans_1[:h], a, pin, reach, T64)
+    d_p, _ = _pose_reach(trans_p[:h], a, pin, reach, T64)
     ratio_k = float(((d_k - RANSAC_DISP) / (reach - RANSAC_DISP))[pin].max())
     ratio_p = float(((d_p - RANSAC_DISP) / (reach - RANSAC_DISP))[pin].max())
-    sub = _prefix_rows(u_sub, count, n)
+    ka, _, kpin, kreach, kT64 = _triplets64(src, tgt, valid,
+                                            u_tri[keep.long()])
+    d_kept, kept_held = _pose_reach(kept_t, ka, kpin, kreach, kT64)
+    sub = ransac._prefix_rows(u_sub, valid.sum().clamp(min=1), src.shape[0])
     s64, t64 = src[sub].double(), tgt[sub].double()
     ones = torch.ones(sub.shape[0], dtype=torch.bool, device=src.device)
     edge = coarse_k[:h] >= 0
-    cnt, band, slack = _count_band(trans_k[:h], s64, t64, ones, thr,
+    cnt, band, slack = _count_band(trans_1[:h], s64, t64, ones, thr,
                                    trans_p[:h])
     ck, cp = coarse_k[:h].double(), coarse_p[:h].double()
     own = ((ck - cnt).abs() <= band)[edge]
     agree = ((ck - cp).abs() <= slack)[edge]
     log(f"  K16: edge flags bit-equal ({int((coarse_k >= 0).sum())} of "
-        f"{coarse_k.numel()} pass); on the first {h}: {int(pin.sum())} "
-        f"triplets pin a pose (Horn gap >= {SC2_GAP}), the kernel's points "
-        f"within {float(d_k[pin].max()):.3e} m of the f64 Kabsch, largest "
-        f"ratio to the reach {RANSAC_ROT} / gap * lever {ratio_k:.3f} "
-        f"(plain {ratio_p:.3f}; held to {RANSAC_DISP} m + 1x it: "
+        f"{coarse_k.numel()} pass); coarse the single-stage entry's bits "
+        f"and the kept poses its rows: {'yes' if single else 'NO'}; keep "
+        f"bit-equal to topk of the kernel's coarse: {'yes' if top else 'NO'}"
+        f" (counts {float(kept_c.max()):g} down to {float(kept_c.min()):g})"
+        f"; on the first {h}: {int(pin.sum())} triplets pin a pose (Horn gap "
+        f">= {SC2_GAP}), the kernel's points within "
+        f"{float(d_k[pin].max()):.3e} m of the f64 Kabsch, largest ratio to "
+        f"the reach {RANSAC_ROT} / gap * lever {ratio_k:.3f} (plain "
+        f"{ratio_p:.3f}; held to {RANSAC_DISP} m + 1x it: "
         f"{'yes' if held else 'NO'}); {int((~pin).sum())} triplets pin none "
         f"(repeated or collinear points: kernel within "
         f"{float(d_k[~pin].max()) if bool((~pin).any()) else 0.0:.3e} m); "
-        f"coarse counts: {int((ck != cnt)[edge].sum())} differ from the f64 "
-        f"recount of the kernel's pose ({int((band > 0)[edge].sum())} with a "
-        f"test within {RANSAC_EPS} m of the threshold), "
-        f"{int((ck != cp)[edge].sum())} from the plain version's")
-    ok = held and bool(own.all()) and bool(agree.all())
-    return ok, float(d_k[pin].max())
+        f"the {keep.numel()} kept poses: {int(kpin.sum())} pinned, within "
+        f"{float(d_kept[kpin].max()) if bool(kpin.any()) else 0.0:.3e} m "
+        f"(held: {'yes' if kept_held else 'NO'}); coarse counts: "
+        f"{int((ck != cnt)[edge].sum())} differ from the f64 recount of the "
+        f"kernel's pose ({int((band > 0)[edge].sum())} with a test within "
+        f"{RANSAC_EPS} m of the threshold), {int((ck != cp)[edge].sum())} "
+        "from the plain version's")
+    ok = single and top and held and kept_held and bool(own.all()) and \
+        bool(agree.all())
+    err = max(float(d_k[pin].max()),
+              float(d_kept[kpin].max()) if bool(kpin.any()) else 0.0)
+    del trans_1, trans_p
+    torch.cuda.empty_cache()
+    return ok, err
 
 
-def _hyp_cost(src, tgt, valid, u_tri, u_sub, thr, lo):
-    """K16's bound: a Jacobi solve for each hypothesis and, for those that
-    pass the edge check, 27 flops a subset row; bytes: the draws and the
-    points once, the poses and counts written."""
-    import torch
+def _hyp_cost(src, tgt, valid, u_tri, u_sub, thr, lo, k):
+    """K16's bound, recounted from what these inputs need: the edge check
+    (~60 flops) for every hypothesis; a Jacobi solve for each survivor and
+    each kept failing hypothesis; 27 flops a subset row for each survivor;
+    bytes: the draws and the points once, coarse [H] and the k kept rows
+    written. The single-stage bound (a solve for every hypothesis, the
+    [H, 4, 4] poses written) is logged beside it."""
     from eyoc_tpu_torch.registration.ransac import (edge_ok_plain,
                                                     sample_triplets_plain)
     H, S = u_tri.shape[0], u_sub.shape[0]
@@ -1825,9 +1879,17 @@ def _hyp_cost(src, tgt, valid, u_tri, u_sub, thr, lo):
                                    valid.sum().clamp(min=1))
     passed = float(edge_ok_plain(s3, t3, lo).sum())
     del s3, t3
-    torch.cuda.empty_cache()
-    ops = H * (JACOBI_FLOPS + 60.0) + passed * S * 27.0
-    return H * 12 + S * 4 + src.shape[0] * 25 + H * 68, ops, "f32"
+    nbytes = H * 12 + S * 4 + src.shape[0] * 25 + H * 4 + k * 72
+    ops = H * 60.0 + (passed + max(k - passed, 0)) * JACOBI_FLOPS \
+        + passed * S * 27.0
+    old = bound_ms(H * 12 + S * 4 + src.shape[0] * 25 + H * 68,
+                   H * (JACOBI_FLOPS + 60.0) + passed * S * 27.0, "f32")
+    new = bound_ms(nbytes, ops, "f32")
+    log(f"  K16 bound: {new[0]:.4f} ms ({new[1]}; {passed:.0f} of {H} "
+        f"survive the edge check: {ops / 1e9:.3f} GFLOP), the kernels line's;"
+        f" a solve for every hypothesis and the [H, 4, 4] poses written "
+        f"(the single-stage count): {old[0]:.4f} ms ({old[1]})")
+    return nbytes, ops, "f32"
 
 
 def _verify_close(got, want, trans, coarse, keep, src, tgt, valid, thr):
@@ -1841,12 +1903,13 @@ def _verify_close(got, want, trans, coarse, keep, src, tgt, valid, thr):
     v = valid
     s64, t64 = src[v].double(), tgt[v].double()
     ok_rows = torch.ones(s64.shape[0], dtype=torch.bool, device=src.device)
-    cnt, band, _ = _count_band(trans[keep.long()], s64, t64, ok_rows, thr)
-    edge = coarse[keep.long()] >= 0
+    rows = _kept_rows(coarse, keep)
+    cnt, band, _ = _count_band(trans[rows], s64, t64, ok_rows, thr)
+    edge = coarse[rows] >= 0
     ckd, cpd = ck.double(), cp.double()
     own = torch.where(edge, (ckd - cnt).abs() <= band, ckd == -1)
     agree = (ckd - cpd).abs() <= 2 * band
-    first = int(bk) == int(keep[int(torch.argmax(ck))])
+    first = int(bk) == int(rows[int(torch.argmax(ck))])
     j = int(torch.argmax(ck))
     top = bool(cpd[j] + 2 * band[j] >= cpd.max())
     log(f"  K17: {int((ckd != cpd).sum())} of {ck.numel()} counts differ "
@@ -1858,13 +1921,21 @@ def _verify_close(got, want, trans, coarse, keep, src, tgt, valid, thr):
             float((ckd - cpd).abs().max()))
 
 
+def _kept_rows(coarse, keep):
+    """The rows of trans that K17 verifies: keep, or every one."""
+    import torch
+    return keep.long() if keep is not None else torch.arange(
+        coarse.shape[0], device=coarse.device)
+
+
 def _verify_cost(trans, coarse, keep, src, tgt, valid, thr):
     """K17's bound: 27 flops for each (kept hypothesis that passed the edge
     check, valid row); bytes: the kept poses, flags and indices, the points
     once, the counts."""
-    edge = float((coarse[keep.long()] >= 0).sum())
+    rows = _kept_rows(coarse, keep)
+    edge = float((coarse[rows] >= 0).sum())
     n = src.shape[0]
-    Hk = keep.shape[0]
+    Hk = rows.shape[0]
     return Hk * (64 + 4 + 4 + 4) + n * 25 + 4, 27.0 * edge * float(
         valid.sum()), "f32"
 
@@ -1997,10 +2068,10 @@ def check_ransac_kernels(gen, batch):
     draws = ransac.ransac_draws(cfg, "cuda",
                                 torch.Generator(device="cuda").manual_seed(5))
     thr, lo = cfg.distance_threshold, cfg.edge_length_ratio
-    k16 = (src, tgt, valid, *draws, thr, lo)
-    trans, coarse = ransac.ransac_hypotheses(*k16)
-    keep = ransac.topk(coarse, cfg.full_verify_top)[1].int()
-    k17 = (trans, coarse, keep, src, tgt, valid, thr)
+    k16 = (src, tgt, valid, *draws, thr, lo, cfg.full_verify_top)
+    trans, coarse, _, _ = ransac.ransac_hypotheses_topk(*k16)
+    # K17 over the kept set, as the two-stage route runs it
+    k17 = (trans, coarse, None, src, tgt, valid, thr)
     _, best = ransac.ransac_verify(*k17)
     k18 = (trans, best, src, tgt, valid, thr, cfg.polish_iters)
     s, sm, t, tm = (torch.from_numpy(a).cuda()
@@ -2010,10 +2081,11 @@ def check_ransac_kernels(gen, batch):
     kicp = (s, sm, t, nn, d2, r2)
     out = {}
     for name, fn, plain, cost, close, args, nk, what, lib in (
-            ("ransac_hypotheses", ransac.ransac_hypotheses,
-             ransac.ransac_hypotheses_plain, _hyp_cost, _hyp_close, k16, 2,
-             "K16 ransac_hypotheses (H = 1048576, subset 512, N = 5000)",
-             "a triplet, an edge check, a Kabsch and a count a hypothesis"),
+            ("ransac_hypotheses", ransac.ransac_hypotheses_topk,
+             ransac.ransac_hypotheses_topk_plain, _hyp_cost, _hyp_close, k16,
+             6, "K16 ransac_hypotheses_topk (H = 1048576, subset 512, the "
+             "top 2048, N = 5000)", "a triplet, an edge check, a Kabsch and "
+             "a count a hypothesis, then a top k with its poses"),
             ("ransac_verify", ransac.ransac_verify,
              ransac.ransac_verify_plain, _verify_cost, _verify_close, k17, 2,
              "K17 ransac_verify (2048 x 5000)", "a count of the rows within "
@@ -2058,8 +2130,8 @@ def icp_pair(batch):
 
 def ransac_stages(x, cfg, gen):
     """One RANSAC eval pair's registration split by stage (host clock
-    around synchronized calls, ms): the subset, K2, K16 with its draws, the
-    sort, K17, K18; as `eval.register_pair` runs them."""
+    around synchronized calls, ms): the subset, K2, K16 with its draws and
+    the top 2048, K17, K18; as `eval.register_pair` runs them."""
     import torch
     from eyoc_tpu_torch import eval as teval
     from eyoc_tpu_torch.ops.knn import masked_argmin
@@ -2083,13 +2155,11 @@ def ransac_stages(x, cfg, gen):
     tgt = sx1[nn.long()]
     mark()
     u_tri, u_sub = ransac.ransac_draws(rc, "cuda", gen)
-    trans, coarse = ransac.ransac_hypotheses(
+    trans, coarse, _, _ = ransac.ransac_hypotheses_topk(
         sx0, tgt, sm0, u_tri, u_sub, rc.distance_threshold,
-        rc.edge_length_ratio)
+        rc.edge_length_ratio, rc.full_verify_top)
     mark()
-    keep = ransac.topk(coarse, rc.full_verify_top)[1]
-    mark()
-    _, best = ransac.ransac_verify(trans, coarse, keep, sx0, tgt, sm0,
+    _, best = ransac.ransac_verify(trans, coarse, None, sx0, tgt, sm0,
                                    rc.distance_threshold)
     mark()
     ransac.ransac_polish(trans, best, sx0, tgt, sm0, rc.distance_threshold,
@@ -2098,18 +2168,20 @@ def ransac_stages(x, cfg, gen):
     return np.diff(marks) * 1e3
 
 
-RANSAC_STAGES = ("subset", "K2 masked_argmin", "K16 ransac_hypotheses "
-                 "(with its draws)", "sort (top 2048)", "K17 ransac_verify",
+RANSAC_STAGES = ("subset", "K2 masked_argmin", "K16 ransac_hypotheses_topk "
+                 "(with its draws and the top 2048)", "K17 ransac_verify",
                  "K18 ransac_polish")
 
 
 def ransac_eval_phase(model, pairs, cfg, smi):
     """The eval path with RANSAC (`eval.test_pair(use_ransac=True)`) on the
-    eval pairs: finite poses, exactly one K2, K16, K17 and K18 polish launch
-    a pair and no SC2-PCR kernel (counts reset just before, read just
-    after), `register_pair` with no host sync (sync debug mode "error"),
-    the registration split by stage, and one pair with `downsample_single`
-    0.5. Returns the launch counts."""
+    eval pairs: finite poses, exactly one K2, K16 (its two-stage entry),
+    K17 and K18 polish launch a pair, no single-stage K16 and no SC2-PCR
+    kernel (counts reset just before, read just after), `register_pair`
+    with no host sync (sync debug mode "error"), its peak device memory
+    below one [H, 4, 4] pose array, no sort over H elements in a profiled
+    pair, the registration split by stage, and one pair with
+    `downsample_single` 0.5. Returns the launch counts."""
     import dataclasses
     import torch
     from eyoc_tpu_torch import eval as teval
@@ -2128,6 +2200,20 @@ def ransac_eval_phase(model, pairs, cfg, smi):
     torch.cuda.synchronize()
     log("eval pair with RANSAC: register_pair runs with no host sync (sync "
         "debug mode \"error\")")
+    H = rcfg.ransac_config.num_hypotheses
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    T_est = teval.register_pair(*x, rcfg, generator=gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"eval pair with RANSAC: register_pair peaks at {peak / 2 ** 20:.1f} "
+        f"MiB above its inputs (an [H, 4, 4] f32 pose array alone is "
+        f"{H * 64 / 2 ** 20:.1f} MiB)")
+    if peak >= H * 64:
+        raise AssertionError(f"register_pair with RANSAC peaks at {peak} "
+                             "bytes: room for an [H, 4, 4] pose array")
+    largest_sort(model, pairs[0].to("cuda"), rcfg, gen, H,
+                 "RANSAC eval pair")
     torch.cuda.synchronize()
     kernels.reset_counts()
     pair_ms, n_ok = [], 0
@@ -2150,6 +2236,9 @@ def ransac_eval_phase(model, pairs, cfg, smi):
         if counts[k] != len(pairs):
             raise AssertionError(f"the RANSAC eval path launched {k} "
                                  f"{counts[k]} times for {len(pairs)} pairs")
+    if counts["ransac_hypotheses"]:
+        raise AssertionError("the RANSAC eval path launched K16's "
+                             "single-stage entry")
     if any(counts[k] for k in SC2_KERNELS + ("sc2_power_iteration",
                                              "sc2_seed_topk")):
         raise AssertionError("the RANSAC eval path launched SC2-PCR kernels")
@@ -2658,9 +2747,10 @@ def train_breakdown(model, opt, batch, cfg, gen):
         log(f"  {_dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
 
 
-def largest_sort(model, batch, cfg, gen):
+def largest_sort(model, batch, cfg, gen, limit, what):
     """The profiler's view of one eval pair: no sort or top-k on the path
-    runs over as many as S x N elements (the [S, N] counts are gone)."""
+    runs over as many as `limit` elements (SC2-PCR: S x N, the [S, N]
+    counts are gone; RANSAC: H, the coarse counts' sort is gone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from eyoc_tpu_torch.eval import embed_pair, register_pair
@@ -2674,10 +2764,10 @@ def largest_sort(model, batch, cfg, gen):
     for e in prof.events():
         if e.name in ("aten::sort", "aten::topk") and e.input_shapes:
             largest = max(largest, int(np.prod(e.input_shapes[0] or [0])))
-    log(f"eval pair: the largest sort or top-k runs over {largest} elements")
-    if largest >= N_SEEDS * N_CORR:
-        raise AssertionError(f"a sort over {largest} elements on the eval "
-                             "path")
+    log(f"{what}: the largest sort or top-k runs over {largest} elements")
+    if largest >= limit:
+        raise AssertionError(f"a sort over {largest} elements on the "
+                             f"{what}'s path")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3060,7 +3150,8 @@ def main() -> int:
     if any(counts[k] != N_PAIRS for k in SC2_KERNELS):
         raise AssertionError("the eval path is not one K13, K14 and K15 call "
                              "a pair")
-    largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen)
+    largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen,
+                 N_SEEDS * N_CORR, "eval pair")
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
         f"(host clock around synchronized calls), RR of the untrained net "
@@ -3109,6 +3200,8 @@ def main() -> int:
     # row ICP's known answer (phase 4); each row's times are of the calls
     # of that path
     def launches(name):
+        if name == "ransac_hypotheses":
+            return ransac_counts["ransac_hypotheses_topk"]
         if name in RANSAC_KERNELS:
             return ransac_counts[name]
         if name in ("icp_solve", "masked_argmin_icp"):

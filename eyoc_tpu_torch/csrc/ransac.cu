@@ -3,16 +3,35 @@
 // read back by the host in between.
 //
 // K16 replaces eyoc_tpu/registration/ransac.py:55 `_sample_triplets`, :61
-// `_edge_ok`, :119 `kabsch(s3, t3)` and the coarse `_count_inliers` of
-// :132: `prep` (one block) counts the valid rows and gathers the subset
-// rows (u * count) of the valid prefix into scratch; `hypotheses` runs one
-// thread a hypothesis: the triplet (u * count truncated, in f32), Open3D's
-// edge-length check (three unfused norms, |s| / (|t| + 1e-9) inside
-// (lo, hi)), the Jacobi Kabsch of the three points with unit weights (so
-// the centroids divide by 3 + 1e-6), and its count of the subset rows, staged
-// in shared memory a tile at a time, with |R s + t - t'|^2 < thr^2; -1
-// where the edge check fails (the edge flag alone, 0 or -1, without a
-// subset).
+// `_edge_ok`, :119 `kabsch(s3, t3)`, the coarse `_count_inliers` of :132
+// and the `lax.top_k` of :136 with its gathers. `prep` (one block) counts
+// the valid rows, gathers the subset rows (u * count) of the valid prefix
+// into scratch and zeroes the control words of the launches after it. A
+// hypothesis is its triplet (u * count truncated, in f32), Open3D's
+// edge-length check (three unfused norms, |s| / (|t| + 1e-9) inside (lo,
+// hi)), the Jacobi Kabsch of the three points with unit weights (so the
+// centroids divide by 3 + 1e-6), and its count of the subset rows with
+// |R s + t - t'|^2 < thr^2; -1 where the edge check fails.
+// Two entries:
+// - two-stage (`ransac_hypotheses_topk`, the eval path's): `edge`, one
+//   thread a hypothesis, runs the edge check alone, writes -1 for a
+//   failure and compacts the survivors into a list in hypothesis order (a
+//   block scan, then a decoupled look-back over tiles taken in ticket
+//   order); `solve_count`, a persistent grid over that list (its length
+//   read on the card), one thread a survivor, solves its pose and counts
+//   the subset rows staged in shared memory, and adds the count to a
+//   histogram of S + 1 bins; `select_top` finds the threshold count of the
+//   top k in the histogram and keeps every survivor above it and the
+//   lowest-index survivors at it (a look-back scan of the ties); `sort_top`
+//   (one block) adds the lowest-index failing hypotheses where fewer than k
+//   survive and sorts the k composite keys (count descending, index
+//   ascending: `lax.top_k`'s order) in shared memory;
+//   `kept_poses` writes the k kept poses, one thread each, from a cache of
+//   the first C survivors' poses, or solved again past it. No [H, 4,
+//   4] pose array and no sort over H elements.
+// - single-stage (`ransac_hypotheses`): `hypotheses`, one thread a
+//   hypothesis, writes every pose and its count (the edge flag alone
+//   without a subset).
 // K17 replaces the full verification of :140-145 (`_count_inliers`, queue
 // item 11): `verify`, one block a kept hypothesis, reads trans[keep[h]] and
 // its edge flag (coarse >= 0) itself and counts the valid rows within the
@@ -35,18 +54,21 @@
 // rows, then the two columns it touches, and to V's two columns (no 4x4
 // products); the eigenvector of the first largest eigenvalue; R; then t =
 // cB - R cA. Its arithmetic is unfused (_rn intrinsics), as the plain
-// version's elementwise ops are; moments in the block kernels are taken in
-// two centred passes (K15's form).
+// version's elementwise ops are, so a pose is the same bits in every
+// kernel that solves it; moments in the block kernels are taken in two
+// centred passes (K15's form).
 //
 // Every float reduction runs in a fixed order (a thread's rows in order,
-// then a fixed shared-memory tree), so each kernel gives the same bits on
-// every call. Divisions and square roots are IEEE (no --use_fast_math).
+// then a fixed shared-memory tree), and every list is built by scans in
+// index order, so each kernel gives the same bits on every call. Divisions
+// and square roots are IEEE (no --use_fast_math).
 //
-// What bounds them: K16 is operations, ~27 flops for each (hypothesis,
-// subset row) and ~3000 a Jacobi solve; K17 is operations, ~27 flops for
-// each (kept hypothesis, valid row); K18's two entries are one block each,
-// a chain of dependent passes and solves: latency, far above their bytes
-// and operations.
+// What bounds them: K16 is operations, ~60 flops for each hypothesis's
+// edge check, ~4300 a Jacobi solve and ~27 for each (survivor, subset row);
+// only the survivors (~4% on the eval path) are solved and counted. K17 is
+// operations, ~27 flops for each (kept hypothesis, valid row); K18's two
+// entries are one block each, a chain of dependent passes and solves:
+// latency, far above their bytes and operations.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +77,24 @@ namespace {
 constexpr int kHypThreads = 128;     // hypotheses: one thread a hypothesis
 constexpr int kSubTile = 512;        // subset rows staged at a time
 constexpr int kPrepThreads = 256;
+constexpr int kScanThreads = 256;    // edge, select: a tile of 4 items each
+constexpr int kItems = 4;
+constexpr int kTile = kScanThreads * kItems;
+constexpr int kCountThreads = 64;    // solve_count: one thread a survivor
+constexpr int kCountBlocks = 2112;   // its persistent grid, at most
+constexpr int kSelectBlocks = 264;   // select_top's persistent grid, at most
+constexpr int kSortThreads = 1024;   // sort_top: one block
+constexpr int kPoseThreads = 64;     // kept_poses: one thread a kept pose
+constexpr int kMaxBins = 2049;       // coarse counts 0..S, S <= 2048
+constexpr int kMaxTop = 4096;        // k, sorted in one block's shared memory
+// the control words of the two-stage entry (int32, zeroed by prep), then
+// the histogram [S + 1] and the two look-back status arrays [tiles]
+constexpr int kEdgeTicket = 0, kSelectTicket = 1, kKept = 2,
+              kSurvivors = 3, kHist = 4;
+// a look-back status word: flag (aggregate, inclusive prefix) | value
+constexpr unsigned kAggregate = 1u << 30, kInclusive = 2u << 30,
+                   kValue = kAggregate - 1;
+constexpr int kWindow = 32;          // status words a look-back round reads
 constexpr int kVerifyThreads = 256;  // verify: one block a hypothesis
 constexpr int kBestThreads = 1024;   // verify_best: one block
 constexpr int kSolveThreads = 512;   // polish / icp: one block
@@ -203,15 +243,138 @@ __device__ void jacobi_pose(const float* H, const float* cA, const float* cB,
   T[15] = 1.f;
 }
 
+// Exclusive prefix sum of v over the block (kThreads threads) in shared
+// memory; `total` gets the block's sum.
+template <int kThreads>
+__device__ int block_exclusive_scan(int v, int* sh, int& total) {
+  const int t = threadIdx.x;
+  sh[t] = v;
+  __syncthreads();
+  for (int off = 1; off < kThreads; off <<= 1) {
+    const int add = t >= off ? sh[t - off] : 0;
+    __syncthreads();
+    sh[t] += add;
+    __syncthreads();
+  }
+  total = sh[kThreads - 1];
+  const int incl = sh[t];
+  __syncthreads();
+  return incl - v;
+}
+
+// The decoupled look-back, by the whole block: thread 0 publishes the
+// tile's aggregate; each round the first kWindow threads read the status
+// words of the kWindow tiles before the round's start, and thread 0 adds
+// them from the nearest back: an aggregate adds and goes on, an inclusive
+// prefix adds and ends, an unpublished word ends the round (read again
+// from there). Thread 0 then publishes the inclusive prefix; every thread
+// gets the exclusive one. Tiles are taken in ticket order, so every
+// predecessor is running or done. `win` and `st` are shared memory.
+__device__ int look_back(unsigned* status, int tile, int agg, unsigned* win,
+                         int* st) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    atomicExch(status + tile, (tile == 0 ? kInclusive : kAggregate) |
+                                  (unsigned)agg);
+    st[0] = 0;                                   // the exclusive prefix
+    st[1] = tile - 1;                            // the next tile to read
+  }
+  __syncthreads();
+  while (st[1] >= 0) {
+    const int j = st[1];
+    if (t < kWindow)
+      win[t] = j - t >= 0
+                   ? (unsigned)*reinterpret_cast<volatile unsigned*>(
+                         status + j - t)
+                   : (unsigned)kInclusive;
+    __syncthreads();
+    if (t == 0) {
+      int i = 0;
+      for (; i < kWindow; ++i) {
+        const unsigned s = win[i];
+        if ((s & ~kValue) == 0) break;            // not published yet
+        st[0] += (int)(s & kValue);
+        if (s & kInclusive) {
+          i = j + 1;                             // done: st[1] becomes -1
+          break;
+        }
+      }
+      st[1] = j - i;
+    }
+    __syncthreads();
+  }
+  const int excl = st[0];
+  if (t == 0 && tile > 0)
+    atomicExch(status + tile, kInclusive | (unsigned)(excl + agg));
+  __syncthreads();
+  return excl;
+}
+
+// The triplet of a hypothesis: rows (u * count) truncated, of the valid
+// prefix.
+__device__ __forceinline__ void load_triplet(
+    const float* __restrict__ src, const float* __restrict__ tgt, int N,
+    const float* __restrict__ u, float countf, float (&a)[3][3],
+    float (&b)[3][3]) {
+  for (int k = 0; k < 3; ++k) {
+    const int j = min((int)mul(u[k], countf), N - 1);
+    for (int c = 0; c < 3; ++c) {
+      a[k][c] = src[3 * j + c];
+      b[k][c] = tgt[3 * j + c];
+    }
+  }
+}
+
+// Open3D's edge-length check: edges (0,1), (1,2), (2,0).
+__device__ __forceinline__ bool edge_ok(const float (&a)[3][3],
+                                        const float (&b)[3][3], float lo,
+                                        float hi) {
+  bool ok = true;
+  for (int k = 0; k < 3; ++k) {
+    const int l = k == 2 ? 0 : k + 1;
+    const float es = norm3(sub(a[k][0], a[l][0]), sub(a[k][1], a[l][1]),
+                           sub(a[k][2], a[l][2]));
+    const float et = norm3(sub(b[k][0], b[l][0]), sub(b[k][1], b[l][1]),
+                           sub(b[k][2], b[l][2]));
+    const float ratio = __fdiv_rn(es, add(et, 1e-9f));
+    ok = ok && ratio > lo && ratio < hi;
+  }
+  return ok;
+}
+
+// The Jacobi Kabsch of the triplet with unit weights: the centroids divide
+// by 3 + 1e-6 (svd3.py:301).
+__device__ __forceinline__ void triplet_pose(const float (&a)[3][3],
+                                             const float (&b)[3][3],
+                                             float* pose) {
+  const float wsum = add(3.f, 1e-6f);
+  float cA[3], cB[3];
+  for (int c = 0; c < 3; ++c) {
+    cA[c] = __fdiv_rn(add(add(a[0][c], a[1][c]), a[2][c]), wsum);
+    cB[c] = __fdiv_rn(add(add(b[0][c], b[1][c]), b[2][c]), wsum);
+  }
+  float Hm[9];
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) {
+      float acc = 0.f;
+      for (int k = 0; k < 3; ++k)
+        acc = add(acc, mul(sub(a[k][r], cA[r]), sub(b[k][c], cB[c])));
+      Hm[3 * r + c] = acc;
+    }
+  jacobi_pose(Hm, cA, cB, pose);
+}
+
 // count = max(sum valid, 1) and the subset rows (u_sub * count) of the
-// valid prefix: scratch[0] holds count (as an int), then S rows of (s, t).
+// valid prefix: scratch[0] holds count (as an int), then S rows of (s, t);
+// zero[0, nzero) is zeroed (the two-stage entry's control words).
 __global__ void __launch_bounds__(kPrepThreads) prep(
     const float* __restrict__ src, const float* __restrict__ tgt,
     const bool* __restrict__ valid, int N, const float* __restrict__ u_sub,
-    int S, float* __restrict__ scratch) {
+    int S, float* __restrict__ scratch, int* __restrict__ zero, int nzero) {
   __shared__ int cnt[kPrepThreads];
   __shared__ int total;
   const int t = threadIdx.x;
+  for (int i = t; i < nzero; i += kPrepThreads) zero[i] = 0;
   int c = 0;
   for (int n = t; n < N; n += kPrepThreads) c += valid[n];
   cnt[t] = c;
@@ -249,40 +412,9 @@ __global__ void __launch_bounds__(kHypThreads) hypotheses(
   bool edge = false;
   if (h < H) {
     float a[3][3], b[3][3];
-    for (int k = 0; k < 3; ++k) {
-      const int j = min((int)mul(u_tri[3 * h + k], countf), N - 1);
-      for (int c = 0; c < 3; ++c) {
-        a[k][c] = src[3 * j + c];
-        b[k][c] = tgt[3 * j + c];
-      }
-    }
-    // Open3D's edge-length check: edges (0,1), (1,2), (2,0)
-    edge = true;
-    for (int k = 0; k < 3; ++k) {
-      const int l = k == 2 ? 0 : k + 1;
-      const float es = norm3(sub(a[k][0], a[l][0]), sub(a[k][1], a[l][1]),
-                             sub(a[k][2], a[l][2]));
-      const float et = norm3(sub(b[k][0], b[l][0]), sub(b[k][1], b[l][1]),
-                             sub(b[k][2], b[l][2]));
-      const float ratio = __fdiv_rn(es, add(et, 1e-9f));
-      edge = edge && ratio > lo && ratio < hi;
-    }
-    // unit weights: the centroids divide by 3 + 1e-6 (svd3.py:301)
-    const float wsum = add(3.f, 1e-6f);
-    float cA[3], cB[3];
-    for (int c = 0; c < 3; ++c) {
-      cA[c] = __fdiv_rn(add(add(a[0][c], a[1][c]), a[2][c]), wsum);
-      cB[c] = __fdiv_rn(add(add(b[0][c], b[1][c]), b[2][c]), wsum);
-    }
-    float Hm[9];
-    for (int r = 0; r < 3; ++r)
-      for (int c = 0; c < 3; ++c) {
-        float acc = 0.f;
-        for (int k = 0; k < 3; ++k)
-          acc = add(acc, mul(sub(a[k][r], cA[r]), sub(b[k][c], cB[c])));
-        Hm[3 * r + c] = acc;
-      }
-    jacobi_pose(Hm, cA, cB, pose);
+    load_triplet(src, tgt, N, u_tri + 3 * h, countf, a, b);
+    edge = edge_ok(a, b, lo, hi);
+    triplet_pose(a, b, pose);
     for (int k = 0; k < 16; ++k) trans[16ll * h + k] = pose[k];
   }
   // the coarse count over the subset rows, a tile at a time
@@ -300,6 +432,259 @@ __global__ void __launch_bounds__(kHypThreads) hypotheses(
                        tile[i][4], tile[i][5]) < thr2;
   }
   if (h < H) coarse[h] = edge ? (float)c : -1.f;
+}
+
+// Two-stage K16, pass 1: the edge check, one thread a hypothesis (kItems
+// of them in a row), -1 written for a failure, and the survivors' indices
+// compacted into surv in hypothesis order: a block scan of the threads'
+// counts, then a look-back over the tiles; the last tile writes the
+// survivor count into ctl.
+__global__ void __launch_bounds__(kScanThreads) edge(
+    const float* __restrict__ src, const float* __restrict__ tgt, int N,
+    const float* __restrict__ u_tri, int H, float lo, float hi,
+    const float* __restrict__ scratch, int* __restrict__ ctl,
+    unsigned* __restrict__ status, int* __restrict__ surv,
+    float* __restrict__ coarse) {
+  __shared__ int sh[kScanThreads];
+  __shared__ unsigned win[kWindow];
+  __shared__ int st[2], s_tile;
+  const int t = threadIdx.x;
+  if (t == 0) s_tile = atomicAdd(ctl + kEdgeTicket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const float countf = (float)reinterpret_cast<const int*>(scratch)[0];
+  const int h0 = tile * kTile + t * kItems;
+  unsigned pass = 0;                        // bit j: hypothesis h0 + j
+  int c = 0;
+  for (int j = 0; j < kItems && h0 + j < H; ++j) {
+    float a[3][3], b[3][3];
+    load_triplet(src, tgt, N, u_tri + 3ll * (h0 + j), countf, a, b);
+    if (edge_ok(a, b, lo, hi)) {
+      pass |= 1u << j;
+      ++c;
+    } else {
+      coarse[h0 + j] = -1.f;
+    }
+  }
+  int total;
+  const int excl = block_exclusive_scan<kScanThreads>(c, sh, total);
+  const int before = look_back(status, tile, total, win, st);
+  if (t == 0 && tile == (int)gridDim.x - 1)
+    ctl[kSurvivors] = before + total;
+  int pos = before + excl;
+  for (int j = 0; j < kItems; ++j)
+    if (pass >> j & 1) surv[pos++] = h0 + j;
+}
+
+// Two-stage K16, pass 2: a persistent grid over the survivor list, one
+// thread a survivor: its triplet's Jacobi pose (kept in cache[j] for the
+// first C survivors) and its count of the subset rows (staged in shared
+// memory), written to coarse[h]; the counts' block histogram is added to
+// ctl's.
+__global__ void __launch_bounds__(kCountThreads) solve_count(
+    const float* __restrict__ src, const float* __restrict__ tgt, int N,
+    const float* __restrict__ u_tri, int S, float thr2,
+    const float* __restrict__ scratch, int* __restrict__ ctl,
+    const int* __restrict__ surv, float* __restrict__ cache, int C,
+    float* __restrict__ coarse) {
+  __shared__ float tile[kSubTile][6];
+  __shared__ int bins[kMaxBins];
+  const int nsurv = ctl[kSurvivors];
+  const int t = threadIdx.x;
+  const int first = blockIdx.x * kCountThreads;
+  if (first >= nsurv) return;               // the whole block: no work
+  const float countf = (float)reinterpret_cast<const int*>(scratch)[0];
+  const float* rows = scratch + 1;
+  const bool once = S <= kSubTile;          // the subset fits: stage it once
+  for (int i = t; i <= S; i += kCountThreads) bins[i] = 0;
+  if (once)
+    for (int e = t; e < 6 * S; e += kCountThreads) tile[e / 6][e % 6] = rows[e];
+  __syncthreads();
+  for (int j0 = first; j0 < nsurv; j0 += gridDim.x * kCountThreads) {
+    const int j = j0 + t;
+    const bool live = j < nsurv;
+    const int h = live ? surv[j] : 0;
+    float pose[16];
+    if (live) {
+      float a[3][3], b[3][3];
+      load_triplet(src, tgt, N, u_tri + 3ll * h, countf, a, b);
+      triplet_pose(a, b, pose);
+      if (j < C)
+        for (int e = 0; e < 16; ++e) cache[16ll * j + e] = pose[e];
+    }
+    int c = 0;
+    for (int r0 = 0; r0 < S; r0 += kSubTile) {
+      const int m = min(kSubTile, S - r0);
+      if (!once) {
+        __syncthreads();
+        for (int e = t; e < 6 * m; e += kCountThreads)
+          tile[e / 6][e % 6] = rows[6 * r0 + e];
+        __syncthreads();
+      }
+      if (live)
+        for (int i = 0; i < m; ++i)
+          c += residual2(pose, tile[i][0], tile[i][1], tile[i][2],
+                         tile[i][3], tile[i][4], tile[i][5]) < thr2;
+    }
+    if (live) {
+      coarse[h] = (float)c;
+      atomicAdd(bins + c, 1);
+    }
+  }
+  __syncthreads();
+  for (int i = t; i <= S; i += kCountThreads)
+    if (bins[i]) atomicAdd(ctl + kHist + i, bins[i]);
+}
+
+// The sort key of a kept hypothesis: count descending, then index
+// ascending (lax.top_k's order), for counts -1..S. A survivor carries its
+// place j in the survivor list (in hypothesis order, so the same order), a
+// failing hypothesis its index h.
+__device__ __forceinline__ unsigned long long top_key(int count, int jh) {
+  return (unsigned long long)(0xFFFF - (count + 1)) << 32 | (unsigned)jh;
+}
+
+// Two-stage K16, pass 3: the top k of coarse. Each block finds the
+// threshold count thr in the histogram (the count at which the survivors
+// counted from the top reach k; -1 where fewer than k survive), then takes
+// tiles of the survivor list by ticket: every survivor above thr is kept,
+// and those at thr while their rank among the ties (a look-back scan, in
+// list order) is below the remainder; a tile's kept keys go to `kept` at
+// a range one atomic reserves.
+__global__ void __launch_bounds__(kScanThreads) select_top(
+    const float* __restrict__ coarse, int S, int k,
+    const int* __restrict__ surv, int* __restrict__ ctl,
+    unsigned* __restrict__ status, unsigned long long* __restrict__ kept) {
+  __shared__ int sh[kScanThreads];
+  __shared__ unsigned win[kWindow];
+  __shared__ int st[2], s_tile, s_thr, s_rem, s_base;
+  const int t = threadIdx.x;
+  const int nsurv = ctl[kSurvivors];
+  const int* hist = ctl + kHist;
+  if (t == 0) {
+    s_thr = -1;
+    s_rem = 0;
+  }
+  // thread t sums the bins [top - q, top], top = S - t q, from the top
+  const int q = (S + kScanThreads) / kScanThreads;
+  const int top = S - t * q;
+  int sum = 0;
+  for (int i = 0; i < q && top - i >= 0; ++i) sum += hist[top - i];
+  int total;
+  int above = block_exclusive_scan<kScanThreads>(sum, sh, total);
+  if (nsurv >= k)
+    for (int i = 0; i < q && top - i >= 0; ++i) {
+      const int n = hist[top - i];
+      if (above < k && k <= above + n) {
+        s_thr = top - i;
+        s_rem = k - above;
+      }
+      above += n;
+    }
+  __syncthreads();
+  const int thr = s_thr, rem = s_rem;
+  for (;;) {
+    if (t == 0) s_tile = atomicAdd(ctl + kSelectTicket, 1);
+    __syncthreads();
+    const int tile = s_tile;
+    if (tile * kTile >= nsurv) break;
+    const int j0 = tile * kTile + t * kItems;
+    int cnt[kItems];
+    int ties = 0;
+    for (int j = 0; j < kItems; ++j) {
+      cnt[j] = j0 + j < nsurv ? (int)coarse[surv[j0 + j]] : -2;
+      ties += cnt[j] == thr;
+    }
+    const int excl = block_exclusive_scan<kScanThreads>(ties, sh, total);
+    const int before = look_back(status, tile, total, win, st);
+    unsigned take = 0;                      // bit j: item j is kept
+    for (int j = 0, rank = before + excl; j < kItems; ++j) {
+      const bool tie = cnt[j] == thr;
+      if (cnt[j] > thr || (tie && rank < rem)) take |= 1u << j;
+      rank += tie;
+    }
+    int pos = block_exclusive_scan<kScanThreads>(__popc(take), sh, total);
+    if (t == 0) s_base = atomicAdd(ctl + kKept, total);
+    __syncthreads();
+    pos += s_base;
+    for (int j = 0; j < kItems; ++j)
+      if (take >> j & 1) kept[pos++] = top_key(cnt[j], j0 + j);
+  }
+}
+
+// Two-stage K16, pass 4, one block: where fewer than k survive, the
+// lowest-index failing hypotheses (all lie below k) join the kept keys;
+// the k keys are sorted in shared memory (bitonic), and keep, the kept
+// counts and each kept survivor's place in the list (-1 for a failure)
+// are written.
+__global__ void __launch_bounds__(kSortThreads) sort_top(
+    const float* __restrict__ coarse, int k, const int* __restrict__ surv,
+    const int* __restrict__ ctl, unsigned long long* __restrict__ kept,
+    int* __restrict__ keep, float* __restrict__ kept_coarse,
+    int* __restrict__ kept_j) {
+  __shared__ int sh[kSortThreads];
+  __shared__ unsigned long long keys[kMaxTop];
+  const int t = threadIdx.x;
+  const int nsurv = ctl[kSurvivors];
+  if (nsurv < k) {                  // the first k - nsurv failures, by index
+    const int qk = (k + kSortThreads - 1) / kSortThreads;
+    const int h0 = t * qk;
+    int f = 0;
+    for (int i = 0; i < qk && h0 + i < k; ++i) f += coarse[h0 + i] < 0.f;
+    int total;
+    int rank = block_exclusive_scan<kSortThreads>(f, sh, total);
+    for (int i = 0; i < qk && h0 + i < k; ++i)
+      if (coarse[h0 + i] < 0.f && rank < k - nsurv)
+        kept[nsurv + rank++] = top_key(-1, h0 + i);
+    __syncthreads();
+  }
+  int n = 1;
+  while (n < k) n <<= 1;
+  for (int i = t; i < n; i += kSortThreads) keys[i] = i < k ? kept[i] : ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < n / 2; i += kSortThreads) {
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        const unsigned long long x = keys[a], y = keys[b];
+        if ((x > y) == ((a & size) == 0)) {
+          keys[a] = y;
+          keys[b] = x;
+        }
+      }
+      __syncthreads();
+    }
+  for (int i = t; i < k; i += kSortThreads) {
+    const unsigned long long key = keys[i];
+    const int count = 0xFFFF - (int)(key >> 32) - 1;
+    const int jh = (int)(key & 0xFFFFFFFFu);
+    keep[i] = count >= 0 ? surv[jh] : jh;
+    kept_j[i] = count >= 0 ? jh : -1;
+    kept_coarse[i] = (float)count;
+  }
+}
+
+// Two-stage K16, pass 5: the pose of each kept hypothesis, one thread
+// each: solve_count's from the cache where the survivor's place is below
+// C, else solved again (the same solve, so the same bits).
+__global__ void __launch_bounds__(kPoseThreads) kept_poses(
+    const float* __restrict__ src, const float* __restrict__ tgt, int N,
+    const float* __restrict__ u_tri, const float* __restrict__ scratch,
+    const int* __restrict__ keep, const int* __restrict__ kept_j,
+    const float* __restrict__ cache, int C, int k,
+    float* __restrict__ trans) {
+  const int i = blockIdx.x * kPoseThreads + threadIdx.x;
+  if (i >= k) return;
+  const int j = kept_j[i];
+  if (j >= 0 && j < C) {
+    for (int e = 0; e < 16; ++e) trans[16 * i + e] = cache[16ll * j + e];
+    return;
+  }
+  const float countf = (float)reinterpret_cast<const int*>(scratch)[0];
+  float a[3][3], b[3][3], pose[16];
+  load_triplet(src, tgt, N, u_tri + 3ll * keep[i], countf, a, b);
+  triplet_pose(a, b, pose);
+  for (int e = 0; e < 16; ++e) trans[16 * i + e] = pose[e];
 }
 
 __global__ void __launch_bounds__(kVerifyThreads) verify(
@@ -506,12 +891,64 @@ extern "C" int eyoc_ransac_hypotheses(
     cudaStream_t stream) {
   if (N <= 0 || H < 0 || S < 0) return cudaErrorInvalidValue;
   prep<<<1, kPrepThreads, 0, stream>>>(src, tgt, valid, N, u_sub, S,
-                                       scratch);
+                                       scratch, nullptr, 0);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || H == 0) return err;
   hypotheses<<<(H + kHypThreads - 1) / kHypThreads, kHypThreads, 0,
                stream>>>(src, tgt, N, u_tri, H, S, thr2, lo, hi, scratch,
                          trans, coarse);
+  return cudaGetLastError();
+}
+
+// Two-stage K16: src/tgt [N, 3] f32, valid [N] bool, u_tri [H, 3] f32,
+// u_sub [S] f32 (0 < S < kMaxBins), k (0 < k <= min(H, kMaxTop)) -> coarse
+// [H] f32, keep [k] int32 (the top k of coarse, lax.top_k's order), the
+// kept counts [k] f32 and poses [k, 4, 4]. Scratch: 1 + 6 S floats; ctl
+// int32 [ransac_topk_ctl(H, S)]; surv int32 [H]; kept_j int32 [k]; kept
+// uint64 [k]; cache f32 [C, 16], the poses of the first C survivors. Six
+// launches, grids fixed by H, S and k; nothing read back by the host.
+extern "C" int eyoc_ransac_topk_ctl(int H, int S) {
+  return kHist + S + 1 + 2 * ((H + kTile - 1) / kTile);
+}
+
+extern "C" int eyoc_ransac_hypotheses_topk(
+    const float* src, const float* tgt, const bool* valid, int N,
+    const float* u_tri, int H, const float* u_sub, int S, float thr2,
+    float lo, float hi, int k, float* scratch, int* ctl, int* surv,
+    int* kept_j, unsigned long long* kept, float* cache, int C,
+    float* coarse, int* keep, float* kept_coarse, float* trans,
+    cudaStream_t stream) {
+  if (N <= 0 || H <= 0 || H >= (1 << 30) || S <= 0 || S >= kMaxBins ||
+      k <= 0 || k > H || k > kMaxTop || C < 0)
+    return cudaErrorInvalidValue;
+  const int tiles = (H + kTile - 1) / kTile;
+  const int nctl = eyoc_ransac_topk_ctl(H, S);
+  unsigned* edge_status = reinterpret_cast<unsigned*>(ctl + kHist + S + 1);
+  unsigned* select_status = edge_status + tiles;
+  prep<<<1, kPrepThreads, 0, stream>>>(src, tgt, valid, N, u_sub, S,
+                                       scratch, ctl, nctl);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  edge<<<tiles, kScanThreads, 0, stream>>>(src, tgt, N, u_tri, H, lo, hi,
+                                           scratch, ctl, edge_status, surv,
+                                           coarse);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int count_blocks = (H + kCountThreads - 1) / kCountThreads;
+  solve_count<<<count_blocks < kCountBlocks ? count_blocks : kCountBlocks,
+                kCountThreads, 0, stream>>>(src, tgt, N, u_tri, S, thr2,
+                                            scratch, ctl, surv, cache, C,
+                                            coarse);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  select_top<<<tiles < kSelectBlocks ? tiles : kSelectBlocks,
+               kScanThreads, 0, stream>>>(coarse, S, k, surv, ctl,
+                                          select_status, kept);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sort_top<<<1, kSortThreads, 0, stream>>>(coarse, k, surv, ctl, kept, keep,
+                                           kept_coarse, kept_j);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kept_poses<<<(k + kPoseThreads - 1) / kPoseThreads, kPoseThreads, 0,
+               stream>>>(src, tgt, N, u_tri, scratch, keep, kept_j, cache,
+                         C, k, trans);
   return cudaGetLastError();
 }
 

@@ -3,24 +3,29 @@
 
 Stages, as in the JAX package, for one correspondence set whose valid rows
 are compacted to the front:
-1. hypotheses -> kernel K16 `ransac_hypotheses` (one thread a hypothesis):
-   a triplet of the valid prefix from three uniforms, Open3D's edge-length
-   check (CorrespondenceCheckerBasedOnEdgeLength 0.9), the Jacobi Kabsch of
-   the three points (geometry/svd3.kabsch), and its inlier count over a
-   random subset of the valid prefix (two-stage: coarse scoring), -1 where
-   the edge check fails;
-2. the top `full_verify_top` coarse counts, ties to the lowest index: one
-   stable sort (`sc2pcr.topk`), the path's one library call;
+1. hypotheses: a triplet of the valid prefix from three uniforms, Open3D's
+   edge-length check (CorrespondenceCheckerBasedOnEdgeLength 0.9), the
+   Jacobi Kabsch of the three points (geometry/svd3.kabsch), and its
+   inlier count over a random subset of the valid prefix (two-stage:
+   coarse scoring), -1 where the edge check fails;
+2. the top `full_verify_top` coarse counts, ties to the lowest index
+   (`lax.top_k`'s order), and their poses and counts. Stages 1-2 are
+   kernel K16 `ransac_hypotheses_topk`: the edge check alone for every
+   hypothesis, the survivors compacted, then solved and counted, a
+   histogram of their counts, the selection and one sort of the k kept
+   keys; no [H, 4, 4] pose array and no sort over H elements;
 3. full verification -> kernel K17 `ransac_verify` (one block a kept
-   hypothesis): its count over every valid row, -1 where the edge check
-   failed, and the first argmax, read by the next kernel on the card;
+   hypothesis) over the kept set: its count over every valid row, -1
+   where the edge check failed, and the first argmax, read by the next
+   kernel on the card;
 4. polish -> kernel K18 `ransac_polish` (one block): `polish_iters` rounds
    of the weighted Jacobi Kabsch on the current inliers (|R s + t - t'| <
    threshold), the old pose kept where fewer than 3 rows are inliers; then
    the final inlier count.
 Single-stage (`coarse_subset` 0, or not below the row count, or
-`full_verify_top` not below the hypothesis count): K16 without the subset,
-then K17 over every hypothesis.
+`full_verify_top` not below the hypothesis count): K16's entry
+`ransac_hypotheses` (one thread a hypothesis, every pose) without the
+subset, then K17 over every hypothesis.
 
 Randomness is explicit: `draws` = (u_tri [H, 3], u_sub [coarse_subset])
 uniforms, or drawn from a `torch.Generator` when not given.
@@ -32,8 +37,8 @@ versions with torch.matmul, so a row within rounding of the threshold may
 count on one side only; the edge check (unfused distances, IEEE division)
 agrees bit for bit.
 
-A CPU tensor takes the plain versions; a CUDA tensor launches K16 -> sort
--> K17 -> K18 with no host sync, or raises.
+A CPU tensor takes the plain versions; a CUDA tensor launches K16 -> K17
+-> K18 with no host sync, or raises.
 """
 
 from __future__ import annotations
@@ -148,6 +153,47 @@ def ransac_hypotheses_plain(src, tgt, valid, u_tri, u_sub, thr: float,
     return trans, torch.where(edge, coarse, torch.full_like(coarse, -1.0))
 
 
+def ransac_hypotheses_topk_plain(src, tgt, valid, u_tri, u_sub, thr: float,
+                                 ratio_lo: float, k: int, chunk: int = 512):
+    """(trans [k, 4, 4], coarse [k], keep [k] int32, coarse [H]): the top k
+    of `ransac_hypotheses_plain`'s coarse counts (`topk`: count descending,
+    ties to the lowest index) with their poses and counts, and every
+    hypothesis's count."""
+    trans, coarse = ransac_hypotheses_plain(src, tgt, valid, u_tri, u_sub,
+                                            thr, ratio_lo, chunk)
+    keep = topk(coarse, k)[1]
+    return trans[keep], coarse[keep], keep.int(), coarse
+
+
+def ransac_select_plain(coarse: torch.Tensor, k: int, S: int):
+    """K16's selection of the top k of coarse [H] (counts 0..S, -1 where
+    the edge check failed), step for step as the kernel takes it: the
+    survivors in index order and the histogram of their counts; the
+    threshold count, at which the survivors counted from the top reach k;
+    every survivor above it, and those at it while their rank among the
+    ties is below the remainder; where fewer than k survive, every survivor
+    and the lowest-index failing hypotheses (all below k); then one sort of
+    the composite keys (count descending, index ascending). keep [k]
+    int32, equal to `topk(coarse, k)[1]`."""
+    c = coarse.long()
+    surv = torch.nonzero(c >= 0)[:, 0]
+    cnt = c[surv]
+    hist = torch.bincount(cnt, minlength=S + 1)
+    if surv.shape[0] >= k:
+        above = torch.cumsum(hist.flip(0), 0).flip(0) - hist
+        thr = int(torch.nonzero((above < k) & (k <= above + hist))[0, 0])
+        tie = cnt == thr
+        rank = torch.cumsum(tie.long(), 0) - tie.long()
+        take = (cnt > thr) | (tie & (rank < k - int(above[thr])))
+        kept, kept_c = surv[take], cnt[take]
+    else:
+        fails = torch.nonzero(c[:k] < 0)[:, 0][:k - surv.shape[0]]
+        kept = torch.cat([surv, fails])
+        kept_c = torch.cat([cnt, torch.full_like(fails, -1)])
+    key = ((0xFFFF - (kept_c + 1)) << 32) | kept
+    return kept[torch.argsort(key)].int()
+
+
 def ransac_verify_plain(trans, coarse, keep, src, tgt, valid, thr: float,
                         chunk: int = 512):
     """(counts [Hk] f32, best int32 []): the full count of each kept
@@ -181,17 +227,22 @@ def ransac_polish_plain(trans, best, src, tgt, valid, thr: float,
     return T, _inliers(T, src, tgt, valid, thr).sum(dtype=torch.int32)
 
 
-def _ransac(hypotheses, verify, polish, src, tgt, valid, cfg, draws):
-    """The stages' composition: hypotheses (with the subset when two-stage),
-    the top `full_verify_top` by one stable sort, verification, polish."""
+def _ransac(hypotheses, hypotheses_topk, verify, polish, src, tgt, valid,
+            cfg, draws):
+    """The stages' composition: two-stage, the hypotheses' top
+    `full_verify_top` with their poses, then verification over them;
+    single-stage, every hypothesis's pose and edge flag, then verification
+    over all of them; then the polish."""
     thr = cfg.distance_threshold
     u_tri, u_sub = draws
-    staged = two_stage(cfg, src.shape[0])
-    trans, coarse = hypotheses(src, tgt, valid, u_tri,
-                               u_sub if staged else None, thr,
-                               cfg.edge_length_ratio)
-    keep = topk(coarse, cfg.full_verify_top)[1] if staged else None
-    _, best = verify(trans, coarse, keep, src, tgt, valid, thr)
+    if two_stage(cfg, src.shape[0]):
+        trans, coarse, _, _ = hypotheses_topk(src, tgt, valid, u_tri, u_sub,
+                                              thr, cfg.edge_length_ratio,
+                                              cfg.full_verify_top)
+    else:
+        trans, coarse = hypotheses(src, tgt, valid, u_tri, None, thr,
+                                   cfg.edge_length_ratio)
+    _, best = verify(trans, coarse, None, src, tgt, valid, thr)
     return polish(trans, best, src, tgt, valid, thr, cfg.polish_iters)
 
 
@@ -200,6 +251,7 @@ def ransac_registration_plain(src, tgt, valid, cfg: RansacConfig, draws):
     `cfg.hyp_chunk` hypotheses a chunk."""
     chunk = dict(chunk=cfg.hyp_chunk)
     return _ransac(functools.partial(ransac_hypotheses_plain, **chunk),
+                   functools.partial(ransac_hypotheses_topk_plain, **chunk),
                    functools.partial(ransac_verify_plain, **chunk),
                    ransac_polish_plain, src.float(), tgt.float(), valid,
                    cfg, draws)
@@ -210,6 +262,13 @@ def ransac_registration_plain(src, tgt, valid, cfg: RansacConfig, draws):
 F32, BOOL, I32 = torch.float32, torch.bool, torch.int32
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _K16_ARGS = (_P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _P)
+_K16_TOPK_ARGS = (_P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _I) \
+    + (_P,) * 6 + (_I,) + (_P,) * 5
+K16_MAX_TOP, K16_MAX_SUBSET = 4096, 2048
+# the two-stage entry keeps the poses of its first K16_POSE_CACHE survivors
+# (4 MiB; the eval path has ~37500) for the kept ones, and solves a kept
+# survivor past it again
+K16_POSE_CACHE = 65536
 _K17_ARGS = (_P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P)
 _K18_ARGS = (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P)
 
@@ -223,8 +282,9 @@ def _rows3(name, src, tgt, valid):
 
 def ransac_hypotheses(src, tgt, valid, u_tri, u_sub, thr: float,
                       ratio_lo: float):
-    """K16: `ransac_hypotheses_plain` (its arguments and outputs) as one
-    thread a hypothesis, the subset rows staged in shared memory.
+    """K16, single-stage: `ransac_hypotheses_plain` (its arguments and
+    outputs) as one thread a hypothesis, every pose written, the subset
+    rows staged in shared memory.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (a one-block launch that counts the valid rows and gathers the subset,
@@ -254,6 +314,60 @@ def _launch_k16(src, tgt, valid, u_tri, u_sub, thr, ratio_lo):
              p(coarse), kernels.stream_handle(dev))
     kernels.check_launch("ransac_hypotheses", err)
     return trans, coarse
+
+
+def ransac_hypotheses_topk(src, tgt, valid, u_tri, u_sub, thr: float,
+                           ratio_lo: float, k: int):
+    """K16, two-stage: `ransac_hypotheses_topk_plain` (its arguments and
+    outputs; keep bit-equal to `topk` of coarse) in six launches whose
+    grids are fixed by H, S and k: the count of valid rows and the subset;
+    the edge check of every hypothesis with the survivors compacted in
+    index order; each survivor's Jacobi pose and subset count with a
+    histogram of the counts; the selection of the top k; one sort of their
+    keys; the k kept poses (those of the first K16_POSE_CACHE survivors
+    kept from their solve).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises (k at most 4096, a subset of 1 to 2048 rows)."""
+    if src.is_cpu:
+        return ransac_hypotheses_topk_plain(src, tgt, valid, u_tri, u_sub,
+                                            thr, ratio_lo, k)
+    return _launch_k16_topk(src, tgt, valid, u_tri, u_sub, thr, ratio_lo, k)
+
+
+def _launch_k16_topk(src, tgt, valid, u_tri, u_sub, thr, ratio_lo, k):
+    fn = kernels.load("ransac", _K16_TOPK_ARGS,
+                      symbol="ransac_hypotheses_topk")
+    ctl_size = kernels.load("ransac", (_I, _I), symbol="ransac_topk_ctl")
+    dev = kernels.require_cuda("ransac_hypotheses_topk", src, tgt, valid,
+                               u_tri, u_sub,
+                               dtypes=(F32, F32, BOOL, F32, F32))
+    N = _rows3("ransac_hypotheses_topk", src, tgt, valid)
+    H = u_tri.shape[0]
+    S = u_sub.shape[0] if u_sub.dim() == 1 else -1
+    if u_tri.shape != (H, 3) or not 0 < S <= K16_MAX_SUBSET \
+            or not 0 < k <= min(H, K16_MAX_TOP):
+        raise ValueError("ransac_hypotheses_topk: expected u_tri [H, 3], "
+                         f"u_sub [S] with 0 < S <= {K16_MAX_SUBSET} and "
+                         f"0 < k <= min(H, {K16_MAX_TOP})")
+    nctl = ctl_size(H, S)
+    C = min(H, K16_POSE_CACHE)
+    scratch = torch.empty(1 + 6 * S, dtype=F32, device=src.device)
+    ints = torch.empty(nctl + H + k, dtype=I32, device=src.device)
+    kept = torch.empty(k, dtype=torch.int64, device=src.device)
+    cache = torch.empty((C, 16), dtype=F32, device=src.device)
+    coarse = torch.empty(H, dtype=F32, device=src.device)
+    keep = torch.empty(k, dtype=I32, device=src.device)
+    kept_coarse = torch.empty(k, dtype=F32, device=src.device)
+    trans = torch.empty((k, 4, 4), dtype=F32, device=src.device)
+    p = kernels.ptr
+    err = fn(p(src), p(tgt), p(valid), N, p(u_tri), H, p(u_sub), S,
+             thr * thr, ratio_lo, 1.0 / ratio_lo, k, p(scratch), p(ints),
+             p(ints) + 4 * nctl, p(ints) + 4 * (nctl + H), p(kept), p(cache),
+             C, p(coarse), p(keep), p(kept_coarse), p(trans),
+             kernels.stream_handle(dev))
+    kernels.check_launch("ransac_hypotheses_topk", err)
+    return trans, kept_coarse, keep, coarse
 
 
 def ransac_verify(trans, coarse, keep, src, tgt, valid, thr: float):
@@ -332,5 +446,5 @@ def ransac_registration(src: torch.Tensor, tgt: torch.Tensor,
         draws = ransac_draws(cfg, src.device, generator)
     draws = tuple(None if d is None else d.float().contiguous()
                   for d in draws)
-    return _ransac(ransac_hypotheses, ransac_verify, ransac_polish, src, tgt,
-                   valid, cfg, draws)
+    return _ransac(ransac_hypotheses, ransac_hypotheses_topk, ransac_verify,
+                   ransac_polish, src, tgt, valid, cfg, draws)

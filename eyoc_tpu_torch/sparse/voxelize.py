@@ -8,13 +8,15 @@ out in Morton order, the order the brick engine requires.
 
 On the card this is kernel K10 (`csrc/voxelize.cu`), for all B clouds of
 a call at once: `voxel_keys` packs (cloud, key, index) into one int64 per
-point, one `torch.sort` of the B*P keys orders every cloud as the JAX
-`(key, idx)` sort does (the keys are distinct, so no stable sort is
-needed), and `voxel_compact` (one block a cloud) flags, scans and
-compacts, and writes the level-0 Morton keys beside the voxels.
-`voxelize` (one cloud, plain torch) and `voxelize_batched_plain` (each
-cloud in turn) are the plain version; `voxelize_composite_plain` is K10's
-reformulation in plain torch, for the CPU tests.
+point (and writes every output row as a pad), one `torch.sort` of the B*P
+keys orders every cloud as the JAX `(key, idx)` sort does (the keys are
+distinct, so no stable sort is needed), and `voxel_compact` (one block a
+tile of K10_TILE sorted keys, over every tile of every cloud) flags, scans
+and compacts, the tiles' prefixes chained by a look-back, and writes the
+level-0 Morton keys beside the voxels. `voxelize` (one cloud, plain torch)
+and `voxelize_batched_plain` (each cloud in turn) are the plain version;
+`voxelize_tiled_plain` is K10's reformulation in plain torch, tile by
+tile, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -106,12 +108,16 @@ def composite_keys_plain(xyz, counts, voxel_size: float, bits: tuple):
     return ((seg << (31 + pbits)) | (key << pbits) | idx).reshape(-1)
 
 
-def voxelize_composite_plain(xyz, counts, voxel_size: float, capacity: int,
-                             bits: tuple = morton.BITS):
+def voxelize_tiled_plain(xyz, counts, voxel_size: float, capacity: int,
+                         bits: tuple = morton.BITS, tile: int = 2048):
     """K10's reformulation in plain torch, for the CPU tests: one sort of
-    the B*P composite keys, then per cloud the first-occurrence flags, the
-    prefix count and the compaction (`voxel_compact`). Returns what
-    `voxelize_batched_plain` returns, bit for bit."""
+    the B*P composite keys, every output row a pad, then each cloud cut
+    into tiles of `tile` sorted keys as `voxel_compact` takes them: each
+    tile's first-occurrence flags (its first key against the key before
+    the tile), its count, its exclusive prefix over the cloud's earlier
+    tiles, and each first point at that prefix plus its rank in the tile,
+    below the capacity. Returns what `voxelize_batched_plain` returns, bit
+    for bit."""
     B, P = xyz.shape[:2]
     dev = xyz.device
     pbits = index_bits(P)
@@ -119,11 +125,21 @@ def voxelize_composite_plain(xyz, counts, voxel_size: float, capacity: int,
                      ).values.reshape(B, P)
     key = ((srt >> pbits) & 0x7FFFFFFF).to(torch.int32)
     idx = (srt & ((1 << pbits) - 1)).to(torch.int32)
-    valid = key != morton.INVALID_KEY
-    first = valid.clone()
-    first[:, 1:] &= key[:, 1:] != key[:, :-1]
-    rank = torch.cumsum(first.to(torch.int32), 1, dtype=torch.int32) - 1
-    count = torch.clamp(first.sum(1, dtype=torch.int32), max=capacity)
+    nt = max(1, -(-P // tile))
+    before = torch.cat([torch.full((B, 1), -1, dtype=torch.int32,
+                                   device=dev), key[:, :-1]], 1)
+    pad = torch.full((B, nt * tile - P), morton.INVALID_KEY,
+                     dtype=torch.int32, device=dev)
+    tiles = torch.cat([key, pad], 1).reshape(B, nt, tile)
+    first = (tiles != morton.INVALID_KEY) & (
+        tiles != torch.cat([before, pad], 1).reshape(B, nt, tile))
+    flags = first.to(torch.int32)
+    tile_count = flags.sum(2, dtype=torch.int32)
+    tile_excl = torch.cumsum(tile_count, 1, dtype=torch.int32) - tile_count
+    rank = (tile_excl[..., None] + torch.cumsum(flags, 2, dtype=torch.int32)
+            - flags).reshape(B, -1)[:, :P]
+    first = first.reshape(B, -1)[:, :P]
+    count = torch.clamp(tile_count.sum(1, dtype=torch.int32), max=capacity)
     keep = first & (rank < capacity)
     b_of, p_of = keep.nonzero(as_tuple=True)
     out_key = torch.full((B, capacity), morton.INVALID_KEY, dtype=torch.int32,
@@ -144,14 +160,11 @@ def voxelize_composite_plain(xyz, counts, voxel_size: float, capacity: int,
 
 # ---------------------------------------------------------------- kernel K10
 
-_KEYS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
-_COMPACT_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KEYS_ARGS = (_P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P, _I) \
+    + (_P,) * 6 + (_I, _P)
+_COMPACT_ARGS = (_P, _P) + (_I,) * 8 + (_P,) * 8
+K10_TILE = 2048        # sorted keys a voxel_compact block (eval: 64 blocks)
 
 
 def voxelize_batched(xyz, counts, voxel_size: float, capacity: int,
@@ -162,7 +175,8 @@ def voxelize_batched(xyz, counts, voxel_size: float, capacity: int,
     [B * capacity] int32, INVALID_KEY at pad rows).
 
     A CPU tensor takes the plain version; a CUDA tensor launches K10 (two
-    launches around one torch.sort) or raises."""
+    launches around one torch.sort; the compaction one block a tile of
+    K10_TILE keys) or raises."""
     if xyz.is_cpu:
         return voxelize_batched_plain(xyz, counts, voxel_size, capacity, bits)
     return _launch_k10(xyz, counts, voxel_size, capacity, bits)
@@ -183,22 +197,24 @@ def _launch_k10(xyz, counts, voxel_size, capacity, bits):
                          "int64 sort key")
     s = kernels.stream_handle(dev)
     p = kernels.ptr
-    keys = torch.empty(B * P, dtype=torch.int64, device=xyz.device)
+    out = dict(device=xyz.device)
+    keys = torch.empty(B * P, dtype=torch.int64, **out)
+    coords = torch.empty((B, capacity, 3), dtype=torch.int32, **out)
+    out_xyz = torch.empty((B, capacity, 3), dtype=torch.float32, **out)
+    out_mask = torch.empty((B, capacity), dtype=torch.bool, **out)
+    count = torch.empty(B, dtype=torch.int32, **out)
+    src = torch.empty((B, capacity), dtype=torch.int32, **out)
+    out_keys = torch.empty(B * capacity, dtype=torch.int32, **out)
+    # the compaction's look-back words, B * tiles, and its ticket
+    status = torch.empty(B * max(1, -(-P // K10_TILE)) + 1, dtype=torch.int32,
+                         **out)
     err = keys_fn(p(xyz), p(counts), B, P, float(voxel_size), *bits, pbits,
-                  p(keys), s)
+                  p(keys), capacity, p(coords), p(out_xyz), p(out_mask),
+                  p(src), p(out_keys), p(status), status.numel(), s)
     kernels.check_error("voxelize", err)
     srt = torch.sort(keys).values
-    coords = torch.empty((B, capacity, 3), dtype=torch.int32,
-                         device=xyz.device)
-    out_xyz = torch.empty((B, capacity, 3), dtype=torch.float32,
-                          device=xyz.device)
-    out_mask = torch.empty((B, capacity), dtype=torch.bool, device=xyz.device)
-    count = torch.empty(B, dtype=torch.int32, device=xyz.device)
-    src = torch.empty((B, capacity), dtype=torch.int32, device=xyz.device)
-    out_keys = torch.empty(B * capacity, dtype=torch.int32, device=xyz.device)
-    sh = morton.shift(bits)
-    err = compact_fn(p(srt), p(xyz), B, P, capacity, pbits, *sh,
-                     p(coords), p(out_xyz), p(out_mask), p(count), p(src),
-                     p(out_keys), s)
+    err = compact_fn(p(srt), p(xyz), B, P, capacity, pbits, K10_TILE,
+                     *morton.shift(bits), p(coords), p(out_xyz), p(out_mask),
+                     p(count), p(src), p(out_keys), p(status), s)
     kernels.check_launch("voxelize", err)
     return VoxelizedCloud(coords, out_xyz, out_mask, count, src), out_keys

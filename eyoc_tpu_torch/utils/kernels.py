@@ -15,7 +15,8 @@ one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
 (K6's forward and backward, K4's counts and top k, K8 and K9, K14 and K15
 in `sc2_refine`, K16-K18 in `ransac`), and one kernel may be counted under
-two names (K1 as the forward conv and as the conv backward's dX), so the
+two names (K1 as the forward conv and as the conv backward's dX; K16's
+single-stage and two-stage entries), so the
 counters are `COUNTERS`: the sources in `KERNELS` with an entry point of
 their own name, and the other entry points. A wrapper call that makes
 several launches (K4's top k, K10, K11, K12, K14, K16, K17) counts one.
@@ -50,7 +51,8 @@ KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
 COUNTERS = tuple(k for k in KERNELS if k not in ("sc2_refine", "ransac")) + (
     "sparse_conv_dgrad", "take_rows_backward", "sc2_seed_topk",
     "masked_argmin_excl", "sc2_seed_transforms", "sc2_irls",
-    "ransac_hypotheses", "ransac_verify", "ransac_polish", "icp_solve")
+    "ransac_hypotheses", "ransac_hypotheses_topk", "ransac_verify",
+    "ransac_polish", "icp_solve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

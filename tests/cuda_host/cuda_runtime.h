@@ -1,7 +1,7 @@
 // A host stand-in for the part of the CUDA runtime that the port's kernels
 // run on the CPU in the tests use (csrc/voxelize.cu, brick_pyramid.cu,
-// conv_maps.cu, sc2_nms.cu, sc2_refine.cu), so that g++ can build their
-// sources and the tests can run them.
+// conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu), so that g++ can
+// build their sources and the tests can run them.
 //
 // Blocks run one after another on the calling thread. Each CUDA thread of
 // a block is a fiber (ucontext) with its own stack, and __syncthreads
@@ -12,7 +12,9 @@
 // __syncthreads runs its other threads as plain calls, one after another
 // (a kernel that then calls __syncthreads aborts). __shared__ arrays become
 // function statics, which the threads of the running block share; no
-// warp-level intrinsics are provided.
+// warp-level intrinsics are provided. Blocks run in the order of their
+// index, so a block that waits on a lower block's published state (a
+// decoupled look-back) finds it there; a wait on a later block would hang.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
@@ -35,7 +37,7 @@
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 
 namespace host_cuda {
 
@@ -78,8 +80,12 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
 }
 inline int atomicCAS(int* p, int expected, int desired) {
   __atomic_compare_exchange_n(p, &expected, desired, false, __ATOMIC_SEQ_CST,
@@ -106,6 +112,7 @@ struct HostLaunch {
     blk.ctx.resize(block);
     blk.done.resize(block);
     blk.body = &body;
+    gridDim.x = grid;
     for (unsigned b = 0; b < grid; ++b) {
       blockIdx.x = b;
       for (unsigned t = 0; t < block; ++t) {

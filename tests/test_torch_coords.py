@@ -105,7 +105,7 @@ def pyramid_equal(a, b):
 def mirror_preprocess(xyz, counts, caps, bits=BITS):
     """preprocess_clouds through K10's and K11's reformulations."""
     B, cap = xyz.shape[0], caps[0]
-    vox, keys = tvox.voxelize_composite_plain(xyz, counts, VOXEL, cap, bits)
+    vox, keys = tvox.voxelize_tiled_plain(xyz, counts, VOXEL, cap, bits)
     pyr = tbricks.build_pyramid_search_plain(
         keys, vox.mask.reshape(-1), B, tpipe.brick_caps(caps), bits)
     return vox._replace(mask=pyr.vox_masks[0].reshape(B, cap),
@@ -123,7 +123,7 @@ def test_k10_mirror_matches_jax_voxelize(B, caps):
     cap = caps[0]
     t = torch.from_numpy(xyz)
     n = torch.from_numpy(counts)
-    vox, keys = tvox.voxelize_composite_plain(t, n, VOXEL, cap, BITS)
+    vox, keys = tvox.voxelize_tiled_plain(t, n, VOXEL, cap, BITS)
     plain, pkeys = tvox.voxelize_batched_plain(t, n, VOXEL, cap, BITS)
     assert_equal(tuple(vox), tuple(plain), "vs plain")
     assert_equal(keys, pkeys, "keys vs plain")
@@ -136,6 +136,60 @@ def test_k10_mirror_matches_jax_voxelize(B, caps):
         assert_equal(jk, keys.reshape(B, cap)[b], f"keys of cloud {b}")
     if cap == 700:                          # capacity overflow saturates
         assert vox.count.tolist() == [700] * B
+
+
+def k10_tile_clouds():
+    """Three clouds of 3000 points for K10's tiled compaction: `clouds`'
+    mix with 400 copies of one point (a run of equal sorted keys that
+    crosses tile edges); an empty cloud (count 0); a cloud whose every
+    point lies outside the window (every key invalid)."""
+    xyz, counts = clouds(3, seed=5)
+    xyz[0, 1000:1400] = xyz[0, 7]
+    counts[1] = 0
+    xyz[2] += np.float32(1000.0)
+    return xyz, counts
+
+
+def sorted_first_flags(t, n, bits=BITS):
+    """Cloud 0's sorted keys and first-occurrence flags (numpy)."""
+    P = t.shape[1]
+    pbits = tvox.index_bits(P)
+    srt = torch.sort(tvox.composite_keys_plain(t, n, VOXEL, bits)
+                     ).values.reshape(t.shape[0], P)[0]
+    key = ((srt >> pbits) & 0x7FFFFFFF).numpy()
+    prev = np.concatenate([[-1], key[:-1]])
+    return key, (key != jmorton.INVALID_KEY) & (key != prev)
+
+
+@pytest.mark.parametrize("tile", [1, 7, 128, 4096, 3000])
+@pytest.mark.parametrize("cap", [2048, 700])
+def test_k10_tiled_mirror_matches_plain_and_jax(tile, cap):
+    """voxelize_tiled_plain, tile by tile as voxel_compact runs, against
+    the plain version and eyoc_tpu's voxelize of each cloud: tile sizes 1
+    (every key its own tile), 7, 128, 4096 (one tile, past P) and P; a tile
+    edge inside a run of equal keys; the capacity reached inside a tile; an
+    empty cloud and an all-invalid one."""
+    xyz, counts = k10_tile_clouds()
+    t, n = torch.from_numpy(xyz), torch.from_numpy(counts)
+    vox, keys = tvox.voxelize_tiled_plain(t, n, VOXEL, cap, BITS, tile)
+    plain, pkeys = tvox.voxelize_batched_plain(t, n, VOXEL, cap, BITS)
+    assert_equal(tuple(vox), tuple(plain), "vs plain")
+    assert_equal(keys, pkeys, "keys vs plain")
+    f = _jit_voxelize(cap, BITS)
+    for b in range(3):
+        m = np.arange(xyz.shape[1]) < counts[b]
+        j = f(jnp.asarray(xyz[b]), jnp.asarray(m), jnp.float32(VOXEL))
+        assert_equal(tuple(j), tuple(f_[b] for f_ in vox), f"cloud {b}")
+    assert vox.count[1:].tolist() == [0, 0]
+    key, first = sorted_first_flags(t, n)
+    edges = np.arange(tile, key.shape[0], tile)
+    if tile in (7, 128):                 # a tile starts inside a run
+        assert ((key[edges] == key[edges - 1]) & (key[edges]
+                                                  != jmorton.INVALID_KEY)).any()
+    if cap == 700:                       # the 700th voxel is not a tile start
+        at = np.flatnonzero(first)[cap - 1]
+        assert int(first.sum()) > cap and (tile == 1 or at % tile != 0)
+        assert int(vox.count[0]) == cap
 
 
 @pytest.mark.parametrize("B,caps", CASES)

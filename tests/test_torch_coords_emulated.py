@@ -1,7 +1,10 @@
 """The coordinate kernels' own CUDA sources (K10 csrc/voxelize.cu, K11
 brick_pyramid.cu, K12 conv_maps.cu) built for the host with g++ against
 tests/cuda_host/cuda_runtime.h, and run through the wrappers' launch code
-on CPU tensors: every output bit-equal to the plain version.
+on CPU tensors: every output bit-equal to the plain version; K10's
+compaction also at tiles of 7 and 128 sorted keys (hundreds of blocks a
+cloud, chained by its look-back), with an empty cloud, an all-invalid one
+and the capacity reached inside a tile.
 
 This checks the kernels' indexing, scans, searches and scatters on the
 CPU; what only the card can show (that nvcc takes the source, the launch
@@ -117,6 +120,19 @@ def test_k10_k11_k12_sources_match_plain(on_host, B, caps, bits):
         assert_equal(tuple(tbc._launch_k12(want, 4, k1, inverse)),
                      tuple(tbc.conv_maps_plain(want, 4, k1, inverse)),
                      f"K12 inverse={inverse} k1={k1}")
+
+
+@pytest.mark.parametrize("tile", [7, 128, 2048])
+@pytest.mark.parametrize("cap", [2048, 700])
+def test_k10_source_tiles(on_host, monkeypatch, tile, cap):
+    from test_torch_coords import k10_tile_clouds
+    xyz, counts = map(torch.from_numpy, k10_tile_clouds())
+    monkeypatch.setattr(tvox, "K10_TILE", tile)
+    got = tvox._launch_k10(xyz, counts, VOXEL, cap, (7, 7, 6))
+    assert_equal(got, tvox.voxelize_batched_plain(xyz, counts, VOXEL, cap,
+                                                  (7, 7, 6)), f"K10 {tile}")
+    assert_equal(got, tvox.voxelize_tiled_plain(xyz, counts, VOXEL, cap,
+                                                (7, 7, 6), tile), "mirror")
 
 
 def test_k12_source_counts_collisions(on_host):

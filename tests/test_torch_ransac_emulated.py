@@ -5,10 +5,25 @@ tests/cuda_host/cuda_runtime.h and run through the wrappers' launch code on
 CPU tensors, against the plain versions, on N = 256 correspondences (50%
 and 10% inliers, 200 valid rows) and H = 512 hypotheses:
 
-- K16: edge flags and coarse counts (a 64-row subset, and none) bit-equal,
-  each hypothesis's pose within 1e-4 where its triplet pins one (a Horn
-  gap of at least 1% of the largest eigenvalue; most of the others are
-  repeated or collinear points);
+- K16's single-stage entry: edge flags and coarse counts (a 64-row subset,
+  and none) bit-equal, each hypothesis's pose within 1e-4 where its
+  triplet pins one (a Horn gap of at least 1% of the largest eigenvalue;
+  most of the others are repeated or collinear points);
+- K16's two-stage entry (`ransac_hypotheses_topk`, H = 3000: three edge
+  tiles, and 8000 with a looser edge ratio: several survivor tiles, ties at
+  the threshold count; k below and above the survivor count; no survivor):
+  coarse, keep and the kept counts bit-equal to the plain version's, the
+  kept poses the single-stage entry's bit for bit and, where the triplet
+  pins one, held to the plain version's as test_torch_ransac holds them to
+  JAX's (rotation within 2e-6 / gap, translation within 60 m times 1e-5
+  plus that: over 8000 triplets a fixed 1e-4 is not a bound, three pinned
+  ones at a 2.3% gap reach 1.7e-4); RANSAC through K16-K18 within 1e-5 of
+  the plain path, its inlier count equal; kept poses past the pose cache
+  (none, or 100 rows) solved again to the same bits;
+- the decoupled look-back that K16's two-stage entry and K10's compaction
+  share, on a status array that the in-order blocks here never leave
+  (aggregates only over three 32-word windows, then an inclusive prefix):
+  the exclusive prefix and the published inclusive one;
 - K17: the full counts over the kept hypotheses and every one, and the best
   row, bit-equal;
 - K18: `ransac_polish`'s pose within 1e-5 and its inlier count equal;
@@ -30,7 +45,8 @@ import torch
 from eyoc_tpu_torch.ops.knn import masked_argmin_plain
 from eyoc_tpu_torch.registration import icp, ransac
 from eyoc_tpu_torch.utils import kernels
-from test_torch_ransac import GAP, correspondences, horn_gap, random_pose
+from test_torch_ransac import (EXTENT, GAP, HYP_ROT, correspondences,
+                               horn_gap, random_pose)
 from test_torch_sc2_emulated import HOST_HEADERS, LAUNCH
 
 N, H, SUB = 256, 512, 64
@@ -54,6 +70,54 @@ def host_lib(tmp_path_factory):
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(lib))
+
+
+# A one-block kernel that runs the source's look_back for one tile.
+LOOK_BACK = """
+namespace {
+__global__ void look_back_probe(unsigned* status, int tile, int agg,
+                                int* out) {
+  __shared__ unsigned win[kWindow];
+  __shared__ int st[2];
+  const int excl = look_back(status, tile, agg, win, st);
+  if (threadIdx.x == 0) out[0] = excl;
+}
+}  // namespace
+extern "C" int eyoc_look_back(unsigned* status, int tile, int agg,
+                              int* out) {
+  look_back_probe<<<1, 256, 0, nullptr>>>(status, tile, agg, out);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("source", ["ransac", "voxelize"])
+def test_look_back_walks_windows(tmp_path, source):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this host to build the kernels' source")
+    cpp = tmp_path / f"{source}.cpp"
+    text = (kernels.CSRC / f"{source}.cu").read_text() + LOOK_BACK
+    cpp.write_text(LAUNCH.sub(r"HostLaunch{(unsigned)(\2), (unsigned)(\3)}"
+                              r"(\1, ", text))
+    lib = tmp_path / "lib.so"
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                           "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    fn = ctypes.CDLL(str(lib)).eyoc_look_back
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    agg = np.random.default_rng(0).integers(0, 1000, 100).astype(np.int64)
+    status = np.zeros(100, np.uint32)
+    status[:10] = (2 << 30) | np.cumsum(agg[:10])      # inclusive prefixes
+    status[10:80] = (1 << 30) | agg[10:80]             # aggregates only
+    out = np.zeros(1, np.int32)
+    fn(status.ctypes.data, 80, 7, out.ctypes.data)
+    want = int(agg[:80].sum())
+    assert int(out[0]) == want
+    assert int(status[80]) == (2 << 30) | (want + 7)
+    assert np.array_equal(status[10:80], (1 << 30) | agg[10:80])
 
 
 @pytest.fixture
@@ -80,12 +144,17 @@ def problem(inlier, nv, seed):
     return tuple(map(torch.from_numpy, (src, tgt, valid, u_tri, u_sub)))
 
 
-def pinned(src, valid, tgt, u_tri):
-    """The hypotheses whose triplet's Horn gap pins a pose."""
+def triplet_gap(src, valid, tgt, u_tri):
+    """Each hypothesis's triplet's Horn gap (f64)."""
     count = max(int(valid.sum()), 1)
     tri = (u_tri.numpy() * np.float32(count)).astype(np.int32)
     s, t = src.numpy()[tri], tgt.numpy()[tri]
-    return torch.from_numpy(horn_gap(s, t, np.ones(tri.shape)) >= GAP)
+    return torch.from_numpy(horn_gap(s, t, np.ones(tri.shape)))
+
+
+def pinned(src, valid, tgt, u_tri):
+    """The hypotheses whose triplet's Horn gap pins a pose."""
+    return triplet_gap(src, valid, tgt, u_tri) >= GAP
 
 
 @pytest.mark.parametrize("subset", [True, False])
@@ -116,6 +185,63 @@ def test_k16_k17_source_matches_plain(on_host, subset, inlier, nv, seed):
                                                       THR)
         assert torch.equal(counts_k, counts_p)
         assert int(best_k) == int(best_p)
+
+
+@pytest.mark.parametrize("H,k,ratio", [(3000, 64, 0.9), (3000, 2048, 0.9),
+                                       (8000, 1500, 0.2),
+                                       (3000, 256, 0.99999999)])
+@pytest.mark.parametrize("inlier,nv,seed", [(0.5, 256, 1), (0.1, 200, 2)])
+def test_k16_topk_source_matches_plain(on_host, H, k, ratio, inlier, nv,
+                                       seed):
+    src, tgt, valid, _, u_sub = problem(inlier, nv, seed)
+    u_tri = torch.from_numpy(np.random.default_rng(seed).random(
+        (H, 3)).astype(np.float32))
+    args = (src, tgt, valid, u_tri, u_sub, THR, ratio)
+    trans_k, kept_k, keep_k, coarse_k = ransac._launch_k16_topk(*args, k)
+    trans_p, kept_p, keep_p, coarse_p = ransac.ransac_hypotheses_topk_plain(
+        *args, k)
+    assert torch.equal(coarse_k, coarse_p)
+    assert torch.equal(keep_k, keep_p) and torch.equal(kept_k, kept_p)
+    survivors = int((coarse_p >= 0).sum())
+    if ratio > 0.999:
+        assert survivors == 0 and torch.equal(keep_k, torch.arange(k).int())
+    elif k > survivors:
+        assert int((kept_k < 0).sum()) == k - survivors
+    else:                                  # the threshold count splits ties
+        thr = float(kept_k.min())
+        assert int((coarse_p == thr).sum()) > int((kept_k == thr).sum())
+    trans_1, _ = ransac._launch_k16(*args)
+    assert torch.equal(trans_k, trans_1[keep_k.long()])
+    gap = triplet_gap(src, valid, tgt, u_tri)[keep_k.long()]
+    pin = gap >= GAP
+    rot = HYP_ROT / gap[pin]
+    d = (trans_k - trans_p)[pin].abs().double()
+    assert bool((d[:, :3, :3].amax((1, 2)) <= rot).all())
+    assert bool((d[:, :3, 3].amax(1) <= EXTENT * (1e-5 + rot)).all())
+    cfg = ransac.RansacConfig(num_hypotheses=H, coarse_subset=SUB,
+                              full_verify_top=k, edge_length_ratio=ratio)
+    T_k, inl_k = ransac._ransac(ransac._launch_k16, ransac._launch_k16_topk,
+                                ransac._launch_k17, ransac._launch_k18, src,
+                                tgt, valid, cfg, (u_tri, u_sub))
+    T_p, inl_p = ransac.ransac_registration_plain(src, tgt, valid, cfg,
+                                                  (u_tri, u_sub))
+    assert float((T_k - T_p).abs().max()) < 1e-5
+    assert int(inl_k) == int(inl_p)
+
+
+@pytest.mark.parametrize("cache", [0, 100])
+def test_k16_topk_source_past_the_pose_cache(on_host, monkeypatch, cache):
+    """Kept survivors past the first K16_POSE_CACHE are solved again: the
+    same bits as the single-stage entry's poses."""
+    src, tgt, valid, _, u_sub = problem(0.5, 256, 1)
+    u_tri = torch.from_numpy(np.random.default_rng(1).random(
+        (8000, 3)).astype(np.float32))
+    args = (src, tgt, valid, u_tri, u_sub, THR, 0.2)
+    monkeypatch.setattr(ransac, "K16_POSE_CACHE", cache)
+    trans_k, _, keep_k, coarse_k = ransac._launch_k16_topk(*args, 1500)
+    trans_1, coarse_1 = ransac._launch_k16(*args)
+    assert torch.equal(coarse_k, coarse_1)
+    assert torch.equal(trans_k, trans_1[keep_k.long()])
 
 
 @pytest.mark.parametrize("inlier,nv,seed", [(0.5, 256, 1), (0.5, 200, 3)])
