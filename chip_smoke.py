@@ -48,7 +48,7 @@ Phases (any failure exits non-zero):
    5000, S = 1000: the kernels line's rows), on synthetic problems at the
    labeling shape (B = 8, N = 8000, S = 1600, 0-8000 valid rows) and on
    the 8 problems of one recorded labeling (the `_label` rows): K13's
-   seeds bit-equal; K14's consensus sets bit-equal; K14's poses, K15's
+   seeds bit-equal, in 2 device kernels a call (no sort); K14's consensus sets bit-equal; K14's poses, K15's
    one-round and final poses held to the same solve in f64 (weights, QCP,
    IRLS rounds) within 1 mm plus C times the f32 rounding reach 2^-24 *
    lever * E / gap of each weighted set, C twice the plain version's own
@@ -87,8 +87,8 @@ Phases (any failure exits non-zero):
    every kernel of the path launched (launch counts reset just before, read
    just after): one `sc2_seed_topk` a pair and no `sc2_seed_counts`, one
    K10, K11 and K12 call a cloud, and no sort or top-k over S x N elements
-   in the profiler's view of a pair, and one K13, K14 and K15 call a
-   pair. Before it, and before phases 5 and 6
+   (nor K13's [1, N] one) in the profiler's view of a pair, and one K13,
+   K14 and K15 call a pair. Before it, and before phases 5 and 6
    on their own batch sides (`coord_path_checks`): the device kernels of
    one `preprocess_clouds` call (K10's 2, the sort's, K11's 2) beside the
    plain version's on the same tensors, no host sync in it or in
@@ -1303,8 +1303,8 @@ def _nms_close(got, want, *a):
 def _nms_cost(src, valid, scores, radius, num_seeds):
     """K13's bound: a radius test (9 flops) of each valid row against each
     valid row of larger score if it is a local maximum, else against one
-    (its suppressor: at least one test); bytes: the points, flags and
-    scores once, the local scores and the seeds."""
+    (its suppressor: at least one test); bytes: the points, valid flags
+    and scores read once, the seeds and seed_ok written."""
     import torch
     from eyoc_tpu_torch.registration.sc2pcr import _masked_dist
     B, n = valid.shape
@@ -1317,7 +1317,7 @@ def _nms_cost(src, valid, scores, radius, num_seeds):
                            larger.sum(1))
         tests += float(need[v].sum())
         del larger
-    return B * n * (12 + 1 + 4 + 4) + B * num_seeds * 5, 9.0 * tests, "f32"
+    return B * n * (12 + 1 + 4) + B * num_seeds * 5, 9.0 * tests, "f32"
 
 
 def _pose_dists(T, s64, t64, chunk=256):
@@ -1653,13 +1653,7 @@ def check_sc2_kernels(label, calls, suffix=""):
         tag = f"{what} ({label}, B = {B}, N = {n})"
         out[name + suffix] = check_calls(tag, cl, fn, plain, cost, close)
         same_bits_twice(tag, fn, cl)
-        if name == "sc2_nms":
-            from eyoc_tpu_torch.registration.sc2pcr import _seeds_from_local
-            local = a[2].clone()
-            expected = 2 + count_kernels(
-                lambda: _seeds_from_local(local, a[4]), 3)[0]
-        else:
-            expected = 2 if name == "sc2_seed_transforms" else 1
+        expected = 1 if name == "sc2_irls" else 2
         kernels_per_call(tag, lambda: fn(*a, **k), reps=3,
                          expected=expected)
         launch_path(tag, fn, cl, label, 20)
@@ -2747,10 +2741,11 @@ def train_breakdown(model, opt, batch, cfg, gen):
         log(f"  {_dev_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:80]}")
 
 
-def largest_sort(model, batch, cfg, gen, limit, what):
+def largest_sort(model, batch, cfg, gen, limit, what, forbid=()):
     """The profiler's view of one eval pair: no sort or top-k on the path
     runs over as many as `limit` elements (SC2-PCR: S x N, the [S, N]
-    counts are gone; RANSAC: H, the coarse counts' sort is gone)."""
+    counts are gone; RANSAC: H, the coarse counts' sort is gone), nor over
+    a shape in `forbid` (SC2-PCR: K13's [1, N] scores, sorted no more)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from eyoc_tpu_torch.eval import embed_pair, register_pair
@@ -2760,14 +2755,17 @@ def largest_sort(model, batch, cfg, gen, limit, what):
                  record_shapes=True) as prof:
         register_pair(*x, cfg, generator=gen)
         torch.cuda.synchronize()
-    largest = 0
-    for e in prof.events():
-        if e.name in ("aten::sort", "aten::topk") and e.input_shapes:
-            largest = max(largest, int(np.prod(e.input_shapes[0] or [0])))
-    log(f"{what}: the largest sort or top-k runs over {largest} elements")
+    shapes = [tuple(e.input_shapes[0] or ()) for e in prof.events()
+              if e.name in ("aten::sort", "aten::topk") and e.input_shapes]
+    largest = max((int(np.prod(sh)) for sh in shapes), default=0)
+    log(f"{what}: {len(shapes)} sorts or top-ks, the largest over {largest} "
+        f"elements ({sorted(set(shapes))})")
     if largest >= limit:
         raise AssertionError(f"a sort over {largest} elements on the "
                              f"{what}'s path")
+    if any(sh in forbid for sh in shapes):
+        raise AssertionError(f"a sort of shape {forbid} on the {what}'s "
+                             "path")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3151,7 +3149,7 @@ def main() -> int:
         raise AssertionError("the eval path is not one K13, K14 and K15 call "
                              "a pair")
     largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen,
-                 N_SEEDS * N_CORR, "eval pair")
+                 N_SEEDS * N_CORR, "eval pair", forbid=((1, N_CORR),))
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
         f"{np.mean(feat_ms):.2f} ms/pair, reg {np.mean(reg_ms):.2f} ms/pair "
         f"(host clock around synchronized calls), RR of the untrained net "

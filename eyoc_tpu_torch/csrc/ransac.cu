@@ -38,9 +38,10 @@
 // threshold; `verify_best`, one block, takes the first argmax and writes
 // the row of trans it names.
 // K18 replaces the polish of :148-160 (`ransac_polish`: one block reads
-// best on the card, runs the rounds -- warp, |d| < thr over valid rows,
-// the weighted Jacobi Kabsch, the old pose kept where fewer than 3 rows
-// are inliers -- then the final inlier count) and the solve of
+// best on the card, copies the valid rows once into shared memory, runs
+// the rounds from there -- warp, |d| < thr, the weighted Jacobi Kabsch, the
+// old pose kept where fewer than 3 rows are inliers -- then the final
+// inlier count; at most kPolishMaxRows rows) and the solve of
 // eyoc_tpu/registration/icp.py:41-46 (`icp_solve`: w = mask & (d2 < r^2)
 // from K2's nearest neighbours, the weighted Jacobi Kabsch of the source on
 // its matches, and the source warped by the new pose for the next round's
@@ -59,16 +60,19 @@
 // centred passes (K15's form).
 //
 // Every float reduction runs in a fixed order (a thread's rows in order,
-// then a fixed shared-memory tree), and every list is built by scans in
-// index order, so each kernel gives the same bits on every call. Divisions
-// and square roots are IEEE (no --use_fast_math).
+// then a fixed shared-memory tree, or in the polish a fixed xor-shuffle
+// tree over each warp and then over the warps' partials), and every list
+// is built by scans in index order, so each kernel gives the same bits on
+// every call. Divisions and square roots are IEEE (no --use_fast_math).
 //
 // What bounds them: K16 is operations, ~60 flops for each hypothesis's
 // edge check, ~4300 a Jacobi solve and ~27 for each (survivor, subset row);
 // only the survivors (~4% on the eval path) are solved and counted. K17 is
 // operations, ~27 flops for each (kept hypothesis, valid row); K18's two
 // entries are one block each, a chain of dependent passes and solves:
-// latency, far above their bytes and operations.
+// latency, far above their bytes and operations (the polish's 5 solves,
+// a chain of 144 IEEE divisions and 96 roots each, are most of its time:
+// profile_k18_polish.py).
 
 #include <cuda_runtime.h>
 
@@ -97,7 +101,12 @@ constexpr unsigned kAggregate = 1u << 30, kInclusive = 2u << 30,
 constexpr int kWindow = 32;          // status words a look-back round reads
 constexpr int kVerifyThreads = 256;  // verify: one block a hypothesis
 constexpr int kBestThreads = 1024;   // verify_best: one block
-constexpr int kSolveThreads = 512;   // polish / icp: one block
+constexpr int kSolveThreads = 512;   // icp: one block
+constexpr int kPolishThreads = 512;  // polish: one block
+constexpr int kPolishWarps = kPolishThreads / 32;
+// polish's rows in shared memory, 6 floats a row: 192 KB of the 227 KB a
+// block may opt into (and at most 32 rows a thread: an inlier bit a row)
+constexpr int kPolishMaxRows = 8192;
 constexpr int kSweeps = 8;
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -134,20 +143,28 @@ __device__ __forceinline__ float residual2(const float* T, float x, float y,
   return add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
 }
 
-// One Givens rotation of the cyclic Jacobi on the row-major symmetric A
-// and the eigenvector columns V (svd3.py:43-69): rows p, q of A, then its
-// columns p, q, then V's columns p, q.
-template <int p, int q>
-__device__ __forceinline__ void givens(float (&A)[16], float (&V)[16]) {
-  const float apq = A[4 * p + q], app = A[5 * p], aqq = A[5 * q];
+// The rotation (c, s) of one cyclic Jacobi step (svd3.py:43-69) from
+// a_pp, a_qq, a_pq: tau = (a_qq - a_pp) / (2 a_pq), t = sign(tau) / (|tau| +
+// sqrt(1 + tau^2)) (0 where |a_pq| < 1e-30), c = 1 / sqrt(1 + t^2), s = t c.
+__device__ __forceinline__ void rotation(float app, float aqq, float apq,
+                                         float& c, float& s) {
   const bool small = fabsf(apq) < 1e-30f;
   const float tau = __fdiv_rn(sub(aqq, app), small ? 1.f : mul(2.f, apq));
   const float sgn = tau > 0.f ? 1.f : (tau < 0.f ? -1.f : 0.f);
   float t = __fdiv_rn(sgn, add(fabsf(tau),
                                __fsqrt_rn(add(1.f, mul(tau, tau)))));
   if (small) t = 0.f;
-  const float c = __fdiv_rn(1.f, __fsqrt_rn(add(1.f, mul(t, t))));
-  const float s = mul(t, c);
+  c = __fdiv_rn(1.f, __fsqrt_rn(add(1.f, mul(t, t))));
+  s = mul(t, c);
+}
+
+// One Givens rotation of the cyclic Jacobi on the row-major symmetric A
+// and the eigenvector columns V (svd3.py:43-69): rows p, q of A, then its
+// columns p, q, then V's columns p, q.
+template <int p, int q>
+__device__ __forceinline__ void givens(float (&A)[16], float (&V)[16]) {
+  float c, s;
+  rotation(A[5 * p], A[5 * q], A[4 * p + q], c, s);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float x = A[4 * p + j], y = A[4 * q + j];
@@ -168,11 +185,9 @@ __device__ __forceinline__ void givens(float (&A)[16], float (&V)[16]) {
   }
 }
 
-// The weighted Kabsch pose from the centred cross-covariance H = sum w
-// (a - cA)(b - cB)^T (row-major 3x3) and the centroids: T (row-major 4x4)
-// with b ~ R a + t, by the Jacobi eigensolver of the Horn matrix.
-__device__ void jacobi_pose(const float* H, const float* cA, const float* cB,
-                            float* T) {
+// The Horn profile matrix (svd3.py:horn_profile_matrix) of H / max(max|H|,
+// 1e-12), row-major 4x4.
+__device__ __forceinline__ void horn_matrix(const float* H, float (&A)[16]) {
   float scale = 0.f;
   for (int k = 0; k < 9; ++k) scale = fmaxf(scale, fabsf(H[k]));
   scale = fmaxf(scale, 1e-12f);
@@ -180,38 +195,34 @@ __device__ void jacobi_pose(const float* H, const float* cA, const float* cB,
   for (int k = 0; k < 9; ++k) S[k] = __fdiv_rn(H[k], scale);
   const float Sxx = S[0], Sxy = S[1], Sxz = S[2], Syx = S[3], Syy = S[4],
               Syz = S[5], Szx = S[6], Szy = S[7], Szz = S[8];
-  // the Horn profile matrix (svd3.py:horn_profile_matrix)
-  float A[16] = {add(add(Sxx, Syy), Szz), sub(Syz, Szy), sub(Szx, Sxz),
-                 sub(Sxy, Syx),
-                 sub(Syz, Szy), sub(sub(Sxx, Syy), Szz), add(Sxy, Syx),
-                 add(Szx, Sxz),
-                 sub(Szx, Sxz), add(Sxy, Syx), sub(add(-Sxx, Syy), Szz),
-                 add(Syz, Szy),
-                 sub(Sxy, Syx), add(Szx, Sxz), add(Syz, Szy),
-                 add(sub(-Sxx, Syy), Szz)};
-  float V[16] = {1.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f,
-                 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 0.f, 1.f};
-#pragma unroll 1
-  for (int sweep = 0; sweep < kSweeps; ++sweep) {
-    givens<0, 1>(A, V);
-    givens<0, 2>(A, V);
-    givens<0, 3>(A, V);
-    givens<1, 2>(A, V);
-    givens<1, 3>(A, V);
-    givens<2, 3>(A, V);
-  }
-  // the eigenvector of the first largest eigenvalue
+  const float M[16] = {add(add(Sxx, Syy), Szz), sub(Syz, Szy), sub(Szx, Sxz),
+                       sub(Sxy, Syx),
+                       sub(Syz, Szy), sub(sub(Sxx, Syy), Szz), add(Sxy, Syx),
+                       add(Szx, Sxz),
+                       sub(Szx, Sxz), add(Sxy, Syx), sub(add(-Sxx, Syy), Szz),
+                       add(Syz, Szy),
+                       sub(Sxy, Syx), add(Szx, Sxz), add(Syz, Szy),
+                       add(sub(-Sxx, Syy), Szz)};
+  for (int k = 0; k < 16; ++k) A[k] = M[k];
+}
+
+// The column of the first largest of the eigenvalues d.
+__device__ __forceinline__ int largest(const float (&d)[4]) {
   int col = 0;
-  float best = A[0];
+  float best = d[0];
   for (int c = 1; c < 4; ++c) {
-    if (A[5 * c] > best) {
-      best = A[5 * c];
+    if (d[c] > best) {
+      best = d[c];
       col = c;
     }
   }
-  float q[4];
-  for (int r = 0; r < 4; ++r) q[r] = V[4 * r + col];
-  // the rotation (svd3.py:quat_to_rotmat)
+  return col;
+}
+
+// T (row-major 4x4) from the eigenvector q (svd3.py:quat_to_rotmat) and the
+// centroids: R, then t = cB - R cA.
+__device__ __forceinline__ void quat_pose(float (&q)[4], const float* cA,
+                                          const float* cB, float* T) {
   const float n2 = add(add(add(mul(q[0], q[0]), mul(q[1], q[1])),
                            mul(q[2], q[2])),
                        mul(q[3], q[3]));
@@ -241,6 +252,31 @@ __device__ void jacobi_pose(const float* H, const float* cA, const float* cB,
   }
   T[12] = T[13] = T[14] = 0.f;
   T[15] = 1.f;
+}
+
+// The weighted Kabsch pose from the centred cross-covariance H = sum w
+// (a - cA)(b - cB)^T (row-major 3x3) and the centroids: T (row-major 4x4)
+// with b ~ R a + t, by the Jacobi eigensolver of the Horn matrix.
+__device__ void jacobi_pose(const float* H, const float* cA, const float* cB,
+                            float* T) {
+  float A[16];
+  horn_matrix(H, A);
+  float V[16] = {1.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f,
+                 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 0.f, 1.f};
+#pragma unroll 1
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    givens<0, 1>(A, V);
+    givens<0, 2>(A, V);
+    givens<0, 3>(A, V);
+    givens<1, 2>(A, V);
+    givens<1, 3>(A, V);
+    givens<2, 3>(A, V);
+  }
+  const float d[4] = {A[0], A[5], A[10], A[15]};
+  const int col = largest(d);
+  float q[4];
+  for (int r = 0; r < 4; ++r) q[r] = V[4 * r + col];
+  quat_pose(q, cA, cB, T);
 }
 
 // Exclusive prefix sum of v over the block (kThreads threads) in shared
@@ -815,41 +851,158 @@ __device__ float block_kabsch(int N, Row row, float min_w, float* pose,
   return wtot;
 }
 
-__global__ void __launch_bounds__(kSolveThreads) polish(
+// polish's sums: a thread's rows in order, then a fixed xor-shuffle tree
+// over the warp (every lane gets the same bits: a + b == b + a), the warp
+// partials through `part` [n][kPolishWarps] and one barrier, then the same
+// tree over the partials in every warp. One barrier a call; a call writes
+// `part` while the block may still read the other buffer of the previous
+// pass, so consecutive calls alternate two buffers.
+template <int n>
+__device__ __forceinline__ void polish_sums(float (&v)[n],
+                                            float (*part)[kPolishWarps]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < n; ++k)
+      v[k] = add(v[k], __shfl_xor_sync(0xFFFFFFFFu, v[k], off));
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < n; ++k) part[k][warp] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < n; ++k) v[k] = lane < kPolishWarps ? part[k][lane] : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < n; ++k)
+      v[k] = add(v[k], __shfl_xor_sync(0xFFFFFFFFu, v[k], off));
+}
+
+// The exclusive prefix of v over the block in thread order (a xor-shuffle
+// scan in the warp, then the warps before it); `total` gets the sum. One
+// barrier; `part` is kPolishWarps ints of shared memory.
+__device__ __forceinline__ int polish_scan(int v, int* part, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v, group = v;            // group: the sum over lane's 2^k lanes
+  for (int off = 1; off < 32; off <<= 1) {
+    const int other = __shfl_xor_sync(0xFFFFFFFFu, group, off);
+    if (lane & off) incl += other;
+    group += other;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int w = 0; w < kPolishWarps; ++w) {
+    before += w < warp ? part[w] : 0;
+    total += part[w];
+  }
+  return before + incl - v;
+}
+
+// K18 ransac_polish, one block. The valid rows are copied once, in index
+// order, into shared memory (six arrays of M floats; a thread takes a
+// contiguous range of rows for the copy, placed by a block scan), and row
+// m belongs to thread m % kPolishThreads in every pass after it, so no
+// round reads global memory. A round: the inlier test (|R s + t - t'| <
+// thr on the unfused root) with the inlier count and both sums, the
+// centroids (every thread divides the same bits), the centred moments
+// over the same inliers (a bit a row, kept in a register), and the Jacobi
+// pose of thread 0 where at least 3 rows are inliers (else the old pose
+// stays); three barriers. A round whose inliers are the last round's
+// would give the last pose again, bit for bit (the same rows in the same
+// order), and so would every round after it: the first pass counts the
+// rows whose test changed, and where none did the rounds end there, the
+// pass's inlier count being the final one. Else the inlier count under the
+// final pose ends the kernel.
+__global__ void __launch_bounds__(kPolishThreads) polish(
     const float* __restrict__ trans, const int* __restrict__ best,
     const float* __restrict__ src, const float* __restrict__ tgt,
     const bool* __restrict__ valid, int N, float thr, int iters,
     float* __restrict__ trans_out, int* __restrict__ inliers) {
-  __shared__ float red[9][kSolveThreads];
+  extern __shared__ float rows[];           // [6][N]: s x, y, z, t x, y, z
+  __shared__ float part1[8][kPolishWarps], part2[9][kPolishWarps];
+  __shared__ int ipart[kPolishWarps];
   __shared__ float pose[16];
-  __shared__ float cen[6];
-  __shared__ int cnt[kSolveThreads];
   const int t = threadIdx.x;
   if (t < 16) pose[t] = trans[16ll * best[0] + t];
-  __syncthreads();
-  // an inlier under the current pose: valid and |R s + t - t'| < thr
-  auto inlier = [&](int n, float* a, float* b) {
-    if (!valid[n]) return false;
-    for (int k = 0; k < 3; ++k) {
-      a[k] = src[3 * n + k];
-      b[k] = tgt[3 * n + k];
-    }
-    return __fsqrt_rn(residual2(pose, a[0], a[1], a[2], b[0], b[1], b[2])) <
-           thr;
-  };
-  for (int it = 0; it < iters; ++it)
-    block_kabsch(N, inlier, 3.f, pose, red, cen);
+  // the copy: thread t's contiguous range of rows, placed by a scan
+  const int per = (N + kPolishThreads - 1) / kPolishThreads;
+  const int n0 = min(N, t * per), n1 = min(N, n0 + per);
   int c = 0;
-  float a[3], b[3];
-  for (int n = t; n < N; n += kSolveThreads) c += inlier(n, a, b);
-  cnt[t] = c;
-  __syncthreads();
-  for (int off = kSolveThreads / 2; off > 0; off >>= 1) {
-    if (t < off) cnt[t] += cnt[t + off];
-    __syncthreads();
+  for (int n = n0; n < n1; ++n) c += valid[n];
+  int M;
+  int pos = polish_scan(c, ipart, M);
+  for (int n = n0; n < n1; ++n) {
+    if (!valid[n]) continue;
+    for (int k = 0; k < 3; ++k) {
+      rows[k * N + pos] = src[3 * n + k];
+      rows[(3 + k) * N + pos] = tgt[3 * n + k];
+    }
+    ++pos;
   }
-  if (t < 16) trans_out[t] = pose[t];
-  if (t == 0) inliers[0] = cnt[0];
+  __syncthreads();
+  // row m of this thread: m = t + j * kPolishThreads
+  const float *sx = rows, *sy = rows + N, *sz = rows + 2 * N,
+              *tx = rows + 3 * N, *ty = rows + 4 * N, *tz = rows + 5 * N;
+  auto inlier = [&](const float* T, int m) {
+    return __fsqrt_rn(residual2(T, sx[m], sy[m], sz[m], tx[m], ty[m],
+                                tz[m])) < thr;
+  };
+  float T[16];
+  unsigned last = 0;                         // the last round's inlier bits
+  int total = -1;                            // the final count, once known
+  for (int it = 0; it < iters; ++it) {
+    for (int k = 0; k < 16; ++k) T[k] = pose[k];
+    unsigned in = 0;                         // bit j: row t + j * threads
+    // the count, both sums, and the rows whose test changed
+    float s1[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int m = t, j = 0; m < M; m += kPolishThreads, ++j) {
+      const bool hit = inlier(T, m);
+      if (it > 0 && hit != (bool)(last >> j & 1)) s1[7] = add(s1[7], 1.f);
+      if (!hit) continue;
+      in |= 1u << j;
+      s1[0] = add(s1[0], 1.f);
+      s1[1] = add(s1[1], sx[m]);
+      s1[2] = add(s1[2], sy[m]);
+      s1[3] = add(s1[3], sz[m]);
+      s1[4] = add(s1[4], tx[m]);
+      s1[5] = add(s1[5], ty[m]);
+      s1[6] = add(s1[6], tz[m]);
+    }
+    polish_sums(s1, part1);
+    if (it > 0 && s1[7] == 0.f) {            // the same bits in every thread
+      total = (int)s1[0];
+      break;
+    }
+    const float wtot = s1[0], wsum = add(wtot, 1e-6f);
+    float cen[6];
+    for (int k = 0; k < 6; ++k) cen[k] = __fdiv_rn(s1[1 + k], wsum);
+    float s2[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int m = t, j = 0; m < M; m += kPolishThreads, ++j) {
+      if (!(in >> j & 1)) continue;
+      const float am[3] = {sub(sx[m], cen[0]), sub(sy[m], cen[1]),
+                           sub(sz[m], cen[2])};
+      const float bm[3] = {sub(tx[m], cen[3]), sub(ty[m], cen[4]),
+                           sub(tz[m], cen[5])};
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b)
+          s2[3 * a + b] = add(s2[3 * a + b], mul(am[a], bm[b]));
+    }
+    polish_sums(s2, part2);
+    if (t == 0 && wtot >= 3.f) jacobi_pose(s2, cen, cen + 3, pose);
+    __syncthreads();
+    last = in;
+  }
+  for (int k = 0; k < 16; ++k) T[k] = pose[k];
+  if (total < 0) {
+    int count = 0;
+    for (int m = t; m < M; m += kPolishThreads) count += inlier(T, m);
+    polish_scan(count, ipart, total);
+  }
+  if (t < 16) trans_out[t] = T[t];
+  if (t == 0) inliers[0] = total;
 }
 
 __global__ void __launch_bounds__(kSolveThreads) icp(
@@ -970,14 +1123,21 @@ extern "C" int eyoc_ransac_verify(const float* trans, const float* coarse,
 }
 
 // K18 ransac_polish: trans [H, 4, 4], best int32, src/tgt [N, 3], valid
-// [N] -> trans_out [4, 4], inliers int32. One launch.
+// [N] (N <= kPolishMaxRows) -> trans_out [4, 4], inliers int32. One
+// launch; its rows take 24 N bytes of shared memory.
 extern "C" int eyoc_ransac_polish(const float* trans, const int* best,
                                   const float* src, const float* tgt,
                                   const bool* valid, int N, float thr,
                                   int iters, float* trans_out, int* inliers,
                                   cudaStream_t stream) {
-  polish<<<1, kSolveThreads, 0, stream>>>(trans, best, src, tgt, valid, N,
-                                          thr, iters, trans_out, inliers);
+  if (N <= 0 || N > kPolishMaxRows) return cudaErrorInvalidValue;
+  const int smem = 6 * N * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      polish, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  polish<<<1, kPolishThreads, smem, stream>>>(trans, best, src, tgt, valid,
+                                              N, thr, iters, trans_out,
+                                              inliers);
   return cudaGetLastError();
 }
 

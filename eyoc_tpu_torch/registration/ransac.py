@@ -18,10 +18,13 @@ are compacted to the front:
    hypothesis) over the kept set: its count over every valid row, -1
    where the edge check failed, and the first argmax, read by the next
    kernel on the card;
-4. polish -> kernel K18 `ransac_polish` (one block): `polish_iters` rounds
+4. polish -> kernel K18 `ransac_polish` (one block, the valid rows held in
+   its shared memory: at most K18_MAX_ROWS rows): `polish_iters` rounds
    of the weighted Jacobi Kabsch on the current inliers (|R s + t - t'| <
    threshold), the old pose kept where fewer than 3 rows are inliers; then
-   the final inlier count.
+   the final inlier count. The kernel ends the rounds once a round's
+   inliers are the last round's: every later round would give the same
+   pose bits.
 Single-stage (`coarse_subset` 0, or not below the row count, or
 `full_verify_top` not below the hypothesis count): K16's entry
 `ransac_hypotheses` (one thread a hypothesis, every pose) without the
@@ -271,6 +274,9 @@ K16_MAX_TOP, K16_MAX_SUBSET = 4096, 2048
 K16_POSE_CACHE = 65536
 _K17_ARGS = (_P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P)
 _K18_ARGS = (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P)
+# K18's polish holds the valid rows in shared memory: N at most this
+# (csrc/ransac.cu:kPolishMaxRows)
+K18_MAX_ROWS = 8192
 
 
 def _rows3(name, src, tgt, valid):
@@ -406,11 +412,11 @@ def _launch_k17(trans, coarse, keep, src, tgt, valid, thr):
 
 def ransac_polish(trans, best, src, tgt, valid, thr: float, iters: int):
     """K18 `ransac_polish`: `ransac_polish_plain` as one block that reads
-    `best` on the card and runs every round, moments in two centred
-    passes.
+    `best` on the card, copies the valid rows once into shared memory and
+    runs every round from there, moments in two centred passes.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one launch) or raises."""
+    (one launch; N at most K18_MAX_ROWS) or raises."""
     if src.is_cpu:
         return ransac_polish_plain(trans, best, src, tgt, valid, thr, iters)
     return _launch_k18(trans, best, src, tgt, valid, thr, iters)
@@ -424,6 +430,9 @@ def _launch_k18(trans, best, src, tgt, valid, thr, iters):
     if trans.dim() != 3 or trans.shape[1:] != (4, 4) or best.numel() != 1:
         raise ValueError("ransac_polish: expected trans [H, 4, 4] and one "
                          "best row")
+    if not 0 < N <= K18_MAX_ROWS:
+        raise ValueError(f"ransac_polish: {N} rows, the kernel holds 1 to "
+                         f"{K18_MAX_ROWS}")
     T = torch.empty((4, 4), dtype=F32, device=src.device)
     inliers = torch.empty((), dtype=I32, device=src.device)
     p = kernels.ptr

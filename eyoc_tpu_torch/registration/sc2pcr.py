@@ -8,9 +8,10 @@ with no host sync from the correspondences to the pose:
    iterations -> kernel K3 `sc2_power_iteration`, one launch a problem (one
    launch for all iterations; the symmetric matrix is never stored, each
    of its values rebuilt from the coordinates once per iteration);
-2. NMS seed picking -> kernel K13 `sc2_nms` (each row's local-max flag
-   over the valid rows within the radius, no [N, N] tensor), then the top
-   S of the B problems in one stable sort;
+2. NMS seed picking -> kernel K13 `sc2_nms` (each pair of valid rows
+   within the radius tested once for the local-max flags, then each
+   nonzero local score ranked by count among the others and the zero rows
+   placed by a scan: no [N, N] tensor and no sort);
 3. second-order counts on the seed rows and each seed's k1 best columns ->
    kernel K4 `sc2_seed_topk`, one call a problem (the counts on b1 tensor
    cores, each split of the columns keeping its top k1 in the epilogue,
@@ -493,19 +494,72 @@ def sc2_nms_plain(src, valid, scores, radius: float, num_seeds: int):
             torch.stack([ok for _, ok in out]))
 
 
-# K13's rows a block (csrc/sc2_nms.cu:kThreads), and the blocks its
-# column splits aim at: enough to fill the card when B * N is small
-_K13_ROWS, _K13_BLOCKS = 128, 1024
-_K13_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p)
+def _order_key(v):
+    """K13's integer order of float scores: the bits, negatives flipped,
+    every NaN the largest (int64, so that the flip cannot overflow)."""
+    bits = v.contiguous().view(torch.int32).long()
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    return torch.where(torch.isnan(v), torch.full_like(key, 0x7FC00000), key)
 
 
-def k13_splits(B: int, n: int) -> int:
-    """Column splits of a K13 launch: as many as bring B * ceil(n / 128)
-    row blocks to about _K13_BLOCKS, at most one per 128-column tile."""
-    rows = B * -(-n // _K13_ROWS)
-    return max(1, min(-(-n // _K13_ROWS), -(-_K13_BLOCKS // max(rows, 1))))
+def sc2_nms_rank_plain(src, valid, scores, radius: float, num_seeds: int):
+    """K13's selection in plain torch, for `sc2_nms_plain`'s outputs: each
+    problem's local scores as `_pick_seeds` makes them; the nonzero ones
+    (in index order) ranked by count, rank p = #{q: local_q > local_p, or
+    equal with q < p}, plus the zero rows where local_p < 0; a zero row
+    ranked after the P positive entries by a scan, P + (zero rows before
+    it); the rows of rank < S are the seeds. Scores compare as
+    `_order_key`s: -0.0 ties +0.0 (both zero rows), a NaN ranks first.
+
+    src [B, N, 3], valid [B, N], scores [B, N] -> (seeds [B, S] int32,
+    seed_ok [B, S] bool), S = min(num_seeds, N)."""
+    B, N = valid.shape
+    S = min(num_seeds, N)
+    seeds = torch.empty((B, S), dtype=torch.int32, device=src.device)
+    seed_ok = torch.empty((B, S), dtype=torch.bool, device=src.device)
+    for b in range(B):
+        sc = scores[b]
+        relation = (sc[:, None] >= sc[None, :]) | \
+            (_masked_dist(src[b], valid[b]) >= radius)
+        local = sc * torch.all(relation, dim=-1).to(sc.dtype)
+        zero = local == 0
+        nz = torch.nonzero(~zero)[:, 0]
+        key = _order_key(local[nz])
+        p = torch.arange(nz.numel(), device=src.device)
+        beats = (key[None, :] > key[:, None]) | \
+            ((key[None, :] == key[:, None]) & (p[None, :] < p[:, None]))
+        rank = torch.empty(N, dtype=torch.long, device=src.device)
+        rank[nz] = beats.sum(1) + torch.where(key < 0, int(zero.sum()), 0)
+        positive = int((key > 0).sum())
+        rank[zero] = positive + torch.arange(int(zero.sum()),
+                                             device=src.device)
+        order = torch.empty(N, dtype=torch.long, device=src.device)
+        order[rank] = torch.arange(N, device=src.device)
+        seeds[b] = order[:S].to(torch.int32)
+        seed_ok[b] = local[order[:S]] > 0
+    return seeds, seed_ok
+
+
+# K13's most rows a problem (csrc/sc2_nms.cu:kMaxRows: nms_rank's shared
+# memory)
+K13_MAX_ROWS = 17920
+_K13_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4
+# K13's flag words, one a row, kept per device and zeroed once: each call
+# marks its suppressed rows with a new epoch (csrc/sc2_nms.cu), so a call
+# leaves nothing to clear. Calls on one stream may share them.
+_k13_words: dict = {}
+
+
+def _k13_epoch(device, n: int):
+    """(the device's flag words, at least n, and this call's epoch)."""
+    words, epoch = _k13_words.get(device, (None, 0))
+    if words is None or words.numel() < n or epoch >= 2 ** 31 - 1:
+        words = torch.zeros(max(n, 1 << 16), dtype=torch.int32,
+                            device=device)
+        epoch = 0
+    _k13_words[device] = (words, epoch + 1)
+    return words, epoch + 1
 
 
 def sc2_nms(src, valid, scores, radius: float, num_seeds: int):
@@ -514,10 +568,12 @@ def sc2_nms(src, valid, scores, radius: float, num_seeds: int):
     row i; then the top `num_seeds` local scores of each problem (ties to
     the lowest index) and seed_ok = local > 0 there.
 
-    src [B, N, 3] f32, valid [B, N] bool, scores [B, N] f32 (0 at invalid
-    rows) -> (seeds [B, S] int32, seed_ok [B, S] bool). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (two launches,
-    then one stable sort of the [B, N] scores) or raises."""
+    src [B, N, 3] f32, valid [B, N] bool, scores [B, N] f32, finite (0 at
+    invalid rows) -> (seeds [B, S] int32, seed_ok [B, S] bool), S =
+    min(num_seeds, N). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (two launches: the flags of each pair of rows,
+    then each nonzero local score's rank; N at most K13_MAX_ROWS) or
+    raises."""
     if src.is_cpu:
         return sc2_nms_plain(src, valid, scores, radius, num_seeds)
     return _launch_k13(src, valid, scores, radius, num_seeds)
@@ -531,14 +587,18 @@ def _launch_k13(src, valid, scores, radius, num_seeds):
     B, N = valid.shape
     if src.shape != (B, N, 3) or scores.shape != (B, N):
         raise ValueError("sc2_nms: expected [B, N, 3], [B, N], [B, N]")
-    splits = k13_splits(B, N)
-    flags = torch.empty(B * splits * N, dtype=torch.uint8, device=src.device)
-    local = torch.empty((B, N), dtype=f32, device=src.device)
+    if N > K13_MAX_ROWS:
+        raise ValueError(f"sc2_nms: {N} rows a problem, the kernel holds "
+                         f"at most {K13_MAX_ROWS}")
+    S = min(num_seeds, N)
+    seeds = torch.empty((B, S), dtype=torch.int32, device=src.device)
+    seed_ok = torch.empty((B, S), dtype=torch.bool, device=src.device)
+    words, epoch = _k13_epoch(src.device, B * N)
     p = kernels.ptr
-    err = fn(p(src), p(valid), p(scores), B, N, float(radius), splits,
-             p(flags), p(local), kernels.stream_handle(dev))
+    err = fn(p(src), p(valid), p(scores), B, N, float(radius), S, epoch,
+             p(words), p(seeds), p(seed_ok), kernels.stream_handle(dev))
     kernels.check_launch("sc2_nms", err)
-    return _seeds_from_local(local, num_seeds)
+    return seeds, seed_ok
 
 
 # -------------------------------------------------------------- kernel K14

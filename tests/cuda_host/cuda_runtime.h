@@ -4,17 +4,23 @@
 // build their sources and the tests can run them.
 //
 // Blocks run one after another on the calling thread. Each CUDA thread of
-// a block is a fiber (ucontext) with its own stack, and __syncthreads
-// switches back to the block's scheduler, which resumes every live thread
-// in turn: one round of the threads is one barrier phase, whatever the
-// block's size. A thread that returns leaves the rounds, as an exited CUDA
-// thread leaves the barrier. A block whose thread 0 ends without calling
-// __syncthreads runs its other threads as plain calls, one after another
-// (a kernel that then calls __syncthreads aborts). __shared__ arrays become
-// function statics, which the threads of the running block share; no
-// warp-level intrinsics are provided. Blocks run in the order of their
-// index, so a block that waits on a lower block's published state (a
-// decoupled look-back) finds it there; a wait on a later block would hang.
+// a block is a fiber (ucontext) with its own stack. __syncthreads and the
+// warp shuffles switch back to the block's scheduler, which resumes every
+// thread that may go on: the threads at a __syncthreads once every live
+// thread of the block is there, the lanes at a shuffle once every live lane
+// of their warp (32 threads) is there. A thread that returns leaves both,
+// as an exited CUDA thread leaves the barrier. A block whose thread 0 ends
+// without a barrier or a shuffle runs its other threads as plain calls,
+// one after another (a kernel that then calls either aborts). __shared__
+// arrays become function statics, which the threads of the running block
+// share; `extern __shared__` arrays are rewritten by the tests to point at
+// `host_cuda::dynamic_shared` (256 KB). __shfl_xor_sync and __shfl_sync
+// are the warp intrinsics: each lane posts its value, waits for its warp and
+// reads its partner's (the mask is not read: every lane of the warp takes
+// part).
+// Blocks run in the order of their index, so a block that waits on a lower
+// block's published state (a decoupled look-back) finds it there; a wait on
+// a later block would hang.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
@@ -22,6 +28,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <vector>
@@ -33,41 +40,108 @@
 #define __launch_bounds__(x)
 #define __constant__ static const
 #define __shared__ static
+#define __align__(n) alignas(n)
 
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 
 namespace host_cuda {
+
+// where a fiber stopped: running, at a __syncthreads, at a shuffle
+enum Wait : char { kRun, kBlock, kWarp };
 
 // The fibers of the block that runs; null while threads run as calls.
 struct Block {
   ucontext_t scheduler;
   std::vector<ucontext_t> ctx;
-  std::vector<char> done;
+  std::vector<char> done, wait;
+  std::vector<unsigned> shuffles;             // shuffles each thread made
+  std::vector<std::uint64_t> post[2];         // by the shuffle's parity
   std::function<void()>* body = nullptr;
   unsigned current = 0;
   bool synced = false;
 };
 inline Block* running = nullptr;
+alignas(16) inline char dynamic_shared[256 * 1024];
 
 inline void fiber_entry() {
   (*running->body)();
   running->done[running->current] = 1;
 }
 
+inline Block* block_or_abort(const char* what) {
+  if (running == nullptr) {
+    std::fprintf(stderr, "cuda_host: %s in a block whose thread 0 ended "
+                         "without a barrier\n", what);
+    std::abort();
+  }
+  return running;
+}
+
+// Stops the running thread at a barrier of the given kind.
+inline void stop(Block* b, Wait w) {
+  b->synced = true;
+  b->wait[b->current] = w;
+  swapcontext(&b->ctx[b->current], &b->scheduler);
+}
+
 }  // namespace host_cuda
 
 inline void __syncthreads() {
-  host_cuda::Block* b = host_cuda::running;
-  if (b == nullptr) {
-    std::fprintf(stderr, "cuda_host: __syncthreads in a block whose thread "
-                         "0 ended without one\n");
+  host_cuda::Block* b = host_cuda::block_or_abort("__syncthreads");
+  host_cuda::stop(b, host_cuda::kBlock);
+}
+
+namespace host_cuda {
+
+// The value that lane `lane` of the caller's warp posts at this shuffle:
+// each lane posts its own and waits for the warp.
+template <class T>
+inline T exchange(T v, unsigned lane) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  Block* b = block_or_abort("a warp shuffle");
+  const unsigned t = b->current;
+  const unsigned parity = b->shuffles[t]++ & 1;
+  std::uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  b->post[parity][t] = bits;
+  stop(b, kWarp);
+  const unsigned src = (t & ~31u) | (lane & 31u);
+  // the partner posted this exchange (it may have gone on since, even
+  // ended: the other parity's slots hold its next one)
+  if (src >= b->ctx.size() || b->shuffles[src] < b->shuffles[t]) {
+    std::fprintf(stderr, "cuda_host: shuffle with an absent lane\n");
     std::abort();
   }
-  b->synced = true;
-  swapcontext(&b->ctx[b->current], &b->scheduler);
+  T out;
+  bits = b->post[parity][src];
+  std::memcpy(&out, &bits, sizeof(T));
+  return out;
+}
+
+}  // namespace host_cuda
+
+// The value of lane (lane ^ lane_mask) of the caller's warp.
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return host_cuda::exchange(v, (threadIdx.x ^ (unsigned)lane_mask) & 31u);
+}
+
+// The value of lane `src` of the caller's warp.
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  return host_cuda::exchange(v, (unsigned)src & 31u);
 }
 
 template <class T>
@@ -75,11 +149,23 @@ inline T __ldg(const T* p) {
   return *p;
 }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.f / a; }
+inline int __float_as_int(float v) {
+  int i;
+  std::memcpy(&i, &v, sizeof i);
+  return i;
+}
+inline float __int_as_float(int i) {
+  float v;
+  std::memcpy(&v, &i, sizeof v);
+  return v;
+}
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -96,7 +182,12 @@ inline int atomicCAS(int* p, int expected, int desired) {
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 
 // `kernel<<<grid, block, smem, stream>>>(args)` is rewritten to
 // `HostLaunch{grid, block}(kernel, args)` before the source is compiled.
@@ -111,6 +202,10 @@ struct HostLaunch {
     host_cuda::Block blk;
     blk.ctx.resize(block);
     blk.done.resize(block);
+    blk.wait.resize(block);
+    blk.shuffles.resize(block);
+    blk.post[0].resize(block);
+    blk.post[1].resize(block);
     blk.body = &body;
     gridDim.x = grid;
     for (unsigned b = 0; b < grid; ++b) {
@@ -122,6 +217,8 @@ struct HostLaunch {
         blk.ctx[t].uc_link = &blk.scheduler;
         makecontext(&blk.ctx[t], host_cuda::fiber_entry, 0);
         blk.done[t] = 0;
+        blk.wait[t] = host_cuda::kRun;
+        blk.shuffles[t] = 0;
       }
       blk.synced = false;
       host_cuda::running = &blk;
@@ -134,20 +231,45 @@ struct HostLaunch {
         }
         continue;
       }
-      for (unsigned t = 1; t < block; ++t) resume(blk, t);
-      for (bool live = true; live;) {
-        live = false;
-        for (unsigned t = 0; t < block; ++t) {
-          if (blk.done[t]) continue;
-          resume(blk, t);
-          live = true;
-        }
-      }
+      schedule(blk, block);
       host_cuda::running = nullptr;
     }
   }
 
-  // Runs thread t of the block until its next __syncthreads or its end.
+  // Runs every thread that may go on to its next stop, then releases the
+  // warps whose live lanes all wait at a shuffle, else (none) the block
+  // when all its live threads wait at __syncthreads; until all are done.
+  static void schedule(host_cuda::Block& blk, unsigned block) {
+    for (;;) {
+      for (unsigned t = 0; t < block; ++t)
+        if (!blk.done[t] && blk.wait[t] == host_cuda::kRun) resume(blk, t);
+      bool released = false, live = false, all_block = true;
+      for (unsigned w = 0; w < block; w += 32) {
+        bool all_warp = true, any = false;
+        for (unsigned t = w; t < w + 32 && t < block; ++t) {
+          if (blk.done[t]) continue;
+          any = live = true;
+          all_warp = all_warp && blk.wait[t] == host_cuda::kWarp;
+          all_block = all_block && blk.wait[t] == host_cuda::kBlock;
+        }
+        if (any && all_warp) {
+          for (unsigned t = w; t < w + 32 && t < block; ++t)
+            blk.wait[t] = host_cuda::kRun;
+          released = true;
+        }
+      }
+      if (!live) return;
+      if (released) continue;
+      if (!all_block) {
+        std::fprintf(stderr, "cuda_host: a warp waits at a shuffle that "
+                             "some of its lanes never reach\n");
+        std::abort();
+      }
+      for (unsigned t = 0; t < block; ++t) blk.wait[t] = host_cuda::kRun;
+    }
+  }
+
+  // Runs thread t of the block until its next stop or its end.
   static void resume(host_cuda::Block& blk, unsigned t) {
     blk.current = t;
     threadIdx.x = t;

@@ -26,9 +26,15 @@ and 10% inliers, 200 valid rows) and H = 512 hypotheses:
   the exclusive prefix and the published inclusive one;
 - K17: the full counts over the kept hypotheses and every one, and the best
   row, bit-equal;
-- K18: `ransac_polish`'s pose within 1e-5 and its inlier count equal;
-  `icp_solve`'s pose and warped source within 1e-5 (the warped source
-  against the plain pose's, 1e-5 of the coordinates' reach).
+- K18: `ransac_polish`'s pose within 1e-5 and its inlier count equal
+  (the rows above; `valid` with holes at N = 300 and at the kernel's row
+  cap; 2 and 3 inliers, the old pose kept below 3; 1 to 12 rounds, which
+  end at the fixed point with its bits), and the wrapper's
+  error past the cap; `icp_solve`'s pose and warped source within 1e-5
+  (the warped source against the plain pose's, 1e-5 of the coordinates'
+  reach);
+- the K18 probe's warp form of the Jacobi solve (csrc/probes/
+  polish_split.cu) against `jacobi_pose`, bit for bit in every lane.
 
 This checks the kernels' indexing, edge test, Jacobi solve and reductions
 on the CPU; what only the card can show (that nvcc takes the source, the
@@ -47,7 +53,7 @@ from eyoc_tpu_torch.registration import icp, ransac
 from eyoc_tpu_torch.utils import kernels
 from test_torch_ransac import (EXTENT, GAP, HYP_ROT, correspondences,
                                horn_gap, random_pose)
-from test_torch_sc2_emulated import HOST_HEADERS, LAUNCH
+from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
 N, H, SUB = 256, 512, 64
 THR, RATIO = 0.3, 0.9
@@ -61,9 +67,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("no g++ on this host to build the kernels' source")
     out = tmp_path_factory.mktemp("host_ransac")
     cpp = out / "ransac.cpp"
-    cpp.write_text(LAUNCH.sub(r"HostLaunch{(unsigned)(\2), (unsigned)(\3)}"
-                              r"(\1, ", (kernels.CSRC / "ransac.cu")
-                              .read_text()))
+    cpp.write_text(host_source((kernels.CSRC / "ransac.cu").read_text()))
     lib = out / "libransac.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                            "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
@@ -98,8 +102,7 @@ def test_look_back_walks_windows(tmp_path, source):
         pytest.skip("no g++ on this host to build the kernels' source")
     cpp = tmp_path / f"{source}.cpp"
     text = (kernels.CSRC / f"{source}.cu").read_text() + LOOK_BACK
-    cpp.write_text(LAUNCH.sub(r"HostLaunch{(unsigned)(\2), (unsigned)(\3)}"
-                              r"(\1, ", text))
+    cpp.write_text(host_source(text))
     lib = tmp_path / "lib.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                            "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
@@ -118,6 +121,72 @@ def test_look_back_walks_windows(tmp_path, source):
     assert int(out[0]) == want
     assert int(status[80]) == (2 << 30) | (want + 7)
     assert np.array_equal(status[10:80], (1 << 30) | agg[10:80])
+
+
+# A kernel that solves each of n Kabsch inputs (H [9], cA [3], cB [3]) by
+# jacobi_pose (csrc/ransac.cu) on lane 0 and by the K18 probe's warp form
+# jacobi_pose_warp (csrc/probes/polish_split.cu) on the 32 lanes of the
+# block (each lane's T kept).
+JACOBI_FORMS = """
+namespace {
+__global__ void jacobi_forms(const float* in, float* thread, float* warp) {
+  const float* h = in + 15 * blockIdx.x;
+  float T[16];
+  jacobi_pose_warp(h, h + 9, h + 12, T);
+  for (int k = 0; k < 16; ++k)
+    warp[(32 * blockIdx.x + threadIdx.x) * 16 + k] = T[k];
+  if (threadIdx.x == 0) {
+    jacobi_pose(h, h + 9, h + 12, T);
+    for (int k = 0; k < 16; ++k) thread[16 * blockIdx.x + k] = T[k];
+  }
+}
+}  // namespace
+extern "C" int eyoc_jacobi_forms(const float* in, int n, float* thread,
+                                 float* warp) {
+  jacobi_forms<<<n, 32, 0, nullptr>>>(in, thread, warp);
+  return 0;
+}
+"""
+
+
+def test_jacobi_warp_form_is_the_thread_form(tmp_path):
+    """The K18 probe's warp form of the Jacobi solve (its time is
+    profile_k18_polish.py's "solve, warp") gives jacobi_pose's bits in
+    every lane: random moments, rank 1 and 2 ones, a zero one, and ones
+    with an exactly diagonal Horn matrix (every |a_pq| < 1e-30: no
+    rotation)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this host to build the kernels' source")
+    cpp = tmp_path / "jacobi.cpp"
+    probe = (kernels.CSRC / "probes" / "polish_split.cu").read_text()
+    cpp.write_text(host_source((kernels.CSRC / "ransac.cu").read_text()
+                               + probe.replace('#include "../ransac.cu"', "")
+                               + JACOBI_FORMS))
+    lib = tmp_path / "lib.so"
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                           "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    fn = ctypes.CDLL(str(lib)).eyoc_jacobi_forms
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    rng = np.random.default_rng(9)
+    H = rng.normal(0, 50, (64, 3, 3))
+    u, v = rng.normal(size=(2, 8, 3))
+    H[:8] = u[:, :, None] * v[:, None, :]                     # rank 1
+    H[8:16] = H[8:16] - H[8:16] @ np.outer(v[0], v[0]) / (v[0] @ v[0])
+    H[16] = 0
+    H[17:20] = np.diag([3.0, 2.0, 1.0])                       # diagonal Horn
+    c = rng.uniform(-40, 40, (64, 6))
+    inp = np.concatenate([H.reshape(64, 9), c], 1).astype(np.float32)
+    thread = np.zeros((64, 16), np.float32)
+    warp = np.zeros((64, 32, 16), np.float32)
+    fn(inp.ctypes.data, 64, thread.ctypes.data, warp.ctypes.data)
+    assert np.isfinite(thread).all()
+    assert np.array_equal(warp.view(np.int32),
+                          np.broadcast_to(thread[:, None], warp.shape)
+                          .view(np.int32))
 
 
 @pytest.fixture
@@ -260,6 +329,78 @@ def test_k18_polish_source_matches_plain(on_host, inlier, nv, seed):
     none = torch.zeros_like(valid)
     T_k, inl_k = ransac._launch_k18(trans, best, src, tgt, none, THR, 5)
     assert torch.equal(T_k, trans[int(best)]) and int(inl_k) == 0
+
+
+def start_pose(T, seed):
+    """The true pose moved by a small rotation and translation: a polish
+    start that most true inliers pass."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((random_pose(rng, angle=0.01, trans=0.05)
+                             @ T).astype(np.float32))[None]
+
+
+@pytest.mark.parametrize("n,hole,seed", [(300, 0.3, 5), (ransac.K18_MAX_ROWS,
+                                                          0.1, 6)])
+def test_k18_polish_source_holes_and_row_cap(on_host, n, hole, seed):
+    """`valid` with holes anywhere (the kernel copies the valid rows in
+    index order), up to the kernel's row cap."""
+    src, tgt, _, T = correspondences(seed, n, 0.5, n)
+    valid = np.random.default_rng(seed).random(n) >= hole
+    src, tgt, valid = map(torch.from_numpy, (src, tgt, valid))
+    trans, best = start_pose(T, seed), torch.zeros((), dtype=torch.int32)
+    T_k, inl_k = ransac._launch_k18(trans, best, src, tgt, valid, THR, 5)
+    T_p, inl_p = ransac.ransac_polish_plain(trans, best, src, tgt, valid,
+                                            THR, 5)
+    assert float((T_k - T_p).abs().max()) < 1e-5
+    assert int(inl_k) == int(inl_p) > int(valid.sum()) * 0.4
+
+
+@pytest.mark.parametrize("nv", [2, 3])
+def test_k18_polish_source_fewer_than_3_inliers(on_host, nv):
+    """A round with fewer than 3 inliers keeps the old pose; 3 solve."""
+    src, tgt, valid, T = map(torch.from_numpy,
+                             correspondences(7, 64, 1.0, nv))
+    trans, best = start_pose(T.numpy(), 7), torch.zeros((), dtype=torch.int32)
+    T_k, inl_k = ransac._launch_k18(trans, best, src, tgt, valid, THR, 5)
+    T_p, inl_p = ransac.ransac_polish_plain(trans, best, src, tgt, valid,
+                                            THR, 5)
+    assert int(inl_k) == int(inl_p) == nv
+    if nv < 3:
+        assert torch.equal(T_k, trans[0])
+    else:
+        assert not torch.equal(T_k, trans[0])
+        assert float((T_k - T_p).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("inlier,seed", [(0.5, 1), (0.1, 2)])
+def test_k18_polish_source_stops_at_its_fixed_point(on_host, inlier, seed):
+    """Rounds end once a round's inliers are the last round's: 1 to 12
+    rounds within 1e-5 of the plain version, inlier counts equal, and 12
+    rounds the same bits as the rounds that reached the fixed point."""
+    src, tgt, valid, u_tri, u_sub = problem(inlier, 256, seed)
+    trans, coarse = ransac.ransac_hypotheses_plain(src, tgt, valid, u_tri,
+                                                   u_sub, THR, RATIO)
+    _, best = ransac.ransac_verify_plain(trans, coarse, None, src, tgt, valid,
+                                         THR)
+    got = {}
+    for iters in (1, 2, 3, 5, 12):
+        got[iters] = ransac._launch_k18(trans, best, src, tgt, valid, THR,
+                                        iters)
+        T_p, inl_p = ransac.ransac_polish_plain(trans, best, src, tgt, valid,
+                                                THR, iters)
+        assert float((got[iters][0] - T_p).abs().max()) < 1e-5
+        assert int(got[iters][1]) == int(inl_p)
+    assert torch.equal(got[5][0], got[12][0])
+    assert int(got[5][1]) == int(got[12][1])
+
+
+def test_k18_polish_raises_past_the_row_cap(on_host):
+    n = ransac.K18_MAX_ROWS + 1
+    src, tgt, valid, T = correspondences(8, n, 0.5, n)
+    args = (start_pose(T, 8), torch.zeros((), dtype=torch.int32),
+            *map(torch.from_numpy, (src, tgt, valid)))
+    with pytest.raises(ValueError, match=f"{n} rows"):
+        ransac._launch_k18(*args, THR, 5)
 
 
 def test_k18_icp_source_matches_plain(on_host):

@@ -4,7 +4,12 @@ tests/cuda_host/cuda_runtime.h and run through the wrappers' launch code
 on CPU tensors, against the plain versions on four problems (N = 256, 64
 seeds: 30% and 10% inliers, all but 3 rows invalid, no valid row):
 
-- K13: seeds and seed_ok bit-equal;
+- K13: seeds and seed_ok bit-equal (to `sc2_nms_plain` and to its plain
+  mirror `sc2_nms_rank_plain`), on those problems and on tie-heavy cases:
+  5 score levels, all zero, fewer local maxima than seeds, S = N, negative
+  and -0.0 scores, a partial tile, B = 260 (several rank groups a block);
+  a second call on the same flag words; the wrapper's error past its row
+  cap;
 - K14: the consensus sets (fine_sel), the fitness and the best seed
   bit-equal, each seed's pose within 1e-4 (rotation entries, and metres);
 - K15: the iteration counts equal, the pose within 1e-5.
@@ -29,6 +34,20 @@ from eyoc_tpu_torch.utils import kernels
 HOST_HEADERS = Path(__file__).resolve().parent / "cuda_host"
 SOURCES = ("sc2_nms", "sc2_refine")
 LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", re.S)
+DYNAMIC = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) "
+                     r"(\w+)\[\];")
+
+
+def host_source(text: str) -> str:
+    """A CUDA source made buildable by g++ against cuda_host/: each launch
+    `k<<<grid, block, smem, stream>>>(` becomes a HostLaunch call, and each
+    `extern __shared__ T name[];` a pointer to the stand-in's dynamic
+    shared memory."""
+    text = DYNAMIC.sub(r"\1* const \2 = "
+                       r"reinterpret_cast<\1*>(host_cuda::dynamic_shared);",
+                       text)
+    return LAUNCH.sub(r"HostLaunch{(unsigned)(\2), (unsigned)(\3)}(\1, ",
+                      text)
 N, SEEDS = 256, 64
 CFG = T.SC2PCRConfig(max_points=N, seed_cap=SEEDS)
 
@@ -44,8 +63,7 @@ def host_libs(tmp_path_factory):
     for name in SOURCES:
         src = (kernels.CSRC / f"{name}.cu").read_text()
         cpp = out / f"{name}.cpp"
-        cpp.write_text(LAUNCH.sub(r"HostLaunch{(unsigned)(\2), "
-                                  r"(unsigned)(\3)}(\1, ", src))
+        cpp.write_text(host_source(src))
         lib = out / f"lib{name}.so"
         proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                                "-I", str(HOST_HEADERS), "-o", str(lib),
@@ -125,6 +143,64 @@ def test_k13_source_matches_plain(on_host):
         want = T.sc2_nms_plain(grid, v, scores * v, radius, SEEDS)
         assert torch.equal(got[0], want[0]), radius
         assert torch.equal(got[1], want[1]), radius
+
+
+def nms_case(case, seed=0):
+    """(src, valid, scores, radius, num_seeds) of a K13 case, B problems
+    of N rows (B = 3 with 256, 40 and 3 valid rows, scattered, unless
+    named): "ties" (5 score levels), "zeros" (every score 0), "few" (a
+    radius that leaves fewer local maxima than seeds), "all_rows" (S = N),
+    "signed" (negative and -0.0 scores), "ragged" (N = 301, a partial
+    tile), "many" (B = 260 and a 2 m radius: one rank block a problem,
+    which takes each group of 128 of its ~200 nonzero scores in turn)."""
+    rng = np.random.default_rng(seed)
+    n = 301 if case == "ragged" else N
+    B = 260 if case == "many" else 3
+    src = rng.uniform(-20, 20, (B, n, 3)).astype(np.float32)
+    valid = np.zeros((B, n), bool)
+    for b in range(B):
+        nv = (n, 40, 3)[b % 3]
+        valid[b, rng.permutation(n)[:nv]] = True
+    levels = 20 if case in ("few", "all_rows") else 5
+    scores = np.round(rng.random((B, n)) * levels) / levels
+    if case == "zeros":
+        scores[:] = 0
+    if case == "signed":
+        scores = scores - 0.4
+        scores[:, ::7] = -0.0
+    scores = (scores * valid).astype(np.float32)
+    radius = {"few": 30.0, "many": 2.0}.get(case, 8.0)
+    S = n if case == "all_rows" else SEEDS
+    return (*map(torch.from_numpy, (src, valid, scores)), radius, S)
+
+
+@pytest.mark.parametrize("case", ["ties", "zeros", "few", "all_rows",
+                                  "signed", "ragged", "many"])
+def test_k13_source_cases(on_host, case):
+    """K13's seeds and seed_ok bit-equal to the sort it replaced
+    (`sc2_nms_plain`) and to its plain mirror (`sc2_nms_rank_plain`)."""
+    args = nms_case(case)
+    got = T._launch_k13(*args)
+    want = T.sc2_nms_plain(*args)
+    mirror = T.sc2_nms_rank_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(mirror[0], want[0]) and torch.equal(mirror[1], want[1])
+    maxima = got[1].sum(1)
+    if case == "zeros":
+        assert int(maxima.sum()) == 0
+    elif case == "few":
+        assert 0 < int(maxima[0]) < args[4]
+    # a second call on the same flag words (a new epoch): the same seeds
+    again = T._launch_k13(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_k13_raises_past_the_row_cap(on_host):
+    n = T.K13_MAX_ROWS + 1
+    src = torch.zeros((1, n, 3))
+    with pytest.raises(ValueError, match=f"{n} rows"):
+        T._launch_k13(src, torch.ones((1, n), dtype=torch.bool),
+                      torch.zeros((1, n)), 0.6, 10)
 
 
 def test_k14_k15_sources_match_plain(on_host):
