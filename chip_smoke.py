@@ -92,8 +92,10 @@ Phases (any failure exits non-zero):
    on their own batch sides (`coord_path_checks`): the device kernels of
    one `preprocess_clouds` call (K10's 2, the sort's, K11's 2) beside the
    plain version's on the same tensors, no host sync in it or in
-   `conv_maps(inverse=False)` and at most one in `conv_maps(inverse=True)`,
-   and its peak memory under the plain version's dense grid. Then the
+   `conv_maps` (sync debug mode "error"; with the inverses too, whose
+   collision count a forced collision shows raising at the first conv
+   backward), and its peak memory under the plain version's dense grid.
+   Then the
    same pairs with RANSAC, the test CLI's default estimator
    (`eval.test_pair` with `use_ransac`): finite poses, exactly one K2,
    K16 (two-stage), K17 and K18 `ransac_polish` launch a pair, no
@@ -757,11 +759,11 @@ def coord_path_checks(what, xyz, counts, inverse: bool):
     `conv_maps`: the device kernels of a preprocess call (K10's 2, the
     sort's and K11's 2) beside the plain version's (the parent's code) on
     the same CUDA tensors; no host sync (sync debug mode "error") in
-    preprocess_clouds and conv_maps(inverse=False), at most one in
-    conv_maps(inverse=True) (mode "warn"); the preprocess's peak device
-    memory beside the plain version's and under the plain version's
-    level-0 dense grid."""
-    import warnings
+    preprocess_clouds and conv_maps, with the inverses where `inverse`
+    (their collision count is read by the conv backward: a pyramid forced
+    to collide raises there, at the first backward, and not in the call);
+    the preprocess's peak device memory beside the plain version's and
+    under the plain version's level-0 dense grid."""
     import torch
     from eyoc_tpu_torch.sparse import morton
     from eyoc_tpu_torch.sparse.brick_conv import conv_maps
@@ -782,22 +784,13 @@ def coord_path_checks(what, xyz, counts, inverse: bool):
     try:
         _, pyr = preprocess_clouds(xyz, counts, **kw)
         conv_maps(pyr, 4, 5)
+        if inverse:
+            conv_maps(pyr, 4, 5, inverse=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    syncs = 0
     if inverse:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                conv_maps(pyr, 4, 5, inverse=True)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
-        if syncs > 1:
-            raise AssertionError(f"{what}: conv_maps(inverse=True) syncs the "
-                                 f"host {syncs} times")
+        forced_collision_raises(what, pyr)
 
     def peak(fn):
         torch.cuda.synchronize()
@@ -818,11 +811,50 @@ def coord_path_checks(what, xyz, counts, inverse: bool):
     log(f"{what} (B = {B}, P = {P}): preprocess_clouds runs {k:g} device "
         f"kernels (K10 2, the sort {n_sort:g}, K11 2; the plain version "
         f"{k_plain:g} on the same tensors), no host sync in it or in "
-        f"conv_maps(inverse=False)"
-        + (f", {syncs} in conv_maps(inverse=True)" if inverse else "")
-        + f"; peak device memory {mem / 2 ** 20:.1f} MiB (the plain "
+        f"conv_maps(inverse={inverse}) (sync debug mode \"error\")"
+        f"; peak device memory {mem / 2 ** 20:.1f} MiB (the plain "
         f"version {mem_plain / 2 ** 20:.1f} MiB, its level-0 grid "
         f"{grid / 2 ** 20:.1f} MiB)")
+
+
+def forced_collision_raises(what, pyr):
+    """K12's deferred collision check on the card: every level-0 brick
+    takes one brick as its +z neighbour, so outputs of different bricks
+    read one input through one tap. conv_maps(inverse=True) returns with
+    no host sync (mode "error"), and the first conv backward over one of
+    its inverses raises as invert_map does, before dX reads it."""
+    import torch
+    from eyoc_tpu_torch.sparse.brick_conv import (SparseConvFunction,
+                                                  conv_maps)
+    lv = pyr.levels[0]
+    target = int(lv.occ.reshape(-1, 8)[:, 0::2].sum(1).argmax())
+    nbr6 = lv.nbr6.clone()
+    nbr6[5] = torch.where(lv.bmask, torch.full_like(nbr6[5], target),
+                          nbr6[5])
+    bad = pyr._replace(levels=(lv._replace(nbr6=nbr6),) + pyr.levels[1:])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        maps = conv_maps(bad, 4, 5, inverse=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((lv.cellslot.shape[0], 32), device="cuda",
+                    generator=gen).bfloat16().requires_grad_()
+    W = torch.randn((27, 32, 32), device="cuda", generator=gen)
+    out = SparseConvFunction.apply(x, None, W, maps.same3[0],
+                                   maps.inv_same3[0])
+    try:
+        out.float().sum().backward()
+    except ValueError as err:
+        if "read by more than one output row" not in str(err):
+            raise
+        log(f"{what}: a forced collision (every brick's +z neighbour one "
+            f"brick): conv_maps(inverse=True) returned with no host sync; "
+            f"the first conv backward raised: {err}")
+        return
+    raise AssertionError(f"{what}: a forced collision did not raise at the "
+                         "conv backward")
 
 
 # ---------------------------------------------------- phase 2, training

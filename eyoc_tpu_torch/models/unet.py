@@ -271,7 +271,7 @@ class ResUNet(nn.Module):
         L = spec.num_levels
         blocks = spec.block_norm_type is not None
         # the inverses serve the backward's dX only: a forward under no_grad
-        # (the EYOC labeler's) builds none, and K12 then syncs nothing
+        # (the EYOC labeler's) builds none
         grad = torch.is_grad_enabled()
         maps = conv_maps(pyr, L, self.conv1_kernel_size, inverse=grad)
         if not grad:

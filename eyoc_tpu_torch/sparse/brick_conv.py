@@ -16,7 +16,7 @@ zero row. `conv_maps` turns a BrickPyramid into those maps: on the card
 kernel K12 (`csrc/conv_maps.cu`) builds every map of a forward, and the
 inverses of a train forward, in two launches (the JAX package gathers a
 halo instead, `halo_parts`, brick_conv.py:95); `conv_maps_plain` is the
-plain version and `conv_maps_rowtap_plain` K12's reformulation.
+plain version and `conv_maps_staged_plain` K12's reformulation.
 
 Conv semantics follow `eyoc_tpu`, NOT MinkowskiEngine's full 27-tap
 convolution (decision recorded here and in ROADMAP.md):
@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -239,9 +240,11 @@ def _raise_collisions(n: int) -> None:
                          "more than one output row")
 
 
-# K12's reformulation in plain torch, for the CPU tests: each map entry
-# from its own (output row, tap), and the inverses with a count of
-# collisions (a slot read by k outputs counts k - 1).
+# K12's reformulation in plain torch, for the CPU tests: the neighbourhood
+# of each brick resolved once and staged (the voxel rows of the cells of
+# the 27 bricks around it), each map entry read from its brick's stage;
+# the inverses with a count of collisions (a slot read by k outputs counts
+# k - 1).
 
 
 def cell_to_voxel_occ_plain(level: BrickLevel) -> torch.Tensor:
@@ -261,15 +264,56 @@ def cell_to_voxel_occ_plain(level: BrickLevel) -> torch.Tensor:
     return out
 
 
-def conv_up_map_rowtap_plain(fine: BrickLevel, coarse_c2v: torch.Tensor,
+_NEAR = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+         for dz in (-1, 0, 1)]          # stage order: x-major, z fastest
+
+
+def brick_neighbourhood_plain(level: BrickLevel,
+                              c2v: torch.Tensor) -> torch.Tensor:
+    """[NBtot + 1, 27, 8] the voxel rows of the 8 cells of the 27 bricks
+    at offsets in [-1, 1]^3 of each brick (row NBtot: the sentinel brick),
+    each reached as `_tap_sources` reaches it: the z hop, then y, then x
+    (a brick past an absent one is absent, its cells M_l)."""
+    dev = c2v.device
+    NBtot = level.bkeys.shape[0]
+    nbr = torch.cat([level.nbr6, level.nbr6.new_full((6, 1), NBtot)],
+                    1).long()
+    d = torch.tensor(_NEAR, dtype=torch.int64, device=dev)
+    b = torch.arange(NBtot + 1, device=dev)[:, None].expand(NBtot + 1, 27)
+    for axis in (2, 1, 0):
+        da = d[:, axis]
+        b = torch.where(da < 0, nbr[2 * axis][b],
+                        torch.where(da > 0, nbr[2 * axis + 1][b], b))
+    cells = torch.where(b[..., None] < NBtot,
+                        b[..., None] * 8 + torch.arange(8, device=dev),
+                        NBtot * 8)
+    return c2v[cells]
+
+
+def _staged_taps(stage: torch.Tensor, brick: torch.Tensor, u: torch.Tensor,
+                 offs) -> torch.Tensor:
+    """[R, T] entries of outputs at cell u [R, 3] of bricks `brick` [R]
+    (sentinel NBtot): tap off reads cell u + off, which lies in the brick at
+    offset (u + off) >> 1 of its own."""
+    off = torch.tensor(offs, dtype=torch.int32, device=u.device)
+    p = u[:, None, :] + off[None]                                # [R, T, 3]
+    d = (p >> 1) + 1
+    n = (d[..., 0] * 9 + d[..., 1] * 3 + d[..., 2]).long()
+    cell = (((p[..., 0] & 1) << 2) | ((p[..., 1] & 1) << 1)
+            | (p[..., 2] & 1)).long()
+    return stage[brick.long()[:, None], n, cell]
+
+
+def conv_up_map_staged_plain(fine: BrickLevel, coarse_c2v: torch.Tensor,
                              m_coarse: int) -> torch.Tensor:
-    """`conv_up_map` per (output row, tap): tap off of fine cell u reads
-    the coarse voxel at up_slots[brick, c] with c = (u - off) / 2 where
-    u - off is 0 or 2 on every axis, else the sentinel m_coarse."""
+    """`conv_up_map` from each fine brick's stage of 8 coarse voxels (those
+    of its up_slots): tap off of fine cell u reads stage[c] with c = (u -
+    off) / 2 where u - off is 0 or 2 on every axis, else m_coarse."""
     NBtot = fine.bkeys.shape[0]
     sent = coarse_c2v.shape[0] - 1
-    up = torch.cat([fine.up_slots, fine.up_slots.new_full((1, 8), sent)],
-                   0).long()
+    stage = coarse_c2v[torch.cat([fine.up_slots,
+                                  fine.up_slots.new_full((1, 8), sent)],
+                                 0).long()]                      # [NBtot+1, 8]
     brick, u = _cell_coords(fine.cellslot)
     brick = torch.clamp(brick, max=NBtot).long()
     off = torch.tensor(_offsets(3), dtype=torch.int32, device=u.device)
@@ -277,7 +321,7 @@ def conv_up_map_rowtap_plain(fine: BrickLevel, coarse_c2v: torch.Tensor,
     ok = ((e == 0) | (e == 2)).all(-1)
     c = e >> 1
     ci = torch.where(ok, c[..., 0] * 4 + c[..., 1] * 2 + c[..., 2], 0)
-    src = coarse_c2v[up[brick[:, None], ci.long()]]
+    src = stage[brick[:, None], ci.long()]
     return torch.where(ok, src, torch.full_like(src, m_coarse)).contiguous()
 
 
@@ -296,28 +340,42 @@ def invert_map_counted_plain(nmap: torch.Tensor, m_in: int):
     return inv.reshape(m_in, T), collisions
 
 
-def conv_maps_rowtap_plain(pyr: BrickPyramid, num_levels: int,
+def conv_maps_staged_plain(pyr: BrickPyramid, num_levels: int,
                            conv1_kernel_size: int = 5,
                            inverse: bool = False) -> ConvMaps:
     """`conv_maps_plain` by K12's reformulation; raises as it does when an
     inverse has a collision."""
     levels = pyr.levels[:num_levels]
     c2v = [cell_to_voxel_occ_plain(lv) for lv in levels]
-    same3 = tuple(conv_same_map(lv, 3, c) for lv, c in zip(levels, c2v))
-    first = (conv_same_map(levels[0], conv1_kernel_size, c2v[0])
-             if conv1_kernel_size != 3 else same3[0])
-    down = tuple(conv_down_map(levels[l], c2v[l])
-                 for l in range(num_levels - 1))
-    up = tuple(conv_up_map_rowtap_plain(levels[l], c2v[l + 1],
+    stages = [brick_neighbourhood_plain(lv, c) for lv, c in zip(levels, c2v)]
+
+    def same(l, k):
+        brick, u = _cell_coords(levels[l].cellslot)
+        NBtot = levels[l].bkeys.shape[0]
+        return _staged_taps(stages[l], torch.clamp(brick, max=NBtot), u,
+                            _offsets(k)).contiguous()
+
+    def down(l):
+        NBtot = levels[l].bkeys.shape[0]
+        brick = torch.arange(NBtot, dtype=torch.int32, device=c2v[l].device)
+        return _staged_taps(stages[l], brick, torch.zeros_like(brick)[:, None]
+                            .expand(NBtot, 3), _offsets(3)).contiguous()
+
+    same3 = tuple(same(l, 3) for l in range(num_levels))
+    first = (same(0, conv1_kernel_size) if conv1_kernel_size != 3
+             else same3[0])
+    up = tuple(conv_up_map_staged_plain(levels[l], c2v[l + 1],
                                         levels[l + 1].cellslot.shape[0])
                for l in range(num_levels - 1))
-    maps = ConvMaps(same3, first, down, up,
+    downs = tuple(down(l) for l in range(num_levels - 1))
+    maps = ConvMaps(same3, first, downs, up,
                     tuple(pyr.vox_masks[:num_levels]))
     if not inverse:
         return maps
     M = [lv.cellslot.shape[0] for lv in levels]
     inv = ([invert_map_counted_plain(m, n) for m, n in zip(same3, M)],
-           [invert_map_counted_plain(m, M[l]) for l, m in enumerate(down)],
+           [invert_map_counted_plain(m, M[l])
+            for l, m in enumerate(maps.down)],
            [invert_map_counted_plain(m, M[l + 1]) for l, m in enumerate(up)])
     _raise_collisions(sum(n for part in inv for _, n in part))
     return maps._replace(
@@ -332,8 +390,84 @@ def conv_maps_rowtap_plain(pyr: BrickPyramid, num_levels: int,
 # kMapRecord int64 a map (csrc/conv_maps.cu); the map kinds
 _K12_SAME, _K12_DOWN, _K12_UP = 0, 1, 2
 _K12_ARGS = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+_K12_TABLE = 8 * (27 + 125 + 27)    # csrc/conv_maps.cu: kTabSize
+K12_ROWS = 32          # output rows a maps block (csrc/conv_maps.cu: kMaxRows)
+
+
+class CollisionCheck:
+    """The collision count of one K12 call with inverses, read where the
+    conv backward first needs one of its inverses (`raise_if_any`). On the
+    card the count goes by an async copy into a word of a pinned ring, with
+    an event recorded after it, so the call does not wait for it; by the
+    backward the copy has normally landed. A CPU count (the kernel's source
+    built for the host) is read as it is."""
+
+    def __init__(self, count: torch.Tensor):
+        self._n = None
+        self._event = None
+        self._word = count
+        if count.is_cuda:
+            self._word = _pinned_word(count.device, self)
+            self._word.copy_(count, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def _read(self, wait: bool) -> bool:
+        """Read the count into the check (waiting for the copy if `wait`);
+        False if the copy has not landed and `wait` is not set. A copy that
+        has landed is read without a wait (no host sync)."""
+        if self._n is None:
+            if self._event is not None and not self._event.query():
+                if not wait:
+                    return False
+                self._event.synchronize()
+            self._n = int(self._word[0])
+            self._word = None
+        return True
+
+    def raise_if_any(self) -> None:
+        """Raise as invert_map does when two outputs read one (input, tap)
+        slot."""
+        self._read(wait=True)
+        _raise_collisions(self._n)
+
+
+class _PinnedRing:
+    """Pinned host int32 words of one device for the collision counts,
+    taken in turn; a word is taken again once its last check has read it
+    or its copy has landed (read for that check first)."""
+
+    def __init__(self, n: int):
+        self.words = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        self.owners = [None] * n
+        self.next = 0
+
+    def take(self, owner: CollisionCheck) -> Optional[torch.Tensor]:
+        n = len(self.owners)
+        for _ in range(n):
+            s = self.next
+            self.next = (s + 1) % n
+            prev = self.owners[s] and self.owners[s]()
+            if prev is not None and not prev._read(wait=False):
+                continue
+            self.owners[s] = weakref.ref(owner)
+            return self.words[s:s + 1]
+        return None
+
+
+_rings: dict = {}
+
+
+def _pinned_word(device, owner: CollisionCheck) -> torch.Tensor:
+    ring = _rings.get(device)
+    word = ring.take(owner) if ring is not None else None
+    if word is None:         # every word awaits its copy: a larger ring
+        ring = _rings[device] = _PinnedRing(
+            64 if ring is None else 2 * len(ring.owners))
+        word = ring.take(owner)
+    return word
 
 
 def conv_maps(pyr: BrickPyramid, num_levels: int, conv1_kernel_size: int = 5,
@@ -344,11 +478,27 @@ def conv_maps(pyr: BrickPyramid, num_levels: int, conv1_kernel_size: int = 5,
 
     A CPU tensor takes the plain version; a CUDA tensor launches K12 (two
     launches: the cell-to-voxel tables and the inverses' fill, then every
-    map entry and its inverse) or raises. With `inverse` the call reads the
-    collision count back: one host sync a call."""
+    map entry and its inverse, a block a run of K12_ROWS output rows) or
+    raises. With `inverse` the collision count is not waited for: each
+    inverse carries a CollisionCheck (`collision_check`) that
+    `SparseConvFunction.backward` raises on before it reads the inverse;
+    the call makes no host sync."""
     if pyr.levels[0].cellslot.is_cpu:
         return conv_maps_plain(pyr, num_levels, conv1_kernel_size, inverse)
     return _launch_k12(pyr, num_levels, conv1_kernel_size, inverse)
+
+
+def collision_check(inv: Optional[torch.Tensor]) -> Optional[CollisionCheck]:
+    """The deferred collision check K12 attached to an inverse, if any."""
+    return getattr(inv, "collision_check", None)
+
+
+def _split_aligned(sizes, **kw):
+    """Views of one int32 allocation, each starting at a multiple of 32
+    bytes (K12's 16-byte stores, its 32-byte brick rows of c2v)."""
+    pad = [-(-n // 8) * 8 for n in sizes]
+    return [t[:n] for t, n in zip(torch.empty(sum(pad), **kw).split(pad),
+                                  sizes)]
 
 
 def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
@@ -361,11 +511,15 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
                     lv.up_slots if l + 1 < L else None]
         dtypes += [torch.int32, torch.int32, torch.bool, torch.int32]
     dev = kernels.require_cuda("conv_maps", *tensors, dtypes=dtypes)
+    if conv1_kernel_size not in (3, 5):
+        raise ValueError(f"conv_maps: a first conv of side "
+                         f"{conv1_kernel_size}; the kernel reads one brick "
+                         "around each output, sides 3 and 5")
     M = [lv.cellslot.shape[0] for lv in levels]
     NB = [lv.bkeys.shape[0] for lv in levels]
     i32 = dict(dtype=torch.int32, device=levels[0].cellslot.device)
-    c2v = torch.empty(sum(8 * n + 1 for n in NB), **i32).split(
-        [8 * n + 1 for n in NB])
+    *c2v, table = _split_aligned([8 * n + 8 for n in NB] + [_K12_TABLE],
+                                 **i32)
     # (kind, level, kernel side, rows, input rows) of each map, in
     # ConvMaps order: same3, first (k != 3), down, up
     specs = [(_K12_SAME, l, 3, M[l], M[l]) for l in range(L)]
@@ -373,9 +527,9 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
         specs.append((_K12_SAME, 0, conv1_kernel_size, M[0], M[0]))
     specs += [(_K12_DOWN, l, 3, NB[l], M[l]) for l in range(L - 1)]
     specs += [(_K12_UP, l, 3, M[l], M[l + 1]) for l in range(L - 1)]
-    sizes = [rows * k ** 3 for _, _, k, rows, _ in specs]
     maps = [t.view(rows, k ** 3) for t, (_, _, k, rows, _) in zip(
-        torch.empty(sum(sizes), **i32).split(sizes), specs)]
+        _split_aligned([rows * k ** 3 for _, _, k, rows, _ in specs], **i32),
+        specs)]
     # the maps whose input takes a gradient: all but `first`
     n_first = int(conv1_kernel_size != 3)
     grads = list(range(L)) + list(range(L + n_first, len(specs)))
@@ -383,7 +537,7 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
     if inverse:
         isz = [specs[i][4] * 27 for i in grads]
         invs = {i: t.view(specs[i][4], 27) for i, t in zip(
-            grads, torch.empty(sum(isz), **i32).split(isz))}
+            grads, _split_aligned(isz, **i32))}
     coll = torch.empty(1, **i32)
     p = kernels.ptr
     lrec = []
@@ -394,8 +548,8 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
     for i, (kind, l, k, rows, m_in) in enumerate(specs):
         mrec += [kind, l, k, rows, m_in, p(maps[i]), p(invs.get(i)) or 0]
     err = fn((ctypes.c_longlong * len(lrec))(*lrec), L,
-             (ctypes.c_longlong * len(mrec))(*mrec), len(specs), p(coll),
-             kernels.stream_handle(dev))
+             (ctypes.c_longlong * len(mrec))(*mrec), len(specs), K12_ROWS,
+             p(table), p(coll), kernels.stream_handle(dev))
     kernels.check_launch("conv_maps", err)
     same3 = tuple(maps[:L])
     first = maps[L] if n_first else same3[0]
@@ -404,8 +558,10 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
                    tuple(pyr.vox_masks[:L]))
     if not inverse:
         return out
-    _raise_collisions(int(coll))                   # the one host sync
+    check = CollisionCheck(coll)
     inv = [invs[i] for i in grads]
+    for t in inv:
+        t.collision_check = check
     return out._replace(inv_same3=tuple(inv[:L]),
                         inv_down=tuple(inv[L:2 * L - 1]),
                         inv_up=tuple(inv[2 * L - 1:]))
@@ -792,13 +948,15 @@ class SparseConvFunction(torch.autograd.Function):
     cotangent of a bf16 conv output is bf16 (brick_conv.py:259-261, :307),
     then dX = K1 over `inv` with W transposed per tap (`sparse_conv_dgrad`)
     and dW = K5. `inv` (`invert_map(nmap, M_in)`) may be None when neither
-    x nor x2 needs a gradient."""
+    x nor x2 needs a gradient. An inverse from K12 carries its call's
+    collision count, which the backward raises on before dX reads it."""
 
     @staticmethod
     def forward(ctx, x, x2, W, nmap, inv):
         Wc = W.to(x.dtype).contiguous()
         ctx.save_for_backward(x, x2, Wc, nmap, inv)
         ctx.w_dtype = W.dtype
+        ctx.collisions = collision_check(inv)
         return sparse_conv(x, Wc, nmap, x2=x2)
 
     @staticmethod
@@ -810,6 +968,8 @@ class SparseConvFunction(torch.autograd.Function):
             if inv is None:
                 raise ValueError("SparseConvFunction: dX needs the inverse "
                                  "map")
+            if ctx.collisions is not None:     # K12's count, before dX
+                ctx.collisions.raise_if_any()
             dcat = sparse_conv_dgrad(dy, Wc.transpose(1, 2).contiguous(), inv)
             Ca = x.shape[1]
             dx = dcat[:, :Ca].contiguous()

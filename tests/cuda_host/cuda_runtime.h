@@ -54,6 +54,7 @@ struct alignas(16) int4 {
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 
 namespace host_cuda {
@@ -166,11 +167,19 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicExch(unsigned long long* p,
+                                     unsigned long long v) {
   return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
 }
 inline int atomicCAS(int* p, int expected, int desired) {

@@ -1,7 +1,9 @@
 """The sparse coordinate kernels' reformulations (K10 voxelize, K11
-brick_pyramid, K12 conv_maps) in plain torch, against the plain versions
-and the JAX package on the same numpy inputs; and their wrappers'
-dispatch. Every index, key, mask and map is compared bit for bit.
+brick_pyramid's one pass over the level-0 rows, K12 conv_maps' staged
+brick neighbourhoods) in plain torch, against the plain versions and the
+JAX package on the same numpy inputs; and their wrappers' dispatch. Every
+index, key, mask and map is compared bit for bit (tests/
+test_torch_pyramid_onepass.py holds K11's one pass on crafted masks).
 
 The JAX side runs under `jax.jit` with the voxel size as a traced f32, so
 that `xyz / voxel_size` is an IEEE division, as the port's (torch's f32
@@ -106,7 +108,7 @@ def mirror_preprocess(xyz, counts, caps, bits=BITS):
     """preprocess_clouds through K10's and K11's reformulations."""
     B, cap = xyz.shape[0], caps[0]
     vox, keys = tvox.voxelize_tiled_plain(xyz, counts, VOXEL, cap, bits)
-    pyr = tbricks.build_pyramid_search_plain(
+    pyr = tbricks.build_pyramid_onepass_plain(
         keys, vox.mask.reshape(-1), B, tpipe.brick_caps(caps), bits)
     return vox._replace(mask=pyr.vox_masks[0].reshape(B, cap),
                         count=pyr.counts), pyr, keys
@@ -253,16 +255,17 @@ def _sorted_within_clouds(level, B):
 
 @pytest.mark.parametrize("B,caps", CASES)
 def test_k11_search_matches_grid_and_jax(B, caps):
-    """The sorted-key neighbour search against the grid form and eyoc_tpu's
-    build_pyramid (window edges, brick and parent overflow); every
-    cloud's valid brick keys are a sorted prefix, which the search needs."""
+    """The one-pass skeleton with the sorted-key neighbour search against
+    the grid form and eyoc_tpu's build_pyramid (window edges, brick and
+    parent overflow); every cloud's valid brick keys are a sorted prefix,
+    which the search needs."""
     xyz, counts = clouds(B, seed=20 + B)
     vox, keys = tvox.voxelize_batched_plain(torch.from_numpy(xyz),
                                             torch.from_numpy(counts), VOXEL,
                                             caps[0], BITS)
     mask = vox.mask.reshape(-1)
     bcs = tpipe.brick_caps(caps)
-    search = tbricks.build_pyramid_search_plain(keys, mask, B, bcs, BITS)
+    search = tbricks.build_pyramid_onepass_plain(keys, mask, B, bcs, BITS)
     grid = tbricks.build_pyramid_plain(keys, mask, B, bcs, BITS)
     jp = _jit_pyramid(B, bcs, BITS)(jnp.asarray(keys.numpy()),
                                     jnp.asarray(mask.numpy()))
@@ -290,7 +293,7 @@ def test_k11_refuses_what_jax_refuses(brick_caps, msg):
     keys = torch.full((512,), tbricks.morton.INVALID_KEY, dtype=torch.int32)
     mask = torch.zeros(512, dtype=torch.bool)
     for build in (tbricks.build_pyramid_plain,
-                  tbricks.build_pyramid_search_plain):
+                  tbricks.build_pyramid_onepass_plain):
         with pytest.raises(ValueError, match=msg):
             build(keys, mask, 1, brick_caps, BITS)
     with pytest.raises(AssertionError):
@@ -317,11 +320,12 @@ def pyramids():
 @pytest.mark.parametrize("case", [0, 1])
 @pytest.mark.parametrize("inverse,k1", [(False, 5), (True, 5), (True, 3)])
 def test_k12_rowtap_matches_conv_maps(pyramids, case, inverse, k1):
-    """The per-(row, tap) map build, with the cell table built without a
-    fill and the inverses with a collision count, against conv_maps and
-    invert_map: the 125- and 27-tap maps, down, up and the inverses."""
+    """The map build from each brick's staged neighbourhood, with the
+    cell table built without a fill and the inverses with a collision
+    count, against conv_maps and invert_map: the 125- and 27-tap maps,
+    down, up and the inverses."""
     pyr = pyramids[case]
-    got = tbc.conv_maps_rowtap_plain(pyr, 4, k1, inverse)
+    got = tbc.conv_maps_staged_plain(pyr, 4, k1, inverse)
     want = tbc.conv_maps_plain(pyr, 4, k1, inverse)
     assert_equal(tuple(got), tuple(want), "maps")
     assert got.first.shape[1] == k1 ** 3
@@ -346,7 +350,7 @@ def test_k12_dropped_diagonal_tap():
                                      torch.tensor([2], dtype=torch.int32),
                                      caps=(64, 32, 16, 8), voxel_size=VOXEL,
                                      window_bits=jmorton.BITS)
-    got = tbc.conv_maps_rowtap_plain(pyr, 4, 3)
+    got = tbc.conv_maps_staged_plain(pyr, 4, 3)
     assert_equal(got.same3[0], tbc.conv_same_map(pyr.levels[0], 3), "same3")
     rows = torch.nonzero(pyr.vox_masks[0])[:, 0]
     M = pyr.vox_masks[0].shape[0]
@@ -374,9 +378,56 @@ def test_k12_collisions_raise():
     assert n > 0
     with pytest.raises(ValueError, match=f"{n} .input, tap. slots"):
         tbc.invert_map(maps.same3[0], lv.cellslot.shape[0])
-    for build in (tbc.conv_maps_plain, tbc.conv_maps_rowtap_plain):
+    for build in (tbc.conv_maps_plain, tbc.conv_maps_staged_plain):
         with pytest.raises(ValueError, match="read by more than one"):
             build(bad, 4, 5, inverse=True)
+
+
+class _Copy:
+    """A stand-in for a check's copy: landed or not."""
+
+    def __init__(self, landed):
+        self.landed = landed
+
+    def query(self):
+        return self.landed
+
+    def synchronize(self):
+        raise AssertionError("the ring waited for a copy")
+
+
+def test_k12_pinned_ring_takes_read_or_landed_words(monkeypatch):
+    """K12's collision counts go to words of a pinned ring: a word is taken
+    again once its check has read it or its copy has landed (then read for
+    that check first, with no wait); when every word awaits its copy, a
+    larger ring. Pinned memory and events need a card, so the ring runs on
+    plain host words and the checks' copies are stand-ins."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k:
+                        empty(*a, **k))
+    monkeypatch.setattr(tbc, "_rings", {})
+
+    def check(count, landed):
+        c = tbc.CollisionCheck(torch.zeros(1, dtype=torch.int32))
+        c._word = tbc._pinned_word("dev", c)
+        c._word[0] = count
+        c._event = _Copy(landed)
+        return c
+
+    first = [check(n, landed) for n, landed in ((0, False), (2, True))]
+    first += [check(0, False) for _ in range(62)]
+    ring = tbc._rings["dev"]
+    assert len(ring.owners) == 64
+    again = check(0, False)             # the landed word of `first[1]`
+    assert first[1]._n == 2 and first[1]._word is None
+    assert again._word.data_ptr() == ring.words[1:2].data_ptr()
+    with pytest.raises(ValueError, match="2 .input, tap. slots"):
+        first[1].raise_if_any()
+    grown = check(0, False)             # every word awaits its copy
+    assert len(tbc._rings["dev"].owners) == 128
+    assert grown._word.data_ptr() != again._word.data_ptr()
+    first[0]._event.landed = True
+    first[0].raise_if_any()             # a count of 0: no raise
 
 
 # -------------------------------------------------------------- dispatch

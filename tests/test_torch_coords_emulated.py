@@ -4,7 +4,13 @@ tests/cuda_host/cuda_runtime.h, and run through the wrappers' launch code
 on CPU tensors: every output bit-equal to the plain version; K10's
 compaction also at tiles of 7 and 128 sorted keys (hundreds of blocks a
 cloud, chained by its look-back), with an empty cloud, an all-invalid one
-and the capacity reached inside a tile.
+and the capacity reached inside a tile; K11's one pass at tiles of a few
+rows (one cloud over many blocks, the look-back chaining them), with cuts
+at every level inside a tile, an empty and an all-masked cloud and masked
+rows between voxels of one brick; K12 at runs of a few rows (bricks split
+across blocks); both with their outputs allocated poisoned, so that every
+byte must be written; K12's collision count raising at the first conv
+backward, not in the call.
 
 This checks the kernels' indexing, scans, searches and scatters on the
 CPU; what only the card can show (that nvcc takes the source, the launch
@@ -137,8 +143,9 @@ def test_k10_source_tiles(on_host, monkeypatch, tile, cap):
 
 def test_k12_source_counts_collisions(on_host):
     """Every brick taking one brick as its +z neighbour: K12 counts the
-    collisions on the device and the wrapper raises as invert_map does,
-    with the same count."""
+    collisions on the device, the call returns without reading the count,
+    and the first conv backward over one of its inverses raises as
+    invert_map does, with the same count, before dX reads the inverse."""
     xyz, counts = clouds(1, 3000, 9, (7, 7, 6))
     _, pyr = tpipe.preprocess_clouds(xyz, counts,
                                      caps=(4096, 1024, 256, 128),
@@ -152,6 +159,81 @@ def test_k12_source_counts_collisions(on_host):
     bad = pyr._replace(levels=(lv._replace(nbr6=nbr6),) + pyr.levels[1:])
     with pytest.raises(ValueError) as plain:
         tbc.conv_maps_plain(bad, 4, 5, inverse=True)
+    maps = tbc._launch_k12(bad, 4, 5, True)
+    checks = {id(tbc.collision_check(i)) for part in (
+        maps.inv_same3, maps.inv_down, maps.inv_up) for i in part}
+    assert len(checks) == 1 and None not in {
+        tbc.collision_check(maps.inv_same3[0])}
+    M = lv.cellslot.shape[0]
+    x = torch.ones((M, 8), requires_grad=True)
+    W = torch.ones((27, 8, 8))
+    out = tbc.SparseConvFunction.apply(x, None, W, maps.same3[0],
+                                       maps.inv_same3[0])
     with pytest.raises(ValueError) as kernel:
-        tbc._launch_k12(bad, 4, 5, True)
+        out.sum().backward()
     assert str(kernel.value) == str(plain.value)
+    # a good pyramid's inverses pass the same check
+    good = tbc._launch_k12(pyr, 4, 5, True)
+    out = tbc.SparseConvFunction.apply(x, None, W, good.same3[0],
+                                       good.inv_same3[0])
+    out.sum().backward()
+    assert x.grad is not None
+
+
+@pytest.fixture(params=[-7, 0])
+def poisoned(request, monkeypatch):
+    """torch.empty gives tensors filled with a value no output holds
+    (int -7, bool True), or with zeros: an output byte that no thread
+    writes differs from the plain version under one of the two."""
+    empty = torch.empty
+
+    def filled(*size, dtype=None, device=None, **kw):
+        t = empty(*size, dtype=dtype, device=device, **kw)
+        return t.fill_(bool(request.param) if t.dtype is torch.bool
+                       else request.param)
+
+    monkeypatch.setattr(torch, "empty", filled)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("tile", [7, 64])
+def test_k11_source_tiles(on_host, poisoned, monkeypatch, B, tile):
+    """K11's one pass at tiles of 7 and 64 rows on
+    test_torch_pyramid_onepass's rows (B = 8: every level cut, the level-0
+    cut inside a tile; an empty and an all-masked cloud; masked rows
+    between voxels of one brick), against the plain version and the
+    one-pass mirror at the same tile."""
+    from test_torch_pyramid_onepass import BITS, CASES, level0_rows
+    caps = dict(CASES)[B]
+    keys, mask = map(torch.from_numpy, level0_rows(B, seed=B))
+    monkeypatch.setattr(tbricks, "K11_TILE", tile)
+    got = tbricks._launch_k11(keys, mask, B, caps, BITS)
+    want = tbricks.build_pyramid_plain(keys, mask, B, caps, BITS)
+    assert_equal(tuple(got.levels), tuple(want.levels), "K11 levels")
+    assert_equal(tuple(got.vox_masks), tuple(want.vox_masks), "K11 masks")
+    assert_equal(got.counts, want.counts, "K11 counts")
+    mirror = tbricks.build_pyramid_onepass_plain(keys, mask, B, caps, BITS,
+                                                 tile)
+    assert_equal(tuple(got), tuple(mirror), "mirror")
+
+
+@pytest.mark.parametrize("rows", [3, 5, 32])
+def test_k12_source_runs(on_host, poisoned, monkeypatch, rows):
+    """K12's maps at runs of 3, 5 and 32 output rows a block (a brick's
+    voxels split across blocks), on a voxelized pyramid whose level-0
+    bricks overflow (maps and inverses) and on the masked rows' pyramid of
+    test_torch_pyramid_onepass (maps), against the plain version."""
+    from test_torch_pyramid_onepass import BITS, CASES, level0_rows
+    monkeypatch.setattr(tbc, "K12_ROWS", rows)
+    xyz, counts = clouds(2, 1500, 4, (7, 7, 6))
+    _, pyr = tpipe.preprocess_clouds(xyz, counts, caps=(512, 128, 48, 16),
+                                     voxel_size=VOXEL, window_bits=(7, 7, 6))
+    assert bool((pyr.levels[0].bmask.reshape(2, -1).sum(1) == 128).all())
+    for k1, inverse in ((5, True), (3, False)):
+        assert_equal(tuple(tbc._launch_k12(pyr, 4, k1, inverse)),
+                     tuple(tbc.conv_maps_plain(pyr, 4, k1, inverse)),
+                     f"K12 k1={k1}")
+    keys, mask = map(torch.from_numpy, level0_rows(8, seed=8))
+    masked = tbricks.build_pyramid_plain(keys, mask, 8, dict(CASES)[8], BITS)
+    assert_equal(tuple(tbc._launch_k12(masked, 4, 5, False)),
+                 tuple(tbc.conv_maps_plain(masked, 4, 5, False)), "masked")
