@@ -40,7 +40,8 @@ Phases (any failure exits non-zero):
    at the published recipe and one at the demo's gates (phase 6's
    configurations): K2's matching (both directions of 8 pairs, [16, 16384,
    32], in one call) and rediscovery, K3 and K4 on the 8 SC2-PCR calls at
-   N = 8000 and S = 1600, K8 (`masked_knn2`, the gated matching's top 2)
+   N = 8000 and S = 1600, K8 (`masked_knn2`, the gated matching's top 2,
+   on the tensor cores: its bound there and at the f32 rate both kept)
    and K9 (`masked_argmin_excl`, the safe-radius mining at 8192 x 2048,
    r = 1.5 m); each against its plain version, the same bits twice, its
    device kernels a call and its host cost. SC2-PCR's K13 `sc2_nms`, K14
@@ -75,7 +76,8 @@ Phases (any failure exits non-zero):
    K17 `ransac_verify` (over K16's 2048 kept poses, 5000 rows; 2 device
    kernels) with its counts within the same bands and the first argmax;
    K18 `ransac_polish` (5 rounds) and
-   `icp_solve` within POLISH_TOL of the plain version and of the f64
+   `icp_solve` (3 device kernels a call) within POLISH_TOL of the plain
+   version and of the f64
    solve (SVD) over the valid rows, the polish's inlier count equal; K2
    at ICP's shape (32768 x 32768 x 3) against the f64 nearest neighbour
    and the plain version's where the gap is clear; each the same bits
@@ -198,7 +200,7 @@ GATED = dict(feature_filter="Lowe", spatial_filter="Spherical",
 # 8.0x wgmma s8 m64n256k32 (15.59-15.72 and 1.94-1.96 P ops/s on an H100
 # 80GB HBM3 at 700 W; the s8 rate is 98-99% of the int8 peak)
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "tf32": 495e12}
 PEAK["b1"] = 8 * PEAK["int8"]
 
 # tolerances of kernel against plain version
@@ -238,27 +240,45 @@ def _dev_ms(e) -> float:
 
 
 def device_ms(thunks, reps: int):
-    """Device time (torch.profiler) of one pass over `thunks`, the mean of
-    `reps` passes: the kernels' own time, without the host's share. A
-    profile that recorded no device activity at all (now and then, for a
-    short window after long ones) is taken again, up to three times; None
-    if it never records any."""
+    """Device time (torch.profiler) of one pass over `thunks`, from `reps`
+    passes: the kernels' own time, without the host's share, as each
+    kernel's (and copy's) mean record times its records a pass. The
+    profiler drops a device record now and then (all of them for a short
+    window after long ones): the records a pass are ceil(records / reps),
+    and a window whose kernels a pass, times `reps`, come short of the
+    runtime's kernel launches on the host (cudaLaunch*, as `count_kernels`
+    counts them) is taken again, up to three times; None if every window
+    came short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for f in thunks:
         f()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 for f in thunks:
                     f()
             torch.cuda.synchronize()
-        total = sum(_dev_ms(e) for e in prof.key_averages()
-                    if e.device_type.name == "CUDA")
-        if total > 0:
-            return total / reps
+        averages = prof.key_averages()
+        device = [e for e in averages if e.device_type.name == "CUDA"
+                  and e.count > 0]
+        kernels = [e for e in device
+                   if not e.key.startswith(("Memcpy", "Memset"))]
+        n = sum(e.count for e in kernels)
+        a_pass = sum(-(-e.count // reps) for e in kernels)
+        launched = sum(e.count for e in averages
+                       if e.key.startswith(("cudaLaunch", "cuLaunch")))
+        if n > 0 and a_pass * reps >= launched:
+            if n < launched:
+                log(f"  device time: {n} records of {launched} kernel "
+                    f"launches; each kernel's mean record times its "
+                    f"{reps}-pass count rounded up")
+            return sum(_dev_ms(e) / e.count * -(-e.count // reps)
+                       for e in device)
+        log(f"  device time: window {attempt + 1} of 3 recorded {n} of "
+            f"{launched} kernel launches; taken again")
     return None
 
 
@@ -283,8 +303,18 @@ def host_us(thunks, reps: int) -> float:
     return (t1 - t0) / (reps * len(thunks)) * 1e6
 
 
-def bound_ms(nbytes: float, ops: float, kind: str):
-    tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK[kind] * 1e3
+def op_ms(ops, kind) -> float:
+    """ms for `ops` at PEAK[kind]; `ops` may be {kind: ops} for work split
+    over units that issue at once (K8: the tensor cores' products and the
+    CUDA cores' epilogue, interleaved by the block's warps), whose floor is
+    the slowest unit's time."""
+    if isinstance(ops, dict):
+        return max(v / PEAK[k] for k, v in ops.items()) * 1e3
+    return ops / PEAK[kind] * 1e3
+
+
+def bound_ms(nbytes: float, ops, kind: str | None):
+    tb, to = nbytes / HBM_BPS * 1e3, op_ms(ops, kind)
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -937,6 +967,7 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
                  classify):
     import torch
     worst = ms = plain_ms = lib_ms = bound = tb = to = 0.0
+    alt_bound, alt_kind = None, None
     classes = {}
     for args, kw in calls:
         got = fn(*args, **kw)
@@ -968,11 +999,17 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
             lib_ms += float(np.median(ls))
         ms += t
         plain_ms += time_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
-        nbytes, ops, kind = cost(*args, **kw)
+        # a cost may add a second count of the same work, (ops, kind), on
+        # another unit (K8: the f32 rate alone); its bound is logged and
+        # kept beside the row's
+        nbytes, ops, kind, *alt = cost(*args, **kw)
         tb += nbytes / HBM_BPS * 1e3
-        to += ops / PEAK[kind] * 1e3
+        to += op_ms(ops, kind)
         b = bound_ms(nbytes, ops, kind)[0]
         bound += b
+        if alt:
+            alt_kind = alt[0][1]
+            alt_bound = (alt_bound or 0.0) + bound_ms(nbytes, *alt[0])[0]
         if classify is not None:
             c = classes.setdefault(classify(*args, **kw), [0, 0.0, 0.0, []])
             c[0] += 1
@@ -986,6 +1023,12 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
         f"{plain_ms:.3f} ms, "
         + (f"library {lib_ms:.3f} ms, " if library is not None else "")
         + f"bound {bound:.4f} ms")
+    if alt_bound is not None:
+        log(f"  bound {alt_bound:.4f} ms with the operations at the "
+            f"{alt_kind} rate alone; device time at "
+            + ("not measured" if dev is None else
+               f"{bound / dev:.3f} of the row's bound, {alt_bound / dev:.3f} "
+               f"of that one"))
     for name, (n, t, b, cl) in classes.items():
         d = device_ms([lambda a=a, k=k: fn(*a, **k) for a, k in cl],
                       min(reps, 50))
@@ -994,7 +1037,7 @@ def _check_calls(label, calls, fn, plain, cost, close, library, reps,
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if tb >= to else "operations",
                 library_ms=lib_ms if library is not None else None,
-                device_ms=dev)
+                device_ms=dev, bound_alt_ms=alt_bound)
 
 
 def _bf16_close(rtol, atol_frac):
@@ -2121,7 +2164,7 @@ def check_ransac_kernels(gen, batch):
              "K18 ransac_polish (N = 5000, 5 rounds)",
              "rounds of a weighted Kabsch on a changing inlier set"),
             ("icp_solve", icp.icp_solve, icp.icp_solve_plain,
-             _icp_solve_cost, _icp_solve_close, kicp, 1,
+             _icp_solve_cost, _icp_solve_close, kicp, 3,
              f"K18 icp_solve (N = {s.shape[0]})",
              "a gated weighted Kabsch and a warp"),
             ("masked_argmin_icp", masked_argmin, masked_argmin_plain,
@@ -2546,10 +2589,25 @@ def _knn2_close(got, want, q, qm, r, rm, k):
     return ok, worst
 
 
+def _knn2_pairs(q, qm, r, rm):
+    return float((qm.sum(1).double() * rm.sum(1).double()).sum())
+
+
 def _knn2_cost(q, qm, r, rm, k):
+    """K8's bound on the tensor cores: the cross term's 3xTF32 products
+    (3 x 2 D flops a valid pair) at the TF32 rate, and, on the CUDA cores
+    that issue beside them, the epilogue's three f32 instructions a pair
+    (the FMA, the add of |r|^2, the compare; each at the FMA's rate, 6
+    flops; the clamp at 0 only for a candidate that passes the compare)
+    and the norms (2 D a valid row). The second count: the direct form's
+    2 D flops a valid pair at the f32 rate alone (the bound of K8's first
+    design)."""
     nq, nr, D = qm.numel(), rm.numel(), q.shape[-1]
-    pairs = float((qm.sum(1).double() * rm.sum(1).double()).sum())
-    return (nq + nr) * D * 4 + nq + nr + nq * k * 8, 2.0 * pairs * D, "f32"
+    pairs = _knn2_pairs(q, qm, r, rm)
+    rows = float(qm.sum() + rm.sum())
+    return (nq + nr) * D * 4 + nq + nr + nq * k * 8, {
+        "tf32": 6.0 * pairs * D, "f32": 6.0 * pairs + 2.0 * D * rows}, \
+        None, (2.0 * pairs * D, "f32")
 
 
 def _excl_close(got, want, a, c, pxyz, cxyz, r2):
@@ -3301,7 +3359,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-         "device_ms": r["device_ms"]}
+         "device_ms": r["device_ms"], "bound_alt_ms": r.get("bound_alt_ms")}
         for name, r in results.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,16 +3,17 @@
 // K8 masked_knn2: the two nearest valid refs of every valid query, squared
 // L2, for a batch of independent problems in one launch. Replaces
 // eyoc_tpu/ops/knn.py masked_knn with k=2 (:58-65): the first minimum of
-// the Gram-form distance row plus a +1e30 bias at masked refs, then that
-// column set to 1e30 and the argmin again. Semantics kept: the pair is the
-// top two under the (distance, index) order, so the lowest index wins a
-// tie and an equal-distance ref with a higher index comes second; an
-// invalid query returns (1e30, 0) in both places; a place that no valid
-// ref fills reads (1e30, 0), which is what JAX returns there (every masked
-// distance reads 1e30 in f32, and the lowest index at 1e30 is 0). Its
-// main-path call is the labeling's mutual matching with
-// feature_filter="Lowe": both directions of every pair, 2B problems of
-// 16384 x 16384 x 32 at the published batch.
+// the Gram-form distance row (metrics.py pdist2: (|q|^2 - 2 q.r) + |r|^2,
+// clamped at 0) plus a +1e30 bias at masked refs, then that column set to
+// 1e30 and the argmin again. Semantics kept: the pair is the top two under
+// the (distance, index) order, so the lowest index wins a tie and an
+// equal-distance ref with a higher index comes second; an invalid query
+// returns (1e30, 0) in both places; a place that no valid ref fills reads
+// (1e30, 0), which is what JAX returns there (every masked distance reads
+// 1e30 in f32, and the lowest index at 1e30 is 0). Its main-path call is
+// the labeling's mutual matching with feature_filter="Lowe": both
+// directions of every pair, 2B problems of 16384 x 16384 x 32 at the
+// published batch.
 //
 // K9 masked_argmin_excl: K2 with a spatial exclusion, for the
 // hardest-negative mining with safe_radius > 0 (eyoc_tpu/training/
@@ -26,25 +27,46 @@
 //
 // What bounds them: 2 Nq Nr 32 flops per problem against a few MB of
 // inputs (K8: 16 x 16384^2 x 32 on the labeling path; K9: 8192 x 2048 x 32
-// with 3 more coordinates per pair): operations, f32 on CUDA cores. The
-// distances are direct sums of squared differences, no Gram form, no TF32.
-// Design, as K2's D = 32 path:
-// - a thread holds up to R = 4 queries in registers (32 features each, K9
-//   also the partner's 3 coordinates) and a running top-K list per query;
-//   a block stages 64 refs (eight float4 each, K9 its coordinates beside
-//   them) in shared memory, so one 16-byte broadcast load feeds 4 queries;
-// - only valid pairs are computed: a block compacts its tile's valid
-//   queries into registers and each staged tile's valid refs into shared
-//   memory, in index order (a ballot a warp); a null mask means all valid;
-// - a query tile takes every qtiles-th query and a split every splits-th
-//   tile of 64 refs, so that each block gets its share of the valid prefix;
-// - within a split the refs arrive in increasing index order, so a strict
-//   compare keeps the lowest index on ties; the splits' lists are written
-//   as partials and the last block of a query tile (a ticket counter from
-//   kernels.ticket, which it resets) merges them in split order under the
-//   (distance, index) compare: the same bits on every call, and the same
-//   answer as one sweep in index order.
-// - the [Nq, Nr] matrix never exists.
+// with 3 more coordinates per pair): operations.
+//
+// K8 (`knn2_tc`) runs the cross term q.r on the tensor cores at f32
+// accuracy by a 3xTF32 split: hi = tf32(a) (cvt.rna), lo = tf32(a - hi),
+// q.r ~ lo_q hi_r + hi_q lo_r + hi_q hi_r accumulated in f32 by
+// mma.sync m16n8k8 .tf32 (a single TF32 or bf16 product loses rank
+// fidelity at Lowe-ratio ties of unit-norm features: eyoc_tpu/geometry/
+// metrics.py:22-29); each norm is computed once per staged row in f32.
+// - A block takes a query tile (every qtiles-th query, 512 of them, so each
+//   block gets its share of the valid prefix), compacts its valid queries
+//   in index order (a ballot a warp), stages their rows with 16-byte
+//   cp.async and keeps them in registers as A fragments, hi and lo: warp w
+//   holds the compacted queries 32 w .. 32 w + 31 (two m16 tiles).
+// - The refs of the block's split (every splits-th window of 256) come in
+//   windows: a window's valid refs compacted in index order, staged by
+//   cp.async while the previous window is swept, then converted once into
+//   B fragments (hi and lo, in each lane's order) with their norms and
+//   indices by all 16 warps (those without queries too); windows with no
+//   valid ref are skipped sixteen at a time. One block of 16 warps an SM,
+//   rather than two of 8, converts and stages each window once for twice
+//   the queries: the staging's L2 traffic and its barriers, not the MMAs,
+//   are most of the kernel's time (the MMAs alone, at profile_k4_mma.py's
+//   mma.sync tf32 rate, are about a third).
+// - The epilogue takes each accumulator fragment's distances straight into
+//   a running top 2 per row: a lane holds 2 rows x 2 columns of each 16 x 8
+//   tile, its columns in increasing index order, so a strict compare keeps
+//   the lowest index on ties; a tile where no lane's distance beats its
+//   row's second place (most of them, once the lists fill) costs one vote
+//   and no branch a lane; the four lanes of a row (a quad) then merge
+//   their lists under the (distance, index) order by shuffles, and the
+//   splits' lists are merged by the last block of a query tile (a ticket
+//   counter from kernels.ticket, which it resets) under the same order:
+//   the same bits on every call.
+// - The [Nq, Nr] matrix never exists.
+//
+// K9 (`excl_kernel`) keeps K2's D = 32 design on the f32 CUDA cores, the
+// direct form: a thread holds up to R = 4 anchors (32 features and the
+// partner's 3 coordinates each) and a running (min, argmin) for each; a
+// block stages 64 candidates (eight float4 and their coordinates) in shared
+// memory, compacted as above; the splits' pairs merge in split order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,26 +74,23 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kR = 4;                  // queries a thread holds
-constexpr int kTR = 64;                // refs a block stages at once
-constexpr int kQ = kThreads * kR;      // queries a tile holds
 constexpr int kD = 32;                 // feature width
 constexpr float kBig = 1e30f;
 
 // Slots of the valid entries among the N entries at(e), e < cnt, in order
-// of e (mask == nullptr: all valid): a ballot a warp, the warps' counts
-// added in order. pos[e] is the slot of entry e, or -1; returns the count.
-template <int N, typename At>
+// of e (mask == nullptr: all valid), over a block of T threads: a ballot a
+// warp, the warps' counts added in order. pos[e] is the slot of entry e, or
+// -1; returns the count.
+template <int N, int T, typename At>
 __device__ __forceinline__ int compact(const uint8_t* mask, At at, int cnt,
                                        int* s_warp, int* pos) {
-  constexpr int P = (N + kThreads - 1) / kThreads;
+  constexpr int P = (N + T - 1) / T;
   const int lane = threadIdx.x & 31;
   unsigned m[P];
   bool ok[P];
 #pragma unroll
   for (int u = 0; u < P; ++u) {
-    const int e = u * kThreads + threadIdx.x;
+    const int e = u * T + threadIdx.x;
     ok[u] = e < cnt && (mask == nullptr || mask[at(e)] != 0);
     m[u] = __ballot_sync(0xffffffffu, ok[u]);
     if (lane == 0 && e < N) s_warp[e >> 5] = __popc(m[u]);
@@ -82,7 +101,7 @@ __device__ __forceinline__ int compact(const uint8_t* mask, At at, int cnt,
   for (int w = 0; w < N / 32; ++w) total += s_warp[w];
 #pragma unroll
   for (int u = 0; u < P; ++u) {
-    const int e = u * kThreads + threadIdx.x;
+    const int e = u * T + threadIdx.x;
     if (e < N) {
       int base = 0;
       for (int w = 0; w < (e >> 5); ++w) base += s_warp[w];
@@ -92,20 +111,534 @@ __device__ __forceinline__ int compact(const uint8_t* mask, At at, int cnt,
   return total;
 }
 
-// The valid refs j0 .. j0 + cnt - 1 in shared memory, compacted in index
-// order, with their coordinates when EXCL; stage() returns their count.
+// compact() of the entries e = threadIdx.x < N whose flag `ok` is set
+template <int N>
+__device__ __forceinline__ int compact_flags(bool ok, int* s_warp, int* pos) {
+  const int lane = threadIdx.x & 31, e = threadIdx.x;
+  const unsigned m = __ballot_sync(0xffffffffu, ok);
+  if (lane == 0 && e < N) s_warp[e >> 5] = __popc(m);
+  __syncthreads();
+  int total = 0, base = 0;
+#pragma unroll
+  for (int w = 0; w < N / 32; ++w) {
+    total += s_warp[w];
+    base += w < (e >> 5) ? s_warp[w] : 0;
+  }
+  if (e < N) pos[e] = ok ? base + __popc(m & ((1u << lane) - 1u)) : -1;
+  return total;
+}
+
+// (da, ia) before (db, ib) in the (distance, index) order
+__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// ----------------------------------------------------------------- K8
+
+constexpr int kT8 = 512;               // threads: 16 warps, one block an SM
+constexpr int kQ8 = 512;               // queries a tile: 32 a warp
+constexpr int kW8 = 256;               // refs a window
+constexpr int kRow = 36;               // a staged row's stride in floats:
+                                       // fragment reads free of conflicts
+constexpr int kSkip = kT8 / 32;        // empty windows tested at once
+
+struct K8Smem {
+  float raw[kQ8 * kRow];               // staged rows: the queries, then
+                                       // each window's refs
+  float4 frag[kW8 / 8][4][32];         // [n8 tile][k step][lane]: hi b0,
+                                       // hi b1, lo b0, lo b1
+  float rn[kW8];                       // |r|^2 of a slot, inf past the refs
+  int ridx[kW8];                       // the ref index of a slot
+  int cidx[kW8];                       // the staged window's ref indices
+  int rpos[kW8];
+  int rwarp[kW8 / 32];
+  int qpos[kQ8];
+  int qidx[kQ8];
+  int qwarp[kQ8 / 32];
+  int ccount;                          // the staged window's valid refs
+  int flag[kSkip];
+  bool last;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = tf32(x), lo = tf32(x - hi) (x - hi is exact)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// c += a b, a 16 x 8 (row) and b 8 x 8 (col) tf32 tile, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a candidate that comes after every index in the list, its distance
+// clamped at 0 only here (the list's are >= 0, so an unclamped d that does
+// not pass d < bd[1] would not pass clamped): strict compares
+__device__ __forceinline__ void insert2(float d, int j, float (&bd)[2],
+                                        int (&bi)[2]) {
+  if (d < bd[1]) {
+    d = fmaxf(d, 0.f);
+    if (!(d < bd[1])) return;
+    if (d < bd[0]) {
+      bd[1] = bd[0];
+      bi[1] = bi[0];
+      bd[0] = d;
+      bi[0] = j;
+    } else {
+      bd[1] = d;
+      bi[1] = j;
+    }
+  }
+}
+
+// the top two of two sorted lists of disjoint indices, (distance, index)
+__device__ __forceinline__ void merge2(float (&ad)[2], int (&ai)[2],
+                                       float b0, int j0, float b1, int j1) {
+  if (before(b0, j0, ad[0], ai[0])) {
+    if (!before(b1, j1, ad[0], ai[0])) {
+      b1 = ad[0];
+      j1 = ai[0];
+    }
+    ad[0] = b0;
+    ai[0] = j0;
+    ad[1] = b1;
+    ai[1] = j1;
+  } else if (before(b0, j0, ad[1], ai[1])) {
+    ad[1] = b0;
+    ai[1] = j0;
+  }
+}
+
+// a candidate into a sorted top-2 list under the (distance, index) order
+__device__ __forceinline__ void merge_in2(float d, int i, float (&bd)[2],
+                                         int (&bi)[2]) {
+  if (before(d, i, bd[0], bi[0])) {
+    bd[1] = bd[0];
+    bi[1] = bi[0];
+    bd[0] = d;
+    bi[0] = i;
+  } else if (before(d, i, bd[1], bi[1])) {
+    bd[1] = d;
+    bi[1] = i;
+  }
+}
+
+// The refs of the block's split: windows w = 0, 1, ... of kW8 refs from
+// (split + splits w) kW8.
+struct Windows {
+  const float* r;
+  const uint8_t* rmask;
+  int nr, split, splits, count;
+
+  __device__ int start(int w) const { return (split + splits * w) * kW8; }
+
+  // this thread's entry of window w is a valid ref
+  __device__ bool valid(int w) const {
+    const int j = start(w) + (int)threadIdx.x;
+    return threadIdx.x < kW8 && j < nr && (rmask == nullptr || rmask[j] != 0);
+  }
+
+  // the first window at or after w with a valid ref (count if none): each
+  // warp tests one window of the next kSkip, kW8 / 32 refs a lane
+  __device__ int next_valid(int w, K8Smem& sm) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (; w < count; w += kSkip) {
+      const int ww = w + warp;
+      bool any = false;
+      if (ww < count) {
+        const int j0 = start(ww);
+#pragma unroll
+        for (int i = 0; i < kW8 / 32; ++i) {
+          const int j = j0 + kW8 / 32 * lane + i;
+          any |= j < nr && (rmask == nullptr || rmask[j] != 0);
+        }
+      }
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) sm.flag[warp] = any;
+      __syncthreads();
+      int first = kSkip;
+      for (int k = kSkip - 1; k >= 0; --k)
+        if (sm.flag[k]) first = k;
+      __syncthreads();
+      if (first < kSkip) return w + first;
+    }
+    return count;
+  }
+
+  // window w's valid refs (`ok`: this thread's entry is one, read ahead
+  // by the caller) compacted into sm.raw by cp.async (rows of kRow
+  // floats), their indices into sm.cidx and their count into sm.ccount;
+  // returns the window staged (a later one where w has no valid ref)
+  __device__ int stage(int w, bool ok, K8Smem& sm) const {
+    int n = 0, j0 = 0, cnt = 0;
+    for (;;) {
+      j0 = start(w);
+      cnt = min(kW8, nr - j0);
+      n = compact_flags<kW8>(ok, sm.rwarp, sm.rpos);
+      __syncthreads();                     // every rpos before it is read
+      if (n > 0) break;
+      w = next_valid(w + 1, sm);
+      if (w >= count) break;
+      ok = valid(w);
+    }
+    if (w < count) {
+      for (int e = threadIdx.x; e < cnt; e += kT8)
+        if (sm.rpos[e] >= 0) sm.cidx[sm.rpos[e]] = j0 + e;
+      for (int e = threadIdx.x; e < cnt * 8; e += kT8) {
+        const int at = sm.rpos[e >> 3];
+        if (at >= 0)
+          cp_async16(sm.raw + at * kRow + 4 * (e & 7),
+                     r + (size_t)(j0 + (e >> 3)) * kD + 4 * (e & 7));
+      }
+      cp_async_commit();
+    }
+    if (threadIdx.x == 0) sm.ccount = n;
+    return w;
+  }
+};
+
+// The staged window (sm.ccount refs in sm.raw) as B fragments, norms and
+// indices; slots past the refs, up to a multiple of 8, are zero rows at an
+// infinite norm (they never enter a list). Returns the n8 tiles.
+__device__ __forceinline__ int convert(K8Smem& sm) {
+  const int n = sm.ccount, tiles = (n + 7) >> 3;
+  // a thread a fragment: lane L of n8 tile nt, k step kk holds b0 = row 8
+  // nt + L / 4, feature 8 kk + L % 4, and b1 four features on
+  for (int i = threadIdx.x; i < tiles * 128; i += kT8) {
+    const int L = i & 31, kk = (i >> 5) & 3, nt = i >> 7;
+    const int s = 8 * nt + (L >> 2), k = 8 * kk + (L & 3);
+    float v0 = 0.f, v1 = 0.f;
+    if (s < n) {
+      v0 = sm.raw[s * kRow + k];
+      v1 = sm.raw[s * kRow + k + 4];
+    }
+    uint32_t h0, l0, h1, l1;
+    split(v0, h0, l0);
+    split(v1, h1, l1);
+    sm.frag[nt][kk][L] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                                     __uint_as_float(l0), __uint_as_float(l1));
+  }
+  // the norms: 8 consecutive threads a row, a float4 each
+  for (int e = threadIdx.x; e < tiles * 64; e += kT8) {
+    const int s = e >> 3, c = e & 7;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < n) v = *reinterpret_cast<const float4*>(sm.raw + s * kRow + 4 * c);
+    float sq = fmaf(v.x, v.x, 0.f);
+    sq = fmaf(v.y, v.y, sq);
+    sq = fmaf(v.z, v.z, sq);
+    sq = fmaf(v.w, v.w, sq);
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
+    if (c == 0) {
+      sm.rn[s] = s < n ? sq : INFINITY;
+      sm.ridx[s] = s < n ? sm.cidx[s] : 0;
+    }
+  }
+  return tiles;
+}
+
+// One warp's MT m16 tiles of queries against the window's n8 tiles: the
+// 3xTF32 products, then each distance into the running top 2 of its row.
+// A tile's products are 2 MT chains of 6 MMAs (each m16 tile's k steps 0-1
+// and 2-3 in two accumulators, added after): an MMA's result comes ~24
+// cycles after it issues (profile_k4_mma.py), so shorter chains wait less.
+template <int MT>
+__device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
+                                      const uint32_t (&ah)[2][4][4],
+                                      const uint32_t (&al)[2][4][4],
+                                      const float (&qn)[2][2],
+                                      float (&bd)[2][2][2],
+                                      int (&bi)[2][2][2]) {
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+#pragma unroll 1
+  for (int nt = 0; nt < tiles; ++nt) {
+    float4 f[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) f[kk] = sm.frag[nt][kk][lane];
+    float acc[MT][4], acc2[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][i] = acc2[mt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t h0 = __float_as_uint(f[kk].x),
+                     h1 = __float_as_uint(f[kk].y),
+                     l0 = __float_as_uint(f[kk].z),
+                     l1 = __float_as_uint(f[kk].w);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float(&c)[4] = kk < 2 ? acc[mt] : acc2[mt];
+        mma(c, al[mt][kk], h0, h1);
+        mma(c, ah[mt][kk], l0, l1);
+        mma(c, ah[mt][kk], h0, h1);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][i] = __fadd_rn(acc[mt][i],
+                                                         acc2[mt][i]);
+    const float2 rn = *reinterpret_cast<const float2*>(sm.rn + 8 * nt +
+                                                       2 * t4);
+    const int2 j = *reinterpret_cast<const int2*>(sm.ridx + 8 * nt + 2 * t4);
+    float d[MT][2][2];
+    bool any = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {       // rows g and g + 8
+        d[mt][h][0] =
+            __fadd_rn(__fmaf_rn(-2.f, acc[mt][2 * h], qn[mt][h]), rn.x);
+        d[mt][h][1] =
+            __fadd_rn(__fmaf_rn(-2.f, acc[mt][2 * h + 1], qn[mt][h]), rn.y);
+        any |= d[mt][h][0] < bd[mt][h][1] || d[mt][h][1] < bd[mt][h][1];
+      }
+    }
+    if (__any_sync(0xffffffffu, any)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          insert2(d[mt][h][0], j.x, bd[mt][h], bi[mt][h]);
+          insert2(d[mt][h][1], j.y, bd[mt][h], bi[mt][h]);
+        }
+      }
+    }
+  }
+}
+
+// q [batch, nq, 32], r [batch, nr, 32]; out_d / out_i [batch, nq, 2]
+__global__ void __launch_bounds__(kT8, 1) knn2_tc(
+    const float* __restrict__ q, const uint8_t* __restrict__ qmask,
+    const float* __restrict__ r, const uint8_t* __restrict__ rmask, int nq,
+    int nr, float* __restrict__ part_d, int* __restrict__ part_i,
+    int* __restrict__ ticket, float* __restrict__ out_d,
+    int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  K8Smem& sm = *reinterpret_cast<K8Smem*>(smem);
+  const int b = blockIdx.z, splits = gridDim.y, qtiles = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  q += (size_t)b * nq * kD;
+  r += (size_t)b * nr * kD;
+  if (qmask != nullptr) qmask += (size_t)b * nq;
+  if (rmask != nullptr) rmask += (size_t)b * nr;
+  out_d += (size_t)b * nq * 2;
+  out_i += (size_t)b * nq * 2;
+  part_d += (size_t)b * splits * nq * 2;
+  part_i += (size_t)b * splits * nq * 2;
+  // this tile's queries: x, x + qtiles, x + 2 qtiles, ...
+  const int x = blockIdx.x;
+  const int in_tile = nq > x ? min(kQ8, (nq - x + qtiles - 1) / qtiles) : 0;
+  const int nv = compact<kQ8, kT8>(
+      qmask, [x, qtiles](int m) { return x + qtiles * m; }, in_tile,
+      sm.qwarp, sm.qpos);
+  for (int m = tid; m < in_tile; m += kT8)
+    if (sm.qpos[m] >= 0) sm.qidx[sm.qpos[m]] = x + qtiles * m;
+  __syncthreads();
+  // the valid queries' rows, zero rows up to a warp's 32
+  for (int e = tid; e < ((nv + 31) & ~31) * 8; e += kT8) {
+    float* dst = sm.raw + (e >> 3) * kRow + 4 * (e & 7);
+    if ((e >> 3) < nv)
+      cp_async16(dst, q + (size_t)sm.qidx[e >> 3] * kD + 4 * (e & 7));
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // warp w: compacted queries 32 w + 16 mt + g (+ 8) as A fragments (a0:
+  // row g, k t4; a1: row g + 8; a2, a3: k t4 + 4) and their norms
+  const int rows = min(32, nv - 32 * warp);
+  uint32_t ah[2][4][4], al[2][4][4];
+  float qn[2][2];
+  float bd[2][2][2];
+  int bi[2][2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qn[mt][h] = 0.f;
+      bd[mt][h][0] = bd[mt][h][1] = INFINITY;
+      bi[mt][h][0] = bi[mt][h][1] = 0;
+    }
+  if (rows > 0) {
+    const float* qs = sm.raw + (32 * warp + g) * kRow;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split(qs[(16 * mt + 8 * (i & 1)) * kRow + 8 * kk + t4 + 4 * (i >> 1)],
+                ah[mt][kk][i], al[mt][kk][i]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* row = qs + (16 * mt + 8 * h) * kRow + 8 * t4;
+        float sq = 0.f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) sq = fmaf(row[k], row[k], sq);
+        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
+        qn[mt][h] = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+      }
+  }
+  __syncthreads();                         // sm.raw is the refs' from here
+
+  Windows win{r, rmask, nr, (int)blockIdx.y, splits, 0};
+  const int blocks_r = (nr + kW8 - 1) / kW8;
+  win.count = blocks_r > win.split
+                  ? (blocks_r - win.split + splits - 1) / splits
+                  : 0;
+  int w = win.count > 0 ? win.stage(0, win.valid(0), sm) : 0;
+  while (w < win.count) {
+    // the next window's mask, read while this one is converted
+    const bool ok = w + 1 < win.count && win.valid(w + 1);
+    cp_async_wait_all();
+    __syncthreads();
+    const int tiles = convert(sm);
+    __syncthreads();
+    const int next =
+        w + 1 < win.count ? win.stage(w + 1, ok, sm) : win.count;
+    if (rows > 16)
+      sweep<2>(sm, tiles, ah, al, qn, bd, bi);
+    else if (rows > 0)
+      sweep<1>(sm, tiles, ah, al, qn, bd, bi);
+    w = next;
+    __syncthreads();
+  }
+
+  // the four lanes of a row merge their lists
+  if (rows > 0) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float d0 = __shfl_xor_sync(0xffffffffu, bd[mt][h][0], off);
+          const float d1 = __shfl_xor_sync(0xffffffffu, bd[mt][h][1], off);
+          const int j0 = __shfl_xor_sync(0xffffffffu, bi[mt][h][0], off);
+          const int j1 = __shfl_xor_sync(0xffffffffu, bi[mt][h][1], off);
+          merge2(bd[mt][h], bi[mt][h], d0, j0, d1, j1);
+        }
+  }
+  // lane t4 = 0 of each quad writes its rows' lists
+  if (t4 == 0) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = 32 * warp + 16 * mt + 8 * h + g;
+        if (slot >= nv) continue;
+        const size_t qi = sm.qidx[slot];
+        if (splits > 1) {
+          const size_t at = ((size_t)blockIdx.y * nq + qi) * 2;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            part_d[at + s] = bd[mt][h][s];
+            part_i[at + s] = bi[mt][h][s];
+          }
+        } else {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const bool found = bd[mt][h][s] < INFINITY;
+            out_d[qi * 2 + s] = found ? bd[mt][h][s] : kBig;
+            out_i[qi * 2 + s] = found ? bi[mt][h][s] : 0;
+          }
+        }
+      }
+  }
+
+  if (splits > 1) {
+    // the last block of this query tile merges the splits, in split order
+    int* tk = ticket + (size_t)b * qtiles + x;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sm.last = atomicAdd(tk, 1) == splits - 1;
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+    if (tid < nv) {                        // kT8 == kQ8: a slot a thread
+      const size_t qi = sm.qidx[tid];
+      float md[2] = {INFINITY, INFINITY};
+      int mi[2] = {0, 0};
+      for (int sp = 0; sp < splits; ++sp) {
+        const size_t at = ((size_t)sp * nq + qi) * 2;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          merge_in2(__ldcg(part_d + at + s), __ldcg(part_i + at + s), md,
+                    mi);
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const bool found = md[s] < INFINITY;
+        out_d[qi * 2 + s] = found ? md[s] : kBig;
+        out_i[qi * 2 + s] = found ? mi[s] : 0;
+      }
+    }
+    if (tid == 0) *tk = 0;
+  }
+  // the tile's invalid queries read (1e30, 0)
+  for (int m = tid; m < in_tile; m += kT8) {
+    if (sm.qpos[m] < 0) {
+      const size_t qi = x + (size_t)qtiles * m;
+      for (int s = 0; s < 2; ++s) {
+        out_d[qi * 2 + s] = kBig;
+        out_i[qi * 2 + s] = 0;
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- K9
+
+constexpr int kThreads = 128;
+constexpr int kR = 4;                  // anchors a thread holds
+constexpr int kTR = 64;                // candidates a block stages at once
+constexpr int kQ = kThreads * kR;      // anchors a tile holds
+
+// The valid candidates j0 .. j0 + cnt - 1 in shared memory, compacted in
+// index order, with their coordinates; stage() returns their count.
 struct RefTile {
   float4 c[kTR][8];
-  float4 xyz[kTR];     // (x, y, z, 0), K9 only
+  float4 xyz[kTR];     // (x, y, z, 0)
   int index[kTR];
   int warp_n[kTR / 32];
   int pos[kTR];
 
-  template <bool EXCL>
-  __device__ __forceinline__ int stage(const float* r, const uint8_t* rmask,
-                                       const float* rxyz, int j0, int cnt) {
-    const int n = compact<kTR>(
-        rmask, [j0](int e) { return j0 + e; }, cnt, warp_n, pos);
+  __device__ __forceinline__ int stage(const float* r, const float* rxyz,
+                                       int j0, int cnt) {
+    const int n = compact<kTR, kThreads>(
+        nullptr, [j0](int e) { return j0 + e; }, cnt, warp_n, pos);
     __syncthreads();   // every pos[] before the copies
     const float4* r4 = reinterpret_cast<const float4*>(r) + (size_t)j0 * 8;
     for (int e = threadIdx.x; e < cnt * 8; e += kThreads) {
@@ -116,50 +649,23 @@ struct RefTile {
       const int at = pos[e];
       if (at >= 0) {
         index[at] = j0 + e;
-        if constexpr (EXCL) {
-          const float* p = rxyz + (size_t)(j0 + e) * 3;
-          xyz[at] = make_float4(p[0], p[1], p[2], 0.f);
-        }
+        const float* p = rxyz + (size_t)(j0 + e) * 3;
+        xyz[at] = make_float4(p[0], p[1], p[2], 0.f);
       }
     }
     return n;
   }
 };
 
-// (da, ia) before (db, ib) in the (distance, index) order
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
-
-// a candidate into a top-K list under the (distance, index) order
-template <int K>
-__device__ __forceinline__ void merge_in(float d, int i, float (&bd)[K],
-                                         int (&bi)[K]) {
-  if (before(d, i, bd[0], bi[0])) {
-    if constexpr (K == 2) {
-      bd[1] = bd[0];
-      bi[1] = bi[0];
-    }
-    bd[0] = d;
-    bi[0] = i;
-  } else {
-    if constexpr (K == 2) {
-      if (before(d, i, bd[1], bi[1])) {
-        bd[1] = d;
-        bi[1] = i;
-      }
-    }
-  }
-}
-
-// the running top-K of the first RK queries a thread holds over the n
-// staged refs, which come in increasing index order: a strict compare
-// keeps the lowest index on ties
-template <int RK, int K, bool EXCL>
-__device__ __forceinline__ void sweep(const RefTile& t, int n,
-                                      const float (&qv)[kR][kD],
-                                      const float (&px)[kR][3], float r2,
-                                      float (&bd)[kR][K], int (&bi)[kR][K]) {
+// the running (min, argmin) of the first RK anchors a thread holds over the
+// n staged candidates, which come in increasing index order: a strict
+// compare keeps the lowest index on ties; a candidate within r of the
+// anchor's partner is skipped
+template <int RK>
+__device__ __forceinline__ void sweep_excl(const RefTile& t, int n,
+                                           const float (&qv)[kR][kD],
+                                           const float (&px)[kR][3], float r2,
+                                           float (&bd)[kR], int (&bi)[kR]) {
 #pragma unroll 1
   for (int jj = 0; jj < n; ++jj) {
     float acc[RK];
@@ -181,55 +687,38 @@ __device__ __forceinline__ void sweep(const RefTile& t, int n,
       }
     }
     const int j = t.index[jj];
-    float4 cx = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (EXCL) cx = t.xyz[jj];
+    const float4 cx = t.xyz[jj];
 #pragma unroll
     for (int k = 0; k < RK; ++k) {
-      if constexpr (EXCL) {
-        const float dx = px[k][0] - cx.x;
-        const float dy = px[k][1] - cx.y;
-        const float dz = px[k][2] - cx.z;
-        if (fmaf(dz, dz, fmaf(dy, dy, dx * dx)) < r2) continue;
-      }
-      if (acc[k] < bd[k][0]) {
-        if constexpr (K == 2) {
-          bd[k][1] = bd[k][0];
-          bi[k][1] = bi[k][0];
-        }
-        bd[k][0] = acc[k];
-        bi[k][0] = j;
-      } else {
-        if constexpr (K == 2) {
-          if (acc[k] < bd[k][1]) {
-            bd[k][1] = acc[k];
-            bi[k][1] = j;
-          }
-        }
+      const float dx = px[k][0] - cx.x;
+      const float dy = px[k][1] - cx.y;
+      const float dz = px[k][2] - cx.z;
+      if (fmaf(dz, dz, fmaf(dy, dy, dx * dx)) < r2) continue;
+      if (acc[k] < bd[k]) {
+        bd[k] = acc[k];
+        bi[k] = j;
       }
     }
   }
 }
 
-template <int K, bool EXCL>
-__device__ __forceinline__ void sweep_rk(int rk, const RefTile& t, int n,
-                                         const float (&qv)[kR][kD],
-                                         const float (&px)[kR][3], float r2,
-                                         float (&bd)[kR][K],
-                                         int (&bi)[kR][K]) {
+__device__ __forceinline__ void sweep_excl_rk(int rk, const RefTile& t, int n,
+                                              const float (&qv)[kR][kD],
+                                              const float (&px)[kR][3],
+                                              float r2, float (&bd)[kR],
+                                              int (&bi)[kR]) {
   switch (rk) {
-    case 1: sweep<1, K, EXCL>(t, n, qv, px, r2, bd, bi); break;
-    case 2: sweep<2, K, EXCL>(t, n, qv, px, r2, bd, bi); break;
-    case 3: sweep<3, K, EXCL>(t, n, qv, px, r2, bd, bi); break;
-    default: sweep<4, K, EXCL>(t, n, qv, px, r2, bd, bi); break;
+    case 1: sweep_excl<1>(t, n, qv, px, r2, bd, bi); break;
+    case 2: sweep_excl<2>(t, n, qv, px, r2, bd, bi); break;
+    case 3: sweep_excl<3>(t, n, qv, px, r2, bd, bi); break;
+    default: sweep_excl<4>(t, n, qv, px, r2, bd, bi); break;
   }
 }
 
-// q [batch, nq, 32], r [batch, nr, 32]; K9 (EXCL) adds qxyz [batch, nq, 3]
-// and rxyz [batch, nr, 3]. out_d / out_i [batch, nq, K].
-template <int K, bool EXCL>
-__global__ void __launch_bounds__(kThreads) knn_kernel(
-    const float* __restrict__ q, const uint8_t* __restrict__ qmask,
-    const float* __restrict__ r, const uint8_t* __restrict__ rmask,
+// anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates r
+// [nr, 32] with coordinates rxyz [nr, 3]; out_d / out_i / out_flag [nq]
+__global__ void __launch_bounds__(kThreads) excl_kernel(
+    const float* __restrict__ q, const float* __restrict__ r,
     const float* __restrict__ qxyz, const float* __restrict__ rxyz, float r2,
     int nq, int nr, float* __restrict__ part_d, int* __restrict__ part_i,
     int* __restrict__ ticket, float* __restrict__ out_d,
@@ -239,26 +728,14 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
   __shared__ int s_qpos[kQ];
   __shared__ int s_qidx[kQ];
   __shared__ bool s_last;
-  const int b = blockIdx.z, splits = gridDim.y, qtiles = gridDim.x;
-  q += (size_t)b * nq * kD;
-  r += (size_t)b * nr * kD;
-  if (qmask != nullptr) qmask += (size_t)b * nq;
-  if (rmask != nullptr) rmask += (size_t)b * nr;
-  if constexpr (EXCL) {
-    qxyz += (size_t)b * nq * 3;
-    rxyz += (size_t)b * nr * 3;
-  }
-  out_d += (size_t)b * nq * K;
-  out_i += (size_t)b * nq * K;
-  part_d += (size_t)b * splits * nq * K;
-  part_i += (size_t)b * splits * nq * K;
-  // this tile's queries: x, x + qtiles, x + 2 qtiles, ...
+  const int splits = gridDim.y, qtiles = gridDim.x;
+  // this tile's anchors: x, x + qtiles, x + 2 qtiles, ...
   const int x = blockIdx.x;
   const int in_tile = nq > x ? min(kQ, (nq - x + qtiles - 1) / qtiles) : 0;
 
-  // the valid queries, compacted: thread t holds slots t + 128 k, k < rk
-  const int nv = compact<kQ>(
-      qmask, [x, qtiles](int m) { return x + qtiles * m; }, in_tile,
+  // the anchors, compacted: thread t holds slots t + 128 k, k < rk
+  const int nv = compact<kQ, kThreads>(
+      nullptr, [x, qtiles](int m) { return x + qtiles * m; }, in_tile,
       s_qwarp, s_qpos);
   for (int m = threadIdx.x; m < in_tile; m += kThreads)
     if (s_qpos[m] >= 0) s_qidx[s_qpos[m]] = x + qtiles * m;
@@ -283,26 +760,22 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d)
-      px[k][d] = (EXCL && qidx[k] >= 0) ? qxyz[(size_t)at * 3 + d] : 0.f;
+      px[k][d] = qidx[k] >= 0 ? qxyz[(size_t)at * 3 + d] : 0.f;
   }
 
-  float bd[kR][K];
-  int bi[kR][K];
+  float bd[kR];
+  int bi[kR];
 #pragma unroll
   for (int k = 0; k < kR; ++k) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      bd[k][s] = INFINITY;
-      bi[k][s] = 0;
-    }
+    bd[k] = INFINITY;
+    bi[k] = 0;
   }
-  // this split's ref tiles: y, y + splits, y + 2 splits, ...
+  // this split's candidate tiles: y, y + splits, y + 2 splits, ...
   if (rk > 0) {
     for (int j0 = blockIdx.y * kTR; j0 < nr; j0 += splits * kTR) {
-      const int n =
-          tile.stage<EXCL>(r, rmask, rxyz, j0, min(kTR, nr - j0));
+      const int n = tile.stage(r, rxyz, j0, min(kTR, nr - j0));
       __syncthreads();
-      sweep_rk<K, EXCL>(rk, tile, n, qv, px, r2, bd, bi);
+      sweep_excl_rk(rk, tile, n, qv, px, r2, bd, bi);
       __syncthreads();
     }
   }
@@ -311,16 +784,13 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
       if (qidx[k] >= 0) {
-        const size_t at = ((size_t)blockIdx.y * nq + qidx[k]) * K;
-#pragma unroll
-        for (int s = 0; s < K; ++s) {
-          part_d[at + s] = bd[k][s];
-          part_i[at + s] = bi[k][s];
-        }
+        const size_t at = (size_t)blockIdx.y * nq + qidx[k];
+        part_d[at] = bd[k];
+        part_i[at] = bi[k];
       }
     }
-    // the last block of this query tile merges the splits, in split order
-    int* tk = ticket + (size_t)b * qtiles + x;
+    // the last block of this anchor tile merges the splits, in split order
+    int* tk = ticket + x;
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) s_last = atomicAdd(tk, 1) == splits - 1;
@@ -329,84 +799,66 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
     __threadfence();
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        bd[k][s] = INFINITY;
-        bi[k][s] = 0;
-      }
+      bd[k] = INFINITY;
+      bi[k] = 0;
     }
     for (int sp = 0; sp < splits; ++sp) {
 #pragma unroll
       for (int k = 0; k < kR; ++k) {
         if (qidx[k] < 0) continue;
-        const size_t at = ((size_t)sp * nq + qidx[k]) * K;
-#pragma unroll
-        for (int s = 0; s < K; ++s)
-          merge_in<K>(__ldcg(part_d + at + s), __ldcg(part_i + at + s),
-                      bd[k], bi[k]);
+        const size_t at = (size_t)sp * nq + qidx[k];
+        const float d = __ldcg(part_d + at);
+        const int i = __ldcg(part_i + at);
+        if (before(d, i, bd[k], bi[k])) {
+          bd[k] = d;
+          bi[k] = i;
+        }
       }
     }
     if (threadIdx.x == 0) *tk = 0;
   }
 
-  // the tile's answers: its valid queries, then (1e30, 0) for the others
+  // the tile's answers: its anchors, then (1e30, 0) for the others
 #pragma unroll
   for (int k = 0; k < kR; ++k) {
     if (qidx[k] >= 0) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        const bool found = bd[k][s] < INFINITY;
-        out_d[(size_t)qidx[k] * K + s] = found ? bd[k][s] : kBig;
-        out_i[(size_t)qidx[k] * K + s] = found ? bi[k][s] : 0;
-      }
-      if constexpr (EXCL) out_flag[qidx[k]] = bd[k][0] < INFINITY ? 0 : 1;
+      const bool found = bd[k] < INFINITY;
+      out_d[qidx[k]] = found ? bd[k] : kBig;
+      out_i[qidx[k]] = found ? bi[k] : 0;
+      out_flag[qidx[k]] = found ? 0 : 1;
     }
   }
   for (int m = threadIdx.x; m < in_tile; m += kThreads) {
     if (s_qpos[m] < 0) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        out_d[(size_t)(x + qtiles * m) * K + s] = kBig;
-        out_i[(size_t)(x + qtiles * m) * K + s] = 0;
-      }
-      if constexpr (EXCL) out_flag[x + qtiles * m] = 1;
+      out_d[x + qtiles * m] = kBig;
+      out_i[x + qtiles * m] = 0;
+      out_flag[x + qtiles * m] = 1;
     }
   }
 }
 
-template <int K, bool EXCL>
-int launch(const void* q, const void* qmask, const void* r, const void* rmask,
-           const void* qxyz, const void* rxyz, float r2, int batch, int nq,
-           int nr, int splits, void* part, void* ticket, void* out_d,
-           void* out_i, void* out_flag, cudaStream_t s) {
-  if (batch <= 0 || nq <= 0) return 0;
-  if (splits < 1 || nr < 0 || batch > 65535 || splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const int qtiles = (nq + kQ - 1) / kQ;
-  const size_t np = (size_t)batch * splits * nq * K;
-  dim3 grid(qtiles, splits, batch);
-  knn_kernel<K, EXCL><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(qmask),
-      static_cast<const float*>(r), static_cast<const uint8_t*>(rmask),
-      static_cast<const float*>(qxyz), static_cast<const float*>(rxyz), r2,
-      nq, nr, static_cast<float*>(part), static_cast<int*>(part) + np,
-      static_cast<int*>(ticket), static_cast<float*>(out_d),
-      static_cast<int*>(out_i), static_cast<uint8_t*>(out_flag));
-  return (int)cudaGetLastError();
-}
-
-template <int K, bool EXCL>
-int resident_blocks() {
+int resident(const void* kernel, int threads, int smem) {
   int device = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, knn_kernel<K, EXCL>, kThreads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess)
     return 0;
   return sms * per_sm;
+}
+
+// K8's shared memory opt-in, once per device
+cudaError_t k8_smem_attr() {
+  static bool done[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < 64 && done[device])) return err;
+  err = cudaFuncSetAttribute(knn2_tc,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(K8Smem));
+  if (err == cudaSuccess && device < 64) done[device] = true;
+  return err;
 }
 
 }  // namespace
@@ -414,7 +866,9 @@ int resident_blocks() {
 // blocks of K8 (excl = 0) or K9 (excl = 1) that the current device holds at
 // once (occupancy x SMs), for the caller's choice of splits; 0 on an error
 extern "C" int eyoc_masked_knn2_resident(int excl) {
-  return excl ? resident_blocks<1, true>() : resident_blocks<2, false>();
+  if (excl) return resident((const void*)excl_kernel, kThreads, 0);
+  if (k8_smem_attr() != cudaSuccess) return 0;
+  return resident((const void*)knn2_tc, kT8, (int)sizeof(K8Smem));
 }
 
 // K8. q [batch, nq, 32], r [batch, nr, 32] f32, 16-byte aligned; masks
@@ -428,24 +882,50 @@ extern "C" int eyoc_masked_knn2(const void* q, const void* qmask,
                                 int nq, int nr, int splits, void* part,
                                 void* ticket, void* out_d, void* out_i,
                                 void* stream) {
-  return launch<2, false>(q, qmask, r, rmask, nullptr, nullptr, 0.f, batch,
-                          nq, nr, splits, part, ticket, out_d, out_i, nullptr,
-                          static_cast<cudaStream_t>(stream));
+  if (batch <= 0 || nq <= 0) return 0;
+  if (splits < 1 || nr < 0 || batch > 65535 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaError_t err = k8_smem_attr();
+  if (err != cudaSuccess) return (int)err;
+  const int qtiles = (nq + kQ8 - 1) / kQ8;
+  const size_t np = (size_t)batch * splits * nq * 2;
+  dim3 grid(qtiles, splits, batch);
+  knn2_tc<<<grid, kT8, sizeof(K8Smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(qmask),
+      static_cast<const float*>(r), static_cast<const uint8_t*>(rmask), nq,
+      nr, static_cast<float*>(part), static_cast<int*>(part) + np,
+      static_cast<int*>(ticket), static_cast<float*>(out_d),
+      static_cast<int*>(out_i));
+  return (int)cudaGetLastError();
 }
 
 // K9. anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates
 // r [nr, 32] with coordinates rxyz [nr, 3], f32, every row valid; r2 the
-// squared exclusion radius. part: 2 * splits * nq words; ticket as K8.
-// out_d [nq] f32 (the squared feature distance, or 1e30 when every
-// candidate was excluded), out_i [nq] int32 (0 then), out_flag [nq] bool
-// (every candidate was excluded).
+// squared exclusion radius. part: 2 * splits * nq words; ticket:
+// ceil(nq / 512) ints, as K8's. out_d [nq] f32 (the squared feature
+// distance, or 1e30 when every candidate was excluded), out_i [nq] int32
+// (0 then), out_flag [nq] bool (every candidate was excluded).
 extern "C" int eyoc_masked_argmin_excl(const void* q, const void* r,
                                        const void* qxyz, const void* rxyz,
                                        float r2, int nq, int nr, int splits,
                                        void* part, void* ticket, void* out_d,
                                        void* out_i, void* out_flag,
                                        void* stream) {
-  return launch<1, true>(q, nullptr, r, nullptr, qxyz, rxyz, r2, 1, nq, nr,
-                         splits, part, ticket, out_d, out_i, out_flag,
-                         static_cast<cudaStream_t>(stream));
+  if (nq <= 0) return 0;
+  if (splits < 1 || nr < 0 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int qtiles = (nq + kQ - 1) / kQ;
+  const size_t np = (size_t)splits * nq;
+  dim3 grid(qtiles, splits, 1);
+  excl_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(r),
+      static_cast<const float*>(qxyz), static_cast<const float*>(rxyz), r2,
+      nq, nr, static_cast<float*>(part), static_cast<int*>(part) + np,
+      static_cast<int*>(ticket), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), static_cast<uint8_t*>(out_flag));
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // Tensor-core rate of the GPU it runs on, for the types K4 could use:
 // mma.sync b1 (m16n8k256, AND + POPC), s8 (m16n8k32) and, as a yardstick,
 // f16 (m16n8k16, f32 sums), each warp running `iters` rounds of 8
-// independent MMAs on register operands; and the Hopper warpgroup MMA
+// independent MMAs on register operands; for K8, mma.sync tf32
+// (m16n8k8, f32 sums) the same way, and as one chain of 8 dependent MMAs
+// a round (the time of one is its latency); and the Hopper warpgroup MMA
 // (wgmma, sm_90a) in b1 (m64n256k256, AND + POPC) and s8 (m64n256k32),
 // each warpgroup running `iters` rounds of 4 MMAs on operands in shared
 // memory. The caller times the launch and divides. Not part of the port:
@@ -51,6 +53,34 @@ __global__ void rate(const uint32_t* in, int iters, int* out) {
 #pragma unroll
   for (int u = 0; u < 8; ++u) s += c[u][0] ^ c[u][1] ^ c[u][2] ^ c[u][3];
   if (s == 0x7fffffff) out[0] = s;  // keeps the MMAs alive
+}
+
+// mma.sync tf32 m16n8k8: kind 5 runs 8 independent MMAs a round, kind 6
+// the 8 on one accumulator
+template <int kKind>
+__global__ void rate_tf32(const uint32_t* in, int iters, int* out) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) a[q] = in[(threadIdx.x + q) & 31];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) b[q] = in[(threadIdx.x + 4 + q) & 31];
+  float c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float(&acc)[4] = c[kKind == 5 ? u : 0];
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) s += c[u][0] + c[u][1] + c[u][2] + c[u][3];
+  if (s == 1234.5f) out[0] = 1;  // keeps the MMAs alive
 }
 
 #define EYOC_D8(i)                                                      \
@@ -122,9 +152,10 @@ __global__ void __launch_bounds__(128) rate_wgmma(int iters, int* out) {
 
 }  // namespace
 
-// kind 0: b1 m16n8k256, 1: s8 m16n8k32, 2: f16 m16n8k16 (mma.sync; `blocks`
-// blocks of `threads` threads, each warp 8 * iters MMAs); 3: b1 m64n256k256,
-// 4: s8 m64n256k32 (wgmma; `blocks` warpgroups, each 4 * iters MMAs, and
+// kind 0: b1 m16n8k256, 1: s8 m16n8k32, 2: f16 m16n8k16, 5: tf32 m16n8k8,
+// 6: tf32 m16n8k8 in one chain (mma.sync; `blocks` blocks of `threads`
+// threads, each warp 8 * iters MMAs); 3: b1 m64n256k256, 4: s8
+// m64n256k32 (wgmma; `blocks` warpgroups, each 4 * iters MMAs, and
 // `threads` must be 128)
 extern "C" int eyoc_mma_rate(int kind, int blocks, int threads, int iters,
                              const void* in, void* out, void* stream) {
@@ -134,6 +165,8 @@ extern "C" int eyoc_mma_rate(int kind, int blocks, int threads, int iters,
   if (kind == 0) rate<0><<<blocks, threads, 0, s>>>(pin, iters, pout);
   else if (kind == 1) rate<1><<<blocks, threads, 0, s>>>(pin, iters, pout);
   else if (kind == 2) rate<2><<<blocks, threads, 0, s>>>(pin, iters, pout);
+  else if (kind == 5) rate_tf32<5><<<blocks, threads, 0, s>>>(pin, iters, pout);
+  else if (kind == 6) rate_tf32<6><<<blocks, threads, 0, s>>>(pin, iters, pout);
   else if (kind == 3) rate_wgmma<3><<<blocks, 128, 0, s>>>(iters, pout);
   else rate_wgmma<4><<<blocks, 128, 0, s>>>(iters, pout);
   return (int)cudaGetLastError();

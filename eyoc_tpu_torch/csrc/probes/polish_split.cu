@@ -29,6 +29,8 @@
 
 namespace {
 
+constexpr int kSolveThreads = 512;   // the parent's one-block pass
+
 // rotation() with 1 / x as __frcp_rn(x) and sign(tau) / x as sign(tau) *
 // (1 / x): the same bits (each the IEEE quotient), one division a rotation
 // instead of three.
@@ -168,7 +170,7 @@ __global__ void __launch_bounds__(kSolveThreads) probe_pass_global(
     }
     for (int k = 0; k < 7; ++k) red[k][t] = acc[k];
     __syncthreads();
-    block_sums<7>(red);
+    block_sums<kSolveThreads, 7>(red);
     if (t == 0) pose[3] = add(pose[3], mul(red[0][0], 0.f));
     __syncthreads();
   }

@@ -45,7 +45,14 @@
 // eyoc_tpu/registration/icp.py:41-46 (`icp_solve`: w = mask & (d2 < r^2)
 // from K2's nearest neighbours, the weighted Jacobi Kabsch of the source on
 // its matches, and the source warped by the new pose for the next round's
-// K2).
+// K2). icp_solve is spread over a fixed grid of G blocks, each owning a
+// contiguous chunk of rows, in three launches chained on the stream with
+// nothing read back: `icp_moments` (each block's weight and sums to a
+// partial row; the last block to take a ticket adds the G partials in
+// block order and writes the centroids), `icp_cross` (each block's centred
+// cross-covariance; the last block adds them and its thread 0 runs the one
+// Jacobi solve) and `icp_warp`. No grid barrier: a block never waits on
+// another.
 //
 // `jacobi_pose`, shared by all three, follows eyoc_tpu/geometry/svd3.py:
 // kabsch (:283-322) and jacobi_eigh (:31-74) step for step: H / max(max|H|,
@@ -68,11 +75,12 @@
 // What bounds them: K16 is operations, ~60 flops for each hypothesis's
 // edge check, ~4300 a Jacobi solve and ~27 for each (survivor, subset row);
 // only the survivors (~4% on the eval path) are solved and counted. K17 is
-// operations, ~27 flops for each (kept hypothesis, valid row); K18's two
-// entries are one block each, a chain of dependent passes and solves:
-// latency, far above their bytes and operations (the polish's 5 solves,
-// a chain of 144 IEEE divisions and 96 roots each, are most of its time:
-// profile_k18_polish.py).
+// operations, ~27 flops for each (kept hypothesis, valid row); K18's polish
+// is one block, a chain of dependent passes and solves: latency, far above
+// its bytes and operations (the polish's 5 solves, a chain of 144 IEEE
+// divisions and 96 roots each, are most of its time: profile_k18_polish.py).
+// icp_solve is latency too: its one solve (~12.8 us) and the two combines
+// behind the tickets; the passes over the rows take the whole card.
 
 #include <cuda_runtime.h>
 
@@ -101,7 +109,15 @@ constexpr unsigned kAggregate = 1u << 30, kInclusive = 2u << 30,
 constexpr int kWindow = 32;          // status words a look-back round reads
 constexpr int kVerifyThreads = 256;  // verify: one block a hypothesis
 constexpr int kBestThreads = 1024;   // verify_best: one block
-constexpr int kSolveThreads = 512;   // icp: one block
+constexpr int kIcpThreads = 256;     // icp_solve: each launch's blocks
+#ifndef EYOC_ICP_BLOCKS
+#define EYOC_ICP_BLOCKS 128
+#endif
+// icp_solve's fixed grid (a host build may set a smaller one); the last
+// block stages the G partials of a pass in its n x kIcpThreads sums
+constexpr int kIcpBlocks = EYOC_ICP_BLOCKS;
+static_assert(kIcpBlocks > 0 && kIcpBlocks <= kIcpThreads, "icp grid");
+constexpr int kIcpPart = 16;         // a block's partial row: 7 + 9 sums
 constexpr int kPolishThreads = 512;  // polish: one block
 constexpr int kPolishWarps = kPolishThreads / 32;
 // polish's rows in shared memory, 6 floats a row: 192 KB of the 227 KB a
@@ -788,67 +804,17 @@ __global__ void __launch_bounds__(kBestThreads) verify_best(
   }
 }
 
-// Adds red[k][0..kSolveThreads) into red[k][0] for k < n, a fixed tree.
-template <int n>
-__device__ void block_sums(float (*red)[kSolveThreads]) {
+// Adds red[k][0..T) into red[k][0] for k < n, a fixed tree over the T
+// threads of the block (halves: red[k][t] += red[k][t + off], off = T / 2,
+// ..., 1).
+template <int T, int n>
+__device__ void block_sums(float (*red)[T]) {
   const int t = threadIdx.x;
-  for (int off = kSolveThreads / 2; off > 0; off >>= 1) {
+  for (int off = T / 2; off > 0; off >>= 1) {
     if (t < off)
       for (int k = 0; k < n; ++k) red[k][t] += red[k][t + off];
     __syncthreads();
   }
-}
-
-// The weighted Kabsch of rows (a_n, b_n) with 0/1 weights given by `in(n,
-// a, b)`, by one block in two centred passes: wsum and the centroids,
-// then H. Returns sum w (every thread); thread 0 writes the new pose into
-// `pose` when sum w >= min_w. `red` is 9 x kSolveThreads of shared memory.
-template <class Row>
-__device__ float block_kabsch(int N, Row row, float min_w, float* pose,
-                              float (*red)[kSolveThreads], float* cen) {
-  const int t = threadIdx.x;
-  float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int n = t; n < N; n += kSolveThreads) {
-    float a[3], b[3];
-    if (!row(n, a, b)) continue;
-    acc[0] = add(acc[0], 1.f);
-    for (int k = 0; k < 3; ++k) {
-      acc[1 + k] = add(acc[1 + k], a[k]);
-      acc[4 + k] = add(acc[4 + k], b[k]);
-    }
-  }
-  for (int k = 0; k < 7; ++k) red[k][t] = acc[k];
-  __syncthreads();
-  block_sums<7>(red);
-  const float wtot = red[0][0];
-  if (t == 0) {
-    const float wsum = add(wtot, 1e-6f);
-    for (int k = 0; k < 6; ++k) cen[k] = __fdiv_rn(red[1 + k][0], wsum);
-  }
-  __syncthreads();
-  float m[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int n = t; n < N; n += kSolveThreads) {
-    float a[3], b[3];
-    if (!row(n, a, b)) continue;
-    float am[3], bm[3];
-    for (int k = 0; k < 3; ++k) {
-      am[k] = sub(a[k], cen[k]);
-      bm[k] = sub(b[k], cen[3 + k]);
-    }
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) m[3 * i + j] = add(m[3 * i + j],
-                                                   mul(am[i], bm[j]));
-  }
-  for (int k = 0; k < 9; ++k) red[k][t] = m[k];
-  __syncthreads();
-  block_sums<9>(red);
-  if (t == 0 && wtot >= min_w) {
-    float Hm[9];
-    for (int k = 0; k < 9; ++k) Hm[k] = red[k][0];
-    jacobi_pose(Hm, cen, cen + 3, pose);
-  }
-  __syncthreads();
-  return wtot;
 }
 
 // polish's sums: a thread's rows in order, then a fixed xor-shuffle tree
@@ -1005,31 +971,149 @@ __global__ void __launch_bounds__(kPolishThreads) polish(
   if (t == 0) inliers[0] = total;
 }
 
-__global__ void __launch_bounds__(kSolveThreads) icp(
+// icp_solve's three launches. Block b of the G = kIcpBlocks blocks owns
+// the rows [b c, (b + 1) c) (c = ceil(N / G)), thread t of it the rows b c
+// + t, b c + t + kIcpThreads, ... in order. A correspondence is a valid
+// source row whose nearest target lies within the radius (w = mask & (d2
+// < r^2)), matched to that target.
+__device__ __forceinline__ void icp_chunk(int N, int& n0, int& n1) {
+  const int chunk = (N + (int)gridDim.x - 1) / (int)gridDim.x;
+  n0 = min(N, (int)blockIdx.x * chunk);
+  n1 = min(N, n0 + chunk);
+}
+
+__device__ __forceinline__ bool icp_matched(
+    int n, const float* src, const bool* mask, const float* tgt,
+    const int* nn, const float* d2, float r2, float* a, float* b) {
+  if (!(mask[n] && d2[n] < r2)) return false;
+  const int j = nn[n];
+  for (int k = 0; k < 3; ++k) {
+    a[k] = src[3 * n + k];
+    b[k] = tgt[3 * j + k];
+  }
+  return true;
+}
+
+// The block's n sums (acc, a thread's rows in order, then block_sums) to
+// its partial row part[blockIdx.x][off .. off + n); then true in every
+// thread of the block that arrives last at `ticket`, which it resets, with
+// tot[k] the sum of the G partials in block order (read at once into `red`,
+// then added from there).
+template <int n>
+__device__ bool icp_reduce(const float (&acc)[n], float (*red)[kIcpThreads],
+                           float* part, int off, int* ticket, bool* s_last,
+                           float* tot) {
+  const int t = threadIdx.x, G = gridDim.x;
+  for (int k = 0; k < n; ++k) red[k][t] = acc[k];
+  __syncthreads();
+  block_sums<kIcpThreads, n>(red);
+  if (t < n) part[blockIdx.x * kIcpPart + off + t] = red[t][0];
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    *s_last = atomicAdd(ticket, 1) == G - 1;
+    if (*s_last) *ticket = 0;              // every block has arrived
+  }
+  __syncthreads();
+  if (!*s_last) return false;
+  __threadfence();
+  float* cmb = &red[0][0];                 // G x n <= n x kIcpThreads
+  for (int i = t; i < G * n; i += kIcpThreads)
+    cmb[i] = __ldcg(part + (i / n) * kIcpPart + off + i % n);
+  __syncthreads();
+  if (t < n) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int b = 0; b < G; ++b) s = add(s, cmb[b * n + t]);
+    tot[t] = s;
+  }
+  __syncthreads();
+  return true;
+}
+
+// Launch 1: the weight, sum a and sum b of each block; the last block
+// writes the centroids (sum / (w + 1e-6)) to part[G][0..6). Each row's
+// match (tgt[nn], 1) or (0, 0, 0, 0) goes to the scratch rows after the
+// partials, for launch 2 to read in order.
+__global__ void __launch_bounds__(kIcpThreads) icp_moments(
     const float* __restrict__ src, const bool* __restrict__ mask,
     const float* __restrict__ tgt, const int* __restrict__ nn,
-    const float* __restrict__ d2, int N, float r2,
-    float* __restrict__ trans_out, float* __restrict__ warped) {
-  __shared__ float red[9][kSolveThreads];
-  __shared__ float pose[16];
-  __shared__ float cen[6];
-  // a correspondence: a valid source row whose nearest target lies within
-  // the radius (w = mask & (d2 < r^2)), matched to that target
-  auto matched = [&](int n, float* a, float* b) {
-    if (!(mask[n] && d2[n] < r2)) return false;
-    const int j = nn[n];
-    for (int k = 0; k < 3; ++k) {
-      a[k] = src[3 * n + k];
-      b[k] = tgt[3 * j + k];
+    const float* __restrict__ d2, int N, float r2, float* __restrict__ part,
+    int* __restrict__ ticket) {
+  __shared__ float red[7][kIcpThreads];
+  __shared__ float tot[7];
+  __shared__ bool s_last;
+  float4* rows = reinterpret_cast<float4*>(part + (gridDim.x + 1) * kIcpPart);
+  int n0, n1;
+  icp_chunk(N, n0, n1);
+  float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n = n0 + (int)threadIdx.x; n < n1; n += kIcpThreads) {
+    float a[3], b[3];
+    if (!icp_matched(n, src, mask, tgt, nn, d2, r2, a, b)) {
+      rows[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
     }
-    return true;
-  };
-  block_kabsch(N, matched, -1.f, pose, red, cen);
+    rows[n] = make_float4(b[0], b[1], b[2], 1.f);
+    acc[0] = add(acc[0], 1.f);
+    for (int k = 0; k < 3; ++k) {
+      acc[1 + k] = add(acc[1 + k], a[k]);
+      acc[4 + k] = add(acc[4 + k], b[k]);
+    }
+  }
+  if (!icp_reduce(acc, red, part, 0, ticket, &s_last, tot)) return;
   const int t = threadIdx.x;
-  for (int n = t; n < N; n += kSolveThreads)
+  if (t < 6)
+    part[gridDim.x * kIcpPart + t] = __fdiv_rn(tot[1 + t],
+                                               add(tot[0], 1e-6f));
+}
+
+// Launch 2: the centred cross-covariance of each block over launch 1's
+// matches; the last block adds them to H, and its thread 0 solves the pose
+// into trans_out.
+__global__ void __launch_bounds__(kIcpThreads) icp_cross(
+    const float* __restrict__ src, int N, float* __restrict__ part,
+    int* __restrict__ ticket, float* __restrict__ trans_out) {
+  __shared__ float red[9][kIcpThreads];
+  __shared__ float tot[9];
+  __shared__ bool s_last;
+  float cen[6];
+  for (int k = 0; k < 6; ++k) cen[k] = part[gridDim.x * kIcpPart + k];
+  const float4* rows =
+      reinterpret_cast<const float4*>(part + (gridDim.x + 1) * kIcpPart);
+  int n0, n1;
+  icp_chunk(N, n0, n1);
+  float m[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n = n0 + (int)threadIdx.x; n < n1; n += kIcpThreads) {
+    const float4 b = rows[n];
+    if (b.w == 0.f) continue;
+    const float am[3] = {sub(src[3 * n], cen[0]), sub(src[3 * n + 1], cen[1]),
+                         sub(src[3 * n + 2], cen[2])};
+    const float bm[3] = {sub(b.x, cen[3]), sub(b.y, cen[4]),
+                         sub(b.z, cen[5])};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        m[3 * i + j] = add(m[3 * i + j], mul(am[i], bm[j]));
+  }
+  if (!icp_reduce(m, red, part, 7, ticket, &s_last, tot)) return;
+  if (threadIdx.x == 0) {
+    float T[16];
+    jacobi_pose(tot, cen, cen + 3, T);
+    for (int k = 0; k < 16; ++k) trans_out[k] = T[k];
+  }
+}
+
+// Launch 3: the source warped by the new pose, the rows of each block.
+__global__ void __launch_bounds__(kIcpThreads) icp_warp(
+    const float* __restrict__ src, int N, const float* __restrict__ trans,
+    float* __restrict__ warped) {
+  __shared__ float pose[16];
+  if (threadIdx.x < 16) pose[threadIdx.x] = trans[threadIdx.x];
+  __syncthreads();
+  int n0, n1;
+  icp_chunk(N, n0, n1);
+  for (int n = n0 + (int)threadIdx.x; n < n1; n += kIcpThreads)
     warp_point(pose, src[3 * n], src[3 * n + 1], src[3 * n + 2],
                warped + 3 * n);
-  if (t < 16) trans_out[t] = pose[t];
 }
 
 }  // namespace
@@ -1141,15 +1225,33 @@ extern "C" int eyoc_ransac_polish(const float* trans, const int* best,
   return cudaGetLastError();
 }
 
+// K18 icp_solve's scratch for N rows, in floats: the kIcpBlocks partial
+// rows and the centroids, then each row's match.
+extern "C" int eyoc_icp_scratch(int N) {
+  return (kIcpBlocks + 1) * kIcpPart + 4 * N;
+}
+
 // K18 icp_solve: src [N, 3], mask [N], tgt [M, 3], nn [N] int32 and d2 [N]
 // (K2's on the warped source) -> trans_out [4, 4] and warped [N, 3] (the
-// source under it). One launch.
+// source under it). Three launches of kIcpBlocks blocks each (moments and
+// centroids; cross-covariance and the solve; the warp), chained on the
+// stream; part: eyoc_icp_scratch(N) floats, written before read;
+// ticket: 2 ints, zero between calls (each launch's last block resets its
+// own).
 extern "C" int eyoc_icp_solve(const float* src, const bool* mask,
                               const float* tgt, const int* nn,
-                              const float* d2, int N, float r2,
-                              float* trans_out, float* warped,
+                              const float* d2, int N, float r2, float* part,
+                              int* ticket, float* trans_out, float* warped,
                               cudaStream_t stream) {
-  icp<<<1, kSolveThreads, 0, stream>>>(src, mask, tgt, nn, d2, N, r2,
-                                       trans_out, warped);
+  if (N < 0) return cudaErrorInvalidValue;
+  icp_moments<<<kIcpBlocks, kIcpThreads, 0, stream>>>(
+      src, mask, tgt, nn, d2, N, r2, part, ticket);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  icp_cross<<<kIcpBlocks, kIcpThreads, 0, stream>>>(src, N, part, ticket + 1,
+                                                    trans_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  icp_warp<<<kIcpBlocks, kIcpThreads, 0, stream>>>(src, N, trans_out,
+                                                   warped);
   return cudaGetLastError();
 }

@@ -221,8 +221,16 @@ def kabsch(A: torch.Tensor, B: torch.Tensor,
     (H the centred cross-covariance, max|H| at least 1e-12); the quaternion
     is the eigenvector of the first largest eigenvalue; t = cB - R cA. All
     weights 0 give the identity."""
-    _, cA, cB, _, _, H, scale = _weighted_moments(A, B, weights,
-                                                  weight_threshold)
+    _, cA, cB, _, _, H, _ = _weighted_moments(A, B, weights,
+                                              weight_threshold)
+    return kabsch_from_moments(H, cA, cB)
+
+
+def kabsch_from_moments(H: torch.Tensor, cA: torch.Tensor,
+                        cB: torch.Tensor) -> torch.Tensor:
+    """`kabsch`'s pose from its moments: the centred cross-covariance H
+    [..., 3, 3] and the centroids cA, cB [..., 3]."""
+    scale = torch.clamp(H.abs().amax(dim=(-1, -2), keepdim=True), min=1e-12)
     evals, evecs = jacobi_eigh(horn_profile_matrix(H / scale))
     idx = torch.argmax(evals, dim=-1)
     q = torch.gather(evecs, -1, idx[..., None, None].expand(

@@ -93,14 +93,18 @@ _K2_MAX_SPLITS = 64       # the last block of a query tile reads them all
 
 
 @functools.lru_cache(maxsize=None)
-def k2_plan(batch: int, nq: int, nr: int, dim: int, resident: int):
-    """(query tiles, reference splits) of a K2 launch: as many splits as
-    keep every block resident at once (`resident` blocks: occupancy x
-    SMs), so that the launch is one wave; at most one split per reference
-    tile (the splits take the tiles in turn), and _K2_MAX_SPLITS."""
-    qtiles = -(-nq // _K2_QUERIES[dim])
+def k2_plan(batch: int, nq: int, nr: int, dim: int, resident: int,
+            tiles: tuple[int, int] | None = None):
+    """(query tiles, reference splits) of a K2 launch (or of K8's, whose
+    `tiles` are (queries a block, refs a window); K2's at `dim` by
+    default): as many splits as keep every block resident at once
+    (`resident` blocks: occupancy x SMs), so that the launch is one wave;
+    at most one split per reference tile (the splits take the tiles in
+    turn), and _K2_MAX_SPLITS."""
+    queries, ref_tile = tiles or (_K2_QUERIES[dim], _K2_REF_TILE[dim])
+    qtiles = -(-nq // queries)
     splits = resident // max(batch * qtiles, 1)
-    splits = min(splits, -(-nr // _K2_REF_TILE[dim]), _K2_MAX_SPLITS)
+    splits = min(splits, -(-nr // ref_tile), _K2_MAX_SPLITS)
     return qtiles, max(splits, 1)
 
 
@@ -215,15 +219,46 @@ def masked_knn_batched_plain(query, qmask, ref, rmask, k: int):
     return torch.stack([d for d, _ in out]), torch.stack([i for _, i in out])
 
 
-def masked_knn2_split_plain(query, qmask, ref, rmask, splits: int,
-                            tile: int = 64):
-    """K8's reformulation in plain torch: the references in tiles of `tile`,
-    tile t to split t % splits; each split's two nearest valid refs by
-    (distance, index) in the direct form; the splits' lists merged in split
-    order under that order; a place no valid ref fills, and an invalid
-    query, reads (1e30, 0)."""
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of f32 x as K8 splits its operands: hi = x rounded to TF32
+    (10 explicit mantissa bits, to nearest with ties away from zero, as
+    `cvt.rna.tf32.f32`), lo = x - hi (exact) rounded the same way."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        bits = (bits + 0x1000) & 0xFFFFE000
+        bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+        return bits.to(torch.int32).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def _gram_split_d2(qh, ql, qn, rh, rl, rn, chunk: int = 128):
+    """K8's distances [nq, nr]: (|q|^2 - 2 q.r) + |r|^2 clamped at 0, q.r
+    the 3xTF32 products lo_q hi_r + hi_q lo_r + hi_q hi_r summed over the
+    features (each pair alike: equal rows give equal distances)."""
+    out = []
+    for q0 in range(0, qh.shape[0], chunk):
+        a, b = qh[q0:q0 + chunk, None], ql[q0:q0 + chunk, None]
+        dot = (b * rh[None] + a * rl[None] + a * rh[None]).sum(-1)
+        out.append(torch.clamp((qn[q0:q0 + chunk, None] - 2.0 * dot)
+                               + rn[None], min=0.0))
+    return (torch.cat(out) if out
+            else qh.new_zeros((0, rh.shape[0])))
+
+
+def masked_knn2_gram_split_plain(query, qmask, ref, rmask, splits: int = 1,
+                                 tile: int = 256):
+    """K8's reformulation in plain torch: the Gram form with its cross
+    term on the TF32 split (`tf32_split`, `_gram_split_d2`); the refs in
+    windows of `tile`, window w to split w % splits, each split's valid
+    refs in index order; each split's two nearest by (distance, index); the
+    splits' lists merged in split order under that order; a place no valid
+    ref fills, and an invalid query, reads (1e30, 0)."""
     nq, nr = query.shape[0], ref.shape[0]
     inf = float("inf")
+    qh, ql = tf32_split(query)
+    rh, rl = tf32_split(ref)
+    qn, rn = (query * query).sum(-1), (ref * ref).sum(-1)
     best = torch.full((nq, 2), inf, dtype=torch.float32, device=query.device)
     idx = torch.zeros((nq, 2), dtype=torch.int64, device=query.device)
     for s in range(splits):
@@ -231,7 +266,7 @@ def masked_knn2_split_plain(query, qmask, ref, rmask, splits: int,
                           for j0 in range(s * tile, nr, splits * tile)]
                          or [torch.zeros(0, dtype=torch.int64)])
         cols = cols[rmask[cols]]
-        d2 = torch.sum((query[:, None, :] - ref[None, cols, :]) ** 2, -1)
+        d2 = _gram_split_d2(qh, ql, qn, rh[cols], rl[cols], rn[cols])
         # the split's list: stable sort by distance keeps index order on ties
         order = torch.sort(d2, dim=1, stable=True).indices[:, :2]
         d = torch.full((nq, 2), inf, dtype=torch.float32, device=query.device)
@@ -265,9 +300,13 @@ _K9_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 _KNN2_DIM = 32            # K8 and K9 take ResUNet features only
+# K8's query tile (16 warps of 32 queries) and ref window
+# (csrc/masked_knn2.cu kQ8, kW8)
+_K8_QUERIES, _K8_WINDOW = 512, 256
 _knn2_blocks: dict = {}
 
 
+@functools.lru_cache(maxsize=None)
 def _knn2_resident(dev: int, excl: bool) -> int:
     """Blocks of K8 (or K9, `excl`) that device `dev` holds at once."""
     n = _knn2_blocks.get((dev, excl))
@@ -297,7 +336,8 @@ def _launch_knn2(query, qmask, ref, rmask):
     if D != _KNN2_DIM:
         raise ValueError(f"masked_knn2: feature width {D}, expected "
                          f"{_KNN2_DIM}")
-    qtiles, splits = k2_plan(B, Nq, Nr, D, _knn2_resident(dev, False))
+    qtiles, splits = k2_plan(B, Nq, Nr, D, _knn2_resident(dev, False),
+                             (_K8_QUERIES, _K8_WINDOW))
     d2 = query.new_empty((B, Nq, 2))
     idx = query.new_empty((B, Nq, 2), dtype=torch.int32)
     part = query.new_empty(4 * B * splits * Nq) if splits > 1 else None

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """The tensor-core rate of one GPU for the operand types that kernel K4
 (csrc/sc2_seed_counts.cu) could use, to choose between them and to give
-K4's bound its b1 rate (NVIDIA publishes none for b1).
+K4's bound its b1 rate (NVIDIA publishes none for b1); and the `mma.sync`
+tf32 rate and latency that kernel K8 (csrc/masked_knn2.cu, 3xTF32) runs
+at, against the published TF32 peak (a `wgmma` one).
 
     python3 profile_k4_mma.py
 
 Builds csrc/probes/mma_rate.cu (through `kernels.build`, nvcc, sm_90a)
 and times, with CUDA events, launches in which every warp runs rounds of
 8 independent `mma.sync` on register operands (b1 m16n8k256 AND + POPC,
-s8 m16n8k32, f16 m16n8k16), then launches in which every warpgroup runs
+s8 m16n8k32, f16 m16n8k16, tf32 m16n8k8; tf32 also as one chain of 8
+dependent MMAs, whose time per MMA is the latency), then launches in
+which every warpgroup runs
 rounds of 4 `wgmma` on operands in shared memory (b1 m64n256k256 AND +
 POPC, s8 m64n256k32). Prints MMAs per SM per microsecond and the dense
 rate in ops/s (a b1 product counted as 2 ops, as an int8 one), beside the
@@ -32,7 +36,11 @@ SHAPES = {0: ("mma.sync b1 m16n8k256", 16 * 8 * 256, 128, 8, (2, 4, 8)),
           1: ("mma.sync s8 m16n8k32", 16 * 8 * 32, 128, 8, (2, 4, 8)),
           2: ("mma.sync f16 m16n8k16", 16 * 8 * 16, 128, 8, (2, 4, 8)),
           3: ("wgmma b1 m64n256k256", 64 * 256 * 256, 128, 4, (1, 2, 3)),
-          4: ("wgmma s8 m64n256k32", 64 * 256 * 32, 128, 4, (1, 2, 3))}
+          4: ("wgmma s8 m64n256k32", 64 * 256 * 32, 128, 4, (1, 2, 3)),
+          5: ("mma.sync tf32 m16n8k8", 16 * 8 * 8, 128, 8, (2, 4, 8)),
+          6: ("mma.sync tf32 m16n8k8, one chain", 16 * 8 * 8, 128, 8,
+              (2, 4, 8))}
+WGMMA = (3, 4)
 K4_PRODUCTS = 1000 * 5000 * 5000
 
 
@@ -55,7 +63,7 @@ def main() -> None:
     for kind, (name, macs, threads, per_round, per_sm) in SHAPES.items():
         for blocks_per_sm in per_sm:
             blocks = sms * blocks_per_sm
-            iters = 4096 if kind < 3 else 1024
+            iters = 1024 if kind in WGMMA else 4096
 
             def run():
                 err = fn(kind, blocks, threads, iters, buf.data_ptr(),
@@ -65,7 +73,7 @@ def main() -> None:
             run()
             torch.cuda.synchronize()
             ms = kernels_time(run)
-            groups = blocks * threads // (32 if kind < 3 else 128)
+            groups = blocks * threads // (128 if kind in WGMMA else 32)
             mmas = groups * per_round * iters
             rate = 2.0 * mmas * macs / (ms * 1e-3)
             if "b1" in name:

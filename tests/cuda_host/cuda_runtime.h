@@ -149,6 +149,12 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+// the blocks run one after another: every write is seen by the next
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __frcp_rn(float a) { return 1.f / a; }
 inline int __float_as_int(float v) {

@@ -6,8 +6,9 @@ the CPU, on numpy inputs made from a seed:
     valid ref, duplicate ref rows; indices bit-equal, d2 rtol 1e-6 (atol
     1e-6 for distances near 0: the two Gram forms round their cross terms
     apart);
-(b) K8's split-and-merge order in plain torch against the plain version,
-    bit-equal;
+(b) K8's split-and-merge order in plain torch (the Gram form on the
+    3xTF32 split) against the plain version: indices bit-equal, d2 rtol
+    1e-6 (atol 1e-6);
 (c) K9's plain version against JAX's safe-radius mining (loss.py:97-111
     rebuilt from the JAX package's pdist/pdist2), indices and flags
     bit-equal;
@@ -113,8 +114,8 @@ def test_k8_split_merge_matches_plain(splits, tile):
     q, qm, r, rm = knn_inputs(7)
     rm[150:] = False          # some splits see no valid ref at all
     d_p, i_p = knn.masked_knn2_plain(*t(q, qm, r, rm))
-    d_s, i_s = knn.masked_knn2_split_plain(*t(q, qm, r, rm), splits=splits,
-                                           tile=tile)
+    d_s, i_s = knn.masked_knn2_gram_split_plain(*t(q, qm, r, rm),
+                                                splits=splits, tile=tile)
     assert torch.equal(i_s, i_p)
     np.testing.assert_allclose(d_s.numpy(), d_p.numpy(), rtol=1e-6,
                                atol=1e-6)

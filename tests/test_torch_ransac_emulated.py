@@ -192,17 +192,20 @@ def test_jacobi_warp_form_is_the_thread_form(tmp_path):
 @pytest.fixture
 def on_host(host_lib, monkeypatch):
     """The wrappers' launch code calls the host build: kernels.load gives
-    its entry points, and the CUDA-only checks pass CPU tensors through."""
+    its entry points, the CUDA-only checks pass CPU tensors through, and
+    the ticket words (icp_solve's) are a zeroed CPU array."""
     def load(name, argtypes, symbol=None):
         fn = getattr(host_lib, f"eyoc_{symbol or name}")
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         return fn
 
+    tickets = torch.zeros(256, dtype=torch.int32)
     monkeypatch.setattr(kernels, "load", load)
     monkeypatch.setattr(kernels, "require_cuda",
                         lambda name, *tensors, dtypes=None: 0)
     monkeypatch.setattr(kernels, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(kernels, "ticket", lambda dev, count=1: tickets)
 
 
 def problem(inlier, nv, seed):
