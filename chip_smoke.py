@@ -57,9 +57,13 @@ Phases (any failure exits non-zero):
    a pose (the others counted and logged); the fitness, best seed and
    K15's rounds equal but for inlier tests within SC2_EPS of the
    threshold (f64), or moved across it by those poses; the same bits
-   twice, device kernels a call, host cost; and `sc2_pcr_batched` with no
-   host sync (sync debug mode "error"). RANSAC's and ICP's kernels at the
-   path's shapes (N = 5000 correspondences at 30% inliers, the default
+   twice, device kernels a call, host cost (K14: 3, the compaction of the
+   valid rows, the consensus of the seeds whose k1 columns differ from the
+   seed before's, the fitness with the argmax; K15: 1, its rounds and
+   device time a round logged); again on 2 problems of 9000 rows, past
+   K15's shared-memory cap (its rows from the global copy); and
+   `sc2_pcr_batched` with no host sync (sync debug mode "error").
+   RANSAC's and ICP's kernels at the path's shapes (N = 5000 correspondences at 30% inliers, the default
    RansacConfig; ICP's 32768-point clouds of a scan): K16's two-stage
    entry `ransac_hypotheses_topk` (H = 1048576, a 512-row subset, the top
    2048; 6 device kernels a call) with its edge flags bit-equal to the
@@ -1584,17 +1588,25 @@ def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
 
 
 def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
-    """K14's bound: per seed the k1 x k1 distances of both clouds (9 flops
-    each), the counts, the soft k2 x k2 matrix, the power iterations and
-    the QCP solve (~600 flops); per (seed, valid row) the fitness test (25
-    flops); bytes: the points and flags once, the k1 columns, the poses,
-    fitness and best written."""
+    """K14's bound: for each head, a seed whose k1 columns differ from the
+    seed before's (a seed with the columns of the seed before has its
+    consensus and pose, bit for bit: the labeling's seeds past its valid
+    rows all take the problem's first valid rows), the k1 x k1 distances of
+    both clouds (9 flops each), the counts, the soft k2 x k2 matrix, the
+    power iterations and the QCP solve (~600 flops), and per (head, valid
+    row) the fitness test (25 flops); bytes: the points and flags once, the
+    k1 columns, the poses, fitness and best written."""
+    import torch
     B, S, k1 = knn.shape
     k2 = min(cfg.k2, k1)
     n = valid.shape[1]
     per_seed = (18 + 2) * k1 * k1 + 4 * k2 * k2 + cfg.num_iterations * (
         2 * k2 * k2 + 3 * k2) + 600
-    ops = B * S * per_seed + 25.0 * S * float(valid.sum())
+    heads = torch.ones((B, S), dtype=torch.bool, device=knn.device)
+    heads[:, 1:] = (knn[:, 1:] != knn[:, :-1]).any(-1)
+    nh = heads.sum(1).double()
+    ops = float((nh * (per_seed + 25.0 * valid.sum(1).double())).sum())
+    log(f"  K14 bound: {int(nh.sum())} heads of {B * S} seeds")
     return (B * n * 25 + B * S * (k1 * 4 + 1) + B * S * 68 + B * 4, ops,
             "f32")
 
@@ -1726,12 +1738,25 @@ def check_sc2_kernels(label, calls, suffix=""):
         a, k = cl[0]
         B, n = _sc2_valid(name, a).shape
         tag = f"{what} ({label}, B = {B}, N = {n})"
-        out[name + suffix] = check_calls(tag, cl, fn, plain, cost, close)
+        row = out[name + suffix] = check_calls(tag, cl, fn, plain, cost,
+                                               close)
         same_bits_twice(tag, fn, cl)
-        expected = 1 if name == "sc2_irls" else 2
+        # K13: flags and ranks; K14: the compaction, the consensus of the
+        # heads, the fitness (its argmax by each problem's last block); K15:
+        # one
+        expected = {"sc2_nms": 2, "sc2_seed_transforms": 3,
+                    "sc2_irls": 1}[name]
         kernels_per_call(tag, lambda: fn(*a, **k), reps=3,
                          expected=expected)
         launch_path(tag, fn, cl, label, 20)
+        if name == "sc2_irls":
+            rounds = fn(*a, **k)[1]
+            most = int(rounds.max())
+            dev = row["device_ms"]
+            log(f"{tag}: rounds {rounds.tolist()}; device time a round of "
+                f"the slowest problem "
+                + ("not measured" if dev is None else
+                   f"{dev / most * 1e3:.2f} us ({dev:.4f} ms / {most})"))
     return out
 
 
@@ -3151,7 +3176,15 @@ def main() -> int:
     check_sc2_kernels("labeling shape, synthetic",
                       sc2_calls(*l_set, l_cfg))
     sc2_no_sync("labeling shape, synthetic", *l_set, l_cfg)
-    del e_set, l_set
+    # past K15's shared-memory row cap: its rows from the global copy (on
+    # a generator of their own, so that the checks after draw as before)
+    from eyoc_tpu_torch.registration.sc2pcr import K15_MAX_ROWS
+    n_over = K15_MAX_ROWS + 808
+    o_set = sc2_problems(torch.Generator().manual_seed(4), n_over,
+                         ((0.3, n_over), (0.1, n_over - 500)))
+    check_sc2_kernels(f"past K15's row cap {K15_MAX_ROWS}", sc2_calls(
+        *o_set[:3], SC2PCRConfig(max_points=n_over, seed_cap=N_SEEDS)))
+    del e_set, l_set, o_set
     torch.cuda.empty_cache()
     # K16-K18 and K2 at ICP's shape (the kernels line's rows)
     results.update(check_ransac_kernels(gen, pairs[0]))

@@ -3,26 +3,55 @@
 // the host in between.
 //
 // K14 replaces eyoc_tpu/registration/sc2pcr.py:161 `_seed_transforms`
-// (with its k2 x k2 `_power_iteration`, :100) after K4's k1 selection:
-// one block a (problem, seed), `seed_consensus`, runs in shared memory
-//   nbr_ok = valid[knn]; the k1 x k1 hard mask |d_S - d_T| < d over valid
-//   pairs (distances sqrt((dx*dx + dy*dy) + dz*dz), unfused, as K4 and the
-//   plain version); the seed row's exact counts; the top k2 of
-//   (nbr_ok ? count : -1) by (count desc, index asc); the soft k2 x k2
-//   matrix clip(1 - cross^2 / d^2, 0) over valid pairs with a zero
-//   diagonal; `iters` power iterations normalized by |v| + 1e-6;
-//   w = |v| * fine_ok / (sum + 1e-6); the weighted QCP Kabsch; and the
-//   fitness, the count over the problem's valid rows of
-//   |R s_n + t - t_n| < inlier_threshold, -1 where the seed is not ok.
-// A second launch, `seed_best`, one block a problem, takes the first
-// argmax of the fitness.
+// (with its k2 x k2 `_power_iteration`, :100) after K4's k1 selection.
+// Three launches:
+// - `compact_rows`, one block a problem: the valid rows copied once, in
+//   index order, into a scratch (source and target as two float4s a row;
+//   `copy_valid`), each row's place there (-1 where invalid) and the
+//   count. No later code reads `valid` or an invalid row.
+// - `seed_consensus`, a warp a seed, kSeedWarps seeds a block. A seed whose
+//   k1 columns are the seed before's (the labeling's seeds past its valid
+//   rows all take the problem's first valid rows) has that seed's
+//   consensus and pose, bit for bit, and makes no chain; the others
+//   (heads) do. A lane holds one of the k1 <= 32 columns: the k1 x k1
+//   `cross` values |d_S - d_T| (distances sqrt((dx*dx + dy*dy) + dz*dz),
+//   unfused, as K4 and the plain version; each pair once) in the warp's
+//   slice of shared memory and its column's hard bits cross < d; the seed
+//   row's exact count over valid pairs, a popcount of those bits; the top
+//   k2 of (nbr_ok ? count : -1) by (count desc, index asc), each column's
+//   rank; a row of the soft k2 x k2 matrix clip(1 - cross^2 / d^2, 0)
+//   (valid pairs, zero diagonal; each pair once) in a lane's registers;
+//   `iters` power iterations y_i = sum_j M[i][j] v_j, v through the warp's
+//   buffer, normalized by |v| + 1e-6 (the norm by a fixed xor-shuffle
+//   tree); w = |v| * fine_ok / (sum + 1e-6); the weighted centroids and
+//   centred moments by xor trees. No block barrier in the chain. Then the
+//   block's QCP solves, one lane of warp 0 a head.
+// - `seed_fitness`, a block a group of kFitSeeds seeds and a part of the
+//   compacted rows: the count over the problem's valid rows of |R s_n + t
+//   - t_n| < inlier_threshold under each head's pose, the rows staged in
+//   shared memory a tile at a time and each row tested on every head pose
+//   of the group (a row read once a block, not once a seed), the integer
+//   counts added over the block and the parts; the other seeds take their
+//   head's pose and consensus set. The problem's last block to finish (a
+//   ticket word a problem, reset by that block) writes the fitness (-1
+//   where the seed is not ok) and takes its first argmax, `best`.
 //
 // K15 replaces :219 `_post_refine`: one persistent block a problem,
-// `irls`, starts from trans[b, best[b]] and runs the IRLS while-loop with
-// its exact stop, (it < it_num) & (it == 0 | |cur - prev| >= 1): warp,
-// distance, inliers (dist < thr over valid rows), Cauchy weights
-// 1 / (1 + (dist / thr)^2), the weighted Kabsch from centred moments taken
-// in two passes, and the old pose kept when no row is an inlier.
+// `irls`, copies its valid rows once, in index order, into shared memory
+// (six arrays, `copy_valid`; past kIrlsMaxRows rows into the problem's
+// part of a global scratch, in the same order), starts from trans[b,
+// best[b]] and runs the IRLS while-loop with its exact stop, (it < it_num)
+// & (it == 0 | |cur - prev| >= 1). A round: the warp, the inlier test
+// (dist < thr), the Cauchy weight 1 / (1 + (dist / thr)^2), the count and
+// the weighted sums; the centroids (every thread divides the same bits);
+// the centred moments over the same inliers (each row's weight kept in a
+// register from the first pass, or made again past kIrlsRows rows a
+// thread: the same bits); the QCP pose on thread 0 where the count is not
+// 0 (else the old pose stays). Row m belongs to thread m % kIrlsThreads in
+// every pass; sums go by a fixed xor-shuffle tree over each warp, the
+// warps' partials through shared memory and one barrier, then the same
+// tree over the partials in every warp, so every thread holds the same
+// bits.
 //
 // `qcp_pose`, shared by both, follows eyoc_tpu/geometry/svd3.py:
 // kabsch_qcp (:131-160) and qcp_leading_quaternion (:101-128) step for
@@ -30,34 +59,138 @@
 // 1e-12 derivative guard, the adjugate column of largest norm (or the
 // identity quaternion), 2 shifted power steps, R, then t = cB - R cA.
 //
-// Every float reduction runs in a fixed order (a thread's rows in order,
-// then a fixed shared-memory tree), so both kernels give the same bits on
-// every call. Divisions and square roots are IEEE (no --use_fast_math), as
-// torch's on the CPU.
+// Every float reduction runs in a fixed order (a lane's rows in order, then
+// a fixed xor-shuffle tree), so both kernels give the same bits on every
+// call; integer counts are exact in any order. Divisions and square roots
+// are IEEE (no --use_fast_math), as torch's on the CPU. A threshold test
+// sqrt_rn(s) < thr is made as s < lim, lim the least float whose rounded
+// root reaches thr (`root_limit`): the same answer for every s, since a
+// rounded root is monotone, without the root.
 //
 // What bounds them: K14 is a chain of small dependent steps a seed (20
 // power iterations, the QCP solve) plus the fitness's operations, about
-// 25 flops for each (seed, valid row); K15 is one block a problem and
-// 20 dependent iterations at most, two passes over the valid rows each:
-// latency, far above their bytes and operations.
+// 25 flops for each (seed, valid row); K15 is one block a problem and 20
+// dependent rounds at most, two passes over the valid rows and a solve on
+// one thread each: latency and instruction issue, far above their bytes
+// and operations. The designs cut both: K14 takes the invalid rows out of
+// every seed's walk, a block barrier out of every step of its chain and
+// the chains of repeated seeds out of the labeling; K15 takes global
+// memory and the shared-memory trees out of its rounds.
 
 #include <cuda_runtime.h>
 
+#include <math.h>
+
+#ifndef EYOC_K15_MAX_ROWS
+#define EYOC_K15_MAX_ROWS 8192
+#endif
+
 namespace {
 
-constexpr int kMaxK = 32;          // k1 and k2 at most (K4's _K4_MAX_K)
-constexpr int kSeedThreads = 128;  // seed_consensus: one block a seed
-constexpr int kBestThreads = 256;  // seed_best: one block a problem
-constexpr int kIrlsThreads = 512;  // irls: one block a problem
-constexpr int kMoments = 11;       // sum w, sum w a (3), sum w b (3); then
-                                   // H (9), GA, GB
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxK = 32;             // k1 and k2 at most (K4's _K4_MAX_K)
+constexpr int kCompactThreads = 256;  // compact_rows: a block a chunk
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kCompactRows = 4;       // of a problem's rows, a thread's
+constexpr int kChunk = kCompactRows * kCompactThreads;
+constexpr int kTagUnit = 1 << 11;     // a count word: epoch kTagUnit + count
+constexpr int kMaxEpoch = 1 << 20;
+static_assert(kChunk < kTagUnit, "a chunk's count fits under the tag");
+constexpr int kCopyBatch = 4;         // K15's copy: 32-row groups a pass
+constexpr int kSeedWarps = 4;         // seed_consensus: seeds (warps) a block
+constexpr int kSeedThreads = 32 * kSeedWarps;
+constexpr int kFitSeeds = 32;         // seed_fitness: seeds a block
+constexpr int kFitThreads = 256;
+constexpr int kFitWarps = kFitThreads / 32;
+constexpr int kFitPer = kFitSeeds / kFitWarps;   // heads a warp tests
+constexpr int kFitBlocksPerSM = 2;    // its row splits aim at this ...
+constexpr int kMaxSplits = 8;         // ... with at most this many parts
+constexpr int kFitMinRows = 512;      // ... of at least this many rows of N
+constexpr int kIrlsThreads = 512;     // irls: one block a problem
+constexpr int kIrlsWarps = kIrlsThreads / 32;
+constexpr int kIrlsMaxRows = EYOC_K15_MAX_ROWS;  // rows in shared memory
+constexpr int kIrlsRows =                        // a thread's of them
+    (kIrlsMaxRows + kIrlsThreads - 1) / kIrlsThreads;
+
+// (dx*dx + dy*dy) + dz*dz, unfused: the square of dist3_rn.
+__device__ __forceinline__ float sq3_rn(float ax, float ay, float az,
+                                        float bx, float by, float bz) {
+  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by),
+              dz = __fsub_rn(az, bz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
 
 __device__ __forceinline__ float dist3_rn(float ax, float ay, float az,
                                           float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by),
-              dz = __fsub_rn(az, bz);
-  return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                              __fmul_rn(dz, dz)));
+  return __fsqrt_rn(sq3_rn(ax, ay, az, bx, by, bz));
+}
+
+// The sums of v[k] over the warp by a fixed xor-shuffle tree: every lane
+// gets the same bits (a + b == b + a).
+template <int n>
+__device__ __forceinline__ void warp_sums(float (&v)[n]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < n; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
+}
+
+// Each row n < N of a problem, valid flags V and coordinates P, Q [N, 3],
+// as put(n, m, r): r its six coordinates (source, then target; read only
+// for a valid row), m its place among the valid rows in index order, -1
+// where it is invalid; start(M) first, with their count M. Warp w takes
+// the rows of its segment [w seg, (w + 1) seg) (seg a multiple of 32): it
+// counts its valid rows, the warps' counts go through `part` (kThreads /
+// 32 ints of shared memory) and one barrier, then it places its rows by
+// ballots from its base, kCopyBatch groups of 32 rows a pass with the
+// pass's loads first. Each load and store of a warp is contiguous.
+template <int kThreads, class Start, class Put>
+__device__ __forceinline__ void copy_valid(const float* __restrict__ P,
+                                           const float* __restrict__ Q,
+                                           const bool* __restrict__ V, int N,
+                                           int* part, Start start, Put put) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = ((N + kWarps - 1) / kWarps + 31) & ~31;
+  const int n0 = min(N, warp * seg), n1 = min(N, n0 + seg);
+  int c = 0;
+#pragma unroll 4
+  for (int n = n0 + lane; n < n1; n += 32) c += V[n];
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
+  if (lane == 0) part[warp] = c;
+  __syncthreads();
+  int base = 0, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = part[w];
+    base += w < warp ? x : 0;
+    total += x;
+  }
+  start(total);
+  const unsigned below = (1u << lane) - 1u;
+  for (int i0 = n0; i0 < n1; i0 += kCopyBatch * 32) {
+    bool v[kCopyBatch];
+    float r[kCopyBatch][6];
+#pragma unroll
+    for (int k = 0; k < kCopyBatch; ++k) {
+      const int n = i0 + 32 * k + lane;
+      v[k] = n < n1 && V[n];
+      for (int e = 0; e < 6; ++e) r[k][e] = 0.f;
+      if (v[k])
+        for (int e = 0; e < 3; ++e) {
+          r[k][e] = P[3 * n + e];
+          r[k][3 + e] = Q[3 * n + e];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyBatch; ++k) {
+      const int n = i0 + 32 * k + lane;
+      if (i0 + 32 * k >= n1) break;
+      const unsigned bal = __ballot_sync(kFull, v[k]);
+      if (n < n1) put(n, v[k] ? base + __popc(bal & below) : -1, r[k]);
+      base += __popc(bal);
+    }
+  }
 }
 
 __device__ __forceinline__ float det3(float a, float b, float c, float d,
@@ -207,291 +340,612 @@ __device__ __forceinline__ void warp_point(const float* T, float x, float y,
     o[r] = T[4 * r] * x + T[4 * r + 1] * y + T[4 * r + 2] * z + T[4 * r + 3];
 }
 
-__global__ void __launch_bounds__(kSeedThreads) seed_consensus(
+// ------------------------------------------------------------------ K14
+
+// compact_rows: block c of problem b (blockIdx.x = b C + c) takes the
+// problem's rows c kChunk, ... (a thread the rows c kChunk + j kCompactThreads
+// + t, j < kCompactRows, each load a warp's contiguous bytes, all in flight
+// at once): the valid ones in index order as rows [2m] and [2m + 1] (the
+// source and target of the m-th, w = 0), pos[n] = m or -1, count = M, and
+// its share of the S fitness counters zeroed. A row's place: the valid
+// rows of the chunks before (each block publishes its count, tagged with
+// the call's epoch, in its word of `flags`, and reads its predecessors'),
+// then those of its chunk before it (ballots, the warps' counts through
+// shared memory). The chunks are placed with no chain from one to the
+// next, so a problem's rows spread over the card.
+__global__ void __launch_bounds__(kCompactThreads) compact_rows(
     const float* __restrict__ src, const float* __restrict__ tgt,
-    const bool* __restrict__ valid, const int* __restrict__ knn,
-    const bool* __restrict__ seed_ok, int N, int S, int k1, int k2,
-    float d_thre, float d_thre2, float inlier_thr, int iters,
-    float* __restrict__ trans, float* __restrict__ fitness,
-    int* __restrict__ fine_out) {
-  __shared__ float ps[kMaxK][3], pt[kMaxK][3];
-  __shared__ int ok[kMaxK], key[kMaxK], fine[kMaxK];
-  __shared__ float cross[kMaxK][kMaxK + 1];
-  __shared__ float M[kMaxK][kMaxK + 1];
-  __shared__ float v[kMaxK], y[kMaxK];
-  __shared__ float nrm;
-  __shared__ float pose[16];
-  __shared__ int cnt[kSeedThreads];
-  const int t = threadIdx.x;
-  const int b = blockIdx.x / S;
-  const int s = blockIdx.x - b * S;
-  const float* P = src + (long long)b * N * 3;
-  const float* Q = tgt + (long long)b * N * 3;
+    const bool* __restrict__ valid, int N, int S, int C, int epoch,
+    int* __restrict__ flags, float4* __restrict__ rows,
+    int* __restrict__ pos, int* __restrict__ count, int* __restrict__ hits) {
+  __shared__ int counts[kCompactRows][kCompactWarps];
+  __shared__ int before_all;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = blockIdx.x / C, c = blockIdx.x - b * C;
+  const float* P = src + 3ll * b * N;
+  const float* Q = tgt + 3ll * b * N;
   const bool* V = valid + (long long)b * N;
-  const int* kn = knn + ((long long)b * S + s) * k1;
-  if (t < k1) {
-    const int j = kn[t];
-    for (int c = 0; c < 3; ++c) {
-      ps[t][c] = P[3 * j + c];
-      pt[t][c] = Q[3 * j + c];
-    }
-    ok[t] = V[j];
+  float4* R = rows + 2ll * b * N;
+  int* I = pos + (long long)b * N;
+  for (int k = c * kCompactThreads + t; k < S; k += C * kCompactThreads)
+    hits[(long long)b * S + k] = 0;
+  const int c0 = c * kChunk;
+  bool v[kCompactRows];
+  float r[kCompactRows][6];
+#pragma unroll
+  for (int j = 0; j < kCompactRows; ++j) {
+    const int n = c0 + j * kCompactThreads + t;
+    v[j] = n < N && V[n];
+    for (int e = 0; e < 6; ++e) r[j][e] = 0.f;
+    if (v[j])
+      for (int e = 0; e < 3; ++e) {
+        r[j][e] = P[3 * n + e];
+        r[j][3 + e] = Q[3 * n + e];
+      }
+  }
+  unsigned bal[kCompactRows];
+#pragma unroll
+  for (int j = 0; j < kCompactRows; ++j) {
+    bal[j] = __ballot_sync(kFull, v[j]);
+    if (lane == 0) counts[j][warp] = __popc(bal[j]);
   }
   __syncthreads();
-  // cross[i][j] = |d_S(i, j) - d_T(i, j)| over the k1 columns
-  for (int e = t; e < k1 * k1; e += kSeedThreads) {
-    const int i = e / k1, j = e - i * k1;
-    const float ds = dist3_rn(ps[i][0], ps[i][1], ps[i][2], ps[j][0],
-                              ps[j][1], ps[j][2]);
-    const float dt = dist3_rn(pt[i][0], pt[i][1], pt[i][2], pt[j][0],
-                              pt[j][1], pt[j][2]);
-    cross[i][j] = fabsf(__fsub_rn(ds, dt));
+  int total = 0, mine[kCompactRows];
+  for (int j = 0; j < kCompactRows; ++j)
+    for (int w = 0; w < kCompactWarps; ++w) {
+      if (w == warp) mine[j] = total;
+      total += counts[j][w];
+    }
+  // publish this chunk's count, then add the chunks' before it
+  volatile int* F = flags + (long long)b * C;
+  if (t == 0) F[c] = epoch * kTagUnit + total;
+  if (warp == 0) {
+    int x = 0;
+    for (int k = lane; k < c; k += 32) {
+      int f;
+      do {
+        f = F[k];
+      } while (f / kTagUnit != epoch);
+      x += f - epoch * kTagUnit;
+    }
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+    if (lane == 0) before_all = x;
   }
   __syncthreads();
-  // the seed row's exact local SC^2: hard[0][i] * hard[i][j] summed over i
-  if (t < k1) {
-    int c = 0;
-    if (ok[t] && ok[0])
-      for (int i = 0; i < k1; ++i)
-        c += ok[i] && cross[0][i] < d_thre && cross[i][t] < d_thre;
-    key[t] = ok[t] ? c : -1;
-  }
-  __syncthreads();
-  // the top k2 by (key desc, index asc): each column's rank
-  if (t < k1) {
-    const int kt = key[t];
-    int r = 0;
-    for (int i = 0; i < k1; ++i) r += key[i] > kt || (key[i] == kt && i < t);
-    if (r < k2) fine[r] = t;
-  }
-  __syncthreads();
-  // the soft k2 x k2 matrix over valid pairs, zero diagonal
-  for (int e = t; e < k2 * k2; e += kSeedThreads) {
-    const int i = e / k2, j = e - i * k2;
-    const int fi = fine[i], fj = fine[j];
-    float m = 0.f;
-    if (i != j && ok[fi] && ok[fj]) {
-      const float c = cross[fi][fj];
-      m = fmaxf(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(c, c), d_thre2)), 0.f);
+  const int before = before_all;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kCompactRows; ++j) {
+    const int n = c0 + j * kCompactThreads + t;
+    if (n >= N) continue;
+    if (!v[j]) {
+      I[n] = -1;
+      continue;
     }
-    M[i][j] = m;
+    const int m = before + mine[j] + __popc(bal[j] & below);
+    I[n] = m;
+    R[2 * m] = make_float4(r[j][0], r[j][1], r[j][2], 0.f);
+    R[2 * m + 1] = make_float4(r[j][3], r[j][4], r[j][5], 0.f);
   }
-  if (t < k2) v[t] = 1.f;
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    if (t < k2) {
-      float a = 0.f;
-      for (int j = 0; j < k2; ++j) a += M[t][j] * v[j];
-      y[t] = a;
-    }
-    __syncthreads();
-    if (t == 0) {
-      float q = 0.f;
-      for (int j = 0; j < k2; ++j) q += y[j] * y[j];
-      nrm = sqrtf(q) + 1e-6f;
-    }
-    __syncthreads();
-    if (t < k2) v[t] = y[t] / nrm;
-    __syncthreads();
+  if (c == C - 1 && t == 0) count[b] = before + total;
+}
+
+// seed_consensus: warp w of block g of problem b (blockIdx.x = b G + g)
+// holds seed s = g kSeedWarps + w (none past S), G = ceil(S / kSeedWarps).
+// A seed whose k1 columns are the seed before's, in the same order, has
+// that seed's consensus and pose, bit for bit: it is no head (head[s] = 0)
+// and runs no chain; seed_fitness gives it its head's outputs.
+__global__ void __launch_bounds__(kSeedThreads) seed_consensus(
+    const float4* __restrict__ rows, const int* __restrict__ pos,
+    const int* __restrict__ knn, int N, int S, int k1, int k2, float d_thre,
+    float d_thre2, int iters, float* __restrict__ trans,
+    int* __restrict__ fine_out, int* __restrict__ head) {
+  __shared__ float cross_all[kSeedWarps][kMaxK][kMaxK + 1];
+  __shared__ float4 pts[kSeedWarps][2][kMaxK];
+  __shared__ int fine_all[kSeedWarps][kMaxK];
+  __shared__ float4 vbuf[kSeedWarps][kMaxK / 4];
+  __shared__ float mom[kSeedWarps][17];     // H (9), GA, GB, cA, cB
+  __shared__ int lead_all[kSeedWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = (S + kSeedWarps - 1) / kSeedWarps;
+  const int b = blockIdx.x / G;
+  const int s0 = (blockIdx.x - b * G) * kSeedWarps, s = s0 + warp;
+  const bool live = s < S;
+  const long long row = (long long)b * S + s;
+  const float4* R = rows + 2ll * b * N;
+  float (*cross)[kMaxK + 1] = cross_all[warp];
+  float4* ps = pts[warp][0];
+  float4* pt = pts[warp][1];
+  int* fine = fine_all[warp];
+  // lane i < k1 holds column i; a head where a column differs from the
+  // seed before's (seed 0 always)
+  int col = 0, before = 0;
+  if (live && lane < k1) {
+    col = knn[row * k1 + lane];
+    before = s > 0 ? knn[(row - 1) * k1 + lane] : -1;
   }
-  // the weights and the weighted Kabsch over the k2 points (one thread)
-  if (t == 0) {
-    float w[kMaxK];
-    float ws = 0.f;
-    for (int i = 0; i < k2; ++i) {
-      w[i] = ok[fine[i]] ? fabsf(v[i]) : 0.f;
-      ws += w[i];
-    }
-    const float wn = ws + 1e-6f;
-    float wsum = 0.f, sa[3] = {0.f, 0.f, 0.f}, sb[3] = {0.f, 0.f, 0.f};
-    for (int i = 0; i < k2; ++i) {
-      w[i] = w[i] / wn;
-      wsum += w[i];
-      for (int c = 0; c < 3; ++c) {
-        sa[c] += ps[fine[i]][c] * w[i];
-        sb[c] += pt[fine[i]][c] * w[i];
+  const bool lead = live && __ballot_sync(kFull, col != before) != 0u;
+  if (lane == 0) {
+    lead_all[warp] = lead;
+    if (live) head[row] = lead;
+  }
+  if (lead) {
+    // column `lane`'s rows (zero where invalid) and ok bit
+    int ok = 0;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), q = a;
+    if (lane < k1) {
+      const int m = pos[(long long)b * N + col];
+      ok = m >= 0;
+      if (ok) {
+        a = R[2 * m];
+        q = R[2 * m + 1];
       }
     }
-    wsum += 1e-6f;
+    ps[lane] = a;
+    pt[lane] = q;
+    unsigned okm = ok ? 1u << lane : 0u;     // the k1 columns' ok bits
+    for (int off = 16; off > 0; off >>= 1)
+      okm |= __shfl_xor_sync(kFull, okm, off);
+    __syncwarp();
+    // cross[i][j] = |d_S(i, j) - d_T(i, j)| over the 32 columns (zeros past
+    // k1), each pair once: lane l takes (l, l + k mod 32) for k = 1..16 and
+    // writes both places (d(i, j) and d(j, i) are the same bits)
+    cross[lane][lane] = 0.f;
+    for (int k = 1; k <= 16; ++k) {
+      const int j = (lane + k) & 31;
+      const float4 aj = ps[j], qj = pt[j];
+      const float ds = dist3_rn(aj.x, aj.y, aj.z, a.x, a.y, a.z);
+      const float dt = dist3_rn(qj.x, qj.y, qj.z, q.x, q.y, q.z);
+      const float c = fabsf(__fsub_rn(ds, dt));
+      cross[lane][j] = c;
+      cross[j][lane] = c;
+    }
+    __syncwarp();
+    // the hard bits (cross < d) of column `lane`, then the seed row's exact
+    // local SC^2: the count over valid i of hard[0][i] * hard[i][lane]; -1
+    // at an invalid column
+    unsigned hard = 0;
+    for (int i = 0; i < k1; ++i)
+      hard |= (unsigned)(cross[i][lane] < d_thre) << i;
+    const unsigned row0 = __shfl_sync(kFull, hard, 0);
+    int key = -1;
+    if (lane < k1 && ok) key = (okm & 1u) ? __popc(okm & row0 & hard) : 0;
+    // the top k2 by (key desc, index asc): each column's rank
+    int r = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+      const int ki = __shfl_sync(kFull, key, i);
+      r += i < k1 && (ki > key || (ki == key && i < lane));
+    }
+    if (lane < k1 && r < k2) fine[r] = lane;
+    __syncwarp();
+    // the soft k2 x k2 matrix clip(1 - cross^2 / d^2, 0) over valid pairs,
+    // zero diagonal, each pair once (lane i < k2 takes (i, i + k mod k2) for
+    // k = 1..k2/2); then in the warp's slice in place of cross, and row
+    // `lane` of it in registers
+    const int fi = lane < k2 ? fine[lane] : 0;
+    const bool oki = lane < k2 && (okm >> fi & 1u);
+    float half[kMaxK / 2];
+#pragma unroll
+    for (int k = 1; k <= kMaxK / 2; ++k) {
+      float m = 0.f;
+      const int j = lane + k < k2 ? lane + k : lane + k - k2;
+      if (oki && k <= k2 / 2) {
+        const int fj = fine[j];
+        if (okm >> fj & 1u) {
+          const float c = cross[fi][fj];
+          m = fmaxf(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(c, c), d_thre2)), 0.f);
+        }
+      }
+      half[k - 1] = m;
+    }
+    __syncwarp();
+    float (*Msm)[kMaxK + 1] = cross;
+    if (lane < k2) {
+      Msm[lane][lane] = 0.f;
+#pragma unroll
+      for (int k = 1; k <= kMaxK / 2; ++k) {
+        const int j = lane + k < k2 ? lane + k : lane + k - k2;
+        if (k <= k2 / 2) {
+          Msm[lane][j] = half[k - 1];
+          Msm[j][lane] = half[k - 1];
+        }
+      }
+    }
+    __syncwarp();
+    float Mrow[kMaxK];
+#pragma unroll
+    for (int j = 0; j < kMaxK; ++j)
+      Mrow[j] = lane < k2 && j < k2 ? Msm[lane][j] : 0.f;
+    // the power iteration: y_i = sum_j M[i][j] v_j (v through the warp's
+    // buffer, every lane reading all of it; four chains of j, added in a
+    // fixed order), v = y / (|y| + 1e-6), the norm by a xor-shuffle tree
+    // (which also holds every lane until all have read the buffer)
+    float* vb = reinterpret_cast<float*>(vbuf[warp]);
+    float v = lane < k2 ? 1.f : 0.f;
+    for (int it = 0; it < iters; ++it) {
+      vb[lane] = v;
+      __syncwarp();
+      float y4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kMaxK / 4; ++j) {
+        if (4 * j >= k2) break;
+        const float4 v4 = vbuf[warp][j];
+        y4[0] += Mrow[4 * j] * v4.x;
+        y4[1] += Mrow[4 * j + 1] * v4.y;
+        y4[2] += Mrow[4 * j + 2] * v4.z;
+        y4[3] += Mrow[4 * j + 3] * v4.w;
+      }
+      const float y = (y4[0] + y4[1]) + (y4[2] + y4[3]);
+      float nn[1] = {y * y};
+      warp_sums(nn);
+      v = y / (sqrtf(nn[0]) + 1e-6f);
+    }
+    // the weights and the weighted Kabsch over the k2 points
+    float ws[1] = {oki ? fabsf(v) : 0.f};
+    const float w0 = ws[0];
+    warp_sums(ws);
+    const float w = w0 / (ws[0] + 1e-6f);
+    const float4 fa = ps[fi], fq = pt[fi];
+    float c1[7] = {w, fa.x * w, fa.y * w, fa.z * w, fq.x * w, fq.y * w,
+                   fq.z * w};
+    warp_sums(c1);
+    const float wsum = c1[0] + 1e-6f;
     float cA[3], cB[3];
     for (int c = 0; c < 3; ++c) {
-      cA[c] = sa[c] / wsum;
-      cB[c] = sb[c] / wsum;
+      cA[c] = c1[1 + c] / wsum;
+      cB[c] = c1[4 + c] / wsum;
     }
-    float H[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float GA = 0.f, GB = 0.f;
-    for (int i = 0; i < k2; ++i) {
-      float am[3], bm[3];
+    const float am[3] = {fa.x - cA[0], fa.y - cA[1], fa.z - cA[2]};
+    const float bm[3] = {fq.x - cB[0], fq.y - cB[1], fq.z - cB[2]};
+    float mo[11];
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) mo[3 * r + c] = am[r] * w * bm[c];
+    mo[9] = w * (am[0] * am[0] + am[1] * am[1] + am[2] * am[2]);
+    mo[10] = w * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
+    warp_sums(mo);
+    if (lane == 0) {
+      for (int k = 0; k < 11; ++k) mom[warp][k] = mo[k];
       for (int c = 0; c < 3; ++c) {
-        am[c] = ps[fine[i]][c] - cA[c];
-        bm[c] = pt[fine[i]][c] - cB[c];
+        mom[warp][11 + c] = cA[c];
+        mom[warp][14 + c] = cB[c];
       }
-      for (int r = 0; r < 3; ++r)
-        for (int c = 0; c < 3; ++c) H[3 * r + c] += am[r] * w[i] * bm[c];
-      GA += w[i] * (am[0] * am[0] + am[1] * am[1] + am[2] * am[2]);
-      GB += w[i] * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
     }
-    qcp_pose(H, GA, GB, cA, cB, pose);
+    if (lane < k2) fine_out[row * k2 + lane] = fine[lane];
   }
   __syncthreads();
-  // the fitness over the problem's valid rows
-  int c = 0;
-  for (int n = t; n < N; n += kSeedThreads) {
-    if (!V[n]) continue;
-    float o[3];
-    warp_point(pose, P[3 * n], P[3 * n + 1], P[3 * n + 2], o);
-    c += dist3_rn(o[0], o[1], o[2], Q[3 * n], Q[3 * n + 1], Q[3 * n + 2]) <
-         inlier_thr;
+  // the block's QCP solves, lane u of warp 0 for seed s0 + u (a head)
+  if (t < kSeedWarps && lead_all[t]) {
+    const float* m = mom[t];
+    qcp_pose(m, m[9], m[10], m + 11, m + 14,
+             trans + 16 * ((long long)b * S + s0 + t));
   }
-  cnt[t] = c;
-  __syncthreads();
-  for (int off = kSeedThreads / 2; off > 0; off >>= 1) {
-    if (t < off) cnt[t] += cnt[t + off];
-    __syncthreads();
-  }
-  const long long row = (long long)b * S + s;
-  if (t < 16) trans[row * 16 + t] = pose[t];
-  if (t == 0) fitness[row] = seed_ok[row] ? (float)cnt[0] : -1.f;
-  if (t < k2) fine_out[row * k2 + t] = fine[t];
 }
 
-// best[b] = the first seed of largest fitness.
-__global__ void __launch_bounds__(kBestThreads) seed_best(
-    const float* __restrict__ fitness, int S, int* __restrict__ best) {
-  __shared__ float bf[kBestThreads];
-  __shared__ int bi[kBestThreads];
-  const int t = threadIdx.x;
-  const float* F = fitness + (long long)blockIdx.x * S;
+// seed_fitness: block (g, r) of problem b (blockIdx.x = (b G + g) splits +
+// r, G = ceil(S / kFitSeeds)) takes the seeds s0 = g kFitSeeds, ... and the
+// r-th of `splits` parts of the compacted rows. A seed's head is the last
+// head at or before it. Part 0 gives each other seed its head's pose and
+// consensus set; every part tests the poses of the group's heads on each
+// of its rows (a row read once a block, a thread's rows t, t +
+// kFitThreads, ...), the counts added into hits[head] (integers: in any
+// order). The problem's last block to finish (a ticket word a problem,
+// reset by that block) writes the fitness, hits of the seed's head or -1
+// where the seed is not ok, and best[b], the first largest.
+__global__ void __launch_bounds__(kFitThreads) seed_fitness(
+    const float4* __restrict__ rows, const int* __restrict__ count,
+    const int* __restrict__ head, const bool* __restrict__ seed_ok, int N,
+    int S, int k2, int splits, float inlier_lim, float* __restrict__ trans,
+    int* __restrict__ fine_out, int* __restrict__ hits,
+    int* __restrict__ head_of, float* __restrict__ fitness,
+    int* __restrict__ best, int* __restrict__ ticket) {
+  __shared__ float4 poses[kFitSeeds][3];   // the heads' pose rows
+  __shared__ float4 tile_a[kFitThreads], tile_q[kFitThreads];
+  __shared__ int hs[kFitSeeds], of[kFitSeeds], cnt[kFitSeeds];
+  __shared__ int part[kFitWarps];
+  __shared__ float bf[kFitWarps];
+  __shared__ int nh_all, last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = (S + kFitSeeds - 1) / kFitSeeds;
+  const int split = blockIdx.x % splits, group = blockIdx.x / splits;
+  const int b = group / G, s0 = (group - b * G) * kFitSeeds;
+  const long long base = (long long)b * S;
+  // the last head before s0 (seed 0 is one)
+  int prior = 0;
+  for (int k = t; k < s0; k += kFitThreads)
+    if (head[base + k]) prior = k;
+  for (int off = 16; off > 0; off >>= 1)
+    prior = max(prior, __shfl_xor_sync(kFull, prior, off));
+  if (lane == 0) part[warp] = prior;
+  __syncthreads();
+  if (warp == 0) {
+    for (int w = 0; w < kFitWarps; ++w) prior = max(prior, part[w]);
+    const int s = s0 + lane;
+    const bool h = s < S && head[base + s];
+    const unsigned heads = __ballot_sync(kFull, h);
+    const unsigned upto = heads & (lane == 31 ? kFull : (2u << lane) - 1u);
+    of[lane] = upto ? s0 + 31 - __clz(upto) : prior;
+    if (h) hs[__popc(heads & ((1u << lane) - 1u))] = s;
+    if (lane == 0) nh_all = __popc(heads);
+  }
+  __syncthreads();
+  const int nh = nh_all;
+  for (int k = t; k < 12 * kFitSeeds; k += kFitThreads)
+    reinterpret_cast<float*>(poses[k / 12])[k % 12] =
+        k / 12 < nh ? trans[16 * (base + hs[k / 12]) + k % 12] : 0.f;
+  if (split == 0) {
+    for (int k = t; k < 16 * kFitSeeds; k += kFitThreads) {
+      const int u = k / 16, s = s0 + u;
+      if (s < S && of[u] != s)
+        trans[16 * (base + s) + k % 16] = trans[16 * (base + of[u]) + k % 16];
+    }
+    for (int k = t; k < k2 * kFitSeeds; k += kFitThreads) {
+      const int u = k / k2, s = s0 + u;
+      if (s < S && of[u] != s)
+        fine_out[k2 * (base + s) + k % k2] =
+            fine_out[k2 * (base + of[u]) + k % k2];
+    }
+    if (t < kFitSeeds && s0 + t < S) head_of[base + s0 + t] = of[t];
+  }
+  __syncthreads();
+  // the part's rows go through shared memory a tile of kFitThreads at a
+  // time (a row a thread, the next tile's loads in flight while the tile
+  // is tested); warp w tests the heads kFitPer w, ... (their poses in
+  // registers) on every row of a tile, a lane's rows in turn
+  const float4* R = rows + 2ll * b * N;
+  const int M = count[b], per = (M + splits - 1) / splits;
+  const int lo = min(M, split * per), hi = min(M, lo + per);
+  float T[kFitPer][12];
+  for (int u = 0; u < kFitPer; ++u)
+    for (int k = 0; k < 12; ++k)
+      T[u][k] = reinterpret_cast<const float*>(poses[kFitPer * warp + u])[k];
+  const bool tests = kFitPer * warp < nh;
+  int c[kFitPer] = {};
+  float4 na = make_float4(0.f, 0.f, 0.f, 0.f), nq = na;
+  if (nh > 0 && lo + t < hi) {
+    na = R[2 * (lo + t)];
+    nq = R[2 * (lo + t) + 1];
+  }
+  for (int m0 = lo; m0 < hi && nh > 0; m0 += kFitThreads) {
+    __syncthreads();                 // the tile before is tested
+    tile_a[t] = na;
+    tile_q[t] = nq;
+    __syncthreads();
+    const int m1 = m0 + kFitThreads;
+    if (m1 + t < hi) {
+      na = R[2 * (m1 + t)];
+      nq = R[2 * (m1 + t) + 1];
+    }
+    const int n = min(kFitThreads, hi - m0);
+    if (tests)
+      for (int m = lane; m < n; m += 32) {
+        const float4 a = tile_a[m], q = tile_q[m];
+        for (int u = 0; u < kFitPer; ++u) {
+          float o[3];
+          warp_point(T[u], a.x, a.y, a.z, o);
+          c[u] += sq3_rn(o[0], o[1], o[2], q.x, q.y, q.z) < inlier_lim;
+        }
+      }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    for (int u = 0; u < kFitPer; ++u) c[u] += __shfl_xor_sync(kFull, c[u], off);
+  if (lane == 0)
+    for (int u = 0; u < kFitPer; ++u) cnt[kFitPer * warp + u] = c[u];
+  __syncthreads();
+  if (t < nh && cnt[t] > 0) atomicAdd(hits + base + hs[t], cnt[t]);
+  // the problem's last block: the fitness and best[b]
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ticket + b, 1) == G * splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
   float f = -3.4e38f;
   int i = S;
-  for (int s = t; s < S; s += kBestThreads) {
-    if (F[s] > f) {
-      f = F[s];
-      i = s;
+  for (int k = t; k < S; k += kFitThreads) {
+    const int h = __ldcg(head_of + base + k);
+    const float x = seed_ok[base + k] ? (float)__ldcg(hits + base + h) : -1.f;
+    fitness[base + k] = x;
+    if (x > f) {
+      f = x;
+      i = k;
     }
   }
-  bf[t] = f;
-  bi[t] = i;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float g = __shfl_xor_sync(kFull, f, off);
+    const int j = __shfl_xor_sync(kFull, i, off);
+    if (g > f || (g == f && j < i)) {
+      f = g;
+      i = j;
+    }
+  }
+  if (lane == 0) {
+    bf[warp] = f;
+    part[warp] = i;
+  }
   __syncthreads();
-  for (int off = kBestThreads / 2; off > 0; off >>= 1) {
-    if (t < off) {
-      const float g = bf[t + off];
-      const int j = bi[t + off];
-      if (g > bf[t] || (g == bf[t] && j < bi[t])) {
-        bf[t] = g;
-        bi[t] = j;
+  if (t == 0) {
+    for (int w = 1; w < kFitWarps; ++w)
+      if (bf[w] > f || (bf[w] == f && part[w] < i)) {
+        f = bf[w];
+        i = part[w];
       }
-    }
-    __syncthreads();
-  }
-  if (t == 0) best[blockIdx.x] = bi[0] < S ? bi[0] : 0;
-}
-
-// Adds red[k][0..kIrlsThreads) into red[k][0] for k < n, a fixed tree.
-__device__ void block_sums(float (*red)[kIrlsThreads], int n) {
-  const int t = threadIdx.x;
-  for (int off = kIrlsThreads / 2; off > 0; off >>= 1) {
-    if (t < off)
-      for (int k = 0; k < n; ++k) red[k][t] += red[k][t + off];
-    __syncthreads();
+    best[b] = i < S ? i : 0;
+    ticket[b] = 0;
   }
 }
 
+// ------------------------------------------------------------------ K15
+
+// irls's sums: a thread's rows in order, then warp_sums, the warp partials
+// through `part` [n][kIrlsWarps] and one barrier, then the same tree over
+// the partials in every warp. A call writes `part` while the block may
+// still read the other buffer of the previous call, so consecutive calls
+// alternate two buffers.
+template <int n>
+__device__ __forceinline__ void block_sums(float (&v)[n],
+                                           float (*part)[kIrlsWarps]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sums(v);
+  if (lane == 0)
+    for (int k = 0; k < n; ++k) part[k][warp] = v[k];
+  __syncthreads();
+  for (int k = 0; k < n; ++k) v[k] = lane < kIrlsWarps ? part[k][lane] : 0.f;
+  warp_sums(v);
+}
+
+// Problem blockIdx.x's rows live in six arrays of ld floats at R (source x,
+// y, z, target x, y, z): dynamic shared memory of L rows where M <= L, else
+// the problem's [6][N] part of `spill`.
 __global__ void __launch_bounds__(kIrlsThreads) irls(
     const float* __restrict__ trans_all, const int* __restrict__ best,
     const float* __restrict__ src, const float* __restrict__ tgt,
-    const bool* __restrict__ valid, int N, int S, float thr, int it_num,
+    const bool* __restrict__ valid, int N, int S, int L, float thr,
+    float lim, int it_num, float* __restrict__ spill,
     float* __restrict__ trans_out, int* __restrict__ iters_out) {
-  __shared__ float red[kMoments][kIrlsThreads];
-  __shared__ int cnt[kIrlsThreads];
+  extern __shared__ float stage[];          // [6][L]
+  __shared__ float part1[8][kIrlsWarps], part2[11][kIrlsWarps];
+  __shared__ int ipart[kIrlsWarps];
   __shared__ float pose[16];
-  __shared__ float cen[6];
-  __shared__ int count;
-  const int t = threadIdx.x;
-  const int b = blockIdx.x;
-  const float* P = src + (long long)b * N * 3;
-  const float* Q = tgt + (long long)b * N * 3;
+  const int t = threadIdx.x, b = blockIdx.x;
+  const float* P = src + 3ll * b * N;
+  const float* Q = tgt + 3ll * b * N;
   const bool* V = valid + (long long)b * N;
   if (t < 16) pose[t] = trans_all[((long long)b * S + best[b]) * 16 + t];
+  // the rows in shared memory where they fit, else in the problem's part
+  // of the global copy
+  float* R = stage;
+  int ld = L, M = 0;
+  copy_valid<kIrlsThreads>(
+      P, Q, V, N, ipart,
+      [&](int total) {
+        M = total;
+        if (M > L) {
+          R = spill + 6ll * b * N;
+          ld = N;
+        }
+      },
+      [&](int, int m, const float* r) {
+        if (m < 0) return;
+        for (int k = 0; k < 6; ++k) R[k * ld + m] = r[k];
+      });
   __syncthreads();
+  const float *sx = R, *sy = R + ld, *sz = R + 2 * ld, *tx = R + 3 * ld,
+              *ty = R + 4 * ld, *tz = R + 5 * ld;
+  // row m's squared distance under T (the root only for an inlier, sq <
+  // lim), and an inlier's Cauchy weight from it
+  auto dist2 = [&](const float* T, int m) {
+    float o[3];
+    warp_point(T, sx[m], sy[m], sz[m], o);
+    return sq3_rn(o[0], o[1], o[2], tx[m], ty[m], tz[m]);
+  };
+  auto cauchy = [&](float sq) {
+    const float r = __fdiv_rn(__fsqrt_rn(sq), thr);
+    return __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(r, r)));
+  };
+  float T[16];
+  // the thread's rows t + j kIrlsThreads (j < kIrlsRows): their squared
+  // distances, then their weights (< 0 where out), from pass 1 for pass 2;
+  // past them (rows in the global copy only) pass 2 makes the same test
+  // again
+  float w_of[kIrlsRows];
+  const int rows = (M + kIrlsThreads - 1) / kIrlsThreads;  // the same in all
   int prev = 0, cur = 0, it = 0;
   while (it < it_num && (it == 0 || abs(cur - prev) >= 1)) {
-    // pass 1: the inliers under the current pose, sum w, sum w a, sum w b
-    float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    int c = 0;
-    for (int n = t; n < N; n += kIrlsThreads) {
-      if (!V[n]) continue;
-      const float a[3] = {P[3 * n], P[3 * n + 1], P[3 * n + 2]};
-      const float q[3] = {Q[3 * n], Q[3 * n + 1], Q[3 * n + 2]};
-      float o[3];
-      warp_point(pose, a[0], a[1], a[2], o);
-      const float d = dist3_rn(o[0], o[1], o[2], q[0], q[1], q[2]);
-      if (!(d < thr)) continue;
-      const float r = __fdiv_rn(d, thr);
-      const float w = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(r, r)));
-      ++c;
-      acc[0] += w;
-      for (int k = 0; k < 3; ++k) {
-        acc[1 + k] += a[k] * w;
-        acc[4 + k] += q[k] * w;
+    for (int k = 0; k < 16; ++k) T[k] = pose[k];
+    // pass 1: sum w, sum w a, sum w b and the inlier count (every row's
+    // distance first, then the inliers' weights)
+    float s1[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    auto add1 = [&](int m, float w) {
+      s1[0] += w;
+      s1[1] += sx[m] * w;
+      s1[2] += sy[m] * w;
+      s1[3] += sz[m] * w;
+      s1[4] += tx[m] * w;
+      s1[5] += ty[m] * w;
+      s1[6] += tz[m] * w;
+      s1[7] += 1.f;
+    };
+#pragma unroll
+    for (int j = 0; j < kIrlsRows; ++j) {
+      if (j >= rows) break;
+      const int m = t + j * kIrlsThreads;
+      w_of[j] = m < M ? dist2(T, m) : lim;
+    }
+#pragma unroll
+    for (int j = 0; j < kIrlsRows; ++j) {
+      if (j >= rows) break;
+      if (w_of[j] < lim) {
+        w_of[j] = cauchy(w_of[j]);
+        add1(t + j * kIrlsThreads, w_of[j]);
+      } else {
+        w_of[j] = -1.f;
       }
     }
-    for (int k = 0; k < 7; ++k) red[k][t] = acc[k];
-    cnt[t] = c;
-    __syncthreads();
-    for (int off = kIrlsThreads / 2; off > 0; off >>= 1) {
-      if (t < off) {
-        for (int k = 0; k < 7; ++k) red[k][t] += red[k][t + off];
-        cnt[t] += cnt[t + off];
-      }
-      __syncthreads();
+    for (int m = t + kIrlsRows * kIrlsThreads; m < M; m += kIrlsThreads) {
+      const float sq = dist2(T, m);
+      if (sq < lim) add1(m, cauchy(sq));
     }
-    if (t == 0) {
-      const float wsum = red[0][0] + 1e-6f;
-      for (int k = 0; k < 6; ++k) cen[k] = red[1 + k][0] / wsum;
-      count = cnt[0];
-    }
-    __syncthreads();
-    // pass 2: the centred moments
-    float m[kMoments] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
-                         0.f};
-    for (int n = t; n < N; n += kIrlsThreads) {
-      if (!V[n]) continue;
-      const float a[3] = {P[3 * n], P[3 * n + 1], P[3 * n + 2]};
-      const float q[3] = {Q[3 * n], Q[3 * n + 1], Q[3 * n + 2]};
-      float o[3];
-      warp_point(pose, a[0], a[1], a[2], o);
-      const float d = dist3_rn(o[0], o[1], o[2], q[0], q[1], q[2]);
-      if (!(d < thr)) continue;
-      const float r = __fdiv_rn(d, thr);
-      const float w = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(r, r)));
-      float am[3], bm[3];
-      for (int k = 0; k < 3; ++k) {
-        am[k] = a[k] - cen[k];
-        bm[k] = q[k] - cen[3 + k];
-      }
+    block_sums(s1, part1);
+    const float wsum = s1[0] + 1e-6f;
+    float cen[6];
+    for (int k = 0; k < 6; ++k) cen[k] = s1[1 + k] / wsum;
+    const int count = (int)s1[7];
+    // pass 2: the centred moments over the same inliers
+    float s2[11] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    auto add2 = [&](int m, float w) {
+      const float am[3] = {sx[m] - cen[0], sy[m] - cen[1], sz[m] - cen[2]};
+      const float bm[3] = {tx[m] - cen[3], ty[m] - cen[4], tz[m] - cen[5]};
       for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) m[3 * i + j] += am[i] * w * bm[j];
-      m[9] += w * (am[0] * am[0] + am[1] * am[1] + am[2] * am[2]);
-      m[10] += w * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
+        for (int j = 0; j < 3; ++j) s2[3 * i + j] += am[i] * w * bm[j];
+      s2[9] += w * (am[0] * am[0] + am[1] * am[1] + am[2] * am[2]);
+      s2[10] += w * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
+    };
+#pragma unroll
+    for (int j = 0; j < kIrlsRows; ++j) {
+      if (j >= rows) break;
+      if (w_of[j] >= 0.f) add2(t + j * kIrlsThreads, w_of[j]);
     }
-    for (int k = 0; k < kMoments; ++k) red[k][t] = m[k];
+    for (int m = t + kIrlsRows * kIrlsThreads; m < M; m += kIrlsThreads) {
+      const float sq = dist2(T, m);
+      if (sq < lim) add2(m, cauchy(sq));
+    }
+    block_sums(s2, part2);
+    if (t == 0 && count > 0) qcp_pose(s2, s2[9], s2[10], cen, cen + 3, pose);
     __syncthreads();
-    block_sums(red, kMoments);
-    if (t == 0 && count > 0) {
-      float H[9];
-      for (int k = 0; k < 9; ++k) H[k] = red[k][0];
-      float T[16];
-      qcp_pose(H, red[9][0], red[10][0], cen, cen + 3, T);
-      for (int k = 0; k < 16; ++k) pose[k] = T[k];
-    }
     prev = cur;
     cur = count;
     ++it;
-    __syncthreads();
   }
   if (t < 16) trans_out[(long long)b * 16 + t] = pose[t];
   if (t == 0) iters_out[b] = it;
+}
+
+// The least float s with sqrt_rn(s) >= thr: sqrt_rn(s) < thr exactly where
+// s < root_limit(thr) (a rounded root is monotone); 0 where thr is not
+// positive (no s passes), inf at thr = inf.
+float root_limit(float thr) {
+  if (!(thr > 0.f)) return 0.f;
+  float s = thr * thr;
+  while (sqrtf(s) >= thr) s = nextafterf(s, 0.f);
+  while (sqrtf(s) < thr) s = nextafterf(s, INFINITY);
+  return s;
+}
+
+// The parts a fitness block's rows are split into: enough blocks for
+// about kFitBlocksPerSM a multiprocessor (the eval shape has few seed
+// groups), at most kMaxSplits, and parts of kFitMinRows rows of N or more.
+cudaError_t fitness_splits(long long groups, int N, int* splits) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  long long r = (kFitBlocksPerSM * (long long)sms + groups - 1) / groups;
+  r = min(r, (long long)kMaxSplits);
+  r = min(r, (long long)(N + kFitMinRows - 1) / kFitMinRows);
+  *splits = r > 1 ? (int)r : 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -499,32 +953,70 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
 // K14: src/tgt [B, N, 3] f32, valid [B, N] bool, knn [B, S, k1] int32,
 // seed_ok [B, S] bool -> trans [B, S, 4, 4], fitness [B, S], best [B]
 // int32 and fine_out [B, S, k2] int32 (the consensus sets, as positions
-// among the k1 columns). Two launches.
+// among the k1 columns). `scratch`: 9 B N + B + 3 B S words, 16-byte
+// aligned (the compacted rows [B, N] x 2 float4, the places [B, N], the
+// counts [B], the fitness counters, the head flags and each seed's head
+// [B, S]); `ticket`: B zeroed words, left zeroed; `flags`: nflags words,
+// at least B ceil(N / kChunk), that hold no value of `epoch` (0 < epoch <
+// kMaxEpoch; the wrapper passes a new one each call). Three launches.
 extern "C" int eyoc_sc2_seed_transforms(
     const float* src, const float* tgt, const bool* valid, const int* knn,
     const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
-    float d_thre2, float inlier_thr, int iters, float* trans, float* fitness,
+    float d_thre2, float inlier_thr, int iters, int* scratch, int* ticket,
+    int* flags, long long nflags, int epoch, float* trans, float* fitness,
     int* best, int* fine_out, cudaStream_t stream) {
   if (k1 < 1 || k1 > kMaxK || k2 < 1 || k2 > k1) return cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return cudaSuccess;
-  seed_consensus<<<B * S, kSeedThreads, 0, stream>>>(
-      src, tgt, valid, knn, seed_ok, N, S, k1, k2, d_thre, d_thre2,
-      inlier_thr, iters, trans, fitness, fine_out);
-  const cudaError_t err = cudaGetLastError();
+  if (N < S) return cudaErrorInvalidValue;
+  float4* rows = reinterpret_cast<float4*>(scratch);
+  int* pos = scratch + 8ll * B * N;
+  int* count = pos + (long long)B * N;
+  int* hits = count + B;
+  int* head = hits + (long long)B * S;
+  int* head_of = head + (long long)B * S;
+  const int G = (S + kSeedWarps - 1) / kSeedWarps;
+  const int G3 = (S + kFitSeeds - 1) / kFitSeeds;
+  int splits = 1;
+  cudaError_t err = fitness_splits((long long)B * G3, N, &splits);
   if (err != cudaSuccess) return err;
-  seed_best<<<B, kBestThreads, 0, stream>>>(fitness, S, best);
+  const int C = (N + kChunk - 1) / kChunk;
+  if ((long long)B * C > nflags || epoch <= 0 || epoch >= kMaxEpoch)
+    return cudaErrorInvalidValue;
+  compact_rows<<<B * C, kCompactThreads, 0, stream>>>(
+      src, tgt, valid, N, S, C, epoch, flags, rows, pos, count, hits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  seed_consensus<<<B * G, kSeedThreads, 0, stream>>>(
+      rows, pos, knn, N, S, k1, k2, d_thre, d_thre2, iters, trans, fine_out,
+      head);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  seed_fitness<<<B * G3 * splits, kFitThreads, 0, stream>>>(
+      rows, count, head, seed_ok, N, S, k2, splits, root_limit(inlier_thr),
+      trans, fine_out, hits, head_of, fitness, best, ticket);
   return cudaGetLastError();
 }
 
 // K15: trans_all [B, S, 4, 4], best [B] int32, src/tgt [B, N, 3], valid
-// [B, N] -> trans [B, 4, 4], iterations [B] int32. One launch.
+// [B, N] -> trans [B, 4, 4], iterations [B] int32. `spill`: [B, 6, N] f32
+// where N > kIrlsMaxRows (the rows of a problem that shared memory cannot
+// hold), else may be null. One launch.
 extern "C" int eyoc_sc2_irls(const float* trans_all, const int* best,
                              const float* src, const float* tgt,
                              const bool* valid, int B, int N, int S,
-                             float thr, int it_num, float* trans_out,
-                             int* iters_out, cudaStream_t stream) {
+                             float thr, int it_num, float* spill,
+                             float* trans_out, int* iters_out,
+                             cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
-  irls<<<B, kIrlsThreads, 0, stream>>>(trans_all, best, src, tgt, valid, N,
-                                       S, thr, it_num, trans_out, iters_out);
+  const int L = N < kIrlsMaxRows ? N : kIrlsMaxRows;
+  if (N > L && spill == nullptr) return cudaErrorInvalidValue;
+  const int smem = 6 * L * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      irls, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  irls<<<B, kIrlsThreads, smem, stream>>>(trans_all, best, src, tgt, valid,
+                                          N, S, L, thr, root_limit(thr),
+                                          it_num, spill, trans_out,
+                                          iters_out);
   return cudaGetLastError();
 }

@@ -19,10 +19,13 @@ with no host sync from the correspondences to the pose:
    the same product with the counts stored, is off the main path;
 4. two-stage consensus (local SC^2 of the k1 -> k2 top-k -> k2 x k2
    power iteration) + per-seed weighted QCP Kabsch + inlier-count fitness
-   and its argmax -> kernel K14 `sc2_seed_transforms` (one block a seed);
+   and its argmax -> kernel K14 `sc2_seed_transforms` (the valid rows
+   compacted once, then a warp a seed, then the fitness of groups of seeds
+   on tiles of the rows);
 5. IRLS post-refinement with the inlier-count stop -> kernel K15
-   `sc2_irls` (one block a problem runs the while-loop, starting from the
-   best seed's pose read on the card).
+   `sc2_irls` (one block a problem runs the while-loop over its valid rows
+   in shared memory, starting from the best seed's pose read on the
+   card).
 
 Every kernel has a plain version here (the CPU path and the card's
 oracle); the per-pair `_pick_seeds`, `_seed_transforms` and `_post_refine`
@@ -623,16 +626,45 @@ def seed_transforms_batched_plain(cfg: SC2PCRConfig, seed_ok, knn_idx, src,
 _K14_MAX_K = 32
 _K14_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int) + (
+    ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int) + (
     ctypes.c_void_p,) * 5
+# K14's compaction: rows a block (csrc/sc2_refine.cu:kChunk), and the most
+# epochs its count words take before they are zeroed again (kMaxEpoch)
+_K14_CHUNK, _K14_MAX_EPOCH = 1024, 1 << 20
+# K14's count words, kept per device and zeroed once: each call tags its
+# chunks' counts with a new epoch, so a call leaves nothing to clear
+_k14_words: dict = {}
+
+
+def _k14_epoch(device, n: int):
+    """(the device's count words, at least n, and this call's epoch)."""
+    words, epoch = _k14_words.get(device, (None, 0))
+    if words is None or words.numel() < n or epoch + 1 >= _K14_MAX_EPOCH:
+        words = torch.zeros(max(n, 1 << 12), dtype=torch.int32,
+                            device=device)
+        epoch = 0
+    _k14_words[device] = (words, epoch + 1)
+    return words, epoch + 1
+
+
+def _k14_scratch(B: int, N: int, S: int, device):
+    """K14's scratch, 9 B N + B + 3 B S int32 words: each problem's valid
+    rows compacted (two float4s a row), each row's place among them, the
+    counts; each seed's fitness counter, head flag and head."""
+    return torch.empty(9 * B * N + B + 3 * B * S, dtype=torch.int32,
+                       device=device)
 
 
 def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
                         valid):
-    """K14: `seed_transforms_batched_plain` (its outputs and arguments) as
-    one block a (problem, seed) and one argmax block a problem.
+    """K14: `seed_transforms_batched_plain` (its outputs and arguments):
+    each problem's valid rows compacted once; a warp a (problem, seed) for
+    the consensus and pose, made once for a run of seeds with the same k1
+    columns; the fitness of each group of seeds on tiles of the rows, and
+    the argmax by each problem's last block.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two launches) or raises."""
+    (three launches) or raises."""
     if src.is_cpu:
         return seed_transforms_batched_plain(cfg, seed_ok, knn_idx, src, tgt,
                                              valid)
@@ -659,11 +691,15 @@ def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
     fit = torch.empty((B, S), dtype=f32, device=src.device)
     best = torch.empty(B, dtype=torch.int32, device=src.device)
     fine_sel = torch.empty((B, S, k2), dtype=torch.int32, device=src.device)
+    scratch = _k14_scratch(B, N, S, src.device)
+    words, epoch = _k14_epoch(src.device, B * -(-N // _K14_CHUNK))
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), p(knn_idx), p(seed_ok), B, N, S, k1,
              k2, float(cfg.d_thre), float(cfg.d_thre ** 2),
-             float(cfg.inlier_threshold), int(cfg.num_iterations), p(trans),
-             p(fit), p(best), p(fine_sel), kernels.stream_handle(dev))
+             float(cfg.inlier_threshold), int(cfg.num_iterations),
+             p(scratch), p(kernels.ticket(dev, B)), p(words), words.numel(),
+             epoch, p(trans), p(fit), p(best), p(fine_sel),
+             kernels.stream_handle(dev))
     kernels.check_launch("sc2_seed_transforms", err)
     return trans, fit, best, fine_sel
 
@@ -696,7 +732,17 @@ def post_refine_batched_plain(cfg: SC2PCRConfig, trans, src, tgt, valid,
 
 
 _K15_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
-    ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 3
+    ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 4
+# K15's most valid rows a problem in shared memory
+# (csrc/sc2_refine.cu:kIrlsMaxRows); a problem with more reads its rows
+# from a compacted copy in global memory
+K15_MAX_ROWS = 8192
+
+
+def _k15_spill(B: int, N: int, device):
+    """K15's global copy of the valid rows, [B, 6, N] f32, for problems
+    whose rows shared memory cannot hold."""
+    return torch.empty((B, 6, N), dtype=torch.float32, device=device)
 
 
 def sc2_irls_plain(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
@@ -715,7 +761,8 @@ def sc2_irls(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
     (trans [B, 4, 4], iterations [B] int32), as `sc2_irls_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one persistent block a problem, one launch) or raises."""
+    (one persistent block a problem, its valid rows in shared memory, one
+    launch) or raises."""
     if src.is_cpu:
         return sc2_irls_plain(cfg, trans, best, src, tgt, valid, it_num)
     return _launch_k15(cfg, trans, best, src, tgt, valid, it_num)
@@ -736,8 +783,9 @@ def _launch_k15(cfg, trans, best, src, tgt, valid, it_num):
     out = torch.empty((B, 4, 4), dtype=f32, device=src.device)
     iters = torch.empty(B, dtype=torch.int32, device=src.device)
     p = kernels.ptr
+    spill = _k15_spill(B, N, src.device) if N > K15_MAX_ROWS else None
     err = fn(p(trans), p(best), p(src), p(tgt), p(valid), B, N, S,
-             _irls_threshold(cfg), int(it_num), p(out), p(iters),
+             _irls_threshold(cfg), int(it_num), p(spill), p(out), p(iters),
              kernels.stream_handle(dev))
     kernels.check_launch("sc2_irls", err)
     return out, iters

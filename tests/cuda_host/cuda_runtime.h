@@ -17,7 +17,8 @@
 // `host_cuda::dynamic_shared` (256 KB). __shfl_xor_sync and __shfl_sync
 // are the warp intrinsics: each lane posts its value, waits for its warp and
 // reads its partner's (the mask is not read: every lane of the warp takes
-// part).
+// part); __ballot_sync is five of them, __syncwarp one whose value is not
+// read.
 // Blocks run in the order of their index, so a block that waits on a lower
 // block's published state (a decoupled look-back) finds it there; a wait on
 // a later block would hang.
@@ -145,6 +146,21 @@ inline T __shfl_sync(unsigned, T v, int src) {
   return host_cuda::exchange(v, (unsigned)src & 31u);
 }
 
+// The lanes of the caller's warp whose `pred` holds, as bits: an OR of the
+// lanes' bits by a xor-shuffle tree.
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned bits = pred ? 1u << lane : 0u;
+  for (unsigned off = 16; off > 0; off >>= 1)
+    bits |= host_cuda::exchange(bits, lane ^ off);
+  return bits;
+}
+
+// A barrier of the caller's warp (every lane takes part, as at a shuffle).
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  host_cuda::exchange(0u, threadIdx.x & 31u);
+}
+
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
@@ -175,6 +191,7 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -198,6 +215,16 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+// the multiprocessors of an H100 SXM
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 132;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {

@@ -76,7 +76,11 @@ def host_libs(tmp_path_factory):
 @pytest.fixture
 def on_host(host_libs, monkeypatch):
     """The wrappers' launch code calls the host build: kernels.load gives
-    its entry points, and the CUDA-only checks pass CPU tensors through."""
+    its entry points, the CUDA-only checks pass CPU tensors through, and
+    the ticket words (K14's) are one zeroed CPU array."""
+    tickets = torch.zeros(256, dtype=torch.int32)
+    monkeypatch.setattr(kernels, "ticket", lambda dev, count=1: tickets)
+
     def load(name, argtypes, symbol=None):
         fn = getattr(host_libs[name], f"eyoc_{symbol or name}")
         fn.argtypes = list(argtypes)
