@@ -43,7 +43,7 @@ Phases (any failure exits non-zero):
    N = 8000 and S = 1600, K8 (`masked_knn2`, the gated matching's top 2,
    on the tensor cores: its bound there and at the f32 rate both kept)
    and K9 (`masked_argmin_excl`, the safe-radius mining at 8192 x 2048,
-   r = 1.5 m); each against its plain version, the same bits twice, its
+   r = 1.5 m, on the tensor cores as K8: both bounds kept); each against its plain version, the same bits twice, its
    device kernels a call and its host cost. SC2-PCR's K13 `sc2_nms`, K14
    `sc2_seed_transforms` and K15 `sc2_irls` at the eval shape (B = 1, N =
    5000, S = 1000: the kernels line's rows), on synthetic problems at the
@@ -77,8 +77,8 @@ Phases (any failure exits non-zero):
    it; keep bit-equal to `topk` of the kernel's own coarse, and the kept
    poses held to the f64 Kabsch as those of the slice; the bound
    recounted from the survivors (the single-stage count logged beside it);
-   K17 `ransac_verify` (over K16's 2048 kept poses, 5000 rows; 2 device
-   kernels) with its counts within the same bands and the first argmax;
+   K17 `ransac_verify` (over K16's 2048 kept poses, 5000 rows; 1 device
+   kernel) with its counts within the same bands and the first argmax;
    K18 `ransac_polish` (5 rounds) and
    `icp_solve` (3 device kernels a call) within POLISH_TOL of the plain
    version and of the f64
@@ -2181,7 +2181,7 @@ def check_ransac_kernels(gen, batch):
              "top 2048, N = 5000)", "a triplet, an edge check, a Kabsch and "
              "a count a hypothesis, then a top k with its poses"),
             ("ransac_verify", ransac.ransac_verify,
-             ransac.ransac_verify_plain, _verify_cost, _verify_close, k17, 2,
+             ransac.ransac_verify_plain, _verify_cost, _verify_close, k17, 1,
              "K17 ransac_verify (2048 x 5000)", "a count of the rows within "
              "a threshold under each of 2048 poses, then a first argmax"),
             ("ransac_polish", ransac.ransac_polish,
@@ -2671,8 +2671,19 @@ def _excl_close(got, want, a, c, pxyz, cxyz, r2):
 
 
 def _excl_cost(a, c, pxyz, cxyz, r2):
+    """K9's bound in K8's convention: the cross term's 3xTF32 products (6 D
+    flops a pair) at the TF32 rate and, on the CUDA cores that issue beside
+    them, the epilogue's FMA, add of |c|^2 and compare (6 flops a pair at
+    the FMA's rate; an exclusion test only for a pair that wins) and the
+    norms (2 D a row). The second count: the direct form's 2 D flops and
+    the exclusion test's 8 a pair at the f32 rate alone (the bound of K9's
+    first design). Bytes: the features and coordinates once; d2, idx and
+    the flag an anchor."""
     P, M, D = a.shape[0], c.shape[0], a.shape[1]
-    return ((P + M) * (D + 3) * 4 + P * 8, P * M * (2.0 * D + 8.0), "f32")
+    pairs = float(P) * M
+    return (P + M) * (D + 3) * 4 + P * 9, {
+        "tf32": 6.0 * pairs * D, "f32": 6.0 * pairs + 2.0 * D * (P + M)}, \
+        None, (pairs * (2.0 * D + 8.0), "f32")
 
 
 def check_label_kernels(calls):

@@ -21,13 +21,15 @@
 // candidates whose coordinates lie at least r from the anchor's partner
 // (squared distance >= r^2). Returns that index and its distance, or
 // (1e30, 0) and a flag when every candidate was excluded (JAX's argmin over
-// an all-1e9 row gives 0). The exclusion test is the direct form here, the
-// Gram form (pdist2) in JAX and the plain version, so the two can differ
-// where |d^2 - r^2| is within rounding; chip_smoke.py counts such tests.
+// an all-1e9 row gives 0). The exclusion test is the direct form here
+// (unfused: one bit pattern a test, which ops/knn.py's
+// masked_argmin_excl_gram_split_plain repeats), the Gram form (pdist2) in
+// JAX and the plain version, so the two can differ where |d^2 - r^2| is
+// within rounding; chip_smoke.py counts such tests.
 //
 // What bounds them: 2 Nq Nr 32 flops per problem against a few MB of
 // inputs (K8: 16 x 16384^2 x 32 on the labeling path; K9: 8192 x 2048 x 32
-// with 3 more coordinates per pair): operations.
+// and an exclusion test for a pair that wins): operations.
 //
 // K8 (`knn2_tc`) runs the cross term q.r on the tensor cores at f32
 // accuracy by a 3xTF32 split: hi = tf32(a) (cvt.rna), lo = tf32(a - hi),
@@ -62,11 +64,22 @@
 //   the same bits on every call.
 // - The [Nq, Nr] matrix never exists.
 //
-// K9 (`excl_kernel`) keeps K2's D = 32 design on the f32 CUDA cores, the
-// direct form: a thread holds up to R = 4 anchors (32 features and the
-// partner's 3 coordinates each) and a running (min, argmin) for each; a
-// block stages 64 candidates (eight float4 and their coordinates) in shared
-// memory, compacted as above; the splits' pairs merge in split order.
+// K9 (`excl_tc`) is K8's design with a running (min, argmin) per anchor:
+// a block takes 512 consecutive anchors (all valid), read from device
+// memory as float4 straight into A fragments, hi and lo (the features in
+// pairs a k step: convert<true>), while the first window's cp.async copies
+// fly; their partners' coordinates wait in shared memory. The candidates
+// of its split come in K8's windows of 256, each with its coordinates;
+// each distance is the Gram form on the 3xTF32 products, and only one that
+// beats its row's minimum (the lane's, and the quad's shared after a tile
+// where one did) is tested for exclusion: the outcome is the same as
+// testing every pair, and a tile where no lane's distance wins costs one
+// vote. Quads merge by shuffles and the splits in split order at the last
+// block of an anchor tile. At the gated step's 8192 x 2048 that is 16
+// anchor tiles x 8 splits (one window each): 128 blocks of 16 warps on
+// the 132 SMs. Most of its time is the sweep's latency a tile (the chain
+// of MMAs, then a winning candidate's exclusion test), with the tensor
+// pipe ~40% busy (profiles in PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -323,18 +336,22 @@ struct Windows {
 
 // The staged window (sm.ccount refs in sm.raw) as B fragments, norms and
 // indices; slots past the refs, up to a multiple of 8, are zero rows at an
-// infinite norm (they never enter a list). Returns the n8 tiles.
+// infinite norm (they never enter a list). Returns the n8 tiles. kPaired:
+// k step kk of quad lane t takes features 8 t + 2 kk and 8 t + 2 kk + 1
+// (K9's order, whose A rows load as float4), else 8 kk + t and 8 kk + t + 4.
+template <bool kPaired = false>
 __device__ __forceinline__ int convert(K8Smem& sm) {
   const int n = sm.ccount, tiles = (n + 7) >> 3;
   // a thread a fragment: lane L of n8 tile nt, k step kk holds b0 = row 8
-  // nt + L / 4, feature 8 kk + L % 4, and b1 four features on
+  // nt + L / 4 at its first feature, and b1 at its second
   for (int i = threadIdx.x; i < tiles * 128; i += kT8) {
     const int L = i & 31, kk = (i >> 5) & 3, nt = i >> 7;
-    const int s = 8 * nt + (L >> 2), k = 8 * kk + (L & 3);
+    const int s = 8 * nt + (L >> 2);
+    const int k = kPaired ? 8 * (L & 3) + 2 * kk : 8 * kk + (L & 3);
     float v0 = 0.f, v1 = 0.f;
     if (s < n) {
       v0 = sm.raw[s * kRow + k];
-      v1 = sm.raw[s * kRow + k + 4];
+      v1 = sm.raw[s * kRow + k + (kPaired ? 1 : 4)];
     }
     uint32_t h0, l0, h1, l1;
     split(v0, h0, l0);
@@ -362,11 +379,78 @@ __device__ __forceinline__ int convert(K8Smem& sm) {
   return tiles;
 }
 
+// One warp's MT m16 tiles of queries against n8 tile nt of the window:
+// the 3xTF32 products (lo_q hi_r + hi_q lo_r + hi_q hi_r) into acc. They
+// are 2 MT chains of 6 MMAs (each m16 tile's k steps 0-1 and 2-3 in two
+// accumulators, added after): an MMA's result comes ~24 cycles after it
+// issues (profile_k4_mma.py), so shorter chains wait less.
+template <int MT>
+__device__ __forceinline__ void tile_dot(const K8Smem& sm, int nt,
+                                         const uint32_t (&ah)[2][4][4],
+                                         const uint32_t (&al)[2][4][4],
+                                         float (&acc)[MT][4]) {
+  const int lane = threadIdx.x & 31;
+  float4 f[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) f[kk] = sm.frag[nt][kk][lane];
+  float acc2[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = acc2[mt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t h0 = __float_as_uint(f[kk].x),
+                   h1 = __float_as_uint(f[kk].y),
+                   l0 = __float_as_uint(f[kk].z),
+                   l1 = __float_as_uint(f[kk].w);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float(&c)[4] = kk < 2 ? acc[mt] : acc2[mt];
+      mma(c, al[mt][kk], h0, h1);
+      mma(c, ah[mt][kk], l0, l1);
+      mma(c, ah[mt][kk], h0, h1);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = __fadd_rn(acc[mt][i],
+                                                       acc2[mt][i]);
+}
+
+// A warp's 32 staged rows (from qs: row g of the warp's first m16 tile) as
+// A fragments, hi and lo (a0: row g, k t4; a1: row g + 8; a2, a3: k t4 +
+// 4), and their squared norms.
+__device__ __forceinline__ void load_a(const float* qs,
+                                       uint32_t (&ah)[2][4][4],
+                                       uint32_t (&al)[2][4][4],
+                                       float (&qn)[2][2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split(qs[(16 * mt + 8 * (i & 1)) * kRow + 8 * kk + t4 + 4 * (i >> 1)],
+              ah[mt][kk][i], al[mt][kk][i]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* row = qs + (16 * mt + 8 * h) * kRow + 8 * t4;
+      float sq = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sq = fmaf(row[k], row[k], sq);
+      sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
+      qn[mt][h] = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+    }
+}
+
 // One warp's MT m16 tiles of queries against the window's n8 tiles: the
-// 3xTF32 products, then each distance into the running top 2 of its row.
-// A tile's products are 2 MT chains of 6 MMAs (each m16 tile's k steps 0-1
-// and 2-3 in two accumulators, added after): an MMA's result comes ~24
-// cycles after it issues (profile_k4_mma.py), so shorter chains wait less.
+// products (tile_dot), then each distance into the running top 2 of its
+// row.
 template <int MT>
 __device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
                                       const uint32_t (&ah)[2][4][4],
@@ -377,33 +461,8 @@ __device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
   const int lane = threadIdx.x & 31, t4 = lane & 3;
 #pragma unroll 1
   for (int nt = 0; nt < tiles; ++nt) {
-    float4 f[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) f[kk] = sm.frag[nt][kk][lane];
-    float acc[MT][4], acc2[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][i] = acc2[mt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t h0 = __float_as_uint(f[kk].x),
-                     h1 = __float_as_uint(f[kk].y),
-                     l0 = __float_as_uint(f[kk].z),
-                     l1 = __float_as_uint(f[kk].w);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float(&c)[4] = kk < 2 ? acc[mt] : acc2[mt];
-        mma(c, al[mt][kk], h0, h1);
-        mma(c, ah[mt][kk], l0, l1);
-        mma(c, ah[mt][kk], h0, h1);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][i] = __fadd_rn(acc[mt][i],
-                                                         acc2[mt][i]);
+    float acc[MT][4];
+    tile_dot<MT>(sm, nt, ah, al, acc);
     const float2 rn = *reinterpret_cast<const float2*>(sm.rn + 8 * nt +
                                                        2 * t4);
     const int2 j = *reinterpret_cast<const int2*>(sm.ridx + 8 * nt + 2 * t4);
@@ -474,8 +533,8 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
   cp_async_wait_all();
   __syncthreads();
 
-  // warp w: compacted queries 32 w + 16 mt + g (+ 8) as A fragments (a0:
-  // row g, k t4; a1: row g + 8; a2, a3: k t4 + 4) and their norms
+  // warp w: compacted queries 32 w + 16 mt + g (+ 8) as A fragments and
+  // their norms
   const int rows = min(32, nv - 32 * warp);
   uint32_t ah[2][4][4], al[2][4][4];
   float qn[2][2];
@@ -489,28 +548,7 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
       bd[mt][h][0] = bd[mt][h][1] = INFINITY;
       bi[mt][h][0] = bi[mt][h][1] = 0;
     }
-  if (rows > 0) {
-    const float* qs = sm.raw + (32 * warp + g) * kRow;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split(qs[(16 * mt + 8 * (i & 1)) * kRow + 8 * kk + t4 + 4 * (i >> 1)],
-                ah[mt][kk][i], al[mt][kk][i]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float* row = qs + (16 * mt + 8 * h) * kRow + 8 * t4;
-        float sq = 0.f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) sq = fmaf(row[k], row[k], sq);
-        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
-        qn[mt][h] = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
-      }
-  }
+  if (rows > 0) load_a(sm.raw + (32 * warp + g) * kRow, ah, al, qn);
   __syncthreads();                         // sm.raw is the refs' from here
 
   Windows win{r, rmask, nr, (int)blockIdx.y, splits, 0};
@@ -621,219 +659,308 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
 
 // ----------------------------------------------------------------- K9
 
-constexpr int kThreads = 128;
-constexpr int kR = 4;                  // anchors a thread holds
-constexpr int kTR = 64;                // candidates a block stages at once
-constexpr int kQ = kThreads * kR;      // anchors a tile holds
-
-// The valid candidates j0 .. j0 + cnt - 1 in shared memory, compacted in
-// index order, with their coordinates; stage() returns their count.
-struct RefTile {
-  float4 c[kTR][8];
-  float4 xyz[kTR];     // (x, y, z, 0)
-  int index[kTR];
-  int warp_n[kTR / 32];
-  int pos[kTR];
-
-  __device__ __forceinline__ int stage(const float* r, const float* rxyz,
-                                       int j0, int cnt) {
-    const int n = compact<kTR, kThreads>(
-        nullptr, [j0](int e) { return j0 + e; }, cnt, warp_n, pos);
-    __syncthreads();   // every pos[] before the copies
-    const float4* r4 = reinterpret_cast<const float4*>(r) + (size_t)j0 * 8;
-    for (int e = threadIdx.x; e < cnt * 8; e += kThreads) {
-      const int at = pos[e >> 3];
-      if (at >= 0) c[at][e & 7] = r4[e];
-    }
-    for (int e = threadIdx.x; e < cnt; e += kThreads) {
-      const int at = pos[e];
-      if (at >= 0) {
-        index[at] = j0 + e;
-        const float* p = rxyz + (size_t)(j0 + e) * 3;
-        xyz[at] = make_float4(p[0], p[1], p[2], 0.f);
-      }
-    }
-    return n;
-  }
+struct K9Smem {
+  K8Smem k8;                           // each window's candidates, as K8's
+                                       // refs (raw's first 256 rows: the
+                                       // anchors stay in registers)
+  float craw[3 * kW8];                 // the staged window's coordinates
+  float4 cxyz[kW8];                    // a slot's coordinates (x, y, z, 0)
+  float4 pxyz[kQ8];                    // an anchor's partner's (x, y, z, 0)
 };
 
-// the running (min, argmin) of the first RK anchors a thread holds over the
-// n staged candidates, which come in increasing index order: a strict
-// compare keeps the lowest index on ties; a candidate within r of the
-// anchor's partner is skipped
-template <int RK>
-__device__ __forceinline__ void sweep_excl(const RefTile& t, int n,
-                                           const float (&qv)[kR][kD],
-                                           const float (&px)[kR][3], float r2,
-                                           float (&bd)[kR], int (&bi)[kR]) {
-#pragma unroll 1
-  for (int jj = 0; jj < n; ++jj) {
-    float acc[RK];
-#pragma unroll
-    for (int k = 0; k < RK; ++k) acc[k] = 0.f;
-#pragma unroll
-    for (int g = 0; g < 8; ++g) {
-      const float4 c = t.c[jj][g];
-#pragma unroll
-      for (int k = 0; k < RK; ++k) {
-        float d = qv[k][4 * g] - c.x;
-        acc[k] = fmaf(d, d, acc[k]);
-        d = qv[k][4 * g + 1] - c.y;
-        acc[k] = fmaf(d, d, acc[k]);
-        d = qv[k][4 * g + 2] - c.z;
-        acc[k] = fmaf(d, d, acc[k]);
-        d = qv[k][4 * g + 3] - c.w;
-        acc[k] = fmaf(d, d, acc[k]);
-      }
-    }
-    const int j = t.index[jj];
-    const float4 cx = t.xyz[jj];
-#pragma unroll
-    for (int k = 0; k < RK; ++k) {
-      const float dx = px[k][0] - cx.x;
-      const float dy = px[k][1] - cx.y;
-      const float dz = px[k][2] - cx.z;
-      if (fmaf(dz, dz, fmaf(dy, dy, dx * dx)) < r2) continue;
-      if (acc[k] < bd[k]) {
-        bd[k] = acc[k];
-        bi[k] = j;
-      }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Window w's candidates (every one valid: a slot is its place in the
+// window) staged as K8's refs, and their cnt x 3 coordinates flat into
+// craw: 16-byte copies where the window's first one is 16-byte aligned (a
+// window starts at a multiple of 256 rows), 4-byte ones for the rest.
+__device__ __forceinline__ int stage_window(const Windows& win, int w,
+                                            bool ok, const float* rxyz,
+                                            K9Smem& sm) {
+  w = win.stage(w, ok, sm.k8);
+  if (w < win.count) {
+    const int j0 = win.start(w), nf = 3 * min(kW8, win.nr - j0);
+    const float* g = rxyz + 3ll * j0;
+    const int n16 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? nf / 4 : 0;
+    for (int e = threadIdx.x; e < n16; e += kT8)
+      cp_async16(sm.craw + 4 * e, g + 4 * e);
+    for (int e = 4 * n16 + threadIdx.x; e < nf; e += kT8)
+      cp_async4(sm.craw + e, g + e);
+    cp_async_commit();
+  }
+  return w;
+}
+
+// |p - c|^2 < r2 in the direct form, unfused: (dx dx + dy dy) + dz dz
+__device__ __forceinline__ bool excluded(float4 p, float4 c, float r2) {
+  const float dx = __fsub_rn(p.x, c.x), dy = __fsub_rn(p.y, c.y),
+              dz = __fsub_rn(p.z, c.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz)) < r2;
+}
+
+// a candidate that comes after every index the lane's running (min,
+// argmin) has seen: a candidate above th, a minimum that its row's quad
+// holds already, is never the row's; else it is taken where its distance,
+// clamped at 0, is smaller than the lane's and it is not excluded (tested
+// only then: the outcome is the same)
+__device__ __forceinline__ bool wins(float d, float bd, float th) {
+  return d < bd && d <= th;
+}
+
+__device__ __forceinline__ void take1(float d, int j, float4 c,
+                                      const float4* p, float r2, float th,
+                                      float& bd, int& bi) {
+  if (wins(d, bd, th)) {
+    d = fmaxf(d, 0.f);
+    if (d < bd && !excluded(*p, c, r2)) {
+      bd = d;
+      bi = j;
     }
   }
 }
 
-__device__ __forceinline__ void sweep_excl_rk(int rk, const RefTile& t, int n,
-                                              const float (&qv)[kR][kD],
-                                              const float (&px)[kR][3],
-                                              float r2, float (&bd)[kR],
-                                              int (&bi)[kR]) {
-  switch (rk) {
-    case 1: sweep_excl<1>(t, n, qv, px, r2, bd, bi); break;
-    case 2: sweep_excl<2>(t, n, qv, px, r2, bd, bi); break;
-    case 3: sweep_excl<3>(t, n, qv, px, r2, bd, bi); break;
-    default: sweep_excl<4>(t, n, qv, px, r2, bd, bi); break;
+// A warp's 32 anchors (rows 32 w + 16 mt + g (+ 8) of the tile, q0 on; 0
+// past nv) as A fragments straight from device memory, in convert<true>'s
+// feature order: lane (g, t) reads features 8 t .. 8 t + 7 of each of its
+// rows as two float4, and k step kk takes 8 t + 2 kk (a0: row g, a1: row
+// g + 8) and 8 t + 2 kk + 1 (a2, a3); hi and lo, and the squared norms
+// (each lane's 8 features of a row, then the quad's by shuffles).
+__device__ __forceinline__ void load_a_rows(const float* q, int q0, int nv,
+                                            uint32_t (&ah)[2][4][4],
+                                            uint32_t (&al)[2][4][4],
+                                            float (&qn)[2][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  float v[2][2][8];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 32 * warp + 16 * mt + 8 * h + g;
+      const float4* p =
+          reinterpret_cast<const float4*>(q + (size_t)(q0 + row) * kD) +
+          2 * t4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float4 f = row < nv ? p[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[mt][h][4 * c] = f.x;
+        v[mt][h][4 * c + 1] = f.y;
+        v[mt][h][4 * c + 2] = f.z;
+        v[mt][h][4 * c + 3] = f.w;
+      }
+    }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split(v[mt][i & 1][2 * kk + (i >> 1)], ah[mt][kk][i], al[mt][kk][i]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sq = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sq = fmaf(v[mt][h][k], v[mt][h][k], sq);
+      sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
+      qn[mt][h] = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+    }
+  }
+}
+
+// One warp's MT m16 tiles of anchors against the window's n8 tiles: K8's
+// 3xTF32 products, then each distance into its row's running (min,
+// argmin) over the candidates not excluded. A tile where no lane's
+// distance wins costs one vote and no exclusion test; after a tile where
+// one did, the quads' minima are shared again (th).
+template <int MT>
+__device__ __forceinline__ void sweep_excl(const K9Smem& sm, int tiles,
+                                           const uint32_t (&ah)[2][4][4],
+                                           const uint32_t (&al)[2][4][4],
+                                           const float (&qn)[2][2],
+                                           const float4* px, float r2,
+                                           float (&bd)[2][2],
+                                           int (&bi)[2][2],
+                                           float (&th)[2][2]) {
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+#pragma unroll 1
+  for (int nt = 0; nt < tiles; ++nt) {
+    float acc[MT][4];
+    tile_dot<MT>(sm.k8, nt, ah, al, acc);
+    const float2 rn =
+        *reinterpret_cast<const float2*>(sm.k8.rn + 8 * nt + 2 * t4);
+    const int2 j =
+        *reinterpret_cast<const int2*>(sm.k8.ridx + 8 * nt + 2 * t4);
+    float d[MT][2][2];
+    bool any = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {       // rows g and g + 8
+        d[mt][h][0] =
+            __fadd_rn(__fmaf_rn(-2.f, acc[mt][2 * h], qn[mt][h]), rn.x);
+        d[mt][h][1] =
+            __fadd_rn(__fmaf_rn(-2.f, acc[mt][2 * h + 1], qn[mt][h]), rn.y);
+        any |= wins(d[mt][h][0], bd[mt][h], th[mt][h]) ||
+               wins(d[mt][h][1], bd[mt][h], th[mt][h]);
+      }
+    }
+    if (__any_sync(0xffffffffu, any)) {
+      const float4 c0 = sm.cxyz[8 * nt + 2 * t4],
+                   c1 = sm.cxyz[8 * nt + 2 * t4 + 1];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* p = px + 16 * mt + 8 * h;
+          take1(d[mt][h][0], j.x, c0, p, r2, th[mt][h], bd[mt][h], bi[mt][h]);
+          take1(d[mt][h][1], j.y, c1, p, r2, th[mt][h], bd[mt][h], bi[mt][h]);
+          float m = fminf(bd[mt][h], __shfl_xor_sync(0xffffffffu,
+                                                     bd[mt][h], 1));
+          th[mt][h] = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        }
+      }
+    }
   }
 }
 
 // anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates r
-// [nr, 32] with coordinates rxyz [nr, 3]; out_d / out_i / out_flag [nq]
-__global__ void __launch_bounds__(kThreads) excl_kernel(
+// [nr, 32] with coordinates rxyz [nr, 3]; out_d / out_i / out_flag [nq].
+// Block (x, y): anchors x kQ8 .. x kQ8 + 511 against the windows of split
+// y; K8's layout (16 warps, 32 anchors a warp as A fragments, read from
+// device memory while the first window's copies are in flight).
+__global__ void __launch_bounds__(kT8, 1) excl_tc(
     const float* __restrict__ q, const float* __restrict__ r,
     const float* __restrict__ qxyz, const float* __restrict__ rxyz, float r2,
     int nq, int nr, float* __restrict__ part_d, int* __restrict__ part_i,
     int* __restrict__ ticket, float* __restrict__ out_d,
     int* __restrict__ out_i, uint8_t* __restrict__ out_flag) {
-  __shared__ RefTile tile;
-  __shared__ int s_qwarp[kQ / 32];
-  __shared__ int s_qpos[kQ];
-  __shared__ int s_qidx[kQ];
-  __shared__ bool s_last;
-  const int splits = gridDim.y, qtiles = gridDim.x;
-  // this tile's anchors: x, x + qtiles, x + 2 qtiles, ...
-  const int x = blockIdx.x;
-  const int in_tile = nq > x ? min(kQ, (nq - x + qtiles - 1) / qtiles) : 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  K9Smem& sm = *reinterpret_cast<K9Smem*>(smem);
+  const int splits = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * kQ8, nv = min(kQ8, nq - q0);
+  Windows win{r, nullptr, nr, (int)blockIdx.y, splits, 0};
+  const int blocks_r = (nr + kW8 - 1) / kW8;
+  win.count = blocks_r > win.split
+                  ? (blocks_r - win.split + splits - 1) / splits
+                  : 0;
+  // the first window's copies go out before the anchors are read
+  int w = win.count > 0 ? stage_window(win, 0, win.valid(0), rxyz, sm) : 0;
 
-  // the anchors, compacted: thread t holds slots t + 128 k, k < rk
-  const int nv = compact<kQ, kThreads>(
-      nullptr, [x, qtiles](int m) { return x + qtiles * m; }, in_tile,
-      s_qwarp, s_qpos);
-  for (int m = threadIdx.x; m < in_tile; m += kThreads)
-    if (s_qpos[m] >= 0) s_qidx[s_qpos[m]] = x + qtiles * m;
-  __syncthreads();
-  const int rk = (nv + kThreads - 1) / kThreads;
-  float qv[kR][kD];
-  float px[kR][3];
-  int qidx[kR];
+  // the partners' coordinates in shared memory (read by a winning
+  // candidate's exclusion test); warp w: anchors 32 w + 16 mt + g (+ 8) as
+  // A fragments and their norms
+  if (tid < nv)
+    sm.pxyz[tid] = make_float4(qxyz[3ll * (q0 + tid)],
+                               qxyz[3ll * (q0 + tid) + 1],
+                               qxyz[3ll * (q0 + tid) + 2], 0.f);
+  const int rows = min(32, nv - 32 * warp);
+  uint32_t ah[2][4][4], al[2][4][4];
+  float qn[2][2], bd[2][2], th[2][2];
+  int bi[2][2];
 #pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    const int slot = threadIdx.x + kThreads * k;
-    qidx[k] = slot < nv ? s_qidx[slot] : -1;
-    const int at = qidx[k] < 0 ? 0 : qidx[k];
-    const float4* p = reinterpret_cast<const float4*>(q + (size_t)at * kD);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int g = 0; g < kD / 4; ++g) {
-      const float4 t = qidx[k] >= 0 ? p[g] : make_float4(0.f, 0.f, 0.f, 0.f);
-      qv[k][4 * g] = t.x;
-      qv[k][4 * g + 1] = t.y;
-      qv[k][4 * g + 2] = t.z;
-      qv[k][4 * g + 3] = t.w;
+    for (int h = 0; h < 2; ++h) {
+      qn[mt][h] = 0.f;
+      bd[mt][h] = th[mt][h] = INFINITY;
+      bi[mt][h] = 0;
     }
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      px[k][d] = qidx[k] >= 0 ? qxyz[(size_t)at * 3 + d] : 0.f;
+  if (rows > 0) load_a_rows(q, q0, nv, ah, al, qn);
+  const float4* px = sm.pxyz + 32 * warp + g;
+
+  while (w < win.count) {
+    // the next window's flags, read while this one is converted
+    const bool ok = w + 1 < win.count && win.valid(w + 1);
+    cp_async_wait_all();
+    __syncthreads();
+    const int tiles = convert<true>(sm.k8);
+    for (int s = tid; s < tiles * 8; s += kT8)
+      sm.cxyz[s] = s < sm.k8.ccount
+                       ? make_float4(sm.craw[3 * s], sm.craw[3 * s + 1],
+                                     sm.craw[3 * s + 2], 0.f)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    const int next = w + 1 < win.count ? stage_window(win, w + 1, ok, rxyz, sm)
+                                       : win.count;
+    if (rows > 16)
+      sweep_excl<2>(sm, tiles, ah, al, qn, px, r2, bd, bi, th);
+    else if (rows > 0)
+      sweep_excl<1>(sm, tiles, ah, al, qn, px, r2, bd, bi, th);
+    w = next;
+    __syncthreads();
   }
 
-  float bd[kR];
-  int bi[kR];
+  // the four lanes of a row merge their minima under (distance, index)
+  if (rows > 0) {
 #pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    bd[k] = INFINITY;
-    bi[k] = 0;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float od = __shfl_xor_sync(0xffffffffu, bd[mt][h], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[mt][h], off);
+          if (before(od, oi, bd[mt][h], bi[mt][h])) {
+            bd[mt][h] = od;
+            bi[mt][h] = oi;
+          }
+        }
   }
-  // this split's candidate tiles: y, y + splits, y + 2 splits, ...
-  if (rk > 0) {
-    for (int j0 = blockIdx.y * kTR; j0 < nr; j0 += splits * kTR) {
-      const int n = tile.stage(r, rxyz, j0, min(kTR, nr - j0));
-      __syncthreads();
-      sweep_excl_rk(rk, tile, n, qv, px, r2, bd, bi);
-      __syncthreads();
-    }
+  // lane t4 = 0 of each quad writes its rows' minima
+  if (t4 == 0) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = 32 * warp + 16 * mt + 8 * h + g;
+        if (slot >= nv) continue;
+        const size_t qi = q0 + slot;
+        if (splits > 1) {
+          part_d[(size_t)blockIdx.y * nq + qi] = bd[mt][h];
+          part_i[(size_t)blockIdx.y * nq + qi] = bi[mt][h];
+        } else {
+          const bool found = bd[mt][h] < INFINITY;
+          out_d[qi] = found ? bd[mt][h] : kBig;
+          out_i[qi] = found ? bi[mt][h] : 0;
+          out_flag[qi] = found ? 0 : 1;
+        }
+      }
   }
 
   if (splits > 1) {
-#pragma unroll
-    for (int k = 0; k < kR; ++k) {
-      if (qidx[k] >= 0) {
-        const size_t at = (size_t)blockIdx.y * nq + qidx[k];
-        part_d[at] = bd[k];
-        part_i[at] = bi[k];
-      }
-    }
     // the last block of this anchor tile merges the splits, in split order
-    int* tk = ticket + x;
+    int* tk = ticket + blockIdx.x;
     __threadfence();
     __syncthreads();
-    if (threadIdx.x == 0) s_last = atomicAdd(tk, 1) == splits - 1;
+    if (tid == 0) sm.k8.last = atomicAdd(tk, 1) == splits - 1;
     __syncthreads();
-    if (!s_last) return;
+    if (!sm.k8.last) return;
     __threadfence();
-#pragma unroll
-    for (int k = 0; k < kR; ++k) {
-      bd[k] = INFINITY;
-      bi[k] = 0;
-    }
-    for (int sp = 0; sp < splits; ++sp) {
-#pragma unroll
-      for (int k = 0; k < kR; ++k) {
-        if (qidx[k] < 0) continue;
-        const size_t at = (size_t)sp * nq + qidx[k];
-        const float d = __ldcg(part_d + at);
-        const int i = __ldcg(part_i + at);
-        if (before(d, i, bd[k], bi[k])) {
-          bd[k] = d;
-          bi[k] = i;
+    if (tid < nv) {                        // kT8 == kQ8: an anchor a thread
+      const size_t qi = q0 + tid;
+      float md = INFINITY;
+      int mi = 0;
+      for (int sp = 0; sp < splits; ++sp) {
+        const float d = __ldcg(part_d + (size_t)sp * nq + qi);
+        const int i = __ldcg(part_i + (size_t)sp * nq + qi);
+        if (before(d, i, md, mi)) {
+          md = d;
+          mi = i;
         }
       }
+      const bool found = md < INFINITY;
+      out_d[qi] = found ? md : kBig;
+      out_i[qi] = found ? mi : 0;
+      out_flag[qi] = found ? 0 : 1;
     }
-    if (threadIdx.x == 0) *tk = 0;
-  }
-
-  // the tile's answers: its anchors, then (1e30, 0) for the others
-#pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    if (qidx[k] >= 0) {
-      const bool found = bd[k] < INFINITY;
-      out_d[qidx[k]] = found ? bd[k] : kBig;
-      out_i[qidx[k]] = found ? bi[k] : 0;
-      out_flag[qidx[k]] = found ? 0 : 1;
-    }
-  }
-  for (int m = threadIdx.x; m < in_tile; m += kThreads) {
-    if (s_qpos[m] < 0) {
-      out_d[x + qtiles * m] = kBig;
-      out_i[x + qtiles * m] = 0;
-      out_flag[x + qtiles * m] = 1;
-    }
+    if (tid == 0) *tk = 0;
   }
 }
 
@@ -848,17 +975,27 @@ int resident(const void* kernel, int threads, int smem) {
   return sms * per_sm;
 }
 
-// K8's shared memory opt-in, once per device
-cudaError_t k8_smem_attr() {
-  static bool done[64] = {};
+// A kernel's shared memory opt-in, once per device
+template <typename Kernel>
+cudaError_t smem_attr(Kernel kernel, int bytes, bool (&done)[64]) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess || (device < 64 && done[device])) return err;
-  err = cudaFuncSetAttribute(knn2_tc,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(K8Smem));
+                             bytes);
   if (err == cudaSuccess && device < 64) done[device] = true;
   return err;
+}
+
+cudaError_t k8_smem_attr() {
+  static bool done[64] = {};
+  return smem_attr(knn2_tc, (int)sizeof(K8Smem), done);
+}
+
+cudaError_t k9_smem_attr() {
+  static bool done[64] = {};
+  return smem_attr(excl_tc, (int)sizeof(K9Smem), done);
 }
 
 }  // namespace
@@ -866,7 +1003,10 @@ cudaError_t k8_smem_attr() {
 // blocks of K8 (excl = 0) or K9 (excl = 1) that the current device holds at
 // once (occupancy x SMs), for the caller's choice of splits; 0 on an error
 extern "C" int eyoc_masked_knn2_resident(int excl) {
-  if (excl) return resident((const void*)excl_kernel, kThreads, 0);
+  if (excl) {
+    if (k9_smem_attr() != cudaSuccess) return 0;
+    return resident((const void*)excl_tc, kT8, (int)sizeof(K9Smem));
+  }
   if (k8_smem_attr() != cudaSuccess) return 0;
   return resident((const void*)knn2_tc, kT8, (int)sizeof(K8Smem));
 }
@@ -902,9 +1042,11 @@ extern "C" int eyoc_masked_knn2(const void* q, const void* qmask,
 }
 
 // K9. anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates
-// r [nr, 32] with coordinates rxyz [nr, 3], f32, every row valid; r2 the
-// squared exclusion radius. part: 2 * splits * nq words; ticket:
-// ceil(nq / 512) ints, as K8's. out_d [nq] f32 (the squared feature
+// r [nr, 32] with coordinates rxyz [nr, 3], f32, every row valid; q and r
+// 16-byte aligned; r2 the squared exclusion radius. part: 2 * splits * nq
+// words of scratch (unused when splits == 1); ticket: ceil(nq / 512) ints,
+// zero between calls (the kernel leaves them at zero); splits from
+// ops/knn.py:k2_plan at K8's tiles. out_d [nq] f32 (the squared feature
 // distance, or 1e30 when every candidate was excluded), out_i [nq] int32
 // (0 then), out_flag [nq] bool (every candidate was excluded).
 extern "C" int eyoc_masked_argmin_excl(const void* q, const void* r,
@@ -918,10 +1060,12 @@ extern "C" int eyoc_masked_argmin_excl(const void* q, const void* r,
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const int qtiles = (nq + kQ - 1) / kQ;
+  const cudaError_t err = k9_smem_attr();
+  if (err != cudaSuccess) return (int)err;
+  const int qtiles = (nq + kQ8 - 1) / kQ8;
   const size_t np = (size_t)splits * nq;
   dim3 grid(qtiles, splits, 1);
-  excl_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  excl_tc<<<grid, kT8, sizeof(K9Smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(r),
       static_cast<const float*>(qxyz), static_cast<const float*>(rxyz), r2,
       nq, nr, static_cast<float*>(part), static_cast<int*>(part) + np,

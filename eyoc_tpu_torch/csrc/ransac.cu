@@ -33,10 +33,19 @@
 //   hypothesis, writes every pose and its count (the edge flag alone
 //   without a subset).
 // K17 replaces the full verification of :140-145 (`_count_inliers`, queue
-// item 11): `verify`, one block a kept hypothesis, reads trans[keep[h]] and
-// its edge flag (coarse >= 0) itself and counts the valid rows within the
-// threshold; `verify_best`, one block, takes the first argmax and writes
-// the row of trans it names.
+// item 11): `verify`, one launch of (pose group) x (row split) blocks. A
+// group is kVerifyGroup kept hypotheses; a block compacts the group's live
+// ones (edge flag coarse >= 0, read through keep on the card) in index
+// order and holds two poses a thread in registers; the block's split of
+// the rows is staged in shared memory by 16-byte loads, four rows a
+// thread, the invalid rows dropped (the first tile's loads and the poses'
+// go out together, before the first barrier); every (pose, row) test is
+// residual2 < thr2, so each gives the bits of a one-pose-at-a-time count.
+// A split's counts are added to integer sums (any order gives the same
+// sum); the last block of a group at its ticket writes the group's counts
+// as f32 (-1 where the edge check failed) and its first largest count, and
+// the last group at the final ticket takes the first argmax over the
+// groups in group order and writes the row of trans it names.
 // K18 replaces the polish of :148-160 (`ransac_polish`: one block reads
 // best on the card, copies the valid rows once into shared memory, runs
 // the rounds from there -- warp, |d| < thr, the weighted Jacobi Kabsch, the
@@ -75,7 +84,11 @@
 // What bounds them: K16 is operations, ~60 flops for each hypothesis's
 // edge check, ~4300 a Jacobi solve and ~27 for each (survivor, subset row);
 // only the survivors (~4% on the eval path) are solved and counted. K17 is
-// operations, ~27 flops for each (kept hypothesis, valid row); K18's polish
+// operations, ~27 flops for each (kept hypothesis, valid row), unfused, so
+// twice the flop bound at the FMA rate: the groups and splits put four
+// blocks on every SM at the eval path's 2048 x 5000 and each row is read
+// from shared memory once for two poses; what is left beside the tests is
+// the chain of the loads, barriers and tickets (PERF.md); K18's polish
 // is one block, a chain of dependent passes and solves: latency, far above
 // its bytes and operations (the polish's 5 solves, a chain of 144 IEEE
 // divisions and 96 roots each, are most of its time: profile_k18_polish.py).
@@ -107,8 +120,18 @@ constexpr int kEdgeTicket = 0, kSelectTicket = 1, kKept = 2,
 constexpr unsigned kAggregate = 1u << 30, kInclusive = 2u << 30,
                    kValue = kAggregate - 1;
 constexpr int kWindow = 32;          // status words a look-back round reads
-constexpr int kVerifyThreads = 256;  // verify: one block a hypothesis
-constexpr int kBestThreads = 1024;   // verify_best: one block
+constexpr int kVerifyThreads = 128;  // verify: a block a (group, split)
+constexpr int kVerifyWarps = kVerifyThreads / 32;
+constexpr int kVerifyPoses = 2;      // kept poses a thread holds
+constexpr int kVerifyGroup = kVerifyThreads * kVerifyPoses;
+constexpr int kVerifyTile = 4 * kVerifyThreads;  // rows staged: 4 a thread
+constexpr int kVerifyMinRows = 32;   // a split's rows, at least
+#ifndef EYOC_VERIFY_BLOCKS_PER_SM
+#define EYOC_VERIFY_BLOCKS_PER_SM 4
+#endif
+// the blocks a launch puts on each SM where the pose groups are fewer (a
+// host build may set 0: one split a group, several row tiles a block)
+constexpr int kVerifyBlocksPerSm = EYOC_VERIFY_BLOCKS_PER_SM;
 constexpr int kIcpThreads = 256;     // icp_solve: each launch's blocks
 #ifndef EYOC_ICP_BLOCKS
 #define EYOC_ICP_BLOCKS 128
@@ -739,69 +762,303 @@ __global__ void __launch_bounds__(kPoseThreads) kept_poses(
   for (int e = 0; e < 16; ++e) trans[16 * i + e] = pose[e];
 }
 
-__global__ void __launch_bounds__(kVerifyThreads) verify(
-    const float* __restrict__ trans, const float* __restrict__ coarse,
-    const int* __restrict__ keep, const float* __restrict__ src,
-    const float* __restrict__ tgt, const bool* __restrict__ valid, int N,
-    float thr2, float* __restrict__ counts) {
-  __shared__ float pose[16];
-  __shared__ int cnt[kVerifyThreads];
-  const int t = threadIdx.x;
-  const int h = blockIdx.x;
-  const long long row = keep != nullptr ? keep[h] : h;
-  if (coarse[row] < 0.f) {              // the edge check failed
-    if (t == 0) counts[h] = -1.f;
-    return;
-  }
-  if (t < 16) pose[t] = trans[16 * row + t];
-  __syncthreads();
-  int c = 0;
-  for (int n = t; n < N; n += kVerifyThreads)
-    c += valid[n] && residual2(pose, src[3 * n], src[3 * n + 1],
-                               src[3 * n + 2], tgt[3 * n], tgt[3 * n + 1],
-                               tgt[3 * n + 2]) < thr2;
-  cnt[t] = c;
-  __syncthreads();
-  for (int off = kVerifyThreads / 2; off > 0; off >>= 1) {
-    if (t < off) cnt[t] += cnt[t + off];
-    __syncthreads();
-  }
-  if (t == 0) counts[h] = (float)cnt[0];
+// K17's order of two (count, h) pairs: the larger count, then the lower h
+__device__ __forceinline__ bool verify_before(int c, int h, int bc, int bh) {
+  return c > bc || (c == bc && h < bh);
 }
 
-// best = the row of trans of the first largest count.
-__global__ void __launch_bounds__(kBestThreads) verify_best(
-    const float* __restrict__ counts, const int* __restrict__ keep, int Hk,
-    int* __restrict__ best) {
-  __shared__ float bf[kBestThreads];
-  __shared__ int bi[kBestThreads];
-  const int t = threadIdx.x;
-  float f = -3.4e38f;
-  int i = Hk;
-  for (int h = t; h < Hk; h += kBestThreads) {
-    if (counts[h] > f) {
-      f = counts[h];
-      i = h;
+// The block's first (count, h) under verify_before, in thread 0: a xor
+// tree in each warp, then the warps' in order.
+__device__ __forceinline__ void verify_block_best(int& c, int& h, int* s_c,
+                                                  int* s_h) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const int oc = __shfl_xor_sync(0xffffffffu, c, off);
+    const int oh = __shfl_xor_sync(0xffffffffu, h, off);
+    if (verify_before(oc, oh, c, h)) {
+      c = oc;
+      h = oh;
     }
   }
-  bf[t] = f;
-  bi[t] = i;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_c[warp] = c;
+    s_h[warp] = h;
+  }
   __syncthreads();
-  for (int off = kBestThreads / 2; off > 0; off >>= 1) {
-    if (t < off) {
-      const float g = bf[t + off];
-      const int j = bi[t + off];
-      if (g > bf[t] || (g == bf[t] && j < bi[t])) {
-        bf[t] = g;
-        bi[t] = j;
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kVerifyWarps; ++w)
+      if (verify_before(s_c[w], s_h[w], c, h)) {
+        c = s_c[w];
+        h = s_h[w];
+      }
+}
+
+// A thread's four rows of a tile, loaded ahead of the barriers that place
+// them: rows t0 + 4t .. t0 + 4t + 3 (t0 a multiple of 4), three float4 of
+// src and of tgt where `rows16` and all four lie below m.
+struct VerifyRows {
+  float x[12], y[12];
+  bool ok[4];
+
+  __device__ __forceinline__ void load(const float* src, const float* tgt,
+                                       const bool* valid, int t0, int m,
+                                       bool rows16) {
+    const int e0 = 4 * (int)threadIdx.x;
+    if (rows16 && e0 + 4 <= m) {
+      const float4* ps =
+          reinterpret_cast<const float4*>(src + 3ll * (t0 + e0));
+      const float4* pt =
+          reinterpret_cast<const float4*>(tgt + 3ll * (t0 + e0));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 u = ps[k], v = pt[k];
+        x[4 * k] = u.x;
+        x[4 * k + 1] = u.y;
+        x[4 * k + 2] = u.z;
+        x[4 * k + 3] = u.w;
+        y[4 * k] = v.x;
+        y[4 * k + 1] = v.y;
+        y[4 * k + 2] = v.z;
+        y[4 * k + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 12; ++e) {
+        const bool in = e0 + e / 3 < m;
+        x[e] = in ? src[3ll * (t0 + e0) + e] : 0.f;
+        y[e] = in ? tgt[3ll * (t0 + e0) + e] : 0.f;
       }
     }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ok[j] = e0 + j < m && valid[t0 + e0 + j];
+  }
+
+  // the block's valid rows in row order into the shared tile, as (x, y,
+  // z, u) in a and (v, w) in b; returns their count; ends at a barrier
+  __device__ __forceinline__ int place(float4* a, float2* b, int* s_warp) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int before = 0, mine = 0;
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned bits = __ballot_sync(0xffffffffu, ok[j]);
+      before += __popc(bits & lt);
+      mine += __popc(bits);
+    }
+    if (lane == 0) s_warp[warp] = mine;
+    __syncthreads();
+    int n = 0;
+#pragma unroll
+    for (int w = 0; w < kVerifyWarps; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      n += s_warp[w];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!ok[j]) continue;
+      a[before] = make_float4(x[3 * j], x[3 * j + 1], x[3 * j + 2], y[3 * j]);
+      b[before] = make_float2(y[3 * j + 1], y[3 * j + 2]);
+      ++before;
+    }
+    __syncthreads();
+    return n;
+  }
+};
+
+// Each of the thread's first P poses' count of the n staged rows within
+// the threshold: residual2 < thr2, a row read once for the P poses.
+template <int P>
+__device__ __forceinline__ void verify_count(
+    const float (&T)[kVerifyPoses][12], const float4* a, const float2* b,
+    int n, float thr2, int (&c)[kVerifyPoses]) {
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const float4 p = a[i];
+    const float2 q = b[i];
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      c[k] += residual2(T[k], p.x, p.y, p.z, p.w, q.x, q.y) < thr2;
+  }
+}
+
+// K17: block g * splits + s counts the rows [s chunk, (s + 1) chunk) under
+// the live poses of group g (hypotheses g kVerifyGroup ..). sums: Hk ints
+// (the splits' counts, added where splits > 1), then 2 a group (its first
+// largest count and hypothesis); ticket: groups + 1 ints. Both are zero
+// between calls: the launch leaves them so.
+__global__ void __launch_bounds__(kVerifyThreads, kVerifyBlocksPerSm) verify(
+    const float* __restrict__ trans, const float* __restrict__ coarse,
+    const int* __restrict__ keep, int Hk, const float* __restrict__ src,
+    const float* __restrict__ tgt, const bool* __restrict__ valid, int N,
+    int splits, int chunk, bool vec16, float thr2, int* __restrict__ sums,
+    int* __restrict__ ticket, float* __restrict__ counts,
+    int* __restrict__ best) {
+  __shared__ float4 s_a[kVerifyTile];
+  __shared__ float2 s_b[kVerifyTile];
+  __shared__ float s_pose[kVerifyGroup][12];  // a slot's pose, rows 0-2
+  __shared__ int s_hyp[kVerifyGroup];   // the group's live hypotheses
+  __shared__ int s_pos[kVerifyGroup];   // a hypothesis's slot, or -1
+  __shared__ int s_cnt[kVerifyGroup];   // a slot's count (one split)
+  __shared__ int s_warp[kVerifyPoses * kVerifyWarps];
+  __shared__ int s_c[kVerifyWarps], s_h[kVerifyWarps];
+  __shared__ bool s_last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = blockIdx.x / splits, s = blockIdx.x % splits;
+  const int groups = gridDim.x / splits;
+  const int h0 = g * kVerifyGroup;
+  const int r0 = s * chunk, r1 = min(N, r0 + chunk);
+  int* gbest = sums + Hk;
+
+  // every load the block starts from at once: its first tile of rows, and
+  // the flag and pose of each hypothesis of the group (e = p T + t)
+  VerifyRows rows;
+  if (r0 < r1) rows.load(src, tgt, valid, r0, min(kVerifyTile, r1 - r0),
+                         vec16);
+  bool live[kVerifyPoses];
+  float pose[kVerifyPoses][12];
+#pragma unroll
+  for (int p = 0; p < kVerifyPoses; ++p) {
+    const int h = h0 + p * kVerifyThreads + t;
+    live[p] = false;
+    if (h < Hk) {
+      const int row = keep != nullptr ? keep[h] : h;
+      live[p] = coarse[row] >= 0.f;
+      if (vec16) {                         // rows 0-2 as three float4
+        const float4* q = reinterpret_cast<const float4*>(trans + 16ll * row);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float4 v = q[k];
+          pose[p][4 * k] = v.x;
+          pose[p][4 * k + 1] = v.y;
+          pose[p][4 * k + 2] = v.z;
+          pose[p][4 * k + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 12; ++e) pose[p][e] = trans[16ll * row + e];
+      }
+    }
+  }
+
+  // the live ones compacted in index order, their poses to their slots
+  unsigned bits[kVerifyPoses];
+#pragma unroll
+  for (int p = 0; p < kVerifyPoses; ++p) {
+    bits[p] = __ballot_sync(0xffffffffu, live[p]);
+    if (lane == 0) s_warp[p * kVerifyWarps + warp] = __popc(bits[p]);
+  }
+  __syncthreads();
+  int nlive = 0;
+#pragma unroll
+  for (int i = 0; i < kVerifyPoses * kVerifyWarps; ++i) nlive += s_warp[i];
+#pragma unroll
+  for (int p = 0; p < kVerifyPoses; ++p) {
+    int base = __popc(bits[p] & ((1u << lane) - 1u));
+    for (int i = 0; i < p * kVerifyWarps + warp; ++i) base += s_warp[i];
+    const int e = p * kVerifyThreads + t;
+    s_pos[e] = live[p] ? base : -1;
+    if (live[p]) {
+      s_hyp[base] = h0 + e;
+#pragma unroll
+      for (int k = 0; k < 12; ++k) s_pose[base][k] = pose[p][k];
+    }
+  }
+  __syncthreads();
+
+  // slots t, t + T, ...: their poses in registers
+  int np = 0;
+  float T[kVerifyPoses][12];
+  int c[kVerifyPoses];
+#pragma unroll
+  for (int k = 0; k < kVerifyPoses; ++k) {
+    c[k] = 0;
+    const int slot = t + k * kVerifyThreads;
+    if (slot < nlive) {
+      np = k + 1;
+#pragma unroll
+      for (int e = 0; e < 12; ++e) T[k][e] = s_pose[slot][e];
+    }
+  }
+  if (nlive > 0)
+    for (int t0 = r0; t0 < r1; t0 += kVerifyTile) {
+      if (t0 != r0)
+        rows.load(src, tgt, valid, t0, min(kVerifyTile, r1 - t0), vec16);
+      const int n = rows.place(s_a, s_b, s_warp);
+      if (np == kVerifyPoses)
+        verify_count<kVerifyPoses>(T, s_a, s_b, n, thr2, c);
+      else if (np > 0)
+        verify_count<1>(T, s_a, s_b, n, thr2, c);
+      __syncthreads();
+    }
+
+  // the group's counts, added over the splits behind the group's ticket
+  if (splits > 1) {
+    for (int k = 0; k < np; ++k)
+      if (c[k] != 0) atomicAdd(sums + s_hyp[t + k * kVerifyThreads], c[k]);
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      s_last = atomicAdd(ticket + g, 1) == splits - 1;
+      if (s_last) ticket[g] = 0;           // every split has arrived
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+  } else {
+    for (int k = 0; k < np; ++k) s_cnt[t + k * kVerifyThreads] = c[k];
     __syncthreads();
   }
-  if (t == 0) {
-    const int h = bi[0] < Hk ? bi[0] : 0;
-    best[0] = keep != nullptr ? keep[h] : h;
+  int bc = -2, bh = 0x7fffffff;
+#pragma unroll
+  for (int p = 0; p < kVerifyPoses; ++p) {
+    const int e = p * kVerifyThreads + t, h = h0 + e;
+    if (h >= Hk) break;
+    int cnt = -1;                          // the edge check failed
+    if (s_pos[e] >= 0) {
+      if (splits > 1) {
+        cnt = __ldcg(sums + h);
+        sums[h] = 0;
+      } else {
+        cnt = s_cnt[s_pos[e]];
+      }
+    }
+    counts[h] = (float)cnt;
+    if (cnt > bc) {                        // h rises with p: the first
+      bc = cnt;
+      bh = h;
+    }
   }
+  verify_block_best(bc, bh, s_c, s_h);
+
+  // the first argmax over the groups, in group order, behind the last ticket
+  if (groups > 1) {
+    if (t == 0) {
+      gbest[2 * g] = bc;
+      gbest[2 * g + 1] = bh;
+    }
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      s_last = atomicAdd(ticket + groups, 1) == groups - 1;
+      if (s_last) ticket[groups] = 0;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    bc = -2;
+    bh = 0x7fffffff;
+    for (int j = t; j < groups; j += kVerifyThreads) {
+      const int oc = __ldcg(gbest + 2 * j), oh = __ldcg(gbest + 2 * j + 1);
+      if (verify_before(oc, oh, bc, bh)) {
+        bc = oc;
+        bh = oh;
+      }
+      gbest[2 * j] = 0;
+      gbest[2 * j + 1] = 0;
+    }
+    verify_block_best(bc, bh, s_c, s_h);
+  }
+  if (t == 0) best[0] = keep != nullptr ? keep[bh] : bh;
 }
 
 // Adds red[k][0..T) into red[k][0] for k < n, a fixed tree over the T
@@ -1191,18 +1448,40 @@ extern "C" int eyoc_ransac_hypotheses_topk(
 
 // K17: trans [H, 4, 4], coarse [H], keep [Hk] int32 (null: every
 // hypothesis), src/tgt [N, 3], valid [N] -> counts [Hk] f32 and best
-// (the row of trans of the first largest count) int32. Two launches.
+// (the row of trans of the first largest count) int32. With G =
+// eyoc_ransac_verify_groups(Hk): sums, Hk + 2 G ints, and ticket, G + 1
+// ints, both zero between calls and left at zero. One launch of (pose
+// groups) x (row splits): as many splits as put kVerifyBlocksPerSm blocks
+// on each SM, a split at least kVerifyMinRows rows, a multiple of 4.
+extern "C" int eyoc_ransac_verify_groups(int Hk) {
+  return (Hk + kVerifyGroup - 1) / kVerifyGroup;
+}
+
 extern "C" int eyoc_ransac_verify(const float* trans, const float* coarse,
                                   const int* keep, int Hk, const float* src,
                                   const float* tgt, const bool* valid, int N,
-                                  float thr2, float* counts, int* best,
+                                  float thr2, int* sums, int* ticket,
+                                  float* counts, int* best,
                                   cudaStream_t stream) {
-  if (Hk <= 0) return cudaErrorInvalidValue;
-  verify<<<Hk, kVerifyThreads, 0, stream>>>(trans, coarse, keep, src, tgt,
-                                            valid, N, thr2, counts);
-  const cudaError_t err = cudaGetLastError();
+  if (Hk <= 0 || N < 0) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   if (err != cudaSuccess) return err;
-  verify_best<<<1, kBestThreads, 0, stream>>>(counts, keep, Hk, best);
+  const int groups = eyoc_ransac_verify_groups(Hk);
+  int splits = (sms * kVerifyBlocksPerSm + groups - 1) / groups;
+  splits = max(1, min(splits, (N + kVerifyMinRows - 1) / kVerifyMinRows));
+  const int chunk = ((N + splits - 1) / splits + 3) & ~3;
+  if (chunk > 0) splits = (N + chunk - 1) / chunk;
+  // src, tgt and trans 16-byte aligned: rows and poses by float4
+  const bool vec16 = ((reinterpret_cast<unsigned long long>(src) |
+                       reinterpret_cast<unsigned long long>(tgt) |
+                       reinterpret_cast<unsigned long long>(trans)) & 15) == 0;
+  verify<<<groups * splits, kVerifyThreads, 0, stream>>>(
+      trans, coarse, keep, Hk, src, tgt, valid, N, splits, chunk, vec16,
+      thr2, sums, ticket, counts, best);
   return cudaGetLastError();
 }
 

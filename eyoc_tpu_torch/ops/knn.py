@@ -5,7 +5,8 @@ at k = 1 and 2, and masked_argmin).
 of independent problems (the JAX package's `vmap`); `masked_argmin` is its
 B = 1 case. `masked_knn_batched` / `masked_knn` give the k = 1 or 2 nearest:
 k = 1 is K2, k = 2 kernel K8 (`masked_knn2`). `masked_argmin_excl` is
-kernel K9, K2 with a spatial exclusion (the loss's safe-radius mining). The
+kernel K9, K8's design with a minimum and a spatial exclusion (the loss's
+safe-radius mining). The
 plain versions below are the tiled Gram-form sweeps of the JAX package.
 Semantics: squared L2; a masked reference costs +1e30; ties go to the
 lowest index; an invalid query returns (1e30, 0).
@@ -300,7 +301,7 @@ _K9_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 _KNN2_DIM = 32            # K8 and K9 take ResUNet features only
-# K8's query tile (16 warps of 32 queries) and ref window
+# K8's and K9's query tile (16 warps of 32 queries) and ref window
 # (csrc/masked_knn2.cu kQ8, kW8)
 _K8_QUERIES, _K8_WINDOW = 512, 256
 _knn2_blocks: dict = {}
@@ -395,6 +396,54 @@ def masked_argmin_excl_plain(anchor, cand, pxyz, cxyz, r2: float):
     return ind.to(torch.int32), near.gather(1, ind[:, None])[:, 0]
 
 
+def excl_direct(pxyz, cxyz, r2: float):
+    """K9's exclusion test [P, M] bool: |p - c|^2 < r2 in the direct form,
+    one f32 rounding an operation, (dx dx + dy dy) + dz dz, against r2 in
+    f32 (the kernel's unfused `__fsub_rn`/`__fmul_rn`/`__fadd_rn`)."""
+    d = pxyz.float()[:, None, :] - cxyz.float()[None, :, :]
+    dx, dy, dz = d.unbind(-1)
+    return (dx * dx + dy * dy) + dz * dz < torch.tensor(
+        r2, dtype=torch.float32)
+
+
+def masked_argmin_excl_gram_split_plain(anchor, cand, pxyz, cxyz, r2: float,
+                                        splits: int = 1, tile: int = 256):
+    """K9's reformulation in plain torch (K8's, with a minimum instead of a
+    top 2): the Gram-form distance with its cross term on the TF32 split
+    (`tf32_split`, `_gram_split_d2`, clamped at 0), the candidates excluded
+    by `excl_direct`; the candidates in windows of `tile`, window w to
+    split w % splits; each split's first minimum over its candidates in
+    index order; the splits merged in split order under the (distance,
+    index) order. Returns (d2 [P] f32, idx [P] int32, excluded [P] bool):
+    (1e30, 0, True) where every candidate was excluded."""
+    nq, nr = anchor.shape[0], cand.shape[0]
+    inf = float("inf")
+    qh, ql = tf32_split(anchor)
+    rh, rl = tf32_split(cand)
+    qn, rn = (anchor * anchor).sum(-1), (cand * cand).sum(-1)
+    near = excl_direct(pxyz, cxyz, r2)
+    best = torch.full((nq,), inf, dtype=torch.float32, device=anchor.device)
+    idx = torch.zeros(nq, dtype=torch.int64, device=anchor.device)
+    for s in range(splits):
+        cols = torch.cat([torch.arange(j0, min(nr, j0 + tile))
+                          for j0 in range(s * tile, nr, splits * tile)]
+                         or [torch.zeros(0, dtype=torch.int64)])
+        if cols.numel() == 0:
+            continue
+        d2 = _gram_split_d2(qh, ql, qn, rh[cols], rl[cols], rn[cols])
+        d2 = torch.where(near[:, cols], inf, d2)
+        i = torch.argmin(d2, dim=1)                 # the first minimum
+        d = torch.gather(d2, 1, i[:, None])[:, 0]
+        j = cols[i]
+        take = (d < best) | ((d == best) & (j < idx))
+        best = torch.where(take, d, best)
+        idx = torch.where(take, j, idx)
+    found = best < inf
+    best = torch.where(found, best, torch.full_like(best, _BIG))
+    idx = torch.where(found, idx, torch.zeros_like(idx)).to(torch.int32)
+    return best, idx, ~found
+
+
 def masked_argmin_excl(anchor, cand, pxyz, cxyz, r2: float):
     """The nearest candidate feature of each anchor among the candidates
     whose coordinates lie at least r from the anchor's partner.
@@ -403,7 +452,8 @@ def masked_argmin_excl(anchor, cand, pxyz, cxyz, r2: float):
     and cxyz [M, 3] the candidates' coordinates; r2 = r^2. Returns
     (idx [P] int32, excluded [P] bool: every candidate was excluded, idx 0
     then). A CPU tensor takes the plain version; a CUDA tensor launches K9
-    once, or raises."""
+    once (`masked_argmin_excl_gram_split_plain`'s arithmetic on TF32
+    tensor cores, K8's tiles), or raises."""
     if anchor.is_cpu:
         return masked_argmin_excl_plain(anchor, cand, pxyz, cxyz, r2)
     P, D = anchor.shape
@@ -418,7 +468,8 @@ def masked_argmin_excl(anchor, cand, pxyz, cxyz, r2: float):
     if D != _KNN2_DIM:
         raise ValueError(f"masked_argmin_excl: feature width {D}, expected "
                          f"{_KNN2_DIM}")
-    qtiles, splits = k2_plan(1, P, M, D, _knn2_resident(dev, True))
+    qtiles, splits = k2_plan(1, P, M, D, _knn2_resident(dev, True),
+                             (_K8_QUERIES, _K8_WINDOW))
     d2 = anchor.new_empty(P)
     idx = anchor.new_empty(P, dtype=torch.int32)
     excluded = anchor.new_empty(P, dtype=torch.bool)

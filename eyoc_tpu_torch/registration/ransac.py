@@ -14,10 +14,11 @@ are compacted to the front:
    hypothesis, the survivors compacted, then solved and counted, a
    histogram of their counts, the selection and one sort of the k kept
    keys; no [H, 4, 4] pose array and no sort over H elements;
-3. full verification -> kernel K17 `ransac_verify` (one block a kept
-   hypothesis) over the kept set: its count over every valid row, -1
-   where the edge check failed, and the first argmax, read by the next
-   kernel on the card;
+3. full verification -> kernel K17 `ransac_verify` (one launch: groups
+   of K17_GROUP kept hypotheses, two poses a thread, times splits of the
+   rows staged in shared memory) over the kept set: its count over every
+   valid row, -1 where the edge check failed, and the first argmax, read
+   by the next kernel on the card;
 4. polish -> kernel K18 `ransac_polish` (one block, the valid rows held in
    its shared memory: at most K18_MAX_ROWS rows): `polish_iters` rounds
    of the weighted Jacobi Kabsch on the current inliers (|R s + t - t'| <
@@ -272,7 +273,10 @@ K16_MAX_TOP, K16_MAX_SUBSET = 4096, 2048
 # (4 MiB; the eval path has ~37500) for the kept ones, and solves a kept
 # survivor past it again
 K16_POSE_CACHE = 65536
-_K17_ARGS = (_P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P)
+_K17_ARGS = (_P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P, _P)
+# K17's kept hypotheses a pose group (csrc/ransac.cu:kVerifyGroup; the C
+# entry eyoc_ransac_verify_groups gives the groups of Hk)
+K17_GROUP = 256
 _K18_ARGS = (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P)
 # K18's polish holds the valid rows in shared memory: N at most this
 # (csrc/ransac.cu:kPolishMaxRows)
@@ -377,12 +381,15 @@ def _launch_k16_topk(src, tgt, valid, u_tri, u_sub, thr, ratio_lo, k):
 
 
 def ransac_verify(trans, coarse, keep, src, tgt, valid, thr: float):
-    """K17: `ransac_verify_plain` as one block a kept hypothesis (its pose
-    and edge flag read through `keep` on the card), then a one-block first
-    argmax.
+    """K17: `ransac_verify_plain` in one launch: a block a (group of
+    K17_GROUP kept hypotheses, split of the rows), its live poses (edge
+    flag and pose read through `keep` on the card) two a thread in
+    registers against the split's valid rows in shared memory, the splits'
+    integer counts added behind a ticket a group, the first argmax over the
+    groups behind a last ticket.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two launches) or raises."""
+    (one launch) or raises."""
     if src.is_cpu:
         return ransac_verify_plain(trans, coarse, keep, src, tgt, valid, thr)
     return _launch_k17(trans, coarse, keep, src, tgt, valid, thr)
@@ -401,13 +408,30 @@ def _launch_k17(trans, coarse, keep, src, tgt, valid, thr):
         raise ValueError("ransac_verify: expected trans [H, 4, 4], coarse "
                          "[H] and keep [Hk]")
     Hk = H if keep is None else keep.shape[0]
+    groups = -(-Hk // K17_GROUP)
     counts = torch.empty(Hk, dtype=F32, device=src.device)
     best = torch.empty((), dtype=I32, device=src.device)
     p = kernels.ptr
     err = fn(p(trans), p(coarse), p(keep), Hk, p(src), p(tgt), p(valid), N,
-             thr * thr, p(counts), p(best), kernels.stream_handle(dev))
+             thr * thr, p(_k17_sums(src.device, Hk + 2 * groups)),
+             p(kernels.ticket(dev, groups + 1)), p(counts), p(best),
+             kernels.stream_handle(dev))
     kernels.check_launch("ransac_verify", err)
     return counts, best
+
+
+_k17_words: dict = {}
+
+
+def _k17_sums(device, n: int) -> torch.Tensor:
+    """n zeroed int32 words on `device` for K17's split sums and group
+    maxima, which each launch leaves at zero (as `kernels.ticket`'s);
+    allocated once per device, and again only to grow."""
+    t = _k17_words.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=I32, device=device)
+        _k17_words[device] = t
+    return t
 
 
 def ransac_polish(trans, best, src, tgt, valid, thr: float, iters: int):

@@ -38,7 +38,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __constant__ static const
 #define __shared__ static
 #define __align__(n) alignas(n)
@@ -52,6 +52,10 @@ struct alignas(16) float4 {
 struct alignas(16) int4 {
   int x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
