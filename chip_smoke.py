@@ -86,7 +86,17 @@ Phases (any failure exits non-zero):
    at ICP's shape (32768 x 32768 x 3) against the f64 nearest neighbour
    and the plain version's where the gap is clear; each the same bits
    twice, with its device kernels a call, host cost, bound and plain time
-   (no single library call computes any of them).
+   (no single library call computes any of them). The valid step's K19
+   `est_quad_linear_robust` at its shape (B = 1, N = 5000 correspondences
+   at 30% inliers) and on a batch of 3 problems of 9000 rows with 0, 3
+   and 9000 valid rows (past its shared-memory row cap): every valid row
+   within K19_TOL of the plain version's pose and of the same 20 rounds in
+   f64, the identity where no row is valid, one device kernel a call; K20
+   `masked_instance_norm` on the 14 calls of one full-width ResUNetIN2C
+   forward, within K20_ULPS bf16 ulps of its plain version, two device
+   kernels a call (the statistics, then the apply); each the same bits
+   twice, with its host cost, bound and plain time (no library call: no
+   PyTorch call gives a masked per-cloud norm).
 3. the eval path at full width: ResUNetBN2C (random weights from a fixed
    generator) through the test protocol (`eval.test_pair`) on synthetic
    KITTI-scale pairs at d = 45 m; finite poses, unit-norm features, and
@@ -109,7 +119,13 @@ Phases (any failure exits non-zero):
    sync (sync debug mode "error"), its peak device memory logged and below
    one [H, 4, 4] pose array, no sort over H elements in a profiled pair,
    the registration split by stage (subset, K2, K16 with the top 2048,
-   K17, K18), and one pair with `downsample_single` 0.5.
+   K17, K18), and one pair with `downsample_single` 0.5. No K19 or K20 in
+   the test protocol of a BN model. Then the valid step
+   (`eval.valid_pair`) on the same pairs: finite metrics, one K2 and one
+   K19 launch a pair; and `eval.valid_metrics` on a known answer (pair
+   0's voxelized cloud 0 under a known pose, row for row, the same random
+   features and subset uniforms on both sides): RTE < 0.05 m, RRE < 0.1
+   deg, hit ratio >= 0.99, loss < 0.01.
 4. registration sanity: `sc2_pcr_batched` on three known-pose problems
    of N = 5000 correspondences (30% and 10% inliers, and 30% with 500
    valid rows) recovers each pose, and each problem is the same bits as
@@ -149,12 +165,18 @@ Phases (any failure exits non-zero):
    row for row, the same random features on both sides), feature filters
    "None" and "Lowe": RTE < 0.05 m, RRE < 0.1 deg, hit ratio >= 0.99, and
    >= 99% of the rediscovered rows map to themselves.
+7. the instance-norm family at full width: ResUNetIN2C and SimpleNetIN2
+   (random weights) through `eval.test_pair` (SC2-PCR) and
+   `eval.valid_pair` on pair 0: unit-norm features, finite poses and
+   metrics, and one forward's K20 launches equal to the model's instance
+   norms (14 and 8).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
 `sparse_conv_train` and `masked_argmin_train`; K2, K3, K4 and K13-K15 on
-the labeling path are `*_label`; K2 in ICP is `masked_argmin_icp`); `ms`
+the labeling path are `*_label`; K2 in ICP is `masked_argmin_icp`; K19's
+launches are the valid run's, K20's phase 7's); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -2446,6 +2468,341 @@ def icp_known_answer(batch):
     return counts
 
 
+# ------------------------------------- phase 2, the valid step and the IN norm
+
+
+# K19's pose against the same 20 rounds in f64 and against the plain
+# version: a valid source row moves at most K19_TOL between two poses (the
+# f32 rounds' reach at KITTI scale is ~1e-5 m: two sum orders, f32 warps
+# compounding over 20 rounds)
+K19_TOL = 1e-4                       # m
+K19_ROUND_FLOPS = 70                 # a valid row a round: warp, weight,
+                                     # 16 terms and their sums
+K19_SOLVE_FLOPS = 400                # a round's 6 x 6 elimination and pose
+# K20 against its plain version: bf16 outputs of f32 statistics summed in
+# two orders, within K20_ULPS units in the last place of |want|, floored
+# at 2^-8 of the call's largest |want| (near zero x g + off cancels, and
+# the statistics' rounding is of the operands' size)
+K20_ULPS = 1
+# the IN norms of one forward, counted from the models' code: 2 a residual
+# block, at 4 encoder and 3 decoder levels (ResUNetIN2C's top-level norms
+# are BN, folded); every top-level norm of SimpleNetIN2 (4 encoder, 3
+# decoder, conv1_tr's)
+IN_SPECS = {"ResUNetIN2C": 14, "SimpleNetIN2": 8}
+K19_BATCH_N = 9000                   # past K19's shared-memory row cap
+
+
+def _quad64(src, tgt, valid, iters=20):
+    """`est_quad_linear_robust`'s rounds in f64 on the host over each
+    problem's valid rows: [B, 4, 4] f64."""
+    import torch
+    from eyoc_tpu_torch.geometry import robust
+    out = []
+    f64 = torch.float64
+    for b in range(valid.shape[0]):
+        v = valid[b].cpu()
+        p, q = src[b].cpu()[v].double(), tgt[b].cpu()[v].double()
+        w = torch.ones(p.shape[0], dtype=f64)
+        T, par = torch.eye(4, dtype=f64), 1.0
+        for i in range(iters):
+            if i > 0 and i % 5 == 0:
+                par /= 2.0
+            M, rhs = robust._normal_equations(p, q, w)
+            x = torch.linalg.solve(M + 1e-6 * torch.eye(6, dtype=f64), rhs)
+            Ti = robust._small_angle_trans(x)
+            p = p @ Ti[:3, :3].T + Ti[:3, 3]
+            w = par / ((p - q).norm(dim=1) + par)
+            T = Ti @ T
+        out.append(T)
+    return torch.stack(out)
+
+
+def _row_disp(Ta, Tb, src, valid):
+    """[B] largest distance between a valid source row warped by Ta and by
+    Tb (f64 on the host; 0 where no row is valid)."""
+    out = []
+    for b in range(valid.shape[0]):
+        p = src[b].cpu()[valid[b].cpu()].double()
+        A, B = Ta[b].cpu().double(), Tb[b].cpu().double()
+        d = p @ (A[:3, :3] - B[:3, :3]).T + (A[:3, 3] - B[:3, 3])
+        out.append(float(d.norm(dim=1).max()) if p.shape[0] else 0.0)
+    return out
+
+
+def _k19_close(got, want, src, tgt, valid):
+    """K19 against the plain version and the f64 rounds: every valid row
+    within K19_TOL of both poses; a problem with no valid row the
+    identity."""
+    import torch
+    T64 = _quad64(src, tgt, valid)
+    d_p = _row_disp(got, want, src, valid)
+    d_64 = _row_disp(got, T64, src, valid)
+    empty = ~valid.any(1)
+    eye = torch.eye(4, device=got.device)
+    ident = bool((got[empty] == eye).all())
+    log(f"  K19: valid rows {valid.sum(1).tolist()}, a valid row within "
+        f"{max(d_p):.3e} m of the plain version's pose and {max(d_64):.3e} m "
+        f"of the f64 rounds'" + (", the identity where none is valid"
+                                 if bool(empty.any()) else ""))
+    return (max(d_p) <= K19_TOL and max(d_64) <= K19_TOL and ident,
+            max(max(d_p), max(d_64)))
+
+
+def _k19_cost(src, tgt, valid):
+    """K19's bound: the points and flags read once, the poses written;
+    20 rounds of K19_ROUND_FLOPS a valid row and a solve a problem."""
+    nv = float(valid.sum())
+    B = valid.shape[0]
+    return (src.numel() * 4 * 2 + valid.numel() + B * 64,
+            20 * (K19_ROUND_FLOPS * nv + K19_SOLVE_FLOPS * B), "f32")
+
+
+def k19_problems(gen):
+    """(the valid shape: B = 1, N_CORR correspondences at 30% inliers, every
+    row valid; a batch of 3 problems of K19_BATCH_N rows with 0, 3 (inliers:
+    they pin the pose) and K19_BATCH_N valid rows, 30% inliers)."""
+    import torch
+    src, tgt, valid, _ = correspondences(gen)
+    one = (src[None].contiguous(), tgt[None].contiguous(),
+           valid[None].contiguous())
+    s, t, _, _ = correspondences(gen, n=K19_BATCH_N)
+    s3, t3, _, _ = correspondences(gen, n=K19_BATCH_N, inlier=1.0)
+    src_b = torch.stack([s, s3, s])
+    tgt_b = torch.stack([t, t3, t])
+    v = torch.zeros((3, K19_BATCH_N), dtype=torch.bool, device="cuda")
+    v[1, torch.randperm(K19_BATCH_N, generator=gen)[:3].cuda()] = True
+    v[2] = True
+    return one, (src_b, tgt_b, v)
+
+
+def check_k19(gen):
+    """K19 at the valid step's shape (the kernels line's row) and on the
+    batch of k19_problems (checked and logged): against the plain version
+    and the f64 rounds, the same bits twice, one device kernel a call, its
+    host cost."""
+    from eyoc_tpu_torch.geometry import robust
+    one, batch = k19_problems(gen)
+    fn = robust.est_quad_linear_robust
+
+    def plain_fn(src, tgt, valid):
+        return robust.est_quad_linear_robust_plain(src, tgt, mask=valid)
+    what = f"K19 est_quad_linear_robust (B = 1, N = {N_CORR}, 20 rounds)"
+    cl = [(one, {})]
+    row = check_calls(what, cl, fn, plain_fn, _k19_cost, _k19_close)
+    row["library_ms"] = None
+    log(f"  {what}: library: none: 20 dependent rounds of a weighted 6 x 6 "
+        "solve")
+    same_bits_twice(what, fn, cl)
+    kernels_per_call(what, lambda: fn(*one), reps=3, expected=1)
+    launch_path(what, fn, cl, "the valid step's shape", 20)
+    what_b = (f"K19 est_quad_linear_robust, a batch of 3 problems of "
+              f"{K19_BATCH_N} rows (0, 3, {K19_BATCH_N} valid; past its row "
+              f"cap {robust.K19_MAX_ROWS})")
+    clb = [(batch, {})]
+    check_calls(what_b, clb, fn, plain_fn, _k19_cost, _k19_close)
+    same_bits_twice(what_b, fn, clb)
+    return row
+
+
+def _ulps(got, want):
+    got, want = got.float(), want.float()
+    if want.numel() == 0:
+        return 0.0
+    floor = max(float(want.abs().max()) * 2.0 ** -8, 2.0 ** -126)
+    mag = want.abs().clamp(min=floor)
+    return float(((got - want).abs() / (mag.log2().floor() - 7).exp2()).max())
+
+
+def _k20_close(got, want, *args, skip=False, **kw):
+    """K20 against its plain version in bf16 ulps (`_ulps`), y and, with
+    `skip`, the pre-ReLU output."""
+    pairs = list(zip(got, want)) if skip else [(got, want)]
+    ulps = max(_ulps(g, w) for g, w in pairs)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+    return ulps <= K20_ULPS, err
+
+
+def _k20_cost(x, mask, n_segments, scale, bias, eps=1e-5, relu=False,
+              residual=None, skip=False):
+    """K20's bound: x, the mask, scale and bias and the residual read once,
+    y (and the pre-ReLU output) written once; the sums (3 flops an element)
+    and the apply (2 to 4)."""
+    e = x.element_size()
+    nbytes = x.numel() * e * (2 + int(skip) + int(residual is not None)) \
+        + mask.numel() + 2 * scale.numel() * 4
+    return nbytes, 7.0 * x.numel(), "f32"
+
+
+def _k20_class(x, mask, n_segments, scale, bias, eps=1e-5, relu=False,
+               residual=None, skip=False):
+    way = ("residual" if residual is not None else
+           "relu+skip" if skip else "relu" if relu else "plain")
+    return f"{x.shape[0]} x {x.shape[1]} {way}"
+
+
+def record_in_forward(model, pyr):
+    """Every masked_instance_norm call of one eval forward."""
+    import torch
+    from eyoc_tpu_torch.models import unet
+    with recording([(unet, "masked_instance_norm")]) as calls:
+        model.embed(pyr)
+    torch.cuda.synchronize()
+    return calls["masked_instance_norm"]
+
+
+def check_k20(pyr):
+    """K20 on the calls of one full-width ResUNetIN2C eval forward (the
+    kernels line's row): against the plain version in bf16 ulps, the same
+    bits twice, two device kernels a call (the statistics with each cloud's
+    g and off, then the apply), its host cost."""
+    import torch
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.sparse import norm
+    model = init_unet(load_model("ResUNetIN2C"),
+                      torch.Generator().manual_seed(0), 1, 32, 5,
+                      device="cuda")
+    calls = record_in_forward(model, pyr)
+    if len(calls) != IN_SPECS["ResUNetIN2C"]:
+        raise AssertionError(f"ResUNetIN2C's forward made {len(calls)} K20 "
+                             f"calls, not {IN_SPECS['ResUNetIN2C']}")
+    what = "K20 masked_instance_norm, one ResUNetIN2C forward"
+    fn, plain = norm.masked_instance_norm, norm.masked_instance_norm_plain
+    row = check_calls(what, calls, fn, plain, _k20_cost, _k20_close,
+                      classify=_k20_class)
+    row["library_ms"] = None
+    log(f"  {what}: library: none: F.instance_norm counts the padding rows")
+    same_bits_twice(what, fn, calls)
+    a, k = calls[0]
+    kernels_per_call(what, lambda: fn(*a, **k), reps=3, expected=2)
+    launch_path(what, fn, calls, "one ResUNetIN2C forward", 10)
+    return row
+
+
+def valid_phase(model, pairs, cfg, smi):
+    """The valid step (`eval.valid_pair`) at full width on the eval pairs:
+    finite metrics, one K2 and one K19 launch a pair and no K20 (counts
+    reset just before, read just after); then `valid_metrics` on a known
+    answer: cloud 1 is pair 0's voxelized cloud 0 under a known pose, row
+    for row, both with the same random unit features and the same subset
+    uniforms, so the correspondences are exact: RTE < 0.05 m, RRE < 0.1
+    deg, hit ratio >= 0.99, loss < 0.01. Returns the launch counts."""
+    import torch
+    from eyoc_tpu_torch import eval as teval
+    from eyoc_tpu_torch.geometry.se3 import integrate_trans, transform_points
+    from eyoc_tpu_torch.utils import kernels
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    teval.valid_pair(model, pairs[0].to("cuda"), cfg, generator=gen)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    ms = []
+    for batch in pairs:
+        batch = batch.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = teval.valid_pair(model, batch, cfg, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in out.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"valid_pair: non-finite metrics {vals}")
+        log("valid pair: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       vals.items()) + f", {ms[-1]:.2f} ms")
+    counts = dict(kernels.launches)
+    log(json.dumps({"valid_launch_counts": counts}))
+    if counts["masked_argmin"] != N_PAIRS \
+            or counts["est_quad_linear_robust"] != N_PAIRS \
+            or counts["masked_instance_norm"]:
+        raise AssertionError("the valid step is not one K2 and one K19 "
+                             "launch a pair (and no K20)")
+    log(f"valid path: ResUNetBN2C, {N_PAIRS} pairs, {np.mean(ms):.2f} "
+        f"ms/pair (host clock around synchronized calls), on {smi}")
+    # the known answer
+    x0, _, m0, _, _, _ = teval.embed_pair(model, pairs[0].to("cuda"), cfg)
+    yaw = 0.15
+    R = torch.tensor([[np.cos(yaw), -np.sin(yaw), 0.0],
+                      [np.sin(yaw), np.cos(yaw), 0.0], [0.0, 0.0, 1.0]],
+                     dtype=torch.float32)
+    T = integrate_trans(R, torch.tensor([0.6, -0.4, 0.2])).cuda()
+    x1 = transform_points(x0, T).contiguous()
+    g = torch.Generator().manual_seed(11)
+    f = torch.nn.functional.normalize(
+        torch.randn(x0.shape[0], 32, generator=g), dim=1).cuda()
+    u = torch.rand(x0.shape[0], generator=g).cuda()
+    out = teval.valid_metrics(x0, f, m0, x1, f, m0, T, cfg, noise=(u, u))
+    vals = {k: float(v) for k, v in out.items()}
+    log(f"valid_metrics known answer (yaw {yaw} rad, t (0.6, -0.4, 0.2) m, "
+        f"{int(m0.sum())} valid voxels): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in vals.items()))
+    if not (vals["rte"] < 0.05 and vals["rre"] < 0.1
+            and vals["hit_ratio"] >= 0.99 and vals["loss"] < 0.01):
+        raise AssertionError("valid_metrics missed the known answer")
+    return counts
+
+
+def in_phase(pairs, cfg, smi):
+    """The instance-norm family at full width: ResUNetIN2C and SimpleNetIN2
+    (random weights) through the test protocol (SC2-PCR) and the valid
+    step on pair 0: unit-norm features, zero at invalid voxels, finite
+    poses and metrics, and one forward's K20 launches equal to the model's
+    IN norms (IN_SPECS, and its InstanceNorm modules). Returns the launch
+    counts of the phase's runs."""
+    import torch
+    from eyoc_tpu_torch import eval as teval
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.models.unet import InstanceNorm
+    from eyoc_tpu_torch.training.pipeline import preprocess_clouds
+    from eyoc_tpu_torch.utils import kernels
+    batch = pairs[0].to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    models = {name: init_unet(load_model(name),
+                              torch.Generator().manual_seed(0), 1, 32, 5,
+                              device="cuda") for name in IN_SPECS}
+    for model in models.values():                     # warm-up
+        teval.test_pair(model, batch, cfg, generator=gen)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    for name, model in models.items():
+        n_in = sum(isinstance(m, InstanceNorm) for m in model.modules())
+        _, pyr = preprocess_clouds(batch.xyz0, batch.n0, caps=CAPS,
+                                   voxel_size=0.3, window_bits=WINDOW_BITS)
+        before = kernels.launches["masked_instance_norm"]
+        model.embed(pyr)
+        k20 = kernels.launches["masked_instance_norm"] - before
+        if not k20 == n_in == IN_SPECS[name]:
+            raise AssertionError(f"{name}: one forward launched {k20} K20, "
+                                 f"the model has {n_in} IN norms, expected "
+                                 f"{IN_SPECS[name]}")
+        x0, f0, m0, x1, f1, m1 = teval.embed_pair(model, batch, cfg)
+        for f, m in ((f0, m0), (f1, m1)):
+            norms = f[m].norm(dim=1)
+            if norms.numel() == 0 or float((norms - 1).abs().max()) > 1e-3:
+                raise AssertionError(f"{name}: features are not unit-norm")
+            if bool((f[~m] != 0).any()):
+                raise AssertionError(f"{name}: features at invalid voxels "
+                                     "are not 0")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = teval.test_pair(model, batch, cfg, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        val = teval.valid_pair(model, batch, cfg, generator=gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        vals = {k: float(v) for k, v in val.items()}
+        if not (bool(torch.isfinite(out["T_est"]).all())
+                and all(np.isfinite(v) for v in vals.values())):
+            raise AssertionError(f"{name}: non-finite pose or metrics")
+        log(f"{name}: {k20} K20 launches a forward ({n_in} IN norms), "
+            f"test_pair {(t1 - t0) * 1e3:.2f} ms (RTE "
+            f"{float(out['rte']):.3f} m, RRE {float(out['rre']):.3f} deg), "
+            f"valid_pair {(t2 - t1) * 1e3:.2f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+            + f"), on {smi}")
+    counts = dict(kernels.launches)
+    log(json.dumps({"in_launch_counts": counts}))
+    return counts
+
+
 # ---------------------------------------------------- phase 2, labeling
 
 
@@ -3199,6 +3556,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # K16-K18 and K2 at ICP's shape (the kernels line's rows)
     results.update(check_ransac_kernels(gen, pairs[0]))
+    # K19 at the valid step's shape, K20 on one ResUNetIN2C forward (on a
+    # generator of their own, so that the checks after draw as before)
+    results["est_quad_linear_robust"] = check_k19(
+        torch.Generator().manual_seed(12))
+    results["masked_instance_norm"] = check_k20(pyr)
+    torch.cuda.empty_cache()
     # the training kernels, on the calls of one full-width train step
     train_model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
                             device="cuda")
@@ -3282,6 +3645,9 @@ def main() -> int:
     if any(counts[k] != N_PAIRS for k in SC2_KERNELS):
         raise AssertionError("the eval path is not one K13, K14 and K15 call "
                              "a pair")
+    if counts["masked_instance_norm"] or counts["est_quad_linear_robust"]:
+        raise AssertionError("the BN model's test protocol launched K20 or "
+                             "K19")
     largest_sort(model, pairs[0].to("cuda"), cfg, noise_gen,
                  N_SEEDS * N_CORR, "eval pair", forbid=((1, N_CORR),))
     log(f"main path: ResUNetBN2C, {N_PAIRS} pairs, feat "
@@ -3290,6 +3656,8 @@ def main() -> int:
         f"{n_ok}/{N_PAIRS}, on {smi}")
     # the eval path with RANSAC, the test CLI's default estimator
     ransac_counts = ransac_eval_phase(model, pairs, cfg, smi)
+    # the valid step, and its known answer
+    valid_counts = valid_phase(model, pairs, cfg, smi)
 
     # ---- phase 4: registration sanity
     sanity = ((0.3, N_CORR), (0.1, N_CORR), (0.3, N_CORR // 10))
@@ -3322,6 +3690,11 @@ def main() -> int:
     ext_counts = extension_phase(spec, train_batch, tables, smi)
     gated_counts = gated_step(spec, train_batch, tables)
     known_answer(train_batch)
+    del tables
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the instance-norm family's eval forward at full width
+    in_counts = in_phase(pairs, cfg, smi)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -3329,9 +3702,14 @@ def main() -> int:
     # the labeling rows (K2, K3 and K4 with the suffix `_label`) the
     # extension run's (phase 6), K8 and K9 the gated step's, K16-K18's
     # polish the RANSAC eval run's (phase 3), `icp_solve` and K2's `_icp`
-    # row ICP's known answer (phase 4); each row's times are of the calls
+    # row ICP's known answer (phase 4), K19 the valid run's (phase 3), K20
+    # the instance-norm run's (phase 7); each row's times are of the calls
     # of that path
     def launches(name):
+        if name == "est_quad_linear_robust":
+            return valid_counts[name]
+        if name == "masked_instance_norm":
+            return in_counts[name]
         if name == "ransac_hypotheses":
             return ransac_counts["ransac_hypotheses_topk"]
         if name in RANSAC_KERNELS:
@@ -3361,7 +3739,9 @@ def main() -> int:
               "sc2_irls": "sc2_refine", "sc2_irls_label": "sc2_refine",
               "ransac_hypotheses": "ransac", "ransac_verify": "ransac",
               "ransac_polish": "ransac", "icp_solve": "ransac",
-              "masked_argmin_icp": "masked_argmin"}
+              "masked_argmin_icp": "masked_argmin",
+              "est_quad_linear_robust": "robust_irls",
+              "masked_instance_norm": "instance_norm"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -3394,6 +3774,8 @@ def main() -> int:
         "ransac_polish": "eyoc_tpu/registration/ransac.py:148",
         "icp_solve": "eyoc_tpu/registration/icp.py:42",
         "masked_argmin_icp": "eyoc_tpu/registration/icp.py:41",
+        "est_quad_linear_robust": "eyoc_tpu/geometry/robust.py:65",
+        "masked_instance_norm": "eyoc_tpu/sparse/norm.py:119",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

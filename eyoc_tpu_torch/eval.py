@@ -1,6 +1,7 @@
-"""The test protocol on one pair (counterpart of the test half of
-eyoc_tpu/training/steps.py: make_embed_step, make_register_step and
-make_test_step, :558-648), with SC2-PCR or RANSAC as the estimator.
+"""The test protocol and the valid step on one pair (counterpart of the
+eval half of eyoc_tpu/training/steps.py: make_valid_step, :517-554, and
+make_embed_step, make_register_step and make_test_step, :558-648), with
+SC2-PCR or RANSAC as the test protocol's estimator.
 
 embed_pair:    voxelize + brick pyramid + ResUNet eval forward, both clouds
 register_pair: optionally each cloud's valid voxels thinned to a share
@@ -9,6 +10,11 @@ register_pair: optionally each cloud's valid voxels thinned to a share
                `use_ransac` the feature 1-NN of cloud 0's subset in cloud
                1's (K2) and RANSAC over those correspondences
 test_pair:     both, plus RTE / RRE against the ground-truth pose
+valid_metrics: the trainers' validation after the features: a 5000-point
+               random subset of both clouds, the feature 1-NN of cloud 0's
+               subset in cloud 1's (K2), the IRLS pose (K19), and
+               corr_dist, RTE, RRE and the hit ratio against a pose
+valid_pair:    both (embed_pair, valid_metrics) against the ground truth
 
 Randomness is explicit: the thinning, the subset and RANSAC take their
 uniforms as arguments (`keep`, `noise`, `draws`), or draw them from a
@@ -21,7 +27,9 @@ import dataclasses
 
 import torch
 
-from eyoc_tpu_torch.geometry.metrics import rre_deg, rte
+from eyoc_tpu_torch.geometry.metrics import (corr_dist, hit_ratio, rre_deg,
+                                             rte)
+from eyoc_tpu_torch.geometry.robust import est_quad_linear_robust
 from eyoc_tpu_torch.ops.knn import masked_argmin
 from eyoc_tpu_torch.registration.ransac import (RansacConfig,
                                                 ransac_registration)
@@ -44,6 +52,7 @@ class EvalConfig:
     use_ransac: bool = False
     ransac: RansacConfig | None = None     # None: threshold = voxel_size
     downsample_single: float = 1.0         # share of valid voxels kept
+    hit_ratio_thresh: float = 0.1          # the valid step's (m)
 
     @property
     def ransac_config(self) -> RansacConfig:
@@ -145,3 +154,46 @@ def test_pair(model, batch: RawBatch, cfg: EvalConfig, noise=None,
                           generator=generator)
     T_gt = batch.T_gt[0]
     return {"T_est": T_est, "rte": rte(T_est, T_gt), "rre": rre_deg(T_est, T_gt)}
+
+
+@torch.no_grad()
+def valid_metrics(x0, f0, m0, x1, f1, m1, T_gt, cfg: EvalConfig,
+                  noise=None, generator: torch.Generator | None = None):
+    """The valid step after the features: a random `eval_sample_points`
+    subset of both clouds, the feature 1-NN of cloud 0's subset in cloud
+    1's (K2), the IRLS pose of those correspondences (K19), and {"loss"
+    (corr_dist of the pose), "rte", "rre", "hit_ratio" (at
+    cfg.hit_ratio_thresh)} against T_gt [4, 4].
+
+    noise = (noise0 [cap], noise1 [cap]) orders each cloud's subset (the
+    JAX step's uniforms of its first and second key; invalid rows take
+    2.0); not given, both are drawn from `generator`, cloud 0's first."""
+    sel = []
+    for k, m in enumerate((m0, m1)):
+        z = noise[k].to(m.device) if noise is not None \
+            else uniforms(m, generator)
+        sel.append(random_subset(torch.where(m, z, torch.full_like(z, 2.0)),
+                                 cfg.eval_sample_points))
+    sel0, sel1 = sel
+    sel_ok = m0[sel0]
+    _, nn = masked_argmin(f0[sel0].float().contiguous(), sel_ok,
+                          f1[sel1].float().contiguous(), m1[sel1])
+    xyz0_c = x0[sel0]
+    xyz1_c = x1[sel1][nn.long()]
+    T_est = est_quad_linear_robust(xyz0_c, xyz1_c, sel_ok)
+    return {"loss": corr_dist(T_est, T_gt, xyz0_c, mask=sel_ok),
+            "rte": rte(T_est, T_gt), "rre": rre_deg(T_est, T_gt),
+            "hit_ratio": hit_ratio(xyz0_c, xyz1_c, T_gt, cfg.hit_ratio_thresh,
+                                   mask=sel_ok)}
+
+
+@torch.no_grad()
+def valid_pair(model, batch: RawBatch, cfg: EvalConfig, noise=None,
+               generator: torch.Generator | None = None, device=None):
+    """The valid step on one pair (make_valid_step, steps.py:517-554;
+    reference lib/trainer.py:1736-1826): `embed_pair`, then
+    `valid_metrics` against the pair's ground-truth pose."""
+    batch = _on_device(batch, device)
+    return valid_metrics(*embed_pair(model, batch, cfg, batch.xyz0.device),
+                         batch.T_gt[0], cfg, noise=noise,
+                         generator=generator)

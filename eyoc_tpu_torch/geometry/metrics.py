@@ -3,7 +3,7 @@
 RTE/RRE use the reference's diagonal clamp for arccos stability
 (scripts/test_kitti.py:186-212); success is RTE < 2 m and RRE < 5 deg.
 `hit_ratio` is the labeling's share of matches within a threshold under a
-pose (reference lib/trainer.py:421-424).
+pose (reference lib/trainer.py:421-424); `corr_dist` the valid step's loss.
 """
 
 from __future__ import annotations
@@ -62,3 +62,16 @@ def registration_success(T_est, T_gt, rte_thresh: float = 2.0,
     re = rre_deg(T_est, T_gt)
     ok = (te < rte_thresh) & (re < rre_thresh_deg) & torch.isfinite(re)
     return ok, te, re
+
+
+def corr_dist(T_est, T_gt, xyz0, max_dist: float = 1.0, mask=None):
+    """Mean distance between xyz0 [..., M, 3] warped by T_est and by T_gt,
+    each clamped at `max_dist` (metrics.py:87-103, whose xyz1 and weight
+    it never reads); over the `mask`ed rows when given, divided by
+    max(sum(mask), 1)."""
+    d = transform_points(xyz0, T_est) - transform_points(xyz0, T_gt)
+    dist = torch.clamp(torch.sqrt(torch.sum(d * d, -1)), max=max_dist)
+    if mask is None:
+        return torch.mean(dist, -1)
+    m = mask.to(torch.float32)
+    return torch.sum(dist * m, -1) / torch.clamp(torch.sum(m, -1), min=1.0)

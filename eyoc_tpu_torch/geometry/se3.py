@@ -1,4 +1,6 @@
-"""SE(3) rigid-transform utilities (counterpart of eyoc_tpu/geometry/se3.py)."""
+"""SE(3) rigid-transform utilities (counterpart of eyoc_tpu/geometry/se3.py):
+the warp, the 4x4 from (R, t), and the axis rotations of the IRLS
+(geometry/robust.py)."""
 
 from __future__ import annotations
 
@@ -26,3 +28,28 @@ def integrate_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     out[..., :3, :3] = R
     out[..., :3, 3] = t
     return out
+
+
+def _parts(theta: torch.Tensor):
+    c, s = torch.cos(theta), torch.sin(theta)
+    return c, s, torch.zeros_like(c), torch.ones_like(c)
+
+
+def _mat3(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rot_x(theta: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation about x by theta [...] (se3.py:74-110)."""
+    c, s, z, o = _parts(theta)
+    return _mat3(((o, z, z), (z, c, -s), (z, s, c)))
+
+
+def rot_y(theta: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = _parts(theta)
+    return _mat3(((c, z, s), (z, o, z), (-s, z, c)))
+
+
+def rot_z(theta: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = _parts(theta)
+    return _mat3(((c, -s, z), (s, c, z), (z, z, o)))

@@ -12,13 +12,17 @@ order.
   BatchNorm folded into the conv that feeds it (`_bn_fold`,
   unet.py:194-198); each conv is one K1 launch whose epilogue adds the
   folded bias, masks invalid voxels, adds the block residual and applies
-  ReLU. No autograd.
+  ReLU. An instance norm (the IN families: ResUNetIN*'s block norms,
+  SimpleNetIN*'s norms) follows its bare conv as kernel K20, per cloud
+  (apply_unet(training=False, n_clouds=B)), with the ReLU, or the block's
+  residual add, ReLU and mask, in its apply. No autograd.
 - train (apply_unet(training=True), unet.py:201-231, 242-380): each conv
   is a `SparseConvFunction` (K1 forward; K1 over the inverse map and K5
   backward) with no mask before the masked BatchNorm that follows it
   (sparse/norm.py, K7 sums), then ReLU, the residual and the masks as plain
   torch ops in the JAX order. The BN running statistics are updated in
-  place, once per forward.
+  place, once per forward. The IN families have no train forward yet: it
+  needs K20's backward (ROADMAP), so `train()` refuses them.
 Activations are stored in the model's compute dtype between convs (bf16 on
 the card, with f32 sums inside the kernels; the CPU tests use f32).
 """
@@ -34,7 +38,8 @@ from torch import nn
 from eyoc_tpu_torch.sparse.brick_conv import (SparseConvFunction, conv_maps,
                                               identity_map, sparse_conv)
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid
-from eyoc_tpu_torch.sparse.norm import masked_batch_norm
+from eyoc_tpu_torch.sparse.norm import (masked_batch_norm,
+                                        masked_instance_norm)
 from eyoc_tpu_torch.utils.device import resolve_device
 
 
@@ -52,12 +57,6 @@ class UNetSpec:
     @property
     def num_levels(self) -> int:
         return len(self.channels)
-
-
-def can_fold_bn(spec: UNetSpec) -> bool:
-    """Folding applies when every norm directly follows a conv and is a BN."""
-    return (spec.norm_type == "BN" and spec.repeats == 1
-            and spec.block_norm_type in (None, "BN"))
 
 
 class SparseConv(nn.Module):
@@ -83,16 +82,36 @@ class BatchNorm(nn.Module):
         return g, self.bias - self.running_mean * g
 
 
+class InstanceNorm(nn.Module):
+    """Affine of a per-cloud masked instance norm (no running statistics:
+    its JAX state is None)."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+
+def make_norm(kind: str, c: int) -> nn.Module:
+    """A norm of the spec's kind, 'BN' or 'IN'."""
+    if kind == "BN":
+        return BatchNorm(c)
+    if kind == "IN":
+        return InstanceNorm(c)
+    raise ValueError(f"unknown norm type {kind!r}")
+
+
 class BasicBlock(nn.Module):
     """Residual block conv3-norm-relu-conv3-norm + skip, relu
     (reference model/residual_block.py)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, kind: str = "BN"):
         super().__init__()
         self.conv1 = SparseConv(27, c, c)
-        self.norm1 = BatchNorm(c)
+        self.norm1 = make_norm(kind, c)
         self.conv2 = SparseConv(27, c, c)
-        self.norm2 = BatchNorm(c)
+        self.norm2 = make_norm(kind, c)
 
 
 class Final(nn.Module):
@@ -102,41 +121,47 @@ class Final(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
 
+def has_instance_norm(spec: UNetSpec) -> bool:
+    return spec.norm_type == "IN" or spec.block_norm_type == "IN"
+
+
 class ResUNet(nn.Module):
-    """Sparse UNet of one UNetSpec (BN-foldable specs: the plain-BN ResUNet
-    and SimpleNet families)."""
+    """Sparse UNet of one UNetSpec with one (norm, block) a level: the
+    ResUNet and SimpleNet families, BN or IN."""
 
     def __init__(self, spec: UNetSpec, in_channels: int = 1,
                  out_channels: int = 32, conv1_kernel_size: int = 5,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if not can_fold_bn(spec):
-            raise ValueError(f"{spec.name}: only BN-foldable specs have a "
-                             "forward in this port so far")
+        if spec.repeats != 1:
+            raise ValueError(f"{spec.name}: specs with {spec.repeats} (norm, "
+                             "block) repeats a level have no forward in this "
+                             "port so far")
         self.spec = spec
         self.conv1_kernel_size = conv1_kernel_size
         self.dtype = dtype
         L, ch, tr = spec.num_levels, spec.channels, spec.tr_channels
         blocks = spec.block_norm_type is not None
+        top, inner = spec.norm_type, spec.block_norm_type
         self.conv1 = SparseConv(conv1_kernel_size ** 3, in_channels, ch[0])
-        self.norm1 = BatchNorm(ch[0])
+        self.norm1 = make_norm(top, ch[0])
         if blocks:
-            self.block1 = BasicBlock(ch[0])
+            self.block1 = BasicBlock(ch[0], inner)
         for l in range(2, L + 1):
             setattr(self, f"conv{l}", SparseConv(27, ch[l - 2], ch[l - 1]))
-            setattr(self, f"norm{l}", BatchNorm(ch[l - 1]))
+            setattr(self, f"norm{l}", make_norm(top, ch[l - 1]))
             if blocks:
-                setattr(self, f"block{l}", BasicBlock(ch[l - 1]))
+                setattr(self, f"block{l}", BasicBlock(ch[l - 1], inner))
         for l in range(L, 1, -1):
             cin = ch[l - 1] if l == L else ch[l - 1] + tr[l]
             setattr(self, f"conv{l}_tr", SparseConv(27, cin, tr[l - 1]))
-            setattr(self, f"norm{l}_tr", BatchNorm(tr[l - 1]))
+            setattr(self, f"norm{l}_tr", make_norm(top, tr[l - 1]))
             if blocks:
-                setattr(self, f"block{l}_tr", BasicBlock(tr[l - 1]))
+                setattr(self, f"block{l}_tr", BasicBlock(tr[l - 1], inner))
         self.conv1_tr = SparseConv(spec.conv1_tr_kernel ** 3, ch[0] + tr[1],
                                    tr[0])
         if spec.conv1_tr_norm:
-            self.norm1_tr = BatchNorm(tr[0])
+            self.norm1_tr = make_norm(top, tr[0])
         self.final = Final(tr[0], out_channels)
         self._folded = None
         # eval unless asked: the default of apply_unet (training=False)
@@ -148,6 +173,11 @@ class ResUNet(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def train(self, mode: bool = True):
+        if mode and has_instance_norm(self.spec):
+            raise NotImplementedError(
+                f"{self.spec.name}: an instance-norm model has no train "
+                "forward in this port yet; it needs K20's backward, which "
+                "comes with the 'training after serving' slice (ROADMAP.md)")
         self._folded = None
         return super().train(mode)
 
@@ -156,12 +186,14 @@ class ResUNet(nn.Module):
         return super().load_state_dict(*args, **kwargs)
 
     def _fold(self):
-        """name -> (weight [T, Ci, Co] in the compute dtype, bias f32|None)."""
+        """name -> (weight [T, Ci, Co] in the compute dtype, bias f32|None):
+        a BatchNorm folded into the conv before it; a conv before an
+        instance norm (or none) as it is."""
         folded = {}
 
         def put(key, conv, norm=None):
             W = conv.weight.detach().float()
-            if norm is None:
+            if not isinstance(norm, BatchNorm):
                 folded[key] = (W.to(self.dtype).contiguous(), None)
                 return
             g, b = norm.fold()
@@ -208,9 +240,9 @@ class ResUNet(nn.Module):
     @torch.no_grad()
     def embed(self, pyr: BrickPyramid,
               in_feats: torch.Tensor | None = None) -> torch.Tensor:
-        """The eval forward (apply_unet(training=False)) whatever the
-        module's mode: BN from the running statistics, which it leaves as
-        they are."""
+        """The eval forward (apply_unet(training=False, n_clouds=B))
+        whatever the module's mode: BN from the running statistics, which
+        it leaves as they are; an instance norm from each cloud's own."""
         if self._folded is None:
             self._folded = self._fold()
         fw = self._folded
@@ -219,44 +251,66 @@ class ResUNet(nn.Module):
         blocks = spec.block_norm_type is not None
         maps = conv_maps(pyr, L, self.conv1_kernel_size)
         masks = maps.vox_masks
+        clouds = pyr.counts.shape[0]
 
         def conv(key, x, nmap, level, *, x2=None, residual=None, relu=False):
             W, b = fw[key]
             return sparse_conv(x, W, nmap, x2=x2, bias=b, mask=masks[level],
                                residual=residual, relu=relu)
 
-        def level_tail(prefix, x, level):
-            """(post-relu, skip): the block output for ResUNets, the
-            pre-relu tensor for SimpleNets."""
-            if blocks:
-                nmap = maps.same3[level]
-                y = conv(f"block{prefix}.conv1", x, nmap, level, relu=True)
-                y = conv(f"block{prefix}.conv2", y, nmap, level, residual=x,
-                         relu=True)
-                return y, y
-            return torch.relu(x), x
+        def conv_norm(key, norm, x, nmap, level, *, x2=None, residual=None,
+                      relu=False, skip=False):
+            """conv `key` and the norm after it: a BN (or none) folded into
+            the conv's epilogue, an instance norm (K20) after the bare
+            conv. (post-relu, pre-relu) when `skip`."""
+            if isinstance(norm, InstanceNorm):
+                return masked_instance_norm(
+                    conv(key, x, nmap, level, x2=x2), masks[level], clouds,
+                    norm.weight.detach(), norm.bias.detach(), eps=norm.eps,
+                    relu=relu, residual=residual, skip=skip)
+            y = conv(key, x, nmap, level, x2=x2, residual=residual,
+                     relu=relu and not skip)
+            return (torch.relu(y), y) if skip else y
+
+        def stage(prefix, x, nmap, level, *, x2=None, skip=False):
+            """conv{prefix}, norm{prefix} and the level's tail, as
+            unet.py:300-322: (post-relu, skip), the skip the block output
+            for ResUNets, the pre-relu norm output for SimpleNets (None
+            where no later level reads it)."""
+            norm = getattr(self, f"norm{prefix}")
+            if not blocks:
+                out = conv_norm(f"conv{prefix}", norm, x, nmap, level, x2=x2,
+                                relu=True, skip=skip)
+                return out if skip else (out, None)
+            x = conv_norm(f"conv{prefix}", norm, x, nmap, level, x2=x2)
+            b = getattr(self, f"block{prefix}")
+            same = maps.same3[level]
+            y = conv_norm(f"block{prefix}.conv1", b.norm1, x, same, level,
+                          relu=True)
+            y = conv_norm(f"block{prefix}.conv2", b.norm2, y, same, level,
+                          residual=x, relu=True)
+            return y, y
 
         x = self._input(pyr, in_feats)
         skips = []
-        out = conv("conv1", x, maps.first, 0)
-        out, skip = level_tail("1", out, 0)
+        out, skip = stage("1", x, maps.first, 0, skip=L > 1)
         skips.append(skip)
         for l in range(2, L + 1):
-            out = conv(f"conv{l}", out, maps.down[l - 2], l - 1)
-            out, skip = level_tail(str(l), out, l - 1)
+            out, skip = stage(str(l), out, maps.down[l - 2], l - 1,
+                              skip=l < L)
             skips.append(skip)
 
         x2 = None                     # ME.cat(decoder, encoder) skip join
         for l in range(L, 1, -1):
-            out = conv(f"conv{l}_tr", out, maps.up[l - 2], l - 2, x2=x2)
-            out, _ = level_tail(f"{l}_tr", out, l - 2)
+            out, _ = stage(f"{l}_tr", out, maps.up[l - 2], l - 2, x2=x2)
             x2 = skips[l - 2]
 
         if spec.conv1_tr_kernel == 1:
             nmap = identity_map(out.shape[0], out.device)
         else:
             nmap = maps.same3[0]
-        out = conv("conv1_tr", out, nmap, 0, x2=x2, relu=True)
+        out = conv_norm("conv1_tr", getattr(self, "norm1_tr", None), out,
+                        nmap, 0, x2=x2, relu=True)
         out = conv("final", out, identity_map(out.shape[0], out.device), 0)
 
         feats = out.float()
@@ -267,6 +321,9 @@ class ResUNet(nn.Module):
         """apply_unet(training=True): unfolded convs, masked BN with batch
         statistics (running stats updated in place), autograd through the
         kernels."""
+        if has_instance_norm(self.spec):
+            raise NotImplementedError(
+                f"{self.spec.name}: no train forward for instance norms yet")
         spec = self.spec
         L = spec.num_levels
         blocks = spec.block_norm_type is not None
