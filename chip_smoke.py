@@ -28,8 +28,12 @@ Phases (any failure exits non-zero):
    prebuilt masks (product only, not the same function). K1 (the eval
    forward, on the calls of one ResUNetBN2C forward) and the training
    kernels (the train forward, the conv backward, the row gather, the
-   masked-BN sums, on the calls recorded during one full-width train
-   step); K1's, K5's and K7's times
+   masked-BN sums, K22 `masked_norm_apply` (the BN apply with its fused
+   ReLU or residual tail: equal values, one device kernel a call) and K21
+   `masked_norm_backward` (the BN backward through that tail, S = 1: dx
+   within K21_ULPS bf16 ulps, dresidual bit-equal, dscale / dbias within
+   K21_REL; two device kernels a call, the same bits twice), on the calls
+   recorded during one full-width train step); K1's, K5's and K7's times
    (kernel and device) are also split by shape class, and K2's train row
    by class (the GT pairs, one batched call a step, and the mining). K1
    (eval), K2, K3, K4, K5 and K7 give the same bits on a second call; K3
@@ -142,9 +146,9 @@ Phases (any failure exits non-zero):
    then 3 timed steps, each split by stage; a finite loss, positives found,
    finite and non-zero grads, parameters and BN statistics that moved, and
    every kernel of the step launched (counts reset just before, read just
-   after), one K10, K11 and K12 call a side a step. Then where a step's
-   time goes: the conv maps' share and a torch.profiler view of one more
-   step.
+   after), one K10, K11 and K12 call a side a step, one K7, K22 and K21 a
+   BN norm a side a step (21 norms). Then where a step's time goes: the
+   conv maps' share and a torch.profiler view of one more step.
 6. the EYOC extension step at full width (`training.steps.
    extension_train_step`) at the published KITTI recipe
    (scripts/train_kitti_EYOC.sh: feature filter "None", Similarity over
@@ -170,13 +174,29 @@ Phases (any failure exits non-zero):
    `eval.valid_pair` on pair 0: unit-norm features, finite poses and
    metrics, and one forward's K20 launches equal to the model's instance
    norms (14 and 8).
+8. training the instance-norm family at full width (phase 5's recipe and
+   batch): ResUNetIN2C (7 BN top-level norms, 14 IN block norms), a
+   warm-up step, then one step whose K20 calls (the train forward's, with
+   each cloud's statistics: y in K20_ULPS, a residual call's y within an
+   ulp of y0 plus one of y, the statistics within K20_STATS_REL), K22 and
+   K21 calls (both norms) are held to their plain versions, the same bits
+   twice; then TRAIN_STEPS steps, each with its draws made beforehand and
+   run under sync debug mode "error": a finite loss, finite grads, every
+   parameter with a grad moved, and each step's launches (K20 and K21 for
+   each IN norm of each side, K7, K22 and K21 for each BN norm), and a
+   torch.profiler view of one more; one `extension_train_step` at phase
+   6's labeling (a fresh student and its labeler: K20 and K22 also for
+   the labeler's two forwards, its BN buffers unchanged); SimpleNetIN2 (8
+   IN norms, its pre-ReLU skips), one base step the same way.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
 each kernel on each path (K1 and K2 run on both: their training rows are
 `sparse_conv_train` and `masked_argmin_train`; K2, K3, K4 and K13-K15 on
 the labeling path are `*_label`; K2 in ICP is `masked_argmin_icp`; K19's
-launches are the valid run's, K20's phase 7's); `ms`
+launches are the valid run's, K20's phase 7's; K20's train forward is
+`masked_instance_norm_train` and K21's rows are `masked_norm_backward`
+(instance norm, phase 8) and `masked_norm_backward_bn` (phase 5)); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -392,6 +412,8 @@ def same_bits_twice(label, fn, calls):
     def same(x, y):
         if isinstance(x, (tuple, list)):
             return all(same(u, w) for u, w in zip(x, y))
+        if x is None or y is None:
+            return x is None and y is None
         return torch.equal(x, y)
     with torch.no_grad():
         for a, k in calls:
@@ -919,7 +941,8 @@ def forced_collision_raises(what, pyr):
 COORD_KERNELS = ("voxelize", "brick_pyramid", "conv_maps")
 TRAIN_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "masked_argmin",
                  "sparse_conv_wgrad", "take_rows", "take_rows_backward",
-                 "masked_channel_sums") + COORD_KERNELS
+                 "masked_channel_sums", "masked_norm_apply",
+                 "masked_norm_backward_bn") + COORD_KERNELS
 EVAL_KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
                 "sc2_seed_topk", "sc2_nms", "sc2_seed_transforms",
                 "sc2_irls") + COORD_KERNELS
@@ -968,6 +991,7 @@ def record_train_step(model, opt, batch, cfg, gen):
     sites = [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
              (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
              (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
+             (norm, "masked_norm_apply"), (norm, "masked_norm_backward"),
              (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
     with recording(sites) as calls:
         metrics = base_train_step(model, opt, batch, cfg, generator=gen,
@@ -1308,6 +1332,7 @@ def check_train_kernels(calls):
                     calls["masked_channel_sums"])
     launch_path("K7 masked_channel_sums", norm.masked_channel_sums,
                 calls["masked_channel_sums"], "one train step", 20)
+    out.update(check_norm_kernels(calls, "one ResUNetBN2C train step"))
 
     gen = torch.Generator().manual_seed(4)
     src = torch.randn(PROBE_ROWS, PROBE_COLS, generator=gen).to(
@@ -2613,31 +2638,219 @@ def _ulps(got, want):
     return float(((got - want).abs() / (mag.log2().floor() - 7).exp2()).max())
 
 
-def _k20_close(got, want, *args, skip=False, **kw):
+def _k20_close(got, want, *args, skip=False, with_stats=False, **kw):
     """K20 against its plain version in bf16 ulps (`_ulps`), y and, with
-    `skip`, the pre-ReLU output."""
+    `skip`, the pre-ReLU output; with `with_stats` (the train forward) also
+    its statistics (`_stats_close`) and, for a residual call, y within one
+    ulp of the plain pre-residual output y0 plus one of y (`_sum_ulps`)."""
+    if with_stats:
+        (got, g_st), (want, w_st) = got, want
     pairs = list(zip(got, want)) if skip else [(got, want)]
-    ulps = max(_ulps(g, w) for g, w in pairs)
+    if with_stats and kw.get("residual") is not None:
+        from eyoc_tpu_torch.sparse.norm import masked_instance_norm_plain
+        _, y0 = masked_instance_norm_plain(*args, **dict(kw, skip=True,
+                                                         residual=None))
+        ulps = _sum_ulps(got, want, y0)
+    else:
+        ulps = max(_ulps(g, w) for g, w in pairs)
     err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
-    return ulps <= K20_ULPS, err
+    ok = ulps <= K20_ULPS
+    if with_stats:
+        ok = ok and _stats_close(g_st, w_st, *args[:3])
+    return ok, err
+
+
+def _sum_ulps(got, want, y0):
+    """|got - want| of y = bf16(y0 + residual) in units of one bf16 ulp of
+    y0 plus one of y (each floored as `_ulps`): a y0 one ulp apart moves
+    the sum by its own ulp, which cancellation can make many of y's."""
+    got, want, y0 = got.float(), want.float(), y0.float()
+    if want.numel() == 0:
+        return 0.0
+
+    def ulp(v):
+        floor = max(float(v.abs().max()) * 2.0 ** -8, 2.0 ** -126)
+        return (v.abs().clamp(min=floor).log2().floor() - 7).exp2()
+    return float(((got - want).abs() / (ulp(y0) + ulp(want))).max())
+
+
+def _stats_close(got, want, x, mask, n_segments):
+    """K20's statistics output [S, 3C] (mean, rstd, live) against the plain
+    version's: the sums in two orders move mean by K20_STATS_REL of the
+    segment's mean |x| and var by K20_STATS_REL of its mean x^2 (3 such
+    for var_raw with the mean's share), rstd by half var's error times
+    rstd^3 (plus the plain rsqrt's few ulps); live may differ only where
+    var_raw is within that of 0."""
+    S = n_segments
+    M, C = x.shape
+    m = mask.float().reshape(S, M // S, 1)
+    xf = x.float().reshape(S, M // S, C)
+    n = m.sum((1, 2)).clamp(min=1.0)[:, None]
+    a1 = (xf.abs() * m).sum(1) / n
+    a2 = (xf * xf * m).sum(1) / n
+    g, w = got.reshape(S, 3, C), want.reshape(S, 3, C)
+    dvar = 3 * K20_STATS_REL * a2
+    ok_mean = ((g[:, 0] - w[:, 0]).abs() <= K20_STATS_REL * a1 + 1e-30)
+    r = w[:, 1]
+    ok_rstd = ((g[:, 1] - r).abs() <= r * (0.5 * dvar * r * r + 1e-6))
+    var = 1.0 / (r * r) - 1e-5
+    ok_live = (g[:, 2] == w[:, 2]) | (var.abs() <= dvar)
+    ok = bool((ok_mean & ok_rstd & ok_live).all())
+    if not ok:
+        log(f"  K20 statistics: mean {int((~ok_mean).sum())}, rstd "
+            f"{int((~ok_rstd).sum())}, live {int((~ok_live).sum())} of "
+            f"{S * C} (cloud, channel) outside the bound")
+    return ok
 
 
 def _k20_cost(x, mask, n_segments, scale, bias, eps=1e-5, relu=False,
-              residual=None, skip=False):
+              residual=None, skip=False, with_stats=False):
     """K20's bound: x, the mask, scale and bias and the residual read once,
-    y (and the pre-ReLU output) written once; the sums (3 flops an element)
-    and the apply (2 to 4)."""
+    y (and the pre-ReLU output, and the statistics) written once; the sums
+    (3 flops an element) and the apply (2 to 4)."""
     e = x.element_size()
     nbytes = x.numel() * e * (2 + int(skip) + int(residual is not None)) \
-        + mask.numel() + 2 * scale.numel() * 4
+        + mask.numel() + 2 * scale.numel() * 4 \
+        + int(with_stats) * n_segments * 3 * scale.numel() * 4
     return nbytes, 7.0 * x.numel(), "f32"
 
 
 def _k20_class(x, mask, n_segments, scale, bias, eps=1e-5, relu=False,
-               residual=None, skip=False):
-    way = ("residual" if residual is not None else
-           "relu+skip" if skip else "relu" if relu else "plain")
-    return f"{x.shape[0]} x {x.shape[1]} {way}"
+               residual=None, skip=False, with_stats=False):
+    return (f"{x.shape[0]} x {x.shape[1]} "
+            f"{_tail(relu, residual is not None, skip)}")
+
+
+def _tail(relu: bool, residual: bool, skip: bool) -> str:
+    return ("residual" if residual else "relu+skip" if skip
+            else "relu" if relu else "plain")
+
+
+# K21 against its plain version: dx in bf16 ulps (`_ulps`: f32
+# coefficients of sums in two orders; dx = a ((dy0 - b) - xhat coef) can
+# cancel, so two), dresidual bit-equal (it is dy0), dscale and dbias
+# within K21_REL of the plain sums of absolute values (K7's tolerance)
+K21_ULPS = 2
+K21_REL = 1e-4
+# K22 against its plain version: the same f32 operations, each rounded
+# apart, then the same bf16 rounding: equal values
+K22_ULPS = 0
+K20_STATS_REL = 1e-4
+
+
+def _k21_plain(x, mask, n_segments, scale, stats, dy, y=None, dpre=None,
+               residual=False, counter=None):
+    from eyoc_tpu_torch.sparse.norm import masked_norm_backward_plain
+    return masked_norm_backward_plain(x, mask, n_segments, scale, stats, dy,
+                                      y, dpre, residual)
+
+
+def _k21_close(got, want, x, mask, n_segments, scale, stats, dy, y=None,
+               dpre=None, residual=False, counter=None):
+    import torch
+    from eyoc_tpu_torch.sparse.norm import _grad_at_norm
+    (dx, dres, ds, db), (wdx, wdres, wds, wdb) = got, want
+    S = n_segments
+    M, C = x.shape
+    d = (_grad_at_norm(dy, y, dpre, x.dtype).abs()
+         * mask.float()[:, None]).reshape(S, M // S, C)
+    mean, rstd = stats.reshape(S, 3, C)[:, 0], stats.reshape(S, 3, C)[:, 1]
+    xh = ((x.float().reshape(S, M // S, C) - mean[:, None])
+          * rstd[:, None]).abs()
+    size_db = d.sum((0, 1))
+    size_ds = (d * xh).sum((0, 1))
+    ok = _ulps(dx, wdx) <= K21_ULPS
+    ok = ok and (dres is None) == (wdres is None) \
+        and (dres is None or torch.equal(dres, wdres))
+    ok = ok and bool(((ds - wds).abs() <= K21_REL * size_ds + 1e-6).all()) \
+        and bool(((db - wdb).abs() <= K21_REL * size_db + 1e-6).all())
+    err = max(float((dx.float() - wdx.float()).abs().max()),
+              float((ds - wds).abs().max()), float((db - wdb).abs().max()))
+    return ok, err
+
+
+def _k21_cost(x, mask, n_segments, scale, stats, dy, y=None, dpre=None,
+              residual=False, counter=None):
+    """K21's bound: x, dy, y and dpre read once, dx and dresidual written
+    once, the mask, scale, statistics and parameter grads; ~10 flops an
+    element (the sums' 4, dx's 6)."""
+    e = x.element_size()
+    reads = 2 + int(y is not None) + int(dpre is not None)
+    nbytes = x.numel() * e * (reads + 1 + int(residual)) + mask.numel() \
+        + (stats.numel() + 3 * scale.numel()) * 4
+    return nbytes, 10.0 * x.numel(), "f32"
+
+
+def _k21_class(x, mask, n_segments, scale, stats, dy, y=None, dpre=None,
+               residual=False, counter=None):
+    return (f"{x.shape[0]} x {x.shape[1]}, {n_segments} segment(s), "
+            f"{_tail(y is not None, residual, dpre is not None)}")
+
+
+def _k22_close(got, want, x, mask, gof, relu=False, residual=None,
+               skip=False):
+    pairs = list(zip(got, want)) if skip else [(got, want)]
+    ulps = max(_ulps(g, w) for g, w in pairs)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+    return ulps <= K22_ULPS, err
+
+
+def _k22_cost(x, mask, gof, relu=False, residual=None, skip=False):
+    """K22's bound: x, the mask, g and off and the residual read once, y
+    (and the pre-ReLU output) written once; 2 to 4 flops an element."""
+    e = x.element_size()
+    nbytes = x.numel() * e * (2 + int(skip) + int(residual is not None)) \
+        + mask.numel() + gof.numel() * 4
+    return nbytes, 4.0 * x.numel(), "f32"
+
+
+def _k22_class(x, mask, gof, relu=False, residual=None, skip=False):
+    return (f"{x.shape[0]} x {x.shape[1]} "
+            f"{_tail(relu, residual is not None, skip)}")
+
+
+def check_norm_kernels(calls, what, bn_only=True):
+    """K22 (the batch norm's apply) and K21 (the norms' backward, split by
+    its launch counter: the batch norm's, and the instance norm's unless
+    `bn_only`) on the recorded calls of `what`: against their plain
+    versions, the same bits twice, their device kernels a call (K22 one,
+    K21 two: the sums with each segment's coefficients, then dx), their
+    host cost. Returns the kernels line's rows."""
+    from eyoc_tpu_torch.sparse import norm
+    out = {}
+    k22 = calls["masked_norm_apply"]
+    label = f"K22 masked_norm_apply, {what}"
+    out["masked_norm_apply"] = row = check_calls(
+        label, k22, norm.masked_norm_apply, norm.masked_norm_apply_plain,
+        _k22_cost, _k22_close, reps=SMALL_REPS // 4, classify=_k22_class)
+    log(f"  {label}: library: none: F.batch_norm counts the padding rows")
+    same_bits_twice(label, norm.masked_norm_apply, k22)
+    a, k = k22[0]
+    kernels_per_call(label, lambda: norm.masked_norm_apply(*a, **k))
+    launch_path(label, norm.masked_norm_apply, k22, what, 10)
+    by = {"masked_norm_backward_bn": [], "masked_norm_backward": []}
+    for a, k in calls["masked_norm_backward"]:
+        by[k["counter"]].append((a, k))
+    for name, cl in by.items():
+        if bn_only and name == "masked_norm_backward":
+            if cl:
+                raise AssertionError(f"{what}: an instance norm's backward")
+            continue
+        kind = "batch" if name.endswith("_bn") else "instance"
+        label = f"K21 masked_norm_backward ({kind} norm), {what}"
+        out[name] = check_calls(
+            label, cl, norm.masked_norm_backward, _k21_plain, _k21_cost,
+            _k21_close, reps=SMALL_REPS // 4, classify=_k21_class)
+        log(f"  {label}: library: none: F.{kind}_norm's backward counts the "
+            "padding rows")
+        same_bits_twice(label, norm.masked_norm_backward, cl)
+        a, k = cl[0]
+        kernels_per_call(label, lambda: norm.masked_norm_backward(*a, **k),
+                         expected=2)
+        launch_path(label, norm.masked_norm_backward, cl, what, 10)
+    for r in out.values():
+        r["library_ms"] = None
+    return out
 
 
 def record_in_forward(model, pyr):
@@ -2801,6 +3014,197 @@ def in_phase(pairs, cfg, smi):
     counts = dict(kernels.launches)
     log(json.dumps({"in_launch_counts": counts}))
     return counts
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+# (instance norms, batch norms) of the IN specs, counted from the models'
+# code: ResUNetIN2C's 14 IN block norms and 7 BN top-level norms;
+# SimpleNetIN2's 8 IN norms (4 encoder, 3 decoder, conv1_tr's)
+IN_TRAIN = {"ResUNetIN2C": (14, 7), "SimpleNetIN2": (8, 0)}
+
+
+def norm_counts(model):
+    """(instance norms, batch norms) of a ResUNet."""
+    from eyoc_tpu_torch.models.unet import BatchNorm, InstanceNorm
+    mods = list(model.modules())
+    return (sum(isinstance(m, InstanceNorm) for m in mods),
+            sum(isinstance(m, BatchNorm) for m in mods))
+
+
+def norm_launches(counts, what, n_in, n_bn, steps, labeler=False):
+    """The norm kernels' launches of `steps` train steps (and, with
+    `labeler`, the labeler's two no-grad forwards a step): K20 forward and
+    K21 backward for each instance norm of each side, K7 and K22 forward
+    and K21 backward for each batch norm of each side."""
+    fwd = 2 if labeler else 1
+    want = {"masked_instance_norm": 2 * n_in * fwd,
+            "masked_norm_backward": 2 * n_in,
+            "masked_channel_sums": 2 * n_bn * fwd,
+            "masked_norm_apply": 2 * n_bn * fwd,
+            "masked_norm_backward_bn": 2 * n_bn}
+    bad = {k: counts[k] for k, v in want.items() if counts[k] != v * steps}
+    if bad:
+        raise AssertionError(f"{what}: norm launches {bad}, expected a step "
+                             f"{want}")
+    log(f"{what}: norm launches a step {want} ({n_in} instance norms, "
+        f"{n_bn} batch norms)")
+
+
+def record_in_train_step(model, opt, batch, cfg, gen):
+    """One base train step of an IN model with the norm kernels' wrapper
+    calls recorded (K20 with its statistics, K22, K21)."""
+    import torch
+    from eyoc_tpu_torch.sparse import norm
+    from eyoc_tpu_torch.training.steps import base_train_step
+    sites = [(norm, "masked_instance_norm"), (norm, "masked_norm_apply"),
+             (norm, "masked_norm_backward")]
+    with recording(sites) as calls:
+        base_train_step(model, opt, batch, cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_in_train_kernels(calls, what):
+    """K20 on the train forward's calls (with each cloud's statistics for
+    the backward), K22 and K21 (both norms) on the recorded calls of
+    `what`. Returns the kernels line's rows: K20's `_train` row and K21's
+    instance-norm row."""
+    from eyoc_tpu_torch.sparse import norm
+    k20 = calls["masked_instance_norm"]
+    if not all(k.get("with_stats") for _, k in k20):
+        raise AssertionError("a train forward's K20 call without its "
+                             "statistics")
+    label = f"K20 masked_instance_norm (train forward), {what}"
+    fn, plain = norm.masked_instance_norm, norm.masked_instance_norm_plain
+    row = check_calls(label, k20, fn, plain, _k20_cost, _k20_close,
+                      classify=_k20_class)
+    row["library_ms"] = None
+    log(f"  {label}: library: none: F.instance_norm counts the padding "
+        "rows")
+    same_bits_twice(label, fn, k20)
+    out = check_norm_kernels(calls, what, bn_only=False)
+    return {"masked_instance_norm_train": row,
+            "masked_norm_backward": out["masked_norm_backward"]}
+
+
+def in_train_steps(model, opt, batch, cfg, gen, steps, what, labeler=None,
+                   tables=None):
+    """`steps` train steps of an IN model (base steps, or extension steps
+    with `labeler`), each with its draws made on the card beforehand and
+    run under sync debug mode "error", launch counts reset before each and
+    checked after it (`norm_launches`); finite metrics, finite grads, every
+    parameter that gets a grad moved. Returns (the counts summed over the
+    steps, host ms a step)."""
+    import torch
+    from eyoc_tpu_torch.training import steps as st
+    from eyoc_tpu_torch.utils import kernels
+    n_in, n_bn = norm_counts(model)
+    total, ms = {}, []
+    for i in range(steps):
+        draws = st.draw(cfg, TRAIN_B, gen, "cuda", labels=labeler is not None)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        buffers = None if labeler is None else [
+            b.clone() for b in labeler.buffers()]
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if labeler is None:
+                m = st.base_train_step(model, opt, batch, cfg, draws=draws,
+                                       device="cuda")
+            else:
+                m = st.extension_train_step(model, labeler, opt, batch, cfg,
+                                            tables, draws=draws,
+                                            device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(kernels.launches)
+        norm_launches(counts, f"{what}, step {i}", n_in, n_bn, 1,
+                      labeler=labeler is not None)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{what} step {i}: non-finite metrics "
+                                 f"{vals}")
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        if any(g is None or not bool(torch.isfinite(g).all())
+               for g in grads.values()):
+            raise AssertionError(f"{what}: a parameter has no or a "
+                                 "non-finite grad")
+        after = model.state_dict()
+        still = [k for k, g in grads.items() if bool((g != 0).any())
+                 and torch.equal(before[k], after[k])]
+        if still or not any(bool((g != 0).any()) for g in grads.values()):
+            raise AssertionError(f"{what}: parameters with a grad that did "
+                                 f"not move: {still}")
+        if buffers is not None and not all(
+                torch.equal(a, b) for a, b in zip(buffers,
+                                                  labeler.buffers())):
+            raise AssertionError(f"{what}: the labeler's forwards changed "
+                                 "its BN buffers")
+        log(f"{what} step {i}: loss {vals['loss']:.6f} (pos "
+            f"{vals['pos_loss']:.6f}, neg {vals['neg_loss']:.6f}), "
+            f"{int(vals['num_pos_found'])} positives, {ms[-1]:.2f} ms, no "
+            "host sync; every parameter with a grad moved")
+    return total, ms
+
+
+def in_train_phase(batch, tables, smi):
+    """Training the instance-norm family at full width (phase 5's recipe
+    and batch): ResUNetIN2C, a warm-up step, one recorded step whose norm
+    kernels are held to their plain versions, TRAIN_STEPS counted steps
+    and a profiled one; one extension step at phase 6's labeling (a fresh
+    student and its labeler); SimpleNetIN2, one base step. Returns (the
+    kernels line's rows, the counted steps' launches)."""
+    import torch
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.training.optim import sgd
+    from eyoc_tpu_torch.training.steps import base_train_step
+    cfg = ext_config()
+    gen = torch.Generator().manual_seed(21)
+    name = "ResUNetIN2C"
+    spec = load_model(name)
+    model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                      device="cuda")
+    if norm_counts(model) != IN_TRAIN[name]:
+        raise AssertionError(f"{name}: norms {norm_counts(model)}, expected "
+                             f"{IN_TRAIN[name]}")
+    opt = sgd(model.parameters(), lr=0.1, momentum=0.8, weight_decay=1e-4)
+    base_train_step(model, opt, batch, cfg, generator=gen, device="cuda")
+    calls = record_in_train_step(model, opt, batch, cfg, gen)
+    rows = check_in_train_kernels(calls, f"one {name} train step")
+    del calls
+    counts, ms = in_train_steps(model, opt, batch, cfg, gen, TRAIN_STEPS,
+                                f"{name} train")
+    log(f"IN train path: {name}, B={TRAIN_B}, {TRAIN_STEPS} steps, "
+        f"{np.mean(ms):.2f} ms/step (host clock around synchronized steps, "
+        f"under sync debug mode \"error\"), on {smi}")
+    train_breakdown(model, opt, batch, cfg, gen, what=f"{name} train")
+    del model, opt
+    student, labeler, opt, _ = ext_models(spec)
+    _, ms = in_train_steps(student, opt, batch, cfg, gen, 1,
+                           f"{name} extension", labeler=labeler,
+                           tables=tables)
+    log(f"IN extension step: {name}, B={TRAIN_B}, {ms[0]:.2f} ms (one step, "
+        f"its first), on {smi}")
+    del student, labeler, opt
+    name = "SimpleNetIN2"
+    model = init_unet(load_model(name), torch.Generator().manual_seed(0), 1,
+                      32, 5, device="cuda")
+    if norm_counts(model) != IN_TRAIN[name]:
+        raise AssertionError(f"{name}: norms {norm_counts(model)}, expected "
+                             f"{IN_TRAIN[name]}")
+    opt = sgd(model.parameters(), lr=0.1, momentum=0.8, weight_decay=1e-4)
+    _, ms = in_train_steps(model, opt, batch, cfg, gen, 1, f"{name} train")
+    log(f"IN train path: {name}, B={TRAIN_B}, {ms[0]:.2f} ms (one step, its "
+        f"first), on {smi}")
+    return rows, counts
 
 
 # ---------------------------------------------------- phase 2, labeling
@@ -3161,6 +3565,10 @@ def train_phase(model, opt, batch, cfg, gen, smi):
     if any(counts[k] != 2 * TRAIN_STEPS for k in COORD_KERNELS):
         raise AssertionError("the train steps are not one K10, K11 and K12 "
                              "call for each side of each step")
+    # each BN norm of each side: K7's sums and K22's apply forward, K21's
+    # backward; no instance norm
+    n_bn = norm_counts(model)[1]
+    norm_launches(counts, "ResUNetBN2C train steps", 0, n_bn, TRAIN_STEPS)
 
     grads = [p.grad for p in model.parameters()]
     if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
@@ -3185,7 +3593,7 @@ def train_phase(model, opt, batch, cfg, gen, smi):
     return counts
 
 
-def train_breakdown(model, opt, batch, cfg, gen):
+def train_breakdown(model, opt, batch, cfg, gen, what="train"):
     """Where a train step's time goes, after the counted run: the conv maps
     of one side (with and without their inverses), then torch.profiler over
     one step (device time, busy share, the kernels with most device time)."""
@@ -3205,7 +3613,7 @@ def train_breakdown(model, opt, batch, cfg, gen):
         conv_maps(pyr, 4, 5, inverse=inverse)
         torch.cuda.synchronize()
         maps_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"train: conv maps of one side {maps_ms[0]:.2f} ms, with their "
+    log(f"{what}: conv maps of one side {maps_ms[0]:.2f} ms, with their "
         f"inverses {maps_ms[1]:.2f} ms (host clock, synchronized)")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3217,7 +3625,7 @@ def train_breakdown(model, opt, batch, cfg, gen):
 
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(_dev_ms(e) for e in events)
-    log(f"train profiler, one step: wall {wall:.3f} ms (profiler on), "
+    log(f"{what} profiler, one step: wall {wall:.3f} ms (profiler on), "
         f"device time {total:.3f} ms, busy share {total / wall:.3f}, "
         f"{sum(e.count for e in events)} device ops")
     for e in sorted(events, key=lambda e: -_dev_ms(e))[:12]:
@@ -3256,6 +3664,7 @@ def largest_sort(model, batch, cfg, gen, limit, what, forbid=()):
 
 LABEL_KERNELS = ("sparse_conv", "sparse_conv_dgrad", "sparse_conv_wgrad",
                  "take_rows", "take_rows_backward", "masked_channel_sums",
+                 "masked_norm_apply", "masked_norm_backward_bn",
                  "masked_argmin", "sc2_power_iteration",
                  "sc2_seed_topk", "sc2_nms", "sc2_seed_transforms",
                  "sc2_irls") + COORD_KERNELS
@@ -3358,6 +3767,8 @@ def extension_phase(spec, batch, tables, smi):
     if bad:
         raise AssertionError(f"extension launches {bad}, expected a step "
                              f"{want}")
+    norm_launches(counts, "extension steps", *norm_counts(student),
+                  EXT_STEPS, labeler=True)
     match = (2 * TRAIN_B, CAPS[0], CAPS[0], 32)
     redisc = (TRAIN_B, min(REDISCOVERY, CAPS[0]), CAPS[0], 3)
     mine = (1, 1024 * TRAIN_B, 256 * TRAIN_B, 32)
@@ -3695,6 +4106,13 @@ def main() -> int:
 
     # ---- phase 7: the instance-norm family's eval forward at full width
     in_counts = in_phase(pairs, cfg, smi)
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: training the instance-norm family at full width
+    tables = load_similarity_tables("waymo").to("cuda")
+    in_rows, in_train_counts = in_train_phase(train_batch, tables, smi)
+    results.update(in_rows)
+    del tables
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -3703,13 +4121,17 @@ def main() -> int:
     # extension run's (phase 6), K8 and K9 the gated step's, K16-K18's
     # polish the RANSAC eval run's (phase 3), `icp_solve` and K2's `_icp`
     # row ICP's known answer (phase 4), K19 the valid run's (phase 3), K20
-    # the instance-norm run's (phase 7); each row's times are of the calls
-    # of that path
+    # the instance-norm run's (phase 7), K20's `_train` row and K21's
+    # instance-norm row the IN training run's (phase 8; K22 and K21's
+    # batch-norm row are phase 5's); each row's times are of the calls of
+    # that path
     def launches(name):
         if name == "est_quad_linear_robust":
             return valid_counts[name]
         if name == "masked_instance_norm":
             return in_counts[name]
+        if name in ("masked_instance_norm_train", "masked_norm_backward"):
+            return in_train_counts[name.removesuffix("_train")]
         if name == "ransac_hypotheses":
             return ransac_counts["ransac_hypotheses_topk"]
         if name in RANSAC_KERNELS:
@@ -3741,7 +4163,11 @@ def main() -> int:
               "ransac_polish": "ransac", "icp_solve": "ransac",
               "masked_argmin_icp": "masked_argmin",
               "est_quad_linear_robust": "robust_irls",
-              "masked_instance_norm": "instance_norm"}
+              "masked_instance_norm": "instance_norm",
+              "masked_instance_norm_train": "instance_norm",
+              "masked_norm_apply": "instance_norm",
+              "masked_norm_backward": "norm_backward",
+              "masked_norm_backward_bn": "norm_backward"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -3776,6 +4202,10 @@ def main() -> int:
         "masked_argmin_icp": "eyoc_tpu/registration/icp.py:41",
         "est_quad_linear_robust": "eyoc_tpu/geometry/robust.py:65",
         "masked_instance_norm": "eyoc_tpu/sparse/norm.py:119",
+        "masked_instance_norm_train": "eyoc_tpu/sparse/norm.py:119",
+        "masked_norm_apply": "eyoc_tpu/sparse/norm.py:113",
+        "masked_norm_backward": "eyoc_tpu/sparse/norm.py:119",
+        "masked_norm_backward_bn": "eyoc_tpu/sparse/norm.py:72",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

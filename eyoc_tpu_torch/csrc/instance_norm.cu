@@ -34,6 +34,15 @@
 //   stores, the row's cloud's g and off.
 // Every operation of the statistics and the apply is rounded apart and
 // the divisions and roots are IEEE, as the plain version's torch ops are.
+//
+// The train forward also asks the last block of a cloud for the cloud's
+// mean, rstd = 1 / sqrt(var + eps) and live = var_raw > 0 a channel, which
+// the backward (K21, csrc/norm_backward.cu) reads: g / scale would fail at
+// a zero scale.
+//
+// K22 masked_norm_apply is `apply` alone, given the segments' g and off:
+// the batch norm's apply of eyoc_tpu/sparse/norm.py:masked_batch_norm_fb
+// (:113-115; one segment, its statistics K7's) with the same fused tails.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,13 +112,14 @@ __device__ __forceinline__ void final_sum(const float* part, int chunks,
 
 // Block (s, k, q) = blockIdx.x = (s chunks + k) slabs + q: chunk k of cloud
 // s's rows, channel slab q. part: [clouds, 1 + 2c, chunks]; gof: [clouds,
-// 2c] (g, then off); ticket: a word a cloud.
+// 2c] (g, then off); ticket: a word a cloud; stats_out (or null): [clouds,
+// 3c] (mean, rstd, live).
 __global__ void __launch_bounds__(kThreads) stats(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float eps, int cap, int c, int chunks, int rows_per_chunk, int slabs,
     float* __restrict__ part, int* __restrict__ ticket,
-    float* __restrict__ gof) {
+    float* __restrict__ gof, float* __restrict__ stats_out) {
   __shared__ float ws1[kWarps][kSlab];
   __shared__ float ws2[kWarps][kSlab];
   __shared__ float wn[kWarps];
@@ -219,13 +229,19 @@ __global__ void __launch_bounds__(kThreads) stats(
   const float cnt = fmaxf(fin[0], 1.f);
   for (int ch = tid; ch < c; ch += kThreads) {
     const float mean = __fdiv_rn(fin[1 + ch], cnt);
-    const float var = fmaxf(
-        __fsub_rn(__fdiv_rn(fin[1 + c + ch], cnt), __fmul_rn(mean, mean)),
-        0.f);
-    const float gg =
-        __fmul_rn(__fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps))), scale[ch]);
+    const float var_raw =
+        __fsub_rn(__fdiv_rn(fin[1 + c + ch], cnt), __fmul_rn(mean, mean));
+    const float rstd =
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(fmaxf(var_raw, 0.f), eps)));
+    const float gg = __fmul_rn(rstd, scale[ch]);
     gof[(size_t)s * 2 * c + ch] = gg;
     gof[(size_t)s * 2 * c + c + ch] = __fsub_rn(bias[ch], __fmul_rn(mean, gg));
+    if (stats_out != nullptr) {
+      float* so = stats_out + (size_t)s * 3 * c;
+      so[ch] = mean;
+      so[c + ch] = rstd;
+      so[2 * c + ch] = var_raw > 0.f ? 1.f : 0.f;
+    }
   }
   if (tid == 0) ticket[s] = 0;
 }
@@ -279,13 +295,14 @@ __global__ void __launch_bounds__(kThreads) apply(
 // (1 <= chunks <= 256 blocks of rows_per_chunk rows of a cloud, chosen by
 // the caller, sparse/norm.py:k20_chunks); ticket: a word a cloud, zero
 // between calls (the kernel leaves them at zero); gof [clouds, 2c] f32
-// (the clouds' g and off). relu applies where there is no residual. Two
-// launches.
+// (the clouds' g and off); stats_out (or null) [clouds, 3c] f32 (mean,
+// rstd, live, for the backward). relu applies where there is no residual.
+// Two launches.
 extern "C" int eyoc_masked_instance_norm(
     const void* x, const void* mask, const void* scale, const void* bias,
     float eps, const void* residual, int clouds, int cap, int c, int chunks,
     int rows_per_chunk, int relu, void* part, void* ticket, void* gof,
-    void* y, void* pre, void* stream) {
+    void* stats_out, void* y, void* pre, void* stream) {
   if (clouds <= 0 || cap <= 0) return (int)cudaSuccess;
   if (c <= 0 || c % 8 != 0 || c > kMaxC || chunks < 1 ||
       chunks > kMaxChunks || rows_per_chunk < 1 ||
@@ -301,11 +318,34 @@ extern "C" int eyoc_masked_instance_norm(
       static_cast<const uint8_t*>(mask), static_cast<const float*>(scale),
       static_cast<const float*>(bias), eps, cap, c, chunks, rows_per_chunk,
       slabs, static_cast<float*>(part), static_cast<int*>(ticket),
-      static_cast<float*>(gof));
+      static_cast<float*>(gof), static_cast<float*>(stats_out));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long items = (long long)clouds * cap * (c / 8);
   apply<<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(gof),
+      static_cast<const __nv_bfloat16*>(residual), items, cap, c, relu,
+      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(pre));
+  return (int)cudaGetLastError();
+}
+
+// K22: x, residual, y, pre: [segments * cap, c] bf16, 16-byte aligned, c a
+// multiple of 8 up to 512; residual and pre may be null; mask [rows] bool;
+// gof [segments, 2c] f32 (each segment's g, then off). relu applies where
+// there is no residual. One launch.
+extern "C" int eyoc_masked_norm_apply(const void* x, const void* mask,
+                                      const void* gof, const void* residual,
+                                      int segments, int cap, int c, int relu,
+                                      void* y, void* pre, void* stream) {
+  if (segments <= 0 || cap <= 0) return (int)cudaSuccess;
+  if (c <= 0 || c % 8 != 0 || c > kMaxC) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)residual | (uintptr_t)y | (uintptr_t)pre) %
+          16 != 0)
+    return (int)cudaErrorInvalidValue;        // 16-byte loads and stores
+  const long long items = (long long)segments * cap * (c / 8);
+  apply<<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
+          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(gof),
       static_cast<const __nv_bfloat16*>(residual), items, cap, c, relu,

@@ -16,13 +16,14 @@ order.
   SimpleNetIN*'s norms) follows its bare conv as kernel K20, per cloud
   (apply_unet(training=False, n_clouds=B)), with the ReLU, or the block's
   residual add, ReLU and mask, in its apply. No autograd.
-- train (apply_unet(training=True), unet.py:201-231, 242-380): each conv
-  is a `SparseConvFunction` (K1 forward; K1 over the inverse map and K5
-  backward) with no mask before the masked BatchNorm that follows it
-  (sparse/norm.py, K7 sums), then ReLU, the residual and the masks as plain
-  torch ops in the JAX order. The BN running statistics are updated in
-  place, once per forward. The IN families have no train forward yet: it
-  needs K20's backward (ROADMAP), so `train()` refuses them.
+- train (apply_unet(training=True, n_clouds=B), unet.py:201-231,
+  242-380): each conv is a `SparseConvFunction` (K1 forward; K1 over the
+  inverse map and K5 backward) with no mask before the norm that follows
+  it: a masked BatchNorm (K7 sums, K22 apply) or a per-cloud instance norm
+  (K20), each with the ReLU, or the block's residual add, ReLU and mask,
+  fused into its apply and its backward (K21). The norm's output is
+  rounded to the activation dtype before the tail, as JAX's. The BN
+  running statistics are updated in place, once per forward.
 Activations are stored in the model's compute dtype between convs (bf16 on
 the card, with f32 sums inside the kernels; the CPU tests use f32).
 """
@@ -38,7 +39,8 @@ from torch import nn
 from eyoc_tpu_torch.sparse.brick_conv import (SparseConvFunction, conv_maps,
                                               identity_map, sparse_conv)
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid
-from eyoc_tpu_torch.sparse.norm import (masked_batch_norm,
+from eyoc_tpu_torch.sparse.norm import (instance_norm_train,
+                                        masked_batch_norm,
                                         masked_instance_norm)
 from eyoc_tpu_torch.utils.device import resolve_device
 
@@ -121,10 +123,6 @@ class Final(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
 
-def has_instance_norm(spec: UNetSpec) -> bool:
-    return spec.norm_type == "IN" or spec.block_norm_type == "IN"
-
-
 class ResUNet(nn.Module):
     """Sparse UNet of one UNetSpec with one (norm, block) a level: the
     ResUNet and SimpleNet families, BN or IN."""
@@ -173,11 +171,6 @@ class ResUNet(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def train(self, mode: bool = True):
-        if mode and has_instance_norm(self.spec):
-            raise NotImplementedError(
-                f"{self.spec.name}: an instance-norm model has no train "
-                "forward in this port yet; it needs K20's backward, which "
-                "comes with the 'training after serving' slice (ROADMAP.md)")
         self._folded = None
         return super().train(mode)
 
@@ -318,12 +311,9 @@ class ResUNet(nn.Module):
 
     def _forward_train(self, pyr: BrickPyramid, in_feats,
                        bn_momentum: float | None) -> torch.Tensor:
-        """apply_unet(training=True): unfolded convs, masked BN with batch
-        statistics (running stats updated in place), autograd through the
-        kernels."""
-        if has_instance_norm(self.spec):
-            raise NotImplementedError(
-                f"{self.spec.name}: no train forward for instance norms yet")
+        """apply_unet(training=True, n_clouds=B): unfolded convs, masked
+        BN with batch statistics (running stats updated in place) or the
+        per-cloud instance norm, autograd through the kernels."""
         spec = self.spec
         L = spec.num_levels
         blocks = spec.block_norm_type is not None
@@ -335,37 +325,47 @@ class ResUNet(nn.Module):
             none = (None,) * L
             maps = maps._replace(inv_same3=none, inv_down=none, inv_up=none)
         vmask = maps.vox_masks
-        fmask = [m[:, None].to(self.dtype) for m in vmask]
+        fmask0 = vmask[0][:, None].to(self.dtype)
+        clouds = pyr.counts.shape[0]
 
         def conv(mod, x, nmap, inv, x2=None):
             return SparseConvFunction.apply(x, x2, mod.weight, nmap, inv)
 
-        def norm(mod, x, level):
+        def norm(mod, x, level, **tail):
+            """The norm `mod` and its fused tail (relu, residual, skip)."""
+            if isinstance(mod, InstanceNorm):
+                return instance_norm_train(x, vmask[level], clouds,
+                                           mod.weight, mod.bias, eps=mod.eps,
+                                           **tail)
             return masked_batch_norm(x, vmask[level], mod.weight, mod.bias,
                                      mod.running_mean, mod.running_var,
-                                     momentum=bn_momentum)
+                                     momentum=bn_momentum, eps=mod.eps,
+                                     **tail)
 
-        def level_tail(prefix, x, level):
-            """norm (-> block); returns (post-relu, skip) as unet.py:300-322."""
+        def level_tail(prefix, x, level, skip=False):
+            """norm (-> block); returns (post-relu, skip) as unet.py:300-322
+            (the skip None where no later level reads it)."""
+            if not blocks:                      # SimpleNet: pre-relu skip
+                out = norm(getattr(self, f"norm{prefix}"), x, level,
+                           relu=True, skip=skip)
+                return out if skip else (out, None)
             x = norm(getattr(self, f"norm{prefix}"), x, level)
-            if not blocks:
-                return torch.relu(x), x         # SimpleNet: pre-relu skip
             b = getattr(self, f"block{prefix}")
             nmap, inv = maps.same3[level], maps.inv_same3[level]
-            y = torch.relu(norm(b.norm1, conv(b.conv1, x, nmap, inv), level))
-            y = norm(b.norm2, conv(b.conv2, y, nmap, inv), level)
-            y = torch.relu(y + x) * fmask[level]
+            y = norm(b.norm1, conv(b.conv1, x, nmap, inv), level, relu=True)
+            y = norm(b.norm2, conv(b.conv2, y, nmap, inv), level,
+                     residual=x)
             return y, y
 
         x = self._input(pyr, in_feats)
         skips = []
         out = conv(self.conv1, x, maps.first, None)
-        out, skip = level_tail("1", out, 0)
+        out, skip = level_tail("1", out, 0, skip=L > 1)
         skips.append(skip)
         for l in range(2, L + 1):
             out = conv(getattr(self, f"conv{l}"), out, maps.down[l - 2],
                        maps.inv_down[l - 2])
-            out, skip = level_tail(str(l), out, l - 1)
+            out, skip = level_tail(str(l), out, l - 1, skip=l < L)
             skips.append(skip)
 
         x2 = None                     # ME.cat(decoder, encoder) skip join
@@ -379,14 +379,15 @@ class ResUNet(nn.Module):
             nmap = inv = identity_map(out.shape[0], out.device)
         else:
             nmap, inv = maps.same3[0], maps.inv_same3[0]
-        out = conv(self.conv1_tr, out, nmap, inv, x2) * fmask[0]
+        out = conv(self.conv1_tr, out, nmap, inv, x2) * fmask0
         if spec.conv1_tr_norm:
-            out = norm(self.norm1_tr, out, 0)
-        out = torch.relu(out)
+            out = norm(self.norm1_tr, out, 0, relu=True)
+        else:
+            out = torch.relu(out)
         ident = identity_map(out.shape[0], out.device)
         out = SparseConvFunction.apply(out, None, self.final.weight[None],
                                        ident, ident)
-        feats = (out.float() + self.final.bias) * fmask[0].float()
+        feats = (out.float() + self.final.bias) * fmask0.float()
         return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
 
 

@@ -1,22 +1,23 @@
 """Masked normalization over valid voxels (counterpart of
 eyoc_tpu/sparse/norm.py): the train-mode batch norm
 (masked_batch_norm / masked_batch_norm_fb, :30-116) and the per-cloud
-instance norm of the instance-norm models' eval forward
-(masked_instance_norm_fb, :119-148).
+instance norm of the instance-norm models (masked_instance_norm_fb,
+:119-148), forward and backward.
 
 Semantics are the JAX package's, which match torch.nn.BatchNorm1d over the
 valid rows only: statistics from the sums (n, s1, s2) of the rows a mask
 keeps, n = max(n, 1), mean = s1 / n, var = max(s2 / n - mean^2, 0) (the
 JAX formula, not Welford), normalisation with the biased var, running
 update (1 - m) run + m batch with the unbiased var, output zero at
-invalid rows. The sums are kernel K7 (`masked_channel_sums`) in the
-forward and in the backward; the elementwise passes are plain torch.
+invalid rows.
 
-The instance norm is kernel K20 (`masked_instance_norm`): per (cloud,
-channel) the same formula over the cloud's valid rows, the affine, and
-optionally the ReLU or the residual block's add, ReLU and mask that follow
-it in the eval forward. Its backward (training an instance-norm model)
-waits for a later slice (ROADMAP).
+Kernels: K7 (`masked_channel_sums`) gives the batch norm's sums; K22
+(`masked_norm_apply`) its apply; K20 (`masked_instance_norm`) the instance
+norm per (cloud, channel), statistics and apply; K21
+(`masked_norm_backward`) the backward of either, over S segments (the
+clouds, or S = 1 for the batch norm). Each apply may go on with the ReLU,
+or the residual block's add, ReLU and mask, or give the pre-ReLU output
+too (SimpleNet's skip), and K21 takes the gradient back through that tail.
 """
 
 from __future__ import annotations
@@ -135,87 +136,35 @@ def masked_channel_sums(x, mask, y=None, shift=None):
     return out
 
 
-# ---------------------------------------------------------------- the norm
+# ---------------------------------------------------------------- kernel K22
 
 
-class MaskedBatchNormFunction(torch.autograd.Function):
-    """y = ((x - mean) rstd scale + bias) * mask with batch statistics of
-    the valid rows; returns (y in x's dtype, n, mean, var), the last three
-    f32 and not differentiable (they feed the running update)."""
-
-    @staticmethod
-    def forward(ctx, x, mask, scale, bias, eps):
-        C = x.shape[1]
-        sums = masked_channel_sums(x, mask)
-        n = torch.clamp(sums[0], min=1.0)
-        mean = sums[1:1 + C] / n
-        var_raw = sums[1 + C:] / n - mean * mean
-        var = torch.clamp(var_raw, min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        g = rstd * scale
-        m = mask[:, None].float()
-        y = ((x.float() * g + (bias - mean * g)) * m).to(x.dtype)
-        ctx.save_for_backward(x, mask, scale, n, mean, rstd, var_raw > 0)
-        ctx.mark_non_differentiable(n, mean, var)
-        return y, n, mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dn, _dmean, _dvar):
-        x, mask, scale, n, mean, rstd, var_live = ctx.saved_tensors
-        C = x.shape[1]
-        dy = dy.to(x.dtype).contiguous()
-        sums = masked_channel_sums(dy, mask, x, mean)
-        sdy = sums[1:1 + C]                    # sum_m dY
-        sdyxh = sums[1 + C:] * rstd            # sum_m dY * xhat
-        # a clamped variance passes no gradient (jnp.maximum(var, 0))
-        coef = torch.where(var_live, sdyxh / n, torch.zeros_like(sdyxh))
-        xhat = (x.float() - mean) * rstd
-        m = mask[:, None].float()
-        dx = (scale * rstd) * (dy.float() - sdy / n - xhat * coef) * m
-        return dx.to(x.dtype), None, sdyxh, sdy, None
-
-
-def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
-                      momentum: float | None = 0.05, eps: float = 1e-5):
-    """Train-mode masked BN: x [M, C] (bf16 on the card, bf16 or f32 on
-    the CPU), mask [M] bool, scale /
-    bias [C] f32 parameters. Returns y [M, C] in x's dtype, zero at invalid
-    rows, and updates `running_mean` / `running_var` in place with
-    (1 - momentum) run + momentum batch (unbiased var, as norm.py:60-64);
-    momentum None leaves them as they are (JAX discarding the new state,
-    as the EYOC labeler's forwards do)."""
-    y, n, mean, var = MaskedBatchNormFunction.apply(x, mask, scale, bias, eps)
-    if momentum is None:
-        return y
-    with torch.no_grad():
-        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-        running_mean.mul_(1.0 - momentum).add_(momentum * mean)
-        running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
-    return y
-
-
-# ---------------------------------------------------------------- kernel K20
-
-
-def _segment_affine(n, s1, s2, scale, bias, eps):
-    """(g, off) [B, C] of sums n [B], s1 / s2 [B, C]: n = max(n, 1), mean =
-    s1 / n, var = max(s2 / n - mean^2, 0) (norm.py:135-143)."""
+def _segment_stats(n, s1, s2, eps):
+    """(stats, var) of sums n [S], s1 / s2 [S, C]: n = max(n, 1), mean =
+    s1 / n, var_raw = s2 / n - mean^2, var = max(var_raw, 0) [S, C]
+    (norm.py:104-107, :135-143); stats [S, 3C] f32 is (mean, rstd = rsqrt(
+    var + eps), live = var_raw > 0 as 0 / 1), what the backward reads."""
     n = torch.clamp(n, min=1.0)[:, None]
     mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    g = torch.rsqrt(var + eps) * scale
-    return g, bias - mean * g
+    var_raw = s2 / n - mean * mean
+    var = torch.clamp(var_raw, min=0.0)
+    return torch.cat([mean, torch.rsqrt(var + eps), (var_raw > 0).float()],
+                     dim=1), var
 
 
-def _instance_apply(x, mask, g, off, relu, residual, skip):
-    """y0 = ((x g + off) * mask) in x's dtype with each row's cloud's g and
-    off [B, C]; then relu(y0), or with a residual relu(y0 + residual) *
-    mask, in x's dtype; (y, y0) when `skip`."""
-    B = g.shape[0]
+def masked_norm_apply_plain(x, mask, gof, relu=False, residual=None,
+                            skip=False):
+    """Plain PyTorch version of K22: y0 = ((x g + off) * mask) in x's dtype
+    with each row's segment's g and off, gof [S, 2C] = (g, off) (the rows
+    of segment s are [s M / S, (s + 1) M / S)); then relu(y0), or with a
+    residual relu(y0 + residual) * mask, in x's dtype; (y, y0) when
+    `skip`."""
+    S = gof.shape[0]
     M, C = x.shape
-    m = mask.float().reshape(B, M // B, 1)
-    xf = x.float().reshape(B, M // B, C)
-    y0 = ((xf * g[:, None] + off[:, None]) * m).reshape(M, C).to(x.dtype)
+    m = mask.float().reshape(S, M // S, 1)
+    xf = x.float().reshape(S, M // S, C)
+    g, off = gof[:, None, :C], gof[:, None, C:]
+    y0 = ((xf * g + off) * m).reshape(M, C).to(x.dtype)
     y = y0
     if residual is not None:
         y = (torch.relu(y0.float() + residual.float())
@@ -225,22 +174,324 @@ def _instance_apply(x, mask, g, off, relu, residual, skip):
     return (y, y0) if skip else y
 
 
+_K22_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p,) * 3)
+
+
+def masked_norm_apply(x, mask, gof, *, relu: bool = False, residual=None,
+                      skip: bool = False):
+    """K22: `masked_norm_apply_plain`, the apply of a masked norm with its
+    fused tail. x [M, C], mask [M] bool, gof [S, 2C] f32 (each segment's g,
+    then off; S segments of M / S rows, the batch norm's S = 1), residual
+    [M, C]. Returns y [M, C] in x's dtype, or (y, y0) when `skip`.
+
+    A CPU tensor takes the plain version (any float dtype); a CUDA tensor
+    launches the kernel (K20's apply), which takes bf16 x and residual with
+    C a multiple of 8 up to 512, or raises. One launch a call."""
+    if x.is_cpu:
+        return masked_norm_apply_plain(x, mask, gof, relu, residual, skip)
+    return _launch_k22(x, mask, gof, relu, residual, skip)
+
+
+def _launch_k22(x, mask, gof, relu, residual, skip):
+    fn = kernels.load("instance_norm", _K22_ARGS, symbol="masked_norm_apply")
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = kernels.require_cuda("masked_norm_apply", x, mask, gof, residual,
+                               dtypes=(bf16, torch.bool, f32, bf16))
+    M, C = x.shape
+    S = gof.shape[0]
+    if S < 1 or M % S or mask.shape != (M,) or gof.shape != (S, 2 * C) \
+            or (residual is not None and residual.shape != x.shape):
+        raise ValueError("masked_norm_apply: shapes")
+    if C % 8 or C > K20_MAX_C:
+        raise ValueError(f"masked_norm_apply: {C} channels, the kernel "
+                         f"takes a multiple of 8 up to {K20_MAX_C}")
+    y = torch.empty_like(x)
+    pre = torch.empty_like(x) if skip else None
+    p = kernels.ptr
+    err = fn(x.data_ptr(), mask.data_ptr(), gof.data_ptr(), p(residual), S,
+             M // S, C, int(relu), y.data_ptr(), p(pre),
+             kernels.stream_handle(dev))
+    kernels.check_launch("masked_norm_apply", err)
+    return (y, pre) if skip else y
+
+
+# ---------------------------------------------------------------- kernel K21
+
+
+def _grad_at_norm(dy, y, dpre, dtype):
+    """dy0 f32: dy, zero where y <= 0 (y given: a ReLU or residual tail),
+    plus dpre rounded to `dtype` (the two cotangents of one tensor)."""
+    d = dy.float()
+    if y is not None:
+        d = torch.where(y > 0, d, torch.zeros_like(d))
+    if dpre is not None:
+        d = (d + dpre.float()).to(dtype).float()
+    return d
+
+
+def _backward_finish(x, mask, n_segments, scale, stats, d, sums, residual):
+    """K21's coefficients and dX from the segments' sums [S, 1 + 2C] = (n,
+    sum dy0, sum dy0 (x - mean)) over their masked rows."""
+    S = n_segments
+    M, C = x.shape
+    n = torch.clamp(sums[:, :1], min=1.0)
+    sdy, sdyxc = sums[:, 1:1 + C], sums[:, 1 + C:]
+    mean, rstd, live = stats.reshape(S, 3, C).unbind(1)
+    sdyxh = sdyxc * rstd
+    # a clamped variance passes no gradient (jnp.maximum(var, 0))
+    coef = torch.where(live != 0, sdyxh / n, torch.zeros_like(sdyxh))
+    a, b = scale.float() * rstd, sdy / n
+    m = mask.float().reshape(S, M // S, 1)
+    dm = d.reshape(S, M // S, C) * m
+    xhat = (x.float().reshape(S, M // S, C) - mean[:, None]) * rstd[:, None]
+    dx = (a[:, None] * ((dm - b[:, None]) - xhat * coef[:, None])) * m
+    dscale, dbias = sdyxh[0], sdy[0]
+    for s in range(1, S):                 # the segments added in order
+        dscale, dbias = dscale + sdyxh[s], dbias + sdy[s]
+    dres = dm.reshape(M, C).to(x.dtype) if residual else None
+    return dx.reshape(M, C).to(x.dtype), dres, dscale, dbias
+
+
+def masked_norm_backward_plain(x, mask, n_segments: int, scale, stats, dy,
+                               y=None, dpre=None, residual: bool = False):
+    """Plain PyTorch version of K21, the backward of a masked norm and its
+    tail: x [M, C] the norm's input (S = n_segments segments of M / S rows),
+    mask [M] bool, scale [C], stats [S, 3C] f32 (each segment's mean, rstd
+    and var_raw > 0 as 0 / 1, from the forward), dy [M, C] the gradient at
+    the output y (given with a ReLU or residual tail), dpre the gradient at
+    the pre-ReLU output (SimpleNet's skip) or None. dy0 = dy (y > 0) + dpre
+    at the masked rows; per segment sdy = sum dy0, sdyxh = sum dy0 xhat;
+    dx = scale rstd (dy0 - sdy / n - xhat coef) * mask, coef = sdyxh / n
+    where the variance was live, else 0. Returns (dx in x's dtype,
+    dresidual = dy0 in x's dtype when `residual` else None, dscale [C],
+    dbias [C]), the last two the segments' sdyxh and sdy added in order."""
+    S = n_segments
+    M, C = x.shape
+    d = _grad_at_norm(dy, y, dpre, x.dtype)
+    m = mask.float().reshape(S, M // S, 1)
+    dm = d.reshape(S, M // S, C) * m
+    xc = x.float().reshape(S, M // S, C) - stats.reshape(S, 3, C)[:, 0, None]
+    sums = torch.cat([m.sum((1, 2))[:, None], dm.sum(1),
+                      (d.reshape(S, M // S, C) * xc * m).sum(1)], dim=1)
+    return _backward_finish(x, mask, S, scale, stats, d, sums, residual)
+
+
+def masked_norm_backward_chunked_plain(x, mask, n_segments: int, scale,
+                                       stats, dy, y=None, dpre=None,
+                                       residual: bool = False):
+    """K21's order: each segment's sums in K7's chunked order over its rows
+    (`k20_chunks`, `masked_channel_sums_chunked_plain` of dy0 with y = x
+    and shift = the segment's mean), then the same coefficients and dX."""
+    S = n_segments
+    M, C = x.shape
+    cap = M // S
+    plan = k20_chunks(cap, C)
+    d = _grad_at_norm(dy, y, dpre, x.dtype)
+    mean = stats.reshape(S, 3, C)[:, 0]
+    sums = torch.stack([masked_channel_sums_chunked_plain(
+        d[s * cap:(s + 1) * cap], mask[s * cap:(s + 1) * cap],
+        x[s * cap:(s + 1) * cap], mean[s], plan=plan) for s in range(S)])
+    return _backward_finish(x, mask, S, scale, stats, d, sums, residual)
+
+
+_K21_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+             + (ctypes.c_void_p,) * 8)
+
+
+def masked_norm_backward(x, mask, n_segments: int, scale, stats, dy, y=None,
+                         dpre=None, residual: bool = False, *,
+                         counter: str = "masked_norm_backward"):
+    """K21: `masked_norm_backward_plain`. `counter` names the launch count
+    it adds to: "masked_norm_backward" for the instance norm's backward,
+    "masked_norm_backward_bn" for the batch norm's (S = 1).
+
+    A CPU tensor takes the plain version (any float dtype); a CUDA tensor
+    launches the kernel, which takes bf16 x, dy, y and dpre with C a
+    multiple of 8 up to 512, or raises. Two launches a call (the sums,
+    whose last block a segment makes its coefficients, then dX), counted
+    once."""
+    if x.is_cpu:
+        return masked_norm_backward_plain(x, mask, n_segments, scale, stats,
+                                          dy, y, dpre, residual)
+    return _launch_k21(x, mask, n_segments, scale, stats, dy, y, dpre,
+                       residual, counter)
+
+
+def _launch_k21(x, mask, n_segments, scale, stats, dy, y, dpre, residual,
+                counter):
+    fn = kernels.load("norm_backward", _K21_ARGS,
+                      symbol="masked_norm_backward")
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = kernels.require_cuda(counter, x, dy, y, dpre, mask, scale, stats,
+                               dtypes=(bf16, bf16, bf16, bf16, torch.bool,
+                                       f32, f32))
+    M, C = x.shape
+    S = n_segments
+    if S < 1 or M % S or mask.shape != (M,) or scale.shape != (C,) \
+            or stats.shape != (S, 3 * C) or dy.shape != x.shape \
+            or any(t is not None and t.shape != x.shape for t in (y, dpre)):
+        raise ValueError("masked_norm_backward: shapes")
+    if C % 8 or C > K20_MAX_C:
+        raise ValueError(f"masked_norm_backward: {C} channels, the kernel "
+                         f"takes a multiple of 8 up to {K20_MAX_C}")
+    cap = M // S
+    chunks, rows = k20_chunks(cap, C)
+    W = 1 + 2 * C
+    # one f32 buffer: the chunk partials [S, W, chunks], then the
+    # coefficients [S, 5C], then dscale and dbias
+    buf = _k21_scratch(S * (W * chunks + 5 * C) + 2 * C, x)
+    coefs = buf[S * W * chunks:]
+    grads = buf[S * (W * chunks + 5 * C):]
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(x) if residual else None
+    p = kernels.ptr
+    err = fn(x.data_ptr(), dy.data_ptr(), p(y), p(dpre), mask.data_ptr(),
+             scale.data_ptr(), stats.data_ptr(), S, cap, C, chunks, rows,
+             buf.data_ptr(), kernels.ticket(dev, S).data_ptr(),
+             coefs.data_ptr(), dx.data_ptr(), p(dres), grads.data_ptr(),
+             grads.data_ptr() + 4 * C, kernels.stream_handle(dev))
+    kernels.check_launch(counter, err)
+    return dx, dres, grads[:C], grads[C:]
+
+
+def _k21_scratch(n: int, x):
+    """K21's f32 scratch: the chunk partials, the coefficients, the
+    parameter grads."""
+    return x.new_empty(n, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------- the norms
+
+
+def _save_for_norm_backward(ctx, x, mask, scale, stats, out, n_segments,
+                            relu, residual, skip, counter):
+    y = out[0] if skip else out
+    ctx.save_for_backward(x, mask, scale, stats,
+                          y if relu or residual is not None else None)
+    ctx.n_segments, ctx.residual, ctx.counter = (n_segments,
+                                                 residual is not None,
+                                                 counter)
+    ctx.set_materialize_grads(False)
+
+
+def _norm_backward(ctx, dy, dpre=None):
+    """dX, dscale, dbias and dresidual of a norm with its tail: K21."""
+    x, mask, scale, stats, y = ctx.saved_tensors
+    dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+    if dpre is not None:
+        dpre = dpre.to(x.dtype).contiguous()
+    dx, dres, dscale, dbias = masked_norm_backward(
+        x, mask, ctx.n_segments, scale, stats, dy, y, dpre, ctx.residual,
+        counter=ctx.counter)
+    return dx, None, dscale, dbias, dres
+
+
+class MaskedBatchNormFunction(torch.autograd.Function):
+    """The batch norm's apply with its tail, given the batch statistics
+    `stats` [1, 3C] (mean, rstd, live; `masked_batch_norm` makes them from
+    K7's sums): K22 with g = rstd scale, off = bias - mean g; backward K21
+    at S = 1. Returns y, or (y, y0) when `skip`."""
+
+    @staticmethod
+    def forward(ctx, x, mask, scale, bias, residual, stats, relu, skip):
+        C = x.shape[1]
+        g = stats[:, C:2 * C] * scale
+        gof = torch.cat([g, bias - stats[:, :C] * g], dim=1)
+        out = masked_norm_apply(x, mask, gof, relu=relu, residual=residual,
+                                skip=skip)
+        _save_for_norm_backward(ctx, x, mask, scale, stats, out, 1, relu,
+                                residual, skip, "masked_norm_backward_bn")
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dpre=None):
+        return _norm_backward(ctx, dy, dpre) + (None, None, None)
+
+
+class MaskedInstanceNormFunction(torch.autograd.Function):
+    """The instance norm with its tail (K20, which also gives each cloud's
+    statistics); backward K21 at S = the clouds. Returns y, or (y, y0)
+    when `skip`."""
+
+    @staticmethod
+    def forward(ctx, x, mask, scale, bias, residual, n_segments, eps, relu,
+                skip):
+        out, stats = masked_instance_norm(
+            x, mask, n_segments, scale, bias, eps=eps, relu=relu,
+            residual=residual, skip=skip, with_stats=True)
+        _save_for_norm_backward(ctx, x, mask, scale, stats, out, n_segments,
+                                relu, residual, skip, "masked_norm_backward")
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dpre=None):
+        return _norm_backward(ctx, dy, dpre) + (None, None, None, None)
+
+
+def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
+                      momentum: float | None = 0.05, eps: float = 1e-5,
+                      relu: bool = False, residual=None, skip: bool = False):
+    """Train-mode masked BN: x [M, C] (bf16 on the card, bf16 or f32 on
+    the CPU), mask [M] bool, scale / bias [C] f32 parameters, then the
+    fused tail of `masked_norm_apply` (relu, residual, skip). Returns y
+    [M, C] in x's dtype, zero at invalid rows (or (y, y0) when `skip`), and
+    updates `running_mean` / `running_var` in place with (1 - momentum)
+    run + momentum batch (unbiased var, as norm.py:60-64); momentum None
+    leaves them as they are (JAX discarding the new state, as the EYOC
+    labeler's forwards do). The statistics are K7's sums, the apply K22,
+    the backward K21."""
+    C = x.shape[1]
+    with torch.no_grad():
+        sums = masked_channel_sums(x, mask)
+        stats, var = _segment_stats(sums[:1], sums[None, 1:1 + C],
+                                    sums[None, 1 + C:], eps)
+        if momentum is not None:
+            n = torch.clamp(sums[0], min=1.0)
+            unbiased = var[0] * n / torch.clamp(n - 1.0, min=1.0)
+            running_mean.mul_(1.0 - momentum).add_(momentum * stats[0, :C])
+            running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
+    return MaskedBatchNormFunction.apply(x, mask, scale, bias, residual,
+                                         stats, relu, skip)
+
+
+def instance_norm_train(x, mask, n_segments: int, scale, bias, *,
+                        eps: float = 1e-5, relu: bool = False, residual=None,
+                        skip: bool = False):
+    """The train forward's instance norm (`masked_instance_norm`, same
+    arguments) with its backward, K21; with gradients off (the EYOC
+    labeler's forwards) K20 alone."""
+    if not torch.is_grad_enabled():
+        return masked_instance_norm(x, mask, n_segments, scale, bias,
+                                    eps=eps, relu=relu, residual=residual,
+                                    skip=skip)
+    return MaskedInstanceNormFunction.apply(x, mask, scale, bias, residual,
+                                            n_segments, eps, relu, skip)
+
+
+# ---------------------------------------------------------------- kernel K20
+
+
 def masked_instance_norm_plain(x, mask, n_segments: int, scale, bias, *,
                                eps: float = 1e-5, relu: bool = False,
-                               residual=None, skip: bool = False):
+                               residual=None, skip: bool = False,
+                               with_stats: bool = False):
     """Plain PyTorch version of K20: x [M, C] whose rows are n_segments
     clouds of M / n_segments rows each, mask [M] bool, scale / bias [C]
     f32. Per (cloud, channel) over the masked rows, in f32: n = max(count,
     1), mean = sum x / n, var = max(sum x^2 / n - mean^2, 0), g = rsqrt(var
-    + eps) scale, off = bias - mean g; then `_instance_apply`."""
+    + eps) scale, off = bias - mean g; then `masked_norm_apply_plain`. With
+    `with_stats`, (out, stats [B, 3C]: mean, rstd, var_raw > 0 as 0 / 1)."""
     B = n_segments
     M, C = x.shape
     m = mask.float().reshape(B, M // B, 1)
     xf = x.float().reshape(B, M // B, C)
-    g, off = _segment_affine(m.sum((1, 2)), (xf * m).sum(1),
-                             (xf * xf * m).sum(1), scale.float(),
-                             bias.float(), eps)
-    return _instance_apply(x, mask, g, off, relu, residual, skip)
+    stats, _ = _segment_stats(m.sum((1, 2)), (xf * m).sum(1),
+                              (xf * xf * m).sum(1), eps)
+    g = stats[:, C:2 * C] * scale.float()
+    gof = torch.cat([g, bias.float() - stats[:, :C] * g], dim=1)
+    out = masked_norm_apply_plain(x, mask, gof, relu, residual, skip)
+    return (out, stats) if with_stats else out
 
 
 # K20's reformulation, as plain torch: the CPU tests hold it against
@@ -275,21 +526,24 @@ def masked_instance_norm_chunked_plain(x, mask, n_segments: int, scale,
     mean = sums[:, 1:1 + C] / n
     var = torch.clamp(sums[:, 1 + C:] / n - mean * mean, min=0.0)
     g = 1.0 / torch.sqrt(var + eps) * scale.float()
-    off = bias.float() - mean * g
-    return _instance_apply(x, mask, g, off, relu, residual, skip)
+    gof = torch.cat([g, bias.float() - mean * g], dim=1)
+    return masked_norm_apply_plain(x, mask, gof, relu, residual, skip)
 
 
 _K20_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_float, ctypes.c_void_p)
-             + (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 6)
+             + (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 7)
 
 
 def masked_instance_norm(x, mask, n_segments: int, scale, bias, *,
                          eps: float = 1e-5, relu: bool = False,
-                         residual=None, skip: bool = False):
+                         residual=None, skip: bool = False,
+                         with_stats: bool = False):
     """K20: `masked_instance_norm_plain`. x [M, C] (rows of n_segments clouds
     of M / n_segments rows each), mask [M] bool, scale / bias [C] f32,
     residual [M, C]. Returns y [M, C] in x's dtype, or (y, y0) with the
-    norm's output before the ReLU when `skip`.
+    norm's output before the ReLU when `skip`; with `with_stats` (the
+    train forward), (that, stats [B, 3C] f32: each cloud's mean, rstd and
+    var_raw > 0 as 0 / 1, for the backward).
 
     A CPU tensor takes the plain version (any float dtype); a CUDA tensor
     launches the kernel, which takes bf16 x and residual with C a multiple
@@ -298,9 +552,10 @@ def masked_instance_norm(x, mask, n_segments: int, scale, bias, *,
     if x.is_cpu:
         return masked_instance_norm_plain(x, mask, n_segments, scale, bias,
                                           eps=eps, relu=relu,
-                                          residual=residual, skip=skip)
+                                          residual=residual, skip=skip,
+                                          with_stats=with_stats)
     return _launch_k20(x, mask, n_segments, scale, bias, eps, relu,
-                       residual, skip)
+                       residual, skip, with_stats)
 
 
 def _k20_scratch(n: int, x):
@@ -308,7 +563,8 @@ def _k20_scratch(n: int, x):
     return x.new_empty(n, dtype=torch.float32)
 
 
-def _launch_k20(x, mask, n_segments, scale, bias, eps, relu, residual, skip):
+def _launch_k20(x, mask, n_segments, scale, bias, eps, relu, residual, skip,
+                with_stats=False):
     fn = kernels.load("instance_norm", _K20_ARGS,
                       symbol="masked_instance_norm")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -329,13 +585,16 @@ def _launch_k20(x, mask, n_segments, scale, bias, eps, relu, residual, skip):
     W = 1 + 2 * C
     # one f32 buffer: the chunk partials [B, W, chunks], then g and off
     buf = _k20_scratch(B * (W * chunks + 2 * C), x)
+    stats = x.new_empty((B, 3 * C), dtype=torch.float32) if with_stats \
+        else None
     y = torch.empty_like(x)
     pre = torch.empty_like(x) if skip else None
     p = kernels.ptr
     err = fn(x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
              bias.data_ptr(), eps, p(residual), B, cap, C, chunks, rows,
              int(relu), buf.data_ptr(), kernels.ticket(dev, B).data_ptr(),
-             buf.data_ptr() + 4 * B * W * chunks, y.data_ptr(), p(pre),
-             kernels.stream_handle(dev))
+             buf.data_ptr() + 4 * B * W * chunks, p(stats), y.data_ptr(),
+             p(pre), kernels.stream_handle(dev))
     kernels.check_launch("masked_instance_norm", err)
-    return (y, pre) if skip else y
+    out = (y, pre) if skip else y
+    return (out, stats) if with_stats else out

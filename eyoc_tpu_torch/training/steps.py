@@ -15,10 +15,12 @@ statistics left as they are, as JAX discards that state, steps.py:484-496),
 then the student half on those labels.
 
 The student half (`_student_update`, both steps): a train-mode forward of
-each side (masked BN with batch statistics; the running statistics update
-twice, as JAX chains the first forward's state into the second,
-steps.py:291-294), the hardest-contrastive loss, the backward, and the
-optimizer's update (SGD with momentum and weight decay, `optim.sgd`).
+each side (masked BN with batch statistics, or the per-cloud instance norm
+of an IN spec; the BN running statistics update twice, as JAX chains the
+first forward's state into the second, steps.py:291-294), the
+hardest-contrastive loss, the backward, and the optimizer's update (SGD
+with momentum and weight decay, `optim.sgd`). Both steps take every spec
+that `ResUNet` takes, BN or IN.
 
 Random draws: JAX splits one key per step; the port takes the same draws
 as explicit tensors (`StepDraws`) so that a test can feed it the JAX

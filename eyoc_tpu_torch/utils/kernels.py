@@ -14,14 +14,15 @@ module on a host without `nvcc`.
 one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
 (K6's forward and backward, K4's counts and top k, K8 and K9, K14 and K15
-in `sc2_refine`, K16-K18 in `ransac`; K19 and K20 are entry points named
-apart from their sources), and one kernel may be counted under
-two names (K1 as the forward conv and as the conv backward's dX; K16's
-single-stage and two-stage entries), so the
+in `sc2_refine`, K16-K18 in `ransac`, K20 and K22 in `instance_norm`; K19
+and K21 are entry points named apart from their sources), and one kernel
+may be counted under two names (K1 as the forward conv and as the conv
+backward's dX; K16's single-stage and two-stage entries; K21 as the
+instance norm's backward and as the batch norm's), so the
 counters are `COUNTERS`: the sources in `KERNELS` with an entry point of
 their own name, and the other entry points. A wrapper call that makes
-several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20) counts
-one.
+several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K21)
+counts one.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -50,14 +51,16 @@ KERNELS = ("sparse_conv", "masked_argmin", "sc2_power_iteration",
            "sc2_seed_counts", "sparse_conv_wgrad", "take_rows",
            "masked_channel_sums", "masked_knn2", "voxelize", "brick_pyramid",
            "conv_maps", "sc2_nms", "sc2_refine", "ransac", "robust_irls",
-           "instance_norm")
+           "instance_norm", "norm_backward")
 COUNTERS = tuple(k for k in KERNELS if k not in (
-    "sc2_refine", "ransac", "robust_irls", "instance_norm")) + (
+    "sc2_refine", "ransac", "robust_irls", "instance_norm",
+    "norm_backward")) + (
     "sparse_conv_dgrad", "take_rows_backward", "sc2_seed_topk",
     "masked_argmin_excl", "sc2_seed_transforms", "sc2_irls",
     "ransac_hypotheses", "ransac_hypotheses_topk", "ransac_verify",
     "ransac_polish", "icp_solve", "est_quad_linear_robust",
-    "masked_instance_norm")
+    "masked_instance_norm", "masked_norm_apply", "masked_norm_backward",
+    "masked_norm_backward_bn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

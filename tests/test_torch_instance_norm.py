@@ -22,8 +22,10 @@ eyoc_tpu_torch.models against eyoc_tpu, on the same numpy inputs.
   3000 and 1700 points), f32, atol 1e-4 on the unit-norm features, as
   tests/test_torch_models.py holds the BN specs;
 - params_from_jax over IN trees (no running statistics), every IN spec of
-  eyoc_tpu.models built and converted at full width, an IN model
-  refusing train mode, and api.extract_features running an IN model.
+  eyoc_tpu.models built and converted at full width, an IN model taking
+  train mode (its no-grad train forward the eval forward's features: every
+  norm IN, so batch and eval statistics are the same), and
+  api.extract_features running an IN model.
 """
 
 import ctypes
@@ -308,15 +310,25 @@ def test_every_in_spec_builds_and_converts_at_full_width():
 
 
 def test_in_model_refuses_train_mode():
+    """An IN model no longer refuses train mode (its train forward and
+    backward are held against JAX in test_torch_train_model.py): train()
+    takes it, a forward there under no_grad runs K20's plain version alone
+    and leaves the features of the eval forward's norms; a spec with two
+    (norm, block) repeats a level is still refused."""
     model = init_unet(load_model("SimpleNetINE"), torch.Generator()
                       .manual_seed(0), 1, 16, 3, dtype=torch.float32,
                       device="cpu")
     assert not model.training
-    with pytest.raises(NotImplementedError, match="training after serving"):
-        model.train()
-    with pytest.raises(NotImplementedError):
-        model._forward_train(None, None, 0.05)
-    model.eval()                                       # eval mode is fine
+    assert model.train() is model and model.training
+    xyz = np.random.default_rng(9).normal(0, 4, (1, 2000, 3)).astype(
+        np.float32)
+    _, pyr = tpreprocess(torch.from_numpy(xyz), torch.tensor([2000]),
+                         caps=CAPS, voxel_size=0.3, window_bits=BITS)
+    with torch.no_grad():
+        got = model(pyr, bn_momentum=None)
+    np.testing.assert_allclose(got.numpy(), model.embed(pyr).numpy(),
+                               rtol=0, atol=1e-5)
+    model.eval()
     with pytest.raises(ValueError):
         ResUNet(load_model("ResUNetExpBN2C"))          # repeats == 2
 

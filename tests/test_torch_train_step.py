@@ -2,7 +2,8 @@
 
 (g) optim.sgd (torch.optim.SGD) against sgd_update over 3 steps (rtol 1e-6,
     atol 1e-7: the same f32 operations);
-(h) base_train_step, 2 steps on a narrow two-level BN ResUNet, against
+(h) base_train_step, 2 steps on a narrow two-level BN ResUNet and on its
+    instance-norm variant (IN block norms), against
     StepBuilder.make_base_train_step("gt"): the port gets the JAX step's
     own draws (the key splits of steps.py:342, 386, 279-283 and
     loss.py:81-90). Compared per step: loss, pos/neg loss (rtol 1e-4) and
@@ -145,9 +146,10 @@ def jax_step_draws(key, B, n_rows):
     return key, StepDraws(*t)
 
 
-def test_base_train_step_matches_jax():
+def check_base_train_step(js):
+    """Two base_train_steps of spec `js` against make_base_train_step("gt")
+    on the JAX step's own draws."""
     caps = (1024, 512)
-    js = JSpec("narrow", "BN", "BN", (8, 16), (8, 16))
     params, bn = jax.jit(lambda k: jinit(js, k, 1, 16, 5))(
         jax.random.PRNGKey(0))
     state = init_train_state(params, bn, jax.random.PRNGKey(1))
@@ -174,6 +176,21 @@ def test_base_train_step_matches_jax():
                                        err_msg=k)
     assert np.array_equal(np.asarray(key), np.asarray(state.key))
     assert_state_close(model, state.params, state.bn_state, 1e-4, 1e-5)
+    return model
+
+
+def test_base_train_step_matches_jax():
+    check_base_train_step(JSpec("narrow", "BN", "BN", (8, 16), (8, 16)))
+
+
+def test_base_train_step_matches_jax_in():
+    """The same two steps with an instance-norm model (ResUNetIN-shaped: BN
+    top-level norms, per-cloud IN block norms, whose JAX state is None and
+    stays so)."""
+    model = check_base_train_step(JSpec("narrow", "BN", "IN", (8, 16),
+                                        (8, 16)))
+    assert not any(k.startswith("block1.norm1.running")
+                   for k in model.state_dict())
 
 
 def test_eval_after_a_train_step_runs_the_eval_forward():
@@ -249,5 +266,22 @@ def test_training_kernel_wrappers_never_fall_back(monkeypatch):
     with pytest.raises(_LoaderDown, match="masked_channel_sums"):
         norm.masked_channel_sums(meta(8, 4, dtype=bf),
                                  meta(8, dtype=torch.bool))
+    with pytest.raises(_LoaderDown, match="masked_norm_apply"):
+        norm.masked_norm_apply(meta(8, 8, dtype=bf),
+                               meta(8, dtype=torch.bool), meta(1, 16),
+                               relu=True)
+    with pytest.raises(_LoaderDown, match="masked_norm_backward"):
+        norm.masked_norm_backward(meta(8, 8, dtype=bf),
+                                  meta(8, dtype=torch.bool), 2, meta(8),
+                                  meta(2, 24), meta(8, 8, dtype=bf))
+    with pytest.raises(_LoaderDown, match="masked_norm_backward"):
+        norm.masked_norm_backward(meta(8, 8, dtype=bf),
+                                  meta(8, dtype=torch.bool), 1, meta(8),
+                                  meta(1, 24), meta(8, 8, dtype=bf),
+                                  counter="masked_norm_backward_bn")
+    with pytest.raises(_LoaderDown, match="masked_instance_norm"):
+        norm.masked_instance_norm(meta(8, 8, dtype=bf),
+                                  meta(8, dtype=torch.bool), 2, meta(8),
+                                  meta(8), with_stats=True)
     assert kernels.launches == before
     assert set(kernels.COUNTERS) <= set(kernels.launches)
