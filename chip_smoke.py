@@ -188,6 +188,20 @@ Phases (any failure exits non-zero):
    6's labeling (a fresh student and its labeler: K20 and K22 also for
    the labeler's two forwards, its BN buffers unchanged); SimpleNetIN2 (8
    IN norms, its pre-ReLU skips), one base step the same way.
+9. the trainer: `cli.train.main` in-process with ContinuousCorrExtension-
+   Trainer over SyntheticContinuousPairDataset at the KITTI launcher's
+   flags, phase 5's width and batch, caps (16384, 5120, 1600, 500) (the
+   extension demo's level shrink 3.2; phase 5's are CAPS):
+   a base epoch, two extension epochs (the labeler's first sync, then an
+   EMA sync), a validation of 2 pairs and a checkpoint after each, the
+   best one kept; every kernel of the path launched (counts reset just
+   before `main`, read just after); the trainer's Data and Iter times a
+   step and the validations' feat_match_ratio printed. A second `main`
+   from `--resume_dir` starts at the next epoch with the student, the
+   labeler, the optimizer state, num_updates and the generator equal to
+   the saved ones. Then one base step each at iter_size 2, with Adam,
+   with AdamW and with the contrastive, triplet and hardest-triplet
+   losses, their K2 and K6 calls held to the plain versions.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -196,7 +210,10 @@ each kernel on each path (K1 and K2 run on both: their training rows are
 the labeling path are `*_label`; K2 in ICP is `masked_argmin_icp`; K19's
 launches are the valid run's, K20's phase 7's; K20's train forward is
 `masked_instance_norm_train` and K21's rows are `masked_norm_backward`
-(instance norm, phase 8) and `masked_norm_backward_bn` (phase 5)); `ms`
+(instance norm, phase 8) and `masked_norm_backward_bn` (phase 5); phase
+9's loss steps give `masked_argmin_triplet` (the hardest triplet's K2
+calls) and `take_rows_losses` / `take_rows_backward_losses` (K6 in the
+three other losses)); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -1165,6 +1182,39 @@ def _scatter_cost(dout, idx, n_src):
             + n_src * dout.shape[1] * 4), float(dout.numel()), "f32"
 
 
+def _gather_close(got, want, *a):
+    """K6 forward: the same bits."""
+    import torch
+    return bool(torch.equal(got, want)), float(
+        (got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def _index_select(src, idx):
+    """K6's library call (no sentinel reaches it on the loss path)."""
+    import torch
+    if bool(((idx < 0) | (idx >= src.shape[0])).any()):
+        raise AssertionError("take_rows: a sentinel on the loss path")
+    idx64 = idx.long()
+    return lambda: torch.index_select(src, 0, idx64)
+
+
+def _scatter_close(got, want, *a):
+    """K6 backward: f32 atomics against index_add_'s order."""
+    import torch
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    return bool(torch.allclose(got, want, rtol=K6B_RTOL,
+                               atol=K6B_ATOL)), err
+
+
+def _index_add(dout, idx, n_src):
+    """K6 backward's library call."""
+    import torch
+    idx64 = idx.long()
+    d = dout.float()
+    return lambda: torch.zeros((n_src, d.shape[1]), dtype=torch.float32,
+                               device=d.device).index_add_(0, idx64, d)
+
+
 def _sums_cost(x, mask, y=None, shift=None):
     e = x.element_size()
     nbytes = x.numel() * e + mask.numel() + (1 + 2 * x.shape[1]) * 4
@@ -1291,37 +1341,15 @@ def check_train_kernels(calls):
     launch_path("K5 sparse_conv_wgrad", bc.sparse_conv_wgrad,
                 calls["sparse_conv_wgrad"], "one train step", 5)
 
-    def gather_close(got, want, *a):
-        return bool(torch.equal(got, want)), float(
-            (got.float() - want.float()).abs().max()) if got.numel() else 0.0
-
-    def index_select(src, idx):
-        if bool(((idx < 0) | (idx >= src.shape[0])).any()):
-            raise AssertionError("take_rows: a sentinel on the loss path")
-        idx64 = idx.long()
-        return lambda: torch.index_select(src, 0, idx64)
-
     out["take_rows"] = check_calls(
         "K6 take_rows, one train step", calls["take_rows_gather"],
         rows.take_rows_gather,
-        rows.take_rows_plain, _gather_cost, gather_close, index_select,
+        rows.take_rows_plain, _gather_cost, _gather_close, _index_select,
         reps=SMALL_REPS)
-
-    def scatter_close(got, want, *a):
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        return bool(torch.allclose(got, want, rtol=K6B_RTOL,
-                                   atol=K6B_ATOL)), err
-
-    def index_add(dout, idx, n_src):
-        idx64 = idx.long()
-        d = dout.float()
-        return lambda: torch.zeros((n_src, d.shape[1]), dtype=torch.float32,
-                                   device=d.device).index_add_(0, idx64, d)
-
     out["take_rows_backward"] = check_calls(
         "K6 take_rows_backward, one train step", calls["take_rows_backward"],
         rows.take_rows_backward, rows.take_rows_backward_plain, _scatter_cost,
-        scatter_close, index_add, reps=SMALL_REPS)
+        _scatter_close, _index_add, reps=SMALL_REPS)
     out["masked_channel_sums"] = check_calls(
         "K7 masked_channel_sums, one train step",
         calls["masked_channel_sums"],
@@ -1342,7 +1370,7 @@ def check_train_kernels(calls):
     check_calls(f"K6 take_rows at the TPU probe shape [{PROBE_ROWS}, "
                 f"{PROBE_COLS}] bf16", [((src, idx), {})],
                 rows.take_rows_gather, rows.take_rows_plain, _gather_cost,
-                gather_close, index_select, reps=SMALL_REPS)
+                _gather_close, _index_select, reps=SMALL_REPS)
 
     # the launch path alone: host time per call, not waited for
     (lsrc, lidx), _ = calls["take_rows_gather"][0]
@@ -3881,6 +3909,264 @@ def known_answer(batch):
                                  f"({ff})")
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+# the EYOC trainer through the train CLI: the KITTI launcher's flags
+# (scripts/train_kitti_EYOC.sh:33-65) at phase 5's batch, width, lr and
+# caps (the extension demo's capacity shrink 3.2: (16384, 5120, 1600, 500),
+# experiments/extension_demo.py:90-91); cut to 3 epochs of one step (8
+# pairs an epoch) over pair distances 1 -> 2 m, 2 validation pairs
+TRAINER_EPOCHS = 3
+
+
+def trainer_flags(out_dir: str) -> list:
+    return [
+        "--dataset", "SyntheticContinuousPairDataset",
+        "--trainer", "ContinuousCorrExtensionTrainer",
+        "--model", "ResUNetBN2C", "--model_n_out", "32",
+        "--conv1_kernel_size", "5", "--optimizer", "SGD", "--lr", "0.1",
+        "--batch_size", str(TRAIN_B), "--iter_size", "1",
+        "--max_epoch", str(TRAINER_EPOCHS), "--voxel_size", "0.3",
+        "--positive_pair_search_voxel_size_multiplier", "1.5",
+        "--hit_ratio_thresh", "0.3", "--exp_gamma", "0.98",
+        "--pair_min_dist", "1", "--pair_max_dist", "2",
+        "--use_SC2_PCR", "true", "--extension_steps", "0",
+        "--sync_strategy", "EMA", "--ema_decay", str(EXT_DECAY),
+        "--feature_filter", "None", "--spatial_filter", "Similarity",
+        "--filter_radius", "40", "--similarity_thresh", "0.6",
+        "--use_sc2_filtering", "true", "--pretraining_dataset", "waymo",
+        "--skip_initialization", "false",
+        "--raw_point_capacity", str(RAW), "--voxel_capacity", str(CAPS[0]),
+        "--level_capacity_shrink", "3.2",
+        "--window_bits", ",".join(map(str, WINDOW_BITS)),
+        "--val_max_iter", "2", "--stat_freq", "1", "--out_dir", out_dir]
+
+
+# every kernel of the trainer's path: the train step's, the labeling's and
+# the valid step's
+TRAINER_KERNELS = TRAIN_KERNELS + ("sc2_power_iteration", "sc2_seed_topk",
+                                   "sc2_nms", "sc2_seed_transforms",
+                                   "sc2_irls", "est_quad_linear_robust")
+
+
+def _same_state(a, b, what):
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    if set(sa) != set(sb) or not all(torch.equal(sa[k], sb[k]) for k in sb):
+        raise AssertionError(f"resume: the {what} differs from the saved one")
+
+
+def trainer_phase(smi):
+    """Phase 9: `cli.train.main` in-process on the card with
+    ContinuousCorrExtensionTrainer over SyntheticContinuousPairDataset
+    (ResUNetBN2C, 32 outputs, voxel 0.3 m, B = 8 pairs of 131072 points an
+    epoch, caps (16384, 5120, 1600, 500), SGD lr 0.1, the KITTI labeling,
+    EMA 0.2). pair_min_dist 1 and pair_max_dist 2 over max_epoch 3 with
+    extension_steps 0 (the schedule's interval 1): epoch 1 at MAX_DIST 1
+    is base mode (identity labels, no labeler sync), epoch 2 extends to 2 m
+    (the labeler's first sync, a copy, count 1) and epoch 3 stays there (an
+    EMA sync, count 2); one step an epoch; after each a checkpoint and a
+    validation of 2 pairs at 2 m, the best one written as
+    best_val_checkpoint. Launch counts reset just before and read just
+    after; every kernel of the path launched. Then a second `main` from
+    `--resume_dir` (the CLI's get_config): it starts at epoch 4 (past
+    max_epoch, so it trains nothing) with the student, the labeler, the
+    optimizer state, num_updates and the generator equal to the first
+    run's. Returns the first run's launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from eyoc_tpu_torch.cli.train import log_to_stdout, main
+    from eyoc_tpu_torch.config import get_config
+    from eyoc_tpu_torch.utils import kernels
+
+    log_to_stdout()
+    out = tempfile.mkdtemp(prefix="eyoc_trainer_")
+    try:
+        cfg = get_config(trainer_flags(out))
+        cfg.update(synthetic_points=RAW, synthetic_pairs_per_epoch=TRAIN_B)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        tr = main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        log(json.dumps({"trainer_launch_counts": counts}))
+        kinds = [e["kind"] for e in tr.epoch_log]
+        if kinds != ["base", "extension", "extension"]:
+            raise AssertionError(f"trainer epochs {kinds}, not a base epoch "
+                                 "then two extension epochs")
+        if tr.num_updates != 2 or not tr.labeler_initialized:
+            raise AssertionError(f"labeler syncs: count {tr.num_updates}, "
+                                 "not the first sync then one EMA")
+        for e in tr.epoch_log:
+            if not all(np.isfinite(v) for v in e["metrics"].values()):
+                raise AssertionError(f"trainer epoch {e['epoch']}: "
+                                     f"non-finite metrics {e['metrics']}")
+        missing = [k for k in TRAINER_KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"the trainer launched no {missing}")
+        for name in ("checkpoint", "best_val_checkpoint"):
+            for ext in (".pt", ".json"):
+                if not os.path.exists(os.path.join(out, name + ext)):
+                    raise AssertionError(f"no {name}{ext} written")
+        with open(os.path.join(out, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        fmr = [r["value"] for r in scalars
+               if r["tag"] == "val/feat_match_ratio"]
+        if len(fmr) != TRAINER_EPOCHS:
+            raise AssertionError(f"{len(fmr)} validations, not one an epoch")
+        for e in tr.epoch_log:
+            m = ", ".join(f"{k} {v:.4f}" for k, v in e["metrics"].items())
+            log(f"trainer epoch {e['epoch']} ({e['kind']}, {e['steps']} "
+                f"step): Data {e['data_s'] * 1e3:.1f} ms/step, Iter "
+                f"{e['iter_s'] * 1e3:.1f} ms/step (the trainer's Timers: "
+                f"Iter includes Data, the prefetch thread's raycast of "
+                f"{TRAIN_B} scenes), Iter - Data "
+                f"{(e['iter_s'] - e['data_s']) * 1e3:.1f} ms; {m}")
+        base = [e["iter_s"] for e in tr.epoch_log if e["kind"] == "base"]
+        ext = [e["iter_s"] for e in tr.epoch_log if e["kind"] == "extension"]
+        log(f"trainer: train {np.mean(base) * 1e3:.1f} ms/step, extension "
+            f"{np.mean(ext) * 1e3:.1f} ms/step (Iter as logged), validation "
+            f"feat_match_ratio {fmr} (best {tr.best_val} at epoch "
+            f"{tr.best_val_epoch}), {wall:.1f} s for main() on {smi}")
+
+        r = main(get_config(["--resume_dir", out]))
+        torch.cuda.synchronize()
+        if r.start_epoch != TRAINER_EPOCHS + 1 or r.epoch_log:
+            raise AssertionError(f"resume starts at epoch {r.start_epoch}")
+        if r.num_updates != tr.num_updates or (r.best_val, r.best_val_epoch) \
+                != (tr.best_val, tr.best_val_epoch):
+            raise AssertionError("resume: num_updates or best_val differ")
+        if not torch.equal(r.generator.get_state(), tr.generator.get_state()):
+            raise AssertionError("resume: the generator state differs")
+        _same_state(r.model, tr.model, "student")
+        _same_state(r.labeler, tr.labeler, "labeler")
+        oa, ob = r.opt.state_dict(), tr.opt.state_dict()
+        if oa["param_groups"] != ob["param_groups"] or set(oa["state"]) != \
+                set(ob["state"]) or not all(
+                    torch.equal(oa["state"][i][k], v)
+                    for i, st in ob["state"].items() for k, v in st.items()):
+            raise AssertionError("resume: the optimizer state differs")
+        log(f"trainer resume: epoch {r.start_epoch}, the student, labeler, "
+            f"optimizer state ({len(ob['state'])} momentum buffers), "
+            f"num_updates {r.num_updates} and generator equal to the saved "
+            "ones")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def optimizer_and_loss_steps(batch, tcfg):
+    """Phase 9, on phase 5's batch and recipe (a fresh ResUNetBN2C): one
+    base_train_step at iter_size 2 (two micro-batches, each the batch),
+    one with Adam and one with AdamW (lr 1e-3, torch's default; SGD's
+    steps lr 0.1), then one of each other loss kind
+    (contrastive, triplet, hardest triplet; triplet_num_pos 256 and
+    triplet_num_rand 1024 a pair, the flags' defaults), each with finite
+    metrics and positives, its K2 and K6 calls recorded and held to their
+    plain versions (`check_calls`). Returns (the kernels line's rows for
+    the new call shapes, their launches): `masked_argmin_triplet` (the
+    hardest-triplet step's K2 calls: the GT pairs, and the mining at
+    2048 x 2048 x 32), `take_rows_losses` and `take_rows_backward_losses`
+    (the three loss steps' K6 calls)."""
+    import dataclasses
+    import torch
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.ops import rows
+    from eyoc_tpu_torch.training import loss, pipeline
+    from eyoc_tpu_torch.training.optim import adam, adamw, sgd
+    from eyoc_tpu_torch.training.steps import base_train_step
+    from eyoc_tpu_torch.utils import kernels
+
+    model = init_unet(load_model("ResUNetBN2C"),
+                      torch.Generator().manual_seed(0), 1, 32, 5,
+                      device="cuda")
+    gen = torch.Generator().manual_seed(9)
+    trip = dict(triplet_num_pos=256 * TRAIN_B,
+                triplet_num_rand=1024 * TRAIN_B)
+    steps = [("iter_size 2", dataclasses.replace(tcfg, iter_size=2), sgd,
+              0.1, [batch, batch]),
+             ("Adam", tcfg, adam, 1e-3, batch),
+             ("AdamW", tcfg, adamw, 1e-3, batch)]
+    steps += [(kind, dataclasses.replace(tcfg, loss_kind=kind, **trip), sgd,
+               0.1, batch) for kind in ("contrastive", "triplet",
+                                        "hardest_triplet")]
+    sites = [(rows, "take_rows_gather"), (rows, "take_rows_backward"),
+             (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
+    calls, counts = {}, {}
+    for name, cfg, make_opt, lr, b in steps:
+        opt = make_opt(model.parameters(), lr=lr, weight_decay=1e-4)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        with recording(sites) as got:
+            m = base_train_step(model, opt, b, cfg, generator=gen,
+                                device="cuda")
+        torch.cuda.synchronize()
+        counts[name] = dict(kernels.launches)
+        calls[name] = got
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                vals["num_pos_found"] <= 0:
+            raise AssertionError(f"the {name} step: metrics {vals}")
+        log(f"{name} step: " + ", ".join(f"{k} {v:.6f}"
+                                         for k, v in vals.items())
+            + "; launches " + ", ".join(
+                f"{k} {counts[name][k]}" for k in ("masked_argmin",
+                                                   "take_rows",
+                                                   "take_rows_backward")))
+    if counts["hardest_triplet"]["masked_argmin"] != 3:
+        raise AssertionError("the hardest-triplet step is not 3 K2 launches "
+                             "(the GT pairs, two minings)")
+
+    def cat(names, site):
+        return [c for n in names for c in calls[n][site]]
+
+    plain_group = ("iter_size 2", "Adam", "AdamW", "contrastive", "triplet")
+    losses = ("contrastive", "triplet", "hardest_triplet")
+    check_calls("K2 masked_argmin, the iter_size 2, Adam, AdamW, contrastive "
+                "and triplet steps",
+                cat(plain_group, "masked_argmin_batched")
+                + cat(plain_group, "masked_argmin"), _k2, _k2_plain,
+                _argmin_cost, _argmin_close, classify=_argmin_class)
+    optim_group = plain_group[:3]
+    check_calls("K6 take_rows, the iter_size 2, Adam and AdamW steps",
+                cat(optim_group, "take_rows_gather"), rows.take_rows_gather,
+                rows.take_rows_plain, _gather_cost, _gather_close,
+                _index_select, reps=SMALL_REPS)
+    check_calls("K6 take_rows_backward, the iter_size 2, Adam and AdamW "
+                "steps", cat(optim_group, "take_rows_backward"),
+                rows.take_rows_backward, rows.take_rows_backward_plain,
+                _scatter_cost, _scatter_close, _index_add, reps=SMALL_REPS)
+    (q, _, r, _), _ = calls["hardest_triplet"]["masked_argmin"][0]
+    out = {"masked_argmin_triplet": check_calls(
+        "K2 masked_argmin, one hardest-triplet step (GT pairs in one "
+        f"batched call, 2 minings at {q.shape[0]} x {r.shape[0]} x "
+        f"{q.shape[1]})",
+        cat(("hardest_triplet",), "masked_argmin_batched")
+        + cat(("hardest_triplet",), "masked_argmin"), _k2, _k2_plain,
+        _argmin_cost, _argmin_close, classify=_argmin_class)}
+    out["take_rows_losses"] = check_calls(
+        "K6 take_rows, the contrastive, triplet and hardest-triplet steps",
+        cat(losses, "take_rows_gather"), rows.take_rows_gather,
+        rows.take_rows_plain, _gather_cost, _gather_close, _index_select,
+        reps=SMALL_REPS)
+    out["take_rows_backward_losses"] = check_calls(
+        "K6 take_rows_backward, the contrastive, triplet and hardest-triplet "
+        "steps", cat(losses, "take_rows_backward"), rows.take_rows_backward,
+        rows.take_rows_backward_plain, _scatter_cost, _scatter_close,
+        _index_add, reps=SMALL_REPS)
+    launches = {
+        "masked_argmin_triplet": counts["hardest_triplet"]["masked_argmin"],
+        "take_rows_losses": sum(counts[n]["take_rows"] for n in losses),
+        "take_rows_backward_losses": sum(counts[n]["take_rows_backward"]
+                                         for n in losses)}
+    return out, launches
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -4113,6 +4399,14 @@ def main() -> int:
     in_rows, in_train_counts = in_train_phase(train_batch, tables, smi)
     results.update(in_rows)
     del tables
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the trainer through the train CLI, the optimizers and
+    # the other losses
+    trainer_phase(smi)
+    torch.cuda.empty_cache()
+    loss_rows, loss_launches = optimizer_and_loss_steps(train_batch, tcfg)
+    results.update(loss_rows)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -4123,9 +4417,12 @@ def main() -> int:
     # row ICP's known answer (phase 4), K19 the valid run's (phase 3), K20
     # the instance-norm run's (phase 7), K20's `_train` row and K21's
     # instance-norm row the IN training run's (phase 8; K22 and K21's
-    # batch-norm row are phase 5's); each row's times are of the calls of
-    # that path
+    # batch-norm row are phase 5's), K2's `_triplet` row and K6's `_losses`
+    # rows phase 9's loss steps; each row's times are of the calls of that
+    # path
     def launches(name):
+        if name in loss_launches:
+            return loss_launches[name]
         if name == "est_quad_linear_robust":
             return valid_counts[name]
         if name == "masked_instance_norm":
@@ -4167,7 +4464,10 @@ def main() -> int:
               "masked_instance_norm_train": "instance_norm",
               "masked_norm_apply": "instance_norm",
               "masked_norm_backward": "norm_backward",
-              "masked_norm_backward_bn": "norm_backward"}
+              "masked_norm_backward_bn": "norm_backward",
+              "masked_argmin_triplet": "masked_argmin",
+              "take_rows_losses": "take_rows",
+              "take_rows_backward_losses": "take_rows"}
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -4206,6 +4506,9 @@ def main() -> int:
         "masked_norm_apply": "eyoc_tpu/sparse/norm.py:113",
         "masked_norm_backward": "eyoc_tpu/sparse/norm.py:119",
         "masked_norm_backward_bn": "eyoc_tpu/sparse/norm.py:72",
+        "masked_argmin_triplet": "eyoc_tpu/training/loss.py:259",
+        "take_rows_losses": "proto/proto_pallas_gather.py:62",
+        "take_rows_backward_losses": "eyoc_tpu/training/loss.py:201",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

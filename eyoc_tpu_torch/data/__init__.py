@@ -1,1 +1,1 @@
-"""Host-side synthetic LiDAR pairs (numpy only)."""
+"""Host-side pair datasets (synthetic LiDAR pairs, numpy only) and the batching loader."""

@@ -456,10 +456,15 @@ class SyntheticPairs:
             "search_radius": search,
         }
 
+    def _item_dist(self, idx, rng) -> float:
+        """Sensor separation (m) of item `idx`; the continuous dataset
+        draws it from its extension schedule (datasets.py)."""
+        return float(self.dist)
+
     def _build_scene(self, idx):
         """Raycast one deterministic scene -> (xyz0, xyz1, M2, d)."""
         rng = np.random.default_rng(self.seed0 + idx)
-        d = self.dist
+        d = self._item_dist(idx, rng)
         scene = self.make_scene(
             rng, d, keepout=((0.0, 0.0), (d, 0.0)),
             facade_len_scale=self.facade_len_scale,

@@ -1,1 +1,1 @@
-"""Batch preprocessing, the loss, the optimizer and the train step."""
+"""Batch preprocessing, the losses, the optimizers, the train steps, checkpoints and the trainers."""

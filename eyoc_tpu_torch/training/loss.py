@@ -1,31 +1,37 @@
-"""Hardest-contrastive loss (counterpart of eyoc_tpu/training/loss.py:
-hardest_contrastive_loss, _sample_valid and the pair-membership search,
-:27-158).
+"""The four metric losses (counterpart of eyoc_tpu/training/loss.py:
+hardest_contrastive_loss, random_negative_contrastive_loss, triplet_loss,
+hardest_triplet_loss, _sample_valid and the pair-membership search,
+:27-285).
 
-Semantics are the JAX package's (reference
-contrastive_hardest_negative_loss): sample `num_pos` positive pairs and
-`num_hn_samples` negative candidates per cloud, mine the hardest negative in
-both directions, drop mined negatives that are themselves positive pairs,
-and take
+Semantics are the JAX package's. The hardest-contrastive loss (reference
+contrastive_hardest_negative_loss) samples `num_pos` positive pairs and
+`num_hn_samples` negative candidates per cloud, mines the hardest negative
+in both directions, drops mined negatives that are themselves positive
+pairs, and takes
     pos: relu(||f0 - f1||^2 - pos_thresh)     (squared distance)
     neg: relu(neg_thresh - min_dist)^2        (plain L2 distance).
+The contrastive loss takes every positive and random negative pairs; the
+triplet losses take random triplets, and the hardest triplet adds the
+hardest negative of each sampled positive in both directions.
 
 The random draws come in as explicit uniforms (`LossDraws`), so a test can
 feed the port the JAX package's own `jax.random.uniform` values.
 
-On the card the mining runs as kernel K2 (`masked_argmin`) on the detached
-features; the mined distance is then recomputed with autograd from rows
-taken by kernel K6 (`take_rows`): sqrt(sum (posF0 - subF1[ind])^2 + 1e-7).
-Its gradient equals the gradient JAX takes through `jnp.min` of the Gram
-form, up to rounding. With `safe_radius > 0` the mining is kernel K9
-(`masked_argmin_excl`): K2 that skips each candidate whose coordinates lie
-within the radius of the anchor's partner, and flags an anchor whose every
-candidate was skipped (its mined distance is then 1e9, as in JAX).
+On the card every row gather is kernel K6 (`take_rows`, its backward the
+scatter-add). The mining runs as kernel K2 (`masked_argmin`) on the
+detached features; the mined distance is then recomputed with autograd
+from rows taken by K6: sqrt(sum (posF0 - subF1[ind])^2 + 1e-7), JAX's
+`pdist` at the argmin. Its gradient equals the gradient JAX takes through
+`jnp.min` of the Gram form, up to rounding. With `safe_radius > 0` the
+hardest-contrastive mining is kernel K9 (`masked_argmin_excl`): K2 that
+skips each candidate whose coordinates lie within the radius of the
+anchor's partner, and flags an anchor whose every candidate was skipped
+(its mined distance is then 1e9, as in JAX).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,13 +43,23 @@ _KEY_SHIFT = 31     # membership key i * 2^31 + j (indices < 2^30)
 
 
 class LossDraws(NamedTuple):
-    """Uniform [0, 1) draws of one loss call: sel0 / sel1 [num_hn_samples]
-    and pos [num_pos] (the three `jax.random.uniform` calls of
-    loss.py:81-90)."""
+    """Uniform [0, 1) draws of one loss call, one field a
+    `jax.random.uniform` call of the JAX loss (None where the loss draws
+    none):
+    - hardest contrastive: sel0 / sel1 [num_hn_samples], pos [num_pos]
+      (loss.py:81-90);
+    - contrastive: sel0 / sel1 [num_neg], the random negatives' rows in
+      cloud 0 and cloud 1 (loss.py:204-206);
+    - triplet: pos [num_pos], rand [num_rand], neg [num_rand] (the
+      positives, the random triplets' anchors and their negatives in cloud
+      1, loss.py:223-232);
+    - hardest triplet: all five (loss.py:250-266)."""
 
-    sel0: torch.Tensor
-    sel1: torch.Tensor
-    pos: torch.Tensor
+    sel0: Optional[torch.Tensor]
+    sel1: Optional[torch.Tensor]
+    pos: Optional[torch.Tensor]
+    rand: Optional[torch.Tensor] = None
+    neg: Optional[torch.Tensor] = None
 
 
 def sample_valid(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -76,6 +92,11 @@ def pair_member(keys: torch.Tensor, i, j) -> torch.Tensor:
 def _masked_mean(x, m):
     mf = m.to(torch.float32)
     return torch.sum(x * mf) / torch.clamp(torch.sum(mf), min=1.0)
+
+
+def _dist(a, b, eps: float):
+    """Row-wise sqrt(sum (a - b)^2 + eps), differentiable."""
+    return torch.sqrt(torch.sum((a - b) ** 2, 1) + eps)
 
 
 def _mine(anchor, cand, excl):
@@ -124,8 +145,7 @@ def hardest_contrastive_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
     neg_i1 = sel0[ind10]
 
     def mined_dist(anchor, src, rows, excluded):
-        d = torch.sqrt(torch.sum((anchor - take_rows(src, rows)) ** 2, 1)
-                       + 1e-7)
+        d = _dist(anchor, take_rows(src, rows), 1e-7)
         if excluded is not None:          # every candidate was excluded
             d = torch.where(excluded, torch.full_like(d, _BIG), d)
         return d
@@ -144,3 +164,95 @@ def hardest_contrastive_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
     aux = dict(sel0=sel0, sel1=sel1, psel=psel, ind01=ind01, ind10=ind10,
                mask0_neg=mask0_neg, mask1_neg=mask1_neg)
     return pos_loss, 0.5 * (neg0 + neg1), aux
+
+
+def random_negative_contrastive_loss(F0, mask0, F1, mask1, pos_i, pos_j,
+                                     pos_valid, draws: LossDraws, *,
+                                     neg_thresh: float = 1.4):
+    """The plain FCGF contrastive loss (loss.py:193-213; reference
+    ContrastiveLossTrainer): pos = the mean squared distance over every
+    valid positive; neg = relu(neg_thresh - sqrt(d^2 + 1e-4))^2 over random
+    (i, j) pairs (`draws.sel0`, `draws.sel1`) that are not positives.
+
+    Returns (pos_loss, neg_loss, aux) with the negatives' rows and mask."""
+    posF0 = take_rows(F0, pos_i)
+    posF1 = take_rows(F1, pos_j)
+    pos_loss = _masked_mean(torch.sum((posF0 - posF1) ** 2, 1), pos_valid)
+    ni = sample_valid(draws.sel0, mask0)
+    nj = sample_valid(draws.sel1, mask1)
+    keep = ~pair_member(pair_keys(pos_i, pos_j, pos_valid), ni, nj)
+    d = _dist(take_rows(F0, ni), take_rows(F1, nj), 1e-4)
+    neg_loss = _masked_mean(torch.relu(neg_thresh - d) ** 2, keep)
+    return pos_loss, neg_loss, dict(ni=ni, nj=nj, keep=keep)
+
+
+def _random_triplets(F0, F1, pos_i, pos_j, pos_valid, keys, mask1,
+                     draws: LossDraws, neg_thresh: float):
+    """The random triplets of both triplet losses: anchors and positives
+    drawn from the positive pairs (`draws.rand`), negatives from cloud 1's
+    valid rows (`draws.neg`). Returns (hinge terms, keep mask, negative
+    distances)."""
+    rsel = sample_valid(draws.rand, pos_valid)
+    anchors, positives = pos_i[rsel], pos_j[rsel]
+    negatives = sample_valid(draws.neg, mask1)
+    keep = pos_valid[rsel] & ~pair_member(keys, anchors, negatives)
+    fa = take_rows(F0, anchors)
+    rp = _dist(fa, take_rows(F1, positives), 1e-7)
+    rn = _dist(fa, take_rows(F1, negatives), 1e-7)
+    return torch.relu(rp + neg_thresh - rn), keep, rn
+
+
+def triplet_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
+                 draws: LossDraws, *, neg_thresh: float = 1.4):
+    """Random triplets (loss.py:216-239; reference
+    TripletLossTrainer.triplet_loss): the mean of relu(d(a, p) +
+    neg_thresh - d(a, n)) over the kept triplets.
+
+    Returns (loss, mean positive distance over `num_pos` sampled
+    positives, mean negative distance over the kept triplets, aux)."""
+    psel = sample_valid(draws.pos, pos_valid)
+    pi, pj, pv = pos_i[psel], pos_j[psel], pos_valid[psel]
+    pos_dist = _dist(take_rows(F0, pi), take_rows(F1, pj), 1e-7)
+    keys = pair_keys(pos_i, pos_j, pos_valid)
+    terms, keep, rn = _random_triplets(F0, F1, pos_i, pos_j, pos_valid, keys,
+                                       mask1, draws, neg_thresh)
+    return (_masked_mean(terms, keep), _masked_mean(pos_dist, pv),
+            _masked_mean(rn, keep), dict(psel=psel, keep=keep))
+
+
+def hardest_triplet_loss(F0, mask0, F1, mask1, pos_i, pos_j, pos_valid,
+                         draws: LossDraws, *, neg_thresh: float = 1.4):
+    """Hardest and random triplets (loss.py:242-285; reference
+    HardestTripletLossTrainer): one relu mean over the random triplets and
+    both directions of the hardest-negative triplets, the hardest negative
+    of each sampled positive mined among `num_hn_samples` candidates per
+    cloud (K2 on the card).
+
+    Returns (loss, mean positive distance, mean mined distance of both
+    directions, aux)."""
+    sel0 = sample_valid(draws.sel0, mask0)
+    sel1 = sample_valid(draws.sel1, mask1)
+    psel = sample_valid(draws.pos, pos_valid)
+    pi, pj, pv = pos_i[psel], pos_j[psel], pos_valid[psel]
+    posF0 = take_rows(F0, pi)
+    posF1 = take_rows(F1, pj)
+    ind01, _ = _mine(posF0, take_rows(F1.detach(), sel1), None)
+    ind10, _ = _mine(posF1, take_rows(F0.detach(), sel0), None)
+    neg_j0 = sel1[ind01]
+    neg_i1 = sel0[ind10]
+    D01min = _dist(posF0, take_rows(F1, neg_j0), 1e-7)
+    D10min = _dist(posF1, take_rows(F0, neg_i1), 1e-7)
+
+    keys = pair_keys(pos_i, pos_j, pos_valid)
+    mask0n = pv & ~pair_member(keys, pi, neg_j0)
+    mask1n = pv & ~pair_member(keys, neg_i1, pj)
+    pos_dist = _dist(posF0, posF1, 1e-7)
+    rterms, rkeep, _ = _random_triplets(F0, F1, pos_i, pos_j, pos_valid,
+                                        keys, mask1, draws, neg_thresh)
+    terms = torch.cat([rterms, torch.relu(pos_dist + neg_thresh - D01min),
+                       torch.relu(pos_dist + neg_thresh - D10min)])
+    keep = torch.cat([rkeep, mask0n, mask1n])
+    neg_mean = 0.5 * (_masked_mean(D01min, pv) + _masked_mean(D10min, pv))
+    return (_masked_mean(terms, keep), _masked_mean(pos_dist, pv), neg_mean,
+            dict(sel0=sel0, sel1=sel1, psel=psel, ind01=ind01, ind10=ind10,
+                 keep=keep))

@@ -1,11 +1,11 @@
 """The train steps (counterpart of eyoc_tpu/training/steps.py:
 make_base_train_step, _label_one, make_extension_train_step, _jitter,
-_grads, _apply, :272-513).
+_metric_loss, _grads, _apply, _wrap_accumulating, :238-513).
 
-`base_train_step` is one step of `make_base_train_step(label_mode)` with
-iter_size 1: preprocess both sides of the batch, GT positive pairs under
-the ground-truth pose ("gt") or the identity ("identity", the EYOC
-trainer's base mode), jittered input features, then the student half.
+`base_train_step` is one step of `make_base_train_step(label_mode)`:
+preprocess both sides of the batch, GT positive pairs under the
+ground-truth pose ("gt") or the identity ("identity", the EYOC trainer's
+base mode), jittered input features, then the student half.
 
 `extension_train_step` is one step of `make_extension_train_step`, the
 EYOC step: preprocess, jitter, two forwards of the frozen labeler (a second
@@ -14,17 +14,26 @@ statistics left as they are, as JAX discards that state, steps.py:484-496),
 `label_pairs` (mutual matching, spatial filter, SC2-PCR, 2 m rediscovery),
 then the student half on those labels.
 
-The student half (`_student_update`, both steps): a train-mode forward of
-each side (masked BN with batch statistics, or the per-cloud instance norm
-of an IN spec; the BN running statistics update twice, as JAX chains the
-first forward's state into the second, steps.py:291-294), the
-hardest-contrastive loss, the backward, and the optimizer's update (SGD
-with momentum and weight decay, `optim.sgd`). Both steps take every spec
-that `ResUNet` takes, BN or IN.
+The student half (both steps): a train-mode forward of each side (masked
+BN with batch statistics, or the per-cloud instance norm of an IN spec;
+the BN running statistics update twice, as JAX chains the first forward's
+state into the second, steps.py:291-294), the metric loss of
+`cfg.loss_kind` (`_metric_loss`, steps.py:238-270: hardest contrastive,
+contrastive, triplet or hardest triplet), the backward, and the
+optimizer's update (`optim.make_optimizer`: SGD, Adam or AdamW). Both
+steps take every spec that `ResUNet` takes, BN or IN.
 
-Random draws: JAX splits one key per step; the port takes the same draws
-as explicit tensors (`StepDraws`) so that a test can feed it the JAX
-step's own numbers, or draws them from a torch.Generator.
+`cfg.iter_size > 1` is `_wrap_accumulating` (steps.py:330-375): the step
+takes iter_size micro-batches (a list of RawBatches, or one whose fields
+have a leading [iter_size] axis), evaluates each at the same parameters,
+averages their gradients (loss / iter_size, accumulated), chains the BN
+running statistics through them in order, averages their metrics, and
+makes one optimizer step.
+
+Random draws: JAX splits one key per step (and one a micro-batch); the
+port takes the same draws as explicit tensors (`StepDraws`, a list of them
+for micro-batches) so that a test can feed it the JAX step's own numbers,
+or draws them from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -45,7 +54,10 @@ from eyoc_tpu_torch.ops.matching import (SimilarityTables, compact_matches,
 from eyoc_tpu_torch.registration.sc2pcr import (SC2PCRConfig,
                                                 sc2_pcr_batched)
 from eyoc_tpu_torch.sparse import morton
-from eyoc_tpu_torch.training.loss import LossDraws, hardest_contrastive_loss
+from eyoc_tpu_torch.training.loss import (LossDraws, hardest_contrastive_loss,
+                                          hardest_triplet_loss,
+                                          random_negative_contrastive_loss,
+                                          triplet_loss)
 from eyoc_tpu_torch.training.pipeline import (RawBatch, flatten_pairs,
                                               gt_positive_pairs,
                                               preprocess_clouds)
@@ -54,8 +66,13 @@ from eyoc_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The StepConfig fields (steps.py:98-170) that the two steps read,
-    with JAX's defaults."""
+    """The StepConfig fields (steps.py:98-170) that the two steps and the
+    trainers read, with JAX's defaults.
+
+    `labeler_sync_bn` synchronizes the labeler's BN statistics over the
+    data-parallel devices in JAX; at the port's one device it has no
+    effect, as in JAX without a dp axis (data parallelism is ROADMAP.md
+    queue 1 item 5)."""
 
     caps: tuple
     voxel_size: float = 0.3
@@ -81,6 +98,17 @@ class TrainConfig:
     rediscovery_radius: float = 2.0
     hit_ratio_thresh: float = 0.1
     label_min_translation_frac: float = 0.0
+    labeler_sync_bn: bool = False
+    # the metric loss (the trainer registry, reference train.py:35-51)
+    loss_kind: str = "hardest_contrastive"
+    triplet_num_pos: int = 1024
+    triplet_num_rand: int = 1024
+    # the optimizer (optim.make_optimizer) and the accumulation
+    optimizer: str = "SGD"
+    adam_betas: tuple = (0.9, 0.999)
+    momentum: float = 0.8
+    weight_decay: float = 1e-4
+    iter_size: int = 1
 
 
 class StepDraws(NamedTuple):
@@ -98,10 +126,29 @@ class StepDraws(NamedTuple):
     rediscovery: Optional[torch.Tensor] = None
 
 
+def loss_draws(cfg: TrainConfig, u) -> LossDraws:
+    """The uniforms of one call of `cfg.loss_kind`'s loss, `u(n)` each
+    (the sizes of _metric_loss, steps.py:238-270: the contrastive loss's
+    2 * num_pos negatives, the triplet losses' triplet_num_pos positives
+    and triplet_num_rand random triplets)."""
+    hn, kind = cfg.num_hn_samples, cfg.loss_kind
+    if kind == "hardest_contrastive":
+        return LossDraws(u(hn), u(hn), u(cfg.num_pos))
+    if kind == "contrastive":
+        return LossDraws(u(2 * cfg.num_pos), u(2 * cfg.num_pos), None)
+    tp, tr = cfg.triplet_num_pos, cfg.triplet_num_rand
+    if kind == "triplet":
+        return LossDraws(None, None, u(tp), u(tr), u(tr))
+    if kind == "hardest_triplet":
+        return LossDraws(u(hn), u(hn), u(tp), u(tr), u(tr))
+    raise ValueError(f"unknown loss_kind {kind!r}")
+
+
 def draw(cfg: TrainConfig, B: int, generator: torch.Generator | None = None,
          device=None, labels: bool = False) -> StepDraws:
-    """Fresh draws from `generator` (made on its device, moved to
-    `device`); `labels` adds the extension step's rediscovery uniforms."""
+    """Fresh draws of one (micro-)batch from `generator` (made on its
+    device, moved to `device`); `labels` adds the extension step's
+    rediscovery uniforms."""
     def u(*n):
         return torch.rand(n, generator=generator).to(device)
 
@@ -111,9 +158,41 @@ def draw(cfg: TrainConfig, B: int, generator: torch.Generator | None = None,
     n_rows = B * cfg.caps[0]
     jit = ((u(B), g(n_rows), u(B), g(n_rows)) if cfg.use_jitter
            else (None,) * 4)
-    loss = LossDraws(u(cfg.num_hn_samples), u(cfg.num_hn_samples),
-                     u(cfg.num_pos))
+    loss = loss_draws(cfg, u)
     return StepDraws(*jit, loss, u(B, cfg.caps[0]) if labels else None)
+
+
+def micro_batches(batch, iter_size: int) -> list:
+    """The step's micro-batches: [batch] at iter_size 1; above, a list of
+    iter_size RawBatches as given, or a RawBatch whose fields have a
+    leading [iter_size] axis (the stacked form JAX takes) split into one."""
+    if isinstance(batch, RawBatch):
+        if iter_size == 1:
+            return [batch]
+        if batch.xyz0.dim() != 4 or batch.xyz0.shape[0] != iter_size:
+            raise ValueError(f"iter_size {iter_size}: a stacked RawBatch "
+                             f"needs xyz0 [{iter_size}, B, P, 3]")
+        fields = [torch.as_tensor(x) for x in batch]
+        return [RawBatch(*(x[i] for x in fields)) for i in range(iter_size)]
+    batch = list(batch)
+    if len(batch) != iter_size:
+        raise ValueError(f"iter_size {iter_size}: {len(batch)} micro-batches")
+    return batch
+
+
+def _step_draws(draws, cfg: TrainConfig, batches, generator, device,
+                labels: bool) -> list:
+    """One StepDraws a micro-batch: as given (one StepDraws at iter_size
+    1, else a list), or drawn from `generator` in micro-batch order."""
+    if draws is None:
+        return [draw(cfg, b.xyz0.shape[0], generator, device, labels)
+                for b in batches]
+    if isinstance(draws, StepDraws):
+        draws = [draws]
+    if len(draws) != len(batches):
+        raise ValueError(f"{len(draws)} draws for {len(batches)} "
+                         "micro-batches")
+    return list(draws)
 
 
 def jitter(cfg: TrainConfig, item_u, noise, n_rows: int):
@@ -158,69 +237,112 @@ def _inputs(cfg: TrainConfig, draws: StepDraws, n_rows: int):
             jitter(cfg, draws.jitter_item1, draws.jitter_noise1, n_rows))
 
 
-def _student_update(model, opt, cfg: TrainConfig, vox0, pyr0, vox1, pyr1,
-                    in0, in1, pos, loss_draws: LossDraws, stage) -> dict:
-    """The student half of both steps (steps.py:_grads, _apply): train-mode
-    forwards of both sides, the loss on the flat positive pairs `pos`
-    (pos_i, pos_j, valid), the backward and the optimizer step. Returns
-    loss, pos_loss and neg_loss as detached 0-d tensors."""
+def _metric_loss(cfg: TrainConfig, f0, m0, f1, m1, pos,
+                 loss_draws: LossDraws, xyz0, xyz1):
+    """`cfg.loss_kind`'s loss (steps.py:_metric_loss, :238-270) on the
+    flat positive pairs `pos` (pos_i, pos_j, valid): (loss, pos term, neg
+    term); the triplet kinds' terms are the mean positive and negative
+    distances."""
+    kind = cfg.loss_kind
+    if kind == "hardest_contrastive":
+        pos_loss, neg_loss, _ = hardest_contrastive_loss(
+            f0, m0, f1, m1, *pos, loss_draws, pos_thresh=cfg.pos_thresh,
+            neg_thresh=cfg.neg_thresh, xyz0=xyz0, xyz1=xyz1,
+            safe_radius=cfg.hn_safe_radius)
+        return pos_loss + cfg.neg_weight * neg_loss, pos_loss, neg_loss
+    if kind == "contrastive":
+        pos_loss, neg_loss, _ = random_negative_contrastive_loss(
+            f0, m0, f1, m1, *pos, loss_draws, neg_thresh=cfg.neg_thresh)
+        return pos_loss + cfg.neg_weight * neg_loss, pos_loss, neg_loss
+    if kind == "triplet":
+        return triplet_loss(f0, m0, f1, m1, *pos, loss_draws,
+                            neg_thresh=cfg.neg_thresh)[:3]
+    if kind == "hardest_triplet":
+        return hardest_triplet_loss(f0, m0, f1, m1, *pos, loss_draws,
+                                    neg_thresh=cfg.neg_thresh)[:3]
+    raise ValueError(f"unknown loss_kind {kind!r}")
+
+
+def _student_loss(model, cfg: TrainConfig, vox0, pyr0, vox1, pyr1, in0, in1,
+                  pos, loss_draws: LossDraws, stage):
+    """The student half's forward (steps.py:_grads): train-mode forwards of
+    both sides and the metric loss. Returns (loss, metrics: loss, pos_loss
+    and neg_loss as detached 0-d tensors)."""
     model.train()
-    opt.zero_grad(set_to_none=True)
     f0 = model(pyr0, in0, bn_momentum=cfg.bn_momentum)
     f1 = model(pyr1, in1, bn_momentum=cfg.bn_momentum)
     stage("forward")
-    pos_loss, neg_loss, _ = hardest_contrastive_loss(
-        f0, pyr0.vox_masks[0], f1, pyr1.vox_masks[0], *pos, loss_draws,
-        pos_thresh=cfg.pos_thresh, neg_thresh=cfg.neg_thresh,
-        xyz0=vox0.xyz.reshape(-1, 3), xyz1=vox1.xyz.reshape(-1, 3),
-        safe_radius=cfg.hn_safe_radius)
-    loss = pos_loss + cfg.neg_weight * neg_loss
+    loss, pos_term, neg_term = _metric_loss(
+        cfg, f0, pyr0.vox_masks[0], f1, pyr1.vox_masks[0], pos, loss_draws,
+        vox0.xyz.reshape(-1, 3), vox1.xyz.reshape(-1, 3))
     stage("loss")
-    loss.backward()
-    stage("backward")
+    return loss, {"loss": loss.detach(), "pos_loss": pos_term.detach(),
+                  "neg_loss": neg_term.detach()}
+
+
+def _accumulate(opt: torch.optim.Optimizer, micro, batches, draws,
+                stage) -> dict:
+    """`_wrap_accumulating` (steps.py:330-375): `micro(batch, draws)` ->
+    (loss, metrics) on each micro-batch in order at the same parameters,
+    (loss / n).backward() accumulating the averaged gradients (the BN
+    running statistics chain through the forwards), the metrics averaged,
+    then one optimizer step."""
+    n = len(batches)
+    opt.zero_grad(set_to_none=True)
+    total: dict = {}
+    for batch, d in zip(batches, draws):
+        loss, metrics = micro(batch, d)
+        (loss / n if n > 1 else loss).backward()
+        stage("backward")
+        for k, v in metrics.items():
+            total[k] = total[k] + v if k in total else v
     opt.step()
     stage("optimizer")
-    return {"loss": loss.detach(), "pos_loss": pos_loss.detach(),
-            "neg_loss": neg_loss.detach()}
+    return {k: v / n for k, v in total.items()} if n > 1 else total
 
 
-def base_train_step(model, opt: torch.optim.Optimizer, batch: RawBatch,
-                    cfg: TrainConfig, draws: StepDraws | None = None,
+def base_train_step(model, opt: torch.optim.Optimizer, batch,
+                    cfg: TrainConfig, draws=None,
                     generator: torch.Generator | None = None, device=None,
                     timings: dict | None = None,
                     label_mode: str = "gt") -> dict:
-    """One supervised step on `batch` (a RawBatch, moved to `device`), its
-    positive pairs the GT pairs under the ground-truth pose (label_mode
-    "gt") or the identity ("identity", the EYOC trainer's base mode,
-    steps.py:388-390).
+    """One supervised step on `batch` (a RawBatch, or cfg.iter_size
+    micro-batches: see `micro_batches`; moved to `device`), its positive
+    pairs the GT pairs under the ground-truth pose (label_mode "gt") or the
+    identity ("identity", the EYOC trainer's base mode, steps.py:388-390).
 
     `model` is a ResUNet on `device` (put in train mode here), `opt` its
-    optimizer. Returns the metrics `loss`, `pos_loss`, `neg_loss`,
-    `num_pos_found` as 0-d tensors on the device (no host sync). With a
-    `timings` dict, adds host-clock ms per stage (preprocess, gt_pairs,
-    forward, loss, backward, optimizer), synchronizing after each."""
+    optimizer. `draws`: a StepDraws, or one a micro-batch; None draws them
+    from `generator`. Returns the metrics `loss`, `pos_loss`, `neg_loss`,
+    `num_pos_found` (averaged over micro-batches) as 0-d tensors on the
+    device (no host sync). With a `timings` dict, adds host-clock ms per
+    stage (preprocess, gt_pairs, forward, loss, backward, optimizer),
+    synchronizing after each."""
     if label_mode not in ("gt", "identity"):
         raise ValueError(f"unknown label_mode {label_mode!r}")
     device = resolve_device(device)
     stage = _Stages(timings, device)
-    batch = batch.to(device)
-    B = batch.xyz0.shape[0]
+    batches = [b.to(device) for b in micro_batches(batch, cfg.iter_size)]
+    draws = _step_draws(draws, cfg, batches, generator, device, False)
     cap0 = cfg.caps[0]
-    if draws is None:
-        draws = draw(cfg, B, generator, device)
 
-    vox0, pyr0, vox1, pyr1 = _preprocess(batch, cfg)
-    stage("preprocess")
-    trans = batch.T_gt if label_mode == "gt" else torch.eye(
-        4, dtype=batch.T_gt.dtype, device=device).expand(B, 4, 4)
-    i0, i1, ok = gt_positive_pairs(vox0, vox1, trans, batch.search_radius)
-    pos = flatten_pairs(i0, i1, ok, cap0, cap0)
-    stage("gt_pairs")
-    metrics = _student_update(model, opt, cfg, vox0, pyr0, vox1, pyr1,
-                              *_inputs(cfg, draws, B * cap0), pos,
-                              draws.loss, stage)
-    metrics["num_pos_found"] = ok.sum().to(torch.float32)
-    return metrics
+    def micro(batch, draws):
+        B = batch.xyz0.shape[0]
+        vox0, pyr0, vox1, pyr1 = _preprocess(batch, cfg)
+        stage("preprocess")
+        trans = batch.T_gt if label_mode == "gt" else torch.eye(
+            4, dtype=batch.T_gt.dtype, device=device).expand(B, 4, 4)
+        i0, i1, ok = gt_positive_pairs(vox0, vox1, trans,
+                                       batch.search_radius)
+        pos = flatten_pairs(i0, i1, ok, cap0, cap0)
+        stage("gt_pairs")
+        loss, metrics = _student_loss(model, cfg, vox0, pyr0, vox1, pyr1,
+                                      *_inputs(cfg, draws, B * cap0), pos,
+                                      draws.loss, stage)
+        metrics["num_pos_found"] = ok.sum().to(torch.float32)
+        return loss, metrics
+
+    return _accumulate(opt, micro, batches, draws, stage)
 
 
 class Labels(NamedTuple):
@@ -302,16 +424,17 @@ def label_pairs(cfg: TrainConfig, F0, m0, x0, F1, m1, x1, frame_distance,
 
 
 def extension_train_step(model, labeler, opt: torch.optim.Optimizer,
-                         batch: RawBatch, cfg: TrainConfig,
+                         batch, cfg: TrainConfig,
                          similarity: SimilarityTables | None = None,
-                         draws: StepDraws | None = None,
+                         draws=None,
                          generator: torch.Generator | None = None,
                          device=None, timings: dict | None = None) -> dict:
-    """One EYOC extension step on `batch` (steps.py:470-513, iter_size 1).
+    """One EYOC extension step on `batch` (steps.py:470-513; a RawBatch, or
+    cfg.iter_size micro-batches as `base_train_step` takes them).
 
     `model` is the student ResUNet and `opt` its optimizer; `labeler` a
     ResUNet of the same spec (synced by `optim.sync_labeler` between
-    steps), put in train mode here and run without gradient and without
+    epochs), put in train mode here and run without gradient and without
     touching its BN statistics. `similarity`: the tables that
     spatial_filter "Similarity" reads. Returns the base step's metrics
     plus `labeler_hit_ratio`, 0-d tensors on the device. With a `timings`
@@ -320,26 +443,28 @@ def extension_train_step(model, labeler, opt: torch.optim.Optimizer,
     optimizer), synchronizing after each."""
     device = resolve_device(device)
     stage = _Stages(timings, device)
-    batch = batch.to(device)
-    B = batch.xyz0.shape[0]
+    batches = [b.to(device) for b in micro_batches(batch, cfg.iter_size)]
+    draws = _step_draws(draws, cfg, batches, generator, device, True)
     cap0 = cfg.caps[0]
-    if draws is None:
-        draws = draw(cfg, B, generator, device, labels=True)
 
-    vox0, pyr0, vox1, pyr1 = _preprocess(batch, cfg)
-    stage("preprocess")
-    in0, in1 = _inputs(cfg, draws, B * cap0)
-    labeler.train()
-    with torch.no_grad():
-        F0L = labeler(pyr0, in0, bn_momentum=None).reshape(B, cap0, -1)
-        F1L = labeler(pyr1, in1, bn_momentum=None).reshape(B, cap0, -1)
-    stage("labeler_forward")
-    lab = label_pairs(cfg, F0L, vox0.mask, vox0.xyz, F1L, vox1.mask,
-                      vox1.xyz, batch.frame_distance, batch.T_gt,
-                      draws.rediscovery, similarity, stage)
-    pos = flatten_pairs(lab.pos_i, lab.pos_j, lab.ok, cap0, cap0)
-    metrics = _student_update(model, opt, cfg, vox0, pyr0, vox1, pyr1, in0,
-                              in1, pos, draws.loss, stage)
-    metrics["labeler_hit_ratio"] = lab.labeler_hit.mean()
-    metrics["num_pos_found"] = lab.ok.sum().to(torch.float32)
-    return metrics
+    def micro(batch, draws):
+        B = batch.xyz0.shape[0]
+        vox0, pyr0, vox1, pyr1 = _preprocess(batch, cfg)
+        stage("preprocess")
+        in0, in1 = _inputs(cfg, draws, B * cap0)
+        labeler.train()
+        with torch.no_grad():
+            F0L = labeler(pyr0, in0, bn_momentum=None).reshape(B, cap0, -1)
+            F1L = labeler(pyr1, in1, bn_momentum=None).reshape(B, cap0, -1)
+        stage("labeler_forward")
+        lab = label_pairs(cfg, F0L, vox0.mask, vox0.xyz, F1L, vox1.mask,
+                          vox1.xyz, batch.frame_distance, batch.T_gt,
+                          draws.rediscovery, similarity, stage)
+        pos = flatten_pairs(lab.pos_i, lab.pos_j, lab.ok, cap0, cap0)
+        loss, metrics = _student_loss(model, cfg, vox0, pyr0, vox1, pyr1,
+                                      in0, in1, pos, draws.loss, stage)
+        metrics["labeler_hit_ratio"] = lab.labeler_hit.mean()
+        metrics["num_pos_found"] = lab.ok.sum().to(torch.float32)
+        return loss, metrics
+
+    return _accumulate(opt, micro, batches, draws, stage)
