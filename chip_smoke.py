@@ -54,11 +54,12 @@ Phases (any failure exits non-zero):
    labeling shape (B = 8, N = 8000, S = 1600, 0-8000 valid rows) and on
    the 8 problems of one recorded labeling (the `_label` rows): K13's
    seeds bit-equal, in 2 device kernels a call (no sort); K14's consensus sets bit-equal; K14's poses, K15's
-   one-round and final poses held to the same solve in f64 (weights, QCP,
-   IRLS rounds) within 1 mm plus C times the f32 rounding reach 2^-24 *
-   lever * E / gap of each weighted set, C twice the plain version's own
-   largest ratio in the same run, on every seed or problem whose set pins
-   a pose (the others counted and logged); the fitness, best seed and
+   one-round and final poses held to the same solve in f64 (K14: QCP on
+   the plain version's consensus points and weights; K15: the IRLS rounds)
+   within 1 mm plus C times the f32 rounding reach 2^-24 * lever * E / gap
+   of each weighted set, C twice the plain version's own largest ratio in
+   the same run (K14's and K15's each their own), on every seed or problem
+   whose set pins a pose (the others counted and logged); the fitness, best seed and
    K15's rounds equal but for inlier tests within SC2_EPS of the
    threshold (f64), or moved across it by those poses; the same bits
    twice, device kernels a call, host cost (K14: 3, the compaction of the
@@ -66,7 +67,16 @@ Phases (any failure exits non-zero):
    seed before's, the fitness with the argmax; K15: 1, its rounds and
    device time a round logged); again on 2 problems of 9000 rows, past
    K15's shared-memory cap (its rows from the global copy); and
-   `sc2_pcr_batched` with no host sync (sync debug mode "error").
+   `sc2_pcr_batched` with no host sync (sync debug mode "error"). The same
+   checks for K23 `sc2_seed_transforms_jacobi` and K24 `sc2_irls_jacobi`
+   (qcp_kabsch=False: the poses held to the port's 8-sweep Jacobi Kabsch
+   run in f64) at the eval shape and on the labeling shape's synthetic
+   problems (the `_label` rows), and for K15 and K24 at refine_unroll = 4
+   (exactly 4 rounds, held round by round to the f64 run); K3's bf16 form
+   (bf16_power) within K3_BF16_RTOL of max |v| of its plain version, and
+   the f32 plain vector at least K3_BF16_SEP times as far from that
+   version as the kernel is (the rounding shows), one device kernel a
+   call.
    RANSAC's and ICP's kernels at the path's shapes (N = 5000 correspondences at 30% inliers, the default
    RansacConfig; ICP's 32768-point clouds of a scan): K16's two-stage
    entry `ransac_hypotheses_topk` (H = 1048576, a 512-row subset, the top
@@ -139,7 +149,14 @@ Phases (any failure exits non-zero):
    scan under a known pose, from that pose perturbed by 0.1 m and 0.5
    deg, reaches RTE < 0.02 m and RRE < 0.1 deg with 101 K2 and 100
    `icp_solve` launches and no host sync, and the plain path ends within
-   ICP_TOL of it.
+   ICP_TOL of it. Then the three problems again under each of
+   SC2_OPTIONS (qcp_kabsch=False; refine_unroll = 4 with each solve;
+   bf16_power; approx_topk): each pose recovered within the same
+   tolerances, each problem the same bits as its B = 1 call, and the
+   kernels each run launched (K23 / K24, K15 / K24 unrolled, K3's bf16
+   form; counts reset just before, read just after: the kernels line's
+   rows of these switches take them); and the labeling shape's synthetic
+   problems under qcp_kabsch=False, finite.
 5. the training path at full width: `training.steps.base_train_step`
    (ResUNetBN2C, hardest-contrastive loss, SGD) on the published recipe's
    batch of 8 synthetic train-phase pairs at d = 8 m; one warm-up step,
@@ -202,6 +219,17 @@ Phases (any failure exits non-zero):
    the saved ones. Then one base step each at iter_size 2, with Adam,
    with AdamW and with the contrastive, triplet and hardest-triplet
    losses, their K2 and K6 calls held to the plain versions.
+10. the real-data runbook (README.md) through the port: a
+   reference-style best_val_checkpoint.pth of ResUNetBN2C/32 (conv1 k = 5,
+   random weights from a fixed generator, the port's exporter) imported by
+   `tools.import_torch_ckpt.main(... --write_test_config)`; a KITTI-format
+   tree of one test-split drive (12 synthetic raycast scans of <= 131072
+   points, float32 xyzr .bin, calib.txt, poses.txt) in a temporary
+   directory; `cli.test.main` over it on KITTINMPairDataset (the ICP ground
+   truth on the card) with RANSAC, then with SC2-PCR, 4 pairs each: its
+   kernels launched, rr / rte / rre / pairs_per_sec and the Data / Feat /
+   Reg times printed, each pose the bits of `eval.test_pair` on the same
+   batch and draws, RR the mean of `registration_success` on them.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -213,7 +241,10 @@ launches are the valid run's, K20's phase 7's; K20's train forward is
 (instance norm, phase 8) and `masked_norm_backward_bn` (phase 5); phase
 9's loss steps give `masked_argmin_triplet` (the hardest triplet's K2
 calls) and `take_rows_losses` / `take_rows_backward_losses` (K6 in the
-three other losses)); `ms`
+three other losses); phase 4's runs give the rows of SC2PCRConfig's
+switches: `sc2_power_iteration_bf16`, `sc2_seed_transforms_jacobi` and
+`sc2_irls_jacobi` (K23, K24; with `_label` the labeling shape's),
+`sc2_irls_unroll` and `sc2_irls_jacobi_unroll`); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -271,6 +302,15 @@ K1_RTOL, K1_ATOL_FRAC = 2e-2, 1e-2   # bf16 output, f32 sums in two orders
 K2_D2_RTOL = 1e-4                    # direct vs Gram-form squared distance
 K2_GAP = 1e-3                        # indices equal where 2nd - 1st > gap
 K3_RTOL, K3_ATOL = 1e-4, 1e-7        # f32 power iteration, summation order
+# K3's bf16 form against its plain version, within K3_BF16_RTOL of max |v|
+# at the eval shape (the kernel reads ~1e-5 of it on an H100: its SC and
+# iterate differ from the plain version's by their f32 sum orders, and a
+# value across a bf16 rounding boundary moves by 2^-8 of itself); the f32
+# plain vector, ~2e-4 of max |v| away there, must lie K3_BF16_SEP times
+# as far from the bf16 plain vector as the kernel does, or nothing shows
+# that the kernel rounds
+K3_BF16_RTOL = 3e-5
+K3_BF16_SEP = 4.0
 K3_F64_FACTOR = 2.0                  # ill-conditioned input: vs f64 plain
 K5_RTOL, K5_ATOL_FRAC = 1e-3, 1e-3   # f32 dW, f32 sums of bf16 products
 K6B_RTOL, K6B_ATOL = 1e-5, 1e-6      # f32 atomics vs index_add_ order
@@ -605,6 +645,48 @@ def check_power_iteration(gen):
         f"{b:.4f} ms (half of SC; the full matrix {full:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, device_ms=dev)
+
+
+def _bf16_power_close(got, want, src, tgt, valid, d_thre, iters):
+    """K3's bf16 form within K3_BF16_RTOL of max |v| of its plain version,
+    and the f32 plain vector at least K3_BF16_SEP times as far from it."""
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_power_iteration_plain
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    f32 = float((sc2_power_iteration_plain(src, tgt, valid, d_thre, iters)
+                 - want).abs().max())
+    log(f"  K3 bf16: kernel {err:.3e} ({err / top:.3e} of max |v| "
+        f"{top:.4e}; held to {K3_BF16_RTOL}) from the bf16 plain vector, "
+        f"the f32 plain vector {f32:.3e} ({f32 / top:.3e}; held to at least "
+        f"{K3_BF16_SEP} times the kernel's)")
+    return err <= K3_BF16_RTOL * top and f32 >= K3_BF16_SEP * err, err
+
+
+def check_power_iteration_bf16(gen):
+    """K3's bf16 form (SC2PCRConfig.bf16_power) at the eval shape against
+    its plain version (SC and each iterate rounded to bf16, f32 sums)
+    within K3_BF16_RTOL of max |v|, the f32 plain vector K3_BF16_SEP times
+    as far (`_bf16_power_close`): the same bits twice, one device kernel a
+    call, its host cost, and K3's bound (the same pairs and operations,
+    the two roundings aside)."""
+    from eyoc_tpu_torch.registration.sc2pcr import (
+        sc2_power_iteration, sc2_power_iteration_plain)
+    src, tgt, valid, _ = correspondences(gen)
+    valid[-50:] = False
+
+    def fn(s, t, v, d, i):
+        return sc2_power_iteration(s, t, v, d, i, bf16=True)
+
+    def plain(s, t, v, d, i):
+        return sc2_power_iteration_plain(s, t, v, d, i, bf16=True)
+    call = [((src, tgt, valid, 0.1, 20), {})]
+    tag = f"K3 sc2_power_iteration, bf16 (N = {N_CORR})"
+    row = check_calls(tag, call, fn, plain, _power_cost, _bf16_power_close,
+                      reps=10)
+    same_bits_twice(tag, fn, call)
+    launch_path(tag, fn, call, f"N={N_CORR}", 200)
+    kernels_per_call(tag, lambda: fn(src, tgt, valid, 0.1, 20))
+    return row
 
 
 def seed_sets(gen):
@@ -1393,15 +1475,17 @@ SC2_KERNELS = ("sc2_nms", "sc2_seed_transforms", "sc2_irls")
 # version's only for a point whose f64 distance lies within SC2_EPS of the
 # threshold, plus (K14) as far as the two poses move it
 SC2_EPS = 1e-4                       # m
-# K14's and K15's poses are held to the same solve in f64 (`_qcp64`, and
-# for K15 every IRLS round, `_irls64`): a valid row moves by at most
-# SC2_DISP plus the f32 rounding reach C * 2^-24 * lever * E / gap, where
-# E = sum w |a - cA| |b - cB| (the moments' terms), gap the Horn matrix's
-# leading eigengap (2 (s2 + s3) for a proper rotation) and lever the valid
-# rows' largest distance from cA. C is read in the same run: SC2_C_FACTOR
-# times the plain version's own largest ratio of its distance from the
-# f64 solve to 2^-24 * lever * E / gap (at least 1), over the seeds whose
-# weighted sets pin a pose
+# K14's and K15's poses are held to the same solve in f64 (`_solve64`: QCP,
+# or for K23 / K24 the port's 8-sweep Jacobi; K14 on the plain version's
+# consensus points and weights, K15 every IRLS round, `_irls64`): a valid
+# row moves by at most SC2_DISP plus the f32 rounding reach C * 2^-24 *
+# lever * E / gap, where E = sum w |a - cA| |b - cB| (the moments' terms),
+# gap the Horn matrix's leading eigengap (2 (s2 + s3) for a proper
+# rotation) and lever the valid rows' largest distance from cA. C is read
+# in the same run: SC2_C_FACTOR times the plain version's own largest
+# ratio of its distance from the f64 solve to 2^-24 * lever * E / gap (at
+# least 1), over the seeds (K14) or problems (K15) whose weighted sets pin
+# a pose
 SC2_DISP = 1e-3                      # m
 SC2_C_FACTOR = 2.0
 # a weighted set pins a pose where its weights keep at least half their
@@ -1413,6 +1497,26 @@ U32 = 2.0 ** -24
 # valid rows first as compact_matches leaves them
 LABEL_SPEC = ((0.3, LABEL_N), (0.1, LABEL_N), (0.3, LABEL_N // 2),
               (0.05, LABEL_N), (0.3, 500), (0.5, 123), (0.3, 10), (0.0, 0))
+
+
+# the IRLS rounds of the refine_unroll rows and phase 4's unroll runs
+UNROLL = 4
+
+
+def jacobi_eval_set():
+    """The eval shape's problem of the Jacobi rows (K23, K24, the unroll
+    rows): B = 1, N = 5000 at 30% inliers, 50 rows invalid."""
+    import torch
+    return sc2_problems(torch.Generator().manual_seed(22), N_CORR,
+                        ((0.3, N_CORR - 50),))[:3]
+
+
+def jacobi_label_set():
+    """The labeling shape's synthetic problems of the Jacobi `_label` rows
+    (B = 8, N = 8000: LABEL_SPEC)."""
+    import torch
+    return sc2_problems(torch.Generator().manual_seed(23), LABEL_N,
+                        LABEL_SPEC)[:3]
 
 
 def sc2_problems(gen, n, spec):
@@ -1500,13 +1604,15 @@ def _pose_disp(Ta, Tb, s64, chunk=256):
     return torch.cat(out)
 
 
-def _qcp64(a, b, w):
+def _solve64(a, b, w, jacobi=False):
     """The plain version's weighted QCP Kabsch (geometry/svd3.kabsch_qcp:
     centroids, centred moments, max|H| scaling, 12 Newton steps on the
     quartic, the adjugate column, 2 polish steps) in f64 on a, b [..., n,
-    3], w [..., n]: (T [..., 4, 4]; E / gap [...], the rounding reach but
-    for its lever and 2^-24; cA [..., 3]; whether the set pins a pose
-    [...])."""
+    3], w [..., n]; with `jacobi`, its Jacobi Kabsch (geometry/svd3.kabsch:
+    the same moments and Horn matrix, the eigenvector of the largest
+    eigenvalue by `svd3.jacobi_eigh`'s 8 cyclic sweeps) in f64. Returns (T
+    [..., 4, 4]; E / gap [...], the rounding reach but for its lever and
+    2^-24; cA [..., 3]; whether the set pins a pose [...])."""
     import torch
     from eyoc_tpu_torch.geometry import svd3
     from eyoc_tpu_torch.geometry.se3 import integrate_trans
@@ -1519,6 +1625,14 @@ def _qcp64(a, b, w):
     Hn = H / scale[..., None, None]
     lam = (w * ((am * am).sum(-1) + (bm * bm).sum(-1))).sum(-1) / (2 * scale)
     N4 = svd3.horn_profile_matrix(Hn)
+    if jacobi:
+        ev, vecs = svd3.jacobi_eigh(N4, dtype=torch.float64)
+        q = torch.gather(vecs, -1, ev.argmax(-1)[..., None, None].expand(
+            vecs.shape[:-1] + (1,)))[..., 0]
+        R = svd3.quat_to_rotmat(q)
+        T = integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
+        return _solve_outputs(T, ev.sort(-1).values, w, am, bm, scale, cA)
+    ev = torch.linalg.eigvalsh(N4.cpu()).to(a.device)
     c2, c1, c0 = svd3.qcp_quartic_coeffs(Hn)
     x = lam
     for _ in range(12):
@@ -1542,8 +1656,13 @@ def _qcp64(a, b, w):
         q = torch.where(n2 > 1e-24, nq * torch.rsqrt(n2.clamp(min=1e-24)), q)
     R = svd3.quat_to_rotmat(q)
     T = integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
-    ev = torch.linalg.eigvalsh(N4)
-    gap = ev[..., 3] - ev[..., 2]                  # in units of max|H|
+    return _solve_outputs(T, ev, w, am, bm, scale, cA)
+
+
+def _solve_outputs(T, ev, w, am, bm, scale, cA):
+    """`_solve64`'s outputs from its pose T, the Horn matrix's eigenvalues
+    ev (ascending, in units of max|H|) and its moments."""
+    gap = ev[..., 3] - ev[..., 2]
     E = (w * am.norm(dim=-1) * bm.norm(dim=-1)).sum(-1) / scale
     pinned = ((w.sum(-1) >= 0.5) & ((w > 0).sum(-1) >= 3)
               & (gap >= SC2_GAP))
@@ -1580,14 +1699,16 @@ def _lever(c, s64, chunk=256):
                       for i in range(0, c.shape[0], chunk)])
 
 
-def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
+def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
     """K14 against its plain version on the same inputs:
     - the consensus sets (fine_sel) bit-equal;
-    - on each seed whose weighted set pins a pose (`_qcp64`), the kernel's
-      pose within SC2_DISP plus the rounding reach of the f64 solve of the
-      same consensus, C read from the plain version's poses on the same
-      seeds (and kept in `reading` for K15); the other seeds are counted
-      and logged;
+    - on each seed whose weighted set pins a pose (`_solve64`), the kernel's
+      pose within SC2_DISP plus C times the rounding reach of the f64 solve
+      of the plain version's consensus points and weights, C read from the
+      plain version's poses on the same seeds; the other seeds are counted
+      and logged. Also logged: both poses' ratios against the solve of the
+      consensus carried in f64 from the points (`_consensus64`), which
+      adds the f32 rounding of the k2 x k2 distances in the soft matrix;
     - each seed's fitness is the f64 count under the kernel's own pose but
       for tests within SC2_EPS of the threshold, -1 where the seed is not
       ok;
@@ -1599,29 +1720,32 @@ def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
     Returns the largest displacement of a valid row from the f64 pose over
     the seeds that pin one (m)."""
     import torch
+    from eyoc_tpu_torch.registration import sc2pcr
     trans_k, fit_k, best_k, fine_k = got
     trans_p, fit_p, best_p, fine_p = want
     if not torch.equal(fine_k, fine_p):
         log("  K14: the consensus sets differ from the plain version's")
         return False, float("inf")
-    T64, unit, cA, pinned = _qcp64(*_consensus64(cfg, knn, src, tgt, valid))
-    # a problem with no valid row pins nothing: its weights are all 0
-    d_k, d_p, reach = [], [], []
-    for b in range(valid.shape[0]):
-        s64 = src[b][valid[b]].double()
-        reach.append(U32 * unit[b] * _lever(cA[b], s64))
-        d_k.append(_pose_disp(trans_k[b], T64[b], s64))
-        d_p.append(_pose_disp(trans_p[b], T64[b], s64))
-    d_k, d_p, reach = torch.cat(d_k), torch.cat(d_p), torch.cat(reach)
-    pin = pinned.reshape(-1)
+    jac = not cfg.qcp_kabsch
+    _, a32, b32, w32 = sc2pcr._consensus(cfg, knn, src, tgt, valid)
+    d_k, d_p, reach, pin = _seed_reach(
+        _solve64(a32.double(), b32.double(), w32.double(), jacobi=jac),
+        trans_k, trans_p, src, valid)
+    del a32, b32, w32
     plain_ratio = float((d_p / reach)[pin].max()) if bool(pin.any()) else 0.0
     C = SC2_C_FACTOR * max(plain_ratio, 1.0)
-    reading["C"] = C
     held = bool((d_k <= SC2_DISP + C * reach)[pin].all())
     kernel_ratio = float((d_k / reach)[pin].max()) if bool(pin.any()) \
         else 0.0
     worst = float(d_k[pin].max()) if bool(pin.any()) else 0.0
     loose = float(d_k[~pin].max()) if bool((~pin).any()) else 0.0
+    c_k, c_p, c_reach, c_pin = _seed_reach(
+        _solve64(*_consensus64(cfg, knn, src, tgt, valid), jacobi=jac),
+        trans_k, trans_p, src, valid)
+    chain = ((float((c_k / c_reach)[c_pin].max()),
+              float((c_p / c_reach)[c_pin].max()),
+              float(c_k[c_pin].max())) if bool(c_pin.any())
+             else (0.0, 0.0, 0.0))
 
     thr = cfg.inlier_threshold
     ok, fworst, differ, banded = held, 0.0, 0, 0
@@ -1648,7 +1772,8 @@ def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
         banded += int((band > 0).sum())
         del dist
     log(f"  K14: consensus sets bit-equal; poses against the f64 solve of "
-        f"the same consensus, on the {int(pin.sum())} of {pin.numel()} "
+        f"the plain version's consensus points and weights, on the "
+        f"{int(pin.sum())} of {pin.numel()} "
         f"seeds whose sets pin a pose: kernel within {worst:.3e} m, "
         f"largest ratio to 2^-24 * lever * E / gap {kernel_ratio:.3e} "
         f"(plain {plain_ratio:.3e}; held to {SC2_DISP} m + C = {C:.3e} "
@@ -1658,8 +1783,30 @@ def _seed_close(reading, got, want, cfg, seed_ok, knn, src, tgt, valid):
         f"within {loose:.3e} m; fitness: {differ} of {fit_k.numel()} seeds "
         f"differ from the plain version's (largest {fworst:g}), {banded} "
         f"with a test within {SC2_EPS} m of the threshold; best "
-        f"{best_k.tolist()} (plain {best_p.tolist()})")
+        f"{best_k.tolist()} (plain {best_p.tolist()}); against the f64 "
+        f"solve of the consensus carried in f64 from the points (the f32 "
+        f"rounding of the soft matrix's distances added): kernel within "
+        f"{chain[2]:.3e} m, ratio {chain[0]:.3e}, plain {chain[1]:.3e}")
     return ok, worst
+
+
+def _seed_reach(solved, trans_k, trans_p, src, valid):
+    """From `_solve64`'s outputs for every seed of B problems: the f64
+    displacement of a valid row from the solve's pose under the kernel's
+    and the plain version's poses trans_k, trans_p [B, S, 4, 4], the
+    rounding reach 2^-24 * lever * E / gap, and whether each set pins a
+    pose; all flattened to [B * S]. A problem with no valid row pins
+    nothing: its weights are all 0."""
+    import torch
+    T64, unit, cA, pinned = solved
+    d_k, d_p, reach = [], [], []
+    for b in range(valid.shape[0]):
+        s64 = src[b][valid[b]].double()
+        reach.append(U32 * unit[b] * _lever(cA[b], s64))
+        d_k.append(_pose_disp(trans_k[b], T64[b], s64))
+        d_p.append(_pose_disp(trans_p[b], T64[b], s64))
+    return (torch.cat(d_k), torch.cat(d_p), torch.cat(reach),
+            pinned.reshape(-1))
 
 
 def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
@@ -1668,15 +1815,15 @@ def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
     consensus and pose, bit for bit: the labeling's seeds past its valid
     rows all take the problem's first valid rows), the k1 x k1 distances of
     both clouds (9 flops each), the counts, the soft k2 x k2 matrix, the
-    power iterations and the QCP solve (~600 flops), and per (head, valid
-    row) the fitness test (25 flops); bytes: the points and flags once, the
-    k1 columns, the poses, fitness and best written."""
+    power iterations and the pose solve (`_solve_flops`), and per (head,
+    valid row) the fitness test (25 flops); bytes: the points and flags
+    once, the k1 columns, the poses, fitness and best written."""
     import torch
     B, S, k1 = knn.shape
     k2 = min(cfg.k2, k1)
     n = valid.shape[1]
     per_seed = (18 + 2) * k1 * k1 + 4 * k2 * k2 + cfg.num_iterations * (
-        2 * k2 * k2 + 3 * k2) + 600
+        2 * k2 * k2 + 3 * k2) + _solve_flops(cfg)
     heads = torch.ones((B, S), dtype=torch.bool, device=knn.device)
     heads[:, 1:] = (knn[:, 1:] != knn[:, :-1]).any(-1)
     nh = heads.sum(1).double()
@@ -1687,22 +1834,26 @@ def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
 
 
 def _irls64(cfg, T, src, tgt, valid, it_num=20):
-    """The plain per-problem IRLS (`sc2pcr._post_refine`) in f64 from pose
-    T: (the final pose, its rounds, and for each round (the least distance
-    of a valid row's inlier test from the threshold, the inlier count, the
-    pose it solves, its rounding reach's unit 2^-24 * lever * E / gap,
-    whether its set pins a pose))."""
+    """The plain per-problem IRLS (`sc2pcr._post_refine`, its stop or its
+    `refine_unroll` rounds, the config's solve) in f64 from pose T: (the
+    final pose, its rounds, and for each round (the least distance of a
+    valid row's inlier test from the threshold, the inlier count, the pose
+    it solves, its rounding reach's unit 2^-24 * lever * E / gap, whether
+    its set pins a pose))."""
     from eyoc_tpu_torch.registration.sc2pcr import _irls_threshold
     thr = _irls_threshold(cfg)
+    unroll = cfg.refine_unroll
     a, b, T = src.double(), tgt.double(), T.double()
     prev, cur, it, rounds = 0, 0, 0, []
-    while it < it_num and (it == 0 or abs(cur - prev) >= 1):
+    while (it < unroll if unroll > 0
+           else it < it_num and (it == 0 or abs(cur - prev) >= 1)):
         dist = (a @ T[:3, :3].T + T[:3, 3] - b).norm(dim=-1)
         margin = (float((dist - thr).abs()[valid].min())
                   if bool(valid.any()) else float("inf"))
         inlier = (dist < thr) & valid
         w = (1.0 / (1.0 + (dist / thr) ** 2)) * inlier
-        new, unit, cA, pinned = _qcp64(a[None], b[None], w[None])
+        new, unit, cA, pinned = _solve64(a[None], b[None], w[None],
+                                         jacobi=not cfg.qcp_kabsch)
         count = int(inlier.sum())
         reach = U32 * float(unit[0]) * float(
             _lever(cA, a[valid])[0]) if count else 0.0
@@ -1714,13 +1865,15 @@ def _irls64(cfg, T, src, tgt, valid, it_num=20):
     return T, it, rounds
 
 
-def _irls_close(reading, got, want, cfg, trans, best, src, tgt, valid):
+def _irls_close(got, want, cfg, trans, best, src, tgt, valid):
     """K15 against the plain IRLS run in f64 from the same start poses
-    (`_irls64`), with K14's C (`reading`):
+    (`_irls64`), C read from the plain version's own runs: SC2_C_FACTOR
+    times its largest ratio to the reach, over the one rounds and the
+    whole runs held below (at least 1):
     - one round from the start, where its inlier tests are clear of the
       threshold by SC2_EPS and its set pins a pose: the kernel's pose within
       SC2_DISP + C times its rounding reach of the f64 round (the reading of
-      the kernel's f32 moments and solve; the plain version's is logged);
+      the kernel's f32 moments and solve);
     - the whole run: the same rounds as the f64 run and the pose within
       SC2_DISP + C times the last round's reach, every round's set pinning
       a pose; or, where not, a round of the f64 run whose set pins no pose
@@ -1729,32 +1882,44 @@ def _irls_close(reading, got, want, cfg, trans, best, src, tgt, valid):
       may take another inlier set there), logged with its reaches and
       margins.
     Returns the largest displacement of a problem whose run agrees (m)."""
+    import dataclasses
     from eyoc_tpu_torch.registration import sc2pcr
-    (T_k, it_k), (_, it_p) = got, want
-    C = reading["C"]
-    one_k, _ = sc2pcr.sc2_irls(cfg, trans, best, src, tgt, valid, it_num=1)
-    one_p, _ = sc2pcr.sc2_irls_plain(cfg, trans, best, src, tgt, valid,
+    (T_k, it_k), (T_p, it_p) = got, want
+    one = dataclasses.replace(cfg, refine_unroll=0)
+    one_k, _ = sc2pcr.sc2_irls(one, trans, best, src, tgt, valid, it_num=1)
+    one_p, _ = sc2pcr.sc2_irls_plain(one, trans, best, src, tgt, valid,
                                      it_num=1)
-    ok, worst, loose, r_k, r_p = True, 0.0, 0, 0.0, 0.0
+    runs, r_p = [], [1.0]
     for b in range(valid.shape[0]):
         v = valid[b]
         s64 = src[b][v].double()
         T64, it64, rounds = _irls64(cfg, trans[b, int(best[b])], src[b],
                                     tgt[b], v)
         margin, count, T1, reach1, pinned1 = rounds[0]
-        if count and pinned1 and margin > SC2_EPS:
-            dk = float(_pose_disp(one_k[b:b + 1], T1[None], s64)[0])
-            dp = float(_pose_disp(one_p[b:b + 1], T1[None], s64)[0])
-            r_k, r_p = max(r_k, dk / reach1), max(r_p, dp / reach1)
-            ok &= dk <= SC2_DISP + C * reach1
-        disp = float(_pose_disp(T_k[b:b + 1], T64[None], s64)[0])
+        first = None
+        if count and pinned1 and margin > SC2_EPS and reach1 > 0:
+            first = (float(_pose_disp(one_k[b:b + 1], T1[None], s64)[0]),
+                     reach1)
+            r_p.append(float(_pose_disp(one_p[b:b + 1], T1[None], s64)[0])
+                       / reach1)
         solved = [r for r in rounds if r[1]]
         last = solved[-1][3] if solved else 0.0
-        if int(it_k[b]) == it64 and all(r[4] for r in rounds) \
-                and disp <= SC2_DISP + C * last:
+        pins = all(r[4] for r in rounds)
+        disp = float(_pose_disp(T_k[b:b + 1], T64[None], s64)[0])
+        if int(it_p[b]) == it64 and pins and last > 0:
+            r_p.append(float(_pose_disp(T_p[b:b + 1], T64[None], s64)[0])
+                       / last)
+        runs.append((first, it64, rounds, last, pins, disp))
+    C = SC2_C_FACTOR * max(r_p)
+    ok, worst, loose, r_k = True, 0.0, 0, 0.0
+    for b, (first, it64, rounds, last, pins, disp) in enumerate(runs):
+        if first is not None:
+            r_k = max(r_k, first[0] / first[1])
+            ok &= first[0] <= SC2_DISP + C * first[1]
+        if int(it_k[b]) == it64 and pins and disp <= SC2_DISP + C * last:
             worst = max(worst, disp)
             continue
-        free = any(not r[4] for r in rounds) or any(
+        free = not pins or any(
             rounds[i][0] <= SC2_EPS + C * rounds[i - 1][3]
             for i in range(1, len(rounds)))
         log(f"  K15 problem {b}: {int(it_k[b])} rounds (plain "
@@ -1765,24 +1930,31 @@ def _irls_close(reading, got, want, cfg, trans, best, src, tgt, valid):
                         for m, n, _, r, p in rounds))
         loose += 1
         ok &= free
-    log(f"  K15: iterations {it_k.tolist()} (plain {it_p.tolist()}); one "
-        f"round against the f64 recount: largest ratio to 2^-24 * lever * "
-        f"E / gap {r_k:.3e} (plain {r_p:.3e}, held to C = {C:.3e}); "
+    log(f"  K15: iterations {it_k.tolist()} (plain {it_p.tolist()}); "
+        f"against the f64 rounds, largest ratio to 2^-24 * lever * E / gap "
+        f"of one round {r_k:.3e}, the plain version's of one round or a "
+        f"whole run {max(r_p):.3e} (C = {C:.3e}); "
         f"{loose} problems whose rounds' sets pin no pose or whose inlier "
         f"tests f32 rounding can flip (above), the others within "
         f"{worst:.3e} m of the f64 run")
     return ok, worst
 
 
+def _solve_flops(cfg):
+    """One pose solve's flops: QCP ~600, the 8-sweep Jacobi JACOBI_FLOPS."""
+    return 600 if cfg.qcp_kabsch else JACOBI_FLOPS
+
+
 def _irls_cost(cfg, trans, best, src, tgt, valid):
-    """K15's bound: per round of each problem, two passes over its valid
-    rows (45 flops a row) and the QCP solve, for the rounds the plain
-    version runs; bytes: the points and flags once, the start and final
-    poses."""
+    """K15's (K24's) bound: per round of each problem, two passes over its
+    valid rows (45 flops a row) and the pose solve, for the rounds the
+    plain version runs; bytes: the points and flags once, the start and
+    final poses."""
     from eyoc_tpu_torch.registration.sc2pcr import sc2_irls_plain
     _, it = sc2_irls_plain(cfg, trans, best, src, tgt, valid)
     it = it.double()
-    ops = float((it * (90.0 * valid.sum(1).double() + 600)).sum())
+    ops = float((it * (90.0 * valid.sum(1).double()
+                       + _solve_flops(cfg))).sum())
     B, n = valid.shape
     return B * n * 25 + B * (64 + 4) + B * 68, ops, "f32"
 
@@ -1792,23 +1964,32 @@ def _sc2_valid(name, args):
     return args[1] if name == "sc2_nms" else args[-1]
 
 
-def check_sc2_kernels(label, calls, suffix=""):
-    """K13, K14 and K15 each against its plain version on `calls`
-    ({wrapper name: [(args, kwargs)]}); each also gives the same bits
-    twice, and its device kernels a call and host cost are read. Returns
-    {kernels-line name + suffix: row}."""
-    import functools
+def check_sc2_kernels(label, calls, suffix="", which=SC2_KERNELS):
+    """K13, K14 and K15 (K23 and K24 where the calls' config has
+    qcp_kabsch=False), those of `which`, each against its plain version on
+    `calls` ({wrapper name: [(args, kwargs)]}); each also gives the same
+    bits twice, and its device kernels a call and host cost are read.
+    Returns {kernels-line name + suffix: row}."""
     from eyoc_tpu_torch.registration import sc2pcr
-    out, reading = {}, {}
+    out = {}
+    cfg = calls["sc2_seed_transforms"][0][0][0]
+    jac = not cfg.qcp_kabsch
+    k14, k15 = ("K23", "K24") if jac else ("K14", "K15")
+    tail = "_jacobi" if jac else ""
     for name, fn, plain, cost, close, what in (
             ("sc2_nms", sc2pcr.sc2_nms, sc2pcr.sc2_nms_plain, _nms_cost,
              _nms_close, "K13 sc2_nms"),
             ("sc2_seed_transforms", sc2pcr.sc2_seed_transforms,
              sc2pcr.seed_transforms_batched_plain, _seed_cost,
-             functools.partial(_seed_close, reading),
-             "K14 sc2_seed_transforms"),
+             _seed_close,
+             f"{k14} sc2_seed_transforms{tail}"),
             ("sc2_irls", sc2pcr.sc2_irls, sc2pcr.sc2_irls_plain, _irls_cost,
-             functools.partial(_irls_close, reading), "K15 sc2_irls")):
+             _irls_close,
+             f"{k15} sc2_irls{tail}" + (
+                 f", refine_unroll {cfg.refine_unroll}"
+                 if cfg.refine_unroll else ""))):
+        if name not in which:
+            continue
         cl = calls[name]
         a, k = cl[0]
         B, n = _sc2_valid(name, a).shape
@@ -3318,15 +3499,16 @@ def _label_argmin_class(q, qm, r, rm):
     return f"{what}, D = {q.shape[-1]}, batch {q.shape[0]}"
 
 
-def _power_cost(src, tgt, valid, d_thre, iters):
+def _power_cost(src, tgt, valid, d_thre, iters, bf16=False):
     """K3's bound: each unordered valid pair (and the diagonal) once per
-    iteration, ~24 flops each, as check_power_iteration."""
+    iteration, ~24 flops each, as check_power_iteration (the bf16 form's
+    two roundings a pair aside)."""
     n, nv = src.shape[0], int(valid.sum())
     return (2 * n * 12 + n + n * 4, iters * nv * (nv + 1) / 2 * 24.0,
             "f32")
 
 
-def _power_close(got, want, src, tgt, valid, d_thre, iters):
+def _power_close(got, want, src, tgt, valid, d_thre, iters, bf16=False):
     """K3 within K3_RTOL / K3_ATOL of its plain version or, where the input
     is ill-conditioned (the labeling's noise correspondences at up to 76 m:
     an f32 rounding of a ~100 m distance moves an SC value by up to ~4e-4,
@@ -3339,7 +3521,7 @@ def _power_close(got, want, src, tgt, valid, d_thre, iters):
     if bool(torch.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL)):
         return True, err
     ref = sc2_power_iteration_plain(src.double(), tgt.double(), valid,
-                                    d_thre, iters)
+                                    d_thre, iters, bf16)
     e_k = float((got.double() - ref).abs().max())
     e_p = float((want.double() - ref).abs().max())
     log(f"  K3 off its f32 plain version by {err:.3e}: the f64 plain "
@@ -3547,6 +3729,100 @@ def check_label_kernels(calls):
     same_bits_twice("K9 masked_argmin_excl", knn.masked_argmin_excl, k9)
     launch_path("K9 masked_argmin_excl", knn.masked_argmin_excl, k9,
                 "the gated step's minings", 200)
+    return out
+
+
+# ------------------------------------------------------- phase 4, options
+
+
+# the kernels line's rows of SC2PCRConfig's switches: row -> (phase 4's
+# run, its counter)
+OPTION_ROWS = {
+    "sc2_power_iteration_bf16": ("bf16", "sc2_power_iteration_bf16"),
+    "sc2_seed_transforms_jacobi": ("jacobi", "sc2_seed_transforms_jacobi"),
+    "sc2_irls_jacobi": ("jacobi", "sc2_irls_jacobi"),
+    "sc2_seed_transforms_jacobi_label": ("jacobi_label",
+                                         "sc2_seed_transforms_jacobi"),
+    "sc2_irls_jacobi_label": ("jacobi_label", "sc2_irls_jacobi"),
+    "sc2_irls_unroll": ("unroll", "sc2_irls"),
+    "sc2_irls_jacobi_unroll": ("jacobi_unroll", "sc2_irls_jacobi"),
+}
+# SC2PCRConfig's switches in phase 4: (tag, fields, the counters that the
+# run must launch once a problem (K3) or once (K13-K15, K23, K24), and the
+# ones it must not launch)
+SC2_OPTIONS = (
+    ("jacobi", dict(qcp_kabsch=False),
+     ("sc2_seed_transforms_jacobi", "sc2_irls_jacobi"),
+     ("sc2_seed_transforms", "sc2_irls")),
+    ("unroll", dict(refine_unroll=UNROLL), ("sc2_irls",),
+     ("sc2_irls_jacobi",)),
+    ("jacobi_unroll", dict(qcp_kabsch=False, refine_unroll=UNROLL),
+     ("sc2_seed_transforms_jacobi", "sc2_irls_jacobi"),
+     ("sc2_seed_transforms", "sc2_irls")),
+    ("bf16", dict(bf16_power=True), ("sc2_power_iteration_bf16",),
+     ("sc2_power_iteration",)),
+    ("approx", dict(approx_topk=True), ("sc2_power_iteration",
+                                        "sc2_seed_transforms"), ()),
+)
+
+
+def sc2_option_runs(sanity, src, tgt, valid, T_true, base, l_cfg):
+    """Phase 4's known-pose problems again under each of SC2_OPTIONS:
+    `sc2_pcr_batched` (launch counts reset just before, read just after)
+    recovers each pose within phase 4's tolerances, each problem the same
+    bits as its own B = 1 `sc2_pcr`; then the labeling shape's synthetic
+    problems (B = 8, N = 8000) under qcp_kabsch=False, finite. Returns
+    {tag: launch counts} (the kernels line's Jacobi, unroll and bf16 rows
+    take theirs; "jacobi_label" the labeling shape's)."""
+    import dataclasses
+
+    import torch
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_pcr, sc2_pcr_batched
+    from eyoc_tpu_torch.utils import kernels
+    out = {}
+    for tag, fields, must, never in SC2_OPTIONS:
+        c = dataclasses.replace(base, **fields)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        T_est, fit = sc2_pcr_batched(src, tgt, valid, c)
+        torch.cuda.synchronize()
+        counts = out[tag] = dict(kernels.launches)
+        want = {k: (src.shape[0] if k.startswith("sc2_power") else 1)
+                for k in must}
+        if any(counts[k] != n for k, n in want.items()) or any(
+                counts[k] for k in never):
+            raise AssertionError(f"sc2_pcr_batched ({tag}) launched "
+                                 f"{ {k: v for k, v in counts.items() if v} }")
+        res = []
+        for b, (inlier, nv) in enumerate(sanity):
+            T1, f1 = sc2_pcr(src[b], tgt[b], valid[b], c)
+            if not (torch.equal(T1, T_est[b]) and torch.equal(f1, fit[b])):
+                raise AssertionError(f"sc2_pcr_batched ({tag}) problem {b} "
+                                     "differs from its own B = 1 call")
+            _, te, re = registration_success(T_est[b], T_true[b])
+            if not (float(te) < 0.1 and float(re) < 1.0):
+                raise AssertionError(
+                    f"sc2_pcr_batched ({tag}) missed a known pose ({inlier} "
+                    f"inliers, {nv} valid rows): RTE {float(te)} m, RRE "
+                    f"{float(re)} deg")
+            res.append(f"{float(te):.4f} m / {float(re):.4f} deg")
+        log(f"sc2_pcr_batched sanity, {tag} ({fields}): RTE / RRE "
+            + ", ".join(res) + "; each problem the same bits as its B = 1 "
+            "call; launches " + str({k: counts[k] for k in must}))
+    l_jac = dataclasses.replace(l_cfg, qcp_kabsch=False)
+    l_set = jacobi_label_set()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    T_l, _ = sc2_pcr_batched(*l_set, l_jac)
+    torch.cuda.synchronize()
+    out["jacobi_label"] = dict(kernels.launches)
+    if not bool(torch.isfinite(T_l).all()):
+        raise AssertionError("sc2_pcr_batched (labeling shape, "
+                             "qcp_kabsch=False): non-finite poses")
+    log(f"sc2_pcr_batched (labeling shape, B = {T_l.shape[0]}, N = "
+        f"{LABEL_N}, qcp_kabsch=False): finite; launches "
+        + str({k: v for k, v in out["jacobi_label"].items() if v}))
     return out
 
 
@@ -4167,10 +4443,207 @@ def optimizer_and_loss_steps(batch, tcfg):
     return out, launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+# the runbook's KITTI-format tree: frames of one drive along a straight
+# road (m a frame), and the pairs of each cli.test run
+RUNBOOK_FRAMES = 12
+RUNBOOK_STEP = 2.0
+RUNBOOK_PAIRS = 4
+# the eval kernels each cli.test run must launch, by estimator
+RUNBOOK_KERNELS = {
+    "RANSAC": COORD_KERNELS + ("sparse_conv", "masked_argmin",
+                               "ransac_hypotheses_topk", "ransac_verify",
+                               "ransac_polish"),
+    "SC2-PCR": COORD_KERNELS + ("sparse_conv", "masked_argmin",
+                                "sc2_power_iteration", "sc2_nms",
+                                "sc2_seed_topk", "sc2_seed_transforms",
+                                "sc2_irls"),
+}
+
+
+def reference_checkpoint(path):
+    """A reference-style best_val_checkpoint.pth of ResUNetBN2C/32 (conv1
+    k = 5): the port's init (torch.Generator seed 7) through the port's
+    exporter, in the reference's container (lib/trainer.py:166-179)."""
+    import torch
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.tools.import_torch_ckpt import (
+        params_to_torch_state_dict)
+    model = init_unet(load_model("ResUNetBN2C"),
+                      torch.Generator().manual_seed(7), 1, 32, 5,
+                      dtype=torch.float32, device="cpu")
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          params_to_torch_state_dict(model.state_dict()).items()}
+    torch.save({"epoch": 0, "state_dict": sd, "optimizer": {},
+                "scheduler": {}, "config": {
+                    "model": "ResUNetBN2C", "model_n_out": 32,
+                    "conv1_kernel_size": 5, "voxel_size": 0.3},
+                "best_val": 0.0, "best_val_epoch": 0,
+                "best_val_metric": "feat_match_ratio"}, path)
+
+
+def runbook_tree(root, drive):
+    """A KITTI odometry tree under <root>/dataset/sequences/%02d: the port's
+    synthetic raycast scans (HDL-64E-like, 64 x 2048 rays, float32 xyzr
+    .bin) of one scene from RUNBOOK_FRAMES sensor poses RUNBOOK_STEP apart
+    along x; calib.txt's Tr the legacy reader's velo-to-cam (so that the
+    N-frame readers' Tr conjugation and KITTINMPairDataset's hardcoded one
+    give the same velodyne poses), poses.txt the camera poses Tr S Tr^-1
+    of the sensor poses S. Returns the host seconds it took."""
+    import os
+    from eyoc_tpu_torch.data.datasets import _velo2cam
+    from eyoc_tpu_torch.data.synthetic import SyntheticPairs
+    t0 = time.perf_counter()
+    seq = os.path.join(root, "dataset", "sequences", "%02d" % drive)
+    os.makedirs(os.path.join(seq, "velodyne"))
+    tr = _velo2cam().T                        # velodyne -> camera
+    rng = np.random.default_rng(10)
+    span = RUNBOOK_STEP * (RUNBOOK_FRAMES - 1)
+    sites = tuple((RUNBOOK_STEP * t, 0.0) for t in range(RUNBOOK_FRAMES))
+    scene = SyntheticPairs.make_scene(rng, span, keepout=sites)
+
+    def row(T):
+        return " ".join(f"{v:.12e}" for v in T[:3].reshape(-1))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for k in ("P0", "P1", "P2", "P3"):
+            f.write(f"{k}: {row(np.eye(4))}\n")
+        f.write(f"Tr: {row(tr)}\n")
+    with open(os.path.join(seq, "poses.txt"), "w") as f:
+        for t, (x, y) in enumerate(sites):
+            S = np.eye(4)
+            S[:3, 3] = (x, y, 0.0)
+            f.write(row(tr @ S @ np.linalg.inv(tr)) + "\n")
+            pts = SyntheticPairs.raycast_scan(rng, (x, y, 0.0), 0.0, scene,
+                                              n_az=RAW // 64,
+                                              terrain_seed=6000)
+            if len(pts) > RAW:
+                pts = pts[rng.permutation(len(pts))[:RAW]]
+            xyzr = np.concatenate([pts, np.full((len(pts), 1), 0.5,
+                                                np.float32)], 1)
+            xyzr.astype(np.float32).tofile(
+                os.path.join(seq, "velodyne", "%06d.bin" % t))
+    return time.perf_counter() - t0
+
+
+def runbook_phase(smi):
+    """Phase 10, the real-data runbook (README.md) through the port on the
+    card: a reference-style checkpoint (`reference_checkpoint`) imported by
+    `tools.import_torch_ckpt.main(... --write_test_config)`; a KITTI-format
+    tree (`runbook_tree`: one drive of the test split); `cli.test.main`
+    over it on KITTINMPairDataset (its ICP ground truth on the card), once
+    with RANSAC (the CLI's default) and once with `--use_RANSAC false`
+    (SC2-PCR), RUNBOOK_PAIRS pairs each: the eval kernels launched (counts
+    reset just before `main`, read just after), rr / rte / rre /
+    pairs_per_sec and the Data / Feat / Reg times printed, each pair's pose
+    the bits of `eval.test_pair` on the same batch and draws, and RR the
+    mean of `registration_success` on those poses (RR is not asserted:
+    the weights are random). Returns {estimator: the run's result}."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from eyoc_tpu_torch.cli import test as cli_test
+    from eyoc_tpu_torch.data import datasets
+    from eyoc_tpu_torch.eval import test_pair
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.tools import import_torch_ckpt
+    from eyoc_tpu_torch.training.checkpoint import load_weights_only
+    from eyoc_tpu_torch.training.trainer import build_step_config
+    from eyoc_tpu_torch.utils import kernels
+
+    work = tempfile.mkdtemp(prefix="eyoc_runbook_")
+    split_file = datasets._split_file
+    try:
+        pth = os.path.join(work, "best_val_checkpoint.pth")
+        reference_checkpoint(pth)
+        out = os.path.join(work, "imported")
+        import_torch_ckpt.main(["--input", pth, "--output_dir", out,
+                                "--name", "best_val_checkpoint",
+                                "--write_test_config"])
+        with open(split_file("test_kitti.txt")) as f:
+            drive = int(f.read().split()[0])
+        root = os.path.join(work, "kitti")
+        secs = runbook_tree(root, drive)
+        log(f"runbook: a KITTI-format tree, drive {drive:02d} of the test "
+            f"split, {RUNBOOK_FRAMES} raycast scans of <= {RAW} points, "
+            f"{secs:.1f} s on the host")
+        one = os.path.join(work, "split.txt")
+        with open(one, "w") as f:
+            f.write(f"{drive:02d}\n")
+        datasets._split_file = lambda name: one
+        spec = load_model("ResUNetBN2C")
+        model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                          device="cuda")
+        load_weights_only(os.path.join(out, "best_val_checkpoint"), model)
+        results = {}
+        for est, flag in (("RANSAC", "true"), ("SC2-PCR", "false")):
+            args = cli_test.parse_args([
+                "--save_dir", out, "--kitti_root", root, "--dataset",
+                "KITTINMPairDataset", "--use_RANSAC", flag, "--num_pairs",
+                str(RUNBOOK_PAIRS)])
+            config = cli_test.load_test_config(args)
+            record = []
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            res = cli_test.main(config, num_pairs=args.num_pairs,
+                                record=record)
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            missing = [k for k in RUNBOOK_KERNELS[est] if counts[k] <= 0]
+            if missing or len(record) != RUNBOOK_PAIRS:
+                raise AssertionError(f"cli.test ({est}): {len(record)} pairs,"
+                                     f" launched no {missing}")
+            _, cfg = build_step_config(config, spec)
+            cfg = dataclasses.replace(cfg, use_ransac=bool(config.use_RANSAC))
+            ok = []
+            for batch, state, T_est in record:
+                gen = torch.Generator(device="cuda")
+                gen.set_state(state)
+                want = test_pair(model, batch, cfg, generator=gen)["T_est"]
+                if not torch.equal(want, T_est):
+                    raise AssertionError(
+                        f"cli.test ({est}): a pose differs from "
+                        f"eval.test_pair's on the same batch and draws by "
+                        f"{float((want - T_est).abs().max())}")
+                ok.append(bool(registration_success(
+                    T_est, batch.T_gt[0], config.rte_thresh,
+                    config.rre_thresh)[0]))
+            if res["rr"] != float(np.mean(ok)):
+                raise AssertionError(f"cli.test ({est}): RR {res['rr']} is "
+                                     "not the mean of registration_success "
+                                     f"on its poses ({ok})")
+            results[est] = res
+            log(f"runbook, cli.test with {est}: {RUNBOOK_PAIRS} pairs of "
+                f"ResUNetBN2C (imported, random weights) on "
+                f"KITTINMPairDataset: rr {res['rr']:.4f}, rte "
+                f"{res['rte']:.4f} m, rre {res['rre']:.4f} deg, "
+                f"pairs_per_sec {res['pairs_per_sec']:.3f}; Data "
+                f"{res['data_time'] * 1e3:.2f} ms, Feat "
+                f"{res['feat_time'] * 1e3:.2f} ms, Reg "
+                f"{res['reg_time'] * 1e3:.2f} ms a pair (host clock around "
+                f"synchronized calls; the Data time carries the reader's ICP "
+                f"ground truth of each pair that no run before cached); "
+                f"each pose the bits of eval.test_pair on the same batch "
+                f"and draws; launches "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; on {smi}")
+        return results
+    finally:
+        datasets._split_file = split_file
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------------------- main
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4226,6 +4699,10 @@ def main() -> int:
         "masked_argmin": check_masked_argmin(gen),
         "sc2_power_iteration": check_power_iteration(gen),
     })
+    # K3's bf16 form (on a generator of its own, so that the checks after
+    # draw as before)
+    results["sc2_power_iteration_bf16"] = check_power_iteration_bf16(
+        torch.Generator().manual_seed(20))
     k4_sets = seed_sets(gen)
     results["sc2_seed_counts"] = check_seed_counts(k4_sets)
     results["sc2_seed_topk"] = check_seed_topk(k4_sets, cfg.sc2.k1)
@@ -4250,6 +4727,29 @@ def main() -> int:
     check_sc2_kernels(f"past K15's row cap {K15_MAX_ROWS}", sc2_calls(
         *o_set[:3], SC2PCRConfig(max_points=n_over, seed_cap=N_SEEDS)))
     del e_set, l_set, o_set
+    torch.cuda.empty_cache()
+    # K23 and K24 (qcp_kabsch=False) at the eval shape and on the labeling
+    # shape's synthetic problems, and K15 and K24 at refine_unroll = 4 (the
+    # kernels line's rows; on generators of their own)
+    jac = dataclasses.replace(cfg.sc2, qcp_kabsch=False)
+    e_set = jacobi_eval_set()
+    results.update(check_sc2_kernels(
+        "eval shape, qcp_kabsch=False", sc2_calls(*e_set, jac), "_jacobi",
+        which=SC2_KERNELS[1:]))
+    sc2_no_sync("eval shape, qcp_kabsch=False", *e_set, jac)
+    l_jac = dataclasses.replace(l_cfg, qcp_kabsch=False)
+    l_set = jacobi_label_set()
+    results.update(check_sc2_kernels(
+        "labeling shape, synthetic, qcp_kabsch=False",
+        sc2_calls(*l_set, l_jac), "_jacobi_label", which=SC2_KERNELS[1:]))
+    for c, tail in ((cfg.sc2, "_unroll"), (jac, "_jacobi_unroll")):
+        c = dataclasses.replace(c, refine_unroll=UNROLL)
+        rows = check_sc2_kernels(f"eval shape, refine_unroll {UNROLL}"
+                                 + (", qcp_kabsch=False" if tail != "_unroll"
+                                    else ""), sc2_calls(*e_set, c), tail,
+                                 which=SC2_KERNELS[1:])
+        results["sc2_irls" + tail] = rows["sc2_irls" + tail]
+    del e_set, l_set
     torch.cuda.empty_cache()
     # K16-K18 and K2 at ICP's shape (the kernels line's rows)
     results.update(check_ransac_kernels(gen, pairs[0]))
@@ -4374,6 +4874,8 @@ def main() -> int:
         log(f"sc2_pcr_batched sanity, {inlier} inliers, {nv} of {N_CORR} "
             f"rows valid: RTE {float(te):.4f} m, RRE {float(re):.4f} deg, "
             "the same bits as its B = 1 call")
+    option_counts = sc2_option_runs(sanity, src, tgt, valid, T_true,
+                                    cfg.sc2, l_cfg)
     ransac_known_answers(sanity, src, tgt, valid, T_true)
     icp_counts = icp_known_answer(pairs[0])
 
@@ -4407,6 +4909,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     loss_rows, loss_launches = optimizer_and_loss_steps(train_batch, tcfg)
     results.update(loss_rows)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the real-data runbook on a synthetic KITTI-format tree
+    runbook_phase(smi)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -4423,6 +4929,9 @@ def main() -> int:
     def launches(name):
         if name in loss_launches:
             return loss_launches[name]
+        if name in OPTION_ROWS:
+            tag, counter = OPTION_ROWS[name]
+            return option_counts[tag][counter]
         if name == "est_quad_linear_robust":
             return valid_counts[name]
         if name == "masked_instance_norm":
@@ -4467,7 +4976,10 @@ def main() -> int:
               "masked_norm_backward_bn": "norm_backward",
               "masked_argmin_triplet": "masked_argmin",
               "take_rows_losses": "take_rows",
-              "take_rows_backward_losses": "take_rows"}
+              "take_rows_backward_losses": "take_rows",
+              "sc2_power_iteration_bf16": "sc2_power_iteration"}
+    source.update({k: "sc2_refine" for k in OPTION_ROWS
+                   if k.startswith(("sc2_seed", "sc2_irls"))})
     replaces = {
         "sparse_conv": "eyoc_tpu/sparse/brick_conv.py:310",
         "sparse_conv_train": "eyoc_tpu/sparse/brick_conv.py:310",
@@ -4509,6 +5021,14 @@ def main() -> int:
         "masked_argmin_triplet": "eyoc_tpu/training/loss.py:259",
         "take_rows_losses": "proto/proto_pallas_gather.py:62",
         "take_rows_backward_losses": "eyoc_tpu/training/loss.py:201",
+        "sc2_power_iteration_bf16": "eyoc_tpu/registration/sc2pcr.py:100",
+        "sc2_seed_transforms_jacobi": "eyoc_tpu/registration/sc2pcr.py:161",
+        "sc2_seed_transforms_jacobi_label":
+            "eyoc_tpu/registration/sc2pcr.py:161",
+        "sc2_irls_jacobi": "eyoc_tpu/registration/sc2pcr.py:219",
+        "sc2_irls_jacobi_label": "eyoc_tpu/registration/sc2pcr.py:219",
+        "sc2_irls_unroll": "eyoc_tpu/registration/sc2pcr.py:224",
+        "sc2_irls_jacobi_unroll": "eyoc_tpu/registration/sc2pcr.py:224",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

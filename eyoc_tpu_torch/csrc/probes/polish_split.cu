@@ -5,7 +5,7 @@
 // R is the time of one unit without the launch. Not part of the port:
 // profile_k18_polish.py builds and runs it.
 //
-// - solve: `jacobi_pose` (csrc/ransac.cu, the solve of K16, K17 and icp) on
+// - solve: `jacobi_pose` (csrc/jacobi_pose.cuh, the solve of K16-K18) on
 //   thread 0, its input made to depend on the previous output;
 // - solve, warp: `jacobi_pose_warp` below (each rotation's element updates
 //   spread over the lanes of a warp, the same bits as jacobi_pose), the

@@ -1,6 +1,7 @@
-// K14 sc2_seed_transforms and K15 sc2_irls: SC2-PCR from each seed's k1
-// columns to the refined pose, for B problems, with nothing read back by
-// the host in between.
+// K14 sc2_seed_transforms and K15 sc2_irls, and their Jacobi forms K23
+// sc2_seed_transforms_jacobi and K24 sc2_irls_jacobi: SC2-PCR from each
+// seed's k1 columns to the refined pose, for B problems, with nothing read
+// back by the host in between.
 //
 // K14 replaces eyoc_tpu/registration/sc2pcr.py:161 `_seed_transforms`
 // (with its k2 x k2 `_power_iteration`, :100) after K4's k1 selection.
@@ -53,7 +54,15 @@
 // tree over the partials in every warp, so every thread holds the same
 // bits.
 //
-// `qcp_pose`, shared by both, follows eyoc_tpu/geometry/svd3.py:
+// K23 and K24 are K14 and K15 with qcp_kabsch=False
+// (eyoc_tpu/registration/sc2pcr.py:205, :222 over geometry/svd3.py:kabsch,
+// :283): the same kernels, instantiated with the pose solve `jacobi_pose`
+// (jacobi_pose.cuh, the Jacobi Kabsch that K16-K18 solve by) in place of
+// `qcp_pose`, each with entry symbols of its own. K15 and K24 also take
+// `refine_unroll` (:224-236): with unroll > 0 a problem runs exactly that
+// many rounds with no count check, a round with no inlier keeping the pose.
+//
+// `qcp_pose`, shared by K14 and K15, follows eyoc_tpu/geometry/svd3.py:
 // kabsch_qcp (:131-160) and qcp_leading_quaternion (:101-128) step for
 // step: max|H| scaling, lam_upper, 12 Newton steps on the quartic with the
 // 1e-12 derivative guard, the adjugate column of largest norm (or the
@@ -80,6 +89,8 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "jacobi_pose.cuh"
 
 #ifndef EYOC_K15_MAX_ROWS
 #define EYOC_K15_MAX_ROWS 8192
@@ -434,7 +445,9 @@ __global__ void __launch_bounds__(kCompactThreads) compact_rows(
 // holds seed s = g kSeedWarps + w (none past S), G = ceil(S / kSeedWarps).
 // A seed whose k1 columns are the seed before's, in the same order, has
 // that seed's consensus and pose, bit for bit: it is no head (head[s] = 0)
-// and runs no chain; seed_fitness gives it its head's outputs.
+// and runs no chain; seed_fitness gives it its head's outputs. kJacobi:
+// the pose by `jacobi_pose` (K23), else by `qcp_pose` (K14).
+template <bool kJacobi>
 __global__ void __launch_bounds__(kSeedThreads) seed_consensus(
     const float4* __restrict__ rows, const int* __restrict__ pos,
     const int* __restrict__ knn, int N, int S, int k1, int k2, float d_thre,
@@ -614,11 +627,14 @@ __global__ void __launch_bounds__(kSeedThreads) seed_consensus(
     if (lane < k2) fine_out[row * k2 + lane] = fine[lane];
   }
   __syncthreads();
-  // the block's QCP solves, lane u of warp 0 for seed s0 + u (a head)
+  // the block's pose solves, lane u of warp 0 for seed s0 + u (a head)
   if (t < kSeedWarps && lead_all[t]) {
     const float* m = mom[t];
-    qcp_pose(m, m[9], m[10], m + 11, m + 14,
-             trans + 16 * ((long long)b * S + s0 + t));
+    float* T = trans + 16 * ((long long)b * S + s0 + t);
+    if constexpr (kJacobi)
+      jacobi_pose(m, m + 11, m + 14, T);
+    else
+      qcp_pose(m, m[9], m[10], m + 11, m + 14, T);
   }
 }
 
@@ -796,12 +812,15 @@ __device__ __forceinline__ void block_sums(float (&v)[n],
 
 // Problem blockIdx.x's rows live in six arrays of ld floats at R (source x,
 // y, z, target x, y, z): dynamic shared memory of L rows where M <= L, else
-// the problem's [6][N] part of `spill`.
+// the problem's [6][N] part of `spill`. unroll > 0: exactly `unroll`
+// rounds, no count check. kJacobi: the pose by `jacobi_pose` (K24), else
+// by `qcp_pose` (K15).
+template <bool kJacobi>
 __global__ void __launch_bounds__(kIrlsThreads) irls(
     const float* __restrict__ trans_all, const int* __restrict__ best,
     const float* __restrict__ src, const float* __restrict__ tgt,
     const bool* __restrict__ valid, int N, int S, int L, float thr,
-    float lim, int it_num, float* __restrict__ spill,
+    float lim, int it_num, int unroll, float* __restrict__ spill,
     float* __restrict__ trans_out, int* __restrict__ iters_out) {
   extern __shared__ float stage[];          // [6][L]
   __shared__ float part1[8][kIrlsWarps], part2[11][kIrlsWarps];
@@ -851,7 +870,8 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
   float w_of[kIrlsRows];
   const int rows = (M + kIrlsThreads - 1) / kIrlsThreads;  // the same in all
   int prev = 0, cur = 0, it = 0;
-  while (it < it_num && (it == 0 || abs(cur - prev) >= 1)) {
+  while (unroll > 0 ? it < unroll
+                    : it < it_num && (it == 0 || abs(cur - prev) >= 1)) {
     for (int k = 0; k < 16; ++k) T[k] = pose[k];
     // pass 1: sum w, sum w a, sum w b and the inlier count (every row's
     // distance first, then the inliers' weights)
@@ -911,7 +931,12 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
       if (sq < lim) add2(m, cauchy(sq));
     }
     block_sums(s2, part2);
-    if (t == 0 && count > 0) qcp_pose(s2, s2[9], s2[10], cen, cen + 3, pose);
+    if (t == 0 && count > 0) {
+      if constexpr (kJacobi)
+        jacobi_pose(s2, cen, cen + 3, pose);
+      else
+        qcp_pose(s2, s2[9], s2[10], cen, cen + 3, pose);
+    }
     __syncthreads();
     prev = cur;
     cur = count;
@@ -948,23 +973,24 @@ cudaError_t fitness_splits(long long groups, int N, int* splits) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// K14: src/tgt [B, N, 3] f32, valid [B, N] bool, knn [B, S, k1] int32,
-// seed_ok [B, S] bool -> trans [B, S, 4, 4], fitness [B, S], best [B]
-// int32 and fine_out [B, S, k2] int32 (the consensus sets, as positions
-// among the k1 columns). `scratch`: 9 B N + B + 3 B S words, 16-byte
-// aligned (the compacted rows [B, N] x 2 float4, the places [B, N], the
-// counts [B], the fitness counters, the head flags and each seed's head
-// [B, S]); `ticket`: B zeroed words, left zeroed; `flags`: nflags words,
-// at least B ceil(N / kChunk), that hold no value of `epoch` (0 < epoch <
-// kMaxEpoch; the wrapper passes a new one each call). Three launches.
-extern "C" int eyoc_sc2_seed_transforms(
-    const float* src, const float* tgt, const bool* valid, const int* knn,
-    const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
-    float d_thre2, float inlier_thr, int iters, int* scratch, int* ticket,
-    int* flags, long long nflags, int epoch, float* trans, float* fitness,
-    int* best, int* fine_out, cudaStream_t stream) {
+// K14 and K23 (kJacobi): src/tgt [B, N, 3] f32, valid [B, N] bool, knn
+// [B, S, k1] int32, seed_ok [B, S] bool -> trans [B, S, 4, 4], fitness [B,
+// S], best [B] int32 and fine_out [B, S, k2] int32 (the consensus sets, as
+// positions among the k1 columns). `scratch`: 9 B N + B + 3 B S words,
+// 16-byte aligned (the compacted rows [B, N] x 2 float4, the places [B,
+// N], the counts [B], the fitness counters, the head flags and each seed's
+// head [B, S]); `ticket`: B zeroed words, left zeroed; `flags`: nflags
+// words, at least B ceil(N / kChunk), that hold no value of `epoch` (0 <
+// epoch < kMaxEpoch; the wrapper passes a new one each call). Three
+// launches.
+template <bool kJacobi>
+int seed_transforms(const float* src, const float* tgt, const bool* valid,
+                    const int* knn, const bool* seed_ok, int B, int N, int S,
+                    int k1, int k2, float d_thre, float d_thre2,
+                    float inlier_thr, int iters, int* scratch, int* ticket,
+                    int* flags, long long nflags, int epoch, float* trans,
+                    float* fitness, int* best, int* fine_out,
+                    cudaStream_t stream) {
   if (k1 < 1 || k1 > kMaxK || k2 < 1 || k2 > k1) return cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return cudaSuccess;
   if (N < S) return cudaErrorInvalidValue;
@@ -986,7 +1012,11 @@ extern "C" int eyoc_sc2_seed_transforms(
       src, tgt, valid, N, S, C, epoch, flags, rows, pos, count, hits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  seed_consensus<<<B * G, kSeedThreads, 0, stream>>>(
+  // a template instance is launched through a plain name
+  void (*consensus)(const float4*, const int*, const int*, int, int, int,
+                    int, float, float, int, float*, int*, int*) =
+      seed_consensus<kJacobi>;
+  consensus<<<B * G, kSeedThreads, 0, stream>>>(
       rows, pos, knn, N, S, k1, k2, d_thre, d_thre2, iters, trans, fine_out,
       head);
   err = cudaGetLastError();
@@ -997,26 +1027,80 @@ extern "C" int eyoc_sc2_seed_transforms(
   return cudaGetLastError();
 }
 
-// K15: trans_all [B, S, 4, 4], best [B] int32, src/tgt [B, N, 3], valid
-// [B, N] -> trans [B, 4, 4], iterations [B] int32. `spill`: [B, 6, N] f32
-// where N > kIrlsMaxRows (the rows of a problem that shared memory cannot
-// hold), else may be null. One launch.
-extern "C" int eyoc_sc2_irls(const float* trans_all, const int* best,
-                             const float* src, const float* tgt,
-                             const bool* valid, int B, int N, int S,
-                             float thr, int it_num, float* spill,
-                             float* trans_out, int* iters_out,
-                             cudaStream_t stream) {
+// K15 and K24 (kJacobi): trans_all [B, S, 4, 4], best [B] int32, src/tgt
+// [B, N, 3], valid [B, N] -> trans [B, 4, 4], iterations [B] int32; unroll
+// > 0 runs exactly that many rounds (it_num and the count check unread).
+// `spill`: [B, 6, N] f32 where N > kIrlsMaxRows (the rows of a problem that
+// shared memory cannot hold), else may be null. One launch.
+template <bool kJacobi>
+int irls_launch(const float* trans_all, const int* best, const float* src,
+                const float* tgt, const bool* valid, int B, int N, int S,
+                float thr, int it_num, int unroll, float* spill,
+                float* trans_out, int* iters_out, cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
+  if (unroll < 0) return cudaErrorInvalidValue;
   const int L = N < kIrlsMaxRows ? N : kIrlsMaxRows;
   if (N > L && spill == nullptr) return cudaErrorInvalidValue;
   const int smem = 6 * L * (int)sizeof(float);
+  void (*refine)(const float*, const int*, const float*, const float*,
+                 const bool*, int, int, int, float, float, int, int, float*,
+                 float*, int*) = irls<kJacobi>;
   const cudaError_t err = cudaFuncSetAttribute(
-      irls, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      refine, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  irls<<<B, kIrlsThreads, smem, stream>>>(trans_all, best, src, tgt, valid,
-                                          N, S, L, thr, root_limit(thr),
-                                          it_num, spill, trans_out,
-                                          iters_out);
+  refine<<<B, kIrlsThreads, smem, stream>>>(trans_all, best, src, tgt, valid,
+                                            N, S, L, thr, root_limit(thr),
+                                            it_num, unroll, spill, trans_out,
+                                            iters_out);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// K14 (the QCP solve) and K23 (the Jacobi solve): `seed_transforms`.
+extern "C" int eyoc_sc2_seed_transforms(
+    const float* src, const float* tgt, const bool* valid, const int* knn,
+    const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
+    float d_thre2, float inlier_thr, int iters, int* scratch, int* ticket,
+    int* flags, long long nflags, int epoch, float* trans, float* fitness,
+    int* best, int* fine_out, cudaStream_t stream) {
+  return seed_transforms<false>(src, tgt, valid, knn, seed_ok, B, N, S, k1,
+                                k2, d_thre, d_thre2, inlier_thr, iters,
+                                scratch, ticket, flags, nflags, epoch, trans,
+                                fitness, best, fine_out, stream);
+}
+
+extern "C" int eyoc_sc2_seed_transforms_jacobi(
+    const float* src, const float* tgt, const bool* valid, const int* knn,
+    const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
+    float d_thre2, float inlier_thr, int iters, int* scratch, int* ticket,
+    int* flags, long long nflags, int epoch, float* trans, float* fitness,
+    int* best, int* fine_out, cudaStream_t stream) {
+  return seed_transforms<true>(src, tgt, valid, knn, seed_ok, B, N, S, k1,
+                               k2, d_thre, d_thre2, inlier_thr, iters,
+                               scratch, ticket, flags, nflags, epoch, trans,
+                               fitness, best, fine_out, stream);
+}
+
+// K15 (the QCP solve) and K24 (the Jacobi solve): `irls_launch`.
+extern "C" int eyoc_sc2_irls(const float* trans_all, const int* best,
+                             const float* src, const float* tgt,
+                             const bool* valid, int B, int N, int S,
+                             float thr, int it_num, int unroll, float* spill,
+                             float* trans_out, int* iters_out,
+                             cudaStream_t stream) {
+  return irls_launch<false>(trans_all, best, src, tgt, valid, B, N, S, thr,
+                            it_num, unroll, spill, trans_out, iters_out,
+                            stream);
+}
+
+extern "C" int eyoc_sc2_irls_jacobi(const float* trans_all, const int* best,
+                                    const float* src, const float* tgt,
+                                    const bool* valid, int B, int N, int S,
+                                    float thr, int it_num, int unroll,
+                                    float* spill, float* trans_out,
+                                    int* iters_out, cudaStream_t stream) {
+  return irls_launch<true>(trans_all, best, src, tgt, valid, B, N, S, thr,
+                           it_num, unroll, spill, trans_out, iters_out,
+                           stream);
 }

@@ -87,9 +87,11 @@ class DataLoader:
             t.join()
 
 
-def make_data_loader(config, phase: str, batch_size: int, shuffle=None):
+def make_data_loader(config, phase: str, batch_size: int, shuffle=None,
+                     device=None):
     """The reference's factory (lib/data_loaders.py:1809-1847): the
-    config's dataset, augmented in train phases only."""
+    config's dataset, augmented in train phases only. `device`: where a
+    reader's ICP ground truth runs (None: the card)."""
     from eyoc_tpu_torch.data.datasets import dataset_str_mapping
 
     if shuffle is None:
@@ -98,6 +100,7 @@ def make_data_loader(config, phase: str, batch_size: int, shuffle=None):
     use_rot = config.use_random_rotation if phase in ("train", "trainval") else False
     use_scale = config.use_random_scale if phase in ("train", "trainval") else False
     dset = Dataset(phase, config, random_rotation=use_rot, random_scale=use_scale)
+    dset.device = device
     return DataLoader(
         dset, batch_size, point_capacity=config.raw_point_capacity,
         shuffle=shuffle, seed=config.get("seed", 0),

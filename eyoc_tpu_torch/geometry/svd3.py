@@ -44,17 +44,19 @@ def _cyclic_pairs(n: int):
     return [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
 
 
-def jacobi_eigh(A: torch.Tensor, sweeps: int = _JACOBI_SWEEPS):
+def jacobi_eigh(A: torch.Tensor, sweeps: int = _JACOBI_SWEEPS,
+                dtype: torch.dtype = torch.float32):
     """Eigendecomposition of symmetric [..., n, n] matrices (n small) by
     cyclic Jacobi: `sweeps` passes over the pairs (0, 1), (0, 2), ...,
-    (n-2, n-1). Returns (eigenvalues [..., n], eigenvectors [..., n, n] in
-    columns), not sorted.
+    (n-2, n-1), in `dtype` (f64 for a reference solve). Returns
+    (eigenvalues [..., n], eigenvectors [..., n, n] in columns), not
+    sorted.
 
     The rotation angle is branchless, as in the JAX package: no rotation
     where |a_pq| < 1e-30, and t = sign(tau) / (|tau| + sqrt(1 + tau^2)),
     so tau = 0 (a_pp = a_qq) rotates by nothing either."""
     n = A.shape[-1]
-    A = A.float().clone()
+    A = A.to(dtype).clone()
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
     for p, q in _cyclic_pairs(n) * sweeps:
         apq, app, aqq = A[..., p, q], A[..., p, p], A[..., q, q]

@@ -18,14 +18,16 @@ with no host sync from the correspondences to the pose:
    then a merge; the [S, N] counts are never stored). `sc2_seed_counts`,
    the same product with the counts stored, is off the main path;
 4. two-stage consensus (local SC^2 of the k1 -> k2 top-k -> k2 x k2
-   power iteration) + per-seed weighted QCP Kabsch + inlier-count fitness
+   power iteration) + per-seed weighted Kabsch + inlier-count fitness
    and its argmax -> kernel K14 `sc2_seed_transforms` (the valid rows
    compacted once, then a warp a seed, then the fitness of groups of seeds
-   on tiles of the rows);
-5. IRLS post-refinement with the inlier-count stop -> kernel K15
-   `sc2_irls` (one block a problem runs the while-loop over its valid rows
-   in shared memory, starting from the best seed's pose read on the
-   card).
+   on tiles of the rows), or with `qcp_kabsch=False` K23
+   `sc2_seed_transforms_jacobi`, the same kernels with the Jacobi solve;
+5. IRLS post-refinement with the inlier-count stop, or `refine_unroll`
+   rounds with none -> kernel K15 `sc2_irls` (one block a problem runs the
+   loop over its valid rows in shared memory, starting from the best
+   seed's pose read on the card), or with `qcp_kabsch=False` K24
+   `sc2_irls_jacobi`.
 
 Every kernel has a plain version here (the CPU path and the card's
 oracle); the per-pair `_pick_seeds`, `_seed_transforms` and `_post_refine`
@@ -49,10 +51,16 @@ on one side only. K3 has no threshold: it sums with FMAs and multiplies
 by 1/d^2, and is held to its plain version within a tolerance
 (chip_smoke.py's K3_RTOL).
 
-Of SC2PCRConfig's TPU tuning switches only the defaults are carried: exact
-top-k (`approx_topk=False`), f32 power iteration (`bf16_power=False`) and
-the IRLS while-loop (`refine_unroll=0`); `chunk_topk` is exact by
-construction and has no counterpart here.
+SC2PCRConfig's TPU tuning switches: `qcp_kabsch` picks the pose solve
+(the QCP quartic of `kabsch_qcp`, or the 8-sweep Jacobi of `kabsch`: K14 /
+K15 or K23 / K24); `bf16_power` runs stage 1 on K3's bf16 form (SC and the
+iterate rounded to bf16, f32 sums); `refine_unroll` > 0 runs that many IRLS
+rounds with no stop. `approx_topk`, `topk_recall` and `chunk_topk` are
+accepted and read by nothing, since the exact top-k is what they select:
+`jax.lax.approx_max_k` lowers to the exact top-k off the TPU (bit-equal to
+`lax.top_k` at recall 0.85, 0.95 and 1.0 on [200, 8000] f32 under jax
+0.9.0 on the CPU), and `_chunked_topk` is exact by construction, so every
+selection here is the one the JAX package makes off the TPU.
 """
 
 from __future__ import annotations
@@ -64,7 +72,7 @@ import functools
 import torch
 
 from eyoc_tpu_torch.geometry.se3 import transform_points
-from eyoc_tpu_torch.geometry.svd3 import kabsch_qcp
+from eyoc_tpu_torch.geometry.svd3 import kabsch, kabsch_qcp
 from eyoc_tpu_torch.ops.knn import masked_argmin
 from eyoc_tpu_torch.utils import kernels
 
@@ -82,7 +90,15 @@ class SC2PCRConfig:
     k2: int = 20
     inlier_threshold: float = 0.6
     seed_cap: int | None = None   # static seed count; default max_points*ratio
-    qcp_kabsch: bool = True       # the Jacobi `kabsch` is not ported yet
+    qcp_kabsch: bool = True       # QCP quartic Kabsch (K14, K15); False:
+    #   the 8-sweep Jacobi `kabsch` (K23, K24)
+    # approx_topk, topk_recall, chunk_topk: for config parity only, read by
+    # nothing (every top-k here is exact; see the module docstring)
+    approx_topk: bool = False
+    topk_recall: float = 0.85
+    bf16_power: bool = False      # stage 1 on bf16 SC and iterate (K3 bf16)
+    chunk_topk: int = 1000
+    refine_unroll: int = 0        # > 0: that many IRLS rounds, no stop
 
     @property
     def num_seeds(self) -> int:
@@ -109,12 +125,22 @@ def topk(x: torch.Tensor, k: int):
     return torch.gather(x, -1, idx), idx
 
 
-def _power_iteration(M: torch.Tensor, iters: int) -> torch.Tensor:
+def _solver(cfg: SC2PCRConfig):
+    """The pose solve of the config: `kabsch_qcp` or the Jacobi `kabsch`."""
+    return kabsch_qcp if cfg.qcp_kabsch else kabsch
+
+
+def _power_iteration(M: torch.Tensor, iters: int,
+                     bf16: bool = False) -> torch.Tensor:
     """Leading eigenvector of [..., n, n] in M's dtype (full f32 on the
-    paths); returns [..., n]."""
+    paths); returns [..., n]. bf16: M and each iterate rounded to bf16
+    before the product, the product and the norm in f32
+    (eyoc_tpu/registration/sc2pcr.py:100-119)."""
+    if bf16:
+        M = M.bfloat16().float()
     v = torch.ones(M.shape[:-1] + (1,), dtype=M.dtype, device=M.device)
     for _ in range(iters):
-        v = M @ v
+        v = M @ (v.bfloat16().float() if bf16 else v)
         v = v / (torch.linalg.norm(v, dim=-2, keepdim=True) + 1e-6)
     return v[..., 0]
 
@@ -122,12 +148,14 @@ def _power_iteration(M: torch.Tensor, iters: int) -> torch.Tensor:
 # ---------------------------------------------------------------- kernel K3
 
 
-def sc2_power_iteration_plain(src, tgt, valid, d_thre: float, iters: int):
-    """The JAX composition: materialize SC [N, N], then `iters` matvecs."""
+def sc2_power_iteration_plain(src, tgt, valid, d_thre: float, iters: int,
+                              bf16: bool = False):
+    """The JAX composition: materialize SC [N, N], then `iters` matvecs
+    (with `bf16`, of SC and the iterate rounded to bf16)."""
     pair_ok = valid[:, None] & valid[None, :]
     cross = _cross(src, tgt)
     sc = torch.clamp(1.0 - cross ** 2 / d_thre ** 2, min=0.0) * pair_ok
-    return _power_iteration(sc, iters)
+    return _power_iteration(sc, iters, bf16)
 
 
 def sc2_power_iteration_tiled_plain(src, tgt, valid, d_thre: float,
@@ -178,19 +206,28 @@ _K3_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p)
 
 
-def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
+def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int,
+                        bf16: bool = False):
     """K3: leading eigenvector [N] of SC[i, j] = clip(1 - (|s_i - s_j| -
     |t_i - t_j|)^2 / d^2, 0) * valid_i * valid_j, normalized as
-    v / (|v| + 1e-6) after each of `iters` matvecs from v0 = ones.
+    v / (|v| + 1e-6) after each of `iters` matvecs from v0 = ones. With
+    `bf16` (SC2PCRConfig.bf16_power), K3's bf16 form: each SC value and
+    each v_j rounded to bf16 before the product, sums in f32.
 
     src/tgt [N, 3] f32, valid [N] bool. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (one cooperative launch for
     all iterations) or raises."""
     if src.is_cpu:
-        return sc2_power_iteration_plain(src, tgt, valid, d_thre, iters)
-    fn = kernels.load("sc2_power_iteration", _K3_ARGS)
+        return sc2_power_iteration_plain(src, tgt, valid, d_thre, iters,
+                                         bf16)
+    return _launch_k3(src, tgt, valid, d_thre, iters, bf16)
+
+
+def _launch_k3(src, tgt, valid, d_thre, iters, bf16):
+    name = "sc2_power_iteration_bf16" if bf16 else "sc2_power_iteration"
+    fn = kernels.load("sc2_power_iteration", _K3_ARGS, symbol=name)
     f32 = torch.float32
-    dev = kernels.require_cuda("sc2_power_iteration", src, tgt, valid,
+    dev = kernels.require_cuda(name, src, tgt, valid,
                                dtypes=(f32, f32, torch.bool))
     n = src.shape[0]
     if src.shape != (n, 3) or tgt.shape != (n, 3) or valid.shape != (n,):
@@ -202,7 +239,7 @@ def sc2_power_iteration(src, tgt, valid, d_thre: float, iters: int):
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), n, 1.0 / float(d_thre) ** 2,
              int(iters), p(part), part_len, p(v), kernels.stream_handle(dev))
-    kernels.check_launch("sc2_power_iteration", err)
+    kernels.check_launch(name, err)
     return v
 
 
@@ -455,7 +492,7 @@ def _seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt, valid):
     one problem, from each seed's k1 columns `knn_idx` [S, k1]
     (`sc2_seed_topk`): (the best seed's pose [4, 4], fitness [S])."""
     _, src_fine, tgt_fine, w = _consensus(cfg, knn_idx, src, tgt, valid)
-    trans = kabsch_qcp(src_fine, tgt_fine, w)                # [S, 4, 4]
+    trans = _solver(cfg)(src_fine, tgt_fine, w)              # [S, 4, 4]
     fit = _fitness(cfg, trans, seed_ok, src, tgt, valid)
     best = torch.argmax(fit)
     return trans[best], fit
@@ -468,14 +505,18 @@ def _irls_threshold(cfg: SC2PCRConfig) -> float:
 
 def _post_refine(cfg: SC2PCRConfig, trans, src, tgt, valid, it_num: int = 20):
     """IRLS refinement with the inlier-count stop (reference :238-278) of
-    one problem, one host sync per iteration."""
+    one problem, one host sync per iteration; with refine_unroll > 0,
+    exactly that many rounds and no stop (JAX :224-236)."""
     thr = _irls_threshold(cfg)
+    solve = _solver(cfg)
+    unroll = cfg.refine_unroll
     prev, cur, it = 0, 0, 0
-    while it < it_num and (it == 0 or abs(cur - prev) >= 1):
+    while (it < unroll if unroll > 0
+           else it < it_num and (it == 0 or abs(cur - prev) >= 1)):
         dist = _norm3(transform_points(src, trans) - tgt)
         inlier = (dist < thr) & valid
         w = (1.0 / (1.0 + (dist / thr) ** 2)) * inlier
-        new_trans = kabsch_qcp(src[None], tgt[None], w[None])[0]
+        new_trans = solve(src[None], tgt[None], w[None])[0]
         new_count = int(inlier.sum())          # one host sync per iteration
         if new_count > 0:
             trans = new_trans
@@ -609,14 +650,15 @@ def _launch_k13(src, valid, scores, radius, num_seeds):
 
 def seed_transforms_batched_plain(cfg: SC2PCRConfig, seed_ok, knn_idx, src,
                                   tgt, valid):
-    """`_seed_transforms` with a problem axis: knn_idx [B, S, k1], seed_ok
+    """`_seed_transforms` with a problem axis (the plain version of K14,
+    and of K23 with qcp_kabsch=False): knn_idx [B, S, k1], seed_ok
     [B, S], src/tgt [B, N, 3], valid [B, N] -> (trans [B, S, 4, 4] each
     seed's pose, fitness [B, S], best [B] int32 the first argmax, fine_sel
     [B, S, k2] int32 the consensus sets as positions among the k1
     columns)."""
     fine_sel, src_fine, tgt_fine, w = _consensus(cfg, knn_idx, src, tgt,
                                                  valid)
-    trans = kabsch_qcp(src_fine, tgt_fine, w)
+    trans = _solver(cfg)(src_fine, tgt_fine, w)
     fit = _fitness(cfg, trans, seed_ok, src, tgt, valid)
     best = torch.argmax(fit, -1).to(torch.int32)
     return trans, fit, best, fine_sel.to(torch.int32)
@@ -657,11 +699,12 @@ def _k14_scratch(B: int, N: int, S: int, device):
 
 def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
                         valid):
-    """K14: `seed_transforms_batched_plain` (its outputs and arguments):
-    each problem's valid rows compacted once; a warp a (problem, seed) for
-    the consensus and pose, made once for a run of seeds with the same k1
-    columns; the fitness of each group of seeds on tiles of the rows, and
-    the argmax by each problem's last block.
+    """K14, or K23 `sc2_seed_transforms_jacobi` with qcp_kabsch=False:
+    `seed_transforms_batched_plain` (its outputs and arguments): each
+    problem's valid rows compacted once; a warp a (problem, seed) for the
+    consensus and pose (QCP, or Jacobi), made once for a run of seeds with
+    the same k1 columns; the fitness of each group of seeds on tiles of the
+    rows, and the argmax by each problem's last block.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (three launches) or raises."""
@@ -672,21 +715,21 @@ def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
 
 
 def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
-    fn = kernels.load("sc2_refine", _K14_ARGS, symbol="sc2_seed_transforms")
+    name = "sc2_seed_transforms" + ("" if cfg.qcp_kabsch else "_jacobi")
+    fn = kernels.load("sc2_refine", _K14_ARGS, symbol=name)
     f32 = torch.float32
     dev = kernels.require_cuda(
-        "sc2_seed_transforms", src, tgt, valid, knn_idx, seed_ok,
+        name, src, tgt, valid, knn_idx, seed_ok,
         dtypes=(f32, f32, torch.bool, torch.int32, torch.bool))
     B, N = valid.shape
     S, k1 = knn_idx.shape[1:]
     if src.shape != (B, N, 3) or tgt.shape != (B, N, 3) \
             or knn_idx.shape != (B, S, k1) or seed_ok.shape != (B, S):
-        raise ValueError("sc2_seed_transforms: expected [B, N, 3] twice, "
+        raise ValueError(f"{name}: expected [B, N, 3] twice, "
                          "[B, N], [B, S, k1], [B, S]")
     k2 = min(cfg.k2, k1)
     if not 1 <= k1 <= _K14_MAX_K:
-        raise ValueError(f"sc2_seed_transforms: k1 = {k1} not in "
-                         f"1..{_K14_MAX_K}")
+        raise ValueError(f"{name}: k1 = {k1} not in 1..{_K14_MAX_K}")
     trans = torch.empty((B, S, 4, 4), dtype=f32, device=src.device)
     fit = torch.empty((B, S), dtype=f32, device=src.device)
     best = torch.empty(B, dtype=torch.int32, device=src.device)
@@ -700,7 +743,7 @@ def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
              p(scratch), p(kernels.ticket(dev, B)), p(words), words.numel(),
              epoch, p(trans), p(fit), p(best), p(fine_sel),
              kernels.stream_handle(dev))
-    kernels.check_launch("sc2_seed_transforms", err)
+    kernels.check_launch(name, err)
     return trans, fit, best, fine_sel
 
 
@@ -709,19 +752,25 @@ def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
 
 def post_refine_batched_plain(cfg: SC2PCRConfig, trans, src, tgt, valid,
                               it_num: int = 20):
-    """`_post_refine` for B problems with no host sync: it_num steps, each
-    problem's state frozen by `where` once its stop holds, so each stops
-    where the JAX while-loop stops. trans [B, 4, 4], src/tgt [B, N, 3],
-    valid [B, N] -> (trans [B, 4, 4], iterations [B] int32)."""
+    """`_post_refine` for B problems with no host sync (the plain version of
+    K15, and of K24 with qcp_kabsch=False): it_num steps, each problem's
+    state frozen by `where` once its stop holds, so each stops where the
+    JAX while-loop stops; with refine_unroll > 0, exactly that many steps,
+    none frozen. trans [B, 4, 4], src/tgt [B, N, 3], valid [B, N] ->
+    (trans [B, 4, 4], iterations [B] int32)."""
     thr = _irls_threshold(cfg)
+    solve = _solver(cfg)
+    unroll = cfg.refine_unroll
     prev = cur = it = torch.zeros(src.shape[0], dtype=torch.int32,
                                   device=src.device)
-    for _ in range(it_num):
+    for _ in range(unroll if unroll > 0 else it_num):
         run = (it < it_num) & ((it == 0) | ((cur - prev).abs() >= 1))
+        if unroll > 0:
+            run = torch.ones_like(run)
         dist = _norm3(transform_points(src, trans) - tgt)
         inlier = (dist < thr) & valid
         w = (1.0 / (1.0 + (dist / thr) ** 2)) * inlier
-        new_trans = kabsch_qcp(src, tgt, w)
+        new_trans = solve(src, tgt, w)
         count = inlier.sum(-1, dtype=torch.int32)
         new_trans = torch.where((count > 0)[:, None, None], new_trans, trans)
         trans = torch.where(run[:, None, None], new_trans, trans)
@@ -732,7 +781,7 @@ def post_refine_batched_plain(cfg: SC2PCRConfig, trans, src, tgt, valid,
 
 
 _K15_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
-    ctypes.c_float, ctypes.c_int) + (ctypes.c_void_p,) * 4
+    ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4
 # K15's most valid rows a problem in shared memory
 # (csrc/sc2_refine.cu:kIrlsMaxRows); a problem with more reads its rows
 # from a compacted copy in global memory
@@ -756,9 +805,11 @@ def sc2_irls_plain(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
 
 def sc2_irls(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
              it_num: int = 20):
-    """K15: IRLS of B problems from each problem's best seed pose
-    trans[b, best[b]] (trans [B, S, 4, 4], best [B] int32) ->
-    (trans [B, 4, 4], iterations [B] int32), as `sc2_irls_plain`.
+    """K15, or K24 `sc2_irls_jacobi` with qcp_kabsch=False: IRLS of B
+    problems from each problem's best seed pose trans[b, best[b]] (trans
+    [B, S, 4, 4], best [B] int32) -> (trans [B, 4, 4], iterations [B]
+    int32), as `sc2_irls_plain`; with refine_unroll > 0, exactly that many
+    rounds.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (one persistent block a problem, its valid rows in shared memory, one
@@ -769,25 +820,26 @@ def sc2_irls(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
 
 
 def _launch_k15(cfg, trans, best, src, tgt, valid, it_num):
-    fn = kernels.load("sc2_refine", _K15_ARGS, symbol="sc2_irls")
+    name = "sc2_irls" + ("" if cfg.qcp_kabsch else "_jacobi")
+    fn = kernels.load("sc2_refine", _K15_ARGS, symbol=name)
     f32 = torch.float32
-    dev = kernels.require_cuda("sc2_irls", trans, best, src, tgt, valid,
+    dev = kernels.require_cuda(name, trans, best, src, tgt, valid,
                                dtypes=(f32, torch.int32, f32, f32,
                                        torch.bool))
     B, N = valid.shape
     S = trans.shape[1]
     if trans.shape != (B, S, 4, 4) or best.shape != (B,) \
             or src.shape != (B, N, 3) or tgt.shape != (B, N, 3):
-        raise ValueError("sc2_irls: expected [B, S, 4, 4], [B], [B, N, 3] "
+        raise ValueError(f"{name}: expected [B, S, 4, 4], [B], [B, N, 3] "
                          "twice, [B, N]")
     out = torch.empty((B, 4, 4), dtype=f32, device=src.device)
     iters = torch.empty(B, dtype=torch.int32, device=src.device)
     p = kernels.ptr
     spill = _k15_spill(B, N, src.device) if N > K15_MAX_ROWS else None
     err = fn(p(trans), p(best), p(src), p(tgt), p(valid), B, N, S,
-             _irls_threshold(cfg), int(it_num), p(spill), p(out), p(iters),
-             kernels.stream_handle(dev))
-    kernels.check_launch("sc2_irls", err)
+             _irls_threshold(cfg), int(it_num), int(cfg.refine_unroll),
+             p(spill), p(out), p(iters), kernels.stream_handle(dev))
+    kernels.check_launch(name, err)
     return out, iters
 
 
@@ -800,20 +852,20 @@ def sc2_pcr_batched(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
     matched coordinates, valid [B, N] bool. Returns (trans [B, 4, 4],
     fitness [B, S]); each problem's as `sc2_pcr` on it alone.
 
-    On the card: K3 and K4 once a problem, K13, K14 and K15 once for all,
-    queued with no host sync."""
+    On the card: K3 (or its bf16 form) and K4 once a problem, K13, K14 and
+    K15 (K23 and K24 with qcp_kabsch=False) once for all, queued with no
+    host sync."""
     B, n = valid.shape
     if n > cfg.max_points:
         raise ValueError(f"{n} correspondences exceed max_points "
                          f"{cfg.max_points}")
-    if not cfg.qcp_kabsch:
-        raise NotImplementedError("only the QCP Kabsch solver is ported")
     src = src.float().contiguous()
     tgt = tgt.float().contiguous()
     valid = valid.contiguous()
     confidence = torch.stack([
         sc2_power_iteration(src[b], tgt[b], valid[b], cfg.d_thre,
-                            cfg.num_iterations) for b in range(B)])
+                            cfg.num_iterations, cfg.bf16_power)
+        for b in range(B)])
     confidence = confidence * valid.float()
     seeds, seed_ok = sc2_nms(src, valid, confidence, cfg.nms_radius,
                              min(cfg.num_seeds, n))

@@ -4,8 +4,9 @@ Each kernel is one CUDA C++ source under `eyoc_tpu_torch/csrc/` with a
 plain C interface. It is compiled with `nvcc` for `sm_90a` into its own
 shared library under `build/kernels/` at first use (or all at once, in
 parallel, by `build_all`) and called through ctypes. The library name
-carries a hash of the source and flags, so an edited source is rebuilt and
-a stale library is never loaded.
+carries a hash of the source, the local headers it includes (the Jacobi
+solve of `jacobi_pose.cuh`) and the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.
 
 Nothing is compiled or loaded at import time: the CPU tests import every
 module on a host without `nvcc`.
@@ -13,16 +14,17 @@ module on a host without `nvcc`.
 `launches` holds one plain integer per counted launch site; a wrapper adds
 one exactly where it launches its kernel, so a run can show which kernels
 its main path went through. A source may hold more than one entry point
-(K6's forward and backward, K4's counts and top k, K8 and K9, K14 and K15
-in `sc2_refine`, K16-K18 in `ransac`, K20 and K22 in `instance_norm`; K19
-and K21 are entry points named apart from their sources), and one kernel
+(K6's forward and backward, K3 and its bf16 form, K4's counts and top k,
+K8 and K9, K14, K15, K23 and K24 in `sc2_refine`, K16-K18 in `ransac`,
+K20 and K22 in `instance_norm`; K19 and K21 are entry points named apart
+from their sources), and one kernel
 may be counted under two names (K1 as the forward conv and as the conv
 backward's dX; K16's single-stage and two-stage entries; K21 as the
 instance norm's backward and as the batch norm's), so the
 counters are `COUNTERS`: the sources in `KERNELS` with an entry point of
 their own name, and the other entry points. A wrapper call that makes
-several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K21)
-counts one.
+several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K21,
+K23) counts one.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -37,6 +39,7 @@ import ctypes
 import hashlib
 import itertools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,7 +63,8 @@ COUNTERS = tuple(k for k in KERNELS if k not in (
     "ransac_hypotheses", "ransac_hypotheses_topk", "ransac_verify",
     "ransac_polish", "icp_solve", "est_quad_linear_robust",
     "masked_instance_norm", "masked_norm_apply", "masked_norm_backward",
-    "masked_norm_backward_bn")
+    "masked_norm_backward_bn", "sc2_power_iteration_bf16",
+    "sc2_seed_transforms_jacobi", "sc2_irls_jacobi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -83,9 +87,25 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """The bytes of a source and, in order, of every local header it
+    includes (`#include "..."`, relative to its own directory), each once."""
+    path = path.resolve()
+    if path in seen:
+        return b""
+    seen.add(path)
+    text = path.read_bytes()
+    return text + b"".join(_source_bytes(path.parent / m.decode(), seen)
+                           for m in _LOCAL_INCLUDE.findall(text))
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(_source_bytes(src, set())
+                          + " ".join(NVCC_FLAGS).encode())
     stem = name.replace("/", "_")
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:12]}.so"
 

@@ -102,9 +102,9 @@ def variant(name: str, subs):
     cu, so = OUT / f"{name}-{tag}.cu", OUT / f"lib{name}-{tag}.so"
     if not so.exists():
         cu.write_text(text)
-        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
-                               str(so), str(cu)], capture_output=True,
-                              text=True)
+        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                               str(kernels.CSRC), "-o", str(so), str(cu)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for a {name} variant:\n"
                              f"{proc.stderr}")

@@ -9,8 +9,8 @@ Builds csrc/probes/polish_split.cu through `kernels.build` and reads, each
 as the difference of two launches (1 and 1 + R units of work in one
 dependent chain, CUDA events, the median of 20 launches) over R:
 
-- solve: one `jacobi_pose` (csrc/ransac.cu, the Jacobi Kabsch of K16, K17
-  and icp) on one thread;
+- solve: one `jacobi_pose` (csrc/jacobi_pose.cuh, the Jacobi Kabsch of
+  K16-K18, K23 and K24) on one thread;
 - solve, warp: one `jacobi_pose_warp` (the probe's: each rotation's
   element updates spread over the lanes of one warp, the same bits);
 - chain, divisions / chain, reciprocals: the division and root chain of

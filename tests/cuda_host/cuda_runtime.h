@@ -1,7 +1,7 @@
 // A host stand-in for the part of the CUDA runtime that the port's kernels
 // run on the CPU in the tests use (csrc/voxelize.cu, brick_pyramid.cu,
-// conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu), so that g++ can
-// build their sources and the tests can run them.
+// conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu, sc2_power_iteration.cu),
+// so that g++ can build their sources and the tests can run them.
 //
 // Blocks run one after another on the calling thread. Each CUDA thread of
 // a block is a fiber (ucontext) with its own stack. __syncthreads and the
@@ -21,7 +21,9 @@
 // read.
 // Blocks run in the order of their index, so a block that waits on a lower
 // block's published state (a decoupled look-back) finds it there; a wait on
-// a later block would hang.
+// a later block would hang. A cooperative launch (cudaLaunchCooperativeKernel
+// with a typed kernel) runs a grid of one block only, whose grid barrier
+// (cooperative_groups.h) is its __syncthreads.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
@@ -32,6 +34,8 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -191,6 +195,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
@@ -217,7 +222,11 @@ inline int atomicCAS(int* p, int expected, int desired) {
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* device) {
@@ -322,3 +331,33 @@ struct HostLaunch {
     swapcontext(&blk.scheduler, &blk.ctx[t]);
   }
 };
+
+// one resident block a multiprocessor, whatever the kernel
+template <class... P>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, void (*)(P...), int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
+
+namespace host_cuda {
+template <class... P, size_t... I>
+inline void launch_args(void (*kernel)(P...), unsigned block, void** args,
+                        std::index_sequence<I...>) {
+  HostLaunch{1u, block}(
+      kernel, *static_cast<std::remove_cv_t<P>*>(args[I])...);
+}
+}  // namespace host_cuda
+
+// A cooperative launch of a typed kernel: its arguments read from `args`
+// by the kernel's parameter types. One block only (the grid barrier is the
+// block's __syncthreads); a larger grid is refused.
+template <class... P>
+inline cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(P...), dim3 grid,
+                                               dim3 block, void** args,
+                                               size_t, cudaStream_t) {
+  if (grid.x != 1) return cudaErrorInvalidConfiguration;
+  host_cuda::launch_args(kernel, block.x, args,
+                         std::index_sequence_for<P...>{});
+  return cudaSuccess;
+}

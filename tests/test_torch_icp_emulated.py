@@ -56,7 +56,8 @@ def host_libs(tmp_path_factory):
                 [f"-DEYOC_ICP_BLOCKS={blocks}"]
             proc = subprocess.run(
                 [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", *grid, "-I",
-                 str(HOST_HEADERS), "-o", str(so), str(cpp)],
+                 str(HOST_HEADERS), "-I", str(kernels.CSRC), "-o", str(so),
+                 str(cpp)],
                 capture_output=True, text=True)
             assert proc.returncode == 0, proc.stderr
             libs[blocks] = ctypes.CDLL(str(so))

@@ -6,6 +6,8 @@ the CPU (the port's kernels replaced by their plain versions):
   eigenvalues within 1e-5 of the largest; poses within 1e-5 where the
   Horn matrix's eigen gap is at least 1% of its largest eigenvalue, the
   others finite proper rotations (all-zero weights: the identity on both);
+  `jacobi_eigh(dtype=float64)` against eigh (the leading eigenvector
+  within 1e-10 where the gap is 1%);
 - `ransac_registration_plain` against eyoc_tpu.registration.ransac on N =
   512 correspondences (50% and 10% inliers, and 200 valid rows), two-stage
   (H = 4096, subset 128, top 256) and single-stage (H = 1024), on JAX's
@@ -100,6 +102,28 @@ def test_jacobi_eigh_matches_jax():
                 continue
             u, v = vj[b, :, k], vt.numpy()[b, :, k]
             assert min(np.abs(u - v).max(), np.abs(u + v).max()) < 1e-5
+
+
+def test_jacobi_eigh_f64_reaches_eigh():
+    """`jacobi_eigh(dtype=float64)` (chip_smoke.py's reference solve for the
+    Jacobi kernels) stays in f64 and, on Horn matrices whose leading gap is
+    at least 1% of the largest eigenvalue, its 8 sweeps reach eigh's
+    leading eigenvector within 1e-10; the default stays f32."""
+    rng = np.random.default_rng(3)
+    H = torch.from_numpy(rng.normal(size=(256, 3, 3)))
+    N4 = svd3.horn_profile_matrix(H / H.abs().amax((-1, -2), keepdim=True))
+    ev, V = svd3.jacobi_eigh(N4, dtype=torch.float64)
+    assert ev.dtype == V.dtype == torch.float64
+    assert svd3.jacobi_eigh(N4)[0].dtype == torch.float32
+    want_ev, want_V = torch.linalg.eigh(N4)
+    gap = (want_ev[:, 3] - want_ev[:, 2]) / want_ev.abs().amax(-1)
+    assert int((gap >= GAP).sum()) > 200
+    u = torch.gather(V, -1, ev.argmax(-1)[:, None, None].expand(-1, 4, 1))
+    u, v = u[..., 0], want_V[..., 3]
+    err = torch.minimum((u - v).abs().amax(-1), (u + v).abs().amax(-1))
+    assert float(err[gap >= GAP].max()) < 1e-10
+    assert float((ev.sort(-1).values - want_ev).abs().max()) < 1e-12 * float(
+        want_ev.abs().max())
 
 
 def kabsch_case(kind, rng, n=40):

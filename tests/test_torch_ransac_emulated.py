@@ -70,7 +70,8 @@ def host_lib(tmp_path_factory):
     cpp.write_text(host_source((kernels.CSRC / "ransac.cu").read_text()))
     lib = out / "libransac.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                           "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+                           "-I", str(HOST_HEADERS), "-I", str(kernels.CSRC),
+                           "-o", str(lib), str(cpp)],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(lib))
@@ -105,7 +106,8 @@ def test_look_back_walks_windows(tmp_path, source):
     cpp.write_text(host_source(text))
     lib = tmp_path / "lib.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                           "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+                           "-I", str(HOST_HEADERS), "-I", str(kernels.CSRC),
+                           "-o", str(lib), str(cpp)],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     fn = ctypes.CDLL(str(lib)).eyoc_look_back
@@ -124,7 +126,7 @@ def test_look_back_walks_windows(tmp_path, source):
 
 
 # A kernel that solves each of n Kabsch inputs (H [9], cA [3], cB [3]) by
-# jacobi_pose (csrc/ransac.cu) on lane 0 and by the K18 probe's warp form
+# jacobi_pose (csrc/jacobi_pose.cuh) on lane 0 and by the K18 probe's warp form
 # jacobi_pose_warp (csrc/probes/polish_split.cu) on the 32 lanes of the
 # block (each lane's T kept).
 JACOBI_FORMS = """
@@ -165,7 +167,8 @@ def test_jacobi_warp_form_is_the_thread_form(tmp_path):
                                + JACOBI_FORMS))
     lib = tmp_path / "lib.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                           "-I", str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+                           "-I", str(HOST_HEADERS), "-I", str(kernels.CSRC),
+                           "-o", str(lib), str(cpp)],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     fn = ctypes.CDLL(str(lib)).eyoc_jacobi_forms

@@ -58,7 +58,8 @@ def host_libs(tmp_path_factory):
         lib = out / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", *flags, "-I",
-             str(HOST_HEADERS), "-o", str(lib), str(cpp)],
+             str(HOST_HEADERS), "-I", str(kernels.CSRC), "-o", str(lib),
+             str(cpp)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

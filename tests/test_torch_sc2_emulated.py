@@ -66,8 +66,9 @@ def host_libs(tmp_path_factory):
         cpp.write_text(host_source(src))
         lib = out / f"lib{name}.so"
         proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                               "-I", str(HOST_HEADERS), "-o", str(lib),
-                               str(cpp)], capture_output=True, text=True)
+                               "-I", str(HOST_HEADERS), "-I",
+                               str(kernels.CSRC), "-o", str(lib), str(cpp)],
+                              capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
         libs[name] = ctypes.CDLL(str(lib))
     return libs

@@ -65,7 +65,8 @@ def host_libs(tmp_path_factory):
             define = [] if cap is None else [f"-DEYOC_K15_MAX_ROWS={cap}"]
             proc = subprocess.run(
                 [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", *define,
-                 "-I", str(HOST_HEADERS), "-o", str(so), str(cpp)],
+                 "-I", str(HOST_HEADERS), "-I", str(kernels.CSRC), "-o",
+                 str(so), str(cpp)],
                 capture_output=True, text=True)
             assert proc.returncode == 0, proc.stderr
             libs[cap] = ctypes.CDLL(str(so))

@@ -407,7 +407,7 @@ def test_config_errors_raise_before_the_model(over, error, match, tmp_path,
 
 def test_unported_dataset_raises(tmp_path):
     cfg = base_config(tconfig, str(tmp_path),
-                      dataset="KittiNFramePairDataset")
+                      dataset="ThreeDMatchPairDataset")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         make_data_loader(cfg, "train", 2)
 
