@@ -32,7 +32,7 @@ Phases (any failure exits non-zero):
    ReLU or residual tail: equal values, one device kernel a call) and K21
    `masked_norm_backward` (the BN backward through that tail, S = 1: dx
    within K21_ULPS bf16 ulps, dresidual bit-equal, dscale / dbias within
-   K21_REL; two device kernels a call, the same bits twice), on the calls
+   K21_REL; one cooperative launch a call, the same bits twice), on the calls
    recorded during one full-width train step); K1's, K5's and K7's times
    (kernel and device) are also split by shape class, and K2's train row
    by class (the GT pairs, one batched call a step, and the mining). K1
@@ -230,6 +230,14 @@ Phases (any failure exits non-zero):
    kernels launched, rr / rte / rre / pairs_per_sec and the Data / Feat /
    Reg times printed, each pose the bits of `eval.test_pair` on the same
    batch and draws, RR the mean of `registration_success` on them.
+
+11. feature widths other than 3 and 32: K2, K8 and K9 at D = 16, 33, 64
+   and 200 (padded with zero columns to their instances, 32, 64 and 256)
+   against their plain versions at the real width, at their tolerances,
+   one launch a call; D = 16 padded by the wrapper and by hand the same
+   bits; K1 at 20 output channels (padded to 24) in the eval form and
+   through autograd against its plain version; a `width rows:` line with
+   their times.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -3023,8 +3031,9 @@ def check_norm_kernels(calls, what, bn_only=True):
     its launch counter: the batch norm's, and the instance norm's unless
     `bn_only`) on the recorded calls of `what`: against their plain
     versions, the same bits twice, their device kernels a call (K22 one,
-    K21 two: the sums with each segment's coefficients, then dx), their
-    host cost. Returns the kernels line's rows."""
+    K21 one: a cooperative launch, the sums, each segment's coefficients
+    and dx between grid barriers), their host cost. Returns the kernels
+    line's rows."""
     from eyoc_tpu_torch.sparse import norm
     out = {}
     k22 = calls["masked_norm_apply"]
@@ -3055,7 +3064,7 @@ def check_norm_kernels(calls, what, bn_only=True):
         same_bits_twice(label, norm.masked_norm_backward, cl)
         a, k = cl[0]
         kernels_per_call(label, lambda: norm.masked_norm_backward(*a, **k),
-                         expected=2)
+                         expected=1)
         launch_path(label, norm.masked_norm_backward, cl, what, 10)
     for r in out.values():
         r["library_ms"] = None
@@ -4443,6 +4452,114 @@ def optimizer_and_loss_steps(batch, tcfg):
     return out, launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+WIDTHS = (16, 33, 64, 200)  # feature widths other than the models' 3, 32
+WIDTH_N = 4096            # K2's and K9's rows, K8's per problem
+
+
+def _unit(gen, *shape):
+    import torch
+    x = torch.randn(*shape, generator=gen)
+    return torch.nn.functional.normalize(x, dim=-1).cuda()
+
+
+def width_phase():
+    """Feature widths other than 3 and 32 (a checkpoint at another
+    --model_n_out, FPFH's 33): K2, K8 and K9 at D = 16, 33, 64 and 200 (the
+    wrappers pad with zero columns to the kernels' instances 32, 64 and
+    256)
+    against their plain versions at the real width, at K2's, K8's and K9's
+    tolerances (indices equal past K2_GAP), one launch a call; D = 32 the
+    bits of a call on the features padded from 16 to 32 by hand; K1 at an
+    output width of 20 (the padded route), in the eval form and through
+    autograd (dx and dW of the real columns), against its plain version.
+    Returns {(kernel, D): row}, logged, for PERF.md."""
+    import torch
+    from eyoc_tpu_torch.ops import knn
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    from eyoc_tpu_torch.utils import kernels
+    gen = torch.Generator().manual_seed(33)
+    rows = {}
+    for D in WIDTHS:
+        n = WIDTH_N
+        q, r = _unit(gen, n, D), _unit(gen, n, D)
+        qm = (torch.rand(n, generator=gen) < 0.9).cuda()
+        rm = (torch.rand(n, generator=gen) < 0.9).cuda()
+        for name, fn, plain, cost, close, args in (
+                ("masked_argmin", knn.masked_argmin, knn.masked_argmin_plain,
+                 _argmin_cost, _argmin_close, (q, qm, r, rm)),
+                ("masked_knn2", knn.masked_knn_batched,
+                 knn.masked_knn_batched_plain, _knn2_cost, _knn2_close,
+                 (q[None], qm[None], r[None], rm[None], 2)),
+                ("masked_argmin_excl", knn.masked_argmin_excl,
+                 knn.masked_argmin_excl_plain, _excl_cost, _excl_close,
+                 (q[:n // 2], r[:n // 2],
+                  (torch.rand(n // 2, 3, generator=gen) * 20).cuda(),
+                  (torch.rand(n // 2, 3, generator=gen) * 20).cuda(),
+                  1.5 ** 2))):
+            label = f"{name} at D = {D} (padded to " \
+                + (f"{knn.k2_width(D)})" if name == "masked_argmin"
+                   else f"{knn.knn_width(D)})")
+            rows[(name, D)] = check_calls(label, [(args, {})], fn, plain,
+                                          cost, close, reps=10)
+            before = kernels.launches[name]
+            fn(*args)
+            if kernels.launches[name] - before != 1:
+                raise AssertionError(f"{label}: not one launch a call")
+    # D = 32: the features padded from 16 by hand give the padded call's
+    # bits (the wrapper's copy is that padding)
+    q, r = _unit(gen, WIDTH_N, 16), _unit(gen, WIDTH_N, 16)
+    qm = torch.ones(WIDTH_N, dtype=torch.bool, device="cuda")
+    for name, fn in (("masked_argmin", knn.masked_argmin),
+                     ("masked_knn2", lambda *a: knn.masked_knn(*a, k=2))):
+        a = fn(q, qm, r, qm)
+        b = fn(knn.pad_features(q, 32), qm, knn.pad_features(r, 32), qm)
+        if not all(bool(torch.equal(x, y)) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: D = 16 padded by the wrapper and "
+                                 "by hand differ")
+    # K1 at 20 output channels: the eval form and autograd
+    m_in, m_out, taps, ci, co = 20000, 16000, 27, 32, 20
+    x = torch.randn(m_in, ci, generator=gen).cuda().to(torch.bfloat16)
+    W = (torch.randn(taps, ci, co, generator=gen) * 0.1).cuda()
+    nmap = torch.stack([torch.randperm(m_in, generator=gen)[:m_out]
+                        for _ in range(taps)], 1).to(torch.int32)
+    nmap[torch.rand(m_out, taps, generator=gen) < 0.3] = m_in
+    nmap = nmap.cuda()
+    bias = torch.randn(co, generator=gen).cuda()
+    mask = (torch.rand(m_out, generator=gen) < 0.8).cuda()
+    Wb = W.to(torch.bfloat16)
+    label = "K1 sparse_conv at 20 output channels (padded to 24)"
+    rows[("sparse_conv", co)] = check_calls(
+        label, [((x, Wb, nmap), dict(bias=bias, mask=mask, relu=True))],
+        bc.sparse_conv, bc.sparse_conv_plain, _conv_cost,
+        _bf16_close(K1_RTOL, K1_ATOL_FRAC), reps=10)
+    inv = bc.invert_map(nmap, m_in)
+    wts = torch.randn(m_out, co, generator=gen).cuda()
+    outs = []
+    for f, xx in ((bc.sparse_conv_diff, x), (None, x.float())):
+        xg = xx.clone().requires_grad_()
+        Wg = W.clone().requires_grad_()
+        if f is None:
+            out = bc.sparse_conv_plain(xg, Wg, nmap)
+        else:
+            out = f(xg, None, Wg, nmap, inv)
+        (out.float() * wts).sum().backward()
+        outs.append((out.detach().float(), xg.grad.float(), Wg.grad))
+    for (got, want), what in zip(zip(outs[0], outs[1]), ("y", "dx", "dW")):
+        ok, err = _bf16_close(K1_RTOL, K1_ATOL_FRAC)(got, want)
+        if not ok:
+            raise AssertionError(f"{label}, autograd: {what} disagrees with "
+                                 f"the plain version: max err {err}")
+        log(f"  {label}, autograd: {what} max abs err {err:.3e}")
+    log("width rows: " + json.dumps({
+        f"{k[0]}@{k[1]}": {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                             "bound_ms", "max_abs_err")}
+        for k, v in rows.items()}))
+    return rows
+
+
 # ----------------------------------------------------------------- phase 10
 
 
@@ -4913,6 +5030,10 @@ def main() -> int:
 
     # ---- phase 10: the real-data runbook on a synthetic KITTI-format tree
     runbook_phase(smi)
+
+    # ---- phase 11: feature widths other than 3 and 32
+    width_phase()
+    torch.cuda.empty_cache()
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix

@@ -207,8 +207,10 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
                 "--window_bits if this data is rotated/augmented",
                 100.0 * lost / tot, wbits)
 
-        batch = batch.to(dev)
+        # the Feat time spans the host-to-device copy, as the JAX CLI's
+        # (its embed takes the host batch)
         feat_timer.tic()
+        batch = batch.to(dev)
         embedded = embed_pair(model, batch, cfg, dev)
         sync()
         feat_timer.toc()

@@ -21,6 +21,12 @@
 //   of references in shared memory as float4: (x, y, z, index) at D = 3,
 //   eight float4 and the index beside them at D = 32. One 16-byte broadcast
 //   load feeds every query a thread holds.
+// - Other widths: the caller pads the features with zero columns to the
+//   next of 3, 32, 64, 128 and 256 (ops/knn.py:k2_width), which adds an
+//   exact +0 to every distance. The wider instances are the D = 32 code
+//   with D / 4 float4 a staged ref, R = 2 at D = 64 and 1 above (the
+//   queries a thread holds stay at 128 floats up to D = 128), and tiles
+//   of 32 refs.
 // - Only valid pairs are computed. A masked ref costs +1e30, so it can
 //   only win when no ref is valid, and then the answer is the first ref at
 //   1e30 (plain version and JAX alike): the kernel writes (1e30, 0) for a
@@ -63,6 +69,18 @@ struct Shape<3> {
 template <>
 struct Shape<32> {
   static constexpr int R = 4, TR = 64;
+};
+template <>
+struct Shape<64> {
+  static constexpr int R = 2, TR = 32;
+};
+template <>
+struct Shape<128> {
+  static constexpr int R = 1, TR = 32;
+};
+template <>
+struct Shape<256> {
+  static constexpr int R = 1, TR = 32;
 };
 
 // Slots of the valid entries among the N entries mask[at(e)], e < cnt, in
@@ -125,9 +143,11 @@ struct RefTile<3, TR> {
   }
 };
 
-template <int TR>
-struct RefTile<32, TR> {
-  float4 c[TR][8];
+// D a multiple of 32: G = D / 4 float4 a ref
+template <int D, int TR>
+struct RefTile {
+  static constexpr int G = D / 4;
+  float4 c[TR][G];
   int index[TR];
   int warp_n[TR / 32];
   int pos[TR];
@@ -136,10 +156,10 @@ struct RefTile<32, TR> {
     const int n = compact<TR>(
         rmask, [j0](int e) { return j0 + e; }, cnt, warp_n, pos);
     __syncthreads();   // every pos[] before the copies
-    const float4* r4 = reinterpret_cast<const float4*>(r) + (size_t)j0 * 8;
-    for (int e = threadIdx.x; e < cnt * 8; e += kThreads) {
-      const int at = pos[e >> 3];
-      if (at >= 0) c[at][e & 7] = r4[e];
+    const float4* r4 = reinterpret_cast<const float4*>(r) + (size_t)j0 * G;
+    for (int e = threadIdx.x; e < cnt * G; e += kThreads) {
+      const int at = pos[e / G];
+      if (at >= 0) c[at][e % G] = r4[e];
     }
     for (int e = threadIdx.x; e < cnt; e += kThreads)
       if (pos[e] >= 0) index[pos[e]] = j0 + e;
@@ -172,9 +192,9 @@ __device__ __forceinline__ void sweep(const RefTile<3, 256>& t, int n,
   }
 }
 
-template <int RK, int R>
-__device__ __forceinline__ void sweep(const RefTile<32, 64>& t, int n,
-                                      const float (&qv)[R][32],
+template <int RK, int R, int D, int TR>
+__device__ __forceinline__ void sweep(const RefTile<D, TR>& t, int n,
+                                      const float (&qv)[R][D],
                                       float (&best)[R], int (&bi)[R]) {
 #pragma unroll 1
   for (int jj = 0; jj < n; ++jj) {
@@ -182,7 +202,7 @@ __device__ __forceinline__ void sweep(const RefTile<32, 64>& t, int n,
 #pragma unroll
     for (int k = 0; k < RK; ++k) acc[k] = 0.f;
 #pragma unroll
-    for (int g = 0; g < 8; ++g) {
+    for (int g = 0; g < D / 4; ++g) {
       const float4 c = t.c[jj][g];
 #pragma unroll
       for (int k = 0; k < RK; ++k) {
@@ -213,20 +233,27 @@ template <int D, int R, typename Tile>
 __device__ __forceinline__ void sweep_rk(int rk, const Tile& t, int n,
                                          const float (&qv)[R][D],
                                          float (&best)[R], int (&bi)[R]) {
-  switch (rk) {
-    case 1: sweep<1>(t, n, qv, best, bi); break;
-    case 2: sweep<2>(t, n, qv, best, bi); break;
-    case 3: sweep<3>(t, n, qv, best, bi); break;
-    case 4: sweep<4>(t, n, qv, best, bi); break;
-    default:
-      if constexpr (R > 4) {
-        switch (rk) {
-          case 5: sweep<5>(t, n, qv, best, bi); break;
-          case 6: sweep<6>(t, n, qv, best, bi); break;
-          case 7: sweep<7>(t, n, qv, best, bi); break;
-          default: sweep<R>(t, n, qv, best, bi); break;
+  if constexpr (R < 4) {              // the wider instances: R = 1, 2
+    if (rk == 1)
+      sweep<1>(t, n, qv, best, bi);
+    else
+      sweep<R>(t, n, qv, best, bi);
+  } else {
+    switch (rk) {
+      case 1: sweep<1>(t, n, qv, best, bi); break;
+      case 2: sweep<2>(t, n, qv, best, bi); break;
+      case 3: sweep<3>(t, n, qv, best, bi); break;
+      case 4: sweep<4>(t, n, qv, best, bi); break;
+      default:
+        if constexpr (R > 4) {
+          switch (rk) {
+            case 5: sweep<5>(t, n, qv, best, bi); break;
+            case 6: sweep<6>(t, n, qv, best, bi); break;
+            case 7: sweep<7>(t, n, qv, best, bi); break;
+            default: sweep<R>(t, n, qv, best, bi); break;
+          }
         }
-      }
+    }
   }
 }
 
@@ -406,12 +433,18 @@ int resident_blocks() {
 // blocks of the dim's kernel that the current device holds at once
 // (occupancy x SMs), for the caller's choice of splits; 0 on an error
 extern "C" int eyoc_masked_argmin_resident(int dim) {
-  return dim == 3 ? resident_blocks<3>()
-                  : dim == 32 ? resident_blocks<32>() : 0;
+  switch (dim) {
+    case 3: return resident_blocks<3>();
+    case 32: return resident_blocks<32>();
+    case 64: return resident_blocks<64>();
+    case 128: return resident_blocks<128>();
+    case 256: return resident_blocks<256>();
+    default: return 0;
+  }
 }
 
-// q [batch, nq, dim], r [batch, nr, dim] f32 (16-byte aligned at dim = 32),
-// masks bool; dim 3 or 32. part: 2 * batch * splits * nq words of scratch
+// q [batch, nq, dim], r [batch, nr, dim] f32 (16-byte aligned at dim >=
+// 32), masks bool; dim 3, 32, 64, 128 or 256. part: 2 * batch * splits * nq words of scratch
 // (the split minima, then their indices; unused when splits == 1);
 // ticket: batch * ceil(nq / (128 R)) ints, zero between calls (the kernel
 // leaves them at zero); splits >= 1 is chosen by the caller (ops/knn.py:
@@ -430,10 +463,22 @@ extern "C" int eyoc_masked_argmin(const void* q, const void* qmask,
       return launch<3>(q, qmask, r, rmask, batch, nq, nr, splits, part,
                        ticket, out_d, out_i, s);
     case 32:
+    case 64:
+    case 128:
+    case 256:
       if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
         return (int)cudaErrorMisalignedAddress;
-      return launch<32>(q, qmask, r, rmask, batch, nq, nr, splits, part,
-                        ticket, out_d, out_i, s);
+      if (dim == 32)
+        return launch<32>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                          ticket, out_d, out_i, s);
+      if (dim == 64)
+        return launch<64>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                          ticket, out_d, out_i, s);
+      if (dim == 128)
+        return launch<128>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                           ticket, out_d, out_i, s);
+      return launch<256>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                         ticket, out_d, out_i, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

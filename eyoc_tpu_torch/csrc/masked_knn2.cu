@@ -1,4 +1,7 @@
-// Two variants of K2 (masked_argmin.cu) at feature width 32, in one source:
+// Two variants of K2 (masked_argmin.cu) at feature widths 32, 64, 128 and
+// 256, in one source (any width up to 256: the caller pads the features
+// with zero columns to the next of these, ops/knn.py:knn_width, which
+// adds an exact +0 to every product and norm):
 //
 // K8 masked_knn2: the two nearest valid refs of every valid query, squared
 // L2, for a batch of independent problems in one launch. Replaces
@@ -63,6 +66,15 @@
 //   counter from kernels.ticket, which it resets) under the same order:
 //   the same bits on every call.
 // - The [Nq, Nr] matrix never exists.
+// - Wider features (KC = D / 32 column chunks of 32, D = 64, 128, 256): the
+//   A fragments of all KC chunks would take 64 KC registers a lane, past
+//   the 128 that 512 threads an SM leave. So the block's queries stay in
+//   shared memory as rows (a tile of 512 / KC queries: its warps 0 ..
+//   16 / KC - 1 sweep, the others stage and convert), and each n8 tile's
+//   product loops over the chunks, the chunk's A fragments loaded from
+//   shared memory and split again (more m16n8k8 k steps a window); a
+//   window holds 256 / KC refs, so its B fragments stay 64 KB. The D = 32
+//   instance (KC = 1) is the code above, unchanged.
 //
 // K9 (`excl_tc`) is K8's design with a running (min, argmin) per anchor:
 // a block takes 512 consecutive anchors (all valid), read from device
@@ -87,7 +99,7 @@
 
 namespace {
 
-constexpr int kD = 32;                 // feature width
+constexpr int kD = 32;                 // feature width of a chunk
 constexpr float kBig = 1e30f;
 
 // Slots of the valid entries among the N entries at(e), e < cnt, in order
@@ -155,22 +167,38 @@ constexpr int kRow = 36;               // a staged row's stride in floats:
                                        // fragment reads free of conflicts
 constexpr int kSkip = kT8 / 32;        // empty windows tested at once
 
+// The tiles of the instance of KC column chunks (feature width 32 KC):
+// queries a tile, refs a window, a staged row's stride in floats.
+template <int KC>
+struct Tiles {
+  static constexpr int kDim = kD * KC;
+  static constexpr int kQ = kQ8 / KC;
+  static constexpr int kW = kW8 / KC;
+  static constexpr int kRowW = kDim + 4;
+};
+
+template <int KC>
 struct K8Smem {
-  float raw[kQ8 * kRow];               // staged rows: the queries, then
-                                       // each window's refs
-  float4 frag[kW8 / 8][4][32];         // [n8 tile][k step][lane]: hi b0,
+  using T = Tiles<KC>;
+  float raw[(KC == 1 ? T::kQ : T::kW) * T::kRowW];
+                                       // staged rows: (KC = 1) the queries,
+                                       // then each window's refs
+  float4 frag[T::kW / 8][4 * KC][32];  // [n8 tile][k step][lane]: hi b0,
                                        // hi b1, lo b0, lo b1
-  float rn[kW8];                       // |r|^2 of a slot, inf past the refs
-  int ridx[kW8];                       // the ref index of a slot
-  int cidx[kW8];                       // the staged window's ref indices
-  int rpos[kW8];
-  int rwarp[kW8 / 32];
-  int qpos[kQ8];
-  int qidx[kQ8];
-  int qwarp[kQ8 / 32];
+  float rn[T::kW];                     // |r|^2 of a slot, inf past the refs
+  int ridx[T::kW];                     // the ref index of a slot
+  int cidx[T::kW];                     // the staged window's ref indices
+  int rpos[T::kW];
+  int rwarp[T::kW / 32];
+  int qpos[T::kQ];
+  int qidx[T::kQ];
+  int qwarp[T::kQ / 32];
   int ccount;                          // the staged window's valid refs
   int flag[kSkip];
   bool last;
+  alignas(16) float qraw[KC == 1 ? 1 : T::kQ * T::kRowW];
+                                       // KC > 1: the queries' rows (16-byte
+                                       // cp.async targets)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -260,24 +288,27 @@ __device__ __forceinline__ void merge_in2(float d, int i, float (&bd)[2],
   }
 }
 
-// The refs of the block's split: windows w = 0, 1, ... of kW8 refs from
-// (split + splits w) kW8.
+// The refs of the block's split: windows w = 0, 1, ... of kW refs from
+// (split + splits w) kW.
+template <int KC>
 struct Windows {
+  static constexpr int kW = Tiles<KC>::kW, kDim = Tiles<KC>::kDim,
+                       kRowW = Tiles<KC>::kRowW;
   const float* r;
   const uint8_t* rmask;
   int nr, split, splits, count;
 
-  __device__ int start(int w) const { return (split + splits * w) * kW8; }
+  __device__ int start(int w) const { return (split + splits * w) * kW; }
 
   // this thread's entry of window w is a valid ref
   __device__ bool valid(int w) const {
     const int j = start(w) + (int)threadIdx.x;
-    return threadIdx.x < kW8 && j < nr && (rmask == nullptr || rmask[j] != 0);
+    return threadIdx.x < kW && j < nr && (rmask == nullptr || rmask[j] != 0);
   }
 
   // the first window at or after w with a valid ref (count if none): each
-  // warp tests one window of the next kSkip, kW8 / 32 refs a lane
-  __device__ int next_valid(int w, K8Smem& sm) const {
+  // warp tests one window of the next kSkip, kW / 32 refs a lane
+  __device__ int next_valid(int w, K8Smem<KC>& sm) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (; w < count; w += kSkip) {
       const int ww = w + warp;
@@ -285,8 +316,8 @@ struct Windows {
       if (ww < count) {
         const int j0 = start(ww);
 #pragma unroll
-        for (int i = 0; i < kW8 / 32; ++i) {
-          const int j = j0 + kW8 / 32 * lane + i;
+        for (int i = 0; i < kW / 32; ++i) {
+          const int j = j0 + kW / 32 * lane + i;
           any |= j < nr && (rmask == nullptr || rmask[j] != 0);
         }
       }
@@ -303,15 +334,16 @@ struct Windows {
   }
 
   // window w's valid refs (`ok`: this thread's entry is one, read ahead
-  // by the caller) compacted into sm.raw by cp.async (rows of kRow
+  // by the caller) compacted into sm.raw by cp.async (rows of kRowW
   // floats), their indices into sm.cidx and their count into sm.ccount;
   // returns the window staged (a later one where w has no valid ref)
-  __device__ int stage(int w, bool ok, K8Smem& sm) const {
+  __device__ int stage(int w, bool ok, K8Smem<KC>& sm) const {
+    constexpr int kF4 = kDim / 4;          // 16-byte copies a row
     int n = 0, j0 = 0, cnt = 0;
     for (;;) {
       j0 = start(w);
-      cnt = min(kW8, nr - j0);
-      n = compact_flags<kW8>(ok, sm.rwarp, sm.rpos);
+      cnt = min(kW, nr - j0);
+      n = compact_flags<kW>(ok, sm.rwarp, sm.rpos);
       __syncthreads();                     // every rpos before it is read
       if (n > 0) break;
       w = next_valid(w + 1, sm);
@@ -321,11 +353,11 @@ struct Windows {
     if (w < count) {
       for (int e = threadIdx.x; e < cnt; e += kT8)
         if (sm.rpos[e] >= 0) sm.cidx[sm.rpos[e]] = j0 + e;
-      for (int e = threadIdx.x; e < cnt * 8; e += kT8) {
-        const int at = sm.rpos[e >> 3];
+      for (int e = threadIdx.x; e < cnt * kF4; e += kT8) {
+        const int at = sm.rpos[e / kF4];
         if (at >= 0)
-          cp_async16(sm.raw + at * kRow + 4 * (e & 7),
-                     r + (size_t)(j0 + (e >> 3)) * kD + 4 * (e & 7));
+          cp_async16(sm.raw + at * kRowW + 4 * (e % kF4),
+                     r + (size_t)(j0 + e / kF4) * kDim + 4 * (e % kF4));
       }
       cp_async_commit();
     }
@@ -338,20 +370,25 @@ struct Windows {
 // indices; slots past the refs, up to a multiple of 8, are zero rows at an
 // infinite norm (they never enter a list). Returns the n8 tiles. kPaired:
 // k step kk of quad lane t takes features 8 t + 2 kk and 8 t + 2 kk + 1
-// (K9's order, whose A rows load as float4), else 8 kk + t and 8 kk + t + 4.
-template <bool kPaired = false>
-__device__ __forceinline__ int convert(K8Smem& sm) {
+// (K9's order, whose A rows load as float4), else 8 kk + t and 8 kk + t + 4;
+// k step kk of a wider instance is step kk % 4 of chunk kk / 4 (features
+// 32 (kk / 4) on).
+template <int KC, bool kPaired = false>
+__device__ __forceinline__ int convert(K8Smem<KC>& sm) {
+  constexpr int kRowW = Tiles<KC>::kRowW, kSteps = 4 * KC;
   const int n = sm.ccount, tiles = (n + 7) >> 3;
   // a thread a fragment: lane L of n8 tile nt, k step kk holds b0 = row 8
   // nt + L / 4 at its first feature, and b1 at its second
-  for (int i = threadIdx.x; i < tiles * 128; i += kT8) {
-    const int L = i & 31, kk = (i >> 5) & 3, nt = i >> 7;
+  for (int i = threadIdx.x; i < tiles * 32 * kSteps; i += kT8) {
+    const int L = i & 31, kk = (i >> 5) % kSteps, nt = (i >> 5) / kSteps;
     const int s = 8 * nt + (L >> 2);
-    const int k = kPaired ? 8 * (L & 3) + 2 * kk : 8 * kk + (L & 3);
+    const int k4 = kk & 3;
+    const int k = 32 * (kk >> 2) +
+                  (kPaired ? 8 * (L & 3) + 2 * k4 : 8 * k4 + (L & 3));
     float v0 = 0.f, v1 = 0.f;
     if (s < n) {
-      v0 = sm.raw[s * kRow + k];
-      v1 = sm.raw[s * kRow + k + (kPaired ? 1 : 4)];
+      v0 = sm.raw[s * kRowW + k];
+      v1 = sm.raw[s * kRowW + k + (kPaired ? 1 : 4)];
     }
     uint32_t h0, l0, h1, l1;
     split(v0, h0, l0);
@@ -359,15 +396,21 @@ __device__ __forceinline__ int convert(K8Smem& sm) {
     sm.frag[nt][kk][L] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
                                      __uint_as_float(l0), __uint_as_float(l1));
   }
-  // the norms: 8 consecutive threads a row, a float4 each
+  // the norms: 8 consecutive threads a row, a float4 of each chunk each
   for (int e = threadIdx.x; e < tiles * 64; e += kT8) {
     const int s = e >> 3, c = e & 7;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < n) v = *reinterpret_cast<const float4*>(sm.raw + s * kRow + 4 * c);
-    float sq = fmaf(v.x, v.x, 0.f);
-    sq = fmaf(v.y, v.y, sq);
-    sq = fmaf(v.z, v.z, sq);
-    sq = fmaf(v.w, v.w, sq);
+    float sq = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < KC; ++cc) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s < n)
+        v = *reinterpret_cast<const float4*>(sm.raw + s * kRowW + 32 * cc +
+                                             4 * c);
+      sq = fmaf(v.x, v.x, sq);
+      sq = fmaf(v.y, v.y, sq);
+      sq = fmaf(v.z, v.z, sq);
+      sq = fmaf(v.w, v.w, sq);
+    }
 #pragma unroll
     for (int off = 1; off < 8; off <<= 1)
       sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
@@ -385,7 +428,7 @@ __device__ __forceinline__ int convert(K8Smem& sm) {
 // accumulators, added after): an MMA's result comes ~24 cycles after it
 // issues (profile_k4_mma.py), so shorter chains wait less.
 template <int MT>
-__device__ __forceinline__ void tile_dot(const K8Smem& sm, int nt,
+__device__ __forceinline__ void tile_dot(const K8Smem<1>& sm, int nt,
                                          const uint32_t (&ah)[2][4][4],
                                          const uint32_t (&al)[2][4][4],
                                          float (&acc)[MT][4]) {
@@ -448,13 +491,113 @@ __device__ __forceinline__ void load_a(const float* qs,
     }
 }
 
+// A wider instance's A fragments of chunk cc of a warp's 32 rows staged in
+// shared memory (qs: row g of the warp's first m16 tile, rows kRowW
+// floats apart), hi and lo, in convert<KC, kPaired>'s feature order.
+template <int KC, bool kPaired>
+__device__ __forceinline__ void load_a_chunk(const float* qs, int cc,
+                                             uint32_t (&ah)[2][4][4],
+                                             uint32_t (&al)[2][4][4]) {
+  constexpr int kRowW = Tiles<KC>::kRowW;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 32 * cc + (kPaired ? 8 * t4 + 2 * kk + (i >> 1)
+                                         : 8 * kk + t4 + 4 * (i >> 1));
+        split(qs[(16 * mt + 8 * (i & 1)) * kRowW + k], ah[mt][kk][i],
+              al[mt][kk][i]);
+      }
+}
+
+// The squared norms of a warp's 32 staged rows (a wider instance): lane t4
+// of a quad adds features 32 cc + 8 t4 .. + 7 of each chunk in order, then
+// the quad's by shuffles.
+template <int KC>
+__device__ __forceinline__ void norms_wide(const float* qs,
+                                           float (&qn)[2][2]) {
+  constexpr int kRowW = Tiles<KC>::kRowW;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* row = qs + (16 * mt + 8 * h) * kRowW + 8 * t4;
+      float sq = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < KC; ++cc)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          sq = fmaf(row[32 * cc + k], row[32 * cc + k], sq);
+      sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 1));
+      qn[mt][h] = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+    }
+}
+
+// A wider instance's products of a warp's MT m16 tiles (rows staged at qs)
+// against n8 tile nt: each chunk's A fragments from shared memory, then
+// its 4 k steps' 3xTF32 MMAs (steps 0-1 and 2-3 of a chunk in two
+// accumulators, added after).
+template <int MT, int KC, bool kPaired>
+__device__ __forceinline__ void tile_dot_wide(const K8Smem<KC>& sm, int nt,
+                                              const float* qs,
+                                              float (&acc)[MT][4]) {
+  const int lane = threadIdx.x & 31;
+  float acc2[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = acc2[mt][i] = 0.f;
+#pragma unroll 1
+  for (int cc = 0; cc < KC; ++cc) {
+    uint32_t ah[2][4][4], al[2][4][4];
+    load_a_chunk<KC, kPaired>(qs, cc, ah, al);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 f = sm.frag[nt][4 * cc + kk][lane];
+      const uint32_t h0 = __float_as_uint(f.x), h1 = __float_as_uint(f.y),
+                     l0 = __float_as_uint(f.z), l1 = __float_as_uint(f.w);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float(&c)[4] = kk < 2 ? acc[mt] : acc2[mt];
+        mma(c, al[mt][kk], h0, h1);
+        mma(c, ah[mt][kk], l0, l1);
+        mma(c, ah[mt][kk], h0, h1);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = __fadd_rn(acc[mt][i],
+                                                       acc2[mt][i]);
+}
+
+// The products of n8 tile nt: KC = 1 from the A fragments in registers,
+// a wider instance from the rows at qs.
+template <int MT, int KC, bool kPaired>
+__device__ __forceinline__ void products(const K8Smem<KC>& sm, int nt,
+                                         const uint32_t (&ah)[2][4][4],
+                                         const uint32_t (&al)[2][4][4],
+                                         const float* qs,
+                                         float (&acc)[MT][4]) {
+  if constexpr (KC == 1)
+    tile_dot<MT>(sm, nt, ah, al, acc);
+  else
+    tile_dot_wide<MT, KC, kPaired>(sm, nt, qs, acc);
+}
+
 // One warp's MT m16 tiles of queries against the window's n8 tiles: the
 // products (tile_dot), then each distance into the running top 2 of its
 // row.
-template <int MT>
-__device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
+template <int MT, int KC>
+__device__ __forceinline__ void sweep(const K8Smem<KC>& sm, int tiles,
                                       const uint32_t (&ah)[2][4][4],
                                       const uint32_t (&al)[2][4][4],
+                                      const float* qs,
                                       const float (&qn)[2][2],
                                       float (&bd)[2][2][2],
                                       int (&bi)[2][2][2]) {
@@ -462,7 +605,7 @@ __device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
 #pragma unroll 1
   for (int nt = 0; nt < tiles; ++nt) {
     float acc[MT][4];
-    tile_dot<MT>(sm, nt, ah, al, acc);
+    products<MT, KC, false>(sm, nt, ah, al, qs, acc);
     const float2 rn = *reinterpret_cast<const float2*>(sm.rn + 8 * nt +
                                                        2 * t4);
     const int2 j = *reinterpret_cast<const int2*>(sm.ridx + 8 * nt + 2 * t4);
@@ -492,20 +635,24 @@ __device__ __forceinline__ void sweep(const K8Smem& sm, int tiles,
   }
 }
 
-// q [batch, nq, 32], r [batch, nr, 32]; out_d / out_i [batch, nq, 2]
+// q [batch, nq, 32 KC], r [batch, nr, 32 KC]; out_d / out_i [batch, nq, 2]
+template <int KC>
 __global__ void __launch_bounds__(kT8, 1) knn2_tc(
     const float* __restrict__ q, const uint8_t* __restrict__ qmask,
     const float* __restrict__ r, const uint8_t* __restrict__ rmask, int nq,
     int nr, float* __restrict__ part_d, int* __restrict__ part_i,
     int* __restrict__ ticket, float* __restrict__ out_d,
     int* __restrict__ out_i) {
+  constexpr int kQ = Tiles<KC>::kQ, kW = Tiles<KC>::kW,
+                kDim = Tiles<KC>::kDim, kRowW = Tiles<KC>::kRowW,
+                kF4 = kDim / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  K8Smem& sm = *reinterpret_cast<K8Smem*>(smem);
+  K8Smem<KC>& sm = *reinterpret_cast<K8Smem<KC>*>(smem);
   const int b = blockIdx.z, splits = gridDim.y, qtiles = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  q += (size_t)b * nq * kD;
-  r += (size_t)b * nr * kD;
+  q += (size_t)b * nq * kDim;
+  r += (size_t)b * nr * kDim;
   if (qmask != nullptr) qmask += (size_t)b * nq;
   if (rmask != nullptr) rmask += (size_t)b * nr;
   out_d += (size_t)b * nq * 2;
@@ -514,18 +661,20 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
   part_i += (size_t)b * splits * nq * 2;
   // this tile's queries: x, x + qtiles, x + 2 qtiles, ...
   const int x = blockIdx.x;
-  const int in_tile = nq > x ? min(kQ8, (nq - x + qtiles - 1) / qtiles) : 0;
-  const int nv = compact<kQ8, kT8>(
+  const int in_tile = nq > x ? min(kQ, (nq - x + qtiles - 1) / qtiles) : 0;
+  const int nv = compact<kQ, kT8>(
       qmask, [x, qtiles](int m) { return x + qtiles * m; }, in_tile,
       sm.qwarp, sm.qpos);
   for (int m = tid; m < in_tile; m += kT8)
     if (sm.qpos[m] >= 0) sm.qidx[sm.qpos[m]] = x + qtiles * m;
   __syncthreads();
-  // the valid queries' rows, zero rows up to a warp's 32
-  for (int e = tid; e < ((nv + 31) & ~31) * 8; e += kT8) {
-    float* dst = sm.raw + (e >> 3) * kRow + 4 * (e & 7);
-    if ((e >> 3) < nv)
-      cp_async16(dst, q + (size_t)sm.qidx[e >> 3] * kD + 4 * (e & 7));
+  // the valid queries' rows, zero rows up to a warp's 32 (KC > 1: in
+  // sm.qraw, where they stay)
+  float* const qrows = KC == 1 ? sm.raw : sm.qraw;
+  for (int e = tid; e < ((nv + 31) & ~31) * kF4; e += kT8) {
+    float* dst = qrows + (e / kF4) * kRowW + 4 * (e % kF4);
+    if (e / kF4 < nv)
+      cp_async16(dst, q + (size_t)sm.qidx[e / kF4] * kDim + 4 * (e % kF4));
     else
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -533,9 +682,10 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
   cp_async_wait_all();
   __syncthreads();
 
-  // warp w: compacted queries 32 w + 16 mt + g (+ 8) as A fragments and
-  // their norms
+  // warp w: compacted queries 32 w + 16 mt + g (+ 8) as A fragments (KC
+  // = 1; a wider instance reads them from qs a tile) and their norms
   const int rows = min(32, nv - 32 * warp);
+  const float* qs = qrows + (32 * warp + g) * kRowW;
   uint32_t ah[2][4][4], al[2][4][4];
   float qn[2][2];
   float bd[2][2][2];
@@ -548,11 +698,16 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
       bd[mt][h][0] = bd[mt][h][1] = INFINITY;
       bi[mt][h][0] = bi[mt][h][1] = 0;
     }
-  if (rows > 0) load_a(sm.raw + (32 * warp + g) * kRow, ah, al, qn);
+  if (rows > 0) {
+    if constexpr (KC == 1)
+      load_a(qs, ah, al, qn);
+    else
+      norms_wide<KC>(qs, qn);
+  }
   __syncthreads();                         // sm.raw is the refs' from here
 
-  Windows win{r, rmask, nr, (int)blockIdx.y, splits, 0};
-  const int blocks_r = (nr + kW8 - 1) / kW8;
+  Windows<KC> win{r, rmask, nr, (int)blockIdx.y, splits, 0};
+  const int blocks_r = (nr + kW - 1) / kW;
   win.count = blocks_r > win.split
                   ? (blocks_r - win.split + splits - 1) / splits
                   : 0;
@@ -562,14 +717,14 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
     const bool ok = w + 1 < win.count && win.valid(w + 1);
     cp_async_wait_all();
     __syncthreads();
-    const int tiles = convert(sm);
+    const int tiles = convert<KC>(sm);
     __syncthreads();
     const int next =
         w + 1 < win.count ? win.stage(w + 1, ok, sm) : win.count;
     if (rows > 16)
-      sweep<2>(sm, tiles, ah, al, qn, bd, bi);
+      sweep<2, KC>(sm, tiles, ah, al, qs, qn, bd, bi);
     else if (rows > 0)
-      sweep<1>(sm, tiles, ah, al, qn, bd, bi);
+      sweep<1, KC>(sm, tiles, ah, al, qs, qn, bd, bi);
     w = next;
     __syncthreads();
   }
@@ -625,7 +780,7 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
     __syncthreads();
     if (!sm.last) return;
     __threadfence();
-    if (tid < nv) {                        // kT8 == kQ8: a slot a thread
+    if (tid < nv) {                        // kT8 >= kQ: a slot a thread
       const size_t qi = sm.qidx[tid];
       float md[2] = {INFINITY, INFINITY};
       int mi[2] = {0, 0};
@@ -659,13 +814,15 @@ __global__ void __launch_bounds__(kT8, 1) knn2_tc(
 
 // ----------------------------------------------------------------- K9
 
+template <int KC>
 struct K9Smem {
-  K8Smem k8;                           // each window's candidates, as K8's
-                                       // refs (raw's first 256 rows: the
-                                       // anchors stay in registers)
-  float craw[3 * kW8];                 // the staged window's coordinates
-  float4 cxyz[kW8];                    // a slot's coordinates (x, y, z, 0)
-  float4 pxyz[kQ8];                    // an anchor's partner's (x, y, z, 0)
+  K8Smem<KC> k8;                       // each window's candidates, as K8's
+                                       // refs (raw's first kW rows: at KC
+                                       // = 1 the anchors stay in
+                                       // registers, else in k8.qraw)
+  float craw[3 * Tiles<KC>::kW];       // the staged window's coordinates
+  float4 cxyz[Tiles<KC>::kW];          // a slot's coordinates (x, y, z, 0)
+  float4 pxyz[Tiles<KC>::kQ];          // an anchor's partner's (x, y, z, 0)
 };
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -678,12 +835,13 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 // window) staged as K8's refs, and their cnt x 3 coordinates flat into
 // craw: 16-byte copies where the window's first one is 16-byte aligned (a
 // window starts at a multiple of 256 rows), 4-byte ones for the rest.
-__device__ __forceinline__ int stage_window(const Windows& win, int w,
+template <int KC>
+__device__ __forceinline__ int stage_window(const Windows<KC>& win, int w,
                                             bool ok, const float* rxyz,
-                                            K9Smem& sm) {
+                                            K9Smem<KC>& sm) {
   w = win.stage(w, ok, sm.k8);
   if (w < win.count) {
-    const int j0 = win.start(w), nf = 3 * min(kW8, win.nr - j0);
+    const int j0 = win.start(w), nf = 3 * min(Tiles<KC>::kW, win.nr - j0);
     const float* g = rxyz + 3ll * j0;
     const int n16 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? nf / 4 : 0;
     for (int e = threadIdx.x; e < n16; e += kT8)
@@ -777,10 +935,11 @@ __device__ __forceinline__ void load_a_rows(const float* q, int q0, int nv,
 // argmin) over the candidates not excluded. A tile where no lane's
 // distance wins costs one vote and no exclusion test; after a tile where
 // one did, the quads' minima are shared again (th).
-template <int MT>
-__device__ __forceinline__ void sweep_excl(const K9Smem& sm, int tiles,
+template <int MT, int KC>
+__device__ __forceinline__ void sweep_excl(const K9Smem<KC>& sm, int tiles,
                                            const uint32_t (&ah)[2][4][4],
                                            const uint32_t (&al)[2][4][4],
+                                           const float* qs,
                                            const float (&qn)[2][2],
                                            const float4* px, float r2,
                                            float (&bd)[2][2],
@@ -790,7 +949,7 @@ __device__ __forceinline__ void sweep_excl(const K9Smem& sm, int tiles,
 #pragma unroll 1
   for (int nt = 0; nt < tiles; ++nt) {
     float acc[MT][4];
-    tile_dot<MT>(sm.k8, nt, ah, al, acc);
+    products<MT, KC, true>(sm.k8, nt, ah, al, qs, acc);
     const float2 rn =
         *reinterpret_cast<const float2*>(sm.k8.rn + 8 * nt + 2 * t4);
     const int2 j =
@@ -828,25 +987,30 @@ __device__ __forceinline__ void sweep_excl(const K9Smem& sm, int tiles,
   }
 }
 
-// anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates r
-// [nr, 32] with coordinates rxyz [nr, 3]; out_d / out_i / out_flag [nq].
-// Block (x, y): anchors x kQ8 .. x kQ8 + 511 against the windows of split
-// y; K8's layout (16 warps, 32 anchors a warp as A fragments, read from
-// device memory while the first window's copies are in flight).
+// anchors q [nq, 32 KC] with partner coordinates qxyz [nq, 3], candidates
+// r [nr, 32 KC] with coordinates rxyz [nr, 3]; out_d / out_i / out_flag
+// [nq]. Block (x, y): anchors x kQ .. x kQ + kQ - 1 against the windows of
+// split y; K8's layout (16 warps, 32 anchors a warp: at KC = 1 as A
+// fragments, read from device memory while the first window's copies are
+// in flight; wider, staged in shared memory as K8's queries).
+template <int KC>
 __global__ void __launch_bounds__(kT8, 1) excl_tc(
     const float* __restrict__ q, const float* __restrict__ r,
     const float* __restrict__ qxyz, const float* __restrict__ rxyz, float r2,
     int nq, int nr, float* __restrict__ part_d, int* __restrict__ part_i,
     int* __restrict__ ticket, float* __restrict__ out_d,
     int* __restrict__ out_i, uint8_t* __restrict__ out_flag) {
+  constexpr int kQ = Tiles<KC>::kQ, kW = Tiles<KC>::kW,
+                kDim = Tiles<KC>::kDim, kRowW = Tiles<KC>::kRowW,
+                kF4 = kDim / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  K9Smem& sm = *reinterpret_cast<K9Smem*>(smem);
+  K9Smem<KC>& sm = *reinterpret_cast<K9Smem<KC>*>(smem);
   const int splits = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * kQ8, nv = min(kQ8, nq - q0);
-  Windows win{r, nullptr, nr, (int)blockIdx.y, splits, 0};
-  const int blocks_r = (nr + kW8 - 1) / kW8;
+  const int q0 = blockIdx.x * kQ, nv = min(kQ, nq - q0);
+  Windows<KC> win{r, nullptr, nr, (int)blockIdx.y, splits, 0};
+  const int blocks_r = (nr + kW - 1) / kW;
   win.count = blocks_r > win.split
                   ? (blocks_r - win.split + splits - 1) / splits
                   : 0;
@@ -872,7 +1036,24 @@ __global__ void __launch_bounds__(kT8, 1) excl_tc(
       bd[mt][h] = th[mt][h] = INFINITY;
       bi[mt][h] = 0;
     }
-  if (rows > 0) load_a_rows(q, q0, nv, ah, al, qn);
+  // KC > 1: the anchors' rows into k8.qraw (zero rows up to a warp's
+  // 32), then their norms
+  const float* qs = sm.k8.qraw + (32 * warp + g) * kRowW;
+  if constexpr (KC == 1) {
+    if (rows > 0) load_a_rows(q, q0, nv, ah, al, qn);
+  } else {
+    for (int e = tid; e < ((nv + 31) & ~31) * kF4; e += kT8) {
+      float* dst = sm.k8.qraw + (e / kF4) * kRowW + 4 * (e % kF4);
+      if (e / kF4 < nv)
+        cp_async16(dst, q + (size_t)(q0 + e / kF4) * kDim + 4 * (e % kF4));
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (rows > 0) norms_wide<KC>(qs, qn);
+  }
   const float4* px = sm.pxyz + 32 * warp + g;
 
   while (w < win.count) {
@@ -880,7 +1061,7 @@ __global__ void __launch_bounds__(kT8, 1) excl_tc(
     const bool ok = w + 1 < win.count && win.valid(w + 1);
     cp_async_wait_all();
     __syncthreads();
-    const int tiles = convert<true>(sm.k8);
+    const int tiles = convert<KC, true>(sm.k8);
     for (int s = tid; s < tiles * 8; s += kT8)
       sm.cxyz[s] = s < sm.k8.ccount
                        ? make_float4(sm.craw[3 * s], sm.craw[3 * s + 1],
@@ -890,9 +1071,9 @@ __global__ void __launch_bounds__(kT8, 1) excl_tc(
     const int next = w + 1 < win.count ? stage_window(win, w + 1, ok, rxyz, sm)
                                        : win.count;
     if (rows > 16)
-      sweep_excl<2>(sm, tiles, ah, al, qn, px, r2, bd, bi, th);
+      sweep_excl<2, KC>(sm, tiles, ah, al, qs, qn, px, r2, bd, bi, th);
     else if (rows > 0)
-      sweep_excl<1>(sm, tiles, ah, al, qn, px, r2, bd, bi, th);
+      sweep_excl<1, KC>(sm, tiles, ah, al, qs, qn, px, r2, bd, bi, th);
     w = next;
     __syncthreads();
   }
@@ -943,7 +1124,7 @@ __global__ void __launch_bounds__(kT8, 1) excl_tc(
     __syncthreads();
     if (!sm.k8.last) return;
     __threadfence();
-    if (tid < nv) {                        // kT8 == kQ8: an anchor a thread
+    if (tid < nv) {                        // kT8 >= kQ: an anchor a thread
       const size_t qi = q0 + tid;
       float md = INFINITY;
       int mi = 0;
@@ -988,51 +1169,40 @@ cudaError_t smem_attr(Kernel kernel, int bytes, bool (&done)[64]) {
   return err;
 }
 
+template <int KC>
 cudaError_t k8_smem_attr() {
   static bool done[64] = {};
-  return smem_attr(knn2_tc, (int)sizeof(K8Smem), done);
+  return smem_attr(knn2_tc<KC>, (int)sizeof(K8Smem<KC>), done);
 }
 
+template <int KC>
 cudaError_t k9_smem_attr() {
   static bool done[64] = {};
-  return smem_attr(excl_tc, (int)sizeof(K9Smem), done);
+  return smem_attr(excl_tc<KC>, (int)sizeof(K9Smem<KC>), done);
 }
 
-}  // namespace
-
-// blocks of K8 (excl = 0) or K9 (excl = 1) that the current device holds at
-// once (occupancy x SMs), for the caller's choice of splits; 0 on an error
-extern "C" int eyoc_masked_knn2_resident(int excl) {
+template <int KC>
+int resident_kc(int excl) {
   if (excl) {
-    if (k9_smem_attr() != cudaSuccess) return 0;
-    return resident((const void*)excl_tc, kT8, (int)sizeof(K9Smem));
+    if (k9_smem_attr<KC>() != cudaSuccess) return 0;
+    return resident((const void*)excl_tc<KC>, kT8, (int)sizeof(K9Smem<KC>));
   }
-  if (k8_smem_attr() != cudaSuccess) return 0;
-  return resident((const void*)knn2_tc, kT8, (int)sizeof(K8Smem));
+  if (k8_smem_attr<KC>() != cudaSuccess) return 0;
+  return resident((const void*)knn2_tc<KC>, kT8, (int)sizeof(K8Smem<KC>));
 }
 
-// K8. q [batch, nq, 32], r [batch, nr, 32] f32, 16-byte aligned; masks
-// bool [batch, nq] / [batch, nr]. part: 4 * batch * splits * nq words of
-// scratch (the split lists' distances, then their indices; unused when
-// splits == 1); ticket: batch * ceil(nq / 512) ints, zero between calls
-// (the kernel leaves them at zero); splits from ops/knn.py:k2_plan.
-// out_d [batch, nq, 2] f32, out_i [batch, nq, 2] int32.
-extern "C" int eyoc_masked_knn2(const void* q, const void* qmask,
-                                const void* r, const void* rmask, int batch,
-                                int nq, int nr, int splits, void* part,
-                                void* ticket, void* out_d, void* out_i,
-                                void* stream) {
-  if (batch <= 0 || nq <= 0) return 0;
-  if (splits < 1 || nr < 0 || batch > 65535 || splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const cudaError_t err = k8_smem_attr();
+template <int KC>
+int launch_knn2(const void* q, const void* qmask, const void* r,
+                const void* rmask, int batch, int nq, int nr, int splits,
+                void* part, void* ticket, void* out_d, void* out_i,
+                cudaStream_t stream) {
+  const cudaError_t err = k8_smem_attr<KC>();
   if (err != cudaSuccess) return (int)err;
-  const int qtiles = (nq + kQ8 - 1) / kQ8;
+  constexpr int kQ = Tiles<KC>::kQ;
+  const int qtiles = (nq + kQ - 1) / kQ;
   const size_t np = (size_t)batch * splits * nq * 2;
   dim3 grid(qtiles, splits, batch);
-  knn2_tc<<<grid, kT8, sizeof(K8Smem), static_cast<cudaStream_t>(stream)>>>(
+  knn2_tc<KC><<<grid, kT8, sizeof(K8Smem<KC>), stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(qmask),
       static_cast<const float*>(r), static_cast<const uint8_t*>(rmask), nq,
       nr, static_cast<float*>(part), static_cast<int*>(part) + np,
@@ -1041,35 +1211,112 @@ extern "C" int eyoc_masked_knn2(const void* q, const void* qmask,
   return (int)cudaGetLastError();
 }
 
-// K9. anchors q [nq, 32] with partner coordinates qxyz [nq, 3], candidates
-// r [nr, 32] with coordinates rxyz [nr, 3], f32, every row valid; q and r
-// 16-byte aligned; r2 the squared exclusion radius. part: 2 * splits * nq
-// words of scratch (unused when splits == 1); ticket: ceil(nq / 512) ints,
-// zero between calls (the kernel leaves them at zero); splits from
-// ops/knn.py:k2_plan at K8's tiles. out_d [nq] f32 (the squared feature
-// distance, or 1e30 when every candidate was excluded), out_i [nq] int32
-// (0 then), out_flag [nq] bool (every candidate was excluded).
-extern "C" int eyoc_masked_argmin_excl(const void* q, const void* r,
-                                       const void* qxyz, const void* rxyz,
-                                       float r2, int nq, int nr, int splits,
-                                       void* part, void* ticket, void* out_d,
-                                       void* out_i, void* out_flag,
-                                       void* stream) {
-  if (nq <= 0) return 0;
-  if (splits < 1 || nr < 0 || splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const cudaError_t err = k9_smem_attr();
+template <int KC>
+int launch_excl(const void* q, const void* r, const void* qxyz,
+                const void* rxyz, float r2, int nq, int nr, int splits,
+                void* part, void* ticket, void* out_d, void* out_i,
+                void* out_flag, cudaStream_t stream) {
+  const cudaError_t err = k9_smem_attr<KC>();
   if (err != cudaSuccess) return (int)err;
-  const int qtiles = (nq + kQ8 - 1) / kQ8;
+  constexpr int kQ = Tiles<KC>::kQ;
+  const int qtiles = (nq + kQ - 1) / kQ;
   const size_t np = (size_t)splits * nq;
   dim3 grid(qtiles, splits, 1);
-  excl_tc<<<grid, kT8, sizeof(K9Smem), static_cast<cudaStream_t>(stream)>>>(
+  excl_tc<KC><<<grid, kT8, sizeof(K9Smem<KC>), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(r),
       static_cast<const float*>(qxyz), static_cast<const float*>(rxyz), r2,
       nq, nr, static_cast<float*>(part), static_cast<int*>(part) + np,
       static_cast<int*>(ticket), static_cast<float*>(out_d),
       static_cast<int*>(out_i), static_cast<uint8_t*>(out_flag));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// blocks of K8 (excl = 0) or K9 (excl = 1) at feature width dim (32, 64,
+// 128 or 256) that the current device holds at once (occupancy x SMs),
+// for the caller's choice of splits; 0 on an error
+extern "C" int eyoc_masked_knn2_resident(int excl, int dim) {
+  switch (dim) {
+    case 32: return resident_kc<1>(excl);
+    case 64: return resident_kc<2>(excl);
+    case 128: return resident_kc<4>(excl);
+    case 256: return resident_kc<8>(excl);
+    default: return 0;
+  }
+}
+
+// K8. q [batch, nq, dim], r [batch, nr, dim] f32, 16-byte aligned, dim 32,
+// 64, 128 or 256; masks bool [batch, nq] / [batch, nr]. part: 4 * batch *
+// splits * nq words of scratch (the split lists' distances, then their
+// indices; unused when splits == 1); ticket: batch * ceil(nq / (512 /
+// (dim / 32))) ints, zero between calls (the kernel leaves them at zero);
+// splits from ops/knn.py:k2_plan. out_d [batch, nq, 2] f32, out_i [batch,
+// nq, 2] int32.
+extern "C" int eyoc_masked_knn2(const void* q, const void* qmask,
+                                const void* r, const void* rmask, int batch,
+                                int nq, int nr, int dim, int splits,
+                                void* part, void* ticket, void* out_d,
+                                void* out_i, void* stream) {
+  if (batch <= 0 || nq <= 0) return 0;
+  if (splits < 1 || nr < 0 || batch > 65535 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dim) {
+    case 32:
+      return launch_knn2<1>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                            ticket, out_d, out_i, st);
+    case 64:
+      return launch_knn2<2>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                            ticket, out_d, out_i, st);
+    case 128:
+      return launch_knn2<4>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                            ticket, out_d, out_i, st);
+    case 256:
+      return launch_knn2<8>(q, qmask, r, rmask, batch, nq, nr, splits, part,
+                            ticket, out_d, out_i, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K9. anchors q [nq, dim] with partner coordinates qxyz [nq, 3], candidates
+// r [nr, dim] with coordinates rxyz [nr, 3], f32, every row valid, dim 32,
+// 64, 128 or 256; q and r 16-byte aligned; r2 the squared exclusion
+// radius. part: 2 * splits * nq words of scratch (unused when splits ==
+// 1); ticket: ceil(nq / (512 / (dim / 32))) ints, zero between calls (the
+// kernel leaves them at zero); splits from ops/knn.py:k2_plan at K8's
+// tiles. out_d [nq] f32 (the squared feature distance, or 1e30 when every
+// candidate was excluded), out_i [nq] int32 (0 then), out_flag [nq] bool
+// (every candidate was excluded).
+extern "C" int eyoc_masked_argmin_excl(const void* q, const void* r,
+                                       const void* qxyz, const void* rxyz,
+                                       float r2, int nq, int nr, int dim,
+                                       int splits, void* part, void* ticket,
+                                       void* out_d, void* out_i,
+                                       void* out_flag, void* stream) {
+  if (nq <= 0) return 0;
+  if (splits < 1 || nr < 0 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dim) {
+    case 32:
+      return launch_excl<1>(q, r, qxyz, rxyz, r2, nq, nr, splits, part,
+                            ticket, out_d, out_i, out_flag, st);
+    case 64:
+      return launch_excl<2>(q, r, qxyz, rxyz, r2, nq, nr, splits, part,
+                            ticket, out_d, out_i, out_flag, st);
+    case 128:
+      return launch_excl<4>(q, r, qxyz, rxyz, r2, nq, nr, splits, part,
+                            ticket, out_d, out_i, out_flag, st);
+    case 256:
+      return launch_excl<8>(q, r, qxyz, rxyz, r2, nq, nr, splits, part,
+                            ticket, out_d, out_i, out_flag, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,6 @@
 // K21 masked_norm_backward: the backward of a masked norm over S segments
-// of equal row count and of the tail fused after it, in two launches.
+// of equal row count and of the tail fused after it, in one cooperative
+// launch.
 //
 // Replaces the backward of eyoc_tpu/sparse/norm.py masked_batch_norm_fb
 // (:72-116, S = 1: the statistics are the whole batch's) and of
@@ -29,36 +30,64 @@
 //   dscale[c] = sum_s sdyxh[s, c], dbias[c] = sum_s sdy[s, c] (segments
 //               added in order)
 //
-// What bounds it: bytes (x, dy and y read twice, once a launch; dx and
-// dresidual written once; a few flops an element). Design:
-// - `sums`: K20's statistics layout (csrc/instance_norm.cu): a block of
-//   256 threads owns a chunk of one segment's rows and a slab of at most
-//   256 channels, a thread 8 channels of a row by 16-byte loads of x, dy,
-//   y and dpre, four rows a thread in flight. In a block: a fixed
-//   xor-shuffle tree over a warp's row lanes, then the warps in order. The
-//   last block of a segment (a ticket word a segment, which that block
-//   resets) adds the segment's chunk partials (lane l adds chunks l, l +
-//   32, ... in order, then a fixed tree) and writes the segment's scale
-//   rstd, sdy / n, coef, sdyxh and sdy. No float atomics: the same bits on
-//   every call.
-// - `dx`: a thread an 8-channel group of a row, 16-byte loads and stores;
-//   block 0 also adds the segments' sdyxh and sdy in order into dscale
-//   and dbias (the first launch has ended when it runs).
-// Every operation is rounded apart (no contraction) and the division is
-// IEEE, as the plain version's torch ops are.
+// What bounds it: bytes (x, dy, y and dpre read once, dx and dresidual
+// written once; a few flops an element). Design:
+// - One persistent grid of `blocks` (at most the blocks the card holds at
+//   once, sparse/norm.py:k21_grid) of 256 threads, launched with
+//   cudaLaunchCooperativeKernel. The rows of all segments are split
+//   evenly: block b owns rows [b R, (b + 1) R), whatever the channels or
+//   the segments, so every SM works at S = 1 too; a block that straddles
+//   a segment boundary keeps a partial for each segment it touches (the
+//   piece (b, s) at slot b + s of `part`: the pieces in row order have
+//   strictly increasing b + s).
+// - Phase 1, each input read once from device memory: a thread 8 channels
+//   of a row by 16-byte loads of x, dy, y and dpre, four rows in flight;
+//   it makes dy0 (exact in bf16) and adds sdy and sdy (x - mean) of its
+//   rows; the block's first `cache_rows` rows of x and dy0 (bf16) and
+//   their mask bytes stay in dynamic shared memory (up to
+//   EYOC_NORM_CACHE_BYTES a block). In a block: a fixed xor-shuffle tree
+//   over a warp's row lanes, then the warps in order; the piece's (n, sdy,
+//   sdyxc) goes to `part`. A grid barrier.
+// - Phase 2: a warp a (segment, channel) of the grid's: lane l adds the
+//   segment's pieces l, l + 32, ... in block order, then a fixed
+//   xor-shuffle tree (K7's final sum), and lane 0 writes the coefficients
+//   (scale rstd, sdy / n, coef, sdyxh, sdy). A second grid barrier.
+// - Phase 3: dx and dresidual of the block's rows, the segment's
+//   coefficients staged in shared memory, four items a thread in flight,
+//   x, dy0 and the mask from the cache (rows past it read again from
+//   device memory, where L2 holds most of them); block 0 adds the
+//   segments' sdyxh and sdy into dscale and dbias in order.
+// No float atomics and no ticket words: the same bits on every call at a
+// given grid. Every operation is rounded apart (no contraction) and the
+// division is IEEE, as the plain version's torch ops are.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef EYOC_NORM_CACHE_BYTES
+#define EYOC_NORM_CACHE_BYTES (190 * 1024)
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kU = 4;            // rows in flight a thread
-constexpr int kSlab = 256;       // channels a block: 8 a thread, one warp
-constexpr int kMaxC = 512;       // channels: two slabs
-constexpr int kMaxChunks = 256;  // chunks a segment: 8 a lane in the sum
+constexpr int kU = 4;            // rows in flight a thread (phase 1)
+constexpr int kU3 = 4;           // items in flight a thread (phase 3)
+constexpr int kSpan = 256;       // channels a warp covers: 8 a lane
+constexpr int kMaxC = 512;       // channels
+// shared memory: the warps' partials [kWarps][2][kSpan] and counts, which
+// phase 3 reuses for a segment's coefficients (a, b, coef, mean, rstd: 5C
+// floats); then the row cache (x and dy0 a row), then the cached rows'
+// mask bytes
+constexpr int kRedFloats = kWarps * 2 * kSpan + kWarps;
+constexpr int kRedBytes = (kRedFloats * 4 + 15) / 16 * 16;
+constexpr int kCacheBytes = EYOC_NORM_CACHE_BYTES;
+static_assert(5 * kMaxC <= kRedFloats, "the coefficients fit");
 
 __device__ __forceinline__ void unpack8(const int4& v, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -79,12 +108,100 @@ __device__ __forceinline__ int4 pack8(const float (&f)[8]) {
   return v;
 }
 
+// A thread's channel group and row lane when L = C / 8 (rounded up to a
+// power of two) threads read a row of C channels, 8 a thread.
+struct Lanes {
+  int groups, lanes, g, rl, rows, wspan, wgrp;
+  __device__ Lanes(int c, int threads) {
+    groups = c / 8;
+    lanes = 1;
+    while (lanes < groups) lanes *= 2;
+    g = threadIdx.x & (lanes - 1);   // channel group: channels 8g .. 8g+7
+    rl = threadIdx.x / lanes;        // row lane
+    rows = threads / lanes;          // rows a pass
+    wspan = lanes < 32 ? lanes : 32;  // groups a warp's lanes hold
+    wgrp = lanes > 32 ? lanes / 32 : 1;  // warps a row spans
+  }
+};
+
+// The block's piece (n, s1[c], s2[c]) from each thread's sums of its rows
+// (n counted by the threads of channel group 0): a fixed xor-shuffle tree
+// over a warp's row lanes, then the warps that cover a channel in order,
+// into pp[0 .. 1 + 2c). ws: [kWarps][2][kSpan] floats, wn: [kWarps].
+template <int kWarps>
+__device__ __forceinline__ void write_piece(const Lanes& ln, float n,
+                                            float (&s1)[8], float (&s2)[8],
+                                            int c, float* ws, float* wn,
+                                            float* pp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off >= ln.lanes; off >>= 1) {
+    n += __shfl_xor_sync(0xffffffffu, n, off);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], off);
+      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], off);
+    }
+  }
+  if (lane < ln.wspan) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ws[(warp * 2) * kSpan + lane * 8 + i] = s1[i];
+      ws[(warp * 2 + 1) * kSpan + lane * 8 + i] = s2[i];
+    }
+  }
+  if (lane == 0) wn[warp] = n;
+  __syncthreads();
+  for (int el = threadIdx.x; el < 1 + 2 * c; el += kWarps * 32) {
+    float v = 0.f;
+    if (el == 0) {
+      for (int w = 0; w < kWarps; ++w) v += wn[w];
+    } else {
+      const int ch = el <= c ? el - 1 : el - 1 - c;
+      const int k = el <= c ? 0 : 1;
+      const int grp = (ch >> 3) / ln.wspan;     // which warp of a row
+      const int at = ((ch >> 3) % ln.wspan) * 8 + (ch & 7);
+      for (int w = 0; w < kWarps; ++w)
+        if (w % ln.wgrp == grp) v += ws[(w * 2 + k) * kSpan + at];
+    }
+    pp[el] = v;
+  }
+  __syncthreads();
+}
+
+// The sums of values e[0 .. K) of segment s over its pieces, in K7's final
+// order, by one warp: lane l adds the pieces l, l + 32, ... in block order,
+// then a fixed xor-shuffle tree; every lane returns lane 0's sums.
+template <int K>
+__device__ __forceinline__ void warp_segment_sums(const float* part,
+                                                  int width, int s, int cap,
+                                                  int rows_per_block,
+                                                  const int (&e)[K],
+                                                  float (&v)[K]) {
+  const int lane = threadIdx.x & 31;
+  const int b0 = (int)((long long)s * cap / rows_per_block);
+  const int nb =
+      (int)((((long long)s + 1) * cap - 1) / rows_per_block) - b0 + 1;
+  const float* p0 = part + (size_t)(b0 + s) * width;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = 0.f;
+  for (int j = lane; j < nb; j += 32) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __ldcg(p0 + (size_t)j * width + e[k]);
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = __shfl_sync(0xffffffffu, v[k], 0);
+}
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// dy0 of a row's 8 channels at a masked row: dy, zero where y <= 0 (with a
-// tail), plus dpre rounded to bf16 (where given).
+// dy0 of a row's 8 channels: dy, zero where y <= 0 (with a tail), plus
+// dpre rounded to bf16 (where given).
 __device__ __forceinline__ void grad_at_norm(const int4& dyv, const int4& yv,
                                              const int4& dpv, bool tail,
                                              bool has_pre, float (&d)[8]) {
@@ -104,282 +221,303 @@ __device__ __forceinline__ void grad_at_norm(const int4& dyv, const int4& yv,
   }
 }
 
-// The last block's sum of a segment's chunk partials part [width, chunks]
-// into out[width] (K7's and K20's final sum): warp w takes values w EB,
-// w EB + 1, ... (EB = 32 / KP at once), lane l adds chunks l, l + 32, ...,
-// l + 32 (KP - 1) of each in order, then a fixed xor-shuffle tree.
-template <int KP>
-__device__ __forceinline__ void final_sum(const float* part, int chunks,
-                                          int width, float* out) {
-  constexpr int EB = 32 / KP;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int e0 = warp * EB; e0 < width; e0 += kWarps * EB) {
-    float t[EB][KP];
-#pragma unroll
-    for (int b = 0; b < EB; ++b) {
-      const float* pe = part + (size_t)(e0 + b) * chunks;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        const int ch = lane + 32 * k;
-        t[b][k] = (e0 + b < width && ch < chunks) ? __ldcg(pe + ch) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < EB; ++b) {
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) v += t[b][k];
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && e0 + b < width) out[e0 + b] = v;
-    }
-  }
+// bytes of the row cache and its mask bytes for cache_rows rows of c
+// channels (x and dy0 in bf16, then a byte a row)
+__host__ __device__ __forceinline__ int cache_bytes(int cache_rows, int c) {
+  return cache_rows * 4 * c + (cache_rows + 15) / 16 * 16;
 }
 
-// Block (s, k, q) = blockIdx.x = (s chunks + k) slabs + q: chunk k of
-// segment s's rows, channel slab q. stats: [segments, 3c] (mean, rstd,
-// live); part: [segments, 1 + 2c, chunks]; coefs: [segments, 5c] (scale
-// rstd, sdy / n, coef, sdyxh, sdy); ticket: a word a segment.
-__global__ void __launch_bounds__(kThreads) sums(
+// x, dy, y, dpre, dx, dres: [segments * cap, c]; part: [blocks + segments
+// - 1, 1 + 2c] (the pieces' n, sdy, sdyxc); coefs: [segments, 5c] (scale
+// rstd, sdy / n, coef, sdyxh, sdy).
+__global__ void __launch_bounds__(kThreads, 1) backward_coop(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
     const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ dpre,
     const uint8_t* __restrict__ mask, const float* __restrict__ scale,
-    const float* __restrict__ stats, int cap, int c, int chunks,
-    int rows_per_chunk, int slabs, float* __restrict__ part,
-    int* __restrict__ ticket, float* __restrict__ coefs) {
-  __shared__ float ws1[kWarps][kSlab];
-  __shared__ float ws2[kWarps][kSlab];
-  __shared__ float wn[kWarps];
-  __shared__ float fin[1 + 2 * kMaxC];
-  __shared__ int s_last;
+    const float* __restrict__ stats, int segments, int cap, int c,
+    int rows_per_block, int cache_rows, float* __restrict__ part,
+    float* __restrict__ coefs, __nv_bfloat16* __restrict__ dx,
+    __nv_bfloat16* __restrict__ dres, float* __restrict__ dscale,
+    float* __restrict__ dbias) {
+  extern __shared__ int4 smem[];
+  float* ws = reinterpret_cast<float*>(smem);          // [kWarps][2][kSpan]
+  float* wn = ws + kWarps * 2 * kSpan;                 // [kWarps]
+  float* sc = reinterpret_cast<float*>(smem);          // [5][c]
+  int4* cache = smem + kRedBytes / 16;                 // [rows][2][groups]
+  uint8_t* mcache = reinterpret_cast<uint8_t*>(cache) +
+                    (size_t)cache_rows * 4 * c;        // [rows]
+  cg::grid_group grid = cg::this_grid();
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q = blockIdx.x % slabs;
-  const int k = blockIdx.x / slabs % chunks;
-  const int s = blockIdx.x / slabs / chunks;
-  const int c0 = q * kSlab;
-  const int cw = min(kSlab, c - c0);
-  int lanes = 1;
-  while (lanes < cw / 8) lanes *= 2;
-  const int g = tid & (lanes - 1);  // channel group: slab channels 8g .. 8g+7
-  const int rl = tid / lanes;       // row lane
-  const int rows = kThreads / lanes;
-  const bool gin = g * 8 < cw;
+  const Lanes ln(c, kThreads);
+  const int groups = ln.groups, g = ln.g;
+  const bool gin = g < groups;
+  const int gc = gin ? g * 8 : 0;
   const int width = 1 + 2 * c;
-  const long long base = (long long)s * cap;
-  const int r0 = k * rows_per_chunk;
-  const int r1 = min(cap, r0 + rows_per_chunk);
+  const long long total = (long long)segments * cap;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(total, r0 + rows_per_block);
+  const int s_lo = (int)(r0 / cap), s_hi = (int)((r1 - 1) / cap);
   const bool tail = y != nullptr;
   const bool has_pre = dpre != nullptr;
-  const int gc = c0 + (gin ? g * 8 : 0);
-
-  float mean[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) mean[i] = stats[(size_t)s * 3 * c + gc + i];
-  float s1[8], s2[8], n = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.f;
-  // rows past the chunk re-read its last row (masked out): every load of
-  // a pass is unconditional, so all of them are in flight together
   const int4 zero = make_int4(0, 0, 0, 0);
-  for (int r = r0 + rl; r < r1; r += kU * rows) {
-    int4 xv[kU], dv[kU], yv[kU], pv[kU];
-    bool mk[kU];
+
+  // ---- phase 1: each piece's sums; x, dy0 and the mask into the cache
+  const int crows = (int)min((long long)cache_rows, r1 - r0);
+  for (int s = s_lo; s <= s_hi; ++s) {
+    const long long a = max(r0, (long long)s * cap);
+    const long long e = min(r1, (long long)(s + 1) * cap);
+    float mean[8];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int rr = r + u * rows;
-      const long long at = (base + min(rr, r1 - 1)) * c + gc;
-      mk[u] = mask[base + min(rr, r1 - 1)] && rr < r1;
-      xv[u] = __ldg(reinterpret_cast<const int4*>(x + at));
-      dv[u] = __ldg(reinterpret_cast<const int4*>(dy + at));
-      yv[u] = tail ? __ldg(reinterpret_cast<const int4*>(y + at)) : zero;
-      pv[u] = has_pre ? __ldg(reinterpret_cast<const int4*>(dpre + at))
-                      : zero;
-    }
+    for (int i = 0; i < 8; ++i) mean[i] = stats[(size_t)s * 3 * c + gc + i];
+    float s1[8], s2[8], n = 0.f;
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (!mk[u]) continue;
-      n += 1.f;
-      if (!gin) continue;
-      float d[8], xf[8];
-      grad_at_norm(dv[u], yv[u], pv[u], tail, has_pre, d);
-      unpack8(xv[u], xf);
+    for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.f;
+    // rows past the piece re-read its last row (masked out): every load
+    // of a pass is unconditional, so all of them are in flight together
+    for (long long r = a + ln.rl; r < e; r += kU * ln.rows) {
+      int4 xv[kU], dv[kU], yv[kU], pv[kU];
+      bool mk[kU];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s1[i] = __fadd_rn(s1[i], d[i]);
-        s2[i] = __fadd_rn(s2[i], __fmul_rn(d[i], __fsub_rn(xf[i], mean[i])));
+      for (int u = 0; u < kU; ++u) {
+        const long long rr = r + u * ln.rows;
+        const long long rc = min(rr, e - 1);
+        const long long at = rc * c + gc;
+        mk[u] = mask[rc] && rr < e;
+        xv[u] = __ldg(reinterpret_cast<const int4*>(x + at));
+        dv[u] = __ldg(reinterpret_cast<const int4*>(dy + at));
+        yv[u] = tail ? __ldg(reinterpret_cast<const int4*>(y + at)) : zero;
+        pv[u] = has_pre ? __ldg(reinterpret_cast<const int4*>(dpre + at))
+                        : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const long long rr = r + u * ln.rows;
+        if (rr >= e || !gin) continue;
+        float d[8], xf[8];
+        grad_at_norm(dv[u], yv[u], pv[u], tail, has_pre, d);
+        if (rr - r0 < crows) {
+          int4* row = cache + (size_t)(rr - r0) * 2 * groups;
+          row[g] = xv[u];
+          row[groups + g] = pack8(d);
+          if (g == 0) mcache[rr - r0] = mk[u];
+        }
+        if (!mk[u]) continue;
+        if (g == 0) n += 1.f;
+        unpack8(xv[u], xf);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s1[i] = __fadd_rn(s1[i], d[i]);
+          s2[i] =
+              __fadd_rn(s2[i], __fmul_rn(d[i], __fsub_rn(xf[i], mean[i])));
+        }
       }
     }
+    write_piece<kWarps>(ln, n, s1, s2, c, ws, wn,
+                        part + (size_t)(blockIdx.x + s) * width);
   }
+  grid.sync();
 
-  // the row lanes of a warp that share a channel group: a fixed tree
-  for (int off = 16; off >= lanes; off >>= 1) {
-    n += __shfl_xor_sync(0xffffffffu, n, off);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], off);
-      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], off);
+  // ---- phase 2: a warp a (segment, channel) of the grid's: the segment's
+  // sums over its pieces, then its coefficients
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int task = blockIdx.x * kWarps + warp; task < segments * c;
+       task += gridDim.x * kWarps) {
+    const int s = task / c, ch = task % c;
+    const float* st = stats + (size_t)s * 3 * c;
+    const float rstd = st[c + ch], live = st[2 * c + ch], sca = scale[ch];
+    const int e[3] = {0, 1 + ch, 1 + c + ch};
+    float v[3];
+    warp_segment_sums<3>(part, width, s, cap, rows_per_block, e, v);
+    if (lane == 0) {
+      const float cnt = fmaxf(v[0], 1.f);
+      float* co = coefs + (size_t)s * 5 * c;
+      const float sdyxh = __fmul_rn(v[2], rstd);
+      co[ch] = __fmul_rn(sca, rstd);
+      co[c + ch] = __fdiv_rn(v[1], cnt);
+      co[2 * c + ch] = live != 0.f ? __fdiv_rn(sdyxh, cnt) : 0.f;
+      co[3 * c + ch] = sdyxh;
+      co[4 * c + ch] = v[1];
     }
   }
-  if (lane < lanes && gin) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (g * 8 + i < cw) {
-        ws1[warp][g * 8 + i] = s1[i];
-        ws2[warp][g * 8 + i] = s2[i];
-      }
-    }
-  }
-  if (lane == 0) wn[warp] = n;
-  __syncthreads();
-  float* spart = part + (size_t)s * width * chunks;
-  // the slab's values of this chunk (the count by slab 0 only)
-  for (int e = tid; e < 1 + 2 * cw; e += kThreads) {
-    if (e == 0 && q != 0) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      v += e == 0 ? wn[w] : (e <= cw ? ws1[w][e - 1] : ws2[w][e - 1 - cw]);
-    const int at = e == 0 ? 0 : (e <= cw ? 1 + c0 + e - 1
-                                         : 1 + c + c0 + e - 1 - cw);
-    spart[(size_t)at * chunks + k] = v;
-  }
+  grid.sync();
 
-  // the segment's last block adds its partials and makes its coefficients
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(ticket + s, 1) == chunks * slabs - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const int kp = (chunks + 31) / 32;
-  if (kp == 1)
-    final_sum<1>(spart, chunks, width, fin);
-  else if (kp == 2)
-    final_sum<2>(spart, chunks, width, fin);
-  else if (kp <= 4)
-    final_sum<4>(spart, chunks, width, fin);
-  else
-    final_sum<8>(spart, chunks, width, fin);
-  __syncthreads();
-  const float cnt = fmaxf(fin[0], 1.f);
-  const float* st = stats + (size_t)s * 3 * c;
-  float* co = coefs + (size_t)s * 5 * c;
-  for (int ch = tid; ch < c; ch += kThreads) {
-    const float rstd = st[c + ch];
-    const float sdy = fin[1 + ch];
-    const float sdyxh = __fmul_rn(fin[1 + c + ch], rstd);
-    co[ch] = __fmul_rn(scale[ch], rstd);
-    co[c + ch] = __fdiv_rn(sdy, cnt);
-    co[2 * c + ch] = st[2 * c + ch] != 0.f ? __fdiv_rn(sdyxh, cnt) : 0.f;
-    co[3 * c + ch] = sdyxh;
-    co[4 * c + ch] = sdy;
-  }
-  if (tid == 0) ticket[s] = 0;
-}
-
-// A thread an 8-channel group of a row: dx = a ((dy0 - b) - xhat coef) *
-// mask with the row's segment's a = scale rstd, b = sdy / n and coef, and
-// dres = bf16(dy0) where asked. Block 0 also writes dscale and dbias.
-__global__ void __launch_bounds__(kThreads) dx_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ dpre,
-    const uint8_t* __restrict__ mask, const float* __restrict__ stats,
-    const float* __restrict__ coefs, long long items, int segments, int cap,
-    int c, __nv_bfloat16* __restrict__ dx, __nv_bfloat16* __restrict__ dres,
-    float* __restrict__ dscale, float* __restrict__ dbias) {
+  // ---- phase 3: dx and dres of the block's rows, segment by segment;
+  // block 0 adds the segments' sdyxh and sdy into dscale and dbias in order
   if (blockIdx.x == 0) {
-    for (int ch = threadIdx.x; ch < c; ch += kThreads) {
-      float ds = coefs[3 * c + ch], db = coefs[4 * c + ch];
+    for (int ch = tid; ch < c; ch += kThreads) {
+      float ds = __ldcg(coefs + 3 * c + ch), db = __ldcg(coefs + 4 * c + ch);
       for (int s = 1; s < segments; ++s) {
-        ds = __fadd_rn(ds, coefs[(size_t)s * 5 * c + 3 * c + ch]);
-        db = __fadd_rn(db, coefs[(size_t)s * 5 * c + 4 * c + ch]);
+        ds = __fadd_rn(ds, __ldcg(coefs + (size_t)s * 5 * c + 3 * c + ch));
+        db = __fadd_rn(db, __ldcg(coefs + (size_t)s * 5 * c + 4 * c + ch));
       }
       dscale[ch] = ds;
       dbias[ch] = db;
     }
   }
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= items) return;
-  const int groups = c / 8;
-  const long long row = i / groups;
-  const int ch = (int)(i % groups) * 8;
-  const long long at = row * c + ch;
-  const float m = mask[row] ? 1.f : 0.f;
-  const long long seg = row / cap;
-  const float* st = stats + seg * 3 * c;
-  const float* co = coefs + seg * 5 * c;
-  const int4 zero = make_int4(0, 0, 0, 0);
-  float d[8], xf[8], out[8];
-  grad_at_norm(__ldg(reinterpret_cast<const int4*>(dy + at)),
-               y != nullptr ? __ldg(reinterpret_cast<const int4*>(y + at))
-                            : zero,
-               dpre != nullptr
-                   ? __ldg(reinterpret_cast<const int4*>(dpre + at))
-                   : zero,
-               y != nullptr, dpre != nullptr, d);
-  unpack8(__ldg(reinterpret_cast<const int4*>(x + at)), xf);
+  for (int s = s_lo; s <= s_hi; ++s) {
+    for (int i = tid; i < 3 * c; i += kThreads)
+      sc[i] = __ldcg(coefs + (size_t)s * 5 * c + i);
+    for (int i = tid; i < 2 * c; i += kThreads)
+      sc[3 * c + i] = stats[(size_t)s * 3 * c + i];
+    __syncthreads();
+    const long long a = max(r0, (long long)s * cap);
+    const long long e = min(r1, (long long)(s + 1) * cap);
+    // kU3 items a thread at once: the cached rows' x, dy0 and mask from
+    // shared memory, the others' x, dy, y, dpre and mask from device memory
+    const long long items = (e - a) * groups;
+    for (long long i0 = tid; i0 < items; i0 += (long long)kThreads * kU3) {
+      int4 xv[kU3], dv[kU3], yv[kU3], pv[kU3];
+      bool mk[kU3], cached[kU3];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    d[j] = __fmul_rn(d[j], m);
-    const float xhat = __fmul_rn(__fsub_rn(xf[j], st[ch + j]), st[c + ch + j]);
-    const float t = __fsub_rn(__fsub_rn(d[j], co[c + ch + j]),
-                              __fmul_rn(xhat, co[2 * c + ch + j]));
-    out[j] = __fmul_rn(__fmul_rn(co[ch + j], t), m);
+      for (int u = 0; u < kU3; ++u) {
+        const long long i = min(i0 + (long long)u * kThreads, items - 1);
+        const long long row = a + i / groups;
+        const int gg = (int)(i % groups);
+        cached[u] = row - r0 < crows;
+        if (cached[u]) {
+          const int4* cr = cache + (size_t)(row - r0) * 2 * groups;
+          xv[u] = cr[gg];
+          dv[u] = cr[groups + gg];
+          mk[u] = mcache[row - r0] != 0;
+          yv[u] = pv[u] = zero;
+        } else {
+          const long long at = row * c + gg * 8;
+          xv[u] = __ldg(reinterpret_cast<const int4*>(x + at));
+          dv[u] = __ldg(reinterpret_cast<const int4*>(dy + at));
+          yv[u] = tail ? __ldg(reinterpret_cast<const int4*>(y + at)) : zero;
+          pv[u] = has_pre ? __ldg(reinterpret_cast<const int4*>(dpre + at))
+                          : zero;
+          mk[u] = mask[row] != 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU3; ++u) {
+        const long long i = i0 + (long long)u * kThreads;
+        if (i >= items) continue;
+        const long long row = a + i / groups;
+        const int ch = (int)(i % groups) * 8;
+        const long long at = row * c + ch;
+        const float m = mk[u] ? 1.f : 0.f;
+        float d[8], xf[8], out[8];
+        if (cached[u])
+          unpack8(dv[u], d);
+        else
+          grad_at_norm(dv[u], yv[u], pv[u], tail, has_pre, d);
+        unpack8(xv[u], xf);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          d[j] = __fmul_rn(d[j], m);
+          const float xhat = __fmul_rn(__fsub_rn(xf[j], sc[3 * c + ch + j]),
+                                       sc[4 * c + ch + j]);
+          const float t = __fsub_rn(__fsub_rn(d[j], sc[c + ch + j]),
+                                    __fmul_rn(xhat, sc[2 * c + ch + j]));
+          out[j] = __fmul_rn(__fmul_rn(sc[ch + j], t), m);
+        }
+        *reinterpret_cast<int4*>(dx + at) = pack8(out);
+        if (dres != nullptr) *reinterpret_cast<int4*>(dres + at) = pack8(d);
+      }
+    }
+    __syncthreads();
   }
-  *reinterpret_cast<int4*>(dx + at) = pack8(out);
-  if (dres != nullptr) *reinterpret_cast<int4*>(dres + at) = pack8(d);
+}
+
+// bytes of dynamic shared memory a block asks for
+int smem_bytes(int cache_rows, int c) {
+  return kRedBytes + cache_bytes(cache_rows, c);
+}
+
+// the rows of c channels whose x, dy0 and mask fit the cache
+int fit_rows(int c) {
+  int rows = kCacheBytes / (4 * c + 1);
+  while (rows > 0 && cache_bytes(rows, c) > kCacheBytes) --rows;
+  return rows;
+}
+
+int resident_blocks(int device) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices];
+  if (device >= 0 && device < kMaxDevices && cached[device] > 0)
+    return cached[device];
+  const int bytes = kRedBytes + kCacheBytes;
+  int sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(backward_coop,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, backward_coop,
+                                                    kThreads, bytes) !=
+          cudaSuccess)
+    return 0;
+  const int blocks = sms * per_sm;
+  if (device >= 0 && device < kMaxDevices) cached[device] = blocks;
+  return blocks;
 }
 
 }  // namespace
+
+// Blocks of the kernel that the current device holds at once (occupancy at
+// the largest cache x SMs; 0 on an error), for the caller's grid
+// (sparse/norm.py:k21_grid).
+extern "C" int eyoc_masked_norm_backward_resident(void) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 0;
+  return resident_blocks(device);
+}
 
 // x, dy, y, dpre, dx, dres: [segments * cap, c] bf16, 16-byte aligned, c a
 // multiple of 8 up to 512; y (with a ReLU or a residual tail: the forward's
 // output), dpre (the pre-relu output's gradient) and dres (with a residual)
 // may be null; mask [rows] bool; scale [c] f32; stats [segments, 3c] f32
-// (the forward's mean, rstd and live flag); part [segments, 1 + 2c, chunks]
-// and coefs [segments, 5c] f32 scratch (1 <= chunks <= 256 blocks of
-// rows_per_chunk rows of a segment, chosen by the caller,
-// sparse/norm.py:k20_chunks); ticket: a word a segment, zero between calls
-// (the kernel leaves them at zero); dscale, dbias [c] f32. Two launches.
+// (the forward's mean, rstd and live flag); part [blocks + segments - 1,
+// 1 + 2c] and coefs [segments, 5c] f32 scratch; blocks (at most the resident blocks) of
+// rows_per_block rows each cover the rows, the last one not empty
+// (sparse/norm.py:k21_grid); dscale, dbias [c] f32. One cooperative
+// launch; a refused one returns its error.
 extern "C" int eyoc_masked_norm_backward(
     const void* x, const void* dy, const void* y, const void* dpre,
     const void* mask, const void* scale, const void* stats, int segments,
-    int cap, int c, int chunks, int rows_per_chunk, void* part, void* ticket,
-    void* coefs, void* dx, void* dres, void* dscale, void* dbias,
-    void* stream) {
+    int cap, int c, int blocks, int rows_per_block, void* part, void* coefs,
+    void* dx, void* dres, void* dscale, void* dbias, void* stream) {
   if (segments <= 0 || cap <= 0) return (int)cudaSuccess;
-  if (c <= 0 || c % 8 != 0 || c > kMaxC || chunks < 1 ||
-      chunks > kMaxChunks || rows_per_chunk < 1 ||
-      (long)chunks * rows_per_chunk < cap)
+  const long long total = (long long)segments * cap;
+  if (c <= 0 || c % 8 != 0 || c > kMaxC || blocks < 1 ||
+      rows_per_block < 1 || (long long)blocks * rows_per_block < total ||
+      (long long)(blocks - 1) * rows_per_block >= total)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)y | (uintptr_t)dpre |
        (uintptr_t)dx | (uintptr_t)dres) % 16 != 0)
     return (int)cudaErrorInvalidValue;        // 16-byte loads and stores
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int slabs = (c + kSlab - 1) / kSlab;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const int resident = resident_blocks(device);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int fit = fit_rows(c);
+  int cache_rows = rows_per_block < fit ? rows_per_block : fit;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
   const __nv_bfloat16* yb = static_cast<const __nv_bfloat16*>(y);
   const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(dpre);
   const uint8_t* mb = static_cast<const uint8_t*>(mask);
+  const float* scb = static_cast<const float*>(scale);
   const float* sb = static_cast<const float*>(stats);
+  float* pp = static_cast<float*>(part);
   float* cb = static_cast<float*>(coefs);
-  sums<<<segments * chunks * slabs, kThreads, 0, st>>>(
-      xb, dyb, yb, pb, mb, static_cast<const float*>(scale), sb, cap, c,
-      chunks, rows_per_chunk, slabs, static_cast<float*>(part),
-      static_cast<int*>(ticket), cb);
-  const cudaError_t err = cudaGetLastError();
+  __nv_bfloat16* dxb = static_cast<__nv_bfloat16*>(dx);
+  __nv_bfloat16* drb = static_cast<__nv_bfloat16*>(dres);
+  float* dsb = static_cast<float*>(dscale);
+  float* dbb = static_cast<float*>(dbias);
+  void* args[] = {(void*)&xb,  (void*)&dyb, (void*)&yb,  (void*)&pb,
+                  (void*)&mb,  (void*)&scb, (void*)&sb,  (void*)&segments,
+                  (void*)&cap, (void*)&c,   (void*)&rows_per_block,
+                  (void*)&cache_rows,       (void*)&pp,  (void*)&cb,
+                  (void*)&dxb, (void*)&drb, (void*)&dsb, (void*)&dbb};
+  err = cudaLaunchCooperativeKernel(
+      backward_coop, dim3(blocks), dim3(kThreads), args,
+      (size_t)smem_bytes(cache_rows, c), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
-  const long long items = (long long)segments * cap * (c / 8);
-  dx_kernel<<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
-              st>>>(xb, dyb, yb, pb, mb, sb, cb, items, segments, cap, c,
-                    static_cast<__nv_bfloat16*>(dx),
-                    static_cast<__nv_bfloat16*>(dres),
-                    static_cast<float*>(dscale), static_cast<float*>(dbias));
   return (int)cudaGetLastError();
 }

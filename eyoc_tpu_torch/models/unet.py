@@ -18,7 +18,9 @@ order.
   residual add, ReLU and mask, in its apply. No autograd.
 - train (apply_unet(training=True, n_clouds=B), unet.py:201-231,
   242-380): each conv is a `SparseConvFunction` (K1 forward; K1 over the
-  inverse map and K5 backward) with no mask before the norm that follows
+  inverse map and K5 backward; through `sparse_conv_diff`, which pads an
+  output width that is not a multiple of 8, the last conv's n_out, with
+  zero columns inside autograd) with no mask before the norm that follows
   it: a masked BatchNorm (K7 sums, K22 apply) or a per-cloud instance norm
   (K20), each with the ReLU, or the block's residual add, ReLU and mask,
   fused into its apply and its backward (K21). The norm's output is
@@ -36,8 +38,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from eyoc_tpu_torch.sparse.brick_conv import (SparseConvFunction, conv_maps,
-                                              identity_map, sparse_conv)
+from eyoc_tpu_torch.sparse.brick_conv import (conv_maps, identity_map,
+                                              sparse_conv, sparse_conv_diff)
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid
 from eyoc_tpu_torch.sparse.norm import (instance_norm_train,
                                         masked_batch_norm,
@@ -329,7 +331,7 @@ class ResUNet(nn.Module):
         clouds = pyr.counts.shape[0]
 
         def conv(mod, x, nmap, inv, x2=None):
-            return SparseConvFunction.apply(x, x2, mod.weight, nmap, inv)
+            return sparse_conv_diff(x, x2, mod.weight, nmap, inv)
 
         def norm(mod, x, level, **tail):
             """The norm `mod` and its fused tail (relu, residual, skip)."""
@@ -385,8 +387,8 @@ class ResUNet(nn.Module):
         else:
             out = torch.relu(out)
         ident = identity_map(out.shape[0], out.device)
-        out = SparseConvFunction.apply(out, None, self.final.weight[None],
-                                       ident, ident)
+        out = sparse_conv_diff(out, None, self.final.weight[None], ident,
+                               ident)
         feats = (out.float() + self.final.bias) * fmask0.float()
         return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
 

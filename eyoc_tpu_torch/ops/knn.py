@@ -10,6 +10,13 @@ safe-radius mining). The
 plain versions below are the tiled Gram-form sweeps of the JAX package.
 Semantics: squared L2; a masked reference costs +1e30; ties go to the
 lowest index; an invalid query returns (1e30, 0).
+
+On the card the kernels take any feature width from 1 to 256: a width
+that is not one of a kernel's instances (K2: 3, 32, 64, 128, 256; K8 and
+K9: 32, 64, 128, 256) is padded with zero columns up to the next one
+(`k2_width`, `knn_width`, `pad_features`), which adds an exact +0 to every
+distance, norm and product. Widths 3 and 32 (coordinates, ResUNet
+features) take no copy.
 """
 
 from __future__ import annotations
@@ -18,11 +25,38 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from eyoc_tpu_torch.geometry.metrics import pdist2
 from eyoc_tpu_torch.utils import kernels
 
 _BIG = 1e30
+MAX_WIDTH = 256           # the widest feature the kernels take
+
+
+def k2_width(d: int) -> int:
+    """K2's instance for feature width d: 3, 32, 64, 128 or 256."""
+    for w in (3, 32, 64, 128, 256):
+        if d <= w:
+            return w
+    raise ValueError(f"masked_argmin: feature width {d}, the kernel takes "
+                     f"1 to {MAX_WIDTH}")
+
+
+def knn_width(d: int) -> int:
+    """K8's and K9's instance for feature width d: 32, 64, 128 or 256."""
+    for w in (32, 64, 128, 256):
+        if d <= w:
+            return w
+    raise ValueError(f"masked_knn2: feature width {d}, the kernels take 1 "
+                     f"to {MAX_WIDTH}")
+
+
+def pad_features(x, width: int):
+    """x [..., D] with zero columns appended up to `width` (x itself when D
+    is already `width`)."""
+    d = x.shape[-1]
+    return x if d == width else F.pad(x, (0, width - d)).contiguous()
 
 
 def masked_argmin_plain(query, qmask, ref, rmask, tile: int = 512):
@@ -88,8 +122,8 @@ _K2_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 # queries a block holds (128 threads x R) and references it stages at
 # once (csrc/masked_argmin.cu:Shape), by feature width: GT-pair
 # coordinates, ResUNet features
-_K2_QUERIES = {3: 1024, 32: 512}
-_K2_REF_TILE = {3: 256, 32: 64}
+_K2_QUERIES = {3: 1024, 32: 512, 64: 256, 128: 128, 256: 128}
+_K2_REF_TILE = {3: 256, 32: 64, 64: 32, 128: 32, 256: 32}
 _K2_MAX_SPLITS = 64       # the last block of a query tile reads them all
 
 
@@ -132,7 +166,8 @@ def masked_argmin_batched(query, qmask, ref, rmask):
 
     query [B, Nq, D] f32, ref [B, Nr, D] f32, masks [B, Nq] / [B, Nr] bool.
     Returns (d2 [B, Nq] f32, idx [B, Nq] int32). A CPU tensor takes the
-    plain version; a CUDA tensor launches K2 once (D = 3 or 32) or raises."""
+    plain version; a CUDA tensor launches K2 once (D from 1 to 256, padded
+    to `k2_width`) or raises."""
     if query.is_cpu:
         return masked_argmin_batched_plain(query, qmask, ref, rmask)
     B, Nq, D = query.shape
@@ -149,7 +184,7 @@ def masked_argmin(query, qmask, ref, rmask):
 
     query [Nq, D] f32, ref [Nr, D] f32, masks bool. Returns (d2 [Nq] f32,
     idx [Nq] int32). A CPU tensor takes the plain version; a CUDA tensor
-    launches K2 (D = 3 or 32) as a batch of one, or raises."""
+    launches K2 (D from 1 to 256) as a batch of one, or raises."""
     if query.is_cpu:
         return masked_argmin_plain(query, qmask, ref, rmask)
     Nq, D = query.shape
@@ -166,16 +201,15 @@ def _launch(query, qmask, ref, rmask, B: int, Nq: int, Nr: int, D: int):
     f32 = torch.float32
     dev = kernels.require_cuda("masked_argmin", query, qmask, ref, rmask,
                                dtypes=(f32, torch.bool, f32, torch.bool))
-    if D not in _K2_QUERIES:
-        raise ValueError(f"masked_argmin: feature width {D} not in "
-                         f"{tuple(_K2_QUERIES)}")
-    qtiles, splits = k2_plan(B, Nq, Nr, D, _k2_resident(dev, D))
+    W = k2_width(D)
+    query, ref = pad_features(query, W), pad_features(ref, W)
+    qtiles, splits = k2_plan(B, Nq, Nr, W, _k2_resident(dev, W))
     shape = query.shape[:-1]
     d2 = query.new_empty(shape)
     idx = query.new_empty(shape, dtype=torch.int32)
     part = query.new_empty(2 * B * splits * Nq) if splits > 1 else None
     p = kernels.ptr
-    err = fn(p(query), p(qmask), p(ref), p(rmask), B, Nq, Nr, D, splits,
+    err = fn(p(query), p(qmask), p(ref), p(rmask), B, Nq, Nr, W, splits,
              p(part), p(kernels.ticket(dev, B * qtiles)), p(d2), p(idx),
              kernels.stream_handle(dev))
     kernels.check_launch("masked_argmin", err)
@@ -294,31 +328,40 @@ def masked_knn2_gram_split_plain(query, qmask, ref, rmask, splits: int = 1,
 
 _K8_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p)
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 _K9_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
-_KNN2_DIM = 32            # K8 and K9 take ResUNet features only
-# K8's and K9's query tile (16 warps of 32 queries) and ref window
-# (csrc/masked_knn2.cu kQ8, kW8)
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p)
+# K8's and K9's query tile (16 warps of 32 queries) and ref window at width
+# 32 (csrc/masked_knn2.cu kQ8, kW8); the instance of width 32 KC takes
+# 1 / KC of each (`knn2_tiles`)
 _K8_QUERIES, _K8_WINDOW = 512, 256
 _knn2_blocks: dict = {}
 
 
+def knn2_tiles(width: int) -> tuple[int, int]:
+    """(queries a block, refs a window) of K8's and K9's instance at
+    `width` (a `knn_width`)."""
+    kc = width // 32
+    return _K8_QUERIES // kc, _K8_WINDOW // kc
+
+
 @functools.lru_cache(maxsize=None)
-def _knn2_resident(dev: int, excl: bool) -> int:
-    """Blocks of K8 (or K9, `excl`) that device `dev` holds at once."""
-    n = _knn2_blocks.get((dev, excl))
+def _knn2_resident(dev: int, excl: bool, width: int = 32) -> int:
+    """Blocks of K8 (or K9, `excl`) at `width` that device `dev` holds at
+    once."""
+    n = _knn2_blocks.get((dev, excl, width))
     if n is None:
-        fn = kernels.load("masked_knn2", (ctypes.c_int,),
+        fn = kernels.load("masked_knn2", (ctypes.c_int, ctypes.c_int),
                           symbol="masked_knn2_resident")
         with torch.cuda.device(dev):
-            n = fn(int(excl))
+            n = fn(int(excl), width)
         if n <= 0:
             raise RuntimeError("masked_knn2: occupancy query failed")
-        _knn2_blocks[(dev, excl)] = n
+        _knn2_blocks[(dev, excl, width)] = n
     return n
 
 
@@ -334,16 +377,15 @@ def _launch_knn2(query, qmask, ref, rmask):
     f32 = torch.float32
     dev = kernels.require_cuda("masked_knn2", query, qmask, ref, rmask,
                                dtypes=(f32, torch.bool, f32, torch.bool))
-    if D != _KNN2_DIM:
-        raise ValueError(f"masked_knn2: feature width {D}, expected "
-                         f"{_KNN2_DIM}")
-    qtiles, splits = k2_plan(B, Nq, Nr, D, _knn2_resident(dev, False),
-                             (_K8_QUERIES, _K8_WINDOW))
+    W = knn_width(D)
+    query, ref = pad_features(query, W), pad_features(ref, W)
+    qtiles, splits = k2_plan(B, Nq, Nr, W, _knn2_resident(dev, False, W),
+                             knn2_tiles(W))
     d2 = query.new_empty((B, Nq, 2))
     idx = query.new_empty((B, Nq, 2), dtype=torch.int32)
     part = query.new_empty(4 * B * splits * Nq) if splits > 1 else None
     p = kernels.ptr
-    err = fn(p(query), p(qmask), p(ref), p(rmask), B, Nq, Nr, splits,
+    err = fn(p(query), p(qmask), p(ref), p(rmask), B, Nq, Nr, W, splits,
              p(part), p(kernels.ticket(dev, B * qtiles)), p(d2), p(idx),
              kernels.stream_handle(dev))
     kernels.check_launch("masked_knn2", err)
@@ -358,7 +400,8 @@ def masked_knn_batched(query, qmask, ref, rmask, k: int = 1):
     Returns (d2 [B, Nq, k] f32, idx [B, Nq, k] int32) by (distance, index);
     a place that no valid ref fills, and an invalid query, read (1e30, 0).
     A CPU tensor takes the plain version; a CUDA tensor launches K2 (k = 1)
-    or K8 (k = 2, D = 32) once, or raises."""
+    or K8 (k = 2) once (D from 1 to 256, padded to the kernel's instance),
+    or raises."""
     if k not in (1, 2):
         raise ValueError(f"masked_knn: k = {k}, only 1 and 2 are ported")
     if query.is_cpu:
@@ -448,12 +491,13 @@ def masked_argmin_excl(anchor, cand, pxyz, cxyz, r2: float):
     """The nearest candidate feature of each anchor among the candidates
     whose coordinates lie at least r from the anchor's partner.
 
-    anchor [P, 32], cand [M, 32] f32 features; pxyz [P, 3] the partners'
-    and cxyz [M, 3] the candidates' coordinates; r2 = r^2. Returns
-    (idx [P] int32, excluded [P] bool: every candidate was excluded, idx 0
-    then). A CPU tensor takes the plain version; a CUDA tensor launches K9
-    once (`masked_argmin_excl_gram_split_plain`'s arithmetic on TF32
-    tensor cores, K8's tiles), or raises."""
+    anchor [P, D], cand [M, D] f32 features (D from 1 to 256); pxyz [P, 3]
+    the partners' and cxyz [M, 3] the candidates' coordinates; r2 = r^2.
+    Returns (idx [P] int32, excluded [P] bool: every candidate was
+    excluded, idx 0 then). A CPU tensor takes the plain version; a CUDA
+    tensor launches K9 once (`masked_argmin_excl_gram_split_plain`'s
+    arithmetic on TF32 tensor cores, K8's tiles; D padded to `knn_width`),
+    or raises."""
     if anchor.is_cpu:
         return masked_argmin_excl_plain(anchor, cand, pxyz, cxyz, r2)
     P, D = anchor.shape
@@ -465,17 +509,17 @@ def masked_argmin_excl(anchor, cand, pxyz, cxyz, r2: float):
     f32 = torch.float32
     dev = kernels.require_cuda("masked_argmin_excl", anchor, cand, pxyz,
                                cxyz, dtypes=(f32,) * 4)
-    if D != _KNN2_DIM:
-        raise ValueError(f"masked_argmin_excl: feature width {D}, expected "
-                         f"{_KNN2_DIM}")
-    qtiles, splits = k2_plan(1, P, M, D, _knn2_resident(dev, True),
-                             (_K8_QUERIES, _K8_WINDOW))
+    W = knn_width(D)
+    anchor, cand = pad_features(anchor, W), pad_features(cand, W)
+    qtiles, splits = k2_plan(1, P, M, W, _knn2_resident(dev, True, W),
+                             knn2_tiles(W))
     d2 = anchor.new_empty(P)
     idx = anchor.new_empty(P, dtype=torch.int32)
     excluded = anchor.new_empty(P, dtype=torch.bool)
     part = anchor.new_empty(2 * splits * P) if splits > 1 else None
     p = kernels.ptr
-    err = fn(p(anchor), p(cand), p(pxyz), p(cxyz), float(r2), P, M, splits,
+    err = fn(p(anchor), p(cand), p(pxyz), p(cxyz), float(r2), P, M, W,
+             splits,
              p(part), p(kernels.ticket(dev, qtiles)), p(d2), p(idx),
              p(excluded), kernels.stream_handle(dev))
     kernels.check_launch("masked_argmin_excl", err)

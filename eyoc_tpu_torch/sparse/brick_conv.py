@@ -51,6 +51,7 @@ import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from eyoc_tpu_torch.sparse.bricks import BrickLevel, BrickPyramid
 from eyoc_tpu_torch.utils import kernels
@@ -713,13 +714,40 @@ def sparse_conv(x, W, nmap, *, x2=None, bias=None, mask=None, residual=None,
     x [M_in, Ca], x2 [M_in, Cb] (optional skip concat), W [T, Ca+Cb, Co],
     nmap [M_out, T] int32 (sentinel M_in), bias [Co] f32, mask [M_out] bool,
     residual [M_out, Co]. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16 activations and weights, Co a multiple
-    of 8) or raises."""
+    tensor launches the kernel (bf16 activations and weights) or raises.
+    An output width that is not a multiple of 8 (a model's last conv at
+    n_out) takes the padded route on either: W, bias and residual get zero
+    columns up to the next multiple of 8 (`pad_out`), the output is sliced
+    back."""
+    co = W.shape[-1]
+    if co % 8:
+        return sparse_conv(x, pad_out(W), nmap, x2=x2, bias=pad_out(bias),
+                           mask=mask, residual=pad_out(residual),
+                           relu=relu)[:, :co].contiguous()
     if x.is_cpu:
         return sparse_conv_plain(x, W, nmap, x2=x2, bias=bias, mask=mask,
                                  residual=residual, relu=relu)
     return _launch_k1("sparse_conv", x, W, nmap, x2, bias, mask, residual,
                       relu)
+
+
+def pad_out(t):
+    """t [..., Co] with zero columns up to the next multiple of 8 (None
+    stays None): K1's and K5's output width."""
+    if t is None or t.shape[-1] % 8 == 0:
+        return t
+    return F.pad(t, (0, -t.shape[-1] % 8)).contiguous()
+
+
+def sparse_conv_diff(x, x2, W, nmap, inv):
+    """`SparseConvFunction` for any output width: W [T, Ci, Co] with Co not
+    a multiple of 8 is padded with zero columns inside autograd (F.pad,
+    whose backward slices dW back: the real columns' dW is unchanged), the
+    output sliced to Co."""
+    co = W.shape[-1]
+    if co % 8 == 0:
+        return SparseConvFunction.apply(x, x2, W, nmap, inv)
+    return SparseConvFunction.apply(x, x2, pad_out(W), nmap, inv)[:, :co]
 
 
 def sparse_conv_dgrad(dy, Wt, inv):

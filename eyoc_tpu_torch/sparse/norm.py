@@ -18,6 +18,10 @@ norm per (cloud, channel), statistics and apply; K21
 clouds, or S = 1 for the batch norm). Each apply may go on with the ReLU,
 or the residual block's add, ReLU and mask, or give the pre-ReLU output
 too (SimpleNet's skip), and K21 takes the gradient back through that tail.
+K21 is one cooperative launch over `k21_grid`'s blocks: the rows of all
+segments split evenly, each block's rows read once and kept in shared
+memory, the segments' sums reduced across the blocks in a fixed order
+between grid barriers.
 """
 
 from __future__ import annotations
@@ -72,22 +76,22 @@ def k7_chunks(m: int, c: int):
 
 
 def masked_channel_sums_chunked_plain(x, mask, y=None, shift=None,
-                                      plan=None):
+                                      plan=None, bounds=None):
     """K7's reduction order: chunk k of `k7_chunks` rows (or of `plan` =
-    (chunks, rows)) gives its partial [n, sum x, sum x (y - shift)]; lane l
-    of one warp adds chunks l, l + 32, ... in order, then an xor-shuffle
-    tree over the 32 lanes (offsets 16, 8, 4, 2, 1) gives lane 0's sum, the
-    output."""
+    (chunks, rows), or the rows [start, end) of `bounds`' k-th pair) gives
+    its partial [n, sum x, sum x (y - shift)]; lane l of one warp adds
+    chunks l, l + 32, ... in order, then an xor-shuffle tree over the 32
+    lanes (offsets 16, 8, 4, 2, 1) gives lane 0's sum, the output."""
     M, C = x.shape
-    chunks, rows = plan or k7_chunks(M, C)
-    parts = [masked_channel_sums_plain(x[k * rows:(k + 1) * rows],
-                                       mask[k * rows:(k + 1) * rows], None
-                                       if y is None else
-                                       y[k * rows:(k + 1) * rows], shift)
-             for k in range(chunks)]
+    if bounds is None:
+        chunks, rows = plan or k7_chunks(M, C)
+        bounds = [(k * rows, (k + 1) * rows) for k in range(chunks)]
+    parts = [masked_channel_sums_plain(x[a:e], mask[a:e], None
+                                       if y is None else y[a:e], shift)
+             for a, e in bounds]
     part = torch.stack(parts)                       # [chunks, 1 + 2C]
     lanes = part.new_zeros((32, 1 + 2 * C))
-    for k in range(chunks):
+    for k in range(len(bounds)):
         lanes[k % 32] = lanes[k % 32] + part[k]
     lane = torch.arange(32, device=x.device)
     for off in (16, 8, 4, 2, 1):
@@ -216,6 +220,64 @@ def _launch_k22(x, mask, gof, relu, residual, skip):
     return (y, pre) if skip else y
 
 
+# ---------------------------------------------------------------- K21's grid
+
+# K21 is one cooperative launch: a persistent grid of at most the blocks
+# the card holds at once, the rows of all segments split evenly over the
+# blocks (csrc/norm_backward.cu).
+
+K21_THREADS = 256         # a block's threads (norm_backward.cu)
+K21_ROWS_IN_FLIGHT = 4    # rows a thread loads at once
+H100_SMS = 132            # an H100 SXM's SMs, one block each: the mirror's
+                          # default grid
+
+
+@functools.lru_cache(maxsize=1024)
+def k21_grid(rows: int, c: int, resident: int):
+    """(blocks, rows_per_block) of a K21 launch over `rows` rows of `c`
+    channels: at most `resident` blocks (the cooperative launch's limit),
+    each with at least one pass of its threads over K21_ROWS_IN_FLIGHT
+    rows a thread (K21_THREADS / L rows a pass, L = C / 8 rounded up to a
+    power of two); the rows split evenly, the last block not empty."""
+    lanes = 1
+    while lanes < c // 8:
+        lanes *= 2
+    least = K21_THREADS // lanes * K21_ROWS_IN_FLIGHT
+    blocks = max(1, min(resident, -(-rows // least)))
+    per = max(1, -(-rows // blocks))
+    return max(1, -(-rows // per)), per
+
+
+def k21_pieces(segments: int, cap: int, blocks: int, rows_per_block: int):
+    """[segment][(start, end)]: the rows of each segment (relative to its
+    first) that each block touching it owns, in block order."""
+    out = []
+    for s in range(segments):
+        a, e = s * cap, (s + 1) * cap
+        out.append([(max(a, b * rows_per_block) - a,
+                     min(e, (b + 1) * rows_per_block) - a)
+                    for b in range(a // rows_per_block,
+                                   (e - 1) // rows_per_block + 1)])
+    return out
+
+
+_k21_blocks: dict = {}
+
+
+def _k21_resident(dev: int) -> int:
+    """Blocks of K21 that device `dev` holds at once."""
+    n = _k21_blocks.get(dev)
+    if n is None:
+        fn = kernels.load("norm_backward", (),
+                          symbol="masked_norm_backward_resident")
+        with torch.cuda.device(dev):
+            n = fn()
+        if n <= 0:
+            raise RuntimeError("masked_norm_backward: occupancy query failed")
+        _k21_blocks[dev] = n
+    return n
+
+
 # ---------------------------------------------------------------- kernel K21
 
 
@@ -279,24 +341,27 @@ def masked_norm_backward_plain(x, mask, n_segments: int, scale, stats, dy,
 
 def masked_norm_backward_chunked_plain(x, mask, n_segments: int, scale,
                                        stats, dy, y=None, dpre=None,
-                                       residual: bool = False):
-    """K21's order: each segment's sums in K7's chunked order over its rows
-    (`k20_chunks`, `masked_channel_sums_chunked_plain` of dy0 with y = x
-    and shift = the segment's mean), then the same coefficients and dX."""
+                                       residual: bool = False, grid=None):
+    """K21's order: each segment's sums over its pieces (`k21_pieces` of
+    the kernel's grid `grid` = (blocks, rows_per_block), by default
+    `k21_grid`'s on H100_SMS blocks, an H100's) in K7's final order
+    (`masked_channel_sums_chunked_plain` of dy0 with y = x and shift = the
+    segment's mean), then the same coefficients and dX."""
     S = n_segments
     M, C = x.shape
     cap = M // S
-    plan = k20_chunks(cap, C)
+    grid = grid or k21_grid(M, C, H100_SMS)
     d = _grad_at_norm(dy, y, dpre, x.dtype)
     mean = stats.reshape(S, 3, C)[:, 0]
     sums = torch.stack([masked_channel_sums_chunked_plain(
         d[s * cap:(s + 1) * cap], mask[s * cap:(s + 1) * cap],
-        x[s * cap:(s + 1) * cap], mean[s], plan=plan) for s in range(S)])
+        x[s * cap:(s + 1) * cap], mean[s], bounds=pieces)
+        for s, pieces in enumerate(k21_pieces(S, cap, *grid))])
     return _backward_finish(x, mask, S, scale, stats, d, sums, residual)
 
 
 _K21_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
-             + (ctypes.c_void_p,) * 8)
+             + (ctypes.c_void_p,) * 7)
 
 
 def masked_norm_backward(x, mask, n_segments: int, scale, stats, dy, y=None,
@@ -308,9 +373,8 @@ def masked_norm_backward(x, mask, n_segments: int, scale, stats, dy, y=None,
 
     A CPU tensor takes the plain version (any float dtype); a CUDA tensor
     launches the kernel, which takes bf16 x, dy, y and dpre with C a
-    multiple of 8 up to 512, or raises. Two launches a call (the sums,
-    whose last block a segment makes its coefficients, then dX), counted
-    once."""
+    multiple of 8 up to 512, or raises. One cooperative launch a call over
+    `k21_grid`'s blocks; a refused launch raises."""
     if x.is_cpu:
         return masked_norm_backward_plain(x, mask, n_segments, scale, stats,
                                           dy, y, dpre, residual)
@@ -335,28 +399,26 @@ def _launch_k21(x, mask, n_segments, scale, stats, dy, y, dpre, residual,
     if C % 8 or C > K20_MAX_C:
         raise ValueError(f"masked_norm_backward: {C} channels, the kernel "
                          f"takes a multiple of 8 up to {K20_MAX_C}")
-    cap = M // S
-    chunks, rows = k20_chunks(cap, C)
-    W = 1 + 2 * C
-    # one f32 buffer: the chunk partials [S, W, chunks], then the
+    blocks, rows = k21_grid(M, C, _k21_resident(dev))
+    # one f32 buffer: the pieces' partials [blocks + S - 1, 1 + 2C], the
     # coefficients [S, 5C], then dscale and dbias
-    buf = _k21_scratch(S * (W * chunks + 5 * C) + 2 * C, x)
-    coefs = buf[S * W * chunks:]
-    grads = buf[S * (W * chunks + 5 * C):]
+    n_part = (blocks + S - 1) * (1 + 2 * C)
+    buf = _k21_scratch(n_part + 5 * S * C + 2 * C, x)
+    grads = buf[n_part + 5 * S * C:]
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if residual else None
     p = kernels.ptr
     err = fn(x.data_ptr(), dy.data_ptr(), p(y), p(dpre), mask.data_ptr(),
-             scale.data_ptr(), stats.data_ptr(), S, cap, C, chunks, rows,
-             buf.data_ptr(), kernels.ticket(dev, S).data_ptr(),
-             coefs.data_ptr(), dx.data_ptr(), p(dres), grads.data_ptr(),
-             grads.data_ptr() + 4 * C, kernels.stream_handle(dev))
+             scale.data_ptr(), stats.data_ptr(), S, M // S, C, blocks, rows,
+             buf.data_ptr(), buf.data_ptr() + 4 * n_part, dx.data_ptr(),
+             p(dres), grads.data_ptr(), grads.data_ptr() + 4 * C,
+             kernels.stream_handle(dev))
     kernels.check_launch(counter, err)
     return dx, dres, grads[:C], grads[C:]
 
 
 def _k21_scratch(n: int, x):
-    """K21's f32 scratch: the chunk partials, the coefficients, the
+    """K21's f32 scratch: the pieces' partials, the coefficients, the
     parameter grads."""
     return x.new_empty(n, dtype=torch.float32)
 

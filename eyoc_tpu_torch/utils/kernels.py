@@ -23,8 +23,8 @@ backward's dX; K16's single-stage and two-stage entries; K21 as the
 instance norm's backward and as the batch norm's), so the
 counters are `COUNTERS`: the sources in `KERNELS` with an entry point of
 their own name, and the other entry points. A wrapper call that makes
-several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K21,
-K23) counts one.
+several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K23)
+counts one; K3 and K21 are one cooperative launch each.
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work

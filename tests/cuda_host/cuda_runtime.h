@@ -1,7 +1,8 @@
 // A host stand-in for the part of the CUDA runtime that the port's kernels
 // run on the CPU in the tests use (csrc/voxelize.cu, brick_pyramid.cu,
-// conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu, sc2_power_iteration.cu),
-// so that g++ can build their sources and the tests can run them.
+// conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu, sc2_power_iteration.cu,
+// instance_norm.cu, norm_backward.cu), so that g++ can build their sources
+// and the tests can run them.
 //
 // Blocks run one after another on the calling thread. Each CUDA thread of
 // a block is a fiber (ucontext) with its own stack. __syncthreads and the
@@ -21,9 +22,17 @@
 // read.
 // Blocks run in the order of their index, so a block that waits on a lower
 // block's published state (a decoupled look-back) finds it there; a wait on
-// a later block would hang. A cooperative launch (cudaLaunchCooperativeKernel
-// with a typed kernel) runs a grid of one block only, whose grid barrier
-// (cooperative_groups.h) is its __syncthreads.
+// a later block would hang.
+// A cooperative launch (cudaLaunchCooperativeKernel with a typed kernel)
+// takes a grid of up to kMaxCoopBlocks blocks and makes every thread of
+// every block a fiber, all live at once: the scheduler runs each block's
+// threads to their next stop, block by block, and the grid barrier
+// (cooperative_groups.h: grid.sync()) releases once every live thread of
+// the grid waits there. Each block of such a launch has its own dynamic
+// shared memory of the launch's size (`host_cuda::dynamic_shared` points at
+// the running block's); its `__shared__` statics would be shared by all
+// blocks, so a kernel launched on more than one block keeps its shared
+// state in the dynamic array.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
@@ -40,6 +49,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -68,8 +78,9 @@ inline thread_local dim3 threadIdx, blockIdx, gridDim;
 
 namespace host_cuda {
 
-// where a fiber stopped: running, at a __syncthreads, at a shuffle
-enum Wait : char { kRun, kBlock, kWarp };
+// where a fiber stopped: running, at a __syncthreads, at a shuffle, at a
+// grid barrier
+enum Wait : char { kRun, kBlock, kWarp, kGrid };
 
 // The fibers of the block that runs; null while threads run as calls.
 struct Block {
@@ -83,7 +94,10 @@ struct Block {
   bool synced = false;
 };
 inline Block* running = nullptr;
-alignas(16) inline char dynamic_shared[256 * 1024];
+alignas(16) inline char dynamic_shared_buffer[256 * 1024];
+// the running block's dynamic shared memory
+inline char* dynamic_shared = dynamic_shared_buffer;
+constexpr unsigned kMaxCoopBlocks = 8;
 
 inline void fiber_entry() {
   (*running->body)();
@@ -112,6 +126,11 @@ inline void __syncthreads() {
   host_cuda::Block* b = host_cuda::block_or_abort("__syncthreads");
   host_cuda::stop(b, host_cuda::kBlock);
 }
+
+namespace host_cuda {
+// The grid barrier of a cooperative launch.
+inline void grid_sync() { stop(block_or_abort("a grid barrier"), kGrid); }
+}  // namespace host_cuda
 
 namespace host_cuda {
 
@@ -199,6 +218,7 @@ inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
+inline long long max(long long a, long long b) { return a > b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int atomicAdd(int* p, int v) {
@@ -225,7 +245,8 @@ typedef int cudaError_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaErrorInvalidConfiguration = 9
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorCooperativeLaunchTooLarge = 720
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
@@ -340,24 +361,106 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return cudaSuccess;
 }
 
+// A cooperative launch: `grid` blocks of `block` fibers each, all live at
+// once, each block with `smem` bytes of its own dynamic shared memory.
+struct HostGridLaunch {
+  unsigned grid, block;
+  size_t smem;
+  static constexpr size_t kStack = 1 << 16;
+
+  template <class F, class... A>
+  void operator()(F kernel, A... args) const {
+    std::function<void()> body = [&] { kernel(args...); };
+    const size_t shm = (smem + 15) / 16 * 16;
+    std::unique_ptr<char[]> stacks(new char[size_t(grid) * block * kStack]);
+    std::unique_ptr<char[]> shared(new char[size_t(grid) * shm + 16]);
+    char* shared0 = reinterpret_cast<char*>(
+        (reinterpret_cast<std::uintptr_t>(shared.get()) + 15) & ~15ull);
+    std::vector<host_cuda::Block> blks(grid);
+    gridDim.x = grid;
+    for (unsigned b = 0; b < grid; ++b) {
+      host_cuda::Block& blk = blks[b];
+      blk.ctx.resize(block);
+      blk.done.assign(block, 0);
+      blk.wait.assign(block, host_cuda::kRun);
+      blk.shuffles.assign(block, 0);
+      blk.post[0].resize(block);
+      blk.post[1].resize(block);
+      blk.body = &body;
+      for (unsigned t = 0; t < block; ++t) {
+        getcontext(&blk.ctx[t]);
+        blk.ctx[t].uc_stack.ss_sp =
+            stacks.get() + (size_t(b) * block + t) * kStack;
+        blk.ctx[t].uc_stack.ss_size = kStack;
+        blk.ctx[t].uc_link = &blk.scheduler;
+        makecontext(&blk.ctx[t], host_cuda::fiber_entry, 0);
+      }
+    }
+    for (;;) {
+      bool live = false, released = false, all_grid = true;
+      for (unsigned b = 0; b < grid; ++b) {
+        host_cuda::Block& blk = blks[b];
+        host_cuda::running = &blk;
+        host_cuda::dynamic_shared = shared0 + size_t(b) * shm;
+        blockIdx.x = b;
+        for (unsigned t = 0; t < block; ++t)
+          if (!blk.done[t] && blk.wait[t] == host_cuda::kRun)
+            HostLaunch::resume(blk, t);
+        bool any = false, all_block = true, warp_released = false;
+        for (unsigned w = 0; w < block; w += 32) {
+          bool all_warp = true, in_warp = false;
+          for (unsigned t = w; t < w + 32 && t < block; ++t) {
+            if (blk.done[t]) continue;
+            in_warp = any = true;
+            all_warp = all_warp && blk.wait[t] == host_cuda::kWarp;
+            all_block = all_block && blk.wait[t] == host_cuda::kBlock;
+            all_grid = all_grid && blk.wait[t] == host_cuda::kGrid;
+          }
+          if (in_warp && all_warp) {
+            for (unsigned t = w; t < w + 32 && t < block; ++t)
+              blk.wait[t] = host_cuda::kRun;
+            warp_released = true;
+          }
+        }
+        live = live || any;
+        if (any && !warp_released && all_block)
+          for (unsigned t = 0; t < block; ++t) blk.wait[t] = host_cuda::kRun;
+        released = released || warp_released || (any && all_block);
+      }
+      if (!live) break;
+      if (released) continue;
+      if (!all_grid) {
+        std::fprintf(stderr, "cuda_host: the grid waits at barriers that "
+                             "some of its threads never reach\n");
+        std::abort();
+      }
+      for (auto& blk : blks)
+        for (unsigned t = 0; t < block; ++t) blk.wait[t] = host_cuda::kRun;
+    }
+    host_cuda::running = nullptr;
+    host_cuda::dynamic_shared = host_cuda::dynamic_shared_buffer;
+  }
+};
+
 namespace host_cuda {
 template <class... P, size_t... I>
-inline void launch_args(void (*kernel)(P...), unsigned block, void** args,
-                        std::index_sequence<I...>) {
-  HostLaunch{1u, block}(
+inline void launch_args(void (*kernel)(P...), unsigned grid, unsigned block,
+                        size_t smem, void** args, std::index_sequence<I...>) {
+  HostGridLaunch{grid, block, smem}(
       kernel, *static_cast<std::remove_cv_t<P>*>(args[I])...);
 }
 }  // namespace host_cuda
 
 // A cooperative launch of a typed kernel: its arguments read from `args`
-// by the kernel's parameter types. One block only (the grid barrier is the
-// block's __syncthreads); a larger grid is refused.
+// by the kernel's parameter types. At most kMaxCoopBlocks blocks; a larger
+// grid is refused, as the card refuses a grid past its resident blocks.
 template <class... P>
 inline cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(P...), dim3 grid,
                                                dim3 block, void** args,
-                                               size_t, cudaStream_t) {
-  if (grid.x != 1) return cudaErrorInvalidConfiguration;
-  host_cuda::launch_args(kernel, block.x, args,
+                                               size_t smem, cudaStream_t) {
+  if (grid.x < 1 || grid.x > host_cuda::kMaxCoopBlocks)
+    return cudaErrorInvalidConfiguration;
+  host_cuda::launch_args(kernel, grid.x, block.x, smem, args,
                          std::index_sequence_for<P...>{});
   return cudaSuccess;
 }

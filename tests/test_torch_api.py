@@ -16,6 +16,19 @@ from eyoc_tpu_torch import api
 from eyoc_tpu_torch.models import ResUNet, UNetSpec
 from eyoc_tpu_torch.models.convert import params_from_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 NARROW = dict(channels=(8, 16, 16, 16), tr_channels=(8, 8, 8, 16))
 CAPS = (2048, 768, 256, 96)
 BITS = (7, 7, 6)

@@ -12,6 +12,7 @@ terms rtol 1e-4, num_pos_found exact, the state after the steps rtol
 
 import jax
 import numpy as np
+import pytest
 import torch
 from test_torch_extension_step import CAPS, SPEC
 from test_torch_train_step import _f32_convs  # noqa: F401 (JAX convs in f32)
@@ -24,6 +25,18 @@ from eyoc_tpu_torch.models import ResUNet, UNetSpec
 from eyoc_tpu_torch.models.convert import params_from_jax
 from eyoc_tpu_torch.training.optim import sgd
 from eyoc_tpu_torch.training.steps import TrainConfig, base_train_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def student(params, bn):

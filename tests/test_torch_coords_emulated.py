@@ -32,6 +32,19 @@ from eyoc_tpu_torch.sparse import voxelize as tvox
 from eyoc_tpu_torch.training import pipeline as tpipe
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 HOST_HEADERS = Path(__file__).resolve().parent / "cuda_host"
 SOURCES = ("voxelize", "brick_pyramid", "conv_maps")
 VOXEL = 0.3

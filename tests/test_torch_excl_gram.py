@@ -34,6 +34,19 @@ import torch
 from eyoc_tpu.geometry.metrics import pdist, pdist2
 from eyoc_tpu_torch.ops import knn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 P, M, D = 700, 300, 32
 R = 1.05                   # the exclusion radius; candidates in a unit ball
 K2_GAP = 1e-3              # chip_smoke.py's: indices equal past this gap

@@ -31,6 +31,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 from test_torch_train_step import _f32_convs  # noqa: F401 (JAX convs in f32)
 from test_torch_train_step import (BITS, NUM_HN, NUM_POS, assert_state_close,
@@ -51,6 +52,19 @@ from eyoc_tpu_torch.training import steps
 from eyoc_tpu_torch.training.pipeline import RawBatch
 from eyoc_tpu_torch.training.steps import (StepDraws, TrainConfig,
                                            extension_train_step)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 CAPS = (1024, 512)
 SPEC = JSpec("narrow", "BN", "BN", (8, 16), (8, 16))

@@ -11,6 +11,19 @@ from eyoc_tpu.geometry import se3 as jse3
 from eyoc_tpu.geometry import svd3 as jsvd3
 from eyoc_tpu_torch.geometry import metrics, se3, svd3
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 

@@ -33,6 +33,19 @@ from eyoc_tpu_torch.utils import kernels
 from test_torch_ransac import random_pose
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 POSE_TOL, WARP_TOL = 1e-5, 8e-5
 
 

@@ -53,6 +53,19 @@ from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
 from eyoc_tpu_torch.utils import kernels
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 NORM_ATOL = 1e-5      # f32 normalised values of order 1, two sum orders,
 NORM_RTOL = 1e-5      # var = E x^2 - mean^2 cancelling (|mean| ~ 1.3 std)
 BF16_ULPS = 1         # bf16 outputs of f32 statistics in two sum orders

@@ -11,6 +11,18 @@ from eyoc_tpu.ops.knn import masked_argmin as jargmin
 from eyoc_tpu_torch.ops.knn import masked_argmin
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def separated(rng, nq, nr, dim, gap=1e-3):
     """Queries whose first and second nearest valid refs differ by > gap."""
     q = rng.normal(size=(nq, dim)).astype(np.float32)

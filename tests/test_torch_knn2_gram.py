@@ -27,6 +27,19 @@ import torch
 from eyoc_tpu.ops.knn import masked_knn as jknn
 from eyoc_tpu_torch.ops import knn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 B, NQ, NR, D = 2, 700, 700, 32
 K2_GAP = 1e-3              # chip_smoke.py's: indices equal past this gap
 DUPS = ((1, 3, 4), (7, 650))

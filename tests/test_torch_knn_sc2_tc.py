@@ -36,6 +36,19 @@ from eyoc_tpu_torch.registration import sc2pcr as T
 from eyoc_tpu_torch.training.pipeline import gt_positive_pairs
 from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 D_THRE = 0.1
 
 

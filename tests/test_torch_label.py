@@ -32,6 +32,19 @@ from eyoc_tpu_torch.ops.matching import load_similarity_tables
 from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig
 from eyoc_tpu_torch.training.steps import TrainConfig, label_pairs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 CAP, C = 512, 32
 SMALL = dict(num_corres=256, rediscovery_samples=256)
 FRAME_DISTANCES = (8, 23)          # Similarity buckets 1 and 4

@@ -34,6 +34,19 @@ from eyoc_tpu_torch.training.pipeline import flatten_pairs, gt_positive_pairs
 from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------- take_rows
 
 

@@ -43,6 +43,18 @@ from eyoc_tpu_torch.training.optim import ema_update, sync_labeler
 from eyoc_tpu_torch.utils import kernels
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def unit(rng, *shape):
     x = rng.normal(size=shape).astype(np.float32)
     return x / np.linalg.norm(x, axis=-1, keepdims=True)

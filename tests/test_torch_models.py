@@ -17,6 +17,19 @@ from eyoc_tpu_torch.models import MODELS, ResUNet, UNetSpec, init_unet, load_mod
 from eyoc_tpu_torch.models.convert import params_from_jax
 from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 CAPS = (2048, 768, 256, 96)
 BITS = (7, 7, 6)
 NARROW = dict(channels=(8, 16, 16, 16), tr_channels=(8, 8, 8, 16))

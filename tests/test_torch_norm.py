@@ -24,6 +24,19 @@ from eyoc_tpu_torch.sparse.norm import (K7_FINAL_VALUES, k7_chunks,
                                         masked_channel_sums_plain)
 from eyoc_tpu_torch.training.pipeline import preprocess_clouds as tpreprocess
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 CAPS = (2048, 768, 256, 96)
 BITS = (7, 7, 6)
 

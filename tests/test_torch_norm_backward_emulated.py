@@ -1,19 +1,26 @@
-"""K21 `masked_norm_backward` (csrc/norm_backward.cu) and K22
-`masked_norm_apply` (csrc/instance_norm.cu's apply entry) built with g++
-against tests/cuda_host/ (each CUDA thread a fiber) and run through the
-wrappers' launch code on CPU bf16 tensors, against their plain versions.
+"""K21 `masked_norm_backward` (csrc/norm_backward.cu), K20's statistics
+output and K22 `masked_norm_apply` (csrc/instance_norm.cu) built with g++
+against tests/cuda_host/ (each CUDA thread a fiber; a cooperative launch
+a grid of up to 8 blocks, all live at once) and run through the wrappers'
+launch code on CPU bf16 tensors, against their plain versions.
 
-K21: the instance norm's backward over 3 clouds (one with no valid row,
-one with a single valid row, a constant channel), the batch norm's over
-one segment of several chunks, and two channel slabs (C = 512); every
-tail (bare, ReLU, residual, ReLU with the pre-ReLU output's gradient).
-Compared: dx within BF16_ULPS units in the last place of the plain
-version's (`ulps_apart`), dresidual bit-equal, dscale / dbias within
-K21_REL of the plain sums of absolute values; the scratch comes poisoned
-with NaN, the ticket words are back at zero after a call and a second call
-gives the same bits. K20's statistics output (mean, rstd, live: what the
-backward reads) against the plain version's within STATS_RTOL, live equal.
-K22: bit-equal to its plain version at one segment and at three."""
+K21 is one cooperative launch over `k21_grid`'s blocks; the host build
+caches at most HOST_CACHE_BYTES of a block's rows (-DEYOC_NORM_CACHE_BYTES),
+so most cases read some rows again in the dx pass, and the wrappers see a
+card that holds `RESIDENT[case]` blocks (2 to 8): blocks straddle segment
+boundaries, and each segment's sums come from several blocks. Cases: the
+instance norm's backward over 3 clouds (one with no valid row, one with a
+single valid row, a constant channel), the batch norm's over one segment
+spread over several blocks, C = 32, 64, 256 and 512; every tail (bare,
+ReLU, residual, ReLU with the pre-ReLU output's gradient). Compared: dx
+within BF16_ULPS units in the last place of the plain version's
+(`ulps_apart`), dresidual bit-equal, dscale / dbias within K21_REL of the
+plain sums of absolute values; the scratch comes poisoned with NaN and a
+second call gives the same bits. The same cases through K21's mirror on
+the kernel's grid (`masked_norm_backward_chunked_plain(grid=...)`). K20's
+statistics output (mean, rstd, live: what the backward reads) against the
+plain version's within STATS_RTOL, live equal. K22: bit-equal to its
+plain version at one segment and at three."""
 
 import ctypes
 import shutil
@@ -29,10 +36,28 @@ from test_torch_instance_norm import ulps_apart
 from test_torch_norm_backward import TAILS, backward_case, rows
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 BF16_ULPS = 1          # bf16 dx of f32 coefficients summed in two orders
 K21_REL = 1e-5         # f32 sums over <= 3000 rows in two orders
 STATS_RTOL = 1e-5      # K20's f32 statistics, two orders (rsqrt vs 1/sqrt)
 SOURCES = ("norm_backward", "instance_norm")
+HOST_CACHE_BYTES = 98304
+# (S, cap, C): the blocks the wrappers are told the card holds
+RESIDENT = {(3, 300, 64): 8, (1, 3000, 32): 8, (2, 100, 512): 3,
+            (1, 2000, 256): 5, (1, 600, 512): 8, (3, 200, 32): 2,
+            (3, 100, 256): 7, (3, 40, 512): 4, (3, 700, 32): 6}
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +72,7 @@ def host_libs(tmp_path_factory):
         cpp.write_text(host_source((kernels.CSRC / f"{name}.cu").read_text()))
         so = out / f"lib{name}.so"
         proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                               f"-DEYOC_NORM_CACHE_BYTES={HOST_CACHE_BYTES}",
                                "-I", str(HOST_HEADERS), "-o", str(so),
                                str(cpp)], capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
@@ -58,8 +84,11 @@ def host_libs(tmp_path_factory):
 def on_host(host_libs, monkeypatch):
     """The wrappers' launch code on the host builds: CPU tensors pass the
     CUDA-only checks, the scratch comes poisoned with NaN, the ticket words
-    are one zeroed array kept across calls."""
+    are one zeroed array kept across calls (K21 takes none: they stay at
+    zero), and the card holds `resident["blocks"]` blocks of K21 (8 unless
+    a test sets it)."""
     tickets = torch.zeros(256, dtype=torch.int32)
+    resident = {"blocks": 8}
 
     def load(name, argtypes, symbol=None):
         fn = getattr(host_libs[name], f"eyoc_{symbol or name}")
@@ -74,7 +103,8 @@ def on_host(host_libs, monkeypatch):
     monkeypatch.setattr(kernels, "ticket", lambda dev, count=1: tickets)
     monkeypatch.setattr(N, "_k20_scratch", nan)
     monkeypatch.setattr(N, "_k21_scratch", nan)
-    return tickets
+    monkeypatch.setattr(N, "_k21_resident", lambda dev: resident["blocks"])
+    return tickets, resident
 
 
 def abs_sums(x, mask, S, stats, dy, y, dpre):
@@ -90,10 +120,12 @@ def abs_sums(x, mask, S, stats, dy, y, dpre):
                                             * xh).sum(1)
 
 
-@pytest.mark.parametrize("S,cap,C", [(3, 300, 64), (1, 3000, 32),
-                                     (2, 100, 512)])
+@pytest.mark.parametrize("S,cap,C", list(RESIDENT))
 def test_k21_source_matches_plain(on_host, S, cap, C):
-    assert N.k20_chunks(cap, C)[0] > 1 or C == 512
+    tickets, resident = on_host
+    resident["blocks"] = RESIDENT[(S, cap, C)]
+    grid = N.k21_grid(S * cap, C, resident["blocks"])
+    assert 2 <= grid[0] <= 8
     for tail in TAILS:
         args = backward_case(S, cap, C, 30 + S, tail, torch.bfloat16)
         x, mask, _, scale, stats, dy, y, dpre, residual = args
@@ -103,19 +135,23 @@ def test_k21_source_matches_plain(on_host, S, cap, C):
         got = N._launch_k21(*args, counter)
         assert kernels.launches[counter] == before + 1
         want = N.masked_norm_backward_plain(*args)
-        dx, dres, ds, db = got
-        assert dx.dtype == torch.bfloat16
-        assert torch.isfinite(dx.float()).all()
-        assert ulps_apart(dx, want[0]) <= BF16_ULPS, tail
-        assert not dx[~mask].any()
-        if residual:
-            assert torch.equal(dres, want[1])
-        else:
-            assert dres is None
+        mirror = N.masked_norm_backward_chunked_plain(*args, grid=grid)
         sdy_abs, sdyxh_abs = abs_sums(x, mask, S, stats, dy, y, dpre)
-        for g, w, size in ((ds, want[2], sdyxh_abs), (db, want[3], sdy_abs)):
-            assert (g - w).abs().max() <= K21_REL * size.sum(0).max() + 1e-6
-        assert not on_host.any()                  # tickets back at zero
+        for ref in (want, mirror):
+            dx, dres, ds, db = got
+            assert dx.dtype == torch.bfloat16
+            assert torch.isfinite(dx.float()).all()
+            assert ulps_apart(dx, ref[0]) <= BF16_ULPS, tail
+            assert not dx[~mask].any()
+            if residual:
+                assert torch.equal(dres, ref[1])
+            else:
+                assert dres is None
+            for g, w, size in ((ds, ref[2], sdyxh_abs),
+                               (db, ref[3], sdy_abs)):
+                assert (g - w).abs().max() <= \
+                    K21_REL * size.sum(0).max() + 1e-6
+        assert not tickets.any()                  # no ticket word left
         again = N._launch_k21(*args, counter)
         for a, b in zip(got, again):
             assert (a is None and b is None) or torch.equal(a, b)

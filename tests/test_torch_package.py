@@ -21,6 +21,19 @@ from eyoc_tpu_torch.registration import sc2pcr
 from eyoc_tpu_torch.sparse import brick_conv
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

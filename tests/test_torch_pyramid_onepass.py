@@ -21,6 +21,19 @@ from eyoc_tpu_torch.sparse import brick_conv as tbc
 from eyoc_tpu_torch.sparse import bricks as tbricks
 from eyoc_tpu_torch.sparse import morton
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 BITS = (7, 7, 6)
 CAP0 = 384
 # (clouds, brick caps): none cut; every level cut (the clouds below hold

@@ -43,6 +43,19 @@ from eyoc_tpu_torch.geometry import svd3
 from eyoc_tpu_torch.registration import icp, ransac
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 GAP = 1e-2            # eigen gap (of the largest eigenvalue) that pins a pose
 EPS = 1e-5            # m: a count test this close to the threshold is waived
 # A triplet's pose is f32 Jacobi on a Horn matrix whose gap can be small:

@@ -55,6 +55,19 @@ from test_torch_ransac import (EXTENT, GAP, HYP_ROT, correspondences,
                                horn_gap, random_pose)
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 N, H, SUB = 256, 512, 64
 THR, RATIO = 0.3, 0.9
 

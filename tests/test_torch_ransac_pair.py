@@ -27,6 +27,18 @@ from eyoc_tpu_torch.training.pipeline import RawBatch
 from test_torch_ransac import pose_gap, random_pose
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 CAPS = (1024, 512)
 BITS = (7, 7, 6)
 N_SUB = 256

@@ -30,6 +30,19 @@ from eyoc_tpu.registration import ransac as jransac
 from eyoc_tpu_torch.registration import ransac
 from test_torch_ransac import correspondences, pose_gap
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 S = 64
 
 

@@ -39,6 +39,19 @@ from eyoc_tpu_torch.utils import kernels
 from test_torch_ransac import correspondences
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 THR, RATIO, H = 0.3, 0.9, 3000
 BUILDS = {"splits": [], "one_split": ["-DEYOC_VERIFY_BLOCKS_PER_SM=0"]}
 

@@ -28,6 +28,19 @@ from eyoc_tpu.geometry import se3 as jse3
 from eyoc_tpu_torch.geometry import metrics, robust, se3
 from test_geometry import random_trans
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 POSE_TOL = 2e-5       # m, f32 against f32 (two sum orders, two solves)
 F64_TOL = 5e-5        # m, f32 against the f64 rounds
 

@@ -31,6 +31,19 @@ from eyoc_tpu_torch.geometry import robust as R
 from eyoc_tpu_torch.utils import kernels
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 POSE_TOL = 2e-5           # m, largest row displacement between two poses
 MIRROR_TOL = 1e-5         # m, against the kernel's own plain mirror
 SMALL_CAP = 64

@@ -24,6 +24,19 @@ from eyoc_tpu.geometry.metrics import rte
 from eyoc_tpu.registration import sc2pcr as J
 from eyoc_tpu_torch.registration import sc2pcr as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 N, SEEDS = 256, 64
 KW = dict(max_points=N, seed_cap=SEEDS)
 

@@ -31,6 +31,19 @@ import torch
 from eyoc_tpu_torch.registration import sc2pcr as T
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 HOST_HEADERS = Path(__file__).resolve().parent / "cuda_host"
 SOURCES = ("sc2_nms", "sc2_refine")
 LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", re.S)

@@ -42,6 +42,19 @@ from eyoc_tpu_torch.registration import sc2pcr as T
 from eyoc_tpu_torch.utils import kernels
 from test_torch_sc2_emulated import HOST_HEADERS, host_source
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 POSE_TOL, IRLS_TOL = 1e-4, 1e-5
 SMALL_CAP = 64                 # K15's row cap in the over-cap host build
 POISON = 0x7FC00000            # a NaN as f32, a wild place as int32

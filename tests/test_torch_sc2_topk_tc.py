@@ -29,6 +29,19 @@ import torch
 from eyoc_tpu.registration import sc2pcr as J
 from eyoc_tpu_torch.registration import sc2pcr as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 D_THRE, K1, S = 0.1, 30, 64
 
 

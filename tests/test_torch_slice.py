@@ -30,6 +30,19 @@ from eyoc_tpu_torch.models import ResUNet, UNetSpec
 from eyoc_tpu_torch.models.convert import params_from_jax
 from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 N_POINTS = 8192
 CAPS = (4096, 1536, 512, 256)
 BITS = (9, 9, 7)

@@ -13,7 +13,10 @@
   the same batch and draws, RR the mean of `registration_success` on those
   poses; RANSAC (the default H = 1M hypotheses) is left to the card
   (chip_smoke.py phase 10);
-- `--dp_devices 2` raises, naming ROADMAP.md queue 1 item 5.
+- `--dp_devices 2` raises, naming ROADMAP.md queue 1 item 5;
+- the Feat timer spans the batch's host-to-device copy (`RawBatch.to`),
+  as the JAX CLI's does (its embed takes the host batch): one pair of the
+  runbook's tree with a recording Timer and a recording `to`.
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ from eyoc_tpu_torch.data import datasets as TD
 from eyoc_tpu_torch.geometry.metrics import registration_success
 from eyoc_tpu_torch.models import init_unet, load_model
 from eyoc_tpu_torch.tools import import_torch_ckpt
+from eyoc_tpu_torch.training.pipeline import RawBatch
 from eyoc_tpu_torch.training.trainer import build_step_config
 from test_torch_kitti_data import kitti_tree
 
@@ -147,3 +151,51 @@ def test_runbook_on_kitti_tree(tmp_path, monkeypatch):
         assert torch.equal(want["T_est"], T_est)
         ok.append(bool(registration_success(T_est, batch.T_gt[0])[0]))
     assert res["rr"] == np.mean(ok)
+
+
+def test_feat_timer_spans_the_copy(tmp_path, monkeypatch):
+    root = kitti_tree(tmp_path / "kitti", radius=18.0)
+    split = tmp_path / "split_00.txt"
+    split.write_text("00\n")
+    monkeypatch.setattr(TD, "_split_file", lambda name: str(split))
+    pth = str(tmp_path / "best_val_checkpoint.pth")
+    reference_checkpoint(pth)
+    out = str(tmp_path / "imported")
+    import_torch_ckpt.main(["--input", pth, "--output_dir", out, "--name",
+                            "best_val_checkpoint", "--write_test_config"])
+    events = []
+    timers = []
+
+    class RecordingTimer(ttest.Timer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+        def tic(self):
+            events.append(("tic", timers.index(self)))
+            super().tic()
+
+        def toc(self, average=True):
+            events.append(("toc", timers.index(self)))
+            return super().toc(average)
+
+    real_to = RawBatch.to
+
+    def recording_to(self, device):
+        events.append(("copy", None))
+        return real_to(self, device)
+
+    monkeypatch.setattr(ttest, "Timer", RecordingTimer)
+    monkeypatch.setattr(RawBatch, "to", recording_to)
+    args = ttest.parse_args([
+        "--save_dir", out, "--kitti_root", root,
+        "--dataset", "KITTINMPairDataset", "--pair_min_dist", "3",
+        "--use_RANSAC", "false", "--window_bits", "7,7,6",
+        "--num_pairs", "1"])
+    ttest.main(ttest.load_test_config(args), num_pairs=args.num_pairs,
+               device="cpu")
+    feat = 1                       # data, feat, reg: made in that order
+    copy = events.index(("copy", None))
+    assert events[copy - 1] == ("tic", feat)
+    assert ("toc", feat) in events[copy + 1:]
+    assert events.index(("toc", feat)) > copy

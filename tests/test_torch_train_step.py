@@ -45,6 +45,19 @@ from eyoc_tpu_torch.training.steps import (StepDraws, TrainConfig,
                                            base_train_step)
 from eyoc_tpu_torch.utils import kernels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 BITS = (7, 7, 6)
 NUM_POS, NUM_HN = 256, 128
 

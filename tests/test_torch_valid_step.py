@@ -32,6 +32,19 @@ from eyoc_tpu_torch.training.pipeline import RawBatch
 from test_train_steps import make_batch, tiny_builder, tiny_config
 from test_torch_slice import centered_bn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only wait on each other, and
+    stall when the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 KEYS = ("loss", "rte", "rre", "hit_ratio")
 
 
