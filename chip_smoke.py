@@ -1527,6 +1527,50 @@ def jacobi_label_set():
                         LABEL_SPEC)[:3]
 
 
+# sha1 digests (first 16 hex digits) of K23's outputs (trans, fitness, best,
+# fine_out) on jacobi_eval_set's and jacobi_label_set's K23 calls, made by
+# K23's first design (its Jacobi solves inside the consensus launch) on the
+# card and toolchain of K23_DIGEST_KEY (`k23_digest_key`; profile_k19_k23.py
+# prints both): K23 must keep those bits
+K23_DIGEST_KEY = "NVIDIA H100 80GB HBM3 | CUDA 12.8 | torch 2.11.0+cu128"
+K23_DIGESTS = {"eval": "7dbbe9fa70fc3371", "label": "aa8cacf5259037fb"}
+
+
+def k23_digest_key():
+    """The card, CUDA and torch a digest of K23's outputs was made on."""
+    import torch
+    return (f"{torch.cuda.get_device_name(0)} | CUDA {torch.version.cuda} "
+            f"| torch {torch.__version__}")
+
+
+def sc2_digest(outs) -> str:
+    """sha1 (16 hex digits) of a K14 / K23 call's outputs."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in outs:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def check_k23_digests(label, calls):
+    """K23's outputs on the recorded call `calls` against its first
+    design's digests (K23_DIGESTS[label]), where this card and toolchain
+    are the ones they were made on; elsewhere the digest is logged only."""
+    from eyoc_tpu_torch.registration import sc2pcr
+    (args, kw), = calls["sc2_seed_transforms"]
+    got = sc2_digest(sc2pcr.sc2_seed_transforms(*args, **kw))
+    key = k23_digest_key()
+    want = K23_DIGESTS.get(label)
+    if want is None or key != K23_DIGEST_KEY:
+        log(f"K23 digest ({label}): {got} (no digest of the first design "
+            f"recorded for {key})")
+        return
+    if got != want:
+        raise AssertionError(f"K23 ({label}): outputs {got}, its first "
+                             f"design gave {want} on {key}")
+    log(f"K23 digest ({label}): {got}, the first design's bits")
+
+
 def sc2_problems(gen, n, spec):
     """Known-pose problems of n correspondences (`correspondences`), one
     for each (inlier share, valid rows) of `spec`: src, tgt [B, n, 3],
@@ -1698,6 +1742,36 @@ def _consensus64(cfg, knn, src, tgt, valid):
     return a, b, w / (w.sum(-1, keepdim=True) + 1e-6)
 
 
+def _weight_reach(a, b, w, jacobi, iters, k2, solved):
+    """The consensus weights' rounding reach of each seed's f64 pose: the
+    kernel's weights come from the same `iters` power iterations over k2
+    columns as the plain version's, summed in another fixed order, so each
+    may differ from the plain version's by U32 * iters * k2 * |w| (the f32
+    unit, compounded over the iterations and the k2-term sums). Each
+    weight i is moved by that much alone and the pose solved again in f64
+    (a finite difference along the weights' own rounding reach, a, b [...,
+    k2, 3], w [..., k2] f64; `solved` the unmoved solve's `_solve64`
+    outputs); a row s moves by (dR_i (s - cA) + dR_i cA + dt_i), at most
+    |dR_i|_F |s - cA| + |dR_i cA + dt_i|. Returns (sum_i |dR_i|_F, sum_i
+    |dR_i cA + dt_i|) [...]: the reach of a row at lever L from cA is rot
+    * L + off, the first-order bound over every sign of the k2 rounding
+    errors."""
+    import torch
+    T0, _, cA, _ = solved
+    k = w.shape[-1]
+    step = U32 * iters * k2 * w.abs()
+    eye = torch.eye(k, dtype=w.dtype, device=w.device)
+    lead = w.shape[:-1]
+    wp = w[..., None, :] + step[..., :, None] * eye      # [..., k(i), k]
+    ap = a[..., None, :, :].expand(lead + (k, k, 3))
+    bp = b[..., None, :, :].expand(lead + (k, k, 3))
+    D = _solve64(ap, bp, wp, jacobi=jacobi)[0] - T0[..., None, :, :]
+    rot = D[..., :3, :3].flatten(-2).norm(dim=-1).sum(-1)
+    off = (torch.einsum("...ij,...j->...i", D[..., :3, :3],
+                        cA[..., None, :]) + D[..., :3, 3])
+    return rot, off.norm(dim=-1).sum(-1)
+
+
 def _lever(c, s64, chunk=256):
     """The largest distance of the rows s64 [M, 3] from each c [S, 3]."""
     import torch
@@ -1707,14 +1781,16 @@ def _lever(c, s64, chunk=256):
                       for i in range(0, c.shape[0], chunk)])
 
 
-def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
+def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid, out=None):
     """K14 against its plain version on the same inputs:
     - the consensus sets (fine_sel) bit-equal;
     - on each seed whose weighted set pins a pose (`_solve64`), the kernel's
       pose within SC2_DISP plus C times the rounding reach of the f64 solve
-      of the plain version's consensus points and weights, C read from the
-      plain version's poses on the same seeds; the other seeds are counted
-      and logged. Also logged: both poses' ratios against the solve of the
+      of the plain version's consensus points and weights (the solve's
+      2^-24 lever E / gap plus the weights' rounding, `_weight_reach`), C
+      read from the plain version's poses on the same seeds; the other
+      seeds are counted and logged. Also logged: the ratios to the solve's
+      reach alone, and both poses' ratios against the solve of the
       consensus carried in f64 from the points (`_consensus64`), which
       adds the f32 rounding of the k2 x k2 distances in the soft matrix;
     - each seed's fitness is the f64 count under the kernel's own pose but
@@ -1726,7 +1802,9 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
     - best is the first argmax of the kernel's fitness and, up to those
       flips, a largest plain fitness.
     Returns the largest displacement of a valid row from the f64 pose over
-    the seeds that pin one (m)."""
+    the seeds that pin one (m); `out`, a dict, takes the largest ratios
+    (kernel, plain) to each reach, the seeds that pin a pose, C and the
+    verdict."""
     import torch
     from eyoc_tpu_torch.registration import sc2pcr
     trans_k, fit_k, best_k, fine_k = got
@@ -1736,18 +1814,29 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
         return False, float("inf")
     jac = not cfg.qcp_kabsch
     _, a32, b32, w32 = sc2pcr._consensus(cfg, knn, src, tgt, valid)
-    d_k, d_p, reach, pin = _seed_reach(
-        _solve64(a32.double(), b32.double(), w32.double(), jacobi=jac),
-        trans_k, trans_p, src, valid)
-    del a32, b32, w32
-    plain_ratio = float((d_p / reach)[pin].max()) if bool(pin.any()) else 0.0
+    a64, b64, w64 = a32.double(), b32.double(), w32.double()
+    solved = _solve64(a64, b64, w64, jacobi=jac)
+    k2 = w32.shape[-1]
+    weights = [_weight_reach(a64[i], b64[i], w64[i], jac, cfg.num_iterations,
+                             k2, tuple(x[i] for x in solved))
+               for i in range(a64.shape[0])]
+    weights = tuple(torch.stack(x) for x in zip(*weights))
+    d_k, d_p, solve_reach, pin, reach = _seed_reach(
+        solved, trans_k, trans_p, src, valid, weights)
+    del a32, b32, w32, a64, b64, w64
+    ratios = {}
+    for key, r in (("solve", solve_reach), ("weights", reach)):
+        ratios[key] = tuple(float((d / r)[pin].max()) if bool(pin.any())
+                            else 0.0 for d in (d_k, d_p))
+    kernel_ratio, plain_ratio = ratios["weights"]
     C = SC2_C_FACTOR * max(plain_ratio, 1.0)
     held = bool((d_k <= SC2_DISP + C * reach)[pin].all())
-    kernel_ratio = float((d_k / reach)[pin].max()) if bool(pin.any()) \
-        else 0.0
+    if out is not None:
+        out.update(ratios, pinned=int(pin.sum()), seeds=pin.numel(), C=C,
+                   held=held)
     worst = float(d_k[pin].max()) if bool(pin.any()) else 0.0
     loose = float(d_k[~pin].max()) if bool((~pin).any()) else 0.0
-    c_k, c_p, c_reach, c_pin = _seed_reach(
+    c_k, c_p, c_reach, c_pin, _ = _seed_reach(
         _solve64(*_consensus64(cfg, knn, src, tgt, valid), jacobi=jac),
         trans_k, trans_p, src, valid)
     chain = ((float((c_k / c_reach)[c_pin].max()),
@@ -1783,9 +1872,12 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
         f"the plain version's consensus points and weights, on the "
         f"{int(pin.sum())} of {pin.numel()} "
         f"seeds whose sets pin a pose: kernel within {worst:.3e} m, "
-        f"largest ratio to 2^-24 * lever * E / gap {kernel_ratio:.3e} "
+        f"largest ratio to the reach (2^-24 * lever * E / gap, the solve's, "
+        f"plus the weights' rounding, `_weight_reach`) {kernel_ratio:.3e} "
         f"(plain {plain_ratio:.3e}; held to {SC2_DISP} m + C = {C:.3e} "
-        f"times it: {'yes' if held else 'NO'}); {int((~pin).sum())} seeds "
+        f"times it: {'yes' if held else 'NO'}); to the solve's reach alone "
+        f"kernel {ratios['solve'][0]:.3e}, plain {ratios['solve'][1]:.3e}; "
+        f"{int((~pin).sum())} seeds "
         f"whose sets pin none (weights swallowed by the 1e-6, under 3 rows "
         f"of weight, or a Horn gap under {SC2_GAP} of max|H|): kernel "
         f"within {loose:.3e} m; fitness: {differ} of {fit_k.numel()} seeds "
@@ -1798,23 +1890,28 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid):
     return ok, worst
 
 
-def _seed_reach(solved, trans_k, trans_p, src, valid):
+def _seed_reach(solved, trans_k, trans_p, src, valid, weights=None):
     """From `_solve64`'s outputs for every seed of B problems: the f64
     displacement of a valid row from the solve's pose under the kernel's
     and the plain version's poses trans_k, trans_p [B, S, 4, 4], the
-    rounding reach 2^-24 * lever * E / gap, and whether each set pins a
-    pose; all flattened to [B * S]. A problem with no valid row pins
-    nothing: its weights are all 0."""
+    solve's rounding reach 2^-24 * lever * E / gap, whether each set pins a
+    pose, and (given `weights`, `_weight_reach`'s (rot, off) [B, S]) the
+    solve's reach plus the weights' rot * lever + off, else None; all
+    flattened to [B * S]. A problem with no valid row pins nothing: its
+    weights are all 0."""
     import torch
     T64, unit, cA, pinned = solved
-    d_k, d_p, reach = [], [], []
+    d_k, d_p, reach, full = [], [], [], []
     for b in range(valid.shape[0]):
         s64 = src[b][valid[b]].double()
-        reach.append(U32 * unit[b] * _lever(cA[b], s64))
+        lever = _lever(cA[b], s64)
+        reach.append(U32 * unit[b] * lever)
+        if weights is not None:
+            full.append(reach[-1] + weights[0][b] * lever + weights[1][b])
         d_k.append(_pose_disp(trans_k[b], T64[b], s64))
         d_p.append(_pose_disp(trans_p[b], T64[b], s64))
     return (torch.cat(d_k), torch.cat(d_p), torch.cat(reach),
-            pinned.reshape(-1))
+            pinned.reshape(-1), torch.cat(full) if full else None)
 
 
 def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
@@ -2006,9 +2103,10 @@ def check_sc2_kernels(label, calls, suffix="", which=SC2_KERNELS):
                                                close)
         same_bits_twice(tag, fn, cl)
         # K13: flags and ranks; K14: the compaction, the consensus of the
-        # heads, the fitness (its argmax by each problem's last block); K15:
-        # one
-        expected = {"sc2_nms": 2, "sc2_seed_transforms": 3,
+        # heads (and their QCP solves), the fitness (its argmax by each
+        # problem's last block); K15: one
+        # K23: the heads' Jacobi solves in a launch of their own
+        expected = {"sc2_nms": 2, "sc2_seed_transforms": 4 if jac else 3,
                     "sc2_irls": 1}[name]
         kernels_per_call(tag, lambda: fn(*a, **k), reps=3,
                          expected=expected)
@@ -2720,7 +2818,8 @@ def icp_known_answer(batch):
 K19_TOL = 1e-4                       # m
 K19_ROUND_FLOPS = 70                 # a valid row a round: warp, weight,
                                      # 16 terms and their sums
-K19_SOLVE_FLOPS = 400                # a round's 6 x 6 elimination and pose
+K19_SOLVE_FLOPS = 250                # a round's solve (its 3 x 3 Schur
+                                     # complement, ~90), sincos, the compose
 # K20 against its plain version: bf16 outputs of f32 statistics summed in
 # two orders, within K20_ULPS units in the last place of |want|, floored
 # at 2^-8 of the call's largest |want| (near zero x g + off cancels, and
@@ -2731,7 +2830,8 @@ K20_ULPS = 1
 # are BN, folded); every top-level norm of SimpleNetIN2 (4 encoder, 3
 # decoder, conv1_tr's)
 IN_SPECS = {"ResUNetIN2C": 14, "SimpleNetIN2": 8}
-K19_BATCH_N = 9000                   # past K19's shared-memory row cap
+K19_BATCH_N = 9000                   # past one CTA's shared-memory rows
+K19_OVER = 1000                      # rows past a cluster's shared memory
 
 
 def _quad64(src, tgt, valid, iters=20):
@@ -2817,6 +2917,16 @@ def k19_problems(gen):
     return one, (src_b, tgt_b, v)
 
 
+def k19_over_problem(gen):
+    """One problem of K19_CLUSTER * K19_MAX_ROWS + K19_OVER rows at 30%
+    inliers, every row valid: past the cluster's shared memory, its rows
+    read from the global copy."""
+    from eyoc_tpu_torch.geometry import robust
+    n = robust.K19_CLUSTER * robust.K19_MAX_ROWS + K19_OVER
+    src, tgt, valid, _ = correspondences(gen, n=n)
+    return src[None].contiguous(), tgt[None].contiguous(), valid[None]
+
+
 def check_k19(gen):
     """K19 at the valid step's shape (the kernels line's row) and on the
     batch of k19_problems (checked and logged): against the plain version
@@ -2828,7 +2938,8 @@ def check_k19(gen):
 
     def plain_fn(src, tgt, valid):
         return robust.est_quad_linear_robust_plain(src, tgt, mask=valid)
-    what = f"K19 est_quad_linear_robust (B = 1, N = {N_CORR}, 20 rounds)"
+    what = (f"K19 est_quad_linear_robust (B = 1, N = {N_CORR}, 20 rounds, "
+            f"a cluster of {robust.K19_CLUSTER} CTAs a problem)")
     cl = [(one, {})]
     row = check_calls(what, cl, fn, plain_fn, _k19_cost, _k19_close)
     row["library_ms"] = None
@@ -2838,11 +2949,17 @@ def check_k19(gen):
     kernels_per_call(what, lambda: fn(*one), reps=3, expected=1)
     launch_path(what, fn, cl, "the valid step's shape", 20)
     what_b = (f"K19 est_quad_linear_robust, a batch of 3 problems of "
-              f"{K19_BATCH_N} rows (0, 3, {K19_BATCH_N} valid; past its row "
-              f"cap {robust.K19_MAX_ROWS})")
+              f"{K19_BATCH_N} rows (0, 3, {K19_BATCH_N} valid)")
     clb = [(batch, {})]
     check_calls(what_b, clb, fn, plain_fn, _k19_cost, _k19_close)
     same_bits_twice(what_b, fn, clb)
+    over = k19_over_problem(gen)
+    what_o = (f"K19 est_quad_linear_robust, one problem of "
+              f"{over[2].shape[1]} rows (past {robust.K19_CLUSTER} x "
+              f"{robust.K19_MAX_ROWS} rows of a cluster's shared memory)")
+    clo = [(over, {})]
+    check_calls(what_o, clo, fn, plain_fn, _k19_cost, _k19_close)
+    same_bits_twice(what_o, fn, clo)
     return row
 
 
@@ -4850,15 +4967,20 @@ def main() -> int:
     # kernels line's rows; on generators of their own)
     jac = dataclasses.replace(cfg.sc2, qcp_kabsch=False)
     e_set = jacobi_eval_set()
+    e_calls = sc2_calls(*e_set, jac)
     results.update(check_sc2_kernels(
-        "eval shape, qcp_kabsch=False", sc2_calls(*e_set, jac), "_jacobi",
+        "eval shape, qcp_kabsch=False", e_calls, "_jacobi",
         which=SC2_KERNELS[1:]))
+    check_k23_digests("eval", e_calls)
     sc2_no_sync("eval shape, qcp_kabsch=False", *e_set, jac)
     l_jac = dataclasses.replace(l_cfg, qcp_kabsch=False)
     l_set = jacobi_label_set()
+    l_calls = sc2_calls(*l_set, l_jac)
     results.update(check_sc2_kernels(
-        "labeling shape, synthetic, qcp_kabsch=False",
-        sc2_calls(*l_set, l_jac), "_jacobi_label", which=SC2_KERNELS[1:]))
+        "labeling shape, synthetic, qcp_kabsch=False", l_calls,
+        "_jacobi_label", which=SC2_KERNELS[1:]))
+    check_k23_digests("label", l_calls)
+    del e_calls, l_calls
     for c, tail in ((cfg.sc2, "_unroll"), (jac, "_jacobi_unroll")):
         c = dataclasses.replace(c, refine_unroll=UNROLL)
         rows = check_sc2_kernels(f"eval shape, refine_unroll {UNROLL}"

@@ -27,6 +27,12 @@
 //   tree); w = |v| * fine_ok / (sum + 1e-6); the weighted centroids and
 //   centred moments by xor trees. No block barrier in the chain. Then the
 //   block's QCP solves, one lane of warp 0 a head.
+// - K23 only, `head_poses`, a thread a head: the consensus writes each
+//   head's 17 moments to a buffer instead of solving, and the Jacobi
+//   solves run 32 heads a warp, the heads of a window of kPoseThreads seeds
+//   compacted first (a ballot and a prefix over the warps), so that the
+//   chains' blocks end before any solve and no warp issues a solve for 4
+//   live lanes. jacobi_pose sees the same 17 floats: the same bits.
 // - `seed_fitness`, a block a group of kFitSeeds seeds and a part of the
 //   compacted rows: the count over the problem's valid rows of |R s_n + t
 //   - t_n| < inlier_threshold under each head's pose, the rows staged in
@@ -58,7 +64,8 @@
 // (eyoc_tpu/registration/sc2pcr.py:205, :222 over geometry/svd3.py:kabsch,
 // :283): the same kernels, instantiated with the pose solve `jacobi_pose`
 // (jacobi_pose.cuh, the Jacobi Kabsch that K16-K18 solve by) in place of
-// `qcp_pose`, each with entry symbols of its own. K15 and K24 also take
+// `qcp_pose`, each with entry symbols of its own; K23 solves in a fourth
+// launch, `head_poses` (above). K15 and K24 also take
 // `refine_unroll` (:224-236): with unroll > 0 a problem runs exactly that
 // many rounds with no count check, a round with no inlier keeping the pose.
 //
@@ -110,6 +117,9 @@ static_assert(kChunk < kTagUnit, "a chunk's count fits under the tag");
 constexpr int kCopyBatch = 4;         // K15's copy: 32-row groups a pass
 constexpr int kSeedWarps = 4;         // seed_consensus: seeds (warps) a block
 constexpr int kSeedThreads = 32 * kSeedWarps;
+constexpr int kMoments = 17;          // a head's H (9), GA, GB, cA, cB
+constexpr int kPoseThreads = 128;     // head_poses: seeds a block
+constexpr int kPoseWarps = kPoseThreads / 32;
 constexpr int kFitSeeds = 32;         // seed_fitness: seeds a block
 constexpr int kFitThreads = 256;
 constexpr int kFitWarps = kFitThreads / 32;
@@ -445,14 +455,16 @@ __global__ void __launch_bounds__(kCompactThreads) compact_rows(
 // holds seed s = g kSeedWarps + w (none past S), G = ceil(S / kSeedWarps).
 // A seed whose k1 columns are the seed before's, in the same order, has
 // that seed's consensus and pose, bit for bit: it is no head (head[s] = 0)
-// and runs no chain; seed_fitness gives it its head's outputs. kJacobi:
-// the pose by `jacobi_pose` (K23), else by `qcp_pose` (K14).
+// and runs no chain; seed_fitness gives it its head's outputs. kJacobi
+// (K23): the head's moments to moments[17 (b S + s)], for head_poses to
+// solve by `jacobi_pose`; else (K14) the pose by `qcp_pose` here.
 template <bool kJacobi>
 __global__ void __launch_bounds__(kSeedThreads) seed_consensus(
     const float4* __restrict__ rows, const int* __restrict__ pos,
     const int* __restrict__ knn, int N, int S, int k1, int k2, float d_thre,
     float d_thre2, int iters, float* __restrict__ trans,
-    int* __restrict__ fine_out, int* __restrict__ head) {
+    int* __restrict__ fine_out, int* __restrict__ head,
+    float* __restrict__ moments) {
   __shared__ float cross_all[kSeedWarps][kMaxK][kMaxK + 1];
   __shared__ float4 pts[kSeedWarps][2][kMaxK];
   __shared__ int fine_all[kSeedWarps][kMaxK];
@@ -618,24 +630,53 @@ __global__ void __launch_bounds__(kSeedThreads) seed_consensus(
     mo[10] = w * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
     warp_sums(mo);
     if (lane == 0) {
-      for (int k = 0; k < 11; ++k) mom[warp][k] = mo[k];
+      float* out = kJacobi ? moments + kMoments * row : mom[warp];
+      for (int k = 0; k < 11; ++k) out[k] = mo[k];
       for (int c = 0; c < 3; ++c) {
-        mom[warp][11 + c] = cA[c];
-        mom[warp][14 + c] = cB[c];
+        out[11 + c] = cA[c];
+        out[14 + c] = cB[c];
       }
     }
     if (lane < k2) fine_out[row * k2 + lane] = fine[lane];
   }
-  __syncthreads();
-  // the block's pose solves, lane u of warp 0 for seed s0 + u (a head)
-  if (t < kSeedWarps && lead_all[t]) {
-    const float* m = mom[t];
-    float* T = trans + 16 * ((long long)b * S + s0 + t);
-    if constexpr (kJacobi)
-      jacobi_pose(m, m + 11, m + 14, T);
-    else
+  if constexpr (!kJacobi) {
+    __syncthreads();
+    // the block's pose solves, lane u of warp 0 for seed s0 + u (a head)
+    if (t < kSeedWarps && lead_all[t]) {
+      const float* m = mom[t];
+      float* T = trans + 16 * ((long long)b * S + s0 + t);
       qcp_pose(m, m[9], m[10], m + 11, m + 14, T);
+    }
   }
+}
+
+// head_poses (K23): block g takes the seeds u = g kPoseThreads, ... of the
+// B S, compacts its heads (a ballot a warp, the warps' counts in order),
+// and its thread i solves the i-th: `jacobi_pose` of the head's moments
+// into trans[u].
+__global__ void __launch_bounds__(kPoseThreads) head_poses(
+    const int* __restrict__ head, const float* __restrict__ moments,
+    long long total, float* __restrict__ trans) {
+  __shared__ int list[kPoseThreads];
+  __shared__ int count[kPoseWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long u0 = (long long)blockIdx.x * kPoseThreads;
+  const bool h = u0 + t < total && head[u0 + t];
+  const unsigned heads = __ballot_sync(kFull, h);
+  if (lane == 0) count[warp] = __popc(heads);
+  __syncthreads();
+  int base = 0, nh = 0;
+  for (int w = 0; w < kPoseWarps; ++w) {
+    base += w < warp ? count[w] : 0;
+    nh += count[w];
+  }
+  if (h) list[base + __popc(heads & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+  if (t >= nh) return;
+  const long long u = u0 + list[t];
+  float m[kMoments];
+  for (int k = 0; k < kMoments; ++k) m[k] = moments[kMoments * u + k];
+  jacobi_pose(m, m + 11, m + 14, trans + 16 * u);
 }
 
 // seed_fitness: block (g, r) of problem b (blockIdx.x = (b G + g) splits +
@@ -981,17 +1022,18 @@ cudaError_t fitness_splits(long long groups, int N, int* splits) {
 // N], the counts [B], the fitness counters, the head flags and each seed's
 // head [B, S]); `ticket`: B zeroed words, left zeroed; `flags`: nflags
 // words, at least B ceil(N / kChunk), that hold no value of `epoch` (0 <
-// epoch < kMaxEpoch; the wrapper passes a new one each call). Three
-// launches.
+// epoch < kMaxEpoch; the wrapper passes a new one each call); `moments`
+// (K23): [B, S, 17] f32, the heads' moments. Three launches, K23 four.
 template <bool kJacobi>
 int seed_transforms(const float* src, const float* tgt, const bool* valid,
                     const int* knn, const bool* seed_ok, int B, int N, int S,
                     int k1, int k2, float d_thre, float d_thre2,
                     float inlier_thr, int iters, int* scratch, int* ticket,
                     int* flags, long long nflags, int epoch, float* trans,
-                    float* fitness, int* best, int* fine_out,
+                    float* fitness, int* best, int* fine_out, float* moments,
                     cudaStream_t stream) {
   if (k1 < 1 || k1 > kMaxK || k2 < 1 || k2 > k1) return cudaErrorInvalidValue;
+  if (kJacobi && moments == nullptr) return cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return cudaSuccess;
   if (N < S) return cudaErrorInvalidValue;
   float4* rows = reinterpret_cast<float4*>(scratch);
@@ -1014,13 +1056,20 @@ int seed_transforms(const float* src, const float* tgt, const bool* valid,
   if (err != cudaSuccess) return err;
   // a template instance is launched through a plain name
   void (*consensus)(const float4*, const int*, const int*, int, int, int,
-                    int, float, float, int, float*, int*, int*) =
+                    int, float, float, int, float*, int*, int*, float*) =
       seed_consensus<kJacobi>;
   consensus<<<B * G, kSeedThreads, 0, stream>>>(
       rows, pos, knn, N, S, k1, k2, d_thre, d_thre2, iters, trans, fine_out,
-      head);
+      head, moments);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (kJacobi) {
+    const long long total = (long long)B * S;
+    head_poses<<<(total + kPoseThreads - 1) / kPoseThreads, kPoseThreads, 0,
+                 stream>>>(head, moments, total, trans);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   seed_fitness<<<B * G3 * splits, kFitThreads, 0, stream>>>(
       rows, count, head, seed_ok, N, S, k2, splits, root_limit(inlier_thr),
       trans, fine_out, hits, head_of, fitness, best, ticket);
@@ -1057,7 +1106,8 @@ int irls_launch(const float* trans_all, const int* best, const float* src,
 
 }  // namespace
 
-// K14 (the QCP solve) and K23 (the Jacobi solve): `seed_transforms`.
+// K14 (the QCP solve) and K23 (the Jacobi solve, with the heads' moments
+// [B, S, 17] f32 as `moments`): `seed_transforms`.
 extern "C" int eyoc_sc2_seed_transforms(
     const float* src, const float* tgt, const bool* valid, const int* knn,
     const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
@@ -1067,7 +1117,7 @@ extern "C" int eyoc_sc2_seed_transforms(
   return seed_transforms<false>(src, tgt, valid, knn, seed_ok, B, N, S, k1,
                                 k2, d_thre, d_thre2, inlier_thr, iters,
                                 scratch, ticket, flags, nflags, epoch, trans,
-                                fitness, best, fine_out, stream);
+                                fitness, best, fine_out, nullptr, stream);
 }
 
 extern "C" int eyoc_sc2_seed_transforms_jacobi(
@@ -1075,11 +1125,11 @@ extern "C" int eyoc_sc2_seed_transforms_jacobi(
     const bool* seed_ok, int B, int N, int S, int k1, int k2, float d_thre,
     float d_thre2, float inlier_thr, int iters, int* scratch, int* ticket,
     int* flags, long long nflags, int epoch, float* trans, float* fitness,
-    int* best, int* fine_out, cudaStream_t stream) {
+    int* best, int* fine_out, float* moments, cudaStream_t stream) {
   return seed_transforms<true>(src, tgt, valid, knn, seed_ok, B, N, S, k1,
                                k2, d_thre, d_thre2, inlier_thr, iters,
                                scratch, ticket, flags, nflags, epoch, trans,
-                               fitness, best, fine_out, stream);
+                               fitness, best, fine_out, moments, stream);
 }
 
 // K15 (the QCP solve) and K24 (the Jacobi solve): `irls_launch`.

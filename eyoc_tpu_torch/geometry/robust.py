@@ -10,13 +10,16 @@ eyoc_tpu/geometry/robust.py) -> kernel K19 `est_quad_linear_robust`.
   with partial pivoting, as jnp.linalg.solve), the warp compounding on the
   current points, weights zero at masked rows (a masked row still enters
   the sums, multiplied by 0, as in JAX). Batched over leading axes.
-- K19 (csrc/robust_irls.cu) is one block a problem: the valid rows copied
-  once into shared memory, 16 distinct sums a round by a fixed tree, the
-  6 x 6 elimination with partial pivoting on every thread, the warp in
-  place. Masked rows are skipped, not multiplied by 0: for finite rows that
-  is what JAX computes, and non-finite padding cannot poison the sums.
+- K19 (csrc/robust_irls.cu) is one thread-block cluster of K19_CLUSTER
+  CTAs a problem: the valid rows split evenly over the CTAs and copied
+  once into their shared memory, 16 distinct sums a round by fixed trees
+  (a warp's, the CTA's, then the CTAs' partials read through distributed
+  shared memory after one cluster barrier), the 6 x 6 solve through its
+  3 x 3 Schur complement on every thread, the warp in place. Masked rows
+  are skipped, not multiplied by 0: for finite rows that is what JAX
+  computes, and non-finite padding cannot poison the sums.
 - `est_quad_linear_robust_k19_plain` is the kernel's reformulation in plain
-  torch (its row ownership, sum tree, elimination and pose arithmetic), for
+  torch (its row ownership, sum trees, solve and pose arithmetic), for
   the CPU tests; the main path never calls it.
 """
 
@@ -91,9 +94,10 @@ def est_quad_linear_robust_plain(pts0, pts1, mask=None,
 
 # ---------------------------------------------------------------- kernel K19
 
-K19_THREADS = 512     # a block's threads: one block a problem
-K19_MAX_ROWS = 8192   # valid rows a problem in shared memory (24 B a row);
-                      # past it they are read from a global copy
+K19_CLUSTER = 8       # CTAs a problem: one thread-block cluster (portable)
+K19_THREADS = 640     # a CTA's threads (20 warps)
+K19_MAX_ROWS = 8192   # valid rows a CTA in shared memory (24 B a row);
+                      # past it a problem's rows are read from a global copy
 K19_SUMS = 16
 
 
@@ -112,72 +116,95 @@ def _k19_terms(w, p, q):
                         ax * r1 - ay * r0])
 
 
-def _xor_tree(v: torch.Tensor) -> torch.Tensor:
-    """A warp's xor-shuffle sum over the last axis (32 lanes), every lane's
-    value after offsets 16, 8, 4, 2, 1."""
-    lane = torch.arange(32, device=v.device)
-    for off in (16, 8, 4, 2, 1):
+def _xor_tree(v: torch.Tensor, lanes: int = 32) -> torch.Tensor:
+    """A xor-shuffle sum over the last axis (`lanes` lanes, a power of
+    two): every lane's value after offsets lanes / 2, ..., 2, 1."""
+    lane = torch.arange(lanes, device=v.device)
+    off = lanes // 2
+    while off:
         v = v + v[..., lane ^ off]
+        off //= 2
     return v
 
 
-def _k19_block_sums(terms: torch.Tensor) -> torch.Tensor:
-    """K19's sum of terms [16, n] over its rows: row m is thread m %
-    K19_THREADS's, each thread adds its rows in order, a warp's threads by
-    the xor tree, then the 16 warps' partials by the same tree in lanes
-    0-15 (the others 0)."""
-    T = K19_THREADS
+def _k19_block_sums(terms: torch.Tensor, cluster: int | None = None,
+                    threads: int | None = None) -> torch.Tensor:
+    """K19's sum of terms [16, n] over a problem's rows (in rank order):
+    CTA r of the cluster owns ranks [r q, (r + 1) q), q = ceil(n /
+    cluster), its row j thread j % threads's; each thread adds its rows in
+    order, a warp's threads by the xor tree, the CTA's warps by the same
+    tree over 32 lanes (zeros past the warps), then the cluster's CTAs by
+    it over theirs."""
+    C = K19_CLUSTER if cluster is None else cluster
+    T = K19_THREADS if threads is None else threads
     n = terms.shape[1]
-    per = -(-n // T)
-    pad = terms.new_zeros((K19_SUMS, per * T - n))
-    full = torch.cat([terms, pad], 1).reshape(K19_SUMS, per, T)
-    acc = terms.new_zeros((K19_SUMS, T))
+    q = -(-n // C)
+    per = -(-q // T)
+    full = terms.new_zeros((K19_SUMS, C, per * T))
+    live = torch.zeros((C, per * T), dtype=torch.bool, device=terms.device)
+    for r in range(C):
+        lo, hi = min(n, r * q), min(n, r * q + q)
+        full[:, r, :hi - lo] = terms[:, lo:hi]
+        live[r, :hi - lo] = True
+    full = full.reshape(K19_SUMS, C, per, T)
+    live = live.reshape(C, per, T)
+    acc = terms.new_zeros((K19_SUMS, C, T))
     for j in range(per):
-        # rows past n are not added (a zero would turn -0.0 into +0.0)
-        live = torch.arange(T, device=terms.device) + j * T < n
-        acc = torch.where(live, acc + full[:, j], acc)
-    part = _xor_tree(acc.reshape(K19_SUMS, T // 32, 32))[..., 0]
-    lanes = torch.cat([part, part.new_zeros((K19_SUMS, 32 - T // 32))], 1)
-    return _xor_tree(lanes)[:, 0]
+        # rows past a CTA's are not added (a zero would turn -0.0 into +0.0)
+        acc = torch.where(live[:, j], acc + full[:, :, j], acc)
+    part = _xor_tree(acc.reshape(K19_SUMS, C, T // 32, 32))[..., 0]
+    # the CTA's warps in lanes 0 .. T / 32 - 1 of a warp, zeros past them
+    lanes = torch.cat([part, part.new_zeros((K19_SUMS, C, 32 - T // 32))],
+                      -1)
+    cta = _xor_tree(lanes)[..., 0]
+    return _xor_tree(cta, C)[:, 0]
 
 
 def _k19_solve(S: torch.Tensor) -> torch.Tensor:
-    """K19's 6 x 6 solve from the 16 sums: (M + 1e-6 I) x = v by Gaussian
-    elimination with partial pivoting (the first largest |pivot|), then
-    back substitution, every operation rounded apart."""
+    """K19's solve of (M + 1e-6 I) x = v from the 16 sums, every operation
+    rounded apart: h = 1 / (Sa + 1e-6); the rotation part by an LDL^T
+    elimination (reciprocals of the pivots) of the Schur complement A -
+    (|s|^2 I - s s^T) h against v_r - s x (v_t h), s = (Sx, Sy, Sz); then
+    the translation (v_t + s x x_r) h."""
     (a, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz, r0, r1, r2, v0, v1,
      v2) = S.unbind()
     e = torch.tensor(TIKHONOV, dtype=torch.float32, device=S.device)
-    z = torch.zeros_like(a)
-    A = torch.stack([
-        torch.stack([syy + szz + e, -sxy, -sxz, z, -sz, sy, v0]),
-        torch.stack([-sxy, sxx + szz + e, -syz, sz, z, -sx, v1]),
-        torch.stack([-sxz, -syz, sxx + syy + e, -sy, sx, z, v2]),
-        torch.stack([z, sz, -sy, a + e, z, z, r0]),
-        torch.stack([-sz, z, sx, z, a + e, z, r1]),
-        torch.stack([sy, -sx, z, z, z, a + e, r2])])
-    for k in range(6):
-        p = k + int(torch.argmax(A[k:, k].abs()))
-        if p != k:
-            A[[k, p]] = A[[p, k]]
-        for i in range(k + 1, 6):
-            l = A[i, k] / A[k, k]
-            A[i, k + 1:] = A[i, k + 1:] - l * A[k, k + 1:]
-    x = [None] * 6
-    for i in range(5, -1, -1):
-        s = A[i, 6]
-        for j in range(i + 1, 6):
-            s = s - A[i, j] * x[j]
-        x[i] = s / A[i, i]
-    return torch.stack(x)
+    h = 1.0 / (a + e)
+    a00 = (syy + szz + e) - (sy * sy + sz * sz) * h
+    a11 = (sxx + szz + e) - (sx * sx + sz * sz) * h
+    a22 = (sxx + syy + e) - (sx * sx + sy * sy) * h
+    a01 = -sxy + (sx * sy) * h
+    a02 = -sxz + (sx * sz) * h
+    a12 = -syz + (sy * sz) * h
+    t0, t1, t2 = r0 * h, r1 * h, r2 * h
+    g0 = v0 - (sy * t2 - sz * t1)
+    g1 = v1 - (sz * t0 - sx * t2)
+    g2 = v2 - (sx * t1 - sy * t0)
+    p0 = 1.0 / a00
+    l10, l20 = a01 * p0, a02 * p0
+    b11 = a11 - l10 * a01
+    b12 = a12 - l10 * a02
+    b22 = a22 - l20 * a02
+    h1 = g1 - l10 * g0
+    h2 = g2 - l20 * g0
+    p1 = 1.0 / b11
+    l21 = b12 * p1
+    c22 = b22 - l21 * b12
+    x2 = (h2 - l21 * h1) / c22
+    x1 = (h1 - b12 * x2) * p1
+    x0 = ((g0 - a01 * x1) - a02 * x2) * p0
+    return torch.stack([x0, x1, x2, (r0 + (sy * x2 - sz * x1)) * h,
+                        (r1 + (sz * x0 - sx * x2)) * h,
+                        (r2 + (sx * x1 - sy * x0)) * h])
 
 
 def _k19_step_pose(x: torch.Tensor):
     """(Rc [3, 3], tc [3]) of twist x: R = rz ry rx as K19 forms it, each
     entry from the rz ry product's rows (a0, a1, a2) as (a0, a1 cx + a2 sx,
-    a2 cx - a1 sx)."""
-    cx, cy, cz = torch.cos(x[:3])
-    sx, sy, sz = torch.sin(x[:3])
+    a2 cx - a1 sx); sin and cos in f64, rounded to f32 (the card's sincosf
+    is within an ulp or so of them)."""
+    cx, cy, cz = torch.cos(x[:3].double()).float()
+    sx, sy, sz = torch.sin(x[:3].double()).float()
     zero = torch.zeros_like(cx)
     A = torch.stack([torch.stack([cz * cy, -sz, cz * sy]),
                      torch.stack([sz * cy, cz, sz * sy]),
@@ -198,13 +225,17 @@ def _k19_apply(R: torch.Tensor, p: torch.Tensor, t=None):
 
 
 def est_quad_linear_robust_k19_plain(pts0, pts1, mask=None,
-                                     num_iters: int = NUM_ITERS):
+                                     num_iters: int = NUM_ITERS,
+                                     cluster: int | None = None,
+                                     threads: int | None = None):
     """K19's reformulation of `est_quad_linear_robust_plain` in plain
     torch: per problem of pts0 / pts1 [B, N, 3], mask [B, N], the valid rows
     in index order; round 0's sums at weight 1; each round halves par at 5,
     10, 15, solves (`_k19_solve`), composes T = Tc T, warps the rows and,
     but in the last round, takes the next round's sums at w = par / (|p -
-    q| + par). Returns [B, 4, 4]."""
+    q| + par); sums as a cluster of `cluster` CTAs of `threads` threads
+    adds them (`_k19_block_sums`; default K19_CLUSTER, K19_THREADS).
+    Returns [B, 4, 4]."""
     pts0, pts1 = pts0.float(), pts1.float()
     if mask is None:
         mask = torch.ones(pts0.shape[:-1], dtype=torch.bool,
@@ -212,7 +243,8 @@ def est_quad_linear_robust_k19_plain(pts0, pts1, mask=None,
     out = []
     for b in range(pts0.shape[0]):
         p, q = pts0[b][mask[b]], pts1[b][mask[b]]
-        S = _k19_block_sums(_k19_terms(torch.ones_like(p[:, 0]), p, q))
+        S = _k19_block_sums(_k19_terms(torch.ones_like(p[:, 0]), p, q),
+                            cluster, threads)
         R = torch.eye(3, dtype=torch.float32, device=p.device)
         t = torch.zeros(3, dtype=torch.float32, device=p.device)
         par = 1.0
@@ -225,9 +257,12 @@ def est_quad_linear_robust_k19_plain(pts0, pts1, mask=None,
                 break
             p = _k19_apply(Rc, p, tc)
             d = p - q
-            norm = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                              + d[:, 2] * d[:, 2])
-            S = _k19_block_sums(_k19_terms(par / (norm + par), p, q))
+            # the root in f64, rounded: torch's f32 root on the CPU is not
+            # always the correctly rounded one that __fsqrt_rn gives
+            norm = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                               + d[:, 2] * d[:, 2]).double()).float()
+            S = _k19_block_sums(_k19_terms(par / (norm + par), p, q),
+                                cluster, threads)
         T = torch.eye(4, dtype=torch.float32, device=p.device)
         T[:3, :3], T[:3, 3] = R, t
         out.append(T)
@@ -235,13 +270,13 @@ def est_quad_linear_robust_k19_plain(pts0, pts1, mask=None,
 
 
 _K19_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p)
 
 
 def _k19_spill(B: int, N: int, device):
     """K19's global copy of the valid rows, [B, 6, N] f32, for problems
-    whose rows shared memory cannot hold."""
+    whose rows a cluster's shared memory cannot hold."""
     return torch.empty((B, 6, N), dtype=torch.float32, device=device)
 
 
@@ -252,7 +287,8 @@ def est_quad_linear_robust(pts0, pts1, mask=None,
     (None: every row) -> [4, 4] / [B, 4, 4] f32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one block a problem, every round in the one launch) or raises."""
+    (one cluster of K19_CLUSTER CTAs a problem, every round in the one
+    launch) or raises."""
     if pts0.is_cpu:
         return est_quad_linear_robust_plain(pts0, pts1, mask, num_iters)
     if mask is None:
@@ -274,9 +310,11 @@ def _launch_k19(pts0, pts1, mask, num_iters):
         raise ValueError("est_quad_linear_robust: expected [B, N, 3] twice "
                          "and [B, N]")
     out = torch.empty((B, 4, 4), dtype=f32, device=pts0.device)
-    spill = _k19_spill(B, N, pts0.device) if N > K19_MAX_ROWS else None
+    C = K19_CLUSTER
+    spill = (_k19_spill(B, N, pts0.device) if -(-N // C) > K19_MAX_ROWS
+             else None)
     p = kernels.ptr
-    err = fn(p(pts0), p(pts1), p(mask), B, N, int(num_iters), p(spill),
+    err = fn(p(pts0), p(pts1), p(mask), B, N, int(num_iters), C, p(spill),
              p(out), kernels.stream_handle(dev))
     kernels.check_launch("est_quad_linear_robust", err)
     return out

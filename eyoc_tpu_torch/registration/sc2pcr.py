@@ -22,7 +22,8 @@ with no host sync from the correspondences to the pose:
    and its argmax -> kernel K14 `sc2_seed_transforms` (the valid rows
    compacted once, then a warp a seed, then the fitness of groups of seeds
    on tiles of the rows), or with `qcp_kabsch=False` K23
-   `sc2_seed_transforms_jacobi`, the same kernels with the Jacobi solve;
+   `sc2_seed_transforms_jacobi`, the same kernels with the Jacobi solve
+   (its heads' solves a thread a head, in a launch of their own);
 5. IRLS post-refinement with the inlier-count stop, or `refine_unroll`
    rounds with none -> kernel K15 `sc2_irls` (one block a problem runs the
    loop over its valid rows in shared memory, starting from the best
@@ -670,6 +671,8 @@ _K14_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int) + (
     ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int) + (
     ctypes.c_void_p,) * 5
+# K23's entry: K14's and the heads' moments before the stream
+_K23_ARGS = _K14_ARGS[:-1] + (ctypes.c_void_p, ctypes.c_void_p)
 # K14's compaction: rows a block (csrc/sc2_refine.cu:kChunk), and the most
 # epochs its count words take before they are zeroed again (kMaxEpoch)
 _K14_CHUNK, _K14_MAX_EPOCH = 1024, 1 << 20
@@ -697,6 +700,12 @@ def _k14_scratch(B: int, N: int, S: int, device):
                        device=device)
 
 
+def _k23_moments(B: int, S: int, device):
+    """K23's heads' moments, [B, S, 17] f32 (H, GA, GB, cA, cB), from the
+    consensus to the solves."""
+    return torch.empty((B, S, 17), dtype=torch.float32, device=device)
+
+
 def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
                         valid):
     """K14, or K23 `sc2_seed_transforms_jacobi` with qcp_kabsch=False:
@@ -707,7 +716,8 @@ def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
     rows, and the argmax by each problem's last block.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (three launches) or raises."""
+    (three launches; K23 four: its Jacobi solves a thread a head, in a
+    launch of their own) or raises."""
     if src.is_cpu:
         return seed_transforms_batched_plain(cfg, seed_ok, knn_idx, src, tgt,
                                              valid)
@@ -716,7 +726,8 @@ def sc2_seed_transforms(cfg: SC2PCRConfig, seed_ok, knn_idx, src, tgt,
 
 def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
     name = "sc2_seed_transforms" + ("" if cfg.qcp_kabsch else "_jacobi")
-    fn = kernels.load("sc2_refine", _K14_ARGS, symbol=name)
+    fn = kernels.load("sc2_refine", _K14_ARGS if cfg.qcp_kabsch
+                      else _K23_ARGS, symbol=name)
     f32 = torch.float32
     dev = kernels.require_cuda(
         name, src, tgt, valid, knn_idx, seed_ok,
@@ -735,6 +746,7 @@ def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
     best = torch.empty(B, dtype=torch.int32, device=src.device)
     fine_sel = torch.empty((B, S, k2), dtype=torch.int32, device=src.device)
     scratch = _k14_scratch(B, N, S, src.device)
+    moments = () if cfg.qcp_kabsch else (_k23_moments(B, S, src.device),)
     words, epoch = _k14_epoch(src.device, B * -(-N // _K14_CHUNK))
     p = kernels.ptr
     err = fn(p(src), p(tgt), p(valid), p(knn_idx), p(seed_ok), B, N, S, k1,
@@ -742,7 +754,7 @@ def _launch_k14(cfg, seed_ok, knn_idx, src, tgt, valid):
              float(cfg.inlier_threshold), int(cfg.num_iterations),
              p(scratch), p(kernels.ticket(dev, B)), p(words), words.numel(),
              epoch, p(trans), p(fit), p(best), p(fine_sel),
-             kernels.stream_handle(dev))
+             *map(p, moments), kernels.stream_handle(dev))
     kernels.check_launch(name, err)
     return trans, fit, best, fine_sel
 

@@ -1,8 +1,8 @@
 // A host stand-in for the part of the CUDA runtime that the port's kernels
 // run on the CPU in the tests use (csrc/voxelize.cu, brick_pyramid.cu,
 // conv_maps.cu, sc2_nms.cu, sc2_refine.cu, ransac.cu, sc2_power_iteration.cu,
-// instance_norm.cu, norm_backward.cu), so that g++ can build their sources
-// and the tests can run them.
+// instance_norm.cu, norm_backward.cu, robust_irls.cu), so that g++ can build
+// their sources and the tests can run them.
 //
 // Blocks run one after another on the calling thread. Each CUDA thread of
 // a block is a fiber (ucontext) with its own stack. __syncthreads and the
@@ -33,6 +33,15 @@
 // the running block's); its `__shared__` statics would be shared by all
 // blocks, so a kernel launched on more than one block keeps its shared
 // state in the dynamic array.
+// A cluster launch (cudaLaunchKernelEx with a cluster dimension of up to
+// kMaxCoopBlocks along x) runs its clusters one after another, each as such
+// a grid of its blocks: cooperative_groups.h's this_cluster().sync() is
+// that grid's barrier, block_rank() the block's place in its cluster, and
+// map_shared_rank() maps a pointer into the caller's dynamic shared memory
+// onto the same offset in another block's of the cluster.
+// sincosf gives the f64 sine and cosine rounded to f32 (the card's differs
+// from both by an ulp or so; a test that wants the host build's bits makes
+// them the same way); clock64 counts calls.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
@@ -98,6 +107,11 @@ alignas(16) inline char dynamic_shared_buffer[256 * 1024];
 // the running block's dynamic shared memory
 inline char* dynamic_shared = dynamic_shared_buffer;
 constexpr unsigned kMaxCoopBlocks = 8;
+// the running cluster launch: its cluster size (0 outside one), and its
+// blocks' dynamic shared memory, `grid_shm` bytes a block from `grid_shared`
+inline unsigned cluster_size = 0;
+inline char* grid_shared = nullptr;
+inline size_t grid_shm = 0;
 
 inline void fiber_entry() {
   (*running->body)();
@@ -215,6 +229,15 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+namespace host_cuda {
+inline void sincos_rn(float x, float* s, float* c) {
+  *s = (float)sin((double)x);
+  *c = (float)cos((double)x);
+}
+inline long long clock_count = 0;
+}  // namespace host_cuda
+#define sincosf host_cuda::sincos_rn
+inline long long clock64() { return ++host_cuda::clock_count; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
@@ -248,7 +271,10 @@ enum {
   cudaErrorInvalidConfiguration = 9,
   cudaErrorCooperativeLaunchTooLarge = 720
 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 12
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;
@@ -362,10 +388,12 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
 }
 
 // A cooperative launch: `grid` blocks of `block` fibers each, all live at
-// once, each block with `smem` bytes of its own dynamic shared memory.
+// once, each block with `smem` bytes of its own dynamic shared memory; the
+// blocks are first, ..., first + grid - 1 of a grid of `total` (0: grid).
 struct HostGridLaunch {
   unsigned grid, block;
   size_t smem;
+  unsigned first = 0, total = 0;
   static constexpr size_t kStack = 1 << 16;
 
   template <class F, class... A>
@@ -377,7 +405,9 @@ struct HostGridLaunch {
     char* shared0 = reinterpret_cast<char*>(
         (reinterpret_cast<std::uintptr_t>(shared.get()) + 15) & ~15ull);
     std::vector<host_cuda::Block> blks(grid);
-    gridDim.x = grid;
+    gridDim.x = total ? total : grid;
+    host_cuda::grid_shared = shared0;
+    host_cuda::grid_shm = shm;
     for (unsigned b = 0; b < grid; ++b) {
       host_cuda::Block& blk = blks[b];
       blk.ctx.resize(block);
@@ -402,7 +432,7 @@ struct HostGridLaunch {
         host_cuda::Block& blk = blks[b];
         host_cuda::running = &blk;
         host_cuda::dynamic_shared = shared0 + size_t(b) * shm;
-        blockIdx.x = b;
+        blockIdx.x = first + b;
         for (unsigned t = 0; t < block; ++t)
           if (!blk.done[t] && blk.wait[t] == host_cuda::kRun)
             HostLaunch::resume(blk, t);
@@ -439,6 +469,7 @@ struct HostGridLaunch {
     }
     host_cuda::running = nullptr;
     host_cuda::dynamic_shared = host_cuda::dynamic_shared_buffer;
+    host_cuda::grid_shared = nullptr;
   }
 };
 
@@ -462,5 +493,51 @@ inline cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(P...), dim3 grid,
     return cudaErrorInvalidConfiguration;
   host_cuda::launch_args(kernel, grid.x, block.x, smem, args,
                          std::index_sequence_for<P...>{});
+  return cudaSuccess;
+}
+
+// A launch with attributes: a cluster dimension along x (the only one the
+// stand-in takes; none is a cluster of 1) runs each cluster of the grid as a
+// grid of its own (HostGridLaunch), the clusters one after another. A
+// cluster larger than kMaxCoopBlocks, or one that does not divide the grid,
+// is refused, as the card refuses a cluster it cannot place.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct {
+    unsigned x, y, z;
+  } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+
+template <class... P, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
+                                      void (*kernel)(P...), A&&... args) {
+  unsigned c = 1;
+  for (unsigned i = 0; i < config->numAttrs; ++i) {
+    const cudaLaunchAttribute& a = config->attrs[i];
+    if (a.id != cudaLaunchAttributeClusterDimension) continue;
+    if (a.val.clusterDim.y > 1 || a.val.clusterDim.z > 1)
+      return cudaErrorInvalidConfiguration;
+    c = a.val.clusterDim.x;
+  }
+  const unsigned grid = config->gridDim.x, block = config->blockDim.x;
+  if (c < 1 || c > host_cuda::kMaxCoopBlocks || grid % c != 0 ||
+      config->gridDim.y > 1 || config->gridDim.z > 1)
+    return cudaErrorInvalidConfiguration;
+  host_cuda::cluster_size = c;
+  for (unsigned first = 0; first < grid; first += c)
+    HostGridLaunch{c, block, config->dynamicSmemBytes, first, grid}(
+        kernel, static_cast<P>(args)...);
+  host_cuda::cluster_size = 0;
   return cudaSuccess;
 }

@@ -7,7 +7,11 @@ test_torch_sc2_emulated.py (N = 256, 64 seeds: 30% and 10% inliers, all but
 3 rows invalid, no valid row):
 
 - K23: the consensus sets, the fitness and the best seed bit-equal, each
-  seed's pose within 1e-4 (rotation entries, and metres);
+  seed's pose within 1e-4 (rotation entries, and metres); and on a draw of
+  3 problems x 150 seeds where most seeds are heads, with a seed that
+  repeats the one before every 7 (its head's pose, bit for bit): the
+  Jacobi solves run a thread a head over windows of 128 seeds that cross
+  the problems, the heads compacted in each;
 - K24: the rounds equal, the pose within 1e-5; a problem that runs all 20
   rounds;
 - K15 and K24 at refine_unroll = 3: exactly 3 rounds for every problem, the
@@ -118,6 +122,36 @@ def test_k23_k24_sources_match_plain(on_host):
     assert counted["sc2_seed_transforms_jacobi"] == 1
     assert counted["sc2_irls_jacobi"] == 1
     assert counted["sc2_seed_transforms"] == 1 and counted["sc2_irls"] == 0
+
+
+def test_k23_where_most_seeds_are_heads(on_host):
+    """150 seeds a problem of three, each a valid row of its own (its k1 columns
+    from the plain top-k), every 7th repeating the seed before: at least
+    80% of the seeds are heads, and head_poses' windows of 128 seeds
+    straddle the problems."""
+    # three problems at 30% inliers (all but 10 rows valid), whose seeds'
+    # sets pin their poses
+    src, tgt, valid = (torch.cat(x) for x in zip(*(
+        [t[:1] for t in problems(seed)] for seed in range(3))))
+    S = 150
+    seeds = torch.stack([torch.nonzero(valid[b])[:S, 0] for b in range(3)])
+    knn = torch.stack([T.sc2_seed_topk_plain(src[b], tgt[b], valid[b],
+                                             seeds[b].int(), CFG.d_thre,
+                                             CFG.k1) for b in range(3)])
+    knn[:, 7::7] = knn[:, 6:-1:7]
+    seed_ok = torch.ones((3, S), dtype=torch.bool)
+    args = (JACOBI, seed_ok, knn.contiguous(), src, tgt, valid)
+    trans_k, fit_k, best_k, fine_k = T._launch_k14(*args)
+    trans_p, fit_p, best_p, fine_p = T.seed_transforms_batched_plain(*args)
+    heads = torch.ones((3, S), dtype=torch.bool)
+    heads[:, 1:] = (knn[:, 1:] != knn[:, :-1]).any(-1)
+    assert int(heads.sum()) >= 0.8 * 3 * S
+    assert not bool(heads[:, 7::7].any())
+    assert torch.equal(fine_k, fine_p)
+    assert torch.equal(fit_k, fit_p)
+    assert torch.equal(best_k, best_p)
+    assert float((trans_k - trans_p).abs().max()) < 1e-4
+    assert torch.equal(trans_k[:, 7::7], trans_k[:, 6:-1:7])
 
 
 def test_k24_source_runs_all_iterations(on_host):
