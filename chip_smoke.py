@@ -57,7 +57,11 @@ Phases (any failure exits non-zero):
    one-round and final poses held to the same solve in f64 (K14: QCP on
    the plain version's consensus points and weights; K15: the IRLS rounds)
    within 1 mm plus C times the f32 rounding reach 2^-24 * lever * E / gap
-   of each weighted set, C twice the plain version's own largest ratio in
+   of each weighted set (K14 also the consensus weights' rounding; K14 and
+   K15 also the f32 QCP solve's own, `_qcp_reach`: the root's, carried
+   into the adjugate column, the adjugate's and the polish steps', each
+   moved alone and the solve's tail run again in f64; the ratios to the
+   reach without it logged), C twice the plain version's own largest ratio in
    the same run (K14's and K15's each their own), on every seed or problem
    whose set pins a pose (the others counted and logged); the fitness, best seed and
    K15's rounds equal but for inlier tests within SC2_EPS of the
@@ -65,8 +69,9 @@ Phases (any failure exits non-zero):
    twice, device kernels a call, host cost (K14: 3, the compaction of the
    valid rows, the consensus of the seeds whose k1 columns differ from the
    seed before's, the fitness with the argmax; K15: 1, its rounds and
-   device time a round logged); again on 2 problems of 9000 rows, past
-   K15's shared-memory cap (its rows from the global copy); and
+   device time a round logged); again on 2 problems of 9000 rows at
+   clusters of 2 CTAs, past the cluster's shared-memory cap (the rows
+   from the global copy); and
    `sc2_pcr_batched` with no host sync (sync debug mode "error"). The same
    checks for K23 `sc2_seed_transforms_jacobi` and K24 `sc2_irls_jacobi`
    (qcp_kabsch=False: the poses held to the port's 8-sweep Jacobi Kabsch
@@ -76,7 +81,15 @@ Phases (any failure exits non-zero):
    (bf16_power) within K3_BF16_RTOL of max |v| of its plain version, and
    the f32 plain vector at least K3_BF16_SEP times as far from that
    version as the kernel is (the rounding shows), one device kernel a
-   call.
+   call. The Jacobi solve's branch-free forms (csrc/jacobi_pose.cuh,
+   `check_jacobi_forms`): every float of [1, 2^128) through the root, of
+   [1, 2^126] through the reciprocal and of [1, 2] through the reciprocal
+   root, 2^28 random quotient pairs and every exponent boundary pair, each
+   bit-equal to __fsqrt_rn / __fdiv_rn, and jacobi_pose bit-equal to
+   jacobi_pose_ieee on 2^18 weighted sets, as many 3-point sets and the
+   special Horn matrices; K16, K18's polish and icp_solve give their
+   parent design's digests (`check_jacobi_digests`, JACOBI_DIGESTS), and
+   the solves that took the IEEE rerun are logged for each phase.
    RANSAC's and ICP's kernels at the path's shapes (N = 5000 correspondences at 30% inliers, the default
    RansacConfig; ICP's 32768-point clouds of a scan): K16's two-stage
    entry `ransac_hypotheses_topk` (H = 1048576, a 512-row subset, the top
@@ -1544,11 +1557,13 @@ def k23_digest_key():
 
 
 def sc2_digest(outs) -> str:
-    """sha1 (16 hex digits) of a K14 / K23 call's outputs."""
+    """sha1 (16 hex digits) of a call's output tensors (a K14 / K23 call's
+    tuple, or one tensor; None skipped)."""
     import hashlib
     h = hashlib.sha1()
-    for t in outs:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for t in (outs,) if hasattr(outs, "detach") else outs:
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -1656,18 +1671,12 @@ def _pose_disp(Ta, Tb, s64, chunk=256):
     return torch.cat(out)
 
 
-def _solve64(a, b, w, jacobi=False):
-    """The plain version's weighted QCP Kabsch (geometry/svd3.kabsch_qcp:
-    centroids, centred moments, max|H| scaling, 12 Newton steps on the
-    quartic, the adjugate column, 2 polish steps) in f64 on a, b [..., n,
-    3], w [..., n]; with `jacobi`, its Jacobi Kabsch (geometry/svd3.kabsch:
-    the same moments and Horn matrix, the eigenvector of the largest
-    eigenvalue by `svd3.jacobi_eigh`'s 8 cyclic sweeps) in f64. Returns (T
-    [..., 4, 4]; E / gap [...], the rounding reach but for its lever and
-    2^-24; cA [..., 3]; whether the set pins a pose [...])."""
+def _moments64(a, b, w):
+    """The weighted set's centroids, centred rows, max|H| and the Horn
+    matrix's inputs as the plain version forms them (geometry/svd3.
+    kabsch_qcp), in the dtype of a, b [..., n, 3], w [..., n]: (cA, cB, am,
+    bm, scale, Hn = H / scale, lam_upper)."""
     import torch
-    from eyoc_tpu_torch.geometry import svd3
-    from eyoc_tpu_torch.geometry.se3 import integrate_trans
     wsum = w.sum(-1, keepdim=True) + 1e-6
     cA = (a * w[..., None]).sum(-2) / wsum
     cB = (b * w[..., None]).sum(-2) / wsum
@@ -1676,6 +1685,70 @@ def _solve64(a, b, w, jacobi=False):
     scale = H.abs().amax(dim=(-1, -2)).clamp(min=1e-12)
     Hn = H / scale[..., None, None]
     lam = (w * ((am * am).sum(-1) + (bm * bm).sum(-1))).sum(-1) / (2 * scale)
+    return cA, cB, am, bm, scale, Hn, lam
+
+
+def _newton64(Hn, lam):
+    """The QCP root: 12 Newton steps on the quartic from lam_upper, with the
+    1e-12 derivative guard (svd3.qcp_leading_quaternion)."""
+    import torch
+    from eyoc_tpu_torch.geometry import svd3
+    c2, c1, c0 = svd3.qcp_quartic_coeffs(Hn)
+    x = lam
+    for _ in range(12):
+        x2 = x * x
+        dP = 4 * x2 * x + 2 * c2 * x + c1
+        x = x - (x2 * x2 + c2 * x2 + c1 * x + c0) / torch.where(
+            dP.abs() < 1e-12, torch.full_like(dP, 1e-12), dP)
+    return x
+
+
+def _qcp_tail64(N4, lam, x, col=None, d_col=None, d_pol=()):
+    """The QCP solve from its root x on: the adjugate column of N4 - x I of
+    largest norm (`col`, or the one given), q normalized (the identity
+    quaternion where |q| <= 1e-12), 2 power steps on N4 + lam_upper I.
+    d_col [..., 4] is added to the column and d_pol[i] [..., 4] to step i's
+    product before its normalization (a rounding error, for `_qcp_reach`).
+    Returns (q [..., 4], col, the iterates entering the two steps)."""
+    import torch
+    from eyoc_tpu_torch.geometry import svd3
+    eye = torch.eye(4, dtype=N4.dtype, device=N4.device)
+    adj = svd3._adjugate4_sym(N4 - x[..., None, None] * eye)
+    if col is None:
+        col = torch.argmax((adj * adj).sum(-2), -1)
+    q = torch.gather(adj, -1, col[..., None, None].expand(
+        adj.shape[:-1] + (1,)))[..., 0]
+    if d_col is not None:
+        q = q + d_col
+    qn = q.norm(dim=-1, keepdim=True)
+    ident = torch.zeros_like(q)
+    ident[..., 0] = 1.0
+    q = torch.where(qn > 1e-12, q / (qn + 1e-30), ident)
+    M = N4 + lam[..., None, None] * eye
+    seen = []
+    for i in range(2):
+        seen.append(q)
+        nq = torch.einsum("...ij,...j->...i", M, q)
+        if i < len(d_pol):
+            nq = nq + d_pol[i]
+        n2 = (nq * nq).sum(-1, keepdim=True)
+        q = torch.where(n2 > 1e-24, nq * torch.rsqrt(n2.clamp(min=1e-24)), q)
+    return q, col, seen
+
+
+def _solve64(a, b, w, jacobi=False):
+    """The plain version's weighted QCP Kabsch (geometry/svd3.kabsch_qcp:
+    centroids, centred moments, max|H| scaling, 12 Newton steps on the
+    quartic, the adjugate column, 2 polish steps) in f64 on a, b [..., n,
+    3], w [..., n]; with `jacobi`, its Jacobi Kabsch (geometry/svd3.kabsch:
+    the same moments and Horn matrix, the eigenvector of the largest
+    eigenvalue by `svd3.jacobi_eigh`'s 8 cyclic sweeps) in f64. Returns (T
+    [..., 4, 4]; E / gap [...], the moments' rounding reach but for its
+    lever and 2^-24; cA [..., 3]; whether the set pins a pose [...])."""
+    import torch
+    from eyoc_tpu_torch.geometry import svd3
+    from eyoc_tpu_torch.geometry.se3 import integrate_trans
+    cA, cB, am, bm, scale, Hn, lam = _moments64(a, b, w)
     N4 = svd3.horn_profile_matrix(Hn)
     if jacobi:
         ev, vecs = svd3.jacobi_eigh(N4, dtype=torch.float64)
@@ -1685,30 +1758,100 @@ def _solve64(a, b, w, jacobi=False):
         T = integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
         return _solve_outputs(T, ev.sort(-1).values, w, am, bm, scale, cA)
     ev = torch.linalg.eigvalsh(N4.cpu()).to(a.device)
-    c2, c1, c0 = svd3.qcp_quartic_coeffs(Hn)
-    x = lam
-    for _ in range(12):
-        x2 = x * x
-        dP = 4 * x2 * x + 2 * c2 * x + c1
-        x = x - (x2 * x2 + c2 * x2 + c1 * x + c0) / torch.where(
-            dP.abs() < 1e-12, torch.full_like(dP, 1e-12), dP)
-    eye = torch.eye(4, dtype=a.dtype, device=a.device)
-    adj = svd3._adjugate4_sym(N4 - x[..., None, None] * eye)
-    col = torch.argmax((adj * adj).sum(-2), -1)
-    q = torch.gather(adj, -1, col[..., None, None].expand(
-        adj.shape[:-1] + (1,)))[..., 0]
-    qn = q.norm(dim=-1, keepdim=True)
-    ident = torch.zeros_like(q)
-    ident[..., 0] = 1.0
-    q = torch.where(qn > 1e-12, q / (qn + 1e-30), ident)
-    M = N4 + lam[..., None, None] * eye
-    for _ in range(2):
-        nq = torch.einsum("...ij,...j->...i", M, q)
-        n2 = (nq * nq).sum(-1, keepdim=True)
-        q = torch.where(n2 > 1e-24, nq * torch.rsqrt(n2.clamp(min=1e-24)), q)
+    q = _qcp_tail64(N4, lam, _newton64(Hn, lam))[0]
     R = svd3.quat_to_rotmat(q)
     T = integrate_trans(R, cB - torch.einsum("...ij,...j->...i", R, cA))
     return _solve_outputs(T, ev, w, am, bm, scale, cA)
+
+
+def _quartic_abs(Hn):
+    """svd3.qcp_quartic_coeffs on |Hn| with every difference made a sum:
+    each coefficient's sum of |terms|, the scale of its f32 rounding."""
+    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = (
+        [Hn[..., i, j].abs() for j in range(3)] for i in range(3))
+    sq = Sxx * Sxx + Syy * Syy + Szz * Szz + Sxy * Sxy + Syx * Syx \
+        + Sxz * Sxz + Szx * Szx + Syz * Syz + Szy * Szy
+    a2 = 2.0 * sq
+    a1 = 8.0 * (Sxx * Syz * Szy + Syy * Szx * Sxz + Szz * Sxy * Syx
+                + Sxx * Syy * Szz + Syz * Szx * Sxy + Szy * Syx * Sxz)
+    p_xz, p_yz, p_xy = Sxz + Szx, Syz + Szy, Sxy + Syx
+    xx_yy = Sxx + Syy
+    t0 = Sxy * Sxy + Sxz * Sxz + Syx * Syx + Szx * Szx
+    t1 = Syy * Syy + Szz * Szz + Sxx * Sxx + Syz * Syz + Szy * Szy
+    t2 = 2.0 * (Syz * Szy + Syy * Szz)
+    s3 = xx_yy + Szz
+    f1 = p_xz * p_yz + p_xy * s3
+    f2 = p_xy * p_yz + p_xz * s3
+    a0 = t0 * t0 + (t1 + t2) ** 2 + 2.0 * (f1 * f1 + f2 * f2)
+    return a2, a1, a0
+
+
+def _det3_abs(a, b, c, d, e, f, g, h, i):
+    return a * (e * i + f * h) + b * (d * i + f * g) + c * (d * h + e * g)
+
+
+def _qcp_reach(a, b, w):
+    """The f32 QCP solve's own rounding reach of each set's f64 pose, as
+    `_weight_reach` makes the weights': each rounding source is moved by
+    its first-order reach alone, the solve's tail run again in f64 from
+    there (`_qcp_tail64`, the column held) and the rotation's move |dR|_F
+    summed over the sources; a row at lever L from cA moves by at most that
+    sum times L (t = cB - R cA: no move at cA). The sources, each u = 2^-24
+    times the sum of |terms| of the arithmetic that rounds it:
+    - the root: d_lam = u (x^4 + |c2| x^2 + |c1 x| + |c0| + A2 x^2 + A1 |x|
+      + A0 + |x| |P'(x)|) / |P'(x)|, the quartic's terms at the root, its
+      coefficients' (A_k their sums of |terms|, `_quartic_abs`) and the
+      Newton update's, over the slope; carried into the adjugate column it
+      turns the eigenvector by about d_lam / gap, and |P'| is about the
+      gap times the other two gaps: the 1 / gap^2;
+    - each adjugate entry alone, by u times its minor's sum of |cubic
+      terms| (`_det3_abs` of |N4 - x I|), against a column of size about
+      |P'(x)|;
+    - each entry of each polish product alone, by u sum_j |M_ij q_j|.
+    The polish's contraction ((lam_j + lam_upper) / (lam_1 + lam_upper))^2
+    of the first two comes with the f64 tail. a, b [..., n, 3], w [..., n]
+    f64 -> [...]."""
+    import torch
+    from eyoc_tpu_torch.geometry import svd3
+    Hn, lam = _moments64(a, b, w)[5:]
+    N4 = svd3.horn_profile_matrix(Hn)
+    x = _newton64(Hn, lam)
+    q0, col, seen = _qcp_tail64(N4, lam, x)
+    R0 = svd3.quat_to_rotmat(q0)
+    c2, c1, c0 = svd3.qcp_quartic_coeffs(Hn)
+    a2, a1, a0 = _quartic_abs(Hn)
+    x2 = x * x
+    dP = (4 * x2 * x + 2 * c2 * x + c1).abs().clamp(min=1e-12)
+    terms = (x2 * x2 + (c2 * x2).abs() + (c1 * x).abs() + c0.abs()
+             + a2 * x2 + a1 * x.abs() + a0 + x.abs() * dP)
+    moved = [_qcp_tail64(N4, lam, x + U32 * terms / dP, col)[0]]
+    # each adjugate entry's rounding: the minors of |N4 - x I|
+    eye = torch.eye(4, dtype=N4.dtype, device=N4.device)
+    A = (N4 - x[..., None, None] * eye).abs()
+    e = [[A[..., r, c] for c in range(4)] for r in range(4)]
+
+    def minor_abs(r, c):
+        rows = [k for k in range(4) if k != r]
+        cols = [k for k in range(4) if k != c]
+        return _det3_abs(*[e[rr][cc] for rr in rows for cc in cols])
+    mabs = torch.stack([torch.stack([minor_abs(r, c) for c in range(4)], -1)
+                        for r in range(4)], -2)
+    # the adjugate's column col is the cofactors of row col (A symmetric)
+    cof = torch.gather(mabs, -2, col[..., None, None].expand(
+        mabs.shape[:-2] + (1, 4)))[..., 0, :]
+    for i in range(4):
+        d = (U32 * cof[..., i])[..., None] * eye[i]
+        moved.append(_qcp_tail64(N4, lam, x, col, d_col=d)[0])
+    # each polish product entry's rounding, at the unmoved iterates
+    M = (N4 + lam[..., None, None] * eye).abs()
+    for step in range(2):
+        size = torch.einsum("...ij,...j->...i", M, seen[step].abs())
+        for i in range(4):
+            d = (U32 * size[..., i])[..., None] * eye[i]
+            pol = [torch.zeros_like(d)] * step + [d]
+            moved.append(_qcp_tail64(N4, lam, x, col, d_pol=pol)[0])
+    return sum((svd3.quat_to_rotmat(qm) - R0).flatten(-2).norm(dim=-1)
+               for qm in moved)
 
 
 def _solve_outputs(T, ev, w, am, bm, scale, cA):
@@ -1821,22 +1964,26 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid, out=None):
                              k2, tuple(x[i] for x in solved))
                for i in range(a64.shape[0])]
     weights = tuple(torch.stack(x) for x in zip(*weights))
-    d_k, d_p, solve_reach, pin, reach = _seed_reach(
-        solved, trans_k, trans_p, src, valid, weights)
+    # K14's reach adds the f32 QCP solve's own rounding; K23's Jacobi
+    # solve keeps the moments' and the weights'
+    qcp = None if jac else _qcp_reach(a64, b64, w64)
+    d_k, d_p, solve_reach, pin, reach, full = _seed_reach(
+        solved, trans_k, trans_p, src, valid, weights, qcp)
     del a32, b32, w32, a64, b64, w64
     ratios = {}
-    for key, r in (("solve", solve_reach), ("weights", reach)):
+    for key, r in (("solve", solve_reach), ("weights", reach),
+                   ("full", full)):
         ratios[key] = tuple(float((d / r)[pin].max()) if bool(pin.any())
                             else 0.0 for d in (d_k, d_p))
-    kernel_ratio, plain_ratio = ratios["weights"]
+    kernel_ratio, plain_ratio = ratios["full"]
     C = SC2_C_FACTOR * max(plain_ratio, 1.0)
-    held = bool((d_k <= SC2_DISP + C * reach)[pin].all())
+    held = bool((d_k <= SC2_DISP + C * full)[pin].all())
     if out is not None:
         out.update(ratios, pinned=int(pin.sum()), seeds=pin.numel(), C=C,
                    held=held)
     worst = float(d_k[pin].max()) if bool(pin.any()) else 0.0
     loose = float(d_k[~pin].max()) if bool((~pin).any()) else 0.0
-    c_k, c_p, c_reach, c_pin, _ = _seed_reach(
+    c_k, c_p, c_reach, c_pin, _, _ = _seed_reach(
         _solve64(*_consensus64(cfg, knn, src, tgt, valid), jacobi=jac),
         trans_k, trans_p, src, valid)
     chain = ((float((c_k / c_reach)[c_pin].max()),
@@ -1872,11 +2019,16 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid, out=None):
         f"the plain version's consensus points and weights, on the "
         f"{int(pin.sum())} of {pin.numel()} "
         f"seeds whose sets pin a pose: kernel within {worst:.3e} m, "
-        f"largest ratio to the reach (2^-24 * lever * E / gap, the solve's, "
-        f"plus the weights' rounding, `_weight_reach`) {kernel_ratio:.3e} "
+        f"largest ratio to the reach (2^-24 * lever * E / gap, the moments' "
+        f"rounding, plus the weights', `_weight_reach`"
+        + ("" if jac else ", plus the QCP solve's own, `_qcp_reach`")
+        + f") {kernel_ratio:.3e} "
         f"(plain {plain_ratio:.3e}; held to {SC2_DISP} m + C = {C:.3e} "
-        f"times it: {'yes' if held else 'NO'}); to the solve's reach alone "
-        f"kernel {ratios['solve'][0]:.3e}, plain {ratios['solve'][1]:.3e}; "
+        f"times it: {'yes' if held else 'NO'}); to the moments' reach alone "
+        f"kernel {ratios['solve'][0]:.3e}, plain {ratios['solve'][1]:.3e}"
+        + ("" if jac else f"; to the reach without the QCP solve's term "
+           f"kernel {ratios['weights'][0]:.3e}, plain "
+           f"{ratios['weights'][1]:.3e}") + "; "
         f"{int((~pin).sum())} seeds "
         f"whose sets pin none (weights swallowed by the 1e-6, under 3 rows "
         f"of weight, or a Horn gap under {SC2_GAP} of max|H|): kernel "
@@ -1890,28 +2042,34 @@ def _seed_close(got, want, cfg, seed_ok, knn, src, tgt, valid, out=None):
     return ok, worst
 
 
-def _seed_reach(solved, trans_k, trans_p, src, valid, weights=None):
+def _seed_reach(solved, trans_k, trans_p, src, valid, weights=None,
+                qcp=None):
     """From `_solve64`'s outputs for every seed of B problems: the f64
     displacement of a valid row from the solve's pose under the kernel's
     and the plain version's poses trans_k, trans_p [B, S, 4, 4], the
-    solve's rounding reach 2^-24 * lever * E / gap, whether each set pins a
-    pose, and (given `weights`, `_weight_reach`'s (rot, off) [B, S]) the
-    solve's reach plus the weights' rot * lever + off, else None; all
-    flattened to [B * S]. A problem with no valid row pins nothing: its
+    moments' rounding reach 2^-24 * lever * E / gap, whether each set pins
+    a pose, (given `weights`, `_weight_reach`'s (rot, off) [B, S]) that
+    reach plus the weights' rot * lever + off, else None, and that plus
+    (given `qcp`, `_qcp_reach`'s [B, S]) the QCP solve's own qcp * lever;
+    all flattened to [B * S]. A problem with no valid row pins nothing: its
     weights are all 0."""
     import torch
     T64, unit, cA, pinned = solved
-    d_k, d_p, reach, full = [], [], [], []
+    d_k, d_p, reach, full, solve = [], [], [], [], []
     for b in range(valid.shape[0]):
         s64 = src[b][valid[b]].double()
         lever = _lever(cA[b], s64)
         reach.append(U32 * unit[b] * lever)
         if weights is not None:
             full.append(reach[-1] + weights[0][b] * lever + weights[1][b])
+            solve.append(full[-1] if qcp is None
+                         else full[-1] + qcp[b] * lever)
         d_k.append(_pose_disp(trans_k[b], T64[b], s64))
         d_p.append(_pose_disp(trans_p[b], T64[b], s64))
+    full, solve = ((torch.cat(full), torch.cat(solve)) if full
+                   else (None, None))
     return (torch.cat(d_k), torch.cat(d_p), torch.cat(reach),
-            pinned.reshape(-1), torch.cat(full) if full else None)
+            pinned.reshape(-1), full, solve)
 
 
 def _seed_cost(cfg, seed_ok, knn, src, tgt, valid):
@@ -1943,8 +2101,9 @@ def _irls64(cfg, T, src, tgt, valid, it_num=20):
     `refine_unroll` rounds, the config's solve) in f64 from pose T: (the
     final pose, its rounds, and for each round (the least distance of a
     valid row's inlier test from the threshold, the inlier count, the pose
-    it solves, its rounding reach's unit 2^-24 * lever * E / gap, whether
-    its set pins a pose))."""
+    it solves, its rounding reach (the moments' 2^-24 * lever * E / gap,
+    plus for the QCP solve its own rounding's, `_qcp_reach`, times the
+    lever), whether its set pins a pose, the moments' reach alone))."""
     from eyoc_tpu_torch.registration.sc2pcr import _irls_threshold
     thr = _irls_threshold(cfg)
     unroll = cfg.refine_unroll
@@ -1960,10 +2119,12 @@ def _irls64(cfg, T, src, tgt, valid, it_num=20):
         new, unit, cA, pinned = _solve64(a[None], b[None], w[None],
                                          jacobi=not cfg.qcp_kabsch)
         count = int(inlier.sum())
-        reach = U32 * float(unit[0]) * float(
-            _lever(cA, a[valid])[0]) if count else 0.0
+        lever = float(_lever(cA, a[valid])[0]) if count else 0.0
+        moments = U32 * float(unit[0]) * lever
+        reach = moments + (0.0 if not count or not cfg.qcp_kabsch else float(
+            _qcp_reach(a[None], b[None], w[None])[0]) * lever)
         rounds.append((margin, count, new[0], reach,
-                       bool(pinned[0]) or count == 0))
+                       bool(pinned[0]) or count == 0, moments))
         if count > 0:
             T = new[0]
         prev, cur, it = cur, count, it + 1
@@ -1978,7 +2139,9 @@ def _irls_close(got, want, cfg, trans, best, src, tgt, valid):
     - one round from the start, where its inlier tests are clear of the
       threshold by SC2_EPS and its set pins a pose: the kernel's pose within
       SC2_DISP + C times its rounding reach of the f64 round (the reading of
-      the kernel's f32 moments and solve);
+      the kernel's f32 moments and solve; K15's reach adds the QCP solve's
+      own rounding, `_qcp_reach`, and its ratios to the reach without that
+      term are logged too);
     - the whole run: the same rounds as the f64 run and the pose within
       SC2_DISP + C times the last round's reach, every round's set pinning
       a pose; or, where not, a round of the f64 run whose set pins no pose
@@ -1994,32 +2157,37 @@ def _irls_close(got, want, cfg, trans, best, src, tgt, valid):
     one_k, _ = sc2pcr.sc2_irls(one, trans, best, src, tgt, valid, it_num=1)
     one_p, _ = sc2pcr.sc2_irls_plain(one, trans, best, src, tgt, valid,
                                      it_num=1)
-    runs, r_p = [], [1.0]
+    # the plain version's ratios (the first 1.0: C's floor) and the
+    # kernel's one-round ratios, to the reach and to the moments' alone
+    runs, r_p, o_p, r_k, o_k = [], [1.0], [0.0], [0.0], [0.0]
     for b in range(valid.shape[0]):
         v = valid[b]
         s64 = src[b][v].double()
         T64, it64, rounds = _irls64(cfg, trans[b, int(best[b])], src[b],
                                     tgt[b], v)
-        margin, count, T1, reach1, pinned1 = rounds[0]
+        margin, count, T1, reach1, pinned1, moments1 = rounds[0]
         first = None
         if count and pinned1 and margin > SC2_EPS and reach1 > 0:
             first = (float(_pose_disp(one_k[b:b + 1], T1[None], s64)[0]),
                      reach1)
-            r_p.append(float(_pose_disp(one_p[b:b + 1], T1[None], s64)[0])
-                       / reach1)
+            r_k.append(first[0] / reach1)
+            o_k.append(first[0] / moments1)
+            d1 = float(_pose_disp(one_p[b:b + 1], T1[None], s64)[0])
+            r_p.append(d1 / reach1)
+            o_p.append(d1 / moments1)
         solved = [r for r in rounds if r[1]]
-        last = solved[-1][3] if solved else 0.0
+        last, last_m = solved[-1][3::2] if solved else (0.0, 0.0)
         pins = all(r[4] for r in rounds)
         disp = float(_pose_disp(T_k[b:b + 1], T64[None], s64)[0])
         if int(it_p[b]) == it64 and pins and last > 0:
-            r_p.append(float(_pose_disp(T_p[b:b + 1], T64[None], s64)[0])
-                       / last)
+            dn = float(_pose_disp(T_p[b:b + 1], T64[None], s64)[0])
+            r_p.append(dn / last)
+            o_p.append(dn / last_m)
         runs.append((first, it64, rounds, last, pins, disp))
     C = SC2_C_FACTOR * max(r_p)
-    ok, worst, loose, r_k = True, 0.0, 0, 0.0
+    ok, worst, loose = True, 0.0, 0
     for b, (first, it64, rounds, last, pins, disp) in enumerate(runs):
         if first is not None:
-            r_k = max(r_k, first[0] / first[1])
             ok &= first[0] <= SC2_DISP + C * first[1]
         if int(it_k[b]) == it64 and pins and disp <= SC2_DISP + C * last:
             worst = max(worst, disp)
@@ -2032,13 +2200,18 @@ def _irls_close(got, want, cfg, trans, best, src, tgt, valid):
             f"the f64 run's rounds (least margin to the threshold, inliers, "
             f"C times the reach, pins a pose): "
             + "; ".join(f"{m:.2e} m, {n}, {C * r:.2e} m, {p}"
-                        for m, n, _, r, p in rounds))
+                        for m, n, _, r, p, _ in rounds))
         loose += 1
         ok &= free
+    qcp = cfg.qcp_kabsch
     log(f"  K15: iterations {it_k.tolist()} (plain {it_p.tolist()}); "
-        f"against the f64 rounds, largest ratio to 2^-24 * lever * E / gap "
-        f"of one round {r_k:.3e}, the plain version's of one round or a "
-        f"whole run {max(r_p):.3e} (C = {C:.3e}); "
+        f"against the f64 rounds, largest ratio to the reach (2^-24 * lever "
+        f"* E / gap, the moments' rounding"
+        + (", plus the QCP solve's own, `_qcp_reach`" if qcp else "")
+        + f") of one round {max(r_k):.3e}, the plain version's of one round "
+        f"or a whole run {max(r_p):.3e} (C = {C:.3e})"
+        + (f"; to the moments' reach alone: one round {max(o_k):.3e}, the "
+           f"plain version's {max(o_p):.3e}" if qcp else "") + "; "
         f"{loose} problems whose rounds' sets pin no pose or whose inlier "
         f"tests f32 rounding can flip (above), the others within "
         f"{worst:.3e} m of the f64 run")
@@ -2139,6 +2312,206 @@ def sc2_no_sync(what, src, tgt, valid, cfg):
         raise AssertionError(f"sc2_pcr_batched ({what}): non-finite poses")
     log(f"sc2_pcr_batched ({what}, B = {valid.shape[0]}, N = "
         f"{valid.shape[1]}): no host sync (sync debug mode \"error\")")
+
+
+# ------------------------------------------ phase 2, the Jacobi solve
+
+
+# jacobi_pose.cuh's branch-free forms on the card (csrc/probes/
+# jacobi_forms.cu): every float of [1, 2^128) through the root, every float
+# of [1, 2^126] through the reciprocal, every float of [1, 2] through the
+# reciprocal root (c's), JACOBI_PAIRS random quotient pairs
+# and every exponent boundary pair; JACOBI_SETS random weighted sets, as
+# many 3-point sets and the special Horn matrices through both solves
+JACOBI_PAIRS = 1 << 28
+JACOBI_SETS = 1 << 18
+# sha1 digests (16 hex digits) of the outputs of the Jacobi solve's other
+# users (`jacobi_digests`) made by their parent design (the IEEE solve
+# alone, before the branch-free forms) on the card and toolchain of
+# K23_DIGEST_KEY (profile_k24.py prints them): they must keep those bits
+JACOBI_DIGESTS = {"K16": "3526915a8dee204a", "K18 polish": "9d502fda2806c4a7",
+                  "icp_solve": "64ae6426bc861e43"}
+
+
+def _forms(symbol, argtypes):
+    from eyoc_tpu_torch.utils import kernels
+    return kernels.load("probes/jacobi_forms", argtypes,
+                        symbol=f"jacobi_forms_{symbol}")
+
+
+def horn_test_sets(gen, n):
+    """[m, 15] f32 (H, cA, cB) on the card: n random weighted sets of 12
+    rows (a turn of up to ~0.5 rad, 0.2 m of noise), n 3-point sets of
+    their first rows (K16's), and the special Horn matrices: H = 0, diagonal
+    ones, repeated eigenvalues, a_pq overflowing tau^2, an entry below the
+    quotient's range (the rerun)."""
+    import torch
+    a = torch.rand((n, 12, 3), generator=gen) * 40 - 20
+    ang = torch.randn((n, 1, 3), generator=gen) * 0.5
+    b = a + torch.cross(ang.expand_as(a), a, dim=-1) \
+        + torch.randn((n, 12, 3), generator=gen) * 0.2
+    w = torch.rand((n, 12), generator=gen)
+    out = []
+    for aa, bb, ww in ((a, b, w), (a[:, :3], b[:, :3],
+                                   torch.ones((n, 3)))):
+        s = ww.sum(1, keepdim=True)
+        cA = (aa * ww[..., None]).sum(1) / s
+        cB = (bb * ww[..., None]).sum(1) / s
+        H = torch.einsum("nki,nkj->nij", (aa - cA[:, None]) * ww[..., None],
+                         bb - cB[:, None])
+        out.append(torch.cat([H.reshape(n, 9), cA, cB], 1))
+    eye = torch.eye(3)
+    special = [torch.zeros(3, 3), torch.diag(torch.tensor([3.0, 2.0, 1.0])),
+               torch.diag(torch.tensor([1.0, -2.0, 0.5])), eye,
+               torch.diag(torch.tensor([1.0, 1.0, 0.0])), -eye,
+               torch.diag(torch.tensor([2.0, 2.0, -1.0])),
+               torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.5, 1e-25],
+                             [0.0, 0.0, 0.2]]),
+               torch.tensor([[1.0, 1e-25, 0.0], [0.0, -0.5, 0.0],
+                             [0.0, 0.0, 0.2]]),
+               torch.tensor([[1.0, 1e-35, 0.0], [0.0, 0.5, 0.0],
+                             [0.0, 0.0, 0.2]])]
+    Hs = torch.stack(special).reshape(-1, 9)
+    out.append(torch.cat([Hs, torch.zeros(len(special), 3),
+                          torch.ones(len(special), 3)], 1))
+    return torch.cat(out).float().cuda().contiguous()
+
+
+def jacobi_reruns(source):
+    """The Jacobi solves of a library ("ransac", "sc2_refine",
+    "probes/jacobi_forms") that left the branch-free forms' range and ran
+    again on the IEEE forms, since it was loaded."""
+    import ctypes
+    from eyoc_tpu_torch.utils import kernels
+    fn = kernels.load(source, (ctypes.c_void_p,), symbol={
+        "ransac": "ransac_jacobi_reruns",
+        "sc2_refine": "sc2_refine_jacobi_reruns",
+        "probes/jacobi_forms": "jacobi_forms_reruns"}[source])
+    n = ctypes.c_ulonglong(0)
+    kernels.check_error("jacobi_reruns", fn(ctypes.byref(n)))
+    return n.value
+
+
+_reruns_seen = {}
+
+
+def log_reruns(what):
+    """Logs the Jacobi solves of K16-K18 (ransac) and K23 / K24
+    (sc2_refine) that took the IEEE rerun since the last call."""
+    parts = []
+    for src, who in (("ransac", "K16-K18"), ("sc2_refine", "K23 / K24")):
+        n = jacobi_reruns(src)
+        parts.append(f"{who} {n - _reruns_seen.get(src, 0)}")
+        _reruns_seen[src] = n
+    log(f"Jacobi solves that took the IEEE rerun ({what}): "
+        + ", ".join(parts))
+
+
+def check_jacobi_forms():
+    """jacobi_pose.cuh's branch-free root, reciprocal and quotient against
+    __fsqrt_rn / __fdiv_rn on the card, and jacobi_pose against
+    jacobi_pose_ieee on horn_test_sets: each must give the same bits (every
+    mismatch fails the run); logs the counts and the solves that took the
+    rerun."""
+    import ctypes
+
+    import torch
+    from eyoc_tpu_torch.utils import kernels
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    sweep = _forms("sweep", (I, U, U, P, P))
+    quotients = _forms("quotients", (ctypes.c_ulonglong, U, I, P, P))
+    solves = _forms("solves", (P, I, P, P, P))
+    stream = kernels.stream_handle(0)
+    rows = {}
+    t0 = time.perf_counter()
+    for name, call in (
+            ("roots of [1, 2^128)", lambda o: sweep(0, 0x3F800000,
+                                                    0x40000000, o, stream)),
+            ("reciprocals of [1, 2^126]",
+             lambda o: sweep(1, 0x3F800000, 0x3F000001, o, stream)),
+            ("reciprocal roots of [1, 2]",
+             lambda o: sweep(2, 0x3F800000, 0x800001, o, stream)),
+            (f"quotients, {JACOBI_PAIRS} random pairs and every exponent "
+             "boundary pair", lambda o: quotients(23, JACOBI_PAIRS, 1, o,
+                                                  stream))):
+        out = torch.zeros(3, dtype=torch.int64, device="cuda")
+        kernels.check_error("jacobi_forms", call(out.data_ptr()))
+        bad, seen, skipped = out.tolist()
+        rows[name] = (bad, seen, skipped)
+        if bad:
+            raise AssertionError(f"jacobi_pose's branch-free {name}: {bad} "
+                                 f"of {seen} differ from the IEEE "
+                                 "intrinsic's bits")
+    sets = horn_test_sets(torch.Generator().manual_seed(24), JACOBI_SETS)
+    n = sets.shape[0]
+    fast = torch.empty((n, 16), device="cuda")
+    ieee = torch.empty((n, 16), device="cuda")
+    before = jacobi_reruns("probes/jacobi_forms")
+    kernels.check_error("jacobi_forms_solves", solves(
+        sets.data_ptr(), n, fast.data_ptr(), ieee.data_ptr(), stream))
+    differ = int((fast.view(torch.int32) != ieee.view(torch.int32))
+                 .any(1).sum())
+    reruns = jacobi_reruns("probes/jacobi_forms") - before
+    if differ:
+        raise AssertionError(f"jacobi_pose: {differ} of {n} solves differ "
+                             "from jacobi_pose_ieee's bits")
+    log("jacobi_pose.cuh's branch-free forms against the IEEE intrinsics on "
+        "the card, mismatches (of checked; out of range, not compared): "
+        + "; ".join(f"{k} {b} ({s}; {o})" for k, (b, s, o) in rows.items())
+        + f"; jacobi_pose against jacobi_pose_ieee: {differ} of {n} solves "
+        f"differ ({JACOBI_SETS} weighted sets, as many 3-point sets, "
+        f"{n - 2 * JACOBI_SETS} special Horn matrices), {reruns} took the "
+        f"rerun; {time.perf_counter() - t0:.1f} s")
+
+
+def jacobi_user_calls():
+    """{name: (fn, args)}: the Jacobi solve's users in csrc/ransac.cu at
+    fixed inputs (generators of their own): K16's two-stage entry on an N
+    = 5000 problem at 30% inliers with RANSAC's draws, K18's polish from
+    its poses and K17's best, icp_solve on a 32768-row problem (every row
+    its own match)."""
+    import torch
+    from eyoc_tpu_torch.registration import icp, ransac
+    cfg = ransac.RansacConfig()
+    src, tgt, valid, _ = correspondences(torch.Generator().manual_seed(31))
+    draws = ransac.ransac_draws(cfg, "cuda",
+                                torch.Generator(device="cuda").manual_seed(5))
+    thr, lo = cfg.distance_threshold, cfg.edge_length_ratio
+    k16 = (src, tgt, valid, *draws, thr, lo, cfg.full_verify_top)
+    trans, coarse = ransac.ransac_hypotheses_topk(*k16)[:2]
+    _, best = ransac.ransac_verify(trans, coarse, None, src, tgt, valid, thr)
+    s, t, _, _ = correspondences(torch.Generator().manual_seed(32), n=32768)
+    mask = torch.ones(32768, dtype=torch.bool, device="cuda")
+    nn = torch.arange(32768, dtype=torch.int32, device="cuda")
+    d2 = ((s - t) ** 2).sum(1)
+    return {"K16": (ransac.ransac_hypotheses_topk, k16),
+            "K18 polish": (ransac.ransac_polish, (trans, best, src, tgt,
+                                                  valid, thr,
+                                                  cfg.polish_iters)),
+            "icp_solve": (icp.icp_solve, (s, mask, t, nn, d2, 0.2 * 0.2))}
+
+
+def jacobi_digests(calls=None):
+    """{name: sha1 digest} of the outputs of `jacobi_user_calls`."""
+    calls = calls or jacobi_user_calls()
+    return {k: sc2_digest(fn(*args)) for k, (fn, args) in calls.items()}
+
+
+def check_jacobi_digests():
+    """jacobi_digests against JACOBI_DIGESTS (the parent design's), where
+    this card and toolchain are the ones they were made on; elsewhere they
+    are logged only."""
+    got = jacobi_digests()
+    key = k23_digest_key()
+    if key != K23_DIGEST_KEY or not JACOBI_DIGESTS:
+        log(f"Jacobi users' digests: {got} (none recorded for {key})")
+        return
+    differ = {k: v for k, v in got.items() if v != JACOBI_DIGESTS.get(k)}
+    if differ:
+        raise AssertionError(f"the Jacobi solve's users changed their bits: "
+                             f"{differ}, the IEEE solve gave "
+                             f"{JACOBI_DIGESTS} on {key}")
+    log(f"Jacobi users' digests: {got}, the IEEE solve's bits")
 
 
 # ------------------------------------------------- phase 2, RANSAC and ICP
@@ -4952,13 +5325,15 @@ def main() -> int:
     check_sc2_kernels("labeling shape, synthetic",
                       sc2_calls(*l_set, l_cfg))
     sc2_no_sync("labeling shape, synthetic", *l_set, l_cfg)
-    # past K15's shared-memory row cap: its rows from the global copy (on
-    # a generator of their own, so that the checks after draw as before)
-    from eyoc_tpu_torch.registration.sc2pcr import K15_MAX_ROWS
-    n_over = K15_MAX_ROWS + 808
+    # past the shared-memory row cap of K15's cluster: its rows from the
+    # global copy (on a generator of their own, so that the checks after
+    # draw as before)
+    from eyoc_tpu_torch.registration.sc2pcr import K15_CLUSTER, K15_MAX_ROWS
+    cap = K15_CLUSTER * K15_MAX_ROWS
+    n_over = cap + 808
     o_set = sc2_problems(torch.Generator().manual_seed(4), n_over,
                          ((0.3, n_over), (0.1, n_over - 500)))
-    check_sc2_kernels(f"past K15's row cap {K15_MAX_ROWS}", sc2_calls(
+    check_sc2_kernels(f"past K15's row cap {cap}", sc2_calls(
         *o_set[:3], SC2PCRConfig(max_points=n_over, seed_cap=N_SEEDS)))
     del e_set, l_set, o_set
     torch.cuda.empty_cache()
@@ -4990,8 +5365,14 @@ def main() -> int:
         results["sc2_irls" + tail] = rows["sc2_irls" + tail]
     del e_set, l_set
     torch.cuda.empty_cache()
-    # K16-K18 and K2 at ICP's shape (the kernels line's rows)
+    log_reruns("phase 2, the K23 / K24 rows")
+    # the Jacobi solve's branch-free forms against the IEEE ones
+    check_jacobi_forms()
+    # K16-K18 and K2 at ICP's shape (the kernels line's rows), and the
+    # digests of the Jacobi solve's users there
     results.update(check_ransac_kernels(gen, pairs[0]))
+    check_jacobi_digests()
+    log_reruns("phase 2, the K16-K18 rows and digests")
     # K19 at the valid step's shape, K20 on one ResUNetIN2C forward (on a
     # generator of their own, so that the checks after draw as before)
     results["est_quad_linear_robust"] = check_k19(
@@ -5092,6 +5473,7 @@ def main() -> int:
         f"{n_ok}/{N_PAIRS}, on {smi}")
     # the eval path with RANSAC, the test CLI's default estimator
     ransac_counts = ransac_eval_phase(model, pairs, cfg, smi)
+    log_reruns("phase 3, the eval path with RANSAC")
     # the valid step, and its known answer
     valid_counts = valid_phase(model, pairs, cfg, smi)
 
@@ -5117,6 +5499,7 @@ def main() -> int:
                                     cfg.sc2, l_cfg)
     ransac_known_answers(sanity, src, tgt, valid, T_true)
     icp_counts = icp_known_answer(pairs[0])
+    log_reruns("phase 4, SC2-PCR's options, RANSAC and ICP known answers")
 
     # ---- phase 5: the training path at full width
     train_counts = train_phase(train_model, opt, train_batch, tcfg,

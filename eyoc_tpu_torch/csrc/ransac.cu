@@ -1382,3 +1382,9 @@ extern "C" int eyoc_icp_solve(const float* src, const bool* mask,
                                                    warped);
   return cudaGetLastError();
 }
+
+// The Jacobi solves of this library that ran again on the IEEE forms
+// (jacobi_pose.cuh), since it was loaded: *out (host memory).
+extern "C" int eyoc_ransac_jacobi_reruns(unsigned long long* out) {
+  return jacobi_reruns_read(out);
+}

@@ -7,9 +7,9 @@
 // (with its k2 x k2 `_power_iteration`, :100) after K4's k1 selection.
 // Three launches:
 // - `compact_rows`, one block a problem: the valid rows copied once, in
-//   index order, into a scratch (source and target as two float4s a row;
-//   `copy_valid`), each row's place there (-1 where invalid) and the
-//   count. No later code reads `valid` or an invalid row.
+//   index order, into a scratch (source and target as two float4s a
+//   row), each row's place there (-1 where invalid) and the count. No
+//   later code reads `valid` or an invalid row.
 // - `seed_consensus`, a warp a seed, kSeedWarps seeds a block. A seed whose
 //   k1 columns are the seed before's (the labeling's seeds past its valid
 //   rows all take the problem's first valid rows) has that seed's
@@ -43,22 +43,28 @@
 //   ticket word a problem, reset by that block) writes the fitness (-1
 //   where the seed is not ok) and takes its first argmax, `best`.
 //
-// K15 replaces :219 `_post_refine`: one persistent block a problem,
-// `irls`, copies its valid rows once, in index order, into shared memory
-// (six arrays, `copy_valid`; past kIrlsMaxRows rows into the problem's
-// part of a global scratch, in the same order), starts from trans[b,
-// best[b]] and runs the IRLS while-loop with its exact stop, (it < it_num)
-// & (it == 0 | |cur - prev| >= 1). A round: the warp, the inlier test
-// (dist < thr), the Cauchy weight 1 / (1 + (dist / thr)^2), the count and
-// the weighted sums; the centroids (every thread divides the same bits);
-// the centred moments over the same inliers (each row's weight kept in a
-// register from the first pass, or made again past kIrlsRows rows a
-// thread: the same bits); the QCP pose on thread 0 where the count is not
-// 0 (else the old pose stays). Row m belongs to thread m % kIrlsThreads in
-// every pass; sums go by a fixed xor-shuffle tree over each warp, the
-// warps' partials through shared memory and one barrier, then the same
-// tree over the partials in every warp, so every thread holds the same
-// bits.
+// K15 replaces :219 `_post_refine`: `irls`, one thread-block cluster of C
+// CTAs a problem (the wrapper's K15_CLUSTER, K24_CLUSTER), as K19 runs its
+// IRLS (robust_irls.cu). The problem's valid rows are split evenly over
+// the CTAs in index order (CTA r the rows of ranks [r q, (r + 1) q), q =
+// ceil(M / C): the warp segments' counts meet through distributed shared
+// memory after one cluster barrier) and copied once into each CTA's
+// dynamic shared memory (six arrays; past kIrlsRows rows a CTA into the
+// problem's part of a global scratch, at their ranks). From trans[b,
+// best[b]] it runs the IRLS while-loop with its exact stop, (it < it_num)
+// & (it == 0 | |cur - prev| >= 1). A round: pass 1 over the CTA's rows,
+// the warp, the inlier test (dist < thr), the Cauchy weight 1 / (1 +
+// (dist / thr)^2), the count and the weighted sums; the cluster's sums
+// (`cluster_sums`: a thread's rows in order, the warp's xor tree, the
+// CTA's warps' by a tree over lanes, each CTA's 8 sums pushed into every
+// CTA's inbox through map_shared_rank before one cluster barrier, then
+// added there by a fixed xor tree over the CTAs (lane l holding rank l mod
+// C's), so every thread of every CTA holds the same bits); the centroids; pass 2, the centred moments over the same inliers
+// (each row's weight kept in a register from pass 1, or made again past
+// kIrlsPerThread rows a thread: the same bits), their 11 sums the same
+// way; then thread 0 of every CTA solves the same pose from those bits
+// where the count is not 0 (else the old pose stays), and a block barrier
+// hands it to the CTA. Two cluster barriers a round, no broadcast.
 //
 // K23 and K24 are K14 and K15 with qcp_kabsch=False
 // (eyoc_tpu/registration/sc2pcr.py:205, :222 over geometry/svd3.py:kabsch,
@@ -85,14 +91,15 @@
 //
 // What bounds them: K14 is a chain of small dependent steps a seed (20
 // power iterations, the QCP solve) plus the fitness's operations, about
-// 25 flops for each (seed, valid row); K15 is one block a problem and 20
-// dependent rounds at most, two passes over the valid rows and a solve on
-// one thread each: latency and instruction issue, far above their bytes
-// and operations. The designs cut both: K14 takes the invalid rows out of
+// 25 flops for each (seed, valid row); K15 is 20 dependent rounds at most,
+// two passes over the valid rows, two exchanges and a solve on one thread
+// each: latency and instruction issue, far above their bytes and
+// operations. The designs cut both: K14 takes the invalid rows out of
 // every seed's walk, a block barrier out of every step of its chain and
-// the chains of repeated seeds out of the labeling; K15 takes global
-// memory and the shared-memory trees out of its rounds.
+// the chains of repeated seeds out of the labeling; K15 spreads its passes
+// over a cluster's SMs and keeps its rows in their shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -100,8 +107,13 @@
 #include "jacobi_pose.cuh"
 
 #ifndef EYOC_K15_MAX_ROWS
-#define EYOC_K15_MAX_ROWS 8192
+#define EYOC_K15_MAX_ROWS 4096
 #endif
+#ifndef EYOC_IRLS_THREADS
+#define EYOC_IRLS_THREADS 256
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -127,11 +139,6 @@ constexpr int kFitPer = kFitSeeds / kFitWarps;   // heads a warp tests
 constexpr int kFitBlocksPerSM = 2;    // its row splits aim at this ...
 constexpr int kMaxSplits = 8;         // ... with at most this many parts
 constexpr int kFitMinRows = 512;      // ... of at least this many rows of N
-constexpr int kIrlsThreads = 512;     // irls: one block a problem
-constexpr int kIrlsWarps = kIrlsThreads / 32;
-constexpr int kIrlsMaxRows = EYOC_K15_MAX_ROWS;  // rows in shared memory
-constexpr int kIrlsRows =                        // a thread's of them
-    (kIrlsMaxRows + kIrlsThreads - 1) / kIrlsThreads;
 
 // (dx*dx + dy*dy) + dz*dz, unfused: the square of dist3_rn.
 __device__ __forceinline__ float sq3_rn(float ax, float ay, float az,
@@ -155,63 +162,6 @@ __device__ __forceinline__ void warp_sums(float (&v)[n]) {
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
     for (int k = 0; k < n; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
-}
-
-// Each row n < N of a problem, valid flags V and coordinates P, Q [N, 3],
-// as put(n, m, r): r its six coordinates (source, then target; read only
-// for a valid row), m its place among the valid rows in index order, -1
-// where it is invalid; start(M) first, with their count M. Warp w takes
-// the rows of its segment [w seg, (w + 1) seg) (seg a multiple of 32): it
-// counts its valid rows, the warps' counts go through `part` (kThreads /
-// 32 ints of shared memory) and one barrier, then it places its rows by
-// ballots from its base, kCopyBatch groups of 32 rows a pass with the
-// pass's loads first. Each load and store of a warp is contiguous.
-template <int kThreads, class Start, class Put>
-__device__ __forceinline__ void copy_valid(const float* __restrict__ P,
-                                           const float* __restrict__ Q,
-                                           const bool* __restrict__ V, int N,
-                                           int* part, Start start, Put put) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int seg = ((N + kWarps - 1) / kWarps + 31) & ~31;
-  const int n0 = min(N, warp * seg), n1 = min(N, n0 + seg);
-  int c = 0;
-#pragma unroll 4
-  for (int n = n0 + lane; n < n1; n += 32) c += V[n];
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
-  if (lane == 0) part[warp] = c;
-  __syncthreads();
-  int base = 0, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    const int x = part[w];
-    base += w < warp ? x : 0;
-    total += x;
-  }
-  start(total);
-  const unsigned below = (1u << lane) - 1u;
-  for (int i0 = n0; i0 < n1; i0 += kCopyBatch * 32) {
-    bool v[kCopyBatch];
-    float r[kCopyBatch][6];
-#pragma unroll
-    for (int k = 0; k < kCopyBatch; ++k) {
-      const int n = i0 + 32 * k + lane;
-      v[k] = n < n1 && V[n];
-      for (int e = 0; e < 6; ++e) r[k][e] = 0.f;
-      if (v[k])
-        for (int e = 0; e < 3; ++e) {
-          r[k][e] = P[3 * n + e];
-          r[k][3 + e] = Q[3 * n + e];
-        }
-    }
-#pragma unroll
-    for (int k = 0; k < kCopyBatch; ++k) {
-      const int n = i0 + 32 * k + lane;
-      if (i0 + 32 * k >= n1) break;
-      const unsigned bal = __ballot_sync(kFull, v[k]);
-      if (n < n1) put(n, v[k] ? base + __popc(bal & below) : -1, r[k]);
-      base += __popc(bal);
-    }
-  }
 }
 
 __device__ __forceinline__ float det3(float a, float b, float c, float d,
@@ -832,68 +782,176 @@ __global__ void __launch_bounds__(kFitThreads) seed_fitness(
   }
 }
 
-// ------------------------------------------------------------------ K15
+// ----------------------------------------------------------- K15, K24
 
-// irls's sums: a thread's rows in order, then warp_sums, the warp partials
-// through `part` [n][kIrlsWarps] and one barrier, then the same tree over
-// the partials in every warp. A call writes `part` while the block may
-// still read the other buffer of the previous call, so consecutive calls
-// alternate two buffers.
+// K15's and K24's `irls` (the header's K15 paragraph): a cluster of C CTAs
+// of kIrlsThreads threads a problem. The head of its dynamic shared
+// memory, in 4-byte words: the CTAs' pass-1 and pass-2 sums as received
+// [kMaxCluster][8], [kMaxCluster][11],
+// the warps' sums [11][kIrlsWarps], the warp segments' counts [kIrlsWarps],
+// the cluster's prefix of them [kMaxCluster kIrlsWarps + 1], the pose [16].
+constexpr int kIrlsThreads = EYOC_IRLS_THREADS;
+constexpr int kIrlsWarps = kIrlsThreads / 32;
+static_assert(kIrlsThreads % 32 == 0 && kIrlsWarps >= 1 && kIrlsWarps <= 32,
+              "whole warps, at most 32");
+constexpr int kIrlsRows = EYOC_K15_MAX_ROWS;   // rows a CTA in shared memory
+constexpr int kIrlsPerThread = (kIrlsRows + kIrlsThreads - 1) / kIrlsThreads;
+constexpr int kMaxCluster = 16;
+constexpr int kIrlsStamps = 8;                 // device clock reads a round
+constexpr int kHeadIn1 = 0;
+constexpr int kHeadIn2 = kHeadIn1 + kMaxCluster * 8;
+constexpr int kHeadWPart = kHeadIn2 + kMaxCluster * 11;
+constexpr int kHeadCount = kHeadWPart + 11 * kIrlsWarps;
+constexpr int kHeadBase = kHeadCount + kIrlsWarps;
+constexpr int kHeadPose = kHeadBase + kMaxCluster * kIrlsWarps + 1;
+constexpr int kIrlsHead = (kHeadPose + 16 + 3) & ~3;
+
+// The cluster's sums of v[n]: a thread's rows in order, the warp's xor
+// tree, the CTA's warps' sums by a tree over lanes (warp k adds sums k, k +
+// kIrlsWarps, ...), each CTA's sum k stored into every CTA's inbox [rank][n]
+// through distributed shared memory, one cluster barrier, then the C CTAs'
+// sums by an xor tree over C lanes in every warp: every thread of every
+// CTA holds the same bits.
 template <int n>
-__device__ __forceinline__ void block_sums(float (&v)[n],
-                                           float (*part)[kIrlsWarps]) {
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster,
+                                             float (&v)[n], float* wpart,
+                                             float* inbox, int C, int rank,
+                                             long long* stamp) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   warp_sums(v);
   if (lane == 0)
-    for (int k = 0; k < n; ++k) part[k][warp] = v[k];
+#pragma unroll
+    for (int k = 0; k < n; ++k) wpart[k * kIrlsWarps + warp] = v[k];
   __syncthreads();
-  for (int k = 0; k < n; ++k) v[k] = lane < kIrlsWarps ? part[k][lane] : 0.f;
-  warp_sums(v);
+  for (int k = warp; k < n; k += kIrlsWarps) {
+    float x[1] = {lane < kIrlsWarps ? wpart[k * kIrlsWarps + lane] : 0.f};
+    warp_sums(x);
+    if (lane < C) *cluster.map_shared_rank(inbox + rank * n + k, lane) = x[0];
+  }
+  if (stamp != nullptr) *stamp = clock64();
+  cluster.sync();
+  // lane l reads rank l mod C's sums; the xor tree over each group of C
+  // lanes (C a power of two) adds them, the same pairs in every lane
+#pragma unroll
+  for (int k = 0; k < n; ++k) v[k] = inbox[(lane & (C - 1)) * n + k];
+  for (int off = C >> 1; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < n; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
 }
 
-// Problem blockIdx.x's rows live in six arrays of ld floats at R (source x,
-// y, z, target x, y, z): dynamic shared memory of L rows where M <= L, else
-// the problem's [6][N] part of `spill`. unroll > 0: exactly `unroll`
-// rounds, no count check. kJacobi: the pose by `jacobi_pose` (K24), else
-// by `qcp_pose` (K15).
-template <bool kJacobi>
+// Problem blockIdx.x / C of the cluster, its valid rows split evenly over
+// the C CTAs in index order: CTA r's are the valid rows of ranks [r q, (r +
+// 1) q), q = ceil(M / C), in six arrays at R (source x, y, z, target x, y,
+// z; ld floats apart): its dynamic shared memory of L rows where q <= L,
+// else columns [r q, (r + 1) q) of the problem's [6][N] part of `spill`.
+// The IRLS rounds (the header's K15 paragraph; kJacobi: the pose by
+// `jacobi_pose`, K24, else by `qcp_pose`, K15), the two passes over the
+// CTA's rows (row j its thread j % kIrlsThreads's). kStamp: thread 0 of
+// the first problem's rank-0 CTA writes clock64() at each round's start,
+// after pass 1, after its CTA sums, after its cluster barrier and sums,
+// after pass 2, after its CTA sums, after its cluster barrier and sums,
+// and after the solve and the block barrier (stamps [rounds][kIrlsStamps],
+// at most `unroll` or it_num rounds).
+template <bool kJacobi, bool kStamp>
 __global__ void __launch_bounds__(kIrlsThreads) irls(
     const float* __restrict__ trans_all, const int* __restrict__ best,
     const float* __restrict__ src, const float* __restrict__ tgt,
     const bool* __restrict__ valid, int N, int S, int L, float thr,
     float lim, int it_num, int unroll, float* __restrict__ spill,
-    float* __restrict__ trans_out, int* __restrict__ iters_out) {
-  extern __shared__ float stage[];          // [6][L]
-  __shared__ float part1[8][kIrlsWarps], part2[11][kIrlsWarps];
-  __shared__ int ipart[kIrlsWarps];
-  __shared__ float pose[16];
-  const int t = threadIdx.x, b = blockIdx.x;
+    float* __restrict__ trans_out, int* __restrict__ iters_out,
+    long long* __restrict__ stamps) {
+  extern __shared__ float smem[];           // the head, then [6][L]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = blockIdx.x / C;
+  float* in1 = smem + kHeadIn1;
+  float* in2 = smem + kHeadIn2;
+  float* wpart = smem + kHeadWPart;
+  int* wcount = reinterpret_cast<int*>(smem + kHeadCount);
+  int* gbase = reinterpret_cast<int*>(smem + kHeadBase);
+  float* pose = smem + kHeadPose;
   const float* P = src + 3ll * b * N;
   const float* Q = tgt + 3ll * b * N;
   const bool* V = valid + (long long)b * N;
+  const bool stamp = kStamp && b == 0 && rank == 0 && t == 0;
   if (t < 16) pose[t] = trans_all[((long long)b * S + best[b]) * 16 + t];
-  // the rows in shared memory where they fit, else in the problem's part
-  // of the global copy
-  float* R = stage;
-  int ld = L, M = 0;
-  copy_valid<kIrlsThreads>(
-      P, Q, V, N, ipart,
-      [&](int total) {
-        M = total;
-        if (M > L) {
-          R = spill + 6ll * b * N;
-          ld = N;
-        }
-      },
-      [&](int, int m, const float* r) {
-        if (m < 0) return;
-        for (int k = 0; k < 6; ++k) R[k * ld + m] = r[k];
-      });
+
+  // the warp segments' counts, their prefix over the cluster
+  const int G = C * kIrlsWarps;
+  const int seg = ((N + G - 1) / G + 31) & ~31;
+  {
+    const int n0 = min(N, (rank * kIrlsWarps + warp) * seg),
+              n1 = min(N, n0 + seg);
+    int c = 0;
+    for (int n = n0 + lane; n < n1; n += 32) c += V[n];
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
+    if (lane == 0) wcount[warp] = c;
+  }
+  cluster.sync();
+  if (warp == 0) {
+    int carry = 0;
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      const int own = g < G ? *cluster.map_shared_rank(wcount + g % kIrlsWarps,
+                                                       g / kIrlsWarps)
+                            : 0;
+      int x = own;                          // the inclusive scan of own
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_sync(kFull, x, lane >= off ? lane - off : lane);
+        if (lane >= off) x += y;
+      }
+      if (g < G) gbase[g] = carry + x - own;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) gbase[G] = carry;
+  }
+  __syncthreads();
+  const int M = gbase[G], q = (M + C - 1) / C;
+  const int lo = min(M, rank * q), cnt = min(M, lo + q) - lo;
+  float* R = smem + kIrlsHead;
+  int ld = L;
+  if (q > L) {
+    R = spill + 6ll * b * N + lo;
+    ld = N;
+  }
+  // the CTA's rows, ranks [lo, lo + cnt), each at its rank - lo: warp w
+  // copies the segments w, w + kIrlsWarps, ... that hold some of them, its
+  // 32-row groups placed by ballots, kCopyBatch groups a pass with the
+  // pass's loads first
+  const unsigned below = (1u << lane) - 1u;
+  for (int g = warp; g < G; g += kIrlsWarps) {
+    int base = gbase[g];
+    if (gbase[g + 1] <= lo || base >= lo + cnt) continue;
+    const int n0 = min(N, g * seg), n1 = min(N, n0 + seg);
+    for (int i0 = n0; i0 < n1; i0 += kCopyBatch * 32) {
+      bool v[kCopyBatch];
+      float r[kCopyBatch][6];
+#pragma unroll
+      for (int k = 0; k < kCopyBatch; ++k) {
+        const int n = i0 + 32 * k + lane;
+        v[k] = n < n1 && V[n];
+        for (int e = 0; e < 6; ++e) r[k][e] = 0.f;
+        if (v[k])
+          for (int e = 0; e < 3; ++e) {
+            r[k][e] = P[3 * n + e];
+            r[k][3 + e] = Q[3 * n + e];
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < kCopyBatch; ++k) {
+        if (i0 + 32 * k >= n1) break;
+        const unsigned bal = __ballot_sync(kFull, v[k]);
+        const int m = base + __popc(bal & below) - lo;
+        if (v[k] && m >= 0 && m < cnt)
+          for (int e = 0; e < 6; ++e) R[e * ld + m] = r[k][e];
+        base += __popc(bal);
+      }
+    }
+  }
   __syncthreads();
   const float *sx = R, *sy = R + ld, *sz = R + 2 * ld, *tx = R + 3 * ld,
               *ty = R + 4 * ld, *tz = R + 5 * ld;
-  // row m's squared distance under T (the root only for an inlier, sq <
-  // lim), and an inlier's Cauchy weight from it
   auto dist2 = [&](const float* T, int m) {
     float o[3];
     warp_point(T, sx[m], sy[m], sz[m], o);
@@ -904,18 +962,19 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
     return __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(r, r)));
   };
   float T[16];
-  // the thread's rows t + j kIrlsThreads (j < kIrlsRows): their squared
+  // the thread's rows t + j kIrlsThreads (j < kIrlsPerThread): their squared
   // distances, then their weights (< 0 where out), from pass 1 for pass 2;
   // past them (rows in the global copy only) pass 2 makes the same test
   // again
-  float w_of[kIrlsRows];
-  const int rows = (M + kIrlsThreads - 1) / kIrlsThreads;  // the same in all
+  float w_of[kIrlsPerThread];
+  const int rows = (cnt + kIrlsThreads - 1) / kIrlsThreads;  // the same in all
   int prev = 0, cur = 0, it = 0;
   while (unroll > 0 ? it < unroll
                     : it < it_num && (it == 0 || abs(cur - prev) >= 1)) {
+    long long* st = stamp ? stamps + (long long)kIrlsStamps * it : nullptr;
+    if (stamp) st[0] = clock64();
     for (int k = 0; k < 16; ++k) T[k] = pose[k];
-    // pass 1: sum w, sum w a, sum w b and the inlier count (every row's
-    // distance first, then the inliers' weights)
+    // pass 1: sum w, sum w a, sum w b and the inlier count
     float s1[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     auto add1 = [&](int m, float w) {
       s1[0] += w;
@@ -928,13 +987,13 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
       s1[7] += 1.f;
     };
 #pragma unroll
-    for (int j = 0; j < kIrlsRows; ++j) {
+    for (int j = 0; j < kIrlsPerThread; ++j) {
       if (j >= rows) break;
       const int m = t + j * kIrlsThreads;
-      w_of[j] = m < M ? dist2(T, m) : lim;
+      w_of[j] = m < cnt ? dist2(T, m) : lim;
     }
 #pragma unroll
-    for (int j = 0; j < kIrlsRows; ++j) {
+    for (int j = 0; j < kIrlsPerThread; ++j) {
       if (j >= rows) break;
       if (w_of[j] < lim) {
         w_of[j] = cauchy(w_of[j]);
@@ -943,11 +1002,14 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
         w_of[j] = -1.f;
       }
     }
-    for (int m = t + kIrlsRows * kIrlsThreads; m < M; m += kIrlsThreads) {
+    for (int m = t + kIrlsPerThread * kIrlsThreads; m < cnt;
+         m += kIrlsThreads) {
       const float sq = dist2(T, m);
       if (sq < lim) add1(m, cauchy(sq));
     }
-    block_sums(s1, part1);
+    if (stamp) st[1] = clock64();
+    cluster_sums(cluster, s1, wpart, in1, C, rank, stamp ? st + 2 : nullptr);
+    if (stamp) st[3] = clock64();
     const float wsum = s1[0] + 1e-6f;
     float cen[6];
     for (int k = 0; k < 6; ++k) cen[k] = s1[1 + k] / wsum;
@@ -963,15 +1025,18 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
       s2[10] += w * (bm[0] * bm[0] + bm[1] * bm[1] + bm[2] * bm[2]);
     };
 #pragma unroll
-    for (int j = 0; j < kIrlsRows; ++j) {
+    for (int j = 0; j < kIrlsPerThread; ++j) {
       if (j >= rows) break;
       if (w_of[j] >= 0.f) add2(t + j * kIrlsThreads, w_of[j]);
     }
-    for (int m = t + kIrlsRows * kIrlsThreads; m < M; m += kIrlsThreads) {
+    for (int m = t + kIrlsPerThread * kIrlsThreads; m < cnt;
+         m += kIrlsThreads) {
       const float sq = dist2(T, m);
       if (sq < lim) add2(m, cauchy(sq));
     }
-    block_sums(s2, part2);
+    if (stamp) st[4] = clock64();
+    cluster_sums(cluster, s2, wpart, in2, C, rank, stamp ? st + 5 : nullptr);
+    if (stamp) st[6] = clock64();
     if (t == 0 && count > 0) {
       if constexpr (kJacobi)
         jacobi_pose(s2, cen, cen + 3, pose);
@@ -979,12 +1044,13 @@ __global__ void __launch_bounds__(kIrlsThreads) irls(
         qcp_pose(s2, s2[9], s2[10], cen, cen + 3, pose);
     }
     __syncthreads();
+    if (stamp) st[7] = clock64();
     prev = cur;
     cur = count;
     ++it;
   }
-  if (t < 16) trans_out[(long long)b * 16 + t] = pose[t];
-  if (t == 0) iters_out[b] = it;
+  if (rank == 0 && t < 16) trans_out[(long long)b * 16 + t] = pose[t];
+  if (rank == 0 && t == 0) iters_out[b] = it;
 }
 
 // The least float s with sqrt_rn(s) >= thr: sqrt_rn(s) < thr exactly where
@@ -1079,28 +1145,52 @@ int seed_transforms(const float* src, const float* tgt, const bool* valid,
 // K15 and K24 (kJacobi): trans_all [B, S, 4, 4], best [B] int32, src/tgt
 // [B, N, 3], valid [B, N] -> trans [B, 4, 4], iterations [B] int32; unroll
 // > 0 runs exactly that many rounds (it_num and the count check unread).
-// `spill`: [B, 6, N] f32 where N > kIrlsMaxRows (the rows of a problem that
-// shared memory cannot hold), else may be null. One launch.
-template <bool kJacobi>
+// B clusters of `cluster` CTAs (a power of two, at most kMaxCluster; past
+// 8, the card's non-portable sizes), each CTA with the head and L =
+// min(ceil(N / cluster), kIrlsRows) rows of dynamic shared memory;
+// `spill`: [B, 6, N] f32 where ceil(N / cluster) > kIrlsRows (the rows
+// that the cluster's shared memory cannot hold), else may be null.
+// kStamp: stamps [rounds][kIrlsStamps] (irls). A cluster the card cannot
+// place is refused by the launch. One launch.
+template <bool kJacobi, bool kStamp>
 int irls_launch(const float* trans_all, const int* best, const float* src,
                 const float* tgt, const bool* valid, int B, int N, int S,
-                float thr, int it_num, int unroll, float* spill,
-                float* trans_out, int* iters_out, cudaStream_t stream) {
+                float thr, int it_num, int unroll, int cluster, float* spill,
+                float* trans_out, int* iters_out, long long* stamps,
+                cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
-  if (unroll < 0) return cudaErrorInvalidValue;
-  const int L = N < kIrlsMaxRows ? N : kIrlsMaxRows;
-  if (N > L && spill == nullptr) return cudaErrorInvalidValue;
-  const int smem = 6 * L * (int)sizeof(float);
-  void (*refine)(const float*, const int*, const float*, const float*,
+  if (N < 0 || unroll < 0 || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 || (kStamp && stamps == nullptr))
+    return cudaErrorInvalidValue;
+  const int per = (N + cluster - 1) / cluster;
+  const int L = per < kIrlsRows ? per : kIrlsRows;
+  if (per > L && spill == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = (kIrlsHead + 6 * (size_t)L) * sizeof(float);
+  void (*kernel)(const float*, const int*, const float*, const float*,
                  const bool*, int, int, int, float, float, int, int, float*,
-                 float*, int*) = irls<kJacobi>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      refine, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                 float*, int*, long long*) = irls<kJacobi, kStamp>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  refine<<<B, kIrlsThreads, smem, stream>>>(trans_all, best, src, tgt, valid,
-                                            N, S, L, thr, root_limit(thr),
-                                            it_num, unroll, spill, trans_out,
-                                            iters_out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3{(unsigned)(B * cluster), 1, 1};
+  cfg.blockDim = dim3{(unsigned)kIrlsThreads, 1, 1};
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, trans_all, best, src, tgt, valid, N,
+                           S, L, thr, root_limit(thr), it_num, unroll, spill,
+                           trans_out, iters_out, stamps);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1132,25 +1222,46 @@ extern "C" int eyoc_sc2_seed_transforms_jacobi(
                                fitness, best, fine_out, moments, stream);
 }
 
-// K15 (the QCP solve) and K24 (the Jacobi solve): `irls_launch`.
+// K15 (the QCP solve) and K24 (the Jacobi solve): `irls_launch`, a
+// cluster of `cluster` CTAs a problem.
 extern "C" int eyoc_sc2_irls(const float* trans_all, const int* best,
                              const float* src, const float* tgt,
                              const bool* valid, int B, int N, int S,
-                             float thr, int it_num, int unroll, float* spill,
-                             float* trans_out, int* iters_out,
+                             float thr, int it_num, int unroll, int cluster,
+                             float* spill, float* trans_out, int* iters_out,
                              cudaStream_t stream) {
-  return irls_launch<false>(trans_all, best, src, tgt, valid, B, N, S, thr,
-                            it_num, unroll, spill, trans_out, iters_out,
-                            stream);
+  return irls_launch<false, false>(trans_all, best, src, tgt, valid, B, N, S,
+                                   thr, it_num, unroll, cluster, spill,
+                                   trans_out, iters_out, nullptr, stream);
 }
 
 extern "C" int eyoc_sc2_irls_jacobi(const float* trans_all, const int* best,
                                     const float* src, const float* tgt,
                                     const bool* valid, int B, int N, int S,
                                     float thr, int it_num, int unroll,
-                                    float* spill, float* trans_out,
-                                    int* iters_out, cudaStream_t stream) {
-  return irls_launch<true>(trans_all, best, src, tgt, valid, B, N, S, thr,
-                           it_num, unroll, spill, trans_out, iters_out,
-                           stream);
+                                    int cluster, float* spill,
+                                    float* trans_out, int* iters_out,
+                                    cudaStream_t stream) {
+  return irls_launch<true, false>(trans_all, best, src, tgt, valid, B, N, S,
+                                  thr, it_num, unroll, cluster, spill,
+                                  trans_out, iters_out, nullptr, stream);
+}
+
+// K24 as above with the device clock read by thread 0 of the first
+// problem's rank-0 CTA at eight points of each round into stamps
+// [rounds][8] (irls): the profile of a round.
+extern "C" int eyoc_sc2_irls_jacobi_stamped(
+    const float* trans_all, const int* best, const float* src,
+    const float* tgt, const bool* valid, int B, int N, int S, float thr,
+    int it_num, int unroll, int cluster, float* spill, float* trans_out,
+    int* iters_out, long long* stamps, cudaStream_t stream) {
+  return irls_launch<true, true>(trans_all, best, src, tgt, valid, B, N, S,
+                                 thr, it_num, unroll, cluster, spill,
+                                 trans_out, iters_out, stamps, stream);
+}
+
+// The Jacobi solves of this library (K23, K24) that ran again on the IEEE
+// forms (jacobi_pose.cuh), since it was loaded: *out (host memory).
+extern "C" int eyoc_sc2_refine_jacobi_reruns(unsigned long long* out) {
+  return jacobi_reruns_read(out);
 }

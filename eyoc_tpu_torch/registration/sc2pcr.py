@@ -25,10 +25,13 @@ with no host sync from the correspondences to the pose:
    `sc2_seed_transforms_jacobi`, the same kernels with the Jacobi solve
    (its heads' solves a thread a head, in a launch of their own);
 5. IRLS post-refinement with the inlier-count stop, or `refine_unroll`
-   rounds with none -> kernel K15 `sc2_irls` (one block a problem runs the
-   loop over its valid rows in shared memory, starting from the best
-   seed's pose read on the card), or with `qcp_kabsch=False` K24
-   `sc2_irls_jacobi`.
+   rounds with none -> kernel K15 `sc2_irls` (one thread-block cluster of
+   K15_CLUSTER CTAs a problem runs the loop, its valid rows split over the
+   CTAs' shared memory, each pass's sums pushed into every CTA before one
+   cluster barrier, every CTA solving the same pose, starting from the
+   best seed's pose read on the card), or with `qcp_kabsch=False` K24
+   `sc2_irls_jacobi` (the same kernel with the Jacobi solve, K24_CLUSTER
+   CTAs a problem).
 
 Every kernel has a plain version here (the CPU path and the card's
 oracle); the per-pair `_pick_seeds`, `_seed_transforms` and `_post_refine`
@@ -793,11 +796,19 @@ def post_refine_batched_plain(cfg: SC2PCRConfig, trans, src, tgt, valid,
 
 
 _K15_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4
-# K15's most valid rows a problem in shared memory
-# (csrc/sc2_refine.cu:kIrlsMaxRows); a problem with more reads its rows
-# from a compacted copy in global memory
-K15_MAX_ROWS = 8192
+    ctypes.c_float,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
+# K15's and K24's CTAs a problem (one thread-block cluster,
+# csrc/sc2_refine.cu: irls; profile_k24.py on an H100): K24 is fastest at
+# 8 on every row; K15 at 8 is faster at the eval shape but slower than its
+# single-block parent on a recorded labeling (10-123 valid rows a
+# problem, where the barriers outweigh the rows they spread), at 2 no row
+# is slower
+K15_CLUSTER = 2
+K24_CLUSTER = 8
+# the most valid rows a CTA of K15 / K24 holds in shared memory
+# (csrc/sc2_refine.cu:kIrlsRows): a problem of more than the cluster's
+# CTAs times this reads its rows from a compacted copy in global memory
+K15_MAX_ROWS = 4096
 
 
 def _k15_spill(B: int, N: int, device):
@@ -824,8 +835,8 @@ def sc2_irls(cfg: SC2PCRConfig, trans, best, src, tgt, valid,
     rounds.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one persistent block a problem, its valid rows in shared memory, one
-    launch) or raises."""
+    (one thread-block cluster a problem, its valid rows in the CTAs' shared
+    memory, one launch) or raises."""
     if src.is_cpu:
         return sc2_irls_plain(cfg, trans, best, src, tgt, valid, it_num)
     return _launch_k15(cfg, trans, best, src, tgt, valid, it_num)
@@ -847,9 +858,11 @@ def _launch_k15(cfg, trans, best, src, tgt, valid, it_num):
     out = torch.empty((B, 4, 4), dtype=f32, device=src.device)
     iters = torch.empty(B, dtype=torch.int32, device=src.device)
     p = kernels.ptr
-    spill = _k15_spill(B, N, src.device) if N > K15_MAX_ROWS else None
+    C = K15_CLUSTER if cfg.qcp_kabsch else K24_CLUSTER
+    spill = (_k15_spill(B, N, src.device) if -(-N // C) > K15_MAX_ROWS
+             else None)
     err = fn(p(trans), p(best), p(src), p(tgt), p(valid), B, N, S,
-             _irls_threshold(cfg), int(it_num), int(cfg.refine_unroll),
+             _irls_threshold(cfg), int(it_num), int(cfg.refine_unroll), C,
              p(spill), p(out), p(iters), kernels.stream_handle(dev))
     kernels.check_launch(name, err)
     return out, iters

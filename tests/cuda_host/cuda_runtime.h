@@ -42,10 +42,19 @@
 // sincosf gives the f64 sine and cosine rounded to f32 (the card's differs
 // from both by an ulp or so; a test that wants the host build's bits makes
 // them the same way); clock64 counts calls.
+// rcp.approx.ftz.f32 and rsqrt.approx.ftz.f32 (jacobi_pose.cuh's fast
+// forms, which take them as host_cuda::rcp_approx / rsqrt_approx where
+// EYOC_CUDA_HOST_STANDIN is defined) are the f64 values rounded to f32; a
+// build with -DEYOC_HOST_APPROX_SKEW moves them, by a hash of the operand,
+// within the PTX ISA's stated bounds (the reciprocal rounded down or up:
+// under 1 ulp; the reciprocal root by a relative error under 2^-22.9), so
+// that the forms' corrections do work. __device__ variables are globals,
+// cudaMemcpyFromSymbol a memcpy.
 #pragma once
 #include <math.h>
 #include <ucontext.h>
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -65,6 +74,8 @@
 #define __constant__ static const
 #define __shared__ static
 #define __align__(n) alignas(n)
+#define __noinline__ __attribute__((noinline))
+#define EYOC_CUDA_HOST_STANDIN 1
 
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -219,6 +230,11 @@ inline int __float_as_int(float v) {
   std::memcpy(&i, &v, sizeof i);
   return i;
 }
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, sizeof u);
+  return u;
+}
 inline float __int_as_float(int i) {
   float v;
   std::memcpy(&v, &i, sizeof v);
@@ -235,6 +251,40 @@ inline void sincos_rn(float x, float* s, float* c) {
   *c = (float)cos((double)x);
 }
 inline long long clock_count = 0;
+
+// a hash of x's bits (splitmix64's finalizer)
+inline std::uint64_t approx_hash(float x) {
+  std::uint32_t u;
+  std::memcpy(&u, &x, 4);
+  std::uint64_t z = u + 0x9E3779B97F4A7C15ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return z ^ (z >> 31);
+}
+
+inline float rcp_approx(float x) {
+  const double e = 1.0 / (double)x;
+  const float n = (float)e;
+#ifdef EYOC_HOST_APPROX_SKEW
+  if ((double)n != e && std::isfinite(n) && n != 0.f) {
+    // the float on 1 / x's other side: each of the two is within 1 ulp
+    const float other = nextafterf(n, (double)n > e ? -INFINITY : INFINITY);
+    return approx_hash(x) & 1 ? other : n;
+  }
+#endif
+  return n;
+}
+
+inline float rsqrt_approx(float x) {
+  const double e = 1.0 / std::sqrt((double)x);
+#ifdef EYOC_HOST_APPROX_SKEW
+  // a relative move of up to 2^-22.9 - 2^-24 (the rounding to f32 adds at
+  // most 2^-24)
+  const double u = (double)(approx_hash(x) >> 11) * 0x1p-53 * 2.0 - 1.0;
+  return (float)(e * (1.0 + u * (std::exp2(-22.9) - 0x1p-24)));
+#endif
+  return (float)e;
+}
 }  // namespace host_cuda
 #define sincosf host_cuda::sincos_rn
 inline long long clock64() { return ++host_cuda::clock_count; }
@@ -248,6 +298,10 @@ inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline unsigned atomicExch(unsigned* p, unsigned v) {
@@ -286,6 +340,12 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T>
+inline cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol,
+                                        size_t count, size_t offset = 0) {
+  std::memcpy(dst, reinterpret_cast<const char*>(&symbol) + offset, count);
+  return cudaSuccess;
+}
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
