@@ -251,6 +251,34 @@ Phases (any failure exits non-zero):
    bits; K1 at 20 output channels (padded to 24) in the eval form and
    through autograd against its plain version; a `width rows:` line with
    their times.
+12. the rest of the model zoo, the whole extract_features and data
+   parallelism, at full width:
+   - ResUNetExpBN2C (two (norm, block) repeats a level; random weights,
+     running statistics moved off (0, 1)): its 14 K22 calls of one eval
+     forward (the 7 repeat norms a cloud, from the running statistics)
+     against the plain version (equal values, one device kernel a call,
+     the same bits twice); phase 3's 4 pairs through embed_pair and
+     register_pair (counts reset just before: 7 K22 a cloud, no K7), then
+     one train step at phase 5's recipe (K7, K22 and K21 once for each of
+     its 42 batch norms a side), with the features' ms a pair and the
+     step's ms beside the sum of their kernels' bounds;
+   - api.extract_features on pair 0's cloud 0 with rgb (Ci = 3) and with
+     rgb and normals (Ci = 6): the first conv on K1's narrow-input route
+     (taps packed into K = 375, 750) against its plain version;
+   - normalize_feature=False: one eval pair (the SC2-PCR estimator's K2
+     on the raw features), one train step (K2's mining) and one extension
+     step at the demo's gates (K8 on the labeler's raw features), K2 and
+     K8 held to their plain versions with the index gap scaled to the
+     features' own squared norm (K2_GAP at unit features);
+   - data parallelism over NCCL at world size 1 (tcp://127.0.0.1): the DP
+     train step (parallel/ddp.dp_train_step) gives the plain step's loss
+     and every parameter and statistic bit for bit (K6's backward, which
+     adds with float atomics, replayed from the plain step); with the
+     collectives forced at one rank (sparse/norm.sync_group keeping its
+     group), the K7 sums all_reduce'd and K21 in its two-launch form (sums
+     pass, all_reduce, finish pass) give those bits too, and each recorded
+     two-launch call the one-launch form's bits and the plain version's
+     values; the DP and plain steps' times in turns.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -265,7 +293,12 @@ calls) and `take_rows_losses` / `take_rows_backward_losses` (K6 in the
 three other losses); phase 4's runs give the rows of SC2PCRConfig's
 switches: `sc2_power_iteration_bf16`, `sc2_seed_transforms_jacobi` and
 `sc2_irls_jacobi` (K23, K24; with `_label` the labeling shape's),
-`sc2_irls_unroll` and `sc2_irls_jacobi_unroll`); `ms`
+`sc2_irls_unroll` and `sc2_irls_jacobi_unroll`); phase 12 gives
+`masked_norm_apply_eval` (K22 at eval in ResUNetExpBN2C),
+`sparse_conv_ci3` / `sparse_conv_ci6` (K1's packed route in
+extract_features; launches: the run's K1 launches), `masked_argmin_raw` /
+`masked_knn2_raw` (K2 and K8 on features that are not unit-norm) and
+`masked_norm_backward_sync` (K21's two-launch form); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -1364,7 +1397,7 @@ def _argmin_class(q, qm, r, rm):
     return f"mining, D = {q.shape[-1]}"
 
 
-def _argmin_close(got, want, q, qm, r, rm):
+def _argmin_close(got, want, q, qm, r, rm, gap=K2_GAP):
     """K2 against the plain version's Gram form: d2 within K2_D2_RTOL plus
     the Gram form's rounding (1e-6 of |q|^2 + max |r|^2, about 8 f32 ulps of
     its terms: coordinates reach 76 m); indices equal where the gap between
@@ -1374,7 +1407,8 @@ def _argmin_close(got, want, q, qm, r, rm):
     (d_k, i_k), (d_p, i_p) = got, want
     if q.dim() == 3:               # a batch: each problem on its own
         res = [_argmin_close((d_k[b], i_k[b]), (d_p[b], i_p[b]), q[b],
-                             qm[b], r[b], rm[b]) for b in range(q.shape[0])]
+                             qm[b], r[b], rm[b], gap)
+               for b in range(q.shape[0])]
         return all(ok for ok, _ in res), max((e for _, e in res),
                                              default=0.0)
     if d_k.numel() == 0:
@@ -1387,7 +1421,7 @@ def _argmin_close(got, want, q, qm, r, rm):
     full += torch.where(rm, 0.0, 1e30).double()[None]
     two = torch.topk(full, 2, largest=False).values
     del full
-    clear = qm & ((two[:, 1] - two[:, 0]) > K2_GAP + 2 * gram)
+    clear = qm & ((two[:, 1] - two[:, 0]) > gap + 2 * gram)
     ok = ok and bool(torch.equal(i_k[clear], i_p[clear]))
     return ok, float(err[qm].max()) if bool(qm.any()) else 0.0
 
@@ -4055,7 +4089,7 @@ def _f64_smallest(q, r, rm, k, chunk=2048):
     return torch.cat(out)
 
 
-def _knn2_close(got, want, q, qm, r, rm, k):
+def _knn2_close(got, want, q, qm, r, rm, k, gap=K2_GAP):
     """K8 against the plain version's Gram form, each problem on its own:
     d2 within K2_D2_RTOL plus the Gram form's rounding (1e-6 of |q|^2 +
     max |r|^2) where a valid ref fills the place; the first index equal
@@ -4074,7 +4108,7 @@ def _knn2_close(got, want, q, qm, r, rm, k):
                    [found].all())
         ok &= bool(torch.equal(d_k[b][~found], d_p[b][~found]))
         t = _f64_smallest(q[b], r[b], rm[b], 3)
-        g = K2_GAP + 2 * gram.double()
+        g = gap + 2 * gram.double()
         clear0 = qm[b] & (t[:, 1] - t[:, 0] > g)
         clear1 = clear0 & (t[:, 2] - t[:, 1] > g)
         ok &= bool(torch.equal(i_k[b][clear0, 0], i_p[b][clear0, 0]))
@@ -5248,6 +5282,511 @@ def runbook_phase(smi):
 # ------------------------------------------------------------------- main
 
 
+# ----------------------------------------------------------------- phase 12
+
+
+EXP_REPEAT_NORMS = 7       # ResUNetExpBN2C's repeat norms a cloud
+PACKED_CI = (3, 6)         # extract_features' input widths: rgb, + normals
+
+
+def train_sites():
+    """The training kernels' wrappers (record_train_step's sites)."""
+    from eyoc_tpu_torch.ops import rows
+    from eyoc_tpu_torch.sparse import brick_conv, norm
+    from eyoc_tpu_torch.training import loss, pipeline
+    return [(brick_conv, "sparse_conv"), (brick_conv, "sparse_conv_dgrad"),
+            (brick_conv, "sparse_conv_wgrad"), (rows, "take_rows_gather"),
+            (rows, "take_rows_backward"), (norm, "masked_channel_sums"),
+            (norm, "masked_norm_apply"), (norm, "masked_norm_backward"),
+            (pipeline, "masked_argmin_batched"), (loss, "masked_argmin")]
+
+
+def calls_bound(calls) -> float:
+    """The sum of the bounds of the recorded kernel calls (K1, K1's dgrad,
+    K5, K6, K7, K21, K22, K2): a floor under the path that ran them, which
+    leaves out the coordinate kernels and the torch ops between."""
+    costs = {"sparse_conv": _conv_cost, "sparse_conv_dgrad": _conv_cost,
+             "sparse_conv_wgrad": _wgrad_cost,
+             "take_rows_gather": _gather_cost,
+             "take_rows_backward": _scatter_cost,
+             "masked_channel_sums": _sums_cost,
+             "masked_norm_apply": _k22_cost,
+             "masked_norm_backward": _k21_cost,
+             "masked_argmin_batched": _argmin_cost,
+             "masked_argmin": _argmin_cost}
+    total = 0.0
+    for name, cl in calls.items():
+        for a, k in cl:
+            nbytes, ops, kind, *_ = costs[name](*a, **k)
+            total += bound_ms(nbytes, ops, kind)[0]
+    return total
+
+
+def _moved_statistics(model, seed):
+    """Every BatchNorm's running statistics drawn off (0, 1) (mean N(0,
+    0.1), var in [0.5, 1.5]): the eval norms then move every value."""
+    import torch
+    from eyoc_tpu_torch.models.unet import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.running_mean.shape
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    model.eval()                 # the folded weights are made again
+
+
+def _eval_pairs(model, pairs, cfg, what, unit=True):
+    """embed_pair + register_pair on each pair, synchronized; the poses
+    finite, the features zero at invalid voxels (and unit-norm at the
+    valid ones when `unit`). Returns (feat ms, reg ms) a pair."""
+    import torch
+    from eyoc_tpu_torch.eval import embed_pair, register_pair
+    noise_gen = torch.Generator().manual_seed(1)
+    feat, reg = [], []
+    for batch in pairs:
+        batch = batch.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0, f0, m0, x1, f1, m1 = embed_pair(model, batch, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        T = register_pair(x0, f0, m0, x1, f1, m1, cfg, generator=noise_gen)
+        torch.cuda.synchronize()
+        feat.append((t1 - t0) * 1e3)
+        reg.append((time.perf_counter() - t1) * 1e3)
+        if not bool(torch.isfinite(T).all()):
+            raise AssertionError(f"{what}: non-finite T_est {T}")
+        for f, m in ((f0, m0), (f1, m1)):
+            if not bool(torch.isfinite(f).all()) or bool((f[~m] != 0).any()):
+                raise AssertionError(f"{what}: features not finite or not 0 "
+                                     "at invalid voxels")
+            norms = f[m].norm(dim=1)
+            if unit and float((norms - 1).abs().max()) > 1e-3:
+                raise AssertionError(f"{what}: features are not unit-norm")
+    return float(np.mean(feat)), float(np.mean(reg))
+
+
+def _one_step(model, opt, batch, cfg, seed, what, step=None):
+    """One train step (`step`, default base_train_step) with the counts
+    reset just before; finite metrics, finite grads. Returns (metrics,
+    counts, host ms)."""
+    import torch
+    from eyoc_tpu_torch.training.steps import base_train_step
+    from eyoc_tpu_torch.utils import kernels
+    step = step or base_train_step
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    m = step(model, opt, batch, cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    vals = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{what}: non-finite metrics {vals}")
+    if any(p.grad is None or not bool(torch.isfinite(p.grad).all())
+           for p in model.parameters()):
+        raise AssertionError(f"{what}: a parameter has no or a non-finite "
+                             "grad")
+    return m, counts, ms
+
+
+def expbn2c_phase(pairs, train_batch, tcfg, cfg, smi):
+    """ResUNetExpBN2C at eval (K22 from the running statistics, checked on
+    one forward's calls; the 4 pairs counted) and one train step. Returns
+    ({row: kernels-line row}, {row: launches})."""
+    import torch
+    from eyoc_tpu_torch.eval import embed_pair
+    from eyoc_tpu_torch.models import init_unet, load_model, unet
+    from eyoc_tpu_torch.sparse import norm
+    from eyoc_tpu_torch.training.optim import sgd
+    from eyoc_tpu_torch.utils import kernels
+    spec = load_model("ResUNetExpBN2C")
+    model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                      device="cuda")
+    _moved_statistics(model, 24)
+    b0 = pairs[0].to("cuda")
+    with recording([(unet, "masked_norm_apply"),
+                    (unet, "sparse_conv")]) as calls:
+        embed_pair(model, b0, cfg)
+    torch.cuda.synchronize()
+    k22 = calls["masked_norm_apply"]
+    if len(k22) != 2 * EXP_REPEAT_NORMS:
+        raise AssertionError(f"ResUNetExpBN2C: {len(k22)} K22 calls a pair, "
+                             f"not {2 * EXP_REPEAT_NORMS}")
+    label = ("K22 masked_norm_apply, ResUNetExpBN2C's eval forward (the "
+             "repeat norms, running statistics)")
+    row = check_calls(label, k22, norm.masked_norm_apply,
+                      norm.masked_norm_apply_plain, _k22_cost, _k22_close,
+                      reps=SMALL_REPS // 4, classify=_k22_class)
+    log(f"  {label}: library: none: F.batch_norm counts the padding rows")
+    same_bits_twice(label, norm.masked_norm_apply, k22)
+    a, k = k22[0]
+    kernels_per_call(label, lambda: norm.masked_norm_apply(*a, **k))
+    pair_bound = calls_bound(calls)
+    feat_dev = device_ms([lambda: embed_pair(model, b0, cfg)], 5)
+
+    _eval_pairs(model, pairs[:1], cfg, "ResUNetExpBN2C")      # warm-up
+    kernels.reset_counts()
+    feat, reg = _eval_pairs(model, pairs, cfg, "ResUNetExpBN2C")
+    counts = dict(kernels.launches)
+    log(json.dumps({"expbn2c_eval_launch_counts": counts}))
+    if counts["masked_norm_apply"] != 2 * EXP_REPEAT_NORMS * N_PAIRS \
+            or counts["masked_channel_sums"] or counts["sparse_conv"] <= 0 \
+            or counts["masked_instance_norm"]:
+        raise AssertionError("ResUNetExpBN2C's eval path is not 7 K22 "
+                             "launches a cloud, no K7, no K20")
+    log(f"ResUNetExpBN2C eval: {N_PAIRS} pairs, feat {feat:.2f} ms/pair "
+        f"(device {fmt_ms(feat_dev)} a pair's features; its K1 and K22 "
+        f"calls' bounds {pair_bound:.4f} ms), reg {reg:.2f} ms/pair, on "
+        f"{smi}")
+
+    opt = sgd(model.parameters(), lr=0.1, momentum=0.8, weight_decay=1e-4)
+    _one_step(model, opt, train_batch, tcfg, 2, "ResUNetExpBN2C warm-up")
+    with recording(train_sites()) as step_calls:
+        m, c, ms = _one_step(model, opt, train_batch, tcfg, 3,
+                             "ResUNetExpBN2C train step")
+    missing = [k for k in TRAIN_KERNELS if c[k] <= 0]
+    if missing:
+        raise AssertionError(f"ResUNetExpBN2C train step launched no "
+                             f"{missing}")
+    n_bn = norm_counts(model)[1]
+    if n_bn != 42:               # 7 top-level, 28 in blocks, 7 repeats
+        raise AssertionError(f"ResUNetExpBN2C: {n_bn} batch norms, not 42")
+    norm_launches(c, "ResUNetExpBN2C train step", 0, n_bn, 1)
+    more = [_one_step(model, opt, train_batch, tcfg, 4 + i,
+                      "ResUNetExpBN2C train step")[2] for i in range(2)]
+    log(f"ResUNetExpBN2C train step, B={TRAIN_B}: loss "
+        f"{float(m['loss']):.6f}, {ms:.2f} ms recorded, then "
+        + ", ".join(f"{t:.2f}" for t in more) + " ms (host clock, "
+        f"synchronized; its kernels' bounds {calls_bound(step_calls):.4f} "
+        f"ms), on {smi}")
+    return {"masked_norm_apply_eval": row}, \
+        {"masked_norm_apply_eval": counts["masked_norm_apply"]}
+
+
+def extract_phase(pairs, smi):
+    """api.extract_features with rgb (Ci = 3) and with rgb and normals
+    (Ci = 6) on pair 0's cloud 0, counts reset just before each: the first
+    conv on K1's packed route, checked against its plain version."""
+    import torch
+    from eyoc_tpu_torch import api
+    from eyoc_tpu_torch.models import init_unet, load_model, unet
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    from eyoc_tpu_torch.utils import kernels
+    b0 = pairs[0]
+    n = int(b0.n0[0])
+    xyz = b0.xyz0[0, :n].numpy()
+    rng = np.random.default_rng(12)
+    rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    nrm = rng.normal(size=(n, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(
+        np.float32)
+    spec = load_model("ResUNetBN2C")
+    rows, launches = {}, {}
+    for cin, kw in ((3, dict(rgb=rgb)), (6, dict(rgb=rgb, normal=nrm))):
+        model = init_unet(spec, torch.Generator().manual_seed(cin), cin, 32,
+                          5, device="cuda")
+        _moved_statistics(model, 40 + cin)
+        args = dict(voxel_size=0.3, caps=CAPS, window_bits=WINDOW_BITS, **kw)
+        api.extract_features(model, xyz, **args)             # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        with recording([(unet, "sparse_conv")]) as calls:
+            t0 = time.perf_counter()
+            pts, f = api.extract_features(model, xyz, **args)
+            ms = (time.perf_counter() - t0) * 1e3
+        name = f"sparse_conv_ci{cin}"
+        launches[name] = kernels.launches["sparse_conv"]
+        if pts.shape[0] != f.shape[0] or f.shape[1] != 32 or \
+                not np.isfinite(f).all() or \
+                np.abs(np.linalg.norm(f, axis=1) - 1).max() > 1e-3:
+            raise AssertionError(f"extract_features, Ci = {cin}: shapes "
+                                 f"{pts.shape} / {f.shape}, or features not "
+                                 "finite and unit-norm")
+        packed = [(a, k) for a, k in calls["sparse_conv"]
+                  if a[0].shape[1] == cin]
+        (x, W, nmap), _ = packed[0]
+        plan = bc.k1_plan(nmap.shape[0], W.shape[0], cin, 0, W.shape[2])
+        if len(packed) != 1 or not plan.packed:
+            raise AssertionError(f"extract_features, Ci = {cin}: the first "
+                                 "conv is not one call on the packed route")
+        label = (f"K1 sparse_conv, the packed route at Ci = {cin} (K = "
+                 f"{W.shape[0] * cin}; extract_features' first conv)")
+        rows[name] = check_calls(label, packed, bc.sparse_conv,
+                                 bc.sparse_conv_plain, _conv_cost,
+                                 _bf16_close(K1_RTOL, K1_ATOL_FRAC), reps=10)
+        same_bits_twice(label, bc.sparse_conv, packed)
+        log(f"extract_features, Ci = {cin}: {pts.shape[0]} voxels of {n} "
+            f"points, {ms:.2f} ms (host clock, with the copies to the "
+            f"host), {launches[name]} K1 launches, on {smi}")
+    return rows, launches
+
+
+def _gap_scaled(close, feats):
+    """`close` (_argmin_close or _knn2_close) with K2_GAP scaled by the
+    largest squared norm of the features (queries and refs) it holds: the
+    distances and their rounding scale with |f|^2 (K2_GAP at unit
+    features)."""
+    def scaled(got, want, q, qm, r, *rest, **kw):
+        s2 = max(1.0, float((q.float() ** 2).sum(-1).max()),
+                 float((r.float() ** 2).sum(-1).max()))
+        feats.append(s2)
+        return close(got, want, q, qm, r, *rest, gap=K2_GAP * s2, **kw)
+    return scaled
+
+
+def unnormalized_phase(pairs, train_batch, tcfg, smi):
+    """normalize_feature=False: one eval pair (the SC2-PCR estimator's K2
+    on the raw features), one train step (K2's mining on them) and one
+    extension step at the demo's gates (K8 on the labeler's raw features),
+    counts reset before each; K2 and K8 held to their plain versions with
+    the gap scaled to the features' squared norm."""
+    import dataclasses
+
+    import torch
+    from eyoc_tpu_torch.eval import EvalConfig
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.ops import knn, matching
+    from eyoc_tpu_torch.registration import sc2pcr
+    from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig
+    from eyoc_tpu_torch.training import loss
+    from eyoc_tpu_torch.training.optim import sgd
+    from eyoc_tpu_torch.training.steps import extension_train_step
+    from eyoc_tpu_torch.utils import kernels
+    spec = load_model("ResUNetBN2C")
+    model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32, 5,
+                      device="cuda", normalize_feature=False)
+    cfg = EvalConfig(caps=CAPS, voxel_size=0.3, window_bits=WINDOW_BITS,
+                     eval_sample_points=N_CORR,
+                     sc2=SC2PCRConfig(max_points=N_CORR, seed_cap=N_SEEDS))
+    _eval_pairs(model, pairs[1:2], cfg, "raw features", unit=False)
+    with recording([(sc2pcr, "masked_argmin")]) as eval_calls:
+        kernels.reset_counts()
+        _eval_pairs(model, pairs[1:2], cfg, "raw features", unit=False)
+        k2_eval = kernels.launches["masked_argmin"]
+    raw_cfg = dataclasses.replace(tcfg, normalize_feature=False)
+    opt = sgd(model.parameters(), lr=0.1, momentum=0.8, weight_decay=1e-4)
+    with recording([(loss, "masked_argmin")]) as step_calls:
+        m, c, ms = _one_step(model, opt, train_batch, raw_cfg, 6,
+                             "train step, raw features")
+    log(f"train step, normalize_feature=False: loss {float(m['loss']):.6f},"
+        f" {ms:.2f} ms")
+    k2 = eval_calls["masked_argmin"] + step_calls["masked_argmin"]
+    feats = []
+    rows = {"masked_argmin_raw": check_calls(
+        "K2 masked_argmin on raw features (the eval pair's feature 1-NN, "
+        "the step's mining)", k2, _k2, _k2_plain, _argmin_cost,
+        _gap_scaled(_argmin_close, feats), classify=_argmin_class)}
+    log(f"  the features' largest squared norm {max(feats):.4g} (the gap "
+        f"{K2_GAP * max(feats):.4g})")
+    launches = {"masked_argmin_raw": k2_eval + c["masked_argmin"]}
+
+    student, labeler, ext_opt, _ = ext_models(spec)
+    ext_cfg = ext_config(**GATED, normalize_feature=False)
+    with recording([(matching, "masked_knn_batched")]) as knn_calls:
+        m, c, ms = _one_step(
+            student, ext_opt, train_batch, ext_cfg, 8,
+            "extension step at the gates, raw features",
+            step=lambda mo, op, b, cf, **kw: extension_train_step(
+                mo, labeler, op, b, cf, None, **kw))
+    if c["masked_knn2"] != 1:
+        raise AssertionError("the gated step on raw features is not one K8 "
+                             "launch")
+    feats.clear()
+    rows["masked_knn2_raw"] = check_calls(
+        "K8 masked_knn2 on the labeler's raw features (the gated step's "
+        "matching)", knn_calls["masked_knn_batched"], knn.masked_knn_batched,
+        knn.masked_knn_batched_plain, _knn2_cost,
+        _gap_scaled(_knn2_close, feats))
+    log(f"  the features' largest squared norm {max(feats):.4g}; gated "
+        f"step loss {float(m['loss']):.6f}, {ms:.2f} ms, on {smi}")
+    launches["masked_knn2_raw"] = c["masked_knn2"]
+    return rows, launches
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def k6_backward_replayed(outputs: list):
+    """K6's backward (take_rows_backward) adds with float atomics, so two
+    runs of one train step differ in the last bits wherever a row is
+    gathered twice (up to ~6e-5 in a grad on an H100). While the block
+    runs: with `outputs` empty, each call's output is kept in it; else the
+    calls return those outputs in order, every other kernel running, so
+    that two steps that must agree can be held to the same bits."""
+    from eyoc_tpu_torch.ops import rows
+    real = rows.take_rows_backward
+    replay = iter(list(outputs)) if outputs else None
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        outputs.append(out.clone())
+        return out
+
+    rows.take_rows_backward = keep if replay is None else \
+        (lambda *a, **k: next(replay).clone())
+    try:
+        yield
+    finally:
+        rows.take_rows_backward = real
+
+
+def ddp_phase(train_batch, tcfg, smi):
+    """Data parallelism over NCCL at world size 1: the plain step, the DP
+    step and the DP step with the collectives forced at one rank (K7's
+    sums all_reduce'd, K21's two-launch form), each from the same fresh
+    ResUNetBN2C and draws, with the plain step's K6-backward outputs
+    replayed into the other two (`k6_backward_replayed`): metrics and
+    states bit-equal. K21's two-launch form checked on its recorded
+    calls: the one-launch form's bits and the plain version's values.
+    Returns ({row: row}, {row: launches})."""
+    import torch
+    import torch.distributed as dist
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.parallel import ddp
+    from eyoc_tpu_torch.sparse import norm
+    from eyoc_tpu_torch.training.optim import sgd
+    spec = load_model("ResUNetBN2C")
+    sync_group = norm.sync_group
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        def fresh():
+            model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32,
+                              5, device="cuda")
+            return model, sgd(model.parameters(), lr=0.1, momentum=0.8,
+                              weight_decay=1e-4)
+
+        def dp_step(model, opt, batch, cfg, **kw):
+            return ddp.dp_train_step("base", model, opt, batch, cfg, **kw)
+
+        runs, k6 = {}, []
+        for what, step in (("plain", None), ("dp", dp_step),
+                           ("dp, collectives forced", dp_step)):
+            # forced: a group of one rank reduces as a larger one does
+            # (norm.sync_group keeps it), where the collectives change no
+            # bit
+            norm.sync_group = (lambda g: g) if what.endswith("forced") \
+                else sync_group
+            model, opt = fresh()
+            sites = [(norm, "masked_norm_backward_sums"),
+                     (norm, "masked_norm_backward_finish")]
+            with recording(sites) as calls, k6_backward_replayed(k6):
+                m, c, ms = _one_step(model, opt, train_batch, tcfg, 5,
+                                     f"{what} step", step=step)
+            runs[what] = (m, model.state_dict(), c, ms, calls)
+        norm.sync_group = sync_group
+        m0, s0, c0, _, _ = runs["plain"]
+        for what in ("dp", "dp, collectives forced"):
+            m, st, c, ms, calls = runs[what]
+            if not all(torch.equal(m0[k], m[k]) for k in m0) or \
+                    not all(torch.equal(v, st[k]) for k, v in s0.items()):
+                raise AssertionError(f"the {what} step at world size 1 "
+                                     "differs from the plain step")
+            log(f"{what} step at world size 1 over NCCL: loss "
+                f"{float(m['loss']):.6f}, every parameter and statistic the "
+                f"plain step's bits ({len(k6)} K6-backward outputs "
+                f"replayed), {ms:.2f} ms (host clock, the first)")
+        _, _, c, _, calls = runs["dp, collectives forced"]
+        n_bn = norm_counts(fresh()[0])[1]
+        if c["masked_norm_backward_sync"] != 2 * n_bn or \
+                c["masked_norm_backward_bn"] or \
+                c["masked_channel_sums"] != 2 * n_bn:
+            raise AssertionError(f"the forced DP step: {c} (K21's two-launch "
+                                 f"form {2 * n_bn} times expected)")
+        if runs["dp"][2]["masked_norm_backward_sync"]:
+            raise AssertionError("the DP step at world size 1 ran K21's "
+                                 "two-launch form")
+        sync = []
+        for (a, k), (fa, fk) in zip(calls["masked_norm_backward_sums"],
+                                    calls["masked_norm_backward_finish"]):
+            x, mask, S, stats, dy, y, dpre = a
+            sync.append(((x, mask, S, fa[3], stats, dy, y, dpre, fa[-1]),
+                         {}))
+
+        def two_launch(x, mask, S, scale, stats, dy, y=None, dpre=None,
+                       residual=False):
+            own = norm.masked_norm_backward_sums(x, mask, S, stats, dy, y,
+                                                 dpre)
+            return norm.masked_norm_backward_finish(
+                x, mask, S, scale, stats, own, own, dy, y, dpre, residual)
+        with torch.no_grad():
+            for a, k in sync:
+                one = norm.masked_norm_backward(*a, counter="masked_norm_"
+                                                "backward_bn")
+                two = two_launch(*a)
+                if not all(u is None and w is None or torch.equal(u, w)
+                           for u, w in zip(one, two)):
+                    raise AssertionError("K21's two-launch form differs from "
+                                         "its one launch")
+        log(f"K21's two-launch form: each of its {len(sync)} calls gives the "
+            "one-launch form's bits")
+        label = "K21 masked_norm_backward, sync-BN's two-launch form"
+        row = check_calls(label, sync, two_launch, _k21_plain, _k21_cost,
+                          _k21_close, reps=SMALL_REPS // 4,
+                          classify=_k21_class)
+        row["library_ms"] = None
+        log(f"  {label}: library: none: F.batch_norm's backward counts the "
+            "padding rows")
+        # the DP step's time beside the plain step's, in turns after a
+        # first step of each
+        times = {"plain": [], "dp": []}
+        models = {k: fresh() for k in times}
+        for i in range(4):
+            for what, step in (("plain", None), ("dp", dp_step)):
+                model, opt = models[what]
+                _, _, ms = _one_step(model, opt, train_batch, tcfg, 6 + i,
+                                     f"{what} step", step=step)
+                if i:
+                    times[what].append(ms)
+        model, opt = models["dp"]
+        with recording(train_sites()) as calls:
+            _one_step(model, opt, train_batch, tcfg, 10, "dp step",
+                      step=dp_step)
+        log(f"DP train step at world size 1 over NCCL, B={TRAIN_B}: "
+            + ", ".join(f"{t:.2f}" for t in times["dp"]) + " ms; the plain "
+            "step in turns " + ", ".join(f"{t:.2f}" for t in times["plain"])
+            + f" ms (host clock, synchronized; their kernels' bounds "
+            f"{calls_bound(calls):.4f} ms), on {smi}")
+        return {"masked_norm_backward_sync": row}, \
+            {"masked_norm_backward_sync": c["masked_norm_backward_sync"]}
+    finally:
+        norm.sync_group = sync_group
+        dist.destroy_process_group()
+
+
+def zoo_phase(pairs, train_batch, tcfg, cfg, smi):
+    """Phase 12: ResUNetExpBN2C, extract_features with rgb and normals,
+    normalize_feature=False and data parallelism at world size 1. Returns
+    the kernels line's rows and their launches."""
+    import torch
+    t0 = time.perf_counter()
+    rows, launches = {}, {}
+    for fn in (lambda: expbn2c_phase(pairs, train_batch, tcfg, cfg, smi),
+               lambda: extract_phase(pairs, smi),
+               lambda: unnormalized_phase(pairs, train_batch, tcfg, smi),
+               lambda: ddp_phase(train_batch, tcfg, smi)):
+        r, n = fn()
+        rows.update(r)
+        launches.update(n)
+        torch.cuda.empty_cache()
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase 12 launched no {missing}")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     import dataclasses
 
@@ -5540,6 +6079,11 @@ def main() -> int:
     width_phase()
     torch.cuda.empty_cache()
 
+    # ---- phase 12: ResUNetExpBN2C, extract_features with rgb and normals,
+    # normalize_feature=False, data parallelism
+    zoo_rows, zoo_launches = zoo_phase(pairs, train_batch, tcfg, cfg, smi)
+    results.update(zoo_rows)
+
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
     # `_train`, and the training kernels) the training run's (phase 5),
@@ -5553,6 +6097,8 @@ def main() -> int:
     # rows phase 9's loss steps; each row's times are of the calls of that
     # path
     def launches(name):
+        if name in zoo_launches:
+            return zoo_launches[name]
         if name in loss_launches:
             return loss_launches[name]
         if name in OPTION_ROWS:
@@ -5603,7 +6149,13 @@ def main() -> int:
               "masked_argmin_triplet": "masked_argmin",
               "take_rows_losses": "take_rows",
               "take_rows_backward_losses": "take_rows",
-              "sc2_power_iteration_bf16": "sc2_power_iteration"}
+              "sc2_power_iteration_bf16": "sc2_power_iteration",
+              "masked_norm_apply_eval": "instance_norm",
+              "sparse_conv_ci3": "sparse_conv",
+              "sparse_conv_ci6": "sparse_conv",
+              "masked_argmin_raw": "masked_argmin",
+              "masked_knn2_raw": "masked_knn2",
+              "masked_norm_backward_sync": "norm_backward"}
     source.update({k: "sc2_refine" for k in OPTION_ROWS
                    if k.startswith(("sc2_seed", "sc2_irls"))})
     replaces = {
@@ -5655,6 +6207,12 @@ def main() -> int:
         "sc2_irls_jacobi_label": "eyoc_tpu/registration/sc2pcr.py:219",
         "sc2_irls_unroll": "eyoc_tpu/registration/sc2pcr.py:224",
         "sc2_irls_jacobi_unroll": "eyoc_tpu/registration/sc2pcr.py:224",
+        "masked_norm_apply_eval": "eyoc_tpu/sparse/norm.py:113",
+        "sparse_conv_ci3": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_ci6": "eyoc_tpu/sparse/brick_conv.py:310",
+        "masked_argmin_raw": "eyoc_tpu/ops/knn.py:79",
+        "masked_knn2_raw": "eyoc_tpu/ops/knn.py:58",
+        "masked_norm_backward_sync": "eyoc_tpu/sparse/norm.py:98",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

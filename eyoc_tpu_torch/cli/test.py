@@ -12,8 +12,12 @@ device synchronize, as the JAX version blocks on its results. The pairs'
 random draws come from one torch.Generator on the device, seeded 0.
 
 It runs on the card unless `main` is given `device="cpu"` (the plain
-versions). One device: `--dp_devices` above 1 raises (data parallelism is
-ROADMAP.md queue 1 item 5). The JAX package's `utils/platform.py` has no
+versions). Under torchrun, `--dp_devices` D (clamped to the ranks there
+are, as eyoc_tpu/cli/test.py:140 clamps it to the devices) splits the pair
+list over the ranks: each batch holds D pairs, each rank embeds and
+registers its own (its draws from a generator seeded with its rank), the
+poses are gathered, and rank 0 logs the summary one process would over
+all the pairs. The JAX package's `utils/platform.py` has no
 counterpart: it sets JAX's platform and matmul precision, and the port keeps
 TF32 off everywhere (utils/device.py).
 """
@@ -36,6 +40,7 @@ from eyoc_tpu_torch.geometry.metrics import registration_success
 from eyoc_tpu_torch.geometry.se3 import transform_points
 from eyoc_tpu_torch.models import init_unet, load_model
 from eyoc_tpu_torch.ops.knn import masked_argmin
+from eyoc_tpu_torch.parallel import ddp
 from eyoc_tpu_torch.sparse import morton
 from eyoc_tpu_torch.training import checkpoint as ckpt
 from eyoc_tpu_torch.training.trainer import build_step_config
@@ -78,8 +83,8 @@ def parse_args(argv=None):
                         "10,10,8+. Out-of-window points are counted and "
                         "reported at the end of the run: widen if nonzero")
     p.add_argument("--dp_devices", default=1, type=int,
-                   help="devices to shard the pair list over; above 1 "
-                        "raises (ROADMAP.md queue 1 item 5)")
+                   help="ranks to shard the pair list over (run under "
+                        "torchrun; clamped to the ranks there are)")
     return p.parse_args(argv)
 
 
@@ -136,29 +141,34 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
     """Runs the test protocol over the config's test split; returns {"rr",
     "rte", "rre", "pairs_per_sec"}. `record`, a list, gets (batch,
     generator state before the pair's registration, T_est) for each pair,
-    so that a caller can replay a pair's draws."""
-    if dp > 1:
-        raise NotImplementedError(
-            f"--dp_devices {dp}: the port runs on one device; data "
-            "parallelism is ROADMAP.md queue 1 item 5")
+    so that a caller can replay a pair's draws (under data parallelism,
+    of this rank's pair)."""
+    dp = max(1, min(dp, ddp.world_size()))
+    if dp > 1 and dp != ddp.world_size():
+        raise ValueError(f"--dp_devices {dp} of {ddp.world_size()} ranks: "
+                         "launch as many ranks as devices")
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
+    rank0 = ddp.rank() == 0
 
     def sync():
         if on_card:
             torch.cuda.synchronize(dev)
 
+    def info(msg):
+        if rank0:
+            logging.info(msg)
+
     if float(config.get("downsample_single", 1.0)) != 1.0:
         # the reference parses --downsample_single (scripts/test_kitti.py:
         # 251,289) but dead-codes it; the flag's evident intent is live
         # here: keep that share of each cloud's voxels before the sample
-        logging.info(
-            "--downsample_single=%.3f: keeping that fraction of each "
-            "cloud's voxels before the %d-pt sample (NOTE: dead code in "
-            "the reference; live here)",
-            float(config.downsample_single), config.eval_sample_points)
+        info("--downsample_single=%.3f: keeping that fraction of each "
+             "cloud's voxels before the %d-pt sample (NOTE: dead code in "
+             "the reference; live here)" % (float(config.downsample_single),
+                                            config.eval_sample_points))
 
-    loader = make_data_loader(config, config.test_phase, 1, shuffle=False,
+    loader = make_data_loader(config, config.test_phase, dp, shuffle=False,
                               device=dev)
     spec = load_model(config.model)
     model = init_unet(spec, torch.Generator().manual_seed(0), 1,
@@ -167,12 +177,14 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
     best = os.path.join(config.save_dir, "best_val_checkpoint")
     if os.path.exists(best + ".pt"):
         ckpt.load_weights_only(best, model)
-        logging.info(f"loaded weights from {best}")
-    else:
+        info(f"loaded weights from {best}")
+    elif rank0:
         logging.warning(f"no checkpoint at {best}; evaluating random init")
     _, cfg = build_step_config(config, spec)
     cfg = dataclasses.replace(cfg, use_ransac=bool(config.use_RANSAC))
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(ddp.rank())
+    if dp > 1:
+        info(f"eval sharded over {dp} ranks")
 
     wbits = window_bits_of(config)
     vs = float(config.voxel_size)
@@ -200,7 +212,7 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
 
         lost, tot = _window_dropped(batch, wbits, vs)
         drop_meter.update(lost / max(tot, 1))
-        if lost and drop_meter.count == 1:
+        if lost and drop_meter.count == 1 and rank0:
             logging.warning(
                 "%.2f%% of raw points fall outside the voxel window "
                 "(window_bits=%s) and are silently dropped: widen "
@@ -211,41 +223,48 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
         # (its embed takes the host batch)
         feat_timer.tic()
         batch = batch.to(dev)
-        embedded = embed_pair(model, batch, cfg, dev)
+        mine = ddp.shard_batch(batch, ddp.rank(), dp) if dp > 1 else batch
+        embedded = embed_pair(model, mine, cfg, dev)
         sync()
         feat_timer.toc()
 
         state = gen.get_state() if record is not None else None
         reg_timer.tic()
-        T_est = register_pair(*embedded, cfg, generator=gen)
+        if dp > 1:
+            T_all = ddp.dp_register_pair(embedded, cfg, generator=gen)
+            T_est = T_all[ddp.rank()]
+        else:
+            T_est = register_pair(*embedded, cfg, generator=gen)
+            T_all = T_est[None]
         sync()
         reg_timer.toc()
         if record is not None:
-            record.append((batch, state, T_est))
+            record.append((mine, state, T_est))
 
-        T_gt = batch.T_gt[0]
-        ok, te, re = registration_success(T_est, T_gt, rte_thresh,
-                                          rre_thresh)
-        te, re = float(te), float(re)
-        if config.get("nn_dist_stats"):
+        for d in range(dp):
+            T_gt = batch.T_gt[d]
+            ok, te, re = registration_success(T_all[d], T_gt, rte_thresh,
+                                              rre_thresh)
+            te, re = float(te), float(re)
+            if te < rte_thresh:
+                rte_meter.update(te)
+            if np.isfinite(re) and re < rre_thresh:
+                rre_meter.update(re)
+            if bool(ok):
+                success_meter.update(1)
+            else:
+                success_meter.update(0)
+                info(f"Failed with RTE: {te}, RRE: {re}")
+        if config.get("nn_dist_stats") and dp == 1:
             x0, f0, m0, x1, f1, m1 = embedded
             _, nn = masked_argmin(f0.float().contiguous(), m0,
                                   f1.float().contiguous(), m1)
-            d = (transform_points(x0, T_gt) - x1[nn.long()]).norm(dim=-1)
+            d = (transform_points(x0, batch.T_gt[0]) - x1[nn.long()]).norm(
+                dim=-1)
             nn_dists.append(d[m0].cpu().numpy())
 
-        if te < rte_thresh:
-            rte_meter.update(te)
-        if np.isfinite(re) and re < rre_thresh:
-            rre_meter.update(re)
-        if bool(ok):
-            success_meter.update(1)
-        else:
-            success_meter.update(0)
-            logging.info(f"Failed with RTE: {te}, RRE: {re}")
-
         if i % 10 == 0:
-            logging.info(
+            info(
                 f"{i} / {N}: Data time: {data_timer.avg:.4f}, "
                 f"Feat time: {feat_timer.avg:.4f}, Reg time: "
                 f"{reg_timer.avg:.4f}, RTE: {rte_meter.avg:.4f}, RRE: "
@@ -254,21 +273,22 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
 
     if prof is not None:
         prof.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        logging.info(f"profiler trace written to {trace_dir}")
+        if rank0:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            info(f"profiler trace written to {trace_dir}")
     if nn_dists:
         alld = np.concatenate(nn_dists)
         np.save(os.path.join(config.save_dir, "nn_dists.npy"), alld)
-        logging.info(
+        info(
             f"NN-dist under GT: mean {alld.mean():.3f} m, "
             f"median {np.median(alld):.3f} m, "
             f"<0.3 m: {100.0 * (alld < 0.3).mean():.1f} %")
-    if drop_meter.avg > 0:
+    if drop_meter.avg > 0 and rank0:
         logging.warning(
             f"out-of-window dropped points: {drop_meter.avg * 100:.2f}% "
             f"average over {drop_meter.count} batches (window_bits={wbits})")
-    logging.info(
+    info(
         f"RTE: {rte_meter.avg:.4f}, var: {rte_meter.var:.6f}, "
         f"RRE: {rre_meter.avg:.4f}, var: {rre_meter.var:.6f}, "
         f"Success: {success_meter.sum} / {success_meter.count} "
@@ -289,5 +309,6 @@ if __name__ == "__main__":
 
     log_to_stdout()
     args = parse_args()
+    ddp.maybe_distributed_init()
     main(load_test_config(args), num_pairs=args.num_pairs,
          dp=args.dp_devices)

@@ -7,10 +7,10 @@ device group keeps the JAX package's capacity flags, which size the
 port's static buffers the same way. Configs round-trip through JSON for
 resume (`--resume_dir`).
 
-Flags that have no counterpart on one CUDA device: `--dp_devices` above 1
-and `--multihost` raise in the trainer (data parallelism is ROADMAP.md
-queue 1 item 5); `--matmul_precision` is read by nothing (the port keeps
-TF32 off everywhere, utils/device.py).
+`--dp_devices` and `--multihost` drive data parallelism over
+torch.distributed (parallel/ddp.py: one rank a card under torchrun);
+`--matmul_precision` is read by nothing (the port keeps TF32 off
+everywhere, utils/device.py).
 """
 
 from __future__ import annotations
@@ -196,11 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--eval_sample_points", type=int, default=5000,
                    help="random sample size at test (test_kitti.py:156)")
     g.add_argument("--dp_devices", type=int, default=-1,
-                   help="data-parallel devices (-1 and 1: the one device; "
-                        "more raises, ROADMAP.md queue 1 item 5)")
+                   help="data-parallel ranks (-1: the largest count of the "
+                        "torchrun ranks that divides the batch; 1: one "
+                        "device)")
     g.add_argument("--multihost", type=str2bool, default=False,
-                   help="multi-host runs (raises: ROADMAP.md queue 1 "
-                        "item 5)")
+                   help="join torchrun's process group (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT); also joined "
+                        "whenever WORLD_SIZE is set")
     g.add_argument("--use_jitter", type=str2bool, default=True,
                    help="sigma=0.01 input-feature noise in train phases "
                         "(reference lib/transforms.py:18-30)")

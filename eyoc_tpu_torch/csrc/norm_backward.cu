@@ -60,6 +60,21 @@
 // No float atomics and no ticket words: the same bits on every call at a
 // given grid. Every operation is rounded apart (no contraction) and the
 // division is IEEE, as the plain version's torch ops are.
+//
+// Sync-BN's two-launch form (data parallelism: the batch norm's segment
+// spans every rank's rows, and a collective must add the ranks' sums
+// between phase 2 and phase 3, which no launch can wait for):
+// - `eyoc_masked_norm_backward_sums`: backward_coop<true>, phases 1 and 2
+//   on the same grid (no row cache), phase 2 writing each segment's raw
+//   sums (n, sdy, sdyxc) [segments, 1 + 2c] in place of the coefficients;
+// - the caller's all_reduce of those sums;
+// - `eyoc_masked_norm_backward_finish`: a plain launch on the same grid,
+//   each block making its segments' coefficients from the sums by phase
+//   2's arithmetic, then phase 3 with every row read from device memory;
+//   block 0 dscale and dbias from the rank's own sums (the sums pass's
+//   output before the all_reduce: a replicated parameter's gradient on
+//   one rank, which the data-parallel step averages).
+// At one rank its outputs are the one-launch form's bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -227,9 +242,83 @@ __host__ __device__ __forceinline__ int cache_bytes(int cache_rows, int c) {
   return cache_rows * 4 * c + (cache_rows + 15) / 16 * 16;
 }
 
+// Phase 3 over rows [a, e) of one segment: dx and dres, the segment's
+// coefficients in sc (scale rstd, sdy / n, coef, then mean and rstd: 5c
+// floats); kU3 items a thread at once, the block's first crows rows (from
+// r0) from the cache (x, dy0, the mask), the others' x, dy, y, dpre and
+// mask from device memory.
+__device__ __forceinline__ void finish_rows(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ dpre,
+    const uint8_t* __restrict__ mask, const float* sc, int c, int groups,
+    long long a, long long e, long long r0, int crows, const int4* cache,
+    const uint8_t* mcache, __nv_bfloat16* __restrict__ dx,
+    __nv_bfloat16* __restrict__ dres) {
+  const int tid = threadIdx.x;
+  const bool tail = y != nullptr;
+  const bool has_pre = dpre != nullptr;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const long long items = (e - a) * groups;
+  for (long long i0 = tid; i0 < items; i0 += (long long)kThreads * kU3) {
+    int4 xv[kU3], dv[kU3], yv[kU3], pv[kU3];
+    bool mk[kU3], cached[kU3];
+#pragma unroll
+    for (int u = 0; u < kU3; ++u) {
+      const long long i = min(i0 + (long long)u * kThreads, items - 1);
+      const long long row = a + i / groups;
+      const int gg = (int)(i % groups);
+      cached[u] = row - r0 < crows;
+      if (cached[u]) {
+        const int4* cr = cache + (size_t)(row - r0) * 2 * groups;
+        xv[u] = cr[gg];
+        dv[u] = cr[groups + gg];
+        mk[u] = mcache[row - r0] != 0;
+        yv[u] = pv[u] = zero;
+      } else {
+        const long long at = row * c + gg * 8;
+        xv[u] = __ldg(reinterpret_cast<const int4*>(x + at));
+        dv[u] = __ldg(reinterpret_cast<const int4*>(dy + at));
+        yv[u] = tail ? __ldg(reinterpret_cast<const int4*>(y + at)) : zero;
+        pv[u] = has_pre ? __ldg(reinterpret_cast<const int4*>(dpre + at))
+                        : zero;
+        mk[u] = mask[row] != 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU3; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i >= items) continue;
+      const long long row = a + i / groups;
+      const int ch = (int)(i % groups) * 8;
+      const long long at = row * c + ch;
+      const float m = mk[u] ? 1.f : 0.f;
+      float d[8], xf[8], out[8];
+      if (cached[u])
+        unpack8(dv[u], d);
+      else
+        grad_at_norm(dv[u], yv[u], pv[u], tail, has_pre, d);
+      unpack8(xv[u], xf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        d[j] = __fmul_rn(d[j], m);
+        const float xhat = __fmul_rn(__fsub_rn(xf[j], sc[3 * c + ch + j]),
+                                     sc[4 * c + ch + j]);
+        const float t = __fsub_rn(__fsub_rn(d[j], sc[c + ch + j]),
+                                  __fmul_rn(xhat, sc[2 * c + ch + j]));
+        out[j] = __fmul_rn(__fmul_rn(sc[ch + j], t), m);
+      }
+      *reinterpret_cast<int4*>(dx + at) = pack8(out);
+      if (dres != nullptr) *reinterpret_cast<int4*>(dres + at) = pack8(d);
+    }
+  }
+}
+
 // x, dy, y, dpre, dx, dres: [segments * cap, c]; part: [blocks + segments
 // - 1, 1 + 2c] (the pieces' n, sdy, sdyxc); coefs: [segments, 5c] (scale
-// rstd, sdy / n, coef, sdyxh, sdy).
+// rstd, sdy / n, coef, sdyxh, sdy). kSumsOnly (sync-BN's sums pass): coefs
+// is [segments, 1 + 2c], each segment's raw (n, sdy, sdyxc), and the
+// kernel ends after phase 2 (scale, dx, dres, dscale, dbias unused).
+template <bool kSumsOnly>
 __global__ void __launch_bounds__(kThreads, 1) backward_coop(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
     const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ dpre,
@@ -324,11 +413,20 @@ __global__ void __launch_bounds__(kThreads, 1) backward_coop(
   for (int task = blockIdx.x * kWarps + warp; task < segments * c;
        task += gridDim.x * kWarps) {
     const int s = task / c, ch = task % c;
-    const float* st = stats + (size_t)s * 3 * c;
-    const float rstd = st[c + ch], live = st[2 * c + ch], sca = scale[ch];
     const int e[3] = {0, 1 + ch, 1 + c + ch};
     float v[3];
     warp_segment_sums<3>(part, width, s, cap, rows_per_block, e, v);
+    if constexpr (kSumsOnly) {
+      if (lane == 0) {
+        float* so = coefs + (size_t)s * width;
+        if (ch == 0) so[0] = v[0];
+        so[1 + ch] = v[1];
+        so[1 + c + ch] = v[2];
+      }
+      continue;
+    }
+    const float* st = stats + (size_t)s * 3 * c;
+    const float rstd = st[c + ch], live = st[2 * c + ch], sca = scale[ch];
     if (lane == 0) {
       const float cnt = fmaxf(v[0], 1.f);
       float* co = coefs + (size_t)s * 5 * c;
@@ -340,6 +438,7 @@ __global__ void __launch_bounds__(kThreads, 1) backward_coop(
       co[4 * c + ch] = v[1];
     }
   }
+  if constexpr (kSumsOnly) return;
   grid.sync();
 
   // ---- phase 3: dx and dres of the block's rows, segment by segment;
@@ -363,61 +462,66 @@ __global__ void __launch_bounds__(kThreads, 1) backward_coop(
     __syncthreads();
     const long long a = max(r0, (long long)s * cap);
     const long long e = min(r1, (long long)(s + 1) * cap);
-    // kU3 items a thread at once: the cached rows' x, dy0 and mask from
-    // shared memory, the others' x, dy, y, dpre and mask from device memory
-    const long long items = (e - a) * groups;
-    for (long long i0 = tid; i0 < items; i0 += (long long)kThreads * kU3) {
-      int4 xv[kU3], dv[kU3], yv[kU3], pv[kU3];
-      bool mk[kU3], cached[kU3];
-#pragma unroll
-      for (int u = 0; u < kU3; ++u) {
-        const long long i = min(i0 + (long long)u * kThreads, items - 1);
-        const long long row = a + i / groups;
-        const int gg = (int)(i % groups);
-        cached[u] = row - r0 < crows;
-        if (cached[u]) {
-          const int4* cr = cache + (size_t)(row - r0) * 2 * groups;
-          xv[u] = cr[gg];
-          dv[u] = cr[groups + gg];
-          mk[u] = mcache[row - r0] != 0;
-          yv[u] = pv[u] = zero;
-        } else {
-          const long long at = row * c + gg * 8;
-          xv[u] = __ldg(reinterpret_cast<const int4*>(x + at));
-          dv[u] = __ldg(reinterpret_cast<const int4*>(dy + at));
-          yv[u] = tail ? __ldg(reinterpret_cast<const int4*>(y + at)) : zero;
-          pv[u] = has_pre ? __ldg(reinterpret_cast<const int4*>(dpre + at))
-                          : zero;
-          mk[u] = mask[row] != 0;
-        }
+    finish_rows(x, dy, y, dpre, mask, sc, c, groups, a, e, r0, crows, cache,
+                mcache, dx, dres);
+    __syncthreads();
+  }
+}
+
+// Sync-BN's finish pass: K21's phase 3 from the segments' sums [segments,
+// 1 + 2c] (every rank's, added), on the sums pass's grid, a plain launch.
+// Each block makes the coefficients of the segments its rows touch by
+// phase 2's arithmetic (so one rank's sums give the one-launch form's
+// bits); block 0 adds the segments' sdyxh and sdy in order.
+__global__ void __launch_bounds__(kThreads) backward_finish(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ dpre,
+    const uint8_t* __restrict__ mask, const float* __restrict__ scale,
+    const float* __restrict__ stats, const float* __restrict__ sums,
+    const float* __restrict__ own, int segments, int cap, int c,
+    int rows_per_block, __nv_bfloat16* __restrict__ dx,
+    __nv_bfloat16* __restrict__ dres, float* __restrict__ dscale,
+    float* __restrict__ dbias) {
+  extern __shared__ int4 smem[];
+  float* sc = reinterpret_cast<float*>(smem);          // [5][c]
+  const int tid = threadIdx.x;
+  const int width = 1 + 2 * c;
+  const int groups = c / 8;
+  const long long total = (long long)segments * cap;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(total, r0 + rows_per_block);
+  const int s_lo = (int)(r0 / cap), s_hi = (int)((r1 - 1) / cap);
+  if (blockIdx.x == 0) {
+    for (int ch = tid; ch < c; ch += kThreads) {
+      float ds = __fmul_rn(own[1 + c + ch], stats[c + ch]);
+      float db = own[1 + ch];
+      for (int s = 1; s < segments; ++s) {
+        const float* v = own + (size_t)s * width;
+        ds = __fadd_rn(ds, __fmul_rn(v[1 + c + ch],
+                                     stats[(size_t)s * 3 * c + c + ch]));
+        db = __fadd_rn(db, v[1 + ch]);
       }
-#pragma unroll
-      for (int u = 0; u < kU3; ++u) {
-        const long long i = i0 + (long long)u * kThreads;
-        if (i >= items) continue;
-        const long long row = a + i / groups;
-        const int ch = (int)(i % groups) * 8;
-        const long long at = row * c + ch;
-        const float m = mk[u] ? 1.f : 0.f;
-        float d[8], xf[8], out[8];
-        if (cached[u])
-          unpack8(dv[u], d);
-        else
-          grad_at_norm(dv[u], yv[u], pv[u], tail, has_pre, d);
-        unpack8(xv[u], xf);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          d[j] = __fmul_rn(d[j], m);
-          const float xhat = __fmul_rn(__fsub_rn(xf[j], sc[3 * c + ch + j]),
-                                       sc[4 * c + ch + j]);
-          const float t = __fsub_rn(__fsub_rn(d[j], sc[c + ch + j]),
-                                    __fmul_rn(xhat, sc[2 * c + ch + j]));
-          out[j] = __fmul_rn(__fmul_rn(sc[ch + j], t), m);
-        }
-        *reinterpret_cast<int4*>(dx + at) = pack8(out);
-        if (dres != nullptr) *reinterpret_cast<int4*>(dres + at) = pack8(d);
-      }
+      dscale[ch] = ds;
+      dbias[ch] = db;
     }
+  }
+  for (int s = s_lo; s <= s_hi; ++s) {
+    const float* v = sums + (size_t)s * width;
+    const float* st = stats + (size_t)s * 3 * c;
+    const float cnt = fmaxf(v[0], 1.f);
+    for (int ch = tid; ch < c; ch += kThreads) {
+      const float rstd = st[c + ch];
+      const float sdyxh = __fmul_rn(v[1 + c + ch], rstd);
+      sc[ch] = __fmul_rn(scale[ch], rstd);
+      sc[c + ch] = __fdiv_rn(v[1 + ch], cnt);
+      sc[2 * c + ch] = st[2 * c + ch] != 0.f ? __fdiv_rn(sdyxh, cnt) : 0.f;
+    }
+    for (int i = tid; i < 2 * c; i += kThreads) sc[3 * c + i] = st[i];
+    __syncthreads();
+    const long long a = max(r0, (long long)s * cap);
+    const long long e = min(r1, (long long)(s + 1) * cap);
+    finish_rows(x, dy, y, dpre, mask, sc, c, groups, a, e, r0, 0, nullptr,
+                nullptr, dx, dres);
     __syncthreads();
   }
 }
@@ -441,12 +545,13 @@ int resident_blocks(int device) {
     return cached[device];
   const int bytes = kRedBytes + kCacheBytes;
   int sms = 0, per_sm = 0;
-  if (cudaFuncSetAttribute(backward_coop,
+  if (cudaFuncSetAttribute(backward_coop<false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, backward_coop,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                    backward_coop<false>,
                                                     kThreads, bytes) !=
           cudaSuccess)
     return 0;
@@ -516,8 +621,95 @@ extern "C" int eyoc_masked_norm_backward(
                   (void*)&cache_rows,       (void*)&pp,  (void*)&cb,
                   (void*)&dxb, (void*)&drb, (void*)&dsb, (void*)&dbb};
   err = cudaLaunchCooperativeKernel(
-      backward_coop, dim3(blocks), dim3(kThreads), args,
+      backward_coop<false>, dim3(blocks), dim3(kThreads), args,
       (size_t)smem_bytes(cache_rows, c), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Sync-BN's sums pass: x, dy, y, dpre, mask, stats and the grid as
+// eyoc_masked_norm_backward's (the same blocks, so the same pieces and
+// sums); part [blocks + segments - 1, 1 + 2c] f32 scratch; sums [segments,
+// 1 + 2c] f32, each segment's (n, sum dy0, sum dy0 (x - mean)). One
+// cooperative launch (no row cache); a refused one returns its error.
+extern "C" int eyoc_masked_norm_backward_sums(
+    const void* x, const void* dy, const void* y, const void* dpre,
+    const void* mask, const void* stats, int segments, int cap, int c,
+    int blocks, int rows_per_block, void* part, void* sums, void* stream) {
+  if (segments <= 0 || cap <= 0) return (int)cudaSuccess;
+  const long long total = (long long)segments * cap;
+  if (c <= 0 || c % 8 != 0 || c > kMaxC || blocks < 1 ||
+      rows_per_block < 1 || (long long)blocks * rows_per_block < total ||
+      (long long)(blocks - 1) * rows_per_block >= total)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)y | (uintptr_t)dpre) % 16 !=
+      0)
+    return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const int bytes = smem_bytes(0, c);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, backward_coop<true>, kThreads, bytes)) != cudaSuccess)
+    return (int)err;
+  if (blocks > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int cache_rows = 0;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
+  const __nv_bfloat16* yb = static_cast<const __nv_bfloat16*>(y);
+  const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(dpre);
+  const uint8_t* mb = static_cast<const uint8_t*>(mask);
+  const float* scb = nullptr;
+  const float* sb = static_cast<const float*>(stats);
+  float* pp = static_cast<float*>(part);
+  float* so = static_cast<float*>(sums);
+  __nv_bfloat16* dxb = nullptr;
+  __nv_bfloat16* drb = nullptr;
+  float* dsb = nullptr;
+  float* dbb = nullptr;
+  void* args[] = {(void*)&xb,  (void*)&dyb, (void*)&yb,  (void*)&pb,
+                  (void*)&mb,  (void*)&scb, (void*)&sb,  (void*)&segments,
+                  (void*)&cap, (void*)&c,   (void*)&rows_per_block,
+                  (void*)&cache_rows,       (void*)&pp,  (void*)&so,
+                  (void*)&dxb, (void*)&drb, (void*)&dsb, (void*)&dbb};
+  err = cudaLaunchCooperativeKernel(backward_coop<true>, dim3(blocks),
+                                    dim3(kThreads), args, (size_t)bytes,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Sync-BN's finish pass: x, dy, y, dpre, mask, scale, stats, dx, dres,
+// dscale, dbias as eyoc_masked_norm_backward's; sums [segments, 1 + 2c]
+// f32 (the sums pass's, added over the ranks), own the same of this rank
+// alone (dscale and dbias come from it); the blocks are the rows' split by
+// rows_per_block, the sums pass's grid. One plain launch.
+extern "C" int eyoc_masked_norm_backward_finish(
+    const void* x, const void* dy, const void* y, const void* dpre,
+    const void* mask, const void* scale, const void* stats, const void* sums,
+    const void* own, int segments, int cap, int c, int rows_per_block,
+    void* dx, void* dres, void* dscale, void* dbias, void* stream) {
+  if (segments <= 0 || cap <= 0) return (int)cudaSuccess;
+  if (c <= 0 || c % 8 != 0 || c > kMaxC || rows_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)y | (uintptr_t)dpre |
+       (uintptr_t)dx | (uintptr_t)dres) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)segments * cap;
+  const int blocks = (int)((total + rows_per_block - 1) / rows_per_block);
+  backward_finish<<<blocks, kThreads, (size_t)5 * c * sizeof(float),
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(dpre),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(scale),
+      static_cast<const float*>(stats), static_cast<const float*>(sums),
+      static_cast<const float*>(own), segments, cap, c, rows_per_block,
+      static_cast<__nv_bfloat16*>(dx),
+      static_cast<__nv_bfloat16*>(dres), static_cast<float*>(dscale),
+      static_cast<float*>(dbias));
   return (int)cudaGetLastError();
 }

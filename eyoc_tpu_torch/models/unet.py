@@ -9,13 +9,16 @@ order.
 
 `forward` branches on `self.training`:
 - eval (`embed`, which the eval entry points call in either mode): every
-  BatchNorm folded into the conv that feeds it (`_bn_fold`,
+  BatchNorm that follows a conv folded into it (`_bn_fold`,
   unet.py:194-198); each conv is one K1 launch whose epilogue adds the
   folded bias, masks invalid voxels, adds the block residual and applies
   ReLU. An instance norm (the IN families: ResUNetIN*'s block norms,
   SimpleNetIN*'s norms) follows its bare conv as kernel K20, per cloud
   (apply_unet(training=False, n_clouds=B)), with the ReLU, or the block's
-  residual add, ReLU and mask, in its apply. No autograd.
+  residual add, ReLU and mask, in its apply. The Expanded spec's repeat
+  norm `norm{l}_{r}` (unet.py:313-315) follows a block's ReLU, not a conv,
+  so it folds into nothing: it is K22 `masked_norm_apply` with g and off
+  from its running statistics. No autograd.
 - train (apply_unet(training=True, n_clouds=B), unet.py:201-231,
   242-380): each conv is a `SparseConvFunction` (K1 forward; K1 over the
   inverse map and K5 backward; through `sparse_conv_diff`, which pads an
@@ -25,7 +28,12 @@ order.
   (K20), each with the ReLU, or the block's residual add, ReLU and mask,
   fused into its apply and its backward (K21). The norm's output is
   rounded to the activation dtype before the tail, as JAX's. The BN
-  running statistics are updated in place, once per forward.
+  running statistics are updated in place, once per forward. With a
+  process group (data parallelism, parallel/ddp.py) every BatchNorm takes
+  the statistics of the whole global batch (sparse/norm.py's sync-BN, as
+  JAX's psum over `axis_name`).
+The features are L2-normalized unless the model (or the call) says
+`normalize_feature=False` (unet.py:378).
 Activations are stored in the model's compute dtype between convs (bf16 on
 the card, with f32 sums inside the kernels; the CPU tests use f32).
 """
@@ -43,7 +51,8 @@ from eyoc_tpu_torch.sparse.brick_conv import (conv_maps, identity_map,
 from eyoc_tpu_torch.sparse.bricks import BrickPyramid
 from eyoc_tpu_torch.sparse.norm import (instance_norm_train,
                                         masked_batch_norm,
-                                        masked_instance_norm)
+                                        masked_instance_norm,
+                                        masked_norm_apply)
 from eyoc_tpu_torch.utils.device import resolve_device
 
 
@@ -126,38 +135,51 @@ class Final(nn.Module):
 
 
 class ResUNet(nn.Module):
-    """Sparse UNet of one UNetSpec with one (norm, block) a level: the
-    ResUNet and SimpleNet families, BN or IN."""
+    """Sparse UNet of one UNetSpec: the ResUNet family (one (norm, block)
+    a level, or `repeats` of them, the Expanded spec), the SimpleNet
+    family, BN or IN. `in_channels` is the input features' width (1: the
+    occupancy; 3 or 6: rgb and / or normals, api.extract_features);
+    `normalize_feature` whether the features come out L2-normalized."""
 
     def __init__(self, spec: UNetSpec, in_channels: int = 1,
                  out_channels: int = 32, conv1_kernel_size: int = 5,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 normalize_feature: bool = True):
         super().__init__()
-        if spec.repeats != 1:
-            raise ValueError(f"{spec.name}: specs with {spec.repeats} (norm, "
-                             "block) repeats a level have no forward in this "
-                             "port so far")
+        if spec.repeats > 1 and (spec.block_norm_type is None
+                                 or spec.norm_type != "BN"):
+            raise ValueError(f"{spec.name}: (norm, block) repeats take "
+                             "residual blocks and a BatchNorm, as every "
+                             "registered spec with repeats has")
         self.spec = spec
         self.conv1_kernel_size = conv1_kernel_size
         self.dtype = dtype
+        self.normalize_feature = normalize_feature
         L, ch, tr = spec.num_levels, spec.channels, spec.tr_channels
         blocks = spec.block_norm_type is not None
         top, inner = spec.norm_type, spec.block_norm_type
+
+        def add_tail(prefix, c):
+            """norm{prefix}, then block{prefix} and the repeats' (norm,
+            block) pairs norm{prefix}_{r}, block{prefix}_{r} (the JAX
+            names, unet.py:118-141)."""
+            setattr(self, f"norm{prefix}", make_norm(top, c))
+            if not blocks:
+                return
+            setattr(self, f"block{prefix}", BasicBlock(c, inner))
+            for r in range(2, spec.repeats + 1):
+                setattr(self, f"norm{prefix}_{r}", make_norm(top, c))
+                setattr(self, f"block{prefix}_{r}", BasicBlock(c, inner))
+
         self.conv1 = SparseConv(conv1_kernel_size ** 3, in_channels, ch[0])
-        self.norm1 = make_norm(top, ch[0])
-        if blocks:
-            self.block1 = BasicBlock(ch[0], inner)
+        add_tail("1", ch[0])
         for l in range(2, L + 1):
             setattr(self, f"conv{l}", SparseConv(27, ch[l - 2], ch[l - 1]))
-            setattr(self, f"norm{l}", make_norm(top, ch[l - 1]))
-            if blocks:
-                setattr(self, f"block{l}", BasicBlock(ch[l - 1], inner))
+            add_tail(str(l), ch[l - 1])
         for l in range(L, 1, -1):
             cin = ch[l - 1] if l == L else ch[l - 1] + tr[l]
             setattr(self, f"conv{l}_tr", SparseConv(27, cin, tr[l - 1]))
-            setattr(self, f"norm{l}_tr", make_norm(top, tr[l - 1]))
-            if blocks:
-                setattr(self, f"block{l}_tr", BasicBlock(tr[l - 1], inner))
+            add_tail(f"{l}_tr", tr[l - 1])
         self.conv1_tr = SparseConv(spec.conv1_tr_kernel ** 3, ch[0] + tr[1],
                                    tr[0])
         if spec.conv1_tr_norm:
@@ -214,17 +236,32 @@ class ResUNet(nn.Module):
         return folded
 
     def forward(self, pyr: BrickPyramid, in_feats: torch.Tensor | None = None,
-                bn_momentum: float | None = 0.05) -> torch.Tensor:
-        """L2-normalized features [M0, out_channels] f32 for the level-0
-        voxel rows (zero rows at invalid voxels). The input feature is
-        `in_feats` [M0, 1] (e.g. jittered occupancy) masked to the valid
+                bn_momentum: float | None = 0.05,
+                normalize_feature: bool | None = None,
+                group=None) -> torch.Tensor:
+        """Features [M0, out_channels] f32 for the level-0 voxel rows (zero
+        rows at invalid voxels), L2-normalized unless `normalize_feature`
+        (default: the model's) is False. The input feature is `in_feats`
+        [M0, in_channels] (e.g. jittered occupancy) masked to the valid
         voxels, or the occupancy when None (the test protocol). The eval
         entry points call `embed`, which ignores the mode. In train mode
         with bn_momentum None, BN takes batch statistics and leaves the
-        running ones as they are (the EYOC labeler's forwards)."""
+        running ones as they are (the EYOC labeler's forwards); with a
+        process group `group`, the statistics of every rank's rows
+        (sync-BN)."""
         if self.training:
-            return self._forward_train(pyr, in_feats, bn_momentum)
-        return self.embed(pyr, in_feats)
+            return self._forward_train(pyr, in_feats, bn_momentum,
+                                       normalize_feature, group)
+        return self.embed(pyr, in_feats, normalize_feature)
+
+    def _output(self, feats: torch.Tensor,
+                normalize_feature: bool | None) -> torch.Tensor:
+        """The features, L2-normalized unless asked not to (unet.py:378)."""
+        if normalize_feature is None:
+            normalize_feature = self.normalize_feature
+        if not normalize_feature:
+            return feats
+        return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
 
     def _input(self, pyr: BrickPyramid, in_feats) -> torch.Tensor:
         """JAX's vox_to_fb drops invalid rows (unet.py:326-329)."""
@@ -233,8 +270,8 @@ class ResUNet(nn.Module):
         return x.to(self.dtype).contiguous()
 
     @torch.no_grad()
-    def embed(self, pyr: BrickPyramid,
-              in_feats: torch.Tensor | None = None) -> torch.Tensor:
+    def embed(self, pyr: BrickPyramid, in_feats: torch.Tensor | None = None,
+              normalize_feature: bool | None = None) -> torch.Tensor:
         """The eval forward (apply_unet(training=False, n_clouds=B))
         whatever the module's mode: BN from the running statistics, which
         it leaves as they are; an instance norm from each cloud's own."""
@@ -267,6 +304,14 @@ class ResUNet(nn.Module):
                      relu=relu and not skip)
             return (torch.relu(y), y) if skip else y
 
+        def block(name, x, level):
+            b = getattr(self, name)
+            same = maps.same3[level]
+            y = conv_norm(f"{name}.conv1", b.norm1, x, same, level,
+                          relu=True)
+            return conv_norm(f"{name}.conv2", b.norm2, y, same, level,
+                             residual=x, relu=True)
+
         def stage(prefix, x, nmap, level, *, x2=None, skip=False):
             """conv{prefix}, norm{prefix} and the level's tail, as
             unet.py:300-322: (post-relu, skip), the skip the block output
@@ -278,12 +323,15 @@ class ResUNet(nn.Module):
                                 relu=True, skip=skip)
                 return out if skip else (out, None)
             x = conv_norm(f"conv{prefix}", norm, x, nmap, level, x2=x2)
-            b = getattr(self, f"block{prefix}")
-            same = maps.same3[level]
-            y = conv_norm(f"block{prefix}.conv1", b.norm1, x, same, level,
-                          relu=True)
-            y = conv_norm(f"block{prefix}.conv2", b.norm2, y, same, level,
-                          residual=x, relu=True)
+            y = block(f"block{prefix}", x, level)
+            for r in range(2, spec.repeats + 1):
+                # norm{prefix}_{r}(relu(y)): y is a block's output, which
+                # ends in a ReLU, so the relu is the identity; the norm
+                # follows no conv and is K22 from the running statistics
+                g, off = getattr(self, f"norm{prefix}_{r}").fold()
+                gof = torch.cat([g, off]).float()[None].contiguous()
+                x = masked_norm_apply(y, masks[level], gof)
+                y = block(f"block{prefix}_{r}", x, level)
             return y, y
 
         x = self._input(pyr, in_feats)
@@ -307,15 +355,16 @@ class ResUNet(nn.Module):
         out = conv_norm("conv1_tr", getattr(self, "norm1_tr", None), out,
                         nmap, 0, x2=x2, relu=True)
         out = conv("final", out, identity_map(out.shape[0], out.device), 0)
-
-        feats = out.float()
-        return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
+        return self._output(out.float(), normalize_feature)
 
     def _forward_train(self, pyr: BrickPyramid, in_feats,
-                       bn_momentum: float | None) -> torch.Tensor:
+                       bn_momentum: float | None,
+                       normalize_feature: bool | None = None,
+                       group=None) -> torch.Tensor:
         """apply_unet(training=True, n_clouds=B): unfolded convs, masked
-        BN with batch statistics (running stats updated in place) or the
-        per-cloud instance norm, autograd through the kernels."""
+        BN with batch statistics (running stats updated in place; over
+        every rank of `group` when given) or the per-cloud instance norm,
+        autograd through the kernels."""
         spec = self.spec
         L = spec.num_levels
         blocks = spec.block_norm_type is not None
@@ -342,7 +391,14 @@ class ResUNet(nn.Module):
             return masked_batch_norm(x, vmask[level], mod.weight, mod.bias,
                                      mod.running_mean, mod.running_var,
                                      momentum=bn_momentum, eps=mod.eps,
-                                     **tail)
+                                     group=group, **tail)
+
+        def block(name, x, level):
+            b = getattr(self, name)
+            nmap, inv = maps.same3[level], maps.inv_same3[level]
+            y = norm(b.norm1, conv(b.conv1, x, nmap, inv), level, relu=True)
+            return norm(b.norm2, conv(b.conv2, y, nmap, inv), level,
+                        residual=x)
 
         def level_tail(prefix, x, level, skip=False):
             """norm (-> block); returns (post-relu, skip) as unet.py:300-322
@@ -352,11 +408,13 @@ class ResUNet(nn.Module):
                            relu=True, skip=skip)
                 return out if skip else (out, None)
             x = norm(getattr(self, f"norm{prefix}"), x, level)
-            b = getattr(self, f"block{prefix}")
-            nmap, inv = maps.same3[level], maps.inv_same3[level]
-            y = norm(b.norm1, conv(b.conv1, x, nmap, inv), level, relu=True)
-            y = norm(b.norm2, conv(b.conv2, y, nmap, inv), level,
-                     residual=x)
+            y = block(f"block{prefix}", x, level)
+            for r in range(2, spec.repeats + 1):
+                # relu(y) is y (a block's output ends in a ReLU), and so is
+                # its gradient: the block's own ReLU passes none at y = 0,
+                # as JAX's relu
+                x = norm(getattr(self, f"norm{prefix}_{r}"), y, level)
+                y = block(f"block{prefix}_{r}", x, level)
             return y, y
 
         x = self._input(pyr, in_feats)
@@ -390,18 +448,19 @@ class ResUNet(nn.Module):
         out = sparse_conv_diff(out, None, self.final.weight[None], ident,
                                ident)
         feats = (out.float() + self.final.bias) * fmask0.float()
-        return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-12)
+        return self._output(feats, normalize_feature)
 
 
 def init_unet(spec: UNetSpec, generator: torch.Generator | None = None,
               in_channels: int = 1, out_channels: int = 32,
               conv1_kernel_size: int = 5, dtype: torch.dtype = torch.bfloat16,
-              device=None) -> ResUNet:
+              device=None, normalize_feature: bool = True) -> ResUNet:
     """A ResUNet with He-normal conv weights (std sqrt(2 / (K^3 Ci)), as
     unet.py:66-68) drawn from `generator` on the CPU, then moved to
     `device` (default: the GPU, or an error when there is none)."""
     device = resolve_device(device)
-    model = ResUNet(spec, in_channels, out_channels, conv1_kernel_size, dtype)
+    model = ResUNet(spec, in_channels, out_channels, conv1_kernel_size, dtype,
+                    normalize_feature)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, SparseConv):

@@ -22,6 +22,20 @@ K21 is one cooperative launch over `k21_grid`'s blocks: the rows of all
 segments split evenly, each block's rows read once and kept in shared
 memory, the segments' sums reduced across the blocks in a fixed order
 between grid barriers.
+
+Sync-BN (data parallelism, parallel/ddp.py; JAX's psum over `axis_name`,
+norm.py:48-56, :98-101): given a process group, the batch norm adds every
+rank's K7 sums, packed as they come, [n, sum x, sum x^2] (1 + 2C floats),
+by one `all_reduce` before the statistics, so the running update takes
+the global n. Its backward needs the ranks' sums too (JAX's psum
+transposes to a psum): K21 then runs as two launches, the sums pass
+(`masked_norm_backward_sums`: K21's first two phases, the segment's (n,
+sum dy0, sum dy0 (x - mean)) written out), one `all_reduce` of those 1 +
+2C floats, and the finish pass (`masked_norm_backward_finish`: the
+coefficients from the global sums, then dX, the plain version's
+`_backward_finish`; dscale and dbias from the rank's own sums, which the
+data-parallel step averages with the other gradients). A group of one
+rank reduces nothing and K21 keeps its one launch.
 """
 
 from __future__ import annotations
@@ -30,8 +44,17 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from eyoc_tpu_torch.utils import kernels
+
+
+def sync_group(group):
+    """The process group a batch norm reduces its sums over: `group`, or
+    None when it is None or of one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return None
+    return group
 
 # ---------------------------------------------------------------- kernel K7
 
@@ -292,9 +315,12 @@ def _grad_at_norm(dy, y, dpre, dtype):
     return d
 
 
-def _backward_finish(x, mask, n_segments, scale, stats, d, sums, residual):
+def _backward_finish(x, mask, n_segments, scale, stats, d, sums, residual,
+                     own=None):
     """K21's coefficients and dX from the segments' sums [S, 1 + 2C] = (n,
-    sum dy0, sum dy0 (x - mean)) over their masked rows."""
+    sum dy0, sum dy0 (x - mean)) over their masked rows; dscale and dbias
+    from `own` (this rank's sums under sync-BN) when given, else from
+    `sums`."""
     S = n_segments
     M, C = x.shape
     n = torch.clamp(sums[:, :1], min=1.0)
@@ -308,11 +334,25 @@ def _backward_finish(x, mask, n_segments, scale, stats, d, sums, residual):
     dm = d.reshape(S, M // S, C) * m
     xhat = (x.float().reshape(S, M // S, C) - mean[:, None]) * rstd[:, None]
     dx = (a[:, None] * ((dm - b[:, None]) - xhat * coef[:, None])) * m
+    if own is not None:
+        sdy, sdyxh = own[:, 1:1 + C], own[:, 1 + C:] * rstd
     dscale, dbias = sdyxh[0], sdy[0]
     for s in range(1, S):                 # the segments added in order
         dscale, dbias = dscale + sdyxh[s], dbias + sdy[s]
     dres = dm.reshape(M, C).to(x.dtype) if residual else None
     return dx.reshape(M, C).to(x.dtype), dres, dscale, dbias
+
+
+def _segment_sums(x, mask, n_segments, stats, d):
+    """[S, 1 + 2C] f32: each segment's (n, sum dy0, sum dy0 (x - mean))
+    over its masked rows, dy0 = d."""
+    S = n_segments
+    M, C = x.shape
+    m = mask.float().reshape(S, M // S, 1)
+    dm = d.reshape(S, M // S, C) * m
+    xc = x.float().reshape(S, M // S, C) - stats.reshape(S, 3, C)[:, 0, None]
+    return torch.cat([m.sum((1, 2))[:, None], dm.sum(1),
+                      (d.reshape(S, M // S, C) * xc * m).sum(1)], dim=1)
 
 
 def masked_norm_backward_plain(x, mask, n_segments: int, scale, stats, dy,
@@ -328,15 +368,34 @@ def masked_norm_backward_plain(x, mask, n_segments: int, scale, stats, dy,
     where the variance was live, else 0. Returns (dx in x's dtype,
     dresidual = dy0 in x's dtype when `residual` else None, dscale [C],
     dbias [C]), the last two the segments' sdyxh and sdy added in order."""
-    S = n_segments
-    M, C = x.shape
     d = _grad_at_norm(dy, y, dpre, x.dtype)
-    m = mask.float().reshape(S, M // S, 1)
-    dm = d.reshape(S, M // S, C) * m
-    xc = x.float().reshape(S, M // S, C) - stats.reshape(S, 3, C)[:, 0, None]
-    sums = torch.cat([m.sum((1, 2))[:, None], dm.sum(1),
-                      (d.reshape(S, M // S, C) * xc * m).sum(1)], dim=1)
-    return _backward_finish(x, mask, S, scale, stats, d, sums, residual)
+    return _backward_finish(x, mask, n_segments, scale, stats, d,
+                            _segment_sums(x, mask, n_segments, stats, d),
+                            residual)
+
+
+def masked_norm_backward_sums_plain(x, mask, n_segments: int, stats, dy,
+                                    y=None, dpre=None):
+    """Plain PyTorch version of K21's sums pass (sync-BN's first launch):
+    [S, 1 + 2C] f32, each segment's (n, sum dy0, sum dy0 (x - mean)) over
+    its masked rows, the arguments as `masked_norm_backward_plain`'s."""
+    return _segment_sums(x, mask, n_segments, stats,
+                         _grad_at_norm(dy, y, dpre, x.dtype))
+
+
+def masked_norm_backward_finish_plain(x, mask, n_segments: int, scale, stats,
+                                      sums, own, dy, y=None, dpre=None,
+                                      residual: bool = False):
+    """Plain PyTorch version of K21's finish pass (sync-BN's second
+    launch): `masked_norm_backward_plain`'s dX (and dresidual) from the
+    segments' sums [S, 1 + 2C] of every rank, added, in place of this
+    rank's; dscale and dbias from `own`, this rank's sums (a replicated
+    parameter's gradient on one rank, which the data-parallel step then
+    averages: JAX's per-device grad under shard_map, torch's
+    SyncBatchNorm's)."""
+    return _backward_finish(x, mask, n_segments, scale, stats,
+                            _grad_at_norm(dy, y, dpre, x.dtype), sums,
+                            residual, own)
 
 
 def masked_norm_backward_chunked_plain(x, mask, n_segments: int, scale,
@@ -386,19 +445,9 @@ def _launch_k21(x, mask, n_segments, scale, stats, dy, y, dpre, residual,
                 counter):
     fn = kernels.load("norm_backward", _K21_ARGS,
                       symbol="masked_norm_backward")
-    bf16, f32 = torch.bfloat16, torch.float32
-    dev = kernels.require_cuda(counter, x, dy, y, dpre, mask, scale, stats,
-                               dtypes=(bf16, bf16, bf16, bf16, torch.bool,
-                                       f32, f32))
+    dev = _k21_check(counter, x, mask, n_segments, stats, dy, y, dpre, scale)
     M, C = x.shape
     S = n_segments
-    if S < 1 or M % S or mask.shape != (M,) or scale.shape != (C,) \
-            or stats.shape != (S, 3 * C) or dy.shape != x.shape \
-            or any(t is not None and t.shape != x.shape for t in (y, dpre)):
-        raise ValueError("masked_norm_backward: shapes")
-    if C % 8 or C > K20_MAX_C:
-        raise ValueError(f"masked_norm_backward: {C} channels, the kernel "
-                         f"takes a multiple of 8 up to {K20_MAX_C}")
     blocks, rows = k21_grid(M, C, _k21_resident(dev))
     # one f32 buffer: the pieces' partials [blocks + S - 1, 1 + 2C], the
     # coefficients [S, 5C], then dscale and dbias
@@ -423,29 +472,145 @@ def _k21_scratch(n: int, x):
     return x.new_empty(n, dtype=torch.float32)
 
 
+def _k21_check(name, x, mask, n_segments, stats, dy, y, dpre, scale=None):
+    """Validate a K21 launch's tensors; returns the device index."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = kernels.require_cuda(name, x, dy, y, dpre, mask, scale, stats,
+                               dtypes=(bf16, bf16, bf16, bf16, torch.bool,
+                                       f32, f32))
+    M, C = x.shape
+    S = n_segments
+    if S < 1 or M % S or mask.shape != (M,) \
+            or (scale is not None and scale.shape != (C,)) \
+            or stats.shape != (S, 3 * C) or dy.shape != x.shape \
+            or any(t is not None and t.shape != x.shape for t in (y, dpre)):
+        raise ValueError(f"{name}: shapes")
+    if C % 8 or C > K20_MAX_C:
+        raise ValueError(f"{name}: {C} channels, the kernel takes a "
+                         f"multiple of 8 up to {K20_MAX_C}")
+    return dev
+
+
+_K21_SUMS_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+                  + (ctypes.c_void_p,) * 3)
+_K21_FINISH_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
+                    + (ctypes.c_void_p,) * 5)
+
+
+def masked_norm_backward_sums(x, mask, n_segments: int, stats, dy, y=None,
+                              dpre=None):
+    """K21's sums pass, sync-BN's first launch: [S, 1 + 2C] f32 =
+    `masked_norm_backward_sums_plain`. A CPU tensor takes the plain
+    version; a CUDA tensor launches K21's phases 1 and 2 (one cooperative
+    launch over `k21_grid`'s blocks, the one-launch form's, so its sums
+    are the one-launch form's bits), or raises. Counted with the finish
+    pass, as `masked_norm_backward_sync`."""
+    if x.is_cpu:
+        return masked_norm_backward_sums_plain(x, mask, n_segments, stats,
+                                               dy, y, dpre)
+    return _launch_k21_sums(x, mask, n_segments, stats, dy, y, dpre)
+
+
+def _launch_k21_sums(x, mask, n_segments, stats, dy, y, dpre):
+    fn = kernels.load("norm_backward", _K21_SUMS_ARGS,
+                      symbol="masked_norm_backward_sums")
+    dev = _k21_check("masked_norm_backward_sums", x, mask, n_segments, stats,
+                     dy, y, dpre)
+    M, C = x.shape
+    S = n_segments
+    blocks, rows = k21_grid(M, C, _k21_resident(dev))
+    n_part = (blocks + S - 1) * (1 + 2 * C)
+    buf = _k21_scratch(n_part + S * (1 + 2 * C), x)
+    sums = buf[n_part:].view(S, 1 + 2 * C)
+    p = kernels.ptr
+    err = fn(x.data_ptr(), dy.data_ptr(), p(y), p(dpre), mask.data_ptr(),
+             stats.data_ptr(), S, M // S, C, blocks, rows, buf.data_ptr(),
+             sums.data_ptr(), kernels.stream_handle(dev))
+    kernels.check_error("masked_norm_backward_sums", err)
+    return sums
+
+
+def masked_norm_backward_finish(x, mask, n_segments: int, scale, stats,
+                                sums, own, dy, y=None, dpre=None,
+                                residual: bool = False):
+    """K21's finish pass, sync-BN's second launch: (dx, dres, dscale,
+    dbias) = `masked_norm_backward_finish_plain`, from the segments' sums
+    [S, 1 + 2C] f32 of every rank and this rank's own (`own`, the sums
+    pass's output before the all_reduce). A CPU tensor takes the plain
+    version; a
+    CUDA tensor launches the kernel (one plain launch over the sums pass's
+    grid: each block makes its segments' coefficients, then K21's phase 3
+    over its rows, every row read again from device memory; block 0
+    dscale and dbias), or raises. Counted as
+    `masked_norm_backward_sync`."""
+    if x.is_cpu:
+        return masked_norm_backward_finish_plain(x, mask, n_segments, scale,
+                                                 stats, sums, own, dy, y,
+                                                 dpre, residual)
+    return _launch_k21_finish(x, mask, n_segments, scale, stats, sums, own,
+                              dy, y, dpre, residual)
+
+
+def _launch_k21_finish(x, mask, n_segments, scale, stats, sums, own, dy, y,
+                       dpre, residual):
+    fn = kernels.load("norm_backward", _K21_FINISH_ARGS,
+                      symbol="masked_norm_backward_finish")
+    dev = _k21_check("masked_norm_backward_sync", x, mask, n_segments, stats,
+                     dy, y, dpre, scale)
+    M, C = x.shape
+    S = n_segments
+    kernels.require_cuda("masked_norm_backward_sync", sums, own,
+                         dtypes=(torch.float32, torch.float32))
+    if sums.shape != (S, 1 + 2 * C) or own.shape != sums.shape:
+        raise ValueError("masked_norm_backward_sync: sums shape")
+    blocks, rows = k21_grid(M, C, _k21_resident(dev))
+    grads = x.new_empty(2 * C, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(x) if residual else None
+    p = kernels.ptr
+    err = fn(x.data_ptr(), dy.data_ptr(), p(y), p(dpre), mask.data_ptr(),
+             scale.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+             own.data_ptr(), S, M // S,
+             C, rows, dx.data_ptr(), p(dres), grads.data_ptr(),
+             grads.data_ptr() + 4 * C, kernels.stream_handle(dev))
+    kernels.check_launch("masked_norm_backward_sync", err)
+    return dx, dres, grads[:C], grads[C:]
+
+
 # ---------------------------------------------------------------- the norms
 
 
 def _save_for_norm_backward(ctx, x, mask, scale, stats, out, n_segments,
-                            relu, residual, skip, counter):
+                            relu, residual, skip, counter, group=None):
     y = out[0] if skip else out
     ctx.save_for_backward(x, mask, scale, stats,
                           y if relu or residual is not None else None)
     ctx.n_segments, ctx.residual, ctx.counter = (n_segments,
                                                  residual is not None,
                                                  counter)
+    ctx.group = group
     ctx.set_materialize_grads(False)
 
 
 def _norm_backward(ctx, dy, dpre=None):
-    """dX, dscale, dbias and dresidual of a norm with its tail: K21."""
+    """dX, dscale, dbias and dresidual of a norm with its tail: K21; under
+    sync-BN its two-launch form around one all_reduce of the sums."""
     x, mask, scale, stats, y = ctx.saved_tensors
     dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
     if dpre is not None:
         dpre = dpre.to(x.dtype).contiguous()
-    dx, dres, dscale, dbias = masked_norm_backward(
-        x, mask, ctx.n_segments, scale, stats, dy, y, dpre, ctx.residual,
-        counter=ctx.counter)
+    if ctx.group is None:
+        dx, dres, dscale, dbias = masked_norm_backward(
+            x, mask, ctx.n_segments, scale, stats, dy, y, dpre,
+            ctx.residual, counter=ctx.counter)
+    else:
+        own = masked_norm_backward_sums(x, mask, ctx.n_segments, stats, dy,
+                                        y, dpre)
+        sums = own.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx, dres, dscale, dbias = masked_norm_backward_finish(
+            x, mask, ctx.n_segments, scale, stats, sums, own, dy, y, dpre,
+            ctx.residual)
     return dx, None, dscale, dbias, dres
 
 
@@ -453,22 +618,25 @@ class MaskedBatchNormFunction(torch.autograd.Function):
     """The batch norm's apply with its tail, given the batch statistics
     `stats` [1, 3C] (mean, rstd, live; `masked_batch_norm` makes them from
     K7's sums): K22 with g = rstd scale, off = bias - mean g; backward K21
-    at S = 1. Returns y, or (y, y0) when `skip`."""
+    at S = 1, over the ranks of `group` when given (sync-BN). Returns y,
+    or (y, y0) when `skip`."""
 
     @staticmethod
-    def forward(ctx, x, mask, scale, bias, residual, stats, relu, skip):
+    def forward(ctx, x, mask, scale, bias, residual, stats, relu, skip,
+                group):
         C = x.shape[1]
         g = stats[:, C:2 * C] * scale
         gof = torch.cat([g, bias - stats[:, :C] * g], dim=1)
         out = masked_norm_apply(x, mask, gof, relu=relu, residual=residual,
                                 skip=skip)
         _save_for_norm_backward(ctx, x, mask, scale, stats, out, 1, relu,
-                                residual, skip, "masked_norm_backward_bn")
+                                residual, skip, "masked_norm_backward_bn",
+                                group)
         return out
 
     @staticmethod
     def backward(ctx, dy, dpre=None):
-        return _norm_backward(ctx, dy, dpre) + (None, None, None)
+        return _norm_backward(ctx, dy, dpre) + (None, None, None, None)
 
 
 class MaskedInstanceNormFunction(torch.autograd.Function):
@@ -493,7 +661,8 @@ class MaskedInstanceNormFunction(torch.autograd.Function):
 
 def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
                       momentum: float | None = 0.05, eps: float = 1e-5,
-                      relu: bool = False, residual=None, skip: bool = False):
+                      relu: bool = False, residual=None, skip: bool = False,
+                      group=None):
     """Train-mode masked BN: x [M, C] (bf16 on the card, bf16 or f32 on
     the CPU), mask [M] bool, scale / bias [C] f32 parameters, then the
     fused tail of `masked_norm_apply` (relu, residual, skip). Returns y
@@ -502,10 +671,14 @@ def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
     run + momentum batch (unbiased var, as norm.py:60-64); momentum None
     leaves them as they are (JAX discarding the new state, as the EYOC
     labeler's forwards do). The statistics are K7's sums, the apply K22,
-    the backward K21."""
+    the backward K21. With a process group `group` (sync-BN), the sums and
+    the backward's sums are every rank's (`sync_group`)."""
     C = x.shape[1]
+    group = sync_group(group)
     with torch.no_grad():
         sums = masked_channel_sums(x, mask)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
         stats, var = _segment_stats(sums[:1], sums[None, 1:1 + C],
                                     sums[None, 1 + C:], eps)
         if momentum is not None:
@@ -514,7 +687,7 @@ def masked_batch_norm(x, mask, scale, bias, running_mean, running_var, *,
             running_mean.mul_(1.0 - momentum).add_(momentum * stats[0, :C])
             running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
     return MaskedBatchNormFunction.apply(x, mask, scale, bias, residual,
-                                         stats, relu, skip)
+                                         stats, relu, skip, group)
 
 
 def instance_norm_train(x, mask, n_segments: int, scale, bias, *,

@@ -17,8 +17,9 @@ mechanical:
 
 MinkowskiEngine's kernel tap order (the last coordinate axis fastest) is
 the port's, so kernels copy through with no permutation; an instance norm
-carries its affine only. ResUNetExpBN2C (two (norm, block) repeats a level)
-stays refused, as `ResUNet` refuses it.
+carries its affine only. ResUNetExpBN2C's repeats map the same way:
+norm{l}_{r}.bn.* -> norm{l}_{r}.*, block{l}_{r}.* -> block{l}_{r}.* (the
+JAX importer's template, eyoc_tpu/tools/import_torch_ckpt.py:183-222).
 
 Loading uses `torch.load(..., weights_only=True)`; a checkpoint that it
 refuses (the reference pickles its config as an easydict) is read by a

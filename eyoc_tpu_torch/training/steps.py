@@ -34,6 +34,12 @@ Random draws: JAX splits one key per step (and one a micro-batch); the
 port takes the same draws as explicit tensors (`StepDraws`, a list of them
 for micro-batches) so that a test can feed it the JAX step's own numbers,
 or draws them from a torch.Generator.
+
+Data parallelism (parallel/ddp.dp_train_step, steps.py's `axis_name`): with
+a process group `group`, each rank runs the step on its own pairs, the
+student's BatchNorms synchronized over the group (the labeler's only with
+`labeler_sync_bn`, steps.py:180-199), and the gradients and the metrics are
+averaged over the ranks before the optimizer's step.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from eyoc_tpu_torch.eval import random_subset
 from eyoc_tpu_torch.geometry.metrics import hit_ratio
 from eyoc_tpu_torch.geometry.se3 import transform_points
 from eyoc_tpu_torch.ops.knn import masked_argmin_batched
+from eyoc_tpu_torch.parallel.ddp import average_gradients, average_metrics
 from eyoc_tpu_torch.ops.matching import (SimilarityTables, compact_matches,
                                          mutual_topk_matches,
                                          spatial_filter_mask)
@@ -70,9 +77,9 @@ class TrainConfig:
     trainers read, with JAX's defaults.
 
     `labeler_sync_bn` synchronizes the labeler's BN statistics over the
-    data-parallel devices in JAX; at the port's one device it has no
-    effect, as in JAX without a dp axis (data parallelism is ROADMAP.md
-    queue 1 item 5)."""
+    data-parallel ranks (parallel/ddp.py); by default the labeler's
+    forwards take each rank's own statistics, as JAX's. `normalize_feature`
+    (steps.py:128) reaches every forward of the steps."""
 
     caps: tuple
     voxel_size: float = 0.3
@@ -99,6 +106,7 @@ class TrainConfig:
     hit_ratio_thresh: float = 0.1
     label_min_translation_frac: float = 0.0
     labeler_sync_bn: bool = False
+    normalize_feature: bool = True
     # the metric loss (the trainer registry, reference train.py:35-51)
     loss_kind: str = "hardest_contrastive"
     triplet_num_pos: int = 1024
@@ -264,13 +272,16 @@ def _metric_loss(cfg: TrainConfig, f0, m0, f1, m1, pos,
 
 
 def _student_loss(model, cfg: TrainConfig, vox0, pyr0, vox1, pyr1, in0, in1,
-                  pos, loss_draws: LossDraws, stage):
+                  pos, loss_draws: LossDraws, stage, group=None):
     """The student half's forward (steps.py:_grads): train-mode forwards of
-    both sides and the metric loss. Returns (loss, metrics: loss, pos_loss
-    and neg_loss as detached 0-d tensors)."""
+    both sides (BN over the ranks of `group` when given) and the metric
+    loss. Returns (loss, metrics: loss, pos_loss and neg_loss as detached
+    0-d tensors)."""
     model.train()
-    f0 = model(pyr0, in0, bn_momentum=cfg.bn_momentum)
-    f1 = model(pyr1, in1, bn_momentum=cfg.bn_momentum)
+    kw = dict(bn_momentum=cfg.bn_momentum,
+              normalize_feature=cfg.normalize_feature, group=group)
+    f0 = model(pyr0, in0, **kw)
+    f1 = model(pyr1, in1, **kw)
     stage("forward")
     loss, pos_term, neg_term = _metric_loss(
         cfg, f0, pyr0.vox_masks[0], f1, pyr1.vox_masks[0], pos, loss_draws,
@@ -281,12 +292,13 @@ def _student_loss(model, cfg: TrainConfig, vox0, pyr0, vox1, pyr1, in0, in1,
 
 
 def _accumulate(opt: torch.optim.Optimizer, micro, batches, draws,
-                stage) -> dict:
+                stage, group=None) -> dict:
     """`_wrap_accumulating` (steps.py:330-375): `micro(batch, draws)` ->
     (loss, metrics) on each micro-batch in order at the same parameters,
     (loss / n).backward() accumulating the averaged gradients (the BN
     running statistics chain through the forwards), the metrics averaged,
-    then one optimizer step."""
+    then one optimizer step; with a process group, the gradients and the
+    metrics averaged over its ranks first (steps.py:310-311, :349-351)."""
     n = len(batches)
     opt.zero_grad(set_to_none=True)
     total: dict = {}
@@ -296,16 +308,22 @@ def _accumulate(opt: torch.optim.Optimizer, micro, batches, draws,
         stage("backward")
         for k, v in metrics.items():
             total[k] = total[k] + v if k in total else v
+    if n > 1:
+        total = {k: v / n for k, v in total.items()}
+    if group is not None:
+        average_gradients((p for g in opt.param_groups for p in g["params"]),
+                          group)
+        total = average_metrics(total, group)
     opt.step()
     stage("optimizer")
-    return {k: v / n for k, v in total.items()} if n > 1 else total
+    return total
 
 
 def base_train_step(model, opt: torch.optim.Optimizer, batch,
                     cfg: TrainConfig, draws=None,
                     generator: torch.Generator | None = None, device=None,
                     timings: dict | None = None,
-                    label_mode: str = "gt") -> dict:
+                    label_mode: str = "gt", group=None) -> dict:
     """One supervised step on `batch` (a RawBatch, or cfg.iter_size
     micro-batches: see `micro_batches`; moved to `device`), its positive
     pairs the GT pairs under the ground-truth pose (label_mode "gt") or the
@@ -317,7 +335,8 @@ def base_train_step(model, opt: torch.optim.Optimizer, batch,
     `num_pos_found` (averaged over micro-batches) as 0-d tensors on the
     device (no host sync). With a `timings` dict, adds host-clock ms per
     stage (preprocess, gt_pairs, forward, loss, backward, optimizer),
-    synchronizing after each."""
+    synchronizing after each. `group`: a process group of data-parallel
+    ranks (parallel/ddp.dp_train_step), `batch` this rank's pairs."""
     if label_mode not in ("gt", "identity"):
         raise ValueError(f"unknown label_mode {label_mode!r}")
     device = resolve_device(device)
@@ -338,11 +357,11 @@ def base_train_step(model, opt: torch.optim.Optimizer, batch,
         stage("gt_pairs")
         loss, metrics = _student_loss(model, cfg, vox0, pyr0, vox1, pyr1,
                                       *_inputs(cfg, draws, B * cap0), pos,
-                                      draws.loss, stage)
+                                      draws.loss, stage, group)
         metrics["num_pos_found"] = ok.sum().to(torch.float32)
         return loss, metrics
 
-    return _accumulate(opt, micro, batches, draws, stage)
+    return _accumulate(opt, micro, batches, draws, stage, group)
 
 
 class Labels(NamedTuple):
@@ -428,7 +447,8 @@ def extension_train_step(model, labeler, opt: torch.optim.Optimizer,
                          similarity: SimilarityTables | None = None,
                          draws=None,
                          generator: torch.Generator | None = None,
-                         device=None, timings: dict | None = None) -> dict:
+                         device=None, timings: dict | None = None,
+                         group=None) -> dict:
     """One EYOC extension step on `batch` (steps.py:470-513; a RawBatch, or
     cfg.iter_size micro-batches as `base_train_step` takes them).
 
@@ -440,7 +460,8 @@ def extension_train_step(model, labeler, opt: torch.optim.Optimizer,
     plus `labeler_hit_ratio`, 0-d tensors on the device. With a `timings`
     dict, adds host-clock ms per stage (preprocess, labeler_forward,
     matching, filter, sc2pcr, rediscovery, forward, loss, backward,
-    optimizer), synchronizing after each."""
+    optimizer), synchronizing after each. `group`: as `base_train_step`'s;
+    the labeler's BN takes it only with `cfg.labeler_sync_bn`."""
     device = resolve_device(device)
     stage = _Stages(timings, device)
     batches = [b.to(device) for b in micro_batches(batch, cfg.iter_size)]
@@ -453,18 +474,21 @@ def extension_train_step(model, labeler, opt: torch.optim.Optimizer,
         stage("preprocess")
         in0, in1 = _inputs(cfg, draws, B * cap0)
         labeler.train()
+        kw = dict(bn_momentum=None, normalize_feature=cfg.normalize_feature,
+                  group=group if cfg.labeler_sync_bn else None)
         with torch.no_grad():
-            F0L = labeler(pyr0, in0, bn_momentum=None).reshape(B, cap0, -1)
-            F1L = labeler(pyr1, in1, bn_momentum=None).reshape(B, cap0, -1)
+            F0L = labeler(pyr0, in0, **kw).reshape(B, cap0, -1)
+            F1L = labeler(pyr1, in1, **kw).reshape(B, cap0, -1)
         stage("labeler_forward")
         lab = label_pairs(cfg, F0L, vox0.mask, vox0.xyz, F1L, vox1.mask,
                           vox1.xyz, batch.frame_distance, batch.T_gt,
                           draws.rediscovery, similarity, stage)
         pos = flatten_pairs(lab.pos_i, lab.pos_j, lab.ok, cap0, cap0)
         loss, metrics = _student_loss(model, cfg, vox0, pyr0, vox1, pyr1,
-                                      in0, in1, pos, draws.loss, stage)
+                                      in0, in1, pos, draws.loss, stage,
+                                      group)
         metrics["labeler_hit_ratio"] = lab.labeler_hit.mean()
         metrics["num_pos_found"] = lab.ok.sum().to(torch.float32)
         return loss, metrics
 
-    return _accumulate(opt, micro, batches, draws, stage)
+    return _accumulate(opt, micro, batches, draws, stage, group)

@@ -17,8 +17,17 @@ and the valid step `eval.valid_pair`.
 The student and the labeler are two ResUNets on the trainer's device (the
 CUDA device unless the caller passes one); the steps' random numbers come
 from one torch.Generator seeded seed + 1 (JAX's TrainState key), which the
-checkpoint saves. One device only: `--dp_devices` above 1 and
-`--multihost` raise (data parallelism is ROADMAP.md queue 1 item 5).
+checkpoint saves.
+
+Data parallelism (trainer.py:116-120, :143-150, :181-194, :255-308): under
+torchrun, `--dp_devices` (-1: the largest count of ranks that divides the
+batch) ranks each take B / D pairs of every batch through
+`parallel.ddp.dp_train_step` (sync-BN, averaged gradients and metrics; the
+same draws on every rank, each rank's generator seeded alike); a batch
+that D does not divide raises ValueError, and D must be the number of
+ranks. Validation goes one pair a rank (`dp_valid_pair`) only when
+val_batch_size is D, else every rank runs it serially. Only rank 0 writes
+the config, checkpoints, scalars and logs.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from eyoc_tpu_torch.data.loader import DataLoader
 from eyoc_tpu_torch.eval import EvalConfig, valid_pair
 from eyoc_tpu_torch.models import init_unet, load_model
 from eyoc_tpu_torch.ops.matching import load_similarity_tables
+from eyoc_tpu_torch.parallel import ddp
 from eyoc_tpu_torch.registration.sc2pcr import SC2PCRConfig
 from eyoc_tpu_torch.training import checkpoint as ckpt
 from eyoc_tpu_torch.training.optim import (OPTIMIZERS, exp_lr, make_optimizer,
@@ -92,6 +102,7 @@ def build_step_config(config: Config, spec, *,
         loss_kind=loss_kind,
         triplet_num_pos=config.triplet_num_pos * config.batch_size,
         triplet_num_rand=config.triplet_num_rand * config.batch_size,
+        normalize_feature=bool(config.get("normalize_feature", True)),
         optimizer=config.get("optimizer", "SGD"),
         adam_betas=(config.get("adam_beta1", 0.9),
                     config.get("adam_beta2", 0.999)),
@@ -126,16 +137,18 @@ class AlignmentTrainer:
             raise ValueError(
                 f"unknown optimizer {config.get('optimizer')!r}; "
                 "available: " + ", ".join(OPTIMIZERS))
-        dp = int(config.get("dp_devices", -1))
-        if dp > 1 or config.get("multihost", False):
-            raise NotImplementedError(
-                f"dp_devices {dp}, multihost {config.get('multihost')}: the "
-                "port trains on one device (-1 or 1); data parallelism is "
-                "ROADMAP.md queue 1 item 5")
-        if not config.get("normalize_feature", True):
-            raise NotImplementedError(
-                "normalize_feature False: the port's ResUNet always "
-                "L2-normalizes its features (ROADMAP.md queue 1 item 4)")
+        ddp.maybe_distributed_init(config, device)
+        self.dp = ddp.dp_device_count(config)
+        if self.dp > 1 and config.batch_size % self.dp != 0:
+            raise ValueError(
+                f"batch_size {config.batch_size} not divisible by "
+                f"dp_devices {self.dp}")
+        if self.dp > 1 and self.dp != ddp.world_size():
+            raise ValueError(
+                f"dp_devices {self.dp} of {ddp.world_size()} ranks: launch "
+                "as many ranks as data-parallel devices")
+        self.group = ddp.dist.group.WORLD if self.dp > 1 else None
+        self.rank0 = ddp.rank() == 0
         self.device = resolve_device(device)
         self.max_epoch = config.max_epoch
         self.val_epoch_freq = config.val_epoch_freq
@@ -144,15 +157,19 @@ class AlignmentTrainer:
         self.best_val_epoch = -1
         self.start_epoch = 1
         self.checkpoint_dir = config.out_dir
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
-        config.save(os.path.join(self.checkpoint_dir, "config.json"))
-        self.writer = ScalarWriter(config.out_dir)
+        if self.rank0:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            config.save(os.path.join(self.checkpoint_dir, "config.json"))
+        self.writer = ScalarWriter(config.out_dir) if self.rank0 else None
 
         self.spec = load_model(config.model)
         seed = config.get("seed", 0)
         self.model = init_unet(
             self.spec, torch.Generator().manual_seed(seed), 1,
             config.model_n_out, config.conv1_kernel_size, device=self.device)
+        # the eval entry points (validation) read the model's setting
+        self.model.normalize_feature = bool(
+            config.get("normalize_feature", True))
         # the labeler mirrors the student; inert until extension mode
         self.labeler = copy.deepcopy(self.model)
         self.num_updates = 0
@@ -175,13 +192,24 @@ class AlignmentTrainer:
             ckpt.load_weights_only(config.weights, self.model)
         if config.resume:
             self._resume(config.resume, config.finetune_restart)
+        if self.group is not None:
+            self._info(f"data parallelism over {self.dp} ranks")
 
     # ------------------------------------------------------------- helpers
+
+    def _info(self, msg: str) -> None:
+        """Log on rank 0 only."""
+        if self.rank0:
+            logging.info(msg)
+
+    def _scalar(self, tag: str, value, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
 
     def _resume(self, path_base: str, finetune_restart: bool):
         if finetune_restart:
             ckpt.load_weights_only(path_base, self.model)
-            logging.info("=> Finetuning, loaded model weights only")
+            self._info("=> Finetuning, loaded model weights only")
             return
         self.num_updates, meta = ckpt.load_checkpoint(
             path_base, self.model, self.labeler, self.opt, self.generator)
@@ -189,28 +217,43 @@ class AlignmentTrainer:
         self.best_val = float(meta.get("best_val", -np.inf))
         self.best_val_epoch = int(meta.get("best_val_epoch", -1))
         self.best_val_metric = meta.get("best_val_metric", self.best_val_metric)
-        logging.info(f"=> resumed from {path_base} at epoch {self.start_epoch}")
+        self._info(f"=> resumed from {path_base} at epoch {self.start_epoch}")
 
     def _base_step(self, label_mode: str):
-        """step(batch, lr) -> metrics: one base_train_step."""
+        """step(batch, lr) -> metrics: one base_train_step (under data
+        parallelism, on this rank's pairs)."""
         def step(batch, lr):
             set_lr(self.opt, lr)
+            kw = dict(generator=self.generator, device=self.device,
+                      label_mode=label_mode)
+            if self.group is not None:
+                return ddp.dp_train_step("base", self.model, self.opt, batch,
+                                         self.step_cfg, group=self.group,
+                                         **kw)
             return base_train_step(self.model, self.opt, batch,
-                                   self.step_cfg, generator=self.generator,
-                                   device=self.device, label_mode=label_mode)
+                                   self.step_cfg, **kw)
         return step
 
     def _extension_step(self):
-        """step(batch, lr) -> metrics: one extension_train_step."""
+        """step(batch, lr) -> metrics: one extension_train_step (under data
+        parallelism, on this rank's pairs)."""
         def step(batch, lr):
             set_lr(self.opt, lr)
+            kw = dict(similarity=self.similarity, generator=self.generator,
+                      device=self.device)
+            if self.group is not None:
+                return ddp.dp_train_step("extension", self.model, self.opt,
+                                         batch, self.step_cfg,
+                                         group=self.group,
+                                         labeler=self.labeler, **kw)
             return extension_train_step(
                 self.model, self.labeler, self.opt, batch, self.step_cfg,
-                similarity=self.similarity, generator=self.generator,
-                device=self.device)
+                **kw)
         return step
 
     def _save(self, epoch, name="checkpoint"):
+        if not self.rank0:
+            return
         ckpt.save_checkpoint(
             self.checkpoint_dir, name, epoch=epoch, model=self.model,
             labeler=self.labeler, opt=self.opt, num_updates=self.num_updates,
@@ -223,16 +266,16 @@ class AlignmentTrainer:
     def train(self):
         for epoch in range(self.start_epoch, self.max_epoch + 1):
             lr = exp_lr(self.config.lr, self.config.exp_gamma, epoch)
-            logging.info(f" Epoch: {epoch}, LR: {lr:.6g}")
+            self._info(f" Epoch: {epoch}, LR: {lr:.6g}")
             self._train_epoch(epoch, lr)
             self._save(epoch)
             if (self.val_data_loader is not None
                     and epoch % self.val_epoch_freq == 0):
                 val = self._valid_epoch()
                 for k, v in val.items():
-                    self.writer.add_scalar(f"val/{k}", v, epoch)
+                    self._scalar(f"val/{k}", v, epoch)
                 if self.best_val < val[self.best_val_metric]:
-                    logging.info(
+                    self._info(
                         f"Saving best val model {self.best_val_metric}="
                         f"{val[self.best_val_metric]:.4f}")
                     self.best_val = val[self.best_val_metric]
@@ -269,8 +312,8 @@ class AlignmentTrainer:
             total_timer.toc()
             if curr_iter % self.config.stat_freq == 0:
                 for k in ("loss", "pos_loss", "neg_loss", *extra_meters):
-                    self.writer.add_scalar(f"train/{k}", meters[k].val,
-                                           start_iter + curr_iter)
+                    self._scalar(f"train/{k}", meters[k].val,
+                                 start_iter + curr_iter)
                 msg = (
                     f"Train Epoch: {epoch} [{curr_iter}/{n_steps}], "
                     f"Loss: {meters['loss'].val:.3e} "
@@ -280,7 +323,7 @@ class AlignmentTrainer:
                 )
                 for k in extra_meters:
                     msg += f"\t{k}: {meters[k].avg:.3f}"
-                logging.info(msg)
+                self._info(msg)
         self.epoch_log.append(dict(
             epoch=epoch, steps=n_steps,
             kind="extension" if "labeler_hit_ratio" in extra_meters
@@ -292,13 +335,22 @@ class AlignmentTrainer:
 
     def _valid_epoch(self):
         """reference lib/trainer.py:1736-1826: the valid step on the first
-        pair of each validation batch (`eval.valid_pair`),
-        feat_match_ratio = mean(hit_ratio > 0.05); pairs whose RRE is not
-        finite are skipped."""
+        pair of each validation batch (`eval.valid_pair`), or under data
+        parallelism with val_batch_size D on each batch's D pairs, one a
+        rank (`ddp.dp_valid_pair`, trainer.py:255-308); feat_match_ratio =
+        mean(hit_ratio > 0.05); pairs whose RRE is not finite are
+        skipped."""
+        val_bs = getattr(self.val_data_loader, "batch_size", 1)
+        use_dp = self.group is not None and val_bs == self.dp
         if self._valid_step is None:
-            self._valid_step = functools.partial(
-                valid_pair, self.model, cfg=self.eval_cfg,
-                device=self.device)
+            if use_dp:
+                self._valid_step = functools.partial(
+                    ddp.dp_valid_pair, self.model, cfg=self.eval_cfg,
+                    group=self.group, device=self.device)
+            else:
+                self._valid_step = functools.partial(
+                    valid_pair, self.model, cfg=self.eval_cfg,
+                    device=self.device)
         self.val_data_loader.dataset.reset_seed(0)
         meters = {k: AverageMeter() for k in ("loss", "rte", "rre",
                                               "hit_ratio")}
@@ -310,16 +362,19 @@ class AlignmentTrainer:
         it = iter(self.val_data_loader)
         for _ in range(max_iter):
             batch = next(it)
-            out = {k: float(v) for k, v in
-                   self._valid_step(batch, generator=gen).items()}
-            if not np.isfinite(out["rre"]):
-                continue
-            for k, m in meters.items():
-                m.update(out[k])
-            fmr.update(float(out["hit_ratio"] > 0.05))
+            outs = self._valid_step(batch, generator=gen)
+            per_pair = ([{k: float(v[d]) for k, v in outs.items()}
+                         for d in range(self.dp)] if use_dp else
+                        [{k: float(v) for k, v in outs.items()}])
+            for out in per_pair:
+                if not np.isfinite(out["rre"]):
+                    continue
+                for k, m in meters.items():
+                    m.update(out[k])
+                fmr.update(float(out["hit_ratio"] > 0.05))
         res = {k: m.avg for k, m in meters.items()}
         res["feat_match_ratio"] = fmr.avg
-        logging.info(
+        self._info(
             f"Validation: loss {res['loss']:.4f} rte {res['rte']:.4f} "
             f"rre {res['rre']:.4f} hit_ratio {res['hit_ratio']:.4f} "
             f"feat_match_ratio {res['feat_match_ratio']:.4f}")
@@ -374,8 +429,8 @@ class ContinuousCorrExtensionTrainer(HardestContrastiveLossTrainer):
         if hasattr(ds, "update_extension_distance"):
             new_dist = ds.update_extension_distance(epoch)
             if new_dist:
-                logging.info(f"Dataset extension: MAX_DIST={new_dist}, "
-                             f"{len(ds)} pairs")
+                self._info(f"Dataset extension: MAX_DIST={new_dist}, "
+                           f"{len(ds)} pairs")
         base_mode = ds.is_base_dataset()
         self._sync_labeler(base_mode)
 
@@ -416,7 +471,7 @@ class CorrespondenceExtensionTrainer(ContinuousCorrExtensionTrainer):
         if labeler_path:
             ckpt.load_weights_only(labeler_path, self.labeler)
             self.labeler_initialized = True
-            logging.info(
+            self._info(
                 f"Loaded frozen labeler from {labeler_path}"
                 + (f" (labeler pair_max_dist={self.labeler_max_dist})"
                    if self.labeler_max_dist is not None else ""))
@@ -436,8 +491,8 @@ class ContinuousHardestContrastiveTrainer(HardestContrastiveLossTrainer):
         if hasattr(ds, "update_extension_distance"):
             new_dist = ds.update_extension_distance(epoch)
             if new_dist:
-                logging.info(f"Dataset extension: MAX_DIST={new_dist}, "
-                             f"{len(ds)} pairs")
+                self._info(f"Dataset extension: MAX_DIST={new_dist}, "
+                           f"{len(ds)} pairs")
                 # best-val resets on extension (reference :1920-1926)
                 self.best_val = -np.inf
         mode = ("identity" if (ds.is_base_dataset()

@@ -18,13 +18,15 @@ its main path went through. A source may hold more than one entry point
 K8 and K9, K14, K15, K23 and K24 in `sc2_refine`, K16-K18 in `ransac`,
 K20 and K22 in `instance_norm`; K19 and K21 are entry points named apart
 from their sources), and one kernel
-may be counted under two names (K1 as the forward conv and as the conv
-backward's dX; K16's single-stage and two-stage entries; K21 as the
-instance norm's backward and as the batch norm's), so the
+may be counted under several names (K1 as the forward conv and as the
+conv backward's dX; K16's single-stage and two-stage entries; K21 as the
+instance norm's backward, as the batch norm's, and as sync-BN's
+two-launch form), so the
 counters are `COUNTERS`: the sources in `KERNELS` with an entry point of
 their own name, and the other entry points. A wrapper call that makes
 several launches (K4's top k, K10, K11, K12, K14, K16, K17, K20, K23)
-counts one; K3 and K21 are one cooperative launch each.
+counts one; K3 and K21 are one cooperative launch each (sync-BN's K21
+two, around a collective, counted once at the second).
 
 The launch path is part of a small kernel's time: a call that moves a few
 hundred KB runs for a microsecond or two on the card, and the host's work
@@ -63,7 +65,8 @@ COUNTERS = tuple(k for k in KERNELS if k not in (
     "ransac_hypotheses", "ransac_hypotheses_topk", "ransac_verify",
     "ransac_polish", "icp_solve", "est_quad_linear_robust",
     "masked_instance_norm", "masked_norm_apply", "masked_norm_backward",
-    "masked_norm_backward_bn", "sc2_power_iteration_bf16",
+    "masked_norm_backward_bn", "masked_norm_backward_sync",
+    "sc2_power_iteration_bf16",
     "sc2_seed_transforms_jacobi", "sc2_irls_jacobi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -16,7 +16,8 @@ goldens:
 - `write_test_config` writes the JAX tool's config.json for the same
   checkpoint;
 - `save_imported` then `training.checkpoint.load_weights_only` round-trips
-  every tensor, and `main` refuses ResUNetExpBN2C; a checkpoint whose
+  every tensor, and `main` imports ResUNetExpBN2C (a SimpleNetBNE
+  checkpoint taken for one raises); a checkpoint whose
   config torch.load(weights_only=True) refuses goes through the zip reader.
 """
 
@@ -32,7 +33,7 @@ import torch
 from eyoc_tpu.models import init_unet as jinit
 from eyoc_tpu.models import load_model as jload
 from eyoc_tpu.tools import import_torch_ckpt as J
-from eyoc_tpu_torch.models import ResUNet, load_model
+from eyoc_tpu_torch.models import ResUNet, init_unet, load_model
 from eyoc_tpu_torch.models.convert import params_from_jax
 from eyoc_tpu_torch.tools import import_torch_ckpt as T
 from eyoc_tpu_torch.training.checkpoint import load_weights_only
@@ -177,9 +178,27 @@ def test_save_imported_round_trip_and_main(tmp_path, capsys):
     assert meta["epoch"] == 7 and meta["config"]["model"] == "SimpleNetBNE"
     with open(os.path.join(out, "config.json")) as f:
         assert json.load(f)["model"] == "SimpleNetBNE"
-    with pytest.raises(ValueError, match="repeats"):
+    # a SimpleNetBNE checkpoint is no ResUNetExpBN2C
+    with pytest.raises(ValueError, match="missing key|kernel shape"):
         T.main(["--input", path, "--output_dir", out, "--model",
                 "ResUNetExpBN2C"])
+    # ResUNetExpBN2C imports (its norm{l}_{r} / block{l}_{r} keys): a
+    # reference-style checkpoint of the port's init, exported by the port,
+    # comes back bit for bit
+    exp = init_unet(load_model("ResUNetExpBN2C"), torch.Generator()
+                    .manual_seed(1), 1, 32, 5, device="cpu")
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          T.params_to_torch_state_dict(exp.state_dict()).items()}
+    assert "norm2_tr_2.bn.running_var" in sd and "block1_2.conv1.kernel" in sd
+    exp_path = str(tmp_path / "exp.pth")
+    torch.save({"epoch": 1, "state_dict": sd,
+                "config": {"model": "ResUNetExpBN2C"}}, exp_path)
+    T.main(["--input", exp_path, "--output_dir", str(tmp_path / "exp")])
+    assert "imported ResUNetExpBN2C" in capsys.readouterr().out
+    back = ResUNet(load_model("ResUNetExpBN2C"), dtype=torch.float32)
+    load_weights_only(str(tmp_path / "exp" / "checkpoint"), back)
+    for k, v in exp.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
 
 
 def test_missing_key_raises():

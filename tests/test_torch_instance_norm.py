@@ -327,7 +327,8 @@ def test_in_model_refuses_train_mode():
     backward are held against JAX in test_torch_train_model.py): train()
     takes it, a forward there under no_grad runs K20's plain version alone
     and leaves the features of the eval forward's norms; a spec with two
-    (norm, block) repeats a level is still refused."""
+    (norm, block) repeats a level (ResUNetExpBN2C) is no longer refused:
+    it builds, in train mode too."""
     model = init_unet(load_model("SimpleNetINE"), torch.Generator()
                       .manual_seed(0), 1, 16, 3, dtype=torch.float32,
                       device="cpu")
@@ -342,8 +343,8 @@ def test_in_model_refuses_train_mode():
     np.testing.assert_allclose(got.numpy(), model.embed(pyr).numpy(),
                                rtol=0, atol=1e-5)
     model.eval()
-    with pytest.raises(ValueError):
-        ResUNet(load_model("ResUNetExpBN2C"))          # repeats == 2
+    exp = ResUNet(load_model("ResUNetExpBN2C"))          # repeats == 2
+    assert exp.train() is exp and exp.training
 
 
 def test_extract_features_runs_an_in_model():

@@ -161,5 +161,13 @@ def test_bf16_forward_close_to_f32():
 
 
 def test_non_foldable_spec_rejected():
-    with pytest.raises(ValueError):
-        ResUNet(load_model("ResUNetExpBN2C"))
+    """ResUNetExpBN2C (its repeat norms fold into no conv) builds now, with
+    two (norm, block) pairs a level (its forwards are held against JAX in
+    test_torch_expbn2c*.py); repeats without residual blocks, which no
+    registered spec has, are still rejected."""
+    model = ResUNet(load_model("ResUNetExpBN2C"))
+    names = dict(model.named_modules())
+    assert {"norm1_2", "block1_2", "norm4_2", "norm2_tr_2",
+            "block4_tr_2"} <= set(names)
+    with pytest.raises(ValueError, match="repeats"):
+        ResUNet(UNetSpec("x", "BN", None, (8, 16), (8, 16), repeats=2))

@@ -13,7 +13,8 @@
   the same batch and draws, RR the mean of `registration_success` on those
   poses; RANSAC (the default H = 1M hypotheses) is left to the card
   (chip_smoke.py phase 10);
-- `--dp_devices 2` raises, naming ROADMAP.md queue 1 item 5;
+- `--dp_devices 2` in one process clamps to the one rank there is (as the
+  JAX CLI clamps it to its devices): the loader takes batches of 1;
 - the Feat timer spans the batch's host-to-device copy (`RawBatch.to`),
   as the JAX CLI's does (its embed takes the host batch): one pair of the
   runbook's tree with a recording Timer and a recording `to`.
@@ -82,12 +83,26 @@ def test_config_matches_jax(tmp_path, argv):
     assert got == want and list(got) == list(want)
 
 
-def test_dp_devices_raise(tmp_path):
+class _Loader(RuntimeError):
+    pass
+
+
+def test_dp_devices_raise(tmp_path, monkeypatch):
+    """`--dp_devices 2` with one rank no longer raises: it clamps to 1 (the
+    loader's batch size), as eyoc_tpu/cli/test.py:140 clamps it."""
+    sizes = []
+
+    def loader(config, phase, batch_size, **kw):
+        sizes.append(batch_size)
+        raise _Loader
+    monkeypatch.setattr(ttest, "make_data_loader", loader)
     args = ttest.parse_args(["--save_dir", save_dir(tmp_path),
                              "--dp_devices", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    assert args.dp_devices == 2
+    with pytest.raises(_Loader):
         ttest.main(ttest.load_test_config(args), dp=args.dp_devices,
                    device="cpu")
+    assert sizes == [1]
 
 
 def reference_checkpoint(path):

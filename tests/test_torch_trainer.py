@@ -21,7 +21,8 @@ no train step compiled or run.
     extension); CorrespondenceExtension with a frozen labeler from another
     run's directory.
 (c) the errors raised before any model is built: an unknown trainer, an
-    unknown optimizer, --dp_devices 2 or --multihost, a dataset the port
+    unknown optimizer, a batch that --dp_devices 2 does not divide (two
+    ranks), --multihost without torchrun's environment, a dataset the port
     lacks, a labeler run of another architecture; the registry's names.
 """
 
@@ -389,14 +390,20 @@ class _Built(RuntimeError):
 
 @pytest.mark.parametrize("over, error, match", [
     (dict(optimizer="RMSprop"), ValueError, "unknown optimizer 'RMSprop'"),
-    (dict(dp_devices=2), NotImplementedError, "queue 1 item 5"),
-    (dict(multihost=True), NotImplementedError, "queue 1 item 5"),
+    (dict(dp_devices=2, batch_size=3), ValueError,
+     "batch_size 3 not divisible by dp_devices 2"),
+    (dict(multihost=True), RuntimeError,
+     "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT"),
 ], ids=["optimizer", "dp_devices", "multihost"])
 def test_config_errors_raise_before_the_model(over, error, match, tmp_path,
                                               monkeypatch):
     def built(*a, **k):
         raise _Built("a model was built")
     monkeypatch.setattr(ttrainer, "init_unet", built)
+    # two ranks, as under torchrun; no torchrun environment
+    monkeypatch.setattr(ttrainer.ddp, "world_size", lambda group=None: 2)
+    for k in ttrainer.ddp.ENV:
+        monkeypatch.delenv(k, raising=False)
     cfg = base_config(tconfig, str(tmp_path), **over)
     with pytest.raises(error, match=match):
         ttrainer.HardestContrastiveLossTrainer(cfg, None, None, device="cpu")
