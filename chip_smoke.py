@@ -279,6 +279,35 @@ Phases (any failure exits non-zero):
      pass, all_reduce, finish pass) give those bits too, and each recorded
      two-launch call the one-launch form's bits and the plain version's
      values; the DP and plain steps' times in turns.
+13. the tail (`tail_phase`):
+   - the descriptor harness (benchmarks.descriptor_eval.main) at the
+     presets' size, every cloud 8000 keypoints of GT-consistent
+     descriptors with 30% corrupted rows: the KITTI preset over 4 FCGF-32
+     pairs without and with --use_icp, the 3DMatch preset's scene
+     protocol over 2 scenes of 3 FPFH-33 fragments (K2 on 64-wide
+     zero-padded columns) with --gt_benchmark_folder, and the 3DLoMatch
+     preset over a pickle index of 2 pairs; each run's kernels launched,
+     each pose the bits of sc2_pcr_estimator (and ICP) on the same padded
+     tensors and within phase 4's tolerances of its known pose, RR 100,
+     model_time printed; a pair of 8001 keypoints raising ValueError
+     before any launch; K2, K3, K4, K13-K15, icp_solve and ICP's K2 on
+     one pair's calls (B = 1, N = 8000, S = 1600, every row valid)
+     against their plain versions, the `_desc` rows;
+   - tools.record_similarity.main over phase 10's tree and imported
+     checkpoint (4 pairs, KITTINMPairDataset): K10-K12, K1, K2 and four K6
+     gathers a pair launched, the triples under `valid` the plain
+     gathers' (d0 / d1 bit-equal, cos within 1e-6), the tables read back
+     by load_similarity_tables and driving spatial_filter_mask as a host
+     lookup of the same cells; the step's ms a pair;
+   - the 3DMatch configuration: a synthetic 3DMatch tree (rooms 3.5-5 m
+     across, fragments of 100000 points filling ~26000 voxels at 2.5 cm),
+     cli.train.main with ThreeDMatchPairDataset at voxel 0.025 m and the
+     repo's defaults (ResUNetBN2C / 32, HardestContrastiveLossTrainer,
+     B = 4, rotation 360; window bits 9,9,9), each level's fill against
+     the host's distinct cells (no overflow), every kernel of the train
+     and valid steps launched, the loss finite; cli.test.main over the
+     test split (4 pairs, SC2-PCR, window bits 9,9,8): no point dropped,
+     each pose the bits of eval.test_pair; one step's device time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -298,7 +327,9 @@ switches: `sc2_power_iteration_bf16`, `sc2_seed_transforms_jacobi` and
 `sparse_conv_ci3` / `sparse_conv_ci6` (K1's packed route in
 extract_features; launches: the run's K1 launches), `masked_argmin_raw` /
 `masked_knn2_raw` (K2 and K8 on features that are not unit-norm) and
-`masked_norm_backward_sync` (K21's two-launch form); `ms`
+`masked_norm_backward_sync` (K21's two-launch form); phase 13 gives the
+`_desc` rows (the descriptor harness's K2, K3, K4, K13-K15, `icp_solve`
+and ICP's K2 at B = 1, N = 8000, S = 1600; launches: the KITTI runs'); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -307,10 +338,13 @@ needs one CUDA device and imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -5168,9 +5202,11 @@ def runbook_tree(root, drive):
     return time.perf_counter() - t0
 
 
-def runbook_phase(smi):
+def runbook_phase(smi, work):
     """Phase 10, the real-data runbook (README.md) through the port on the
-    card: a reference-style checkpoint (`reference_checkpoint`) imported by
+    card, in the directory `work` (phase 13 reads its tree and checkpoint
+    again; the caller removes it): a reference-style checkpoint
+    (`reference_checkpoint`) imported by
     `tools.import_torch_ckpt.main(... --write_test_config)`; a KITTI-format
     tree (`runbook_tree`: one drive of the test split); `cli.test.main`
     over it on KITTINMPairDataset (its ICP ground truth on the card), once
@@ -5180,11 +5216,11 @@ def runbook_phase(smi):
     pairs_per_sec and the Data / Feat / Reg times printed, each pair's pose
     the bits of `eval.test_pair` on the same batch and draws, and RR the
     mean of `registration_success` on those poses (RR is not asserted:
-    the weights are random). Returns {estimator: the run's result}."""
+    the weights are random). Returns ({estimator: the run's result},
+    {"checkpoint", "kitti_root", "split"}: the imported checkpoint's path
+    base, the tree's root and the one-drive split file)."""
     import dataclasses
     import os
-    import shutil
-    import tempfile
 
     import torch
     from eyoc_tpu_torch.cli import test as cli_test
@@ -5197,7 +5233,6 @@ def runbook_phase(smi):
     from eyoc_tpu_torch.training.trainer import build_step_config
     from eyoc_tpu_torch.utils import kernels
 
-    work = tempfile.mkdtemp(prefix="eyoc_runbook_")
     split_file = datasets._split_file
     try:
         pth = os.path.join(work, "best_val_checkpoint.pth")
@@ -5273,10 +5308,10 @@ def runbook_phase(smi):
                 f"and draws; launches "
                 + json.dumps({k: v for k, v in counts.items() if v})
                 + f"; on {smi}")
-        return results
+        return results, {"checkpoint": os.path.join(
+            out, "best_val_checkpoint"), "kitti_root": root, "split": one}
     finally:
         datasets._split_file = split_file
-        shutil.rmtree(work, ignore_errors=True)
 
 
 # ------------------------------------------------------------------- main
@@ -5787,6 +5822,758 @@ def zoo_phase(pairs, train_batch, tcfg, cfg, smi):
     return rows, launches
 
 
+# ----------------------------------------------------------------- phase 13
+
+
+# (a) the descriptor harness at the presets' published size: every cloud
+# max_points keypoints (B = 1, N = 8000, S = 1600 seeds, every row valid);
+# GT-consistent descriptors (one smooth function of the aligned position)
+# with a share of corrupted rows, as tests/test_benchmarks.py:make_pairs
+# builds them
+DESC_N = 8000
+DESC_NOISE = 0.3
+DESC_KITTI_PAIRS = 4
+DESC_SCENES = 2            # 3DMatch scenes of DESC_FRAGS fragments
+DESC_FRAGS = 3
+DESC_LOMATCH_PAIRS = 2
+DESC_RTE, DESC_RRE = 0.1, 1.0        # phase 4's tolerances, m and deg
+SC2_PATH = ("masked_argmin", "sc2_power_iteration", "sc2_nms",
+            "sc2_seed_topk", "sc2_seed_transforms", "sc2_irls")
+# (b) record_similarity over phase 10's tree
+RECORD_PAIRS = 4
+# (c) the 3DMatch configuration: FCGF's indoor voxel, the repo's defaults
+# otherwise (ResUNetBN2C / 32, conv1 k = 5, HardestContrastiveLossTrainer,
+# B = 4, rotation_range 360, voxel_capacity 32768, level shrink 2.0)
+TDM_VOXEL = 0.025
+TDM_B = 4
+TDM_POINTS = 100_000       # raw points a fragment
+TDM_FILL = 26_000          # level-0 voxels a fragment is cut to, about
+TDM_FRAGS = 4              # fragments a scene: pairs (0,1) (1,2) (2,3) (0,2)
+TDM_TRAIN_BITS = (9, 9, 9)  # +-6.4 m: a fragment under any rotation
+TDM_TEST_BITS = (9, 9, 8)   # +-6.4 m in x, y, +-3.2 m in z: the rooms
+TDM_TEST_PAIRS = 4
+
+
+def _desc_pose(rng, max_t):
+    """A random rotation of 0.2-1.0 rad about a random axis and a
+    translation in [-max_t, max_t]^3 (make_pairs' draws)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    ang = rng.uniform(0.2, 1.0)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+    T[:3, 3] = rng.uniform(-max_t, max_t, 3)
+    return T
+
+
+def _desc_features(rng, world, width, scale, fpfh):
+    """(f0, f1): a smooth function of the world position, f0 with
+    DESC_NOISE of its rows replaced by noise; FCGF-like rows unit-norm,
+    FPFH-like rows non-negative histograms left for the loader to
+    normalise."""
+    W = rng.normal(size=(3, width)).astype(np.float32)
+    f1 = np.tanh(world @ W * scale).astype(np.float32)
+    if fpfh:
+        f1 = np.abs(f1) * 50.0
+    f0 = f1.copy()
+    bad = rng.random(len(world)) < DESC_NOISE
+    f0[bad] = np.abs(rng.normal(size=(int(bad.sum()), width))) * (
+        50.0 if fpfh else 1.0)
+    if not fpfh:
+        f0 /= np.linalg.norm(f0, axis=1, keepdims=True) + 1e-6
+        f1 /= np.linalg.norm(f1, axis=1, keepdims=True) + 1e-6
+    return f0.astype(np.float32), f1.astype(np.float32)
+
+
+def desc_kitti_tree(root, n_pairs=DESC_KITTI_PAIRS, n=DESC_N, seed=30):
+    """KITTI-preset npz pairs (xyz0, xyz1, features0, features1, gt_trans)
+    of FCGF-32 descriptors, clouds uniform in a 40 m cube."""
+    import os
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    gts = []
+    for i in range(n_pairs):
+        xyz0 = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+        T = _desc_pose(rng, 5.0).astype(np.float32)
+        xyz1 = (xyz0 @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        f0, f1 = _desc_features(rng, xyz0, 32, 0.05, fpfh=False)
+        np.savez(os.path.join(root, f"pair_{i}.npz"), xyz0=xyz0, xyz1=xyz1,
+                 features0=f0, features1=f1, gt_trans=T)
+        gts.append(T)
+    return gts
+
+
+def _write_info(path, pairs):
+    with open(path, "w") as f:
+        for i, j, n in pairs:
+            f.write(f"{i}\t{j}\t{n}\n")
+            for r in range(6):
+                f.write(" ".join("300.0" if c == r else "0.0"
+                                 for c in range(6)) + "\n")
+
+
+def desc_3dmatch_tree(root, scenes, descriptor, width, seed):
+    """The 3DMatch fragment tree: each scene DESC_FRAGS fragments of one
+    world of DESC_N points in a 3 m cube seen from random poses
+    (fragments/<scene>/cloud_bin_<i>_<descriptor>.npz, fields xyz and
+    feature), gt_result/<scene>-evaluation/gt.log (target->source, as
+    3DMatch stores it) and gt.info, and bench/<scene>/ with gt.log of the
+    src->tgt poses (the convention benchmark_trajectories compares the
+    harness's poses in) and gt.info. Returns the src->tgt poses in the
+    scenes' order."""
+    import os
+    from eyoc_tpu_torch.benchmarks.gtlog import write_gt_log
+    rng = np.random.default_rng(seed)
+    gts = []
+    for scene in scenes:
+        frag = os.path.join(root, "fragments", scene)
+        gt_dir = os.path.join(root, "gt_result", f"{scene}-evaluation")
+        bench = os.path.join(root, "bench", scene)
+        for d in (frag, gt_dir, bench):
+            os.makedirs(d)
+        world = rng.uniform(0, 3, (DESC_N, 3)).astype(np.float32)
+        poses = [_desc_pose(rng, 1.0) for _ in range(DESC_FRAGS)]
+        f_bad, f_good = _desc_features(rng, world, width, 0.3,
+                                       fpfh=descriptor == "fpfh")
+        for fid, P in enumerate(poses):
+            xyz = (world @ P[:3, :3].T + P[:3, 3]).astype(np.float32)
+            np.savez(os.path.join(frag, f"cloud_bin_{fid}_{descriptor}.npz"),
+                     xyz=xyz, feature=f_bad if fid == 0 else f_good)
+        pairs = [(i, j, DESC_FRAGS) for i in range(DESC_FRAGS)
+                 for j in range(i + 1, DESC_FRAGS)]
+        src_tgt = [poses[j] @ np.linalg.inv(poses[i]) for i, j, _ in pairs]
+        write_gt_log(os.path.join(gt_dir, "gt.log"), pairs,
+                     [np.linalg.inv(T) for T in src_tgt])
+        write_gt_log(os.path.join(bench, "gt.log"), pairs, src_tgt)
+        _write_info(os.path.join(gt_dir, "gt.info"), pairs)
+        _write_info(os.path.join(bench, "gt.info"), pairs)
+        gts += [T.astype(np.float32) for T in src_tgt]
+    return gts
+
+
+def desc_lomatch_index(root, scene, n_pairs=DESC_LOMATCH_PAIRS):
+    """A 3DLoMatch.pkl over `scene` of the fcgf tree: its first pairs,
+    rot / trans the src->tgt pose (read back from the tree's gt.log and
+    inverted, as the scene loader does)."""
+    import os
+    import pickle
+    from eyoc_tpu_torch.benchmarks.gtlog import read_gt_log
+    pairs, traj = read_gt_log(os.path.join(root, "gt_result",
+                                           f"{scene}-evaluation", "gt.log"))
+    infos = {"rot": [], "trans": [], "src": [], "tgt": []}
+    gts = []
+    for k in range(n_pairs):
+        G = np.linalg.inv(traj[k])
+        infos["rot"].append(G[:3, :3])
+        infos["trans"].append(G[:3, 3])
+        infos["src"].append(f"3DLoMatch/{scene}/cloud_bin_{pairs[k, 0]}.pth")
+        infos["tgt"].append(f"3DLoMatch/{scene}/cloud_bin_{pairs[k, 1]}.pth")
+        gts.append(G.astype(np.float32))
+    path = os.path.join(root, "3DLoMatch.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path, gts
+
+
+def harness_run(what, argv, gts, use_icp, expect):
+    """descriptor_eval.main(argv) on the card, each pair's registration
+    recorded: launch counts reset just before and read just after (each of
+    `expect` launched), each pose the bits of sc2_pcr_estimator (and ICP
+    at 0.10 m, 30 rounds) called on the same padded tensors, within
+    DESC_RTE / DESC_RRE of its known pose, and RR 100. Returns (the
+    result, the counts, the recorded calls)."""
+    import torch
+    from eyoc_tpu_torch.benchmarks import descriptor_eval as de
+    from eyoc_tpu_torch.geometry.metrics import registration_success
+    from eyoc_tpu_torch.registration.icp import icp_point_to_point
+    from eyoc_tpu_torch.registration.sc2pcr import sc2_pcr_estimator
+    from eyoc_tpu_torch.utils import kernels
+
+    records = []
+    real = de.register_padded
+
+    def rec(*a, **k):
+        out = real(*a, **k)
+        records.append((a, k, out))
+        return out
+    de.register_padded = rec
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        res = de.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+    finally:
+        de.register_padded = real
+    missing = [k for k in expect if counts[k] <= 0]
+    if missing or len(records) != len(gts) or res["n"] != len(gts):
+        raise AssertionError(f"harness ({what}): {len(records)} pairs, "
+                             f"launched no {missing}")
+    worst_te = worst_re = 0.0
+    for (a, _, (trans, _, _)), gt in zip(records, gts):
+        x0, f0, m0, x1, f1, m1, cfg = a
+        if not (x0.shape[0] == DESC_N and bool(m0.all()) and bool(m1.all())
+                and cfg.num_seeds == 1600):
+            raise AssertionError(f"harness ({what}): not N = {DESC_N}, "
+                                 "S = 1600 with every row valid")
+        want = sc2_pcr_estimator(x0, f0, m0, x1, f1, m1, cfg)[0]
+        if use_icp:
+            want = icp_point_to_point(x0, m0, x1, m1, want,
+                                      max_corr_dist=0.10, iterations=30)[0]
+        if not torch.equal(want, trans):
+            raise AssertionError(
+                f"harness ({what}): a pose differs from sc2_pcr_estimator's"
+                + (" + ICP's" if use_icp else "") + " on the same tensors "
+                f"by {float((want - trans).abs().max())}")
+        _, te, re = registration_success(
+            trans, torch.from_numpy(np.asarray(gt, np.float32)).cuda())
+        worst_te, worst_re = max(worst_te, float(te)), max(worst_re,
+                                                           float(re))
+    if worst_te >= DESC_RTE or worst_re >= DESC_RRE or res["rr"] != 100.0:
+        raise AssertionError(f"harness ({what}): RR {res['rr']}, worst RTE "
+                             f"{worst_te} m, RRE {worst_re} deg")
+    # the scene protocol's result holds each scene's
+    parts = res.get("scenes", [res])
+    n = sum(r["n"] for r in parts)
+    precision = sum(r["precision"] * r["n"] for r in parts) / n
+    model_ms = sum(r["model_time"] * r["n"] for r in parts) / n * 1e3
+    log(f"harness, {what}: {res['n']} pairs, RR {res['rr']:.1f}, RE "
+        f"{res['re_deg']:.4f} deg, TE {res['te_cm']:.4f} cm, inlier "
+        f"precision {precision:.4f}, model_time "
+        f"{model_ms:.3f} ms/pair (host clock: the pair's "
+        f"padding on the host until its results are back, after a "
+        f"synchronize); each pose the bits of the direct calls, worst RTE "
+        f"{worst_te:.2e} m, RRE {worst_re:.2e} deg; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    return res, counts, records
+
+
+def harness_rows(records, suffix="_desc"):
+    """The kernels line's rows of the harness's path at its shape, on the
+    recorded calls of one KITTI pair (B = 1, N = 8000, S = 1600, every row
+    valid): K2's feature 1-NN ([8000, 32] x [8000, 32]), K3, K4, K13-K15,
+    and ICP's first round (K2 at D = 3, icp_solve); each against its plain
+    version, with its device time and bound."""
+    import torch
+    from eyoc_tpu_torch.ops import knn
+    from eyoc_tpu_torch.registration import icp, sc2pcr
+    x0, f0, m0, x1, f1, m1, cfg = records[0][0]
+    sc2_sites = [(sc2pcr, n) for n in SC2_PATH]
+    with recording(sc2_sites) as calls:
+        trans = sc2pcr.sc2_pcr_estimator(x0, f0, m0, x1, f1, m1, cfg)[0]
+    with recording([(icp, "masked_argmin"), (icp, "icp_solve")]) as icalls:
+        icp.icp_point_to_point(x0, m0, x1, m1, trans, max_corr_dist=0.10,
+                               iterations=1)
+    torch.cuda.synchronize()
+    out = {}
+    shape = f"B = 1, N = {DESC_N}, S = {cfg.num_seeds}, every row valid"
+    for name, fn, plain, cost, close, cl in (
+            ("masked_argmin", knn.masked_argmin, knn.masked_argmin_plain,
+             _argmin_cost, _argmin_close, calls["masked_argmin"]),
+            ("sc2_power_iteration", sc2pcr.sc2_power_iteration,
+             sc2pcr.sc2_power_iteration_plain, _power_cost, _power_close,
+             calls["sc2_power_iteration"]),
+            ("sc2_seed_topk", sc2pcr.sc2_seed_topk,
+             sc2pcr.sc2_seed_topk_plain, _topk_cost, _exact,
+             calls["sc2_seed_topk"]),
+            ("icp_solve", icp.icp_solve, icp.icp_solve_plain,
+             _icp_solve_cost, _icp_solve_close, icalls["icp_solve"][:1]),
+            ("masked_argmin_icp", knn.masked_argmin,
+             knn.masked_argmin_plain, _argmin_cost, _k2_icp_close,
+             icalls["masked_argmin"][:1])):
+        if len(cl) != 1:
+            raise AssertionError(f"harness rows: {len(cl)} calls of {name}")
+        out[name + suffix] = check_calls(
+            f"{name}, the descriptor harness ({shape})", cl, fn, plain,
+            cost, close)
+        same_bits_twice(f"{name} (descriptor harness)", fn, cl)
+    out.update(check_sc2_kernels(
+        f"the descriptor harness, S = {cfg.num_seeds}, every row valid",
+        {k: calls[k] for k in SC2_KERNELS}, suffix))
+    return out
+
+
+def harness_phase(work, smi):
+    """Phase 13 (a): `descriptor_eval.main` at the presets' size on the
+    card: the KITTI preset on DESC_KITTI_PAIRS FCGF-32 pairs without and
+    with --use_icp; the 3DMatch preset's scene protocol on DESC_SCENES
+    scenes of FPFH-33 fragments (K2 on 64-wide zero-padded columns) with
+    --gt_benchmark_folder (recall 1); the 3DLoMatch preset over a pickle
+    index of DESC_LOMATCH_PAIRS pairs of an FCGF-32 tree; a pair of
+    DESC_N + 1 keypoints raising ValueError before any launch. Returns
+    (the kernels line's `_desc` rows, their launches)."""
+    import os
+    import torch
+    from eyoc_tpu_torch.benchmarks import descriptor_eval as de
+    from eyoc_tpu_torch.utils import kernels
+
+    root = os.path.join(work, "descriptors")
+    t0 = time.perf_counter()
+    kitti_gts = desc_kitti_tree(os.path.join(root, "kitti"))
+    names = de.THREEDMATCH_SCENES[:DESC_SCENES]
+    fpfh_gts = desc_3dmatch_tree(os.path.join(root, "fpfh"), names, "fpfh",
+                                 33, seed=31)
+    desc_3dmatch_tree(os.path.join(root, "fcgf"), names[:1], "fcgf", 32,
+                      seed=32)
+    pkl, lo_gts = desc_lomatch_index(os.path.join(root, "fcgf"), names[0])
+    log(f"harness trees: {time.perf_counter() - t0:.1f} s on the host")
+
+    kitti = ["--root", os.path.join(root, "kitti"), "--dataset", "KITTI",
+             "--descriptor", "fcgf"]
+    res, sc2_counts, records = harness_run(
+        "KITTI preset, FCGF-32", kitti, kitti_gts, False, SC2_PATH)
+    _, icp_counts, _ = harness_run(
+        "KITTI preset, FCGF-32, --use_icp", kitti + ["--use_icp"],
+        kitti_gts, True, SC2_PATH + ("icp_solve",))
+    scenes = de.THREEDMATCH_SCENES
+    de.THREEDMATCH_SCENES = names
+    try:
+        res3, _, _ = harness_run(
+            "3DMatch preset, FPFH-33, scene protocol",
+            ["--root", os.path.join(root, "fpfh"), "--dataset", "3DMatch",
+             "--descriptor", "fpfh", "--scene_protocol",
+             "--gt_benchmark_folder", os.path.join(root, "fpfh", "bench")],
+            fpfh_gts, False, SC2_PATH)
+    finally:
+        de.THREEDMATCH_SCENES = scenes
+    traj = res3["trajectory"]
+    if traj["mean_recall"] != 1.0 or traj["mean_precision"] != 1.0:
+        raise AssertionError(f"the trajectory benchmark: {traj}")
+    log(f"harness, the Redwood trajectory benchmark over a bench tree of "
+        f"src->tgt poses, written to match the convention "
+        f"benchmark_trajectories reads (not 3DMatch's own tgt->src gt.log, "
+        f"so this does not validate the protocol against it): recall "
+        f"{traj['mean_recall']}, precision {traj['mean_precision']}, RE "
+        f"{traj['mean_re_deg']:.4f} deg, TE {traj['mean_te_m']:.5f} m")
+    harness_run("3DLoMatch preset, FCGF-32, pickle index",
+                ["--root", os.path.join(root, "fcgf"), "--dataset",
+                 "3DLoMatch", "--descriptor", "fcgf", "--lomatch_pkl", pkl],
+                lo_gts, False, SC2_PATH)
+
+    over = os.path.join(root, "over")
+    desc_kitti_tree(over, n_pairs=1, n=DESC_N + 1)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    try:
+        de.main(["--root", over])
+        raise AssertionError(f"harness: a pair of {DESC_N + 1} keypoints "
+                             "raised nothing")
+    except ValueError as e:
+        if f"max_points {DESC_N}" not in str(e):
+            raise
+        msg = str(e)
+    if any(kernels.launches.values()):
+        raise AssertionError("harness: the pair above the cap launched "
+                             "kernels")
+    log(f"harness: a pair of {DESC_N + 1} keypoints raises before any "
+        f"launch: {msg}")
+
+    rows = harness_rows(records)
+    n_pairs = res["n"]
+    launches = {f"{k}_desc": sc2_counts[k] for k in SC2_PATH}
+    launches["icp_solve_desc"] = icp_counts["icp_solve"]
+    launches["masked_argmin_icp_desc"] = (icp_counts["masked_argmin"]
+                                          - n_pairs)
+    return rows, launches
+
+
+def record_phase(work, runbook, smi):
+    """Phase 13 (b): `tools.record_similarity.main` on the card over phase
+    10's tree and imported checkpoint (ResUNetBN2C / 32), the train-phase
+    loader of KITTINMPairDataset with supervised GT pairs, RECORD_PAIRS
+    pairs, at caps (16384, 5120, 1600, 500) (voxel_capacity CAPS[0],
+    shrink 3.2: the tool takes the config's caps) and phase 3's window
+    bits: the voxel kernels, K1, K2 (D = 3) and K6 launched; each pair's
+    triples under `valid` equal to the plain gathers' on the same features
+    (d0 / d1 bit-equal, cos within 1e-6); the written tables read back by
+    `load_similarity_tables`; the tables driving `spatial_filter_mask` on
+    the card as a lookup of the same cells on the host."""
+    import os
+    import torch
+    from eyoc_tpu_torch.data import datasets
+    from eyoc_tpu_torch.ops import matching
+    from eyoc_tpu_torch.tools import record_similarity as rs
+    from eyoc_tpu_torch.utils import kernels
+
+    out = os.path.join(work, "rec_distSimPlot.npz")
+    split_file = datasets._split_file
+    datasets._split_file = lambda name: runbook["split"]
+    try:
+        with recording([(rs, "dist_similarity_samples")]) as calls:
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            tables, secs = rs.main(
+                ["--checkpoint", runbook["checkpoint"], "--dataset",
+                 "KITTINMPairDataset", "--kitti_root", runbook["kitti_root"],
+                 "--out", out, "--max_pairs", str(RECORD_PAIRS)],
+                config_overrides=dict(
+                    voxel_capacity=CAPS[0], level_capacity_shrink=3.2,
+                    window_bits=",".join(map(str, WINDOW_BITS))))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+    finally:
+        datasets._split_file = split_file
+    expect = COORD_KERNELS + ("sparse_conv", "masked_argmin", "take_rows")
+    missing = [k for k in expect if counts[k] <= 0]
+    if missing or len(calls["dist_similarity_samples"]) != RECORD_PAIRS:
+        raise AssertionError(f"record_similarity: "
+                             f"{len(calls['dist_similarity_samples'])} pairs,"
+                             f" launched no {missing}")
+    if counts["take_rows"] != 4 * RECORD_PAIRS:
+        raise AssertionError(f"record_similarity: {counts['take_rows']} K6 "
+                             "launches, not four a pair")
+    worst, n_valid = 0.0, 0
+    for a, k in calls["dist_similarity_samples"]:
+        got = rs.dist_similarity_samples(*a, **k)
+        want = rs.dist_similarity_samples_plain(*a, **k)
+        v = want[3]
+        if not (torch.equal(got[3], v) and torch.equal(got[0][v], want[0][v])
+                and torch.equal(got[1][v], want[1][v])):
+            raise AssertionError("record_similarity: d0 / d1 / valid differ "
+                                 "from the plain gathers'")
+        err = float((got[2][v] - want[2][v]).abs().max()) if bool(
+            v.any()) else 0.0
+        if err > 1e-6:
+            raise AssertionError(f"record_similarity: cos off by {err}")
+        worst, n_valid = max(worst, err), n_valid + int(v.sum())
+    if n_valid == 0:
+        raise AssertionError("record_similarity: no valid correspondence")
+    asset = matching._ASSET_DIR
+    matching._ASSET_DIR = work
+    try:
+        st = matching.load_similarity_tables("rec")
+    finally:
+        matching._ASSET_DIR = asset
+    for b, t in enumerate(tables):
+        if not np.array_equal(st.maps[b, :t.shape[0], :t.shape[1]].numpy(),
+                              t):
+            raise AssertionError(f"record_similarity: table {b} reads back "
+                                 "otherwise")
+    # the filter on the card against a host lookup of the same cells, at
+    # the median of the observed cells
+    (x0, x1, *_, i0, i1, v), _ = calls["dist_similarity_samples"][0]
+    e0, e1 = x0[i0.long()][v][None], x1[i1.long()][v][None]
+    fd = torch.ones(1, dtype=torch.int32, device="cuda")
+    seen = tables[0][tables[0] != 0]
+    thresh = float(np.median(seen)) if seen.size else 0.0
+    keep = matching.spatial_filter_mask(
+        e0, e1, spatial_filter="Similarity", similarity=st.to("cuda"),
+        similarity_thresh=thresh, frame_distance=fd)[0].cpu().numpy()
+    r0 = e0[0].double().norm(dim=-1).cpu().numpy()
+    r1 = e1[0].double().norm(dim=-1).cpu().numpy()
+    tab = tables[0]
+    col = np.minimum((np.minimum(r0, r1) / 5.0).astype(np.int64),
+                     tab.shape[1] - 1)
+    row = np.minimum((np.abs(r0 - r1) / 1.0).astype(np.int64),
+                     tab.shape[0] - 1)
+    host = tab[row, col] > thresh
+    n_diff = int((host != keep).sum())
+    # a range within an f32 rounding of a cell edge may fall either side
+    edge = (np.abs(np.minimum(r0, r1) / 5.0 - np.round(np.minimum(r0, r1)
+                                                       / 5.0)) < 1e-4) | (
+        np.abs(np.abs(r0 - r1) - np.round(np.abs(r0 - r1))) < 1e-4)
+    if int((host != keep)[~edge].sum()):
+        raise AssertionError(f"record_similarity: the filter keeps "
+                             f"{int(keep.sum())}, the host lookup "
+                             f"{int(host.sum())} of {len(keep)}")
+    log(f"record_similarity: {RECORD_PAIRS} pairs of ResUNetBN2C (phase "
+        f"10's imported checkpoint) on KITTINMPairDataset, {n_valid} valid "
+        f"triples, cos within {worst:.2e} of the plain gathers' (d0 / d1 "
+        f"bit-equal); tables {[t.shape for t in tables]} read back by "
+        f"load_similarity_tables; the filter at {thresh:.4f} keeps "
+        f"{int(keep.sum())} of {len(keep)} matches as the host lookup "
+        f"({n_diff} at a cell edge differ); record step "
+        f"{np.mean(secs) * 1e3:.2f} ms/pair (host clock, the copy to the "
+        f"card until the triples are on the host; pairs "
+        + ", ".join(f"{s * 1e3:.2f}" for s in secs) + f"), main() "
+        f"{wall:.1f} s with the loader; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}) + f"; on {smi}")
+
+
+def _room(rng):
+    """A room of 3.5-5 m x 3-4.5 m x 2.6 m centred on the origin in x, y
+    with its floor at z = 0: the floor, 4 walls and 3 boxes, as
+    rectangles (origin, u, v)."""
+    W, D, H = rng.uniform(3.5, 5.0), rng.uniform(3.0, 4.5), 2.6
+    o = np.array([-W / 2, -D / 2, 0.0])
+    ex, ey, ez = np.array([W, 0, 0]), np.array([0, D, 0]), np.array([0, 0, H])
+    rects = [(o, ex, ey), (o, ex, ez), (o, ey, ez), (o + ex, ey, ez),
+             (o + ey, ex, ez)]
+    for _ in range(3):
+        s = rng.uniform(0.4, 1.0, 3)
+        c = np.array([rng.uniform(-W / 2 + 0.6, W / 2 - 0.6),
+                      rng.uniform(-D / 2 + 0.6, D / 2 - 0.6), 0.0])
+        b = c - [s[0] / 2, s[1] / 2, 0]
+        bx, by, bz = np.diag(s)
+        rects += [(b + bz, bx, by), (b, bx, bz), (b + by, bx, bz),
+                  (b, by, bz), (b + bx, by, bz)]
+    return rects
+
+
+def _surface_points(rng, rects, n):
+    area = np.array([np.linalg.norm(np.cross(u, v)) for _, u, v in rects])
+    k = rng.choice(len(rects), n, p=area / area.sum())
+    O, U, V = (np.stack([r[i] for r in rects])[k] for i in range(3))
+    return O + rng.random(n)[:, None] * U + rng.random(n)[:, None] * V
+
+
+def _n_voxels(p, voxel):
+    c = np.floor(p / voxel).astype(np.int64) + 1024
+    return len(np.unique((c[:, 0] << 40) | (c[:, 1] << 20) | c[:, 2]))
+
+
+def room_fragment(rng, rects):
+    """TDM_POINTS surface points (2 mm noise) of the room nearest a
+    viewpoint, sampled at the density (points a m^2, searched between 2000
+    and 20000) at which they fill about TDM_FILL voxels at TDM_VOXEL."""
+    c = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1),
+                  rng.uniform(0.8, 1.6)])
+    area = sum(np.linalg.norm(np.cross(u, v)) for _, u, v in rects)
+    lo, hi = 2000.0, 20000.0
+    for it in range(7):
+        density = hi if it == 6 else np.sqrt(lo * hi)
+        cand = _surface_points(rng, rects, int(density * area))
+        near = np.argpartition(np.linalg.norm(cand - c, axis=1),
+                               TDM_POINTS)[:TDM_POINTS]
+        p = cand[near] + rng.normal(0, 0.002, (TDM_POINTS, 3))
+        if _n_voxels(p, TDM_VOXEL) > TDM_FILL:
+            lo = density
+        else:
+            hi = density
+    return p.astype(np.float32)
+
+
+def threedmatch_tree(root, splits):
+    """A 3DMatch-format tree under `root`: for each scene of `splits`
+    ({phase: [scene names]}) a room, TDM_FRAGS fragments <scene>_<i>.npz
+    (field pcd, the room's frame shared by its fragments) and one overlap
+    list <scene>@seq-01-0.30.txt of pairs (0,1) (1,2) (2,3) (0,2); a split
+    file a phase. Returns ({phase: split file}, host seconds)."""
+    import os
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    rng = np.random.default_rng(40)
+    files = {}
+    for phase, names in splits.items():
+        for scene in names:
+            rects = _room(rng)
+            for i in range(TDM_FRAGS):
+                np.savez(os.path.join(root, f"{scene}_{i}.npz"),
+                         pcd=room_fragment(rng, rects))
+            with open(os.path.join(root, f"{scene}@seq-01-0.30.txt"),
+                      "w") as f:
+                for i, j in ((0, 1), (1, 2), (2, 3), (0, 2)):
+                    f.write(f"{scene}_{i}.npz {scene}_{j}.npz\n")
+        files[phase] = os.path.join(root, f"split_{phase}.txt")
+        with open(files[phase], "w") as f:
+            f.write("\n".join(names) + "\n")
+    return files, time.perf_counter() - t0
+
+
+def level_fills(batch, caps, voxel, bits, what):
+    """Each cloud's voxels at every level of the pyramid on the card
+    against the host's count of its distinct cells at that level (the
+    level-0 cells by the kernels' f32 division, inside the window), and
+    the deepest level's bricks against its brick cap: a level that lost a
+    voxel (a parent overflow drops voxels without a word) fails. Logs each
+    level's fill of its cap."""
+    import torch
+    from eyoc_tpu_torch.sparse import morton
+    from eyoc_tpu_torch.sparse.voxelize import quantize
+    from eyoc_tpu_torch.training.pipeline import brick_caps, preprocess_clouds
+    B = batch.xyz0.shape[0]
+    bcaps = brick_caps(caps)
+    L = len(caps)
+    fills = np.zeros((2 * B, L + 1), np.int64)
+    for side, (xyz, n) in enumerate(((batch.xyz0, batch.n0),
+                                     (batch.xyz1, batch.n1))):
+        _, pyr = preprocess_clouds(xyz, n, caps=caps, voxel_size=voxel,
+                                   window_bits=bits)
+        for b in range(B):
+            c = quantize(xyz[b, :int(n[b])].cpu(), voxel)
+            c = (c[morton.in_window(c, bits)] + torch.tensor(
+                morton.shift(bits), dtype=torch.int32)).long()
+            for lvl in range(L + 1):
+                cl = c >> lvl
+                want = len(torch.unique((cl[:, 0] << 40) | (cl[:, 1] << 20)
+                                        | cl[:, 2]))
+                if lvl < L:
+                    got = int(pyr.vox_masks[lvl].reshape(B, caps[lvl])[b]
+                              .sum())
+                else:
+                    lev = pyr.levels[L - 1]
+                    got = int((lev.bmask & (lev.bseg == b)).sum())
+                cap = caps[lvl] if lvl < L else bcaps[-1]
+                if got != want or want > cap:
+                    raise AssertionError(
+                        f"{what}: cloud {side}.{b} level {lvl}: {got} on the "
+                        f"card, {want} distinct cells, cap {cap}")
+                fills[side * B + b, lvl] = got
+    caps_all = list(caps) + [bcaps[-1]]
+    log(f"{what}: level fills (voxels a cloud, the deepest level's bricks "
+        f"last; the most of {2 * B} clouds / cap): "
+        + ", ".join(f"L{lvl} {int(fills[:, lvl].max())}/{cap} "
+                    f"({fills[:, lvl].max() / cap:.2f})"
+                    for lvl, cap in enumerate(caps_all))
+        + "; every level equal to the host's distinct cells: no overflow")
+
+
+def threedmatch_phase(work, smi):
+    """Phase 13 (c): the 3DMatch configuration through the normal entry
+    points on the card. A synthetic 3DMatch-format tree (`threedmatch_tree`:
+    room-sized fragments of TDM_POINTS points, the train split's first two
+    scene names, the val split's first, the test split's first), then
+    `cli.train.main` with --dataset ThreeDMatchPairDataset --voxel_size
+    0.025 and the repo's defaults otherwise (ResUNetBN2C / 32, conv1 5,
+    HardestContrastiveLossTrainer, B = 4, rotation_range 360), one epoch of
+    two steps and a validation of 2 pairs; --skip_initialization true, as
+    the defaults' pair_max_dist -1 would put the base trainer in the
+    identity-label mode of the LiDAR recipes; window bits TDM_TRAIN_BITS.
+    Each level's fill checked on a train batch and a test pair; every
+    kernel of the train step and the valid step launched; the loss finite.
+    Then `cli.test.main` over the test split (TDM_TEST_PAIRS pairs, SC2-PCR,
+    --window_bits 9,9,8): no point dropped by the window, the eval kernels
+    launched, each pose the bits of `eval.test_pair` on the same batch and
+    draws. Last, one train step's device time (torch.profiler)."""
+    import dataclasses
+    import os
+    import torch
+    from eyoc_tpu_torch.cli import test as cli_test
+    from eyoc_tpu_torch.cli.train import main as train_main
+    from eyoc_tpu_torch.config import get_config
+    from eyoc_tpu_torch.data import datasets
+    from eyoc_tpu_torch.data.loader import make_data_loader
+    from eyoc_tpu_torch.eval import test_pair
+    from eyoc_tpu_torch.models import load_model
+    from eyoc_tpu_torch.training.trainer import build_step_config
+    from eyoc_tpu_torch.utils import kernels
+
+    names = {}
+    for phase, n in (("train", 2), ("val", 1), ("test", 1)):
+        with open(datasets._split_file(f"{phase}_3dmatch.txt")) as f:
+            names[phase] = f.read().split()[:n]
+    root = os.path.join(work, "threedmatch")
+    splits, secs = threedmatch_tree(root, names)
+    log(f"3DMatch tree: scenes {names}, {TDM_FRAGS} fragments of "
+        f"{TDM_POINTS} points each, {secs:.1f} s on the host")
+    split_file = datasets._split_file
+
+    def split_of(name):
+        return splits[name.split("_")[0]]
+    datasets._split_file = split_of
+    out = os.path.join(work, "threedmatch_run")
+    try:
+        config = get_config([
+            "--dataset", "ThreeDMatchPairDataset", "--threed_match_dir",
+            root, "--voxel_size", str(TDM_VOXEL), "--model", "ResUNetBN2C",
+            "--model_n_out", "32", "--conv1_kernel_size", "5",
+            "--trainer", "HardestContrastiveLossTrainer", "--batch_size",
+            str(TDM_B), "--rotation_range", "360", "--max_epoch", "1",
+            "--skip_initialization", "true", "--window_bits",
+            ",".join(map(str, TDM_TRAIN_BITS)), "--val_max_iter", "2",
+            "--stat_freq", "1", "--out_dir", out])
+        spec = load_model(config.model)
+        tcfg, _ = build_step_config(config, spec)
+        batch = next(iter(make_data_loader(config, "train", TDM_B)))
+        level_fills(batch.to("cuda"), tcfg.caps, TDM_VOXEL, TDM_TRAIN_BITS,
+                    f"3DMatch train batch (B = {TDM_B}, rotated)")
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        tr = train_main(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        expect = TRAIN_KERNELS + ("est_quad_linear_robust",)
+        missing = [k for k in expect if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"3DMatch training launched no {missing}")
+        if len(tr.epoch_log) != 1 or tr.epoch_log[0]["steps"] != 2:
+            raise AssertionError(f"3DMatch training: {tr.epoch_log}")
+        e = tr.epoch_log[0]
+        if not all(np.isfinite(v) for v in e["metrics"].values()):
+            raise AssertionError(f"3DMatch training: non-finite metrics "
+                                 f"{e['metrics']}")
+        if not os.path.exists(os.path.join(out, "best_val_checkpoint.pt")):
+            raise AssertionError("3DMatch training wrote no "
+                                 "best_val_checkpoint")
+        m = ", ".join(f"{k} {v:.4f}" for k, v in e["metrics"].items())
+        log(f"3DMatch training: {e['steps']} steps of B = {TDM_B}, Data "
+            f"{e['data_s'] * 1e3:.1f} ms/step, Iter {e['iter_s'] * 1e3:.1f} "
+            f"ms/step (the trainer's Timers; Iter includes Data), {m}; "
+            f"validation {tr.best_val_metric} {tr.best_val:.4f}; main() "
+            f"{wall:.1f} s; launches "
+            + json.dumps({k: v for k, v in counts.items() if v})
+            + f"; on {smi}")
+
+        args = cli_test.parse_args([
+            "--save_dir", out, "--use_RANSAC", "false", "--num_pairs",
+            str(TDM_TEST_PAIRS), "--window_bits",
+            ",".join(map(str, TDM_TEST_BITS))])
+        tconfig = cli_test.load_test_config(args)
+        _, ecfg = build_step_config(tconfig, spec)
+        tb = next(iter(make_data_loader(tconfig, "test", 1)))
+        level_fills(tb.to("cuda"), ecfg.caps, TDM_VOXEL, TDM_TEST_BITS,
+                    "3DMatch test pair")
+        record = []
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        res = cli_test.main(tconfig, num_pairs=args.num_pairs, record=record)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        missing = [k for k in RUNBOOK_KERNELS["SC2-PCR"] if counts[k] <= 0]
+        if missing or len(record) != TDM_TEST_PAIRS:
+            raise AssertionError(f"3DMatch cli.test: {len(record)} pairs, "
+                                 f"launched no {missing}")
+        if res["dropped"] != 0:
+            raise AssertionError(f"3DMatch cli.test: {res['dropped']} of the "
+                                 "points fell outside the window")
+        cfg = dataclasses.replace(ecfg, use_ransac=False)
+        for b, state, T_est in record:
+            gen = torch.Generator(device="cuda")
+            gen.set_state(state)
+            want = test_pair(tr.model, b, cfg, generator=gen)["T_est"]
+            if not torch.equal(want, T_est):
+                raise AssertionError(
+                    "3DMatch cli.test: a pose differs from eval.test_pair's "
+                    f"by {float((want - T_est).abs().max())}")
+        log(f"3DMatch cli.test: {TDM_TEST_PAIRS} pairs with SC2-PCR, window "
+            f"bits {TDM_TEST_BITS}, dropped {res['dropped']}, rr "
+            f"{res['rr']:.4f}, rte {res['rte']:.4f} m, rre {res['rre']:.4f} "
+            f"deg; Data {res['data_time'] * 1e3:.2f} ms, Feat "
+            f"{res['feat_time'] * 1e3:.2f} ms, Reg {res['reg_time'] * 1e3:.2f}"
+            f" ms a pair (host clock around synchronized calls); each pose "
+            f"the bits of eval.test_pair; launches "
+            + json.dumps({k: v for k, v in counts.items() if v})
+            + f"; on {smi}")
+        train_breakdown(tr.model, tr.opt, batch.to("cuda"), tcfg,
+                        torch.Generator().manual_seed(13),
+                        what=f"3DMatch train step (B = {TDM_B}, voxel "
+                        f"{TDM_VOXEL} m)")
+    finally:
+        datasets._split_file = split_file
+
+
+def tail_phase(work, runbook, smi):
+    """Phase 13: the descriptor harness, record_similarity and the 3DMatch
+    configuration (`harness_phase`, `record_phase`, `threedmatch_phase`).
+    Returns the harness's kernels-line rows and their launches."""
+    import torch
+    t0 = time.perf_counter()
+    rows, launches = harness_phase(work, smi)
+    torch.cuda.empty_cache()
+    record_phase(work, runbook, smi)
+    torch.cuda.empty_cache()
+    threedmatch_phase(work, smi)
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     import dataclasses
 
@@ -6073,7 +6860,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 10: the real-data runbook on a synthetic KITTI-format tree
-    runbook_phase(smi)
+    # (its directory stays for phase 13 and goes when the script exits)
+    work = tempfile.mkdtemp(prefix="eyoc_runbook_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    runbook = runbook_phase(smi, work)[1]
 
     # ---- phase 11: feature widths other than 3 and 32
     width_phase()
@@ -6083,6 +6873,13 @@ def main() -> int:
     # normalize_feature=False, data parallelism
     zoo_rows, zoo_launches = zoo_phase(pairs, train_batch, tcfg, cfg, smi)
     results.update(zoo_rows)
+    del pairs, train_batch
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the descriptor harness, record_similarity over phase
+    # 10's tree, and the 3DMatch configuration through train and test
+    tail_rows, tail_launches = tail_phase(work, runbook, smi)
+    results.update(tail_rows)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -6097,6 +6894,8 @@ def main() -> int:
     # rows phase 9's loss steps; each row's times are of the calls of that
     # path
     def launches(name):
+        if name in tail_launches:
+            return tail_launches[name]
         if name in zoo_launches:
             return zoo_launches[name]
         if name in loss_launches:
@@ -6155,7 +6954,14 @@ def main() -> int:
               "sparse_conv_ci6": "sparse_conv",
               "masked_argmin_raw": "masked_argmin",
               "masked_knn2_raw": "masked_knn2",
-              "masked_norm_backward_sync": "norm_backward"}
+              "masked_norm_backward_sync": "norm_backward",
+              "masked_argmin_desc": "masked_argmin",
+              "sc2_power_iteration_desc": "sc2_power_iteration",
+              "sc2_seed_topk_desc": "sc2_seed_counts",
+              "sc2_nms_desc": "sc2_nms",
+              "sc2_seed_transforms_desc": "sc2_refine",
+              "sc2_irls_desc": "sc2_refine", "icp_solve_desc": "ransac",
+              "masked_argmin_icp_desc": "masked_argmin"}
     source.update({k: "sc2_refine" for k in OPTION_ROWS
                    if k.startswith(("sc2_seed", "sc2_irls"))})
     replaces = {
@@ -6213,6 +7019,14 @@ def main() -> int:
         "masked_argmin_raw": "eyoc_tpu/ops/knn.py:79",
         "masked_knn2_raw": "eyoc_tpu/ops/knn.py:58",
         "masked_norm_backward_sync": "eyoc_tpu/sparse/norm.py:98",
+        "masked_argmin_desc": "eyoc_tpu/ops/knn.py:79",
+        "sc2_power_iteration_desc": "eyoc_tpu/registration/sc2pcr.py:276",
+        "sc2_seed_topk_desc": "eyoc_tpu/registration/sc2pcr.py:296",
+        "sc2_nms_desc": "eyoc_tpu/registration/sc2pcr.py:151",
+        "sc2_seed_transforms_desc": "eyoc_tpu/registration/sc2pcr.py:161",
+        "sc2_irls_desc": "eyoc_tpu/registration/sc2pcr.py:219",
+        "icp_solve_desc": "eyoc_tpu/registration/icp.py:42",
+        "masked_argmin_icp_desc": "eyoc_tpu/registration/icp.py:41",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

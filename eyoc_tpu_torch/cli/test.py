@@ -139,10 +139,11 @@ def _window_dropped(batch, bits, voxel_size: float):
 
 def main(config, num_pairs=-1, dp=1, device=None, record=None):
     """Runs the test protocol over the config's test split; returns {"rr",
-    "rte", "rre", "pairs_per_sec"}. `record`, a list, gets (batch,
-    generator state before the pair's registration, T_est) for each pair,
-    so that a caller can replay a pair's draws (under data parallelism,
-    of this rank's pair)."""
+    "rte", "rre", "pairs_per_sec", the Data / Feat / Reg times and
+    "dropped", the mean share of raw points outside the voxel window}.
+    `record`, a list, gets (batch, generator state before the pair's
+    registration, T_est) for each pair, so that a caller can replay a
+    pair's draws (under data parallelism, of this rank's pair)."""
     dp = max(1, min(dp, ddp.world_size()))
     if dp > 1 and dp != ddp.world_size():
         raise ValueError(f"--dp_devices {dp} of {ddp.world_size()} ranks: "
@@ -301,6 +302,7 @@ def main(config, num_pairs=-1, dp=1, device=None, record=None):
         "data_time": data_timer.avg,
         "feat_time": feat_timer.avg,
         "reg_time": reg_timer.avg,
+        "dropped": drop_meter.avg,
     }
 
 

@@ -14,9 +14,10 @@ Each file reader builds the reference's pair list exactly (the same
 the ground-truth pose; voxelization and the GT correspondences run on the
 device. The legacy readers' ICP runs through the port's ICP on
 `self.device` (None: the card), cached as .npy under <kitti_root>/icp as
-the JAX package caches it. 3DMatch (`IndoorPairDataset`,
-`ThreeDMatchPairDataset`) is not ported (ROADMAP.md queue 1 item 6):
-`dataset_str_mapping` raises NotImplementedError for its names.
+the JAX package caches it. The indoor readers, `IndoorPairDataset` and
+`ThreeDMatchPairDataset` (:1076-1140), read 3DMatch's npz fragments
+through its `<scene>*0.30.txt` overlap lists. `dataset_str_mapping` holds
+the JAX registry's names and raises NotImplementedError for any other.
 """
 
 from __future__ import annotations
@@ -669,15 +670,83 @@ class KITTINMPairDataset(KITTIPairDataset):
                 curr = nxt
 
 
+# ---------------------------------------------------------- indoor datasets
+
+
+class IndoorPairDataset(PairDatasetBase):
+    """3DMatch-style npz fragment pairs (reference
+    lib/data_loaders.py:194-303): pair lists come from per-scene
+    `<scene>*%.2f.txt` overlap files under `threed_match_dir`; clouds from
+    npz["pcd"]. Scale is applied BEFORE the random rotation and the GT is
+    trans = T1 @ inv(T0) (fragments share a world frame)."""
+
+    OVERLAP_RATIO: float = 0.3
+    DATA_FILES = {
+        "train": "train_3dmatch.txt",
+        "val": "val_3dmatch.txt",
+        "test": "test_3dmatch.txt",
+    }
+
+    def __init__(self, phase, config, random_rotation=True, random_scale=True):
+        super().__init__(phase, config, random_rotation, random_scale)
+        import glob
+
+        self.root = config.threed_match_dir
+        with open(_split_file(self.DATA_FILES[phase])) as f:
+            subset_names = f.read().split()
+        for name in subset_names:
+            fname = name + "*%.2f.txt" % self.OVERLAP_RATIO
+            fnames_txt = glob.glob(self.root + "/" + fname)
+            assert len(fnames_txt) > 0, \
+                f"Make sure that the path {self.root} has data {fname}"
+            for fname_txt in fnames_txt:
+                with open(fname_txt) as f:
+                    content = f.readlines()
+                for line in content:
+                    parts = line.strip().split()
+                    self.files.append((parts[0], parts[1]))
+
+    def __getitem__(self, idx):
+        file0 = os.path.join(self.root, self.files[idx][0])
+        file1 = os.path.join(self.root, self.files[idx][1])
+        xyz0 = np.load(file0)["pcd"].astype(np.float32)
+        xyz1 = np.load(file1)["pcd"].astype(np.float32)
+        search = self.matching_search_voxel_size
+        if self.random_scale and self.randg.rand() < 0.95:
+            scale = self.min_scale + (self.max_scale - self.min_scale) * self.randg.rand()
+            search = search * scale
+            xyz0 = scale * xyz0
+            xyz1 = scale * xyz1
+        if self.random_rotation:
+            T0 = sample_random_trans(xyz0, self.randg, self.rotation_range)
+            T1 = sample_random_trans(xyz1, self.randg, self.rotation_range)
+            trans = T1 @ np.linalg.inv(T0)
+            xyz0 = apply_transform(xyz0, T0)
+            xyz1 = apply_transform(xyz1, T1)
+        else:
+            trans = np.identity(4)
+        return {
+            "xyz0": xyz0.astype(np.float32),
+            "xyz1": xyz1.astype(np.float32),
+            "T_gt": trans.astype(np.float32),
+            "frame_distance": 1,
+            "search_radius": float(search),
+            "meta": (0, idx, idx),
+        }
+
+
+class ThreeDMatchPairDataset(IndoorPairDataset):
+    OVERLAP_RATIO = 0.3
+
+
 class _Registry(dict):
-    """Dataset name -> class; a name of the JAX registry that the port
-    lacks raises NotImplementedError."""
+    """Dataset name -> class, the JAX registry's names; any other name
+    raises NotImplementedError."""
 
     def __missing__(self, name):
         raise NotImplementedError(
-            f"dataset {name!r} is not ported: the port has {sorted(self)}; "
-            "the 3DMatch readers (IndoorPairDataset, ThreeDMatchPairDataset) "
-            "are ROADMAP.md queue 1 item 6")
+            f"dataset {name!r} is in neither package's registry: the port "
+            f"has {sorted(self)}")
 
 
 ALL_DATASETS = [
@@ -685,7 +754,7 @@ ALL_DATASETS = [
     KittiRandDistPairDataset, NuscenesRandDistPairDataset,
     WaymoRandDistPairDataset, KittiContinuousFramePairDataset,
     NuscenesContinuousFramePairDataset, WaymoContinuousFramePairDataset,
-    KITTIPairDataset, KITTINMPairDataset, SyntheticPairDataset,
-    SyntheticContinuousPairDataset,
+    KITTIPairDataset, KITTINMPairDataset, ThreeDMatchPairDataset,
+    SyntheticPairDataset, SyntheticContinuousPairDataset,
 ]
 dataset_str_mapping = _Registry((d.__name__, d) for d in ALL_DATASETS)

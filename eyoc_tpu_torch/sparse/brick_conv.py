@@ -138,9 +138,19 @@ def _cell_coords(cellslot: torch.Tensor):
     return cellslot >> 3, u
 
 
+def check_conv_side(k: int, who: str):
+    """Raise for a stride-1 conv side other than 3 and 5: a tap hops at
+    most one brick from its output cell, so a side-7 tap two bricks away
+    would name another voxel."""
+    if k not in (3, 5):
+        raise ValueError(f"{who}: a first conv of side {k}; the maps read "
+                         "one brick around each output, sides 3 and 5")
+
+
 def conv_same_map(level: BrickLevel, k: int = 3,
                   c2v: torch.Tensor | None = None) -> torch.Tensor:
-    """[M_l, k^3] stride-1 map at one level."""
+    """[M_l, k^3] stride-1 map at one level (k = 3 or 5)."""
+    check_conv_side(k, "conv_same_map")
     c2v = cell_to_voxel(level) if c2v is None else c2v
     brick, u = _cell_coords(level.cellslot)
     return _tap_sources(level, brick, u, _offsets(k), c2v).to(
@@ -346,6 +356,7 @@ def conv_maps_staged_plain(pyr: BrickPyramid, num_levels: int,
                            inverse: bool = False) -> ConvMaps:
     """`conv_maps_plain` by K12's reformulation; raises as it does when an
     inverse has a collision."""
+    check_conv_side(conv1_kernel_size, "conv_maps_staged_plain")
     levels = pyr.levels[:num_levels]
     c2v = [cell_to_voxel_occ_plain(lv) for lv in levels]
     stages = [brick_neighbourhood_plain(lv, c) for lv, c in zip(levels, c2v)]
@@ -483,7 +494,9 @@ def conv_maps(pyr: BrickPyramid, num_levels: int, conv1_kernel_size: int = 5,
     raises. With `inverse` the collision count is not waited for: each
     inverse carries a CollisionCheck (`collision_check`) that
     `SparseConvFunction.backward` raises on before it reads the inverse;
-    the call makes no host sync."""
+    the call makes no host sync. Both routes raise for a first conv of a
+    side other than 3 and 5 (`check_conv_side`)."""
+    check_conv_side(conv1_kernel_size, "conv_maps")
     if pyr.levels[0].cellslot.is_cpu:
         return conv_maps_plain(pyr, num_levels, conv1_kernel_size, inverse)
     return _launch_k12(pyr, num_levels, conv1_kernel_size, inverse)
@@ -512,10 +525,6 @@ def _launch_k12(pyr, num_levels, conv1_kernel_size, inverse) -> ConvMaps:
                     lv.up_slots if l + 1 < L else None]
         dtypes += [torch.int32, torch.int32, torch.bool, torch.int32]
     dev = kernels.require_cuda("conv_maps", *tensors, dtypes=dtypes)
-    if conv1_kernel_size not in (3, 5):
-        raise ValueError(f"conv_maps: a first conv of side "
-                         f"{conv1_kernel_size}; the kernel reads one brick "
-                         "around each output, sides 3 and 5")
     M = [lv.cellslot.shape[0] for lv in levels]
     NB = [lv.bkeys.shape[0] for lv in levels]
     i32 = dict(dtype=torch.int32, device=levels[0].cellslot.device)

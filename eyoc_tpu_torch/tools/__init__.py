@@ -1,1 +1,2 @@
-"""Host tools of the port (the checkpoint importer)."""
+"""Tools of the port: the checkpoint importer and the similarity-table
+recorder."""

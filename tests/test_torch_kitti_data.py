@@ -13,7 +13,8 @@ eyoc_tpu's on synthetic trees, numpy seeds stated below:
   with its own icp/ cache) within 1e-5, and read back from the cache;
 - converted nuScenes (xyzr) and Waymo (xyz) trees with poses.npy: the N-frame
   and metric-distance readers' file lists and first items equal;
-- 3DMatch still raises, naming ROADMAP.md.
+- the registry holds the JAX registry's names, ThreeDMatchPairDataset
+  among them; IndoorPairDataset, in neither, still raises.
 """
 
 import numpy as np
@@ -193,6 +194,12 @@ def test_converted_readers_match_jax(tmp_path, family, phase_dir, floats):
 
 
 def test_3dmatch_still_raises():
-    for name in ("ThreeDMatchPairDataset", "IndoorPairDataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TD.dataset_str_mapping[name]
+    """ThreeDMatchPairDataset resolves to the port's reader, as the JAX
+    registry's name does to JAX's; IndoorPairDataset, its base class, is
+    in neither registry and still raises."""
+    assert TD.dataset_str_mapping["ThreeDMatchPairDataset"] is \
+        TD.ThreeDMatchPairDataset
+    assert list(TD.dataset_str_mapping) == list(JD.dataset_str_mapping)
+    assert "IndoorPairDataset" not in JD.dataset_str_mapping
+    with pytest.raises(NotImplementedError, match="neither"):
+        TD.dataset_str_mapping["IndoorPairDataset"]

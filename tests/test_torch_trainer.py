@@ -413,9 +413,11 @@ def test_config_errors_raise_before_the_model(over, error, match, tmp_path,
 
 
 def test_unported_dataset_raises(tmp_path):
-    cfg = base_config(tconfig, str(tmp_path),
-                      dataset="ThreeDMatchPairDataset")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """A dataset name of neither registry (IndoorPairDataset is the 3DMatch
+    reader's base class, not in JAX's dataset_str_mapping) raises before
+    any reader is built."""
+    cfg = base_config(tconfig, str(tmp_path), dataset="IndoorPairDataset")
+    with pytest.raises(NotImplementedError, match="neither"):
         make_data_loader(cfg, "train", 2)
 
 
