@@ -308,6 +308,26 @@ Phases (any failure exits non-zero):
      and valid steps launched, the loss finite; cli.test.main over the
      test split (4 pairs, SC2-PCR, window bits 9,9,8): no point dropped,
      each pose the bits of eval.test_pair; one step's device time.
+14. FCGF's published 3DMatch model (`fcgf_phase`): ResUNetBN2C / 32 with
+   a first conv of side 7 and normalize_feature, at 2.5 cm, on phase 13's
+   3DMatch tree. An ME-style checkpoint (conv1.kernel [343, 1, 32], config
+   conv1_kernel_size 7; random weights) through the importer; K12's side-7
+   map on a test fragment bit-equal to conv_maps_staged_plain, and each
+   output's 343 taps against a host lookup (127 past the one-brick reach
+   hold the sentinel, no tap names another voxel); K1's packed route at T
+   = 343 on the imported model's first conv, and at Ci = 3 and 6 through
+   extract_features; K18's wide route (a cluster of 8 CTAs) at N = 16384
+   and 20003 within 1e-5 of the plain version, inliers equal, and the
+   one-block route's parent digest at N = 5000; cli.test over the test
+   split with SC2-PCR, then with RANSAC at eval_sample_points 16384 (K18's
+   wide route on the path: every fragment holds that many voxels), each
+   pose the bits of eval.test_pair; cli.train at side 7 (the loss finite,
+   K5 on the side-7 first conv's calls of a recorded step against its
+   plain version, and with dY at one cell's rows the 127 taps past its
+   reach exactly 0; one step's device time); then each size limit left
+   (K4 past 13056 rows, K13 past 17920, K7 past 256 channels, K20-K22 past
+   512, the kNN kernels past a width of 256) raising before any launch,
+   with no device record.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi line; before that, a {"kernels": [...]} line with the numbers of
@@ -329,7 +349,11 @@ extract_features; launches: the run's K1 launches), `masked_argmin_raw` /
 `masked_knn2_raw` (K2 and K8 on features that are not unit-norm) and
 `masked_norm_backward_sync` (K21's two-launch form); phase 13 gives the
 `_desc` rows (the descriptor harness's K2, K3, K4, K13-K15, `icp_solve`
-and ICP's K2 at B = 1, N = 8000, S = 1600; launches: the KITTI runs'); `ms`
+and ICP's K2 at B = 1, N = 8000, S = 1600; launches: the KITTI runs');
+phase 14 gives `conv_maps_side7`, `sparse_conv_side7` (launches: its
+SC2-PCR cli.test run's), `sparse_conv_ci3_side7` / `_ci6_side7` (the
+extract_features runs'), `sparse_conv_wgrad_side7` (the cli.train run's)
+and `ransac_polish_wide` (the RANSAC cli.test run's); `ms`
 is CUDA-event time,
 `device_ms` the profiler's device time of the same calls, so a row whose
 `ms` is well above its `device_ms` is bound by the host's launch path. It
@@ -4481,7 +4505,7 @@ def train_breakdown(model, opt, batch, cfg, gen, what="train"):
     for inverse in (False, True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        conv_maps(pyr, 4, 5, inverse=inverse)
+        conv_maps(pyr, 4, model.conv1_kernel_size, inverse=inverse)
         torch.cuda.synchronize()
         maps_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"{what}: conv maps of one side {maps_ms[0]:.2f} ms, with their "
@@ -5202,6 +5226,49 @@ def runbook_tree(root, drive):
     return time.perf_counter() - t0
 
 
+def replay_cli_test(config, model, est, pairs, what, whole=True):
+    """`cli.test.main(config)` over `pairs` pairs with every count set to 0
+    just before it and read just after; raises where it ran another number
+    of pairs, launched no kernel of RUNBOOK_KERNELS[est], dropped a point
+    outside the window (`whole`), or gave a pose other than the bits of
+    `eval.test_pair` on the same batch and draws (the generator state
+    saved with each pair). `what` names the run in the errors. Returns
+    (result, {kernel: launches}, [(batch, state, pose)])."""
+    import dataclasses
+
+    import torch
+    from eyoc_tpu_torch.cli import test as cli_test
+    from eyoc_tpu_torch.eval import test_pair
+    from eyoc_tpu_torch.models import load_model
+    from eyoc_tpu_torch.training.trainer import build_step_config
+    from eyoc_tpu_torch.utils import kernels
+
+    record = []
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    res = cli_test.main(config, num_pairs=pairs, record=record)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    missing = [k for k in RUNBOOK_KERNELS[est] if counts[k] <= 0]
+    if missing or len(record) != pairs:
+        raise AssertionError(f"{what}: {len(record)} pairs, launched no "
+                             f"{missing}")
+    if whole and res["dropped"] != 0:
+        raise AssertionError(f"{what}: {res['dropped']} of the points fell "
+                             "outside the window")
+    _, cfg = build_step_config(config, load_model(config.model))
+    cfg = dataclasses.replace(cfg, use_ransac=est == "RANSAC")
+    for batch, state, T_est in record:
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state)
+        want = test_pair(model, batch, cfg, generator=gen)["T_est"]
+        if not torch.equal(want, T_est):
+            raise AssertionError(
+                f"{what}: a pose differs from eval.test_pair's on the same "
+                f"batch and draws by {float((want - T_est).abs().max())}")
+    return res, counts, record
+
+
 def runbook_phase(smi, work):
     """Phase 10, the real-data runbook (README.md) through the port on the
     card, in the directory `work` (phase 13 reads its tree and checkpoint
@@ -5219,19 +5286,15 @@ def runbook_phase(smi, work):
     the weights are random). Returns ({estimator: the run's result},
     {"checkpoint", "kitti_root", "split"}: the imported checkpoint's path
     base, the tree's root and the one-drive split file)."""
-    import dataclasses
     import os
 
     import torch
     from eyoc_tpu_torch.cli import test as cli_test
     from eyoc_tpu_torch.data import datasets
-    from eyoc_tpu_torch.eval import test_pair
     from eyoc_tpu_torch.geometry.metrics import registration_success
     from eyoc_tpu_torch.models import init_unet, load_model
     from eyoc_tpu_torch.tools import import_torch_ckpt
     from eyoc_tpu_torch.training.checkpoint import load_weights_only
-    from eyoc_tpu_torch.training.trainer import build_step_config
-    from eyoc_tpu_torch.utils import kernels
 
     split_file = datasets._split_file
     try:
@@ -5263,32 +5326,12 @@ def runbook_phase(smi, work):
                 "KITTINMPairDataset", "--use_RANSAC", flag, "--num_pairs",
                 str(RUNBOOK_PAIRS)])
             config = cli_test.load_test_config(args)
-            record = []
-            torch.cuda.synchronize()
-            kernels.reset_counts()
-            res = cli_test.main(config, num_pairs=args.num_pairs,
-                                record=record)
-            torch.cuda.synchronize()
-            counts = dict(kernels.launches)
-            missing = [k for k in RUNBOOK_KERNELS[est] if counts[k] <= 0]
-            if missing or len(record) != RUNBOOK_PAIRS:
-                raise AssertionError(f"cli.test ({est}): {len(record)} pairs,"
-                                     f" launched no {missing}")
-            _, cfg = build_step_config(config, spec)
-            cfg = dataclasses.replace(cfg, use_ransac=bool(config.use_RANSAC))
-            ok = []
-            for batch, state, T_est in record:
-                gen = torch.Generator(device="cuda")
-                gen.set_state(state)
-                want = test_pair(model, batch, cfg, generator=gen)["T_est"]
-                if not torch.equal(want, T_est):
-                    raise AssertionError(
-                        f"cli.test ({est}): a pose differs from "
-                        f"eval.test_pair's on the same batch and draws by "
-                        f"{float((want - T_est).abs().max())}")
-                ok.append(bool(registration_success(
-                    T_est, batch.T_gt[0], config.rte_thresh,
-                    config.rre_thresh)[0]))
+            res, counts, record = replay_cli_test(
+                config, model, est, args.num_pairs, f"cli.test ({est})",
+                whole=False)
+            ok = [bool(registration_success(
+                T_est, batch.T_gt[0], config.rte_thresh,
+                config.rre_thresh)[0]) for batch, _, T_est in record]
             if res["rr"] != float(np.mean(ok)):
                 raise AssertionError(f"cli.test ({est}): RR {res['rr']} is "
                                      "not the mean of registration_success "
@@ -5507,14 +5550,26 @@ def extract_phase(pairs, smi):
     """api.extract_features with rgb (Ci = 3) and with rgb and normals
     (Ci = 6) on pair 0's cloud 0, counts reset just before each: the first
     conv on K1's packed route, checked against its plain version."""
+    b0 = pairs[0]
+    n = int(b0.n0[0])
+    return packed_conv_rows(b0.xyz0[0, :n].numpy(), 5, 0.3, CAPS,
+                            WINDOW_BITS, "", smi)
+
+
+def packed_conv_rows(xyz, k1, voxel, caps, bits, suffix, smi):
+    """`extract_phase`'s runs on the points `xyz` at a first conv of side
+    `k1`: for Ci in PACKED_CI, a fresh ResUNetBN2C / 32 (running statistics
+    moved) through api.extract_features with rgb (and normals), counts reset
+    just before; its features finite and unit-norm, its first conv one call
+    on K1's packed route (K = k1^3 Ci), held to the plain version. Returns
+    ({sparse_conv_ci<Ci><suffix>: row}, {that name: the run's K1
+    launches})."""
     import torch
     from eyoc_tpu_torch import api
     from eyoc_tpu_torch.models import init_unet, load_model, unet
     from eyoc_tpu_torch.sparse import brick_conv as bc
     from eyoc_tpu_torch.utils import kernels
-    b0 = pairs[0]
-    n = int(b0.n0[0])
-    xyz = b0.xyz0[0, :n].numpy()
+    n = xyz.shape[0]
     rng = np.random.default_rng(12)
     rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     nrm = rng.normal(size=(n, 3))
@@ -5524,9 +5579,9 @@ def extract_phase(pairs, smi):
     rows, launches = {}, {}
     for cin, kw in ((3, dict(rgb=rgb)), (6, dict(rgb=rgb, normal=nrm))):
         model = init_unet(spec, torch.Generator().manual_seed(cin), cin, 32,
-                          5, device="cuda")
+                          k1, device="cuda")
         _moved_statistics(model, 40 + cin)
-        args = dict(voxel_size=0.3, caps=CAPS, window_bits=WINDOW_BITS, **kw)
+        args = dict(voxel_size=voxel, caps=caps, window_bits=bits, **kw)
         api.extract_features(model, xyz, **args)             # warm-up
         torch.cuda.synchronize()
         kernels.reset_counts()
@@ -5534,30 +5589,31 @@ def extract_phase(pairs, smi):
             t0 = time.perf_counter()
             pts, f = api.extract_features(model, xyz, **args)
             ms = (time.perf_counter() - t0) * 1e3
-        name = f"sparse_conv_ci{cin}"
+        name = f"sparse_conv_ci{cin}{suffix}"
         launches[name] = kernels.launches["sparse_conv"]
+        what = f"extract_features, Ci = {cin}, conv1 side {k1}"
         if pts.shape[0] != f.shape[0] or f.shape[1] != 32 or \
                 not np.isfinite(f).all() or \
                 np.abs(np.linalg.norm(f, axis=1) - 1).max() > 1e-3:
-            raise AssertionError(f"extract_features, Ci = {cin}: shapes "
-                                 f"{pts.shape} / {f.shape}, or features not "
-                                 "finite and unit-norm")
+            raise AssertionError(f"{what}: shapes {pts.shape} / {f.shape}, "
+                                 "or features not finite and unit-norm")
         packed = [(a, k) for a, k in calls["sparse_conv"]
                   if a[0].shape[1] == cin]
         (x, W, nmap), _ = packed[0]
         plan = bc.k1_plan(nmap.shape[0], W.shape[0], cin, 0, W.shape[2])
-        if len(packed) != 1 or not plan.packed:
-            raise AssertionError(f"extract_features, Ci = {cin}: the first "
-                                 "conv is not one call on the packed route")
+        if len(packed) != 1 or not plan.packed or W.shape[0] != k1 ** 3:
+            raise AssertionError(f"{what}: the first conv is not one call "
+                                 f"of {k1 ** 3} taps on the packed route")
         label = (f"K1 sparse_conv, the packed route at Ci = {cin} (K = "
-                 f"{W.shape[0] * cin}; extract_features' first conv)")
+                 f"{W.shape[0] * cin}; extract_features' first conv, side "
+                 f"{k1})")
         rows[name] = check_calls(label, packed, bc.sparse_conv,
                                  bc.sparse_conv_plain, _conv_cost,
                                  _bf16_close(K1_RTOL, K1_ATOL_FRAC), reps=10)
         same_bits_twice(label, bc.sparse_conv, packed)
-        log(f"extract_features, Ci = {cin}: {pts.shape[0]} voxels of {n} "
-            f"points, {ms:.2f} ms (host clock, with the copies to the "
-            f"host), {launches[name]} K1 launches, on {smi}")
+        log(f"{what}: {pts.shape[0]} voxels of {n} points, {ms:.2f} ms "
+            f"(host clock, with the copies to the host), {launches[name]} "
+            f"K1 launches, on {smi}")
     return rows, launches
 
 
@@ -6422,35 +6478,95 @@ def level_fills(batch, caps, voxel, bits, what):
         + "; every level equal to the host's distinct cells: no overflow")
 
 
+def threedmatch_train(root, out, k1, what, smi):
+    """`cli.train.main` on the 3DMatch tree at `root` (the split files
+    already pointed at it), writing to `out`: --dataset
+    ThreeDMatchPairDataset --voxel_size TDM_VOXEL, ResUNetBN2C / 32 with a
+    first conv of side `k1`, normalize_feature, HardestContrastiveLossTrainer,
+    B = TDM_B, rotation_range 360, one epoch of two steps and a validation
+    of 2 pairs; --skip_initialization true, as the defaults' pair_max_dist
+    -1 would put the base trainer in the identity-label mode of the LiDAR
+    recipes; window bits TDM_TRAIN_BITS. Each level's fill checked on a
+    train batch; counts set to 0 just before main() and read just after:
+    every kernel of the train step and the valid step launched; the metrics
+    finite; the best_val_checkpoint written. Returns (the trainer, that
+    batch on the card, the step config, {kernel: launches})."""
+    import os
+
+    import torch
+    from eyoc_tpu_torch.cli.train import main as train_main
+    from eyoc_tpu_torch.config import get_config
+    from eyoc_tpu_torch.data.loader import make_data_loader
+    from eyoc_tpu_torch.models import load_model
+    from eyoc_tpu_torch.training.trainer import build_step_config
+    from eyoc_tpu_torch.utils import kernels
+
+    config = get_config([
+        "--dataset", "ThreeDMatchPairDataset", "--threed_match_dir",
+        root, "--voxel_size", str(TDM_VOXEL), "--model", "ResUNetBN2C",
+        "--model_n_out", "32", "--conv1_kernel_size", str(k1),
+        "--normalize_feature", "true",
+        "--trainer", "HardestContrastiveLossTrainer", "--batch_size",
+        str(TDM_B), "--rotation_range", "360", "--max_epoch", "1",
+        "--skip_initialization", "true", "--window_bits",
+        ",".join(map(str, TDM_TRAIN_BITS)), "--val_max_iter", "2",
+        "--stat_freq", "1", "--out_dir", out])
+    tcfg, _ = build_step_config(config, load_model(config.model))
+    batch = next(iter(make_data_loader(config, "train", TDM_B))).to("cuda")
+    level_fills(batch, tcfg.caps, TDM_VOXEL, TDM_TRAIN_BITS,
+                f"{what} train batch (B = {TDM_B}, rotated)")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    tr = train_main(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    expect = TRAIN_KERNELS + ("est_quad_linear_robust",)
+    missing = [k for k in expect if counts[k] <= 0]
+    if missing or tr.model.conv1_kernel_size != k1:
+        raise AssertionError(f"{what} training (conv1 side "
+                             f"{tr.model.conv1_kernel_size}) launched no "
+                             f"{missing}")
+    if len(tr.epoch_log) != 1 or tr.epoch_log[0]["steps"] != 2:
+        raise AssertionError(f"{what} training: {tr.epoch_log}")
+    e = tr.epoch_log[0]
+    if not all(np.isfinite(v) for v in e["metrics"].values()):
+        raise AssertionError(f"{what} training: non-finite metrics "
+                             f"{e['metrics']}")
+    if not os.path.exists(os.path.join(out, "best_val_checkpoint.pt")):
+        raise AssertionError(f"{what} training wrote no best_val_checkpoint")
+    m = ", ".join(f"{k} {v:.4f}" for k, v in e["metrics"].items())
+    log(f"{what} training (cli.train, HardestContrastiveLossTrainer, conv1 "
+        f"side {k1}): {e['steps']} steps of B = {TDM_B}, Data "
+        f"{e['data_s'] * 1e3:.1f} ms/step, Iter {e['iter_s'] * 1e3:.1f} "
+        f"ms/step (the trainer's Timers; Iter includes Data), {m}; "
+        f"validation {tr.best_val_metric} {tr.best_val:.4f}; main() "
+        f"{wall:.1f} s; launches "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f"; on {smi}")
+    return tr, batch, tcfg, counts
+
+
 def threedmatch_phase(work, smi):
     """Phase 13 (c): the 3DMatch configuration through the normal entry
     points on the card. A synthetic 3DMatch-format tree (`threedmatch_tree`:
     room-sized fragments of TDM_POINTS points, the train split's first two
     scene names, the val split's first, the test split's first), then
-    `cli.train.main` with --dataset ThreeDMatchPairDataset --voxel_size
-    0.025 and the repo's defaults otherwise (ResUNetBN2C / 32, conv1 5,
-    HardestContrastiveLossTrainer, B = 4, rotation_range 360), one epoch of
-    two steps and a validation of 2 pairs; --skip_initialization true, as
-    the defaults' pair_max_dist -1 would put the base trainer in the
-    identity-label mode of the LiDAR recipes; window bits TDM_TRAIN_BITS.
-    Each level's fill checked on a train batch and a test pair; every
-    kernel of the train step and the valid step launched; the loss finite.
-    Then `cli.test.main` over the test split (TDM_TEST_PAIRS pairs, SC2-PCR,
-    --window_bits 9,9,8): no point dropped by the window, the eval kernels
-    launched, each pose the bits of `eval.test_pair` on the same batch and
-    draws. Last, one train step's device time (torch.profiler)."""
-    import dataclasses
+    `cli.train.main` on it (`threedmatch_train`, a first conv of side 5).
+    Then `cli.test.main` over the test split
+    (TDM_TEST_PAIRS pairs, SC2-PCR, --window_bits 9,9,8; a test pair's
+    level fills checked first) through `replay_cli_test`: no point dropped
+    by the window, the eval kernels launched, each pose the bits of
+    `eval.test_pair` on the same batch and draws. Last, one train step's
+    device time (torch.profiler)."""
     import os
     import torch
     from eyoc_tpu_torch.cli import test as cli_test
-    from eyoc_tpu_torch.cli.train import main as train_main
-    from eyoc_tpu_torch.config import get_config
     from eyoc_tpu_torch.data import datasets
     from eyoc_tpu_torch.data.loader import make_data_loader
-    from eyoc_tpu_torch.eval import test_pair
     from eyoc_tpu_torch.models import load_model
     from eyoc_tpu_torch.training.trainer import build_step_config
-    from eyoc_tpu_torch.utils import kernels
 
     names = {}
     for phase, n in (("train", 2), ("val", 1), ("test", 1)):
@@ -6467,48 +6583,8 @@ def threedmatch_phase(work, smi):
     datasets._split_file = split_of
     out = os.path.join(work, "threedmatch_run")
     try:
-        config = get_config([
-            "--dataset", "ThreeDMatchPairDataset", "--threed_match_dir",
-            root, "--voxel_size", str(TDM_VOXEL), "--model", "ResUNetBN2C",
-            "--model_n_out", "32", "--conv1_kernel_size", "5",
-            "--trainer", "HardestContrastiveLossTrainer", "--batch_size",
-            str(TDM_B), "--rotation_range", "360", "--max_epoch", "1",
-            "--skip_initialization", "true", "--window_bits",
-            ",".join(map(str, TDM_TRAIN_BITS)), "--val_max_iter", "2",
-            "--stat_freq", "1", "--out_dir", out])
-        spec = load_model(config.model)
-        tcfg, _ = build_step_config(config, spec)
-        batch = next(iter(make_data_loader(config, "train", TDM_B)))
-        level_fills(batch.to("cuda"), tcfg.caps, TDM_VOXEL, TDM_TRAIN_BITS,
-                    f"3DMatch train batch (B = {TDM_B}, rotated)")
-        torch.cuda.synchronize()
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        tr = train_main(config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(kernels.launches)
-        expect = TRAIN_KERNELS + ("est_quad_linear_robust",)
-        missing = [k for k in expect if counts[k] <= 0]
-        if missing:
-            raise AssertionError(f"3DMatch training launched no {missing}")
-        if len(tr.epoch_log) != 1 or tr.epoch_log[0]["steps"] != 2:
-            raise AssertionError(f"3DMatch training: {tr.epoch_log}")
-        e = tr.epoch_log[0]
-        if not all(np.isfinite(v) for v in e["metrics"].values()):
-            raise AssertionError(f"3DMatch training: non-finite metrics "
-                                 f"{e['metrics']}")
-        if not os.path.exists(os.path.join(out, "best_val_checkpoint.pt")):
-            raise AssertionError("3DMatch training wrote no "
-                                 "best_val_checkpoint")
-        m = ", ".join(f"{k} {v:.4f}" for k, v in e["metrics"].items())
-        log(f"3DMatch training: {e['steps']} steps of B = {TDM_B}, Data "
-            f"{e['data_s'] * 1e3:.1f} ms/step, Iter {e['iter_s'] * 1e3:.1f} "
-            f"ms/step (the trainer's Timers; Iter includes Data), {m}; "
-            f"validation {tr.best_val_metric} {tr.best_val:.4f}; main() "
-            f"{wall:.1f} s; launches "
-            + json.dumps({k: v for k, v in counts.items() if v})
-            + f"; on {smi}")
+        tr, batch, tcfg, _ = threedmatch_train(root, out, 5, "3DMatch", smi)
+        spec = load_model("ResUNetBN2C")
 
         args = cli_test.parse_args([
             "--save_dir", out, "--use_RANSAC", "false", "--num_pairs",
@@ -6519,28 +6595,8 @@ def threedmatch_phase(work, smi):
         tb = next(iter(make_data_loader(tconfig, "test", 1)))
         level_fills(tb.to("cuda"), ecfg.caps, TDM_VOXEL, TDM_TEST_BITS,
                     "3DMatch test pair")
-        record = []
-        torch.cuda.synchronize()
-        kernels.reset_counts()
-        res = cli_test.main(tconfig, num_pairs=args.num_pairs, record=record)
-        torch.cuda.synchronize()
-        counts = dict(kernels.launches)
-        missing = [k for k in RUNBOOK_KERNELS["SC2-PCR"] if counts[k] <= 0]
-        if missing or len(record) != TDM_TEST_PAIRS:
-            raise AssertionError(f"3DMatch cli.test: {len(record)} pairs, "
-                                 f"launched no {missing}")
-        if res["dropped"] != 0:
-            raise AssertionError(f"3DMatch cli.test: {res['dropped']} of the "
-                                 "points fell outside the window")
-        cfg = dataclasses.replace(ecfg, use_ransac=False)
-        for b, state, T_est in record:
-            gen = torch.Generator(device="cuda")
-            gen.set_state(state)
-            want = test_pair(tr.model, b, cfg, generator=gen)["T_est"]
-            if not torch.equal(want, T_est):
-                raise AssertionError(
-                    "3DMatch cli.test: a pose differs from eval.test_pair's "
-                    f"by {float((want - T_est).abs().max())}")
+        res, counts, _ = replay_cli_test(tconfig, tr.model, "SC2-PCR",
+                                         args.num_pairs, "3DMatch cli.test")
         log(f"3DMatch cli.test: {TDM_TEST_PAIRS} pairs with SC2-PCR, window "
             f"bits {TDM_TEST_BITS}, dropped {res['dropped']}, rr "
             f"{res['rr']:.4f}, rte {res['rte']:.4f} m, rre {res['rre']:.4f} "
@@ -6550,7 +6606,7 @@ def threedmatch_phase(work, smi):
             f"the bits of eval.test_pair; launches "
             + json.dumps({k: v for k, v in counts.items() if v})
             + f"; on {smi}")
-        train_breakdown(tr.model, tr.opt, batch.to("cuda"), tcfg,
+        train_breakdown(tr.model, tr.opt, batch, tcfg,
                         torch.Generator().manual_seed(13),
                         what=f"3DMatch train step (B = {TDM_B}, voxel "
                         f"{TDM_VOXEL} m)")
@@ -6571,6 +6627,462 @@ def tail_phase(work, runbook, smi):
     threedmatch_phase(work, smi)
     torch.cuda.empty_cache()
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
+# ----------------------------------------------------------------- phase 14
+
+
+FCGF_K1 = 7                # FCGF's published 3DMatch model: conv1 of side 7
+FCGF_RANSAC_POINTS = 16384  # eval_sample_points of the RANSAC run: K18 wide
+K18_WIDE_N = (16384, 20003)  # K18's wide route: rows of its two checks
+K18_WIDE_TOL = 1e-5        # a pose element against the plain version
+
+
+def fcgf_checkpoint(path, root):
+    """An ME-style best_val_checkpoint.pth of FCGF's published 3DMatch
+    model, ResUNetBN2C(1, 32, normalize_feature=True, conv1_kernel_size=7)
+    (conv1.kernel [343, 1, 32]): random weights (the port's init, generator
+    seed 8) through the port's exporter, in the reference's container with
+    the config keys FCGF saves (model, model_n_out, conv1_kernel_size,
+    normalize_feature, voxel_size 0.025, the dataset and its root)."""
+    import torch
+    from eyoc_tpu_torch.models import init_unet, load_model
+    from eyoc_tpu_torch.tools.import_torch_ckpt import (
+        params_to_torch_state_dict)
+    model = init_unet(load_model("ResUNetBN2C"),
+                      torch.Generator().manual_seed(8), 1, 32, FCGF_K1,
+                      dtype=torch.float32, device="cpu")
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          params_to_torch_state_dict(model.state_dict()).items()}
+    if tuple(sd["conv1.kernel"].shape) != (FCGF_K1 ** 3, 1, 32):
+        raise AssertionError(f"conv1.kernel {tuple(sd['conv1.kernel'].shape)}")
+    torch.save({"epoch": 0, "state_dict": sd, "optimizer": {},
+                "scheduler": {}, "config": {
+                    "model": "ResUNetBN2C", "model_n_out": 32,
+                    "conv1_kernel_size": FCGF_K1, "normalize_feature": True,
+                    "voxel_size": TDM_VOXEL,
+                    "dataset": "ThreeDMatchPairDataset",
+                    "threed_match_dir": root},
+                "best_val": 0.0, "best_val_epoch": 0,
+                "best_val_metric": "feat_match_ratio"}, path)
+
+
+def side7_map_row(pyr, vox, voxel, what):
+    """K12 with the side-7 first map (the kernels line's conv_maps_side7 row)
+    on one cloud's pyramid: every map bit-equal to conv_maps_staged_plain
+    on the same CUDA tensors (`_coord_row`: the same bits twice, 2 device
+    kernels a call); then each valid output's 343 taps against a host
+    lookup of the voxels' coordinates: a tap whose cell lies past one brick
+    of the output's own (u + off outside [-2, 3]^3: 127 a row) holds the
+    sentinel, and every other tap holds the neighbour at c + off or the
+    sentinel (a dropped diagonal tap, or no voxel there), never another
+    voxel; so no row reads more than 216 voxels."""
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    margs = (pyr, 4, FCGF_K1, False)
+    maps, row = _coord_row(
+        f"K12 conv_maps, side-7 first conv ({what})",
+        lambda: bc.conv_maps(*margs),
+        lambda: bc.conv_maps_staged_plain(*margs),
+        sum(_nbytes((lv.nbr6, lv.cellslot, lv.occ, lv.up_slots))
+            for lv in pyr.levels) + _nbytes(bc.conv_maps(*margs)[:4]), 2,
+        "no one call builds gather maps from a brick pyramid")
+    first = maps.first.cpu().numpy().astype(np.int64)
+    M = first.shape[0]
+    valid = vox.mask[0].cpu().numpy()
+    rows = np.where(valid)[0]
+    c = np.floor(vox.xyz[0].cpu().numpy() / np.float32(voxel)).astype(
+        np.int64) + (1 << 20)
+    key = (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+    skey = np.where(valid, key, -1)
+    order = np.argsort(skey)
+    skey = skey[order]
+    off = np.asarray(bc._offsets(FCGF_K1))
+    u = np.stack([(pyr.levels[0].cellslot.cpu().numpy() >> s) & 1
+                  for s in (2, 1, 0)], 1)[rows]
+    reach = ((u[:, None, :] + off[None] >= -2)
+             & (u[:, None, :] + off[None] <= 3)).all(-1)
+    got = first[rows]
+    right = wrong = dropped = 0
+    for lo in range(0, len(rows), 4096):
+        q = c[rows[lo:lo + 4096]][:, None, :] + off[None]
+        qkey = (q[..., 0] << 42) | (q[..., 1] << 21) | q[..., 2]
+        pos = np.clip(np.searchsorted(skey, qkey), 0, M - 1)
+        want = np.where(skey[pos] == qkey, order[pos], M)
+        want = np.where(reach[lo:lo + 4096], want, M)
+        g = got[lo:lo + 4096]
+        right += int(((g == want) & (g != M)).sum())
+        wrong += int(((g != want) & (g != M)).sum())
+        dropped += int(((g != want) & (g == M)).sum())
+    past = int((~reach).sum())
+    if wrong or (got[~reach] != M).any() or int((got < M).sum(1).max()) > 216:
+        raise AssertionError(f"K12 side-7 map ({what}): {wrong} taps name "
+                             "another voxel than the lookup, or a tap past "
+                             "the reach reads a voxel")
+    log(f"K12 side-7 map ({what}): {len(rows)} outputs x 343 taps against "
+        f"the host lookup: {right} name their neighbour, {past} past the "
+        f"one-brick reach hold the sentinel (127 a row), {dropped} dropped "
+        f"diagonal taps (an absent brick between), 0 name another voxel; "
+        f"the most voxels a row reads {int((got < M).sum(1).max())} of 216")
+    return row
+
+
+def _polish_wide_close(got, want, trans, best, src, tgt, valid, thr, iters):
+    """`_polish_close`, and each pose element within K18_WIDE_TOL of the
+    plain version's where no inlier test lies within RANSAC_EPS of the
+    threshold."""
+    ok, err = _polish_close(got, want, trans, best, src, tgt, valid, thr,
+                            iters)
+    margin = _polish64(trans[int(best)], src, tgt, valid, thr, iters)[1]
+    d = float((got[0] - want[0]).abs().max())
+    log(f"  K18 wide: pose elements within {d:.3e} of the plain version's")
+    return ok and (margin <= RANSAC_EPS or d <= K18_WIDE_TOL), max(err, d)
+
+
+def check_polish_wide():
+    """K18 `ransac_polish` past one block's rows (the kernels line's
+    ransac_polish_wide row): at each N of K18_WIDE_N (16384, and 20003, not
+    a multiple of the cluster's CTAs, with 10% of the rows invalid), from
+    K16's kept poses and K17's best on a 30%-inlier problem, against the
+    plain version and the f64 polish; the same bits twice, one device
+    kernel a call (one cluster); then the one-block route's digest at N =
+    5000 against its parent's (JACOBI_DIGESTS)."""
+    import torch
+    from eyoc_tpu_torch.registration import ransac
+    cfg = ransac.RansacConfig()
+    thr, lo = cfg.distance_threshold, cfg.edge_length_ratio
+    calls = []
+    for i, n in enumerate(K18_WIDE_N):
+        gen = torch.Generator().manual_seed(60 + i)
+        src, tgt, valid, _ = correspondences(gen, n=n)
+        if i:
+            valid = valid & (torch.rand(n, generator=gen) >= 0.1).cuda()
+        draws = ransac.ransac_draws(
+            cfg, "cuda", torch.Generator(device="cuda").manual_seed(6 + i))
+        trans, coarse = ransac.ransac_hypotheses_topk(
+            src, tgt, valid, *draws, thr, lo, cfg.full_verify_top)[:2]
+        _, best = ransac.ransac_verify(trans, coarse, None, src, tgt, valid,
+                                       thr)
+        calls.append(((trans, best, src, tgt, valid, thr, cfg.polish_iters),
+                      {}))
+    what = (f"K18 ransac_polish, the wide route (N = {K18_WIDE_N}, "
+            f"{ransac.K18_CLUSTER} CTAs)")
+    row = check_calls(what, calls, ransac.ransac_polish,
+                      ransac.ransac_polish_plain, _polish_cost,
+                      _polish_wide_close)
+    row["library_ms"] = None
+    log(f"  {what}: library: none: rounds of a weighted Kabsch on a "
+        "changing inlier set")
+    same_bits_twice(what, ransac.ransac_polish, calls)
+    for args, _ in calls:
+        kernels_per_call(what, lambda a=args: ransac.ransac_polish(*a),
+                         reps=3, expected=1)
+    got = sc2_digest(ransac.ransac_polish(*jacobi_user_calls()[
+        "K18 polish"][1]))
+    key = k23_digest_key()
+    if key == K23_DIGEST_KEY and got != JACOBI_DIGESTS["K18 polish"]:
+        raise AssertionError(f"K18's one-block route at N = 5000 changed its "
+                             f"bits: {got}, the parent gave "
+                             f"{JACOBI_DIGESTS['K18 polish']} on {key}")
+    log(f"K18 one-block route at N = 5000: digest {got} "
+        + ("(the parent's)" if key == K23_DIGEST_KEY else
+           f"(none recorded for {key})"))
+    return row
+
+
+def wgrad_side7_row(calls, pyr):
+    """K5 on the side-7 first conv's calls of one recorded train step (one
+    a side; the kernels line's sparse_conv_wgrad_side7 row: T = 343, the
+    taps packed into M), against its plain version at the train rows'
+    tolerance; then
+    with dY kept only at the rows of cell (0, 0, 0) of `pyr` (the call's
+    side): the 127 taps past that cell's reach take a dW of exactly 0, on
+    the kernel and the plain version."""
+    import torch
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    side7 = [(a, k) for a, k in calls if a[2].shape[1] == FCGF_K1 ** 3]
+    if len(side7) != 2:
+        raise AssertionError(f"a side-7 train step made {len(side7)} K5 "
+                             "calls of 343 taps, not one a side")
+    (x, dy, nmap), kw = side7[0]
+    if not bc.k5_plan(nmap.shape[0], nmap.shape[1], x.shape[1], 0,
+                      dy.shape[1]).packed:
+        raise AssertionError("K5 at T = 343 is not on the packed route")
+    what = (f"K5 sparse_conv_wgrad, side-7 first conv (T = 343, M = "
+            f"{nmap.shape[0]} a side) of a train step")
+    row = check_calls(what, side7, bc.sparse_conv_wgrad,
+                      bc.sparse_conv_wgrad_plain, _wgrad_cost,
+                      _bf16_close(K5_RTOL, K5_ATOL_FRAC), reps=10)
+    log(f"  {what}: library: none: no one call sums gathered rows' outer "
+        "products over a map")
+    same_bits_twice(what, bc.sparse_conv_wgrad, side7)
+    own = bc.conv_maps(pyr, 4, FCGF_K1).first
+    M = own.shape[0]
+    cell0 = pyr.vox_masks[0] & ((pyr.levels[0].cellslot & 7) == 0)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x0 = (1 + 0.01 * torch.randn((M, 1), device="cuda", generator=g)).to(
+        torch.bfloat16)
+    dy0 = (torch.randn((M, dy.shape[1]), device="cuda", generator=g)
+           * cell0[:, None]).to(torch.bfloat16)
+    past = torch.tensor((np.asarray(bc._offsets(FCGF_K1)) == -3).any(1),
+                        device="cuda")
+    k = bc.sparse_conv_wgrad(x0, dy0, own)
+    p = bc.sparse_conv_wgrad_plain(x0, dy0, own)
+    if bool(k[past].any()) or bool(p[past].any()) or int(past.sum()) != 127:
+        raise AssertionError("K5 side 7: a tap past cell 0's reach took a "
+                             "gradient from cell 0's rows")
+    log(f"K5 side 7, dY at the {int(cell0.sum())} rows of cell (0, 0, 0) "
+        f"only: the 127 taps past that cell's reach take dW exactly 0 "
+        f"(kernel and plain); the other taps' largest |dW| "
+        f"{float(k[~past].abs().max()):.3f}")
+    return row
+
+
+def size_limit_checks():
+    """Each size limit left for a later slice, past its limit on the card:
+    the wrapper raises ValueError before any launch, and torch.profiler
+    records no device kernel and no kernel launch in the call (K4
+    sc2_seed_topk past 13056 rows, K13 sc2_nms past 17920, K7 past 256
+    channels, K20 / K21 / K22 past 512, K2 / K8 / K9 past a feature width of
+    256)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eyoc_tpu_torch.ops import knn
+    from eyoc_tpu_torch.registration import sc2pcr
+    from eyoc_tpu_torch.sparse import norm
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    bf, b8, i32 = torch.bfloat16, torch.bool, torch.int32
+    n4, n13, c7, c20, d = 13057, 17921, 264, 520, 257
+    # (kernel, what lies past its limit, wrapper, its inputs: made before
+    # the profiled call)
+    cases = (
+        ("K4 sc2_seed_topk", f"N = {n4}", sc2pcr.sc2_seed_topk,
+         (z(n4, 3), z(n4, 3), z(n4, dtype=b8), z(64, dtype=i32), 0.6, 10)),
+        ("K13 sc2_nms", f"N = {n13}", sc2pcr.sc2_nms,
+         (z(1, n13, 3), z(1, n13, dtype=b8), z(1, n13), 0.6, 100)),
+        ("K7 masked_channel_sums", f"C = {c7}", norm.masked_channel_sums,
+         (z(64, c7, dtype=bf), z(64, dtype=b8))),
+        ("K20 masked_instance_norm", f"C = {c20}", norm.masked_instance_norm,
+         (z(64, c20, dtype=bf), z(64, dtype=b8), 1, z(c20), z(c20))),
+        ("K21 masked_norm_backward", f"C = {c20}", norm.masked_norm_backward,
+         (z(64, c20, dtype=bf), z(64, dtype=b8), 1, z(c20), z(1, 3 * c20),
+          z(64, c20, dtype=bf))),
+        ("K22 masked_norm_apply", f"C = {c20}", norm.masked_norm_apply,
+         (z(64, c20, dtype=bf), z(64, dtype=b8), z(1, 2 * c20))),
+        ("K2 masked_argmin", f"D = {d}", knn.masked_argmin,
+         (z(64, d), z(64, dtype=b8), z(64, d), z(64, dtype=b8))),
+        ("K8 masked_knn2", f"D = {d}", knn.masked_knn,
+         (z(64, d), z(64, dtype=b8), z(64, d), z(64, dtype=b8), 2)),
+        ("K9 masked_argmin_excl", f"D = {d}", knn.masked_argmin_excl,
+         (z(64, d), z(64, d), z(64, 3), z(64, 3), 1.0)))
+    for name, past, call, args in cases:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            try:
+                call(*args)
+            except ValueError as err:
+                msg = str(err)
+            else:
+                raise AssertionError(f"{name} at {past}: no ValueError")
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        ran = sum(e.count for e in events if e.device_type.name == "CUDA")
+        launched = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunch", "cuLaunch")))
+        if ran or launched:
+            raise AssertionError(f"{name} at {past}: {ran} device records, "
+                                 f"{launched} launches before the error")
+        log(f"size limit: {name} at {past} raises before any launch (no "
+            f"device record, no launch): {msg}")
+
+
+def fcgf_phase(work, smi):
+    """Phase 14: FCGF's published 3DMatch model at full width,
+    ResUNetBN2C / 32 with a first conv of side 7 and normalize_feature, at
+    voxel 0.025 m, on phase 13's synthetic 3DMatch tree (made here when
+    phase 13 did not run):
+    - an ME-style checkpoint (`fcgf_checkpoint`) imported by
+      tools.import_torch_ckpt.main(... --write_test_config);
+    - its kernels against their plain versions: K12's side-7 map on a test
+      fragment (`side7_map_row`), K1's packed route at T = 343 on the
+      imported model's eval forward, api.extract_features at Ci = 3 and 6
+      (`packed_conv_rows`), K18's wide route (`check_polish_wide`);
+    - cli.test over the test split with SC2-PCR (`replay_cli_test`: no
+      point dropped, each pose the bits of eval.test_pair), then with
+      RANSAC at eval_sample_points FCGF_RANSAC_POINTS (every fragment
+      holding that many voxels, checked first; each K18 call N = 16384,
+      its wide route);
+    - cli.train at side 7 (`threedmatch_train`: every train kernel
+      launched, the metrics finite); K5 on the side-7 call of one
+      recorded step (`wgrad_side7_row`); one step's device time
+      (`train_breakdown`);
+    - the size limits left for a later slice (`size_limit_checks`).
+    Returns ({kernels-line name: row}, {name: launches}): the launches of
+    the cli.test runs (K12 and K1: SC2-PCR's; K18: RANSAC's), of the
+    extract_features runs and of the cli.train run (K5)."""
+    import os
+
+    import torch
+    from eyoc_tpu_torch.cli import test as cli_test
+    from eyoc_tpu_torch.data import datasets
+    from eyoc_tpu_torch.data.loader import make_data_loader
+    from eyoc_tpu_torch.models import init_unet, load_model, unet
+    from eyoc_tpu_torch.registration import ransac
+    from eyoc_tpu_torch.sparse import brick_conv as bc
+    from eyoc_tpu_torch.tools import import_torch_ckpt
+    from eyoc_tpu_torch.training.checkpoint import load_weights_only
+    from eyoc_tpu_torch.training.pipeline import preprocess_clouds
+    from eyoc_tpu_torch.training.trainer import build_step_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "threedmatch")
+    if not os.path.isdir(root):
+        names = {}
+        for phase, n in (("train", 2), ("val", 1), ("test", 1)):
+            with open(datasets._split_file(f"{phase}_3dmatch.txt")) as f:
+                names[phase] = f.read().split()[:n]
+        secs = threedmatch_tree(root, names)[1]
+        log(f"3DMatch tree (phase 14): {secs:.1f} s on the host")
+    split_file = datasets._split_file
+    datasets._split_file = lambda name: os.path.join(
+        root, f"split_{name.split('_')[0]}.txt")
+    rows, launches = {}, {}
+    try:
+        pth = os.path.join(work, "fcgf_3dmatch.pth")
+        fcgf_checkpoint(pth, root)
+        out = os.path.join(work, "fcgf_imported")
+        import_torch_ckpt.main(["--input", pth, "--output_dir", out,
+                                "--name", "best_val_checkpoint",
+                                "--write_test_config"])
+        spec = load_model("ResUNetBN2C")
+        model = init_unet(spec, torch.Generator().manual_seed(0), 1, 32,
+                          FCGF_K1, device="cuda")
+        load_weights_only(os.path.join(out, "best_val_checkpoint"), model)
+        if tuple(model.conv1.weight.shape) != (343, 1, 32) or \
+                not model.normalize_feature:
+            raise AssertionError("the imported model is not FCGF's 3DMatch "
+                                 "model")
+        bits = ",".join(map(str, TDM_TEST_BITS))
+        args = cli_test.parse_args([
+            "--save_dir", out, "--use_RANSAC", "false", "--num_pairs",
+            str(TDM_TEST_PAIRS), "--window_bits", bits])
+        tconfig = cli_test.load_test_config(args)
+        if tconfig.conv1_kernel_size != FCGF_K1 or \
+                float(tconfig.voxel_size) != TDM_VOXEL:
+            raise AssertionError("the written test config is not the "
+                                 "checkpoint's")
+        _, ecfg = build_step_config(tconfig, spec)
+        tb = next(iter(make_data_loader(tconfig, "test", 1))).to("cuda")
+        level_fills(tb, ecfg.caps, TDM_VOXEL, TDM_TEST_BITS,
+                    "3DMatch test pair (phase 14)")
+        vox, pyr = preprocess_clouds(tb.xyz0, tb.n0, caps=ecfg.caps,
+                                     voxel_size=TDM_VOXEL,
+                                     window_bits=TDM_TEST_BITS)
+
+        # ---- the kernels at the path's shapes
+        rows["conv_maps_side7"] = side7_map_row(pyr, vox, TDM_VOXEL,
+                                                "a 3DMatch test fragment")
+        with recording([(unet, "sparse_conv")]) as calls:
+            feats = model.embed(pyr)
+        conv1 = [(a, k) for a, k in calls["sparse_conv"]
+                 if a[1].shape[0] == FCGF_K1 ** 3]
+        if len(conv1) != 1 or not bc.k1_plan(
+                conv1[0][0][2].shape[0], 343, 1, 0, 32).packed:
+            raise AssertionError("the side-7 eval forward's first conv is "
+                                 "not one K1 call on the packed route")
+        what = "K1 sparse_conv, side-7 first conv (T = 343, Ci = 1) at eval"
+        rows["sparse_conv_side7"] = check_calls(
+            what, conv1, bc.sparse_conv, bc.sparse_conv_plain, _conv_cost,
+            _bf16_close(K1_RTOL, K1_ATOL_FRAC), reps=10)
+        log(f"  {what}: library: none: no one call gathers a sparse "
+            "neighbourhood through a map")
+        same_bits_twice(what, bc.sparse_conv, conv1)
+        m = vox.mask[0]
+        if float((feats[m].float().norm(dim=1) - 1).abs().max()) > 1e-3:
+            raise AssertionError("side-7 features are not unit-norm")
+        n0 = int(tb.n0[0])
+        crow, claunch = packed_conv_rows(
+            tb.xyz0[0, :n0].cpu().numpy(), FCGF_K1, TDM_VOXEL, ecfg.caps,
+            TDM_TEST_BITS, "_side7", smi)
+        rows.update(crow)
+        launches.update(claunch)
+        rows["ransac_polish_wide"] = check_polish_wide()
+        torch.cuda.empty_cache()
+
+        # ---- cli.test with SC2-PCR, then RANSAC past K18's one block
+        for est in ("SC2-PCR", "RANSAC"):
+            args = cli_test.parse_args([
+                "--save_dir", out, "--use_RANSAC", str(est == "RANSAC"),
+                "--num_pairs", str(TDM_TEST_PAIRS), "--window_bits", bits])
+            config = cli_test.load_test_config(args)
+            if est == "RANSAC":
+                config.eval_sample_points = FCGF_RANSAC_POINTS
+                fewest = min(
+                    int(preprocess_clouds(
+                        xyz, n, caps=ecfg.caps, voxel_size=TDM_VOXEL,
+                        window_bits=TDM_TEST_BITS)[0].mask.sum())
+                    for b in make_data_loader(config, "test", 1)
+                    for xyz, n in ((b.xyz0.cuda(), b.n0.cuda()),
+                                   (b.xyz1.cuda(), b.n1.cuda())))
+                if fewest < FCGF_RANSAC_POINTS:
+                    raise AssertionError(f"a test fragment holds {fewest} "
+                                         f"voxels, under {FCGF_RANSAC_POINTS}")
+            with recording([(ransac, "ransac_polish")]) as polish:
+                res, counts, _ = replay_cli_test(
+                    config, model, est, args.num_pairs,
+                    f"phase 14 cli.test ({est})")
+            if est == "RANSAC":
+                ns = sorted({a[2].shape[0]
+                             for a, _ in polish["ransac_polish"]})
+                if ns != [FCGF_RANSAC_POINTS] or \
+                        counts["ransac_polish"] != TDM_TEST_PAIRS:
+                    raise AssertionError(f"phase 14 cli.test (RANSAC): K18 "
+                                         f"at N = {ns}, "
+                                         f"{counts['ransac_polish']} launches")
+                launches["ransac_polish_wide"] = counts["ransac_polish"]
+            else:
+                launches["conv_maps_side7"] = counts["conv_maps"]
+                launches["sparse_conv_side7"] = counts["sparse_conv"]
+            log(f"FCGF 3DMatch model, cli.test with {est} "
+                f"(eval_sample_points {config.eval_sample_points}): "
+                f"{TDM_TEST_PAIRS} pairs, dropped {res['dropped']}, rr "
+                f"{res['rr']:.4f}, rte {res['rte']:.4f} m, rre "
+                f"{res['rre']:.4f} deg; Data {res['data_time'] * 1e3:.2f} ms,"
+                f" Feat {res['feat_time'] * 1e3:.2f} ms, Reg "
+                f"{res['reg_time'] * 1e3:.2f} ms a pair (host clock around "
+                f"synchronized calls); each pose the bits of "
+                f"eval.test_pair; launches "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; on {smi}")
+        del model, feats, calls, conv1
+        torch.cuda.empty_cache()
+
+        # ---- cli.train at side 7
+        tr, batch, tcfg, counts = threedmatch_train(
+            root, os.path.join(work, "fcgf_train"), FCGF_K1,
+            "FCGF 3DMatch model", smi)
+        launches["sparse_conv_wgrad_side7"] = counts["sparse_conv_wgrad"]
+        calls = record_train_step(tr.model, tr.opt, batch, tcfg,
+                                  torch.Generator().manual_seed(14))[0]
+        _, tpyr = preprocess_clouds(batch.xyz0, batch.n0, caps=tcfg.caps,
+                                    voxel_size=TDM_VOXEL,
+                                    window_bits=TDM_TRAIN_BITS)
+        rows["sparse_conv_wgrad_side7"] = wgrad_side7_row(
+            calls["sparse_conv_wgrad"], tpyr)
+        del calls
+        train_breakdown(tr.model, tr.opt, batch, tcfg,
+                        torch.Generator().manual_seed(15),
+                        what=f"FCGF 3DMatch train step (B = {TDM_B}, conv1 "
+                        f"side {FCGF_K1}, voxel {TDM_VOXEL} m)")
+        del tr, batch
+        torch.cuda.empty_cache()
+        size_limit_checks()
+    finally:
+        datasets._split_file = split_file
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return rows, launches
 
 
@@ -6880,6 +7392,12 @@ def main() -> int:
     # 10's tree, and the 3DMatch configuration through train and test
     tail_rows, tail_launches = tail_phase(work, runbook, smi)
     results.update(tail_rows)
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: FCGF's published 3DMatch model (a first conv of side
+    # 7) on phase 13's tree, K18's wide route, the size limits left
+    fcgf_rows, fcgf_launches = fcgf_phase(work, smi)
+    results.update(fcgf_rows)
 
     # one row per kernel and path: the eval rows take the eval run's
     # launches (phase 3), the training rows (K1 and K2 with the suffix
@@ -6894,6 +7412,8 @@ def main() -> int:
     # rows phase 9's loss steps; each row's times are of the calls of that
     # path
     def launches(name):
+        if name in fcgf_launches:
+            return fcgf_launches[name]
         if name in tail_launches:
             return tail_launches[name]
         if name in zoo_launches:
@@ -6961,7 +7481,13 @@ def main() -> int:
               "sc2_nms_desc": "sc2_nms",
               "sc2_seed_transforms_desc": "sc2_refine",
               "sc2_irls_desc": "sc2_refine", "icp_solve_desc": "ransac",
-              "masked_argmin_icp_desc": "masked_argmin"}
+              "masked_argmin_icp_desc": "masked_argmin",
+              "conv_maps_side7": "conv_maps",
+              "sparse_conv_side7": "sparse_conv",
+              "sparse_conv_ci3_side7": "sparse_conv",
+              "sparse_conv_ci6_side7": "sparse_conv",
+              "sparse_conv_wgrad_side7": "sparse_conv_wgrad",
+              "ransac_polish_wide": "ransac"}
     source.update({k: "sc2_refine" for k in OPTION_ROWS
                    if k.startswith(("sc2_seed", "sc2_irls"))})
     replaces = {
@@ -7027,6 +7553,12 @@ def main() -> int:
         "sc2_irls_desc": "eyoc_tpu/registration/sc2pcr.py:219",
         "icp_solve_desc": "eyoc_tpu/registration/icp.py:42",
         "masked_argmin_icp_desc": "eyoc_tpu/registration/icp.py:41",
+        "conv_maps_side7": "eyoc_tpu/sparse/brick_conv.py:95",
+        "sparse_conv_side7": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_ci3_side7": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_ci6_side7": "eyoc_tpu/sparse/brick_conv.py:310",
+        "sparse_conv_wgrad_side7": "eyoc_tpu/sparse/brick_conv.py:259",
+        "ransac_polish_wide": "eyoc_tpu/registration/ransac.py:148",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -9,7 +9,9 @@
 //   same (k^3 taps, level l): output voxel o at cell u of brick B reads
 //     the voxel at u + off, reached from B by the z hop, then the y hop,
 //     then the x hop through nbr6; an absent brick on the way drops the
-//     tap (the dropped diagonal taps of brick_conv.py:20-29);
+//     tap (the dropped diagonal taps of brick_conv.py:20-29), and so does
+//     a cell u + off past the bricks at offsets in [-1, 1]^3 (127 of the
+//     343 taps of a side-7 row: the JAX halo stops at one brick too);
 //   down (27 taps, level l -> l+1): output brick r reads cells [-1, 1]^3
 //     of its own base, the same way;
 //   up (27 taps, level l+1 -> l): fine cell u of brick B, tap off, reads
@@ -34,9 +36,14 @@
 //   bricks at offsets in [-1, 0]^3), and the coarse voxels of the brick's
 //   8 up_slots. The k = 5 first conv stays within one brick of its own:
 //   cells 0-1 plus offsets -2..2 lie in -2..3. An entry's index in the
-//   cube is its row's base plus its tap's offset (an up map's, its slot
-//   from the entry table), and four consecutive entries go out as one
-//   16-byte store into the contiguous [rows, T] map. With inverses, each
+//   cube is its row's base plus its tap's offset. A k = 7 tap reaches
+//   -3..4 from cells 0-1, and a cell past -2..3 reads nothing: on an axis
+//   where the tap's offset is -3 only cell 1 reads it, where it is 3 only
+//   cell 0, so the entry table holds, with the tap's offset, the cell bits
+//   it needs set and clear, and the row's cell is tested against them. Four
+//   consecutive entries go out as one 16-byte store into the contiguous
+//   [rows, T] map (at T = 343 a run of 32 rows is 10976 entries, the
+//   rows' runs 16-byte aligned as at T = 27 and 125). With inverses, each
 //   entry that reads a voxel claims inv[voxel, tap] by atomicCAS from the
 //   sentinel (a thread's four claims go out together); a claim that finds
 //   another row there is a collision, counted on the device. The wrapper
@@ -71,9 +78,14 @@ enum Item { kCells = 0, kVoxels = 1, kFill = 2, kEntries = 3 };
 // reads tap o at u + o + 2, so an entry's index is the row's base plus the
 // tap's offset, and neighbouring taps read neighbouring words.
 // The entry table: each tap's offset for k = 3 and 5; for an up map, each
-// (fine cell u, tap) its up slot c, or -1 (no coarse voxel under it).
+// (fine cell u, tap) its up slot c, or -1 (no coarse voxel under it); for
+// k = 7, each tap's offset plus kOff7 in bits 0-8, and the cell bits (axis
+// a at bit 2 - a) that a row's cell must have set in bits 9-11 (the axes
+// of offset -3) and clear in bits 12-14 (those of offset 3). A block loads
+// the k = 7 part only where one of its maps reads it.
 constexpr int kTab3 = 0, kTab5 = 27, kTabUp = kTab5 + 125,
-              kTabSize = kTabUp + 8 * 27;
+              kTab7 = kTabUp + 8 * 27, kTabSize = kTab7 + 343;
+constexpr int kOff7 = 43;                 // -(the least k = 7 offset)
 constexpr int kCube = 6 * 6 * 6;
 
 struct Level {
@@ -101,11 +113,11 @@ struct TableWork {
 
 // one map of a group: its output, its inverse (or null), taps, entry
 // table, input rows (the sentinel of its entries), whether it reads the
-// up stage
+// up stage, whether its entries depend on the row's cell (k = 7)
 struct Map {
   int* out;
   int* inv;
-  int taps, tab, m_in, up;
+  int taps, tab, m_in, up, cellwise;
 };
 
 // maps over the same output rows of one level: its voxels or its bricks
@@ -122,13 +134,22 @@ struct MapWork {
 };
 
 __device__ __forceinline__ int table_entry(int e) {
-  const bool up = e >= kTabUp;
-  const int k = e < kTab5 || up ? 3 : 5;
-  const int base = up ? kTabUp : e < kTab5 ? kTab3 : kTab5;
+  const bool seven = e >= kTab7, up = e >= kTabUp && !seven;
+  const int k = seven ? 7 : e < kTab5 || up ? 3 : 5;
+  const int base = seven ? kTab7 : up ? kTabUp : e < kTab5 ? kTab3 : kTab5;
   const int T = k * k * k, u = (e - base) / T, tap = (e - base) % T;
   const int r = k >> 1;
   const int o[3] = {tap / (k * k) - r, (tap / k) % k - r, tap % k - r};
-  if (!up) return ((o[0] + 2) * 6 + o[1] + 2) * 6 + o[2] + 2;
+  const int off = ((o[0] + 2) * 6 + o[1] + 2) * 6 + o[2] + 2;
+  if (!up && !seven) return off;
+  if (seven) {              // cell c's tap o reads cube cell c + o + 2
+    int set = 0, clear = 0;
+    for (int a = 0; a < 3; ++a) {
+      set |= (o[a] == -3) << (2 - a);
+      clear |= (o[a] == 3) << (2 - a);
+    }
+    return (off + kOff7) | set << 9 | clear << 12;
+  }
   const int c[3] = {u >> 2, (u >> 1) & 1, u & 1};
   int idx = 0;              // tap o of fine cell c reads slot (c - o) / 2
   for (int a = 0; a < 3; ++a) {
@@ -179,6 +200,75 @@ __global__ void __launch_bounds__(kThreads) tables(const TableWork w,
 
 constexpr int kStage = (kMaxRows * 27 + kThreads - 1) / kThreads;
 
+// A maps block's entries of its group's maps: [o0 * T, (o0 + nrows) * T)
+// of each, four consecutive ones a thread: one 16-byte store, and claims
+// that go out together. Returns the thread's collisions. A block with a
+// side-7 map (kSeven) takes its own copy, so that the others' carries no
+// branch for it.
+template <bool kSeven>
+__device__ __forceinline__ int entries(const Group& g, const short* s_tab,
+                                       const int* s_row, const int* s_base,
+                                       const int* s_vox, const int* s_up,
+                                       int o0, int nrows) {
+  const int t = threadIdx.x;
+  int coll = 0;
+  for (int m = 0; m < g.n_maps; ++m) {
+    const Map& mp = g.map[m];
+    const int T = mp.taps;
+    const short* tb = s_tab + mp.tab;
+    int* out = mp.out + (long long)o0 * T;
+    const int n = nrows * T;
+    const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    for (int q = 4 * t; q < n; q += 4 * kThreads) {
+      int v[4], rr[4], tt[4];
+      int r = q / T, tap = q - r * T;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        rr[j] = r;
+        tt[j] = tap;
+        if (++tap == T) {
+          tap = 0;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rj = min(rr[j], nrows - 1);
+        if (mp.up) {
+          const int row = s_row[rj];
+          const int i = tb[(row & 7) * T + tt[j]];
+          v[j] = i >= 0 ? s_up[(row >> 3) * 8 + i] : mp.m_in;
+        } else if (kSeven && mp.cellwise) {
+          const int e = tb[tt[j]], cell = s_row[rj] & 7;
+          const int set = (e >> 9) & 7, clear = e >> 12;
+          const bool in = (cell & set) == set && (cell & clear) == 0;
+          v[j] = in ? s_vox[s_base[rj] + (e & 511) - kOff7] : mp.m_in;
+        } else {
+          v[j] = s_vox[s_base[rj] + tb[tt[j]]];
+        }
+      }
+      if (mp.inv != nullptr) {
+        int old[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool claim = q + j < n && v[j] >= 0 && v[j] < mp.m_in;
+          old[j] = claim ? atomicCAS(mp.inv + (long long)v[j] * T + tt[j],
+                                     g.rows, o0 + rr[j])
+                         : g.rows;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) coll += old[j] != g.rows;
+      }
+      if (vec && q + 4 <= n) {
+        *reinterpret_cast<int4*>(out + q) = make_int4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int j = 0; j < 4 && q + j < n; ++j) out[q + j] = v[j];
+      }
+    }
+  }
+  return coll;
+}
+
 __global__ void __launch_bounds__(kThreads) maps(const MapWork w, int rows,
                                                  const int* __restrict__ tab,
                                                  int* collisions) {
@@ -227,16 +317,20 @@ __global__ void __launch_bounds__(kThreads) maps(const MapWork w, int rows,
     }
     if (t == 31) s_runs = runs;
   }
-  bool nbrs = false, ups = false;
+  bool nbrs = false, ups = false, cellwise = false;
   for (int m = 0; m < g.n_maps; ++m) {
     nbrs = nbrs || !g.map[m].up;
     ups = ups || g.map[m].up;
+    cellwise = cellwise || g.map[m].cellwise;
   }
 #pragma unroll
-  for (int j = 0; j < (kTabSize + kThreads - 1) / kThreads; ++j) {
+  for (int j = 0; j < (kTab7 + kThreads - 1) / kThreads; ++j) {
     const int q = t + j * kThreads;           // the loads go out together
-    if (q < kTabSize) s_tab[q] = (short)__ldg(tab + q);
+    if (q < kTab7) s_tab[q] = (short)__ldg(tab + q);
   }
+  if (cellwise)
+    for (int q = kTab7 + t; q < kTabSize; q += kThreads)
+      s_tab[q] = (short)__ldg(tab + q);
   __syncthreads();
   const int runs = s_runs;
   // the 27 bricks around each brick (the z hop, then y, then x; a brick
@@ -294,58 +388,10 @@ __global__ void __launch_bounds__(kThreads) maps(const MapWork w, int rows,
     }
   }
   __syncthreads();
-  // each map's entries [o0 * T, (o0 + nrows) * T), four consecutive ones a
-  // thread: one 16-byte store, and claims that go out together
-  int coll = 0;
-  for (int m = 0; m < g.n_maps; ++m) {
-    const Map& mp = g.map[m];
-    const int T = mp.taps;
-    const short* tb = s_tab + mp.tab;
-    int* out = mp.out + (long long)o0 * T;
-    const int n = nrows * T;
-    const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-    for (int q = 4 * t; q < n; q += 4 * kThreads) {
-      int v[4], rr[4], tt[4];
-      int r = q / T, tap = q - r * T;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        rr[j] = r;
-        tt[j] = tap;
-        if (++tap == T) {
-          tap = 0;
-          ++r;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rj = min(rr[j], nrows - 1);
-        if (mp.up) {
-          const int row = s_row[rj];
-          const int i = tb[(row & 7) * T + tt[j]];
-          v[j] = i >= 0 ? s_up[(row >> 3) * 8 + i] : mp.m_in;
-        } else {
-          v[j] = s_vox[s_base[rj] + tb[tt[j]]];
-        }
-      }
-      if (mp.inv != nullptr) {
-        int old[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool claim = q + j < n && v[j] >= 0 && v[j] < mp.m_in;
-          old[j] = claim ? atomicCAS(mp.inv + (long long)v[j] * T + tt[j],
-                                     g.rows, o0 + rr[j])
-                         : g.rows;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) coll += old[j] != g.rows;
-      }
-      if (vec && q + 4 <= n) {
-        *reinterpret_cast<int4*>(out + q) = make_int4(v[0], v[1], v[2], v[3]);
-      } else {
-        for (int j = 0; j < 4 && q + j < n; ++j) out[q + j] = v[j];
-      }
-    }
-  }
+  const int coll = cellwise ? entries<true>(g, s_tab, s_row, s_base, s_vox,
+                                            s_up, o0, nrows)
+                            : entries<false>(g, s_tab, s_row, s_base, s_vox,
+                                             s_up, o0, nrows);
   if (coll) atomicAdd(collisions, coll);
 }
 
@@ -365,7 +411,8 @@ bool push(TableWork& w, long long& blocks, Seg s, long long nblocks) {
 // levels: L records of kLevelRecord int64: nbtot, m, nbr6, cellslot, occ,
 // up_slots (0 where no up map reads it), c2v ([nbtot * 8 + 8] int32, out,
 // 32-byte aligned). maps: n_maps records of kMapRecord int64: kind (0
-// same, 1 down, 2 up), level (the fine one for up), k, rows, m_in, out
+// same, 1 down, 2 up), level (the fine one for up), k (3; 5 or 7 for a
+// same map, whose inverse is then 0), rows, m_in, out
 // ([rows, k^3] int32), inv ([m_in, 27] int32, 16-byte aligned, or 0); at
 // most one same map of each k, one up and one down map a level. rows:
 // output rows a maps block (1..32). table: kTabSize int32 (scratch, the
@@ -412,13 +459,14 @@ extern "C" int eyoc_conv_maps(const long long* levels, int L,
     mp.out = reinterpret_cast<int*>(r[5]);
     mp.inv = reinterpret_cast<int*>(r[6]);
     mp.taps = k * k * k;
-    mp.tab = kind == kUp ? kTabUp : k == 5 ? kTab5 : kTab3;
+    mp.tab = kind == kUp ? kTabUp : k == 7 ? kTab7 : k == 5 ? kTab5 : kTab3;
     mp.m_in = m_in;
     mp.up = kind == kUp;
+    mp.cellwise = k == 7;
     const bool bad_up = kind == kUp &&
                         (l + 1 >= L || a.lv[l].up == nullptr);
     if (kind < kSame || kind > kUp || l < 0 || l >= L || bad_up ||
-        (kind != kSame && k != 3) || (k != 3 && k != 5) ||
+        (kind != kSame && k != 3) || (k != 3 && k != 5 && k != 7) ||
         (mp.inv && (mp.taps != 27 || (r[6] & 15) != 0)))
       return (int)cudaErrorInvalidValue;
     // the group of the map's rows: the level's voxels, or a down map's own

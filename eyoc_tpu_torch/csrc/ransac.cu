@@ -50,7 +50,11 @@
 // best on the card, copies the valid rows once into shared memory, runs
 // the rounds from there -- warp, |d| < thr, the weighted Jacobi Kabsch, the
 // old pose kept where fewer than 3 rows are inliers -- then the final
-// inlier count; at most kPolishMaxRows rows) and the solve of
+// inlier count; past kPolishMaxRows rows the same rounds on a cluster of
+// kPolishCluster CTAs, each holding the valid rows of its share of the
+// input in its shared memory, the CTAs' sums added in rank order through
+// distributed shared memory; at most kPolishCluster kPolishMaxRows rows)
+// and the solve of
 // eyoc_tpu/registration/icp.py:41-46 (`icp_solve`: w = mask & (d2 < r^2)
 // from K2's nearest neighbours, the weighted Jacobi Kabsch of the source on
 // its matches, and the source warped by the new pose for the next round's
@@ -88,9 +92,12 @@
 // icp_solve is latency too: its one solve (~12.8 us) and the two combines
 // behind the tickets; the passes over the rows take the whole card.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "jacobi_pose.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -136,11 +143,14 @@ constexpr int kIcpThreads = 256;     // icp_solve: each launch's blocks
 constexpr int kIcpBlocks = EYOC_ICP_BLOCKS;
 static_assert(kIcpBlocks > 0 && kIcpBlocks <= kIcpThreads, "icp grid");
 constexpr int kIcpPart = 16;         // a block's partial row: 7 + 9 sums
-constexpr int kPolishThreads = 512;  // polish: one block
+constexpr int kPolishThreads = 512;  // polish: a block, or a cluster's CTA
 constexpr int kPolishWarps = kPolishThreads / 32;
 // polish's rows in shared memory, 6 floats a row: 192 KB of the 227 KB a
-// block may opt into (and at most 32 rows a thread: an inlier bit a row)
+// block may opt into (and at most 32 rows a thread: an inlier bit a row);
+// past them the wide route spreads the rows over a cluster of
+// kPolishCluster CTAs (the portable cluster size), kPolishMaxRows each
 constexpr int kPolishMaxRows = 8192;
+constexpr int kPolishCluster = 8;
 
 // |a - b| as sqrt((dx*dx + dy*dy) + dz*dz), unfused.
 __device__ __forceinline__ float norm3(float dx, float dy, float dz) {
@@ -972,35 +982,90 @@ __device__ __forceinline__ int polish_scan(int v, int* part, int& total) {
   return before + incl - v;
 }
 
-// K18 ransac_polish, one block. The valid rows are copied once, in index
-// order, into shared memory (six arrays of M floats; a thread takes a
-// contiguous range of rows for the copy, placed by a block scan), and row
-// m belongs to thread m % kPolishThreads in every pass after it, so no
-// round reads global memory. A round: the inlier test (|R s + t - t'| <
-// thr on the unfused root) with the inlier count and both sums, the
-// centroids (every thread divides the same bits), the centred moments
-// over the same inliers (a bit a row, kept in a register), and the Jacobi
-// pose of thread 0 where at least 3 rows are inliers (else the old pose
-// stays); three barriers. A round whose inliers are the last round's
-// would give the last pose again, bit for bit (the same rows in the same
-// order), and so would every round after it: the first pass counts the
-// rows whose test changed, and where none did the rounds end there, the
-// pass's inlier count being the final one. Else the inlier count under the
-// final pose ends the kernel.
+// The dynamic shared memory's head of a polish CTA, in 4-byte words: the
+// pose [16], the warps' partials of the two passes [8][kPolishWarps] and
+// [9][kPolishWarps] and of the counts [kPolishWarps]; in the wide route
+// also the CTAs' partials as received, [kPolishCluster][8], [9] and [1]
+// (each row written by its CTA through distributed shared memory). The
+// rows follow it.
+constexpr int kPolHeadPose = 0;
+constexpr int kPolHeadPart1 = kPolHeadPose + 16;
+constexpr int kPolHeadPart2 = kPolHeadPart1 + 8 * kPolishWarps;
+constexpr int kPolHeadIPart = kPolHeadPart2 + 9 * kPolishWarps;
+constexpr int kPolHeadIn1 = kPolHeadIPart + kPolishWarps;
+constexpr int kPolHeadIn2 = kPolHeadIn1 + kPolishCluster * 8;
+constexpr int kPolHeadInC = kPolHeadIn2 + kPolishCluster * 9;
+constexpr int kPolHead = (kPolHeadInC + kPolishCluster + 3) & ~3;
+
+__device__ __forceinline__ int add(int a, int b) { return a + b; }
+
+// The wide route's sums: the CTA's v [n] (the same bits in each of its
+// threads) into row `rank` of every CTA's inbox [C][n] (thread r < C sends
+// to rank r), one cluster barrier, then the C rows added in rank order:
+// every thread of every CTA ends with the same bits.
+template <int n, class V>
+__device__ __forceinline__ void cluster_sums(V (&v)[n], V* inbox) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int t = threadIdx.x;
+  if (t < C)
+#pragma unroll
+    for (int k = 0; k < n; ++k)
+      *cluster.map_shared_rank(inbox + rank * n + k, t) = v[k];
+  cluster.sync();
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    v[k] = inbox[k];
+    for (int r = 1; r < C; ++r) v[k] = add(v[k], inbox[r * n + k]);
+  }
+}
+
+// K18 ransac_polish: one block (kWide false), or past kPolishMaxRows one
+// thread-block cluster of C CTAs (kWide), CTA r owning the input rows [r
+// q, (r + 1) q), q = ceil(N / C). A CTA copies the valid rows of its range
+// once, in index order, into its shared memory (six arrays of M floats; a
+// thread takes a contiguous range of rows for the copy, placed by a block
+// scan), and its row m belongs to thread m % kPolishThreads in every pass
+// after it, so no round reads global memory. A round: the inlier test (|R
+// s + t - t'| < thr on the unfused root) with the inlier count and both
+// sums, the centroids (every thread divides the same bits), the centred
+// moments over the same inliers (a bit a row, kept in a register), and the
+// Jacobi pose of thread 0 where at least 3 rows are inliers (else the old
+// pose stays); three barriers. In the wide route each pass's sums are
+// the CTAs' sums added in rank order (`cluster_sums`: one cluster barrier
+// a pass, two a round), so every CTA holds the same sums, and the thread 0
+// of every CTA solves the same pose (a rerun counts in jacobi_reruns from
+// rank 0 only, as in the one-block route). A round whose inliers are the
+// last round's would give the last pose again, bit for bit (the same rows
+// in the same order), and so would every round after it: the first pass
+// counts the rows whose test changed, and where none did the rounds end
+// there, the pass's inlier count being the final one. Else the inlier
+// count under the final pose ends the kernel.
+template <bool kWide>
 __global__ void __launch_bounds__(kPolishThreads) polish(
     const float* __restrict__ trans, const int* __restrict__ best,
     const float* __restrict__ src, const float* __restrict__ tgt,
     const bool* __restrict__ valid, int N, float thr, int iters,
     float* __restrict__ trans_out, int* __restrict__ inliers) {
-  extern __shared__ float rows[];           // [6][N]: s x, y, z, t x, y, z
-  __shared__ float part1[8][kPolishWarps], part2[9][kPolishWarps];
-  __shared__ int ipart[kPolishWarps];
-  __shared__ float pose[16];
+  extern __shared__ float smem[];           // the head, then [6][q]
+  float* pose = smem + kPolHeadPose;
+  auto* part1 = reinterpret_cast<float(*)[kPolishWarps]>(smem + kPolHeadPart1);
+  auto* part2 = reinterpret_cast<float(*)[kPolishWarps]>(smem + kPolHeadPart2);
+  int* ipart = reinterpret_cast<int*>(smem + kPolHeadIPart);
+  float* rows = smem + kPolHead;
+  int C = 1, rank = 0;
+  if constexpr (kWide) {
+    cg::cluster_group cluster = cg::this_cluster();
+    C = (int)cluster.num_blocks();
+    rank = (int)cluster.block_rank();
+  }
+  const int q = (N + C - 1) / C;            // each CTA's input rows, at most
+  const int lo = min(N, rank * q), nl = min(N, lo + q) - lo;
   const int t = threadIdx.x;
   if (t < 16) pose[t] = trans[16ll * best[0] + t];
   // the copy: thread t's contiguous range of rows, placed by a scan
-  const int per = (N + kPolishThreads - 1) / kPolishThreads;
-  const int n0 = min(N, t * per), n1 = min(N, n0 + per);
+  const int per = (nl + kPolishThreads - 1) / kPolishThreads;
+  const int n0 = lo + min(nl, t * per), n1 = min(lo + nl, n0 + per);
   int c = 0;
   for (int n = n0; n < n1; ++n) c += valid[n];
   int M;
@@ -1008,15 +1073,20 @@ __global__ void __launch_bounds__(kPolishThreads) polish(
   for (int n = n0; n < n1; ++n) {
     if (!valid[n]) continue;
     for (int k = 0; k < 3; ++k) {
-      rows[k * N + pos] = src[3 * n + k];
-      rows[(3 + k) * N + pos] = tgt[3 * n + k];
+      rows[k * q + pos] = src[3 * n + k];
+      rows[(3 + k) * q + pos] = tgt[3 * n + k];
     }
     ++pos;
   }
-  __syncthreads();
+  // the wide route's barrier is the cluster's: it also guarantees that
+  // every CTA has started before the first map_shared_rank store
+  if constexpr (kWide)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
   // row m of this thread: m = t + j * kPolishThreads
-  const float *sx = rows, *sy = rows + N, *sz = rows + 2 * N,
-              *tx = rows + 3 * N, *ty = rows + 4 * N, *tz = rows + 5 * N;
+  const float *sx = rows, *sy = rows + q, *sz = rows + 2 * q,
+              *tx = rows + 3 * q, *ty = rows + 4 * q, *tz = rows + 5 * q;
   auto inlier = [&](const float* T, int m) {
     return __fsqrt_rn(residual2(T, sx[m], sy[m], sz[m], tx[m], ty[m],
                                 tz[m])) < thr;
@@ -1043,6 +1113,7 @@ __global__ void __launch_bounds__(kPolishThreads) polish(
       s1[6] = add(s1[6], tz[m]);
     }
     polish_sums(s1, part1);
+    if constexpr (kWide) cluster_sums(s1, smem + kPolHeadIn1);
     if (it > 0 && s1[7] == 0.f) {            // the same bits in every thread
       total = (int)s1[0];
       break;
@@ -1062,7 +1133,8 @@ __global__ void __launch_bounds__(kPolishThreads) polish(
           s2[3 * a + b] = add(s2[3 * a + b], mul(am[a], bm[b]));
     }
     polish_sums(s2, part2);
-    if (t == 0 && wtot >= 3.f) jacobi_pose(s2, cen, cen + 3, pose);
+    if constexpr (kWide) cluster_sums(s2, smem + kPolHeadIn2);
+    if (t == 0 && wtot >= 3.f) jacobi_pose(s2, cen, cen + 3, pose, rank == 0);
     __syncthreads();
     last = in;
   }
@@ -1071,9 +1143,14 @@ __global__ void __launch_bounds__(kPolishThreads) polish(
     int count = 0;
     for (int m = t; m < M; m += kPolishThreads) count += inlier(T, m);
     polish_scan(count, ipart, total);
+    if constexpr (kWide) {
+      int v[1] = {total};
+      cluster_sums(v, reinterpret_cast<int*>(smem + kPolHeadInC));
+      total = v[0];
+    }
   }
-  if (t < 16) trans_out[t] = T[t];
-  if (t == 0) inliers[0] = total;
+  if (rank == 0 && t < 16) trans_out[t] = T[t];
+  if (rank == 0 && t == 0) inliers[0] = total;
 }
 
 // icp_solve's three launches. Block b of the G = kIcpBlocks blocks owns
@@ -1334,21 +1411,47 @@ extern "C" int eyoc_ransac_verify(const float* trans, const float* coarse,
 }
 
 // K18 ransac_polish: trans [H, 4, 4], best int32, src/tgt [N, 3], valid
-// [N] (N <= kPolishMaxRows) -> trans_out [4, 4], inliers int32. One
-// launch; its rows take 24 N bytes of shared memory.
+// [N] -> trans_out [4, 4], inliers int32. One launch: one block where N <=
+// kPolishMaxRows (its rows take 24 N bytes of shared memory), else one
+// cluster of kPolishCluster CTAs (24 ceil(N / kPolishCluster) bytes each),
+// N at most kPolishCluster kPolishMaxRows.
 extern "C" int eyoc_ransac_polish(const float* trans, const int* best,
                                   const float* src, const float* tgt,
                                   const bool* valid, int N, float thr,
                                   int iters, float* trans_out, int* inliers,
                                   cudaStream_t stream) {
-  if (N <= 0 || N > kPolishMaxRows) return cudaErrorInvalidValue;
-  const int smem = 6 * N * (int)sizeof(float);
+  const bool wide = N > kPolishMaxRows;
+  if (N <= 0 || N > kPolishCluster * kPolishMaxRows)
+    return cudaErrorInvalidValue;
+  const int C = wide ? kPolishCluster : 1, q = (N + C - 1) / C;
+  const int smem = (kPolHead + 6 * q) * (int)sizeof(float);
+  void (*kernel)(const float*, const int*, const float*, const float*,
+                 const bool*, int, float, int, float*, int*) =
+      wide ? polish<true> : polish<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      polish, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  polish<<<1, kPolishThreads, smem, stream>>>(trans, best, src, tgt, valid,
-                                              N, thr, iters, trans_out,
-                                              inliers);
+  if (!wide) {
+    kernel<<<1, kPolishThreads, smem, stream>>>(trans, best, src, tgt, valid,
+                                                N, thr, iters, trans_out,
+                                                inliers);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3{(unsigned)C, 1, 1};
+  cfg.blockDim = dim3{(unsigned)kPolishThreads, 1, 1};
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, trans, best, src, tgt, valid, N,
+                           thr, iters, trans_out, inliers);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -20,7 +20,9 @@ are compacted to the front:
    valid row, -1 where the edge check failed, and the first argmax, read
    by the next kernel on the card;
 4. polish -> kernel K18 `ransac_polish` (one block, the valid rows held in
-   its shared memory: at most K18_MAX_ROWS rows): `polish_iters` rounds
+   its shared memory, up to K18_BLOCK_ROWS rows; past them one cluster of
+   K18_CLUSTER such CTAs, each holding its share of the rows, at most
+   K18_MAX_ROWS in all): `polish_iters` rounds
    of the weighted Jacobi Kabsch on the current inliers (|R s + t - t'| <
    threshold), the old pose kept where fewer than 3 rows are inliers; then
    the final inlier count. The kernel ends the rounds once a round's
@@ -278,9 +280,13 @@ _K17_ARGS = (_P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P, _P)
 # entry eyoc_ransac_verify_groups gives the groups of Hk)
 K17_GROUP = 256
 _K18_ARGS = (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P)
-# K18's polish holds the valid rows in shared memory: N at most this
-# (csrc/ransac.cu:kPolishMaxRows)
-K18_MAX_ROWS = 8192
+# K18's polish holds the valid rows in shared memory: one block up to
+# K18_BLOCK_ROWS rows (csrc/ransac.cu:kPolishMaxRows), past them a cluster
+# of K18_CLUSTER CTAs (kPolishCluster) of as many rows each; N at most
+# K18_MAX_ROWS
+K18_BLOCK_ROWS = 8192
+K18_CLUSTER = 8
+K18_MAX_ROWS = K18_CLUSTER * K18_BLOCK_ROWS
 
 
 def _rows3(name, src, tgt, valid):
@@ -437,10 +443,14 @@ def _k17_sums(device, n: int) -> torch.Tensor:
 def ransac_polish(trans, best, src, tgt, valid, thr: float, iters: int):
     """K18 `ransac_polish`: `ransac_polish_plain` as one block that reads
     `best` on the card, copies the valid rows once into shared memory and
-    runs every round from there, moments in two centred passes.
+    runs every round from there, moments in two centred passes; past
+    K18_BLOCK_ROWS rows as one cluster of K18_CLUSTER CTAs, each holding
+    the valid rows of its eighth of the input, the CTAs' sums added in
+    rank order.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one launch; N at most K18_MAX_ROWS) or raises."""
+    (one launch; N at most K18_MAX_ROWS, else ValueError before any
+    launch) or raises."""
     if src.is_cpu:
         return ransac_polish_plain(trans, best, src, tgt, valid, thr, iters)
     return _launch_k18(trans, best, src, tgt, valid, thr, iters)
@@ -456,7 +466,8 @@ def _launch_k18(trans, best, src, tgt, valid, thr, iters):
                          "best row")
     if not 0 < N <= K18_MAX_ROWS:
         raise ValueError(f"ransac_polish: {N} rows, the kernel holds 1 to "
-                         f"{K18_MAX_ROWS}")
+                         f"{K18_MAX_ROWS} ({K18_CLUSTER} CTAs of "
+                         f"{K18_BLOCK_ROWS})")
     T = torch.empty((4, 4), dtype=F32, device=src.device)
     inliers = torch.empty((), dtype=I32, device=src.device)
     p = kernels.ptr

@@ -29,6 +29,10 @@ convolution (decision recorded here and in ROADMAP.md):
   x neighbour (`nbr6`). If an intermediate brick is absent the tap reads
   zero: the **dropped diagonal taps** of brick_conv.py:20-24, which occur
   only across fully empty 0.6 m brick gaps.
+- Every tap reads within the bricks at offsets [-1, 1]^3 of its output's
+  own, JAX's halo: all taps of sides 3 and 5, and 216 of each output's 343
+  at side 7 (FCGF's published 3DMatch model), whose other taps read zero
+  (`_beyond_reach`; MinkowskiEngine reads all 343).
 - conv_down computes one output per level-l brick (= level-(l+1) voxel)
   from taps at cells [-1, 1]^3 of the brick base; conv_up reads the coarse
   2x2x2 window through `up_slots`; conv1x1 is the identity map.
@@ -78,7 +82,10 @@ class ConvMaps(NamedTuple):
     """Gather maps of one pyramid (all int32, sentinel = input row count).
 
     same3[l]: [M_l, 27]; first: [M_0, k^3] of the first conv (k =
-    conv1_kernel_size, 125 taps for ResUNetBN2C);
+    conv1_kernel_size: 125 taps for ResUNetBN2C at its default side 5, 343
+    for FCGF's published 3DMatch model at side 7, of which each output
+    reaches 216: the taps that land within one brick of its own, as JAX's
+    halo reaches, `check_conv_side`; the other 127 hold the sentinel);
     down[l]: level l -> l+1, [M_{l+1}, 27]; up[l]: level l+1 -> l,
     [M_l, 27]; vox_masks[l]: [M_l] bool output masks.
     inv_same3 / inv_down / inv_up: the per-tap inverses (`invert_map`) that
@@ -113,22 +120,33 @@ def cell_to_voxel(level: BrickLevel) -> torch.Tensor:
 def _tap_sources(level: BrickLevel, brick: torch.Tensor, u: torch.Tensor,
                  offs, c2v: torch.Tensor) -> torch.Tensor:
     """Voxel rows [R, T] read by taps `offs` of outputs at cell u [R, 3] of
-    brick rows `brick` [R] (sentinel NBtot)."""
+    brick rows `brick` [R] (sentinel NBtot); a tap past one brick of the
+    output's own (`_beyond_reach`) reads nothing."""
     dev = brick.device
     NBtot = level.bkeys.shape[0]
     nbr = torch.cat([level.nbr6, level.nbr6.new_full((6, 1), NBtot)],
                     1).long()
     off = torch.tensor(offs, dtype=torch.int32, device=dev)      # [T, 3]
     p = u[:, None, :] + off[None]                                # [R, T, 3]
-    bd = p >> 1                                                  # {-1, 0, 1}
+    far = _beyond_reach(p)
+    bd = p >> 1                                     # {-1, 0, 1} where ~far
     cell = ((p[..., 0] & 1) << 2) | ((p[..., 1] & 1) << 1) | (p[..., 2] & 1)
     b = brick.long()[:, None].expand(p.shape[:2])
     for axis in (2, 1, 0):      # z hop first, then y, then x (see docstring)
         d = bd[..., axis]
         b = torch.where(d < 0, nbr[2 * axis][b],
                         torch.where(d > 0, nbr[2 * axis + 1][b], b))
-    src_cell = torch.where(b < NBtot, b * 8 + cell, NBtot * 8)
+    src_cell = torch.where((b < NBtot) & ~far, b * 8 + cell, NBtot * 8)
     return c2v[src_cell]
+
+
+def _beyond_reach(p: torch.Tensor) -> torch.Tensor:
+    """[...] bool of cell coordinates p [..., 3] relative to a brick's base:
+    outside [-2, 3] on some axis, past the bricks at offsets in [-1, 1]^3.
+    The JAX halo stops there (`halo_order(3)` is `halo_order(2)`, 216
+    cells), so a side-7 tap that lands there reads nothing in either
+    package; at sides 3 and 5 no tap does."""
+    return ((p < -2) | (p > 3)).any(-1)
 
 
 def _cell_coords(cellslot: torch.Tensor):
@@ -139,17 +157,19 @@ def _cell_coords(cellslot: torch.Tensor):
 
 
 def check_conv_side(k: int, who: str):
-    """Raise for a stride-1 conv side other than 3 and 5: a tap hops at
-    most one brick from its output cell, so a side-7 tap two bricks away
-    would name another voxel."""
-    if k not in (3, 5):
+    """Raise for a stride-1 conv side other than 3, 5 and 7. The maps read
+    the bricks at offsets in [-1, 1]^3 of each output's own, as JAX's halo
+    does: every tap of sides 3 and 5 lies there, and 216 of each output's
+    343 taps at side 7 (the others hold the sentinel, `_beyond_reach`);
+    a wider side would reach past them on every tap's far rows."""
+    if k not in (3, 5, 7):
         raise ValueError(f"{who}: a first conv of side {k}; the maps read "
-                         "one brick around each output, sides 3 and 5")
+                         "one brick around each output, sides 3, 5 and 7")
 
 
 def conv_same_map(level: BrickLevel, k: int = 3,
                   c2v: torch.Tensor | None = None) -> torch.Tensor:
-    """[M_l, k^3] stride-1 map at one level (k = 3 or 5)."""
+    """[M_l, k^3] stride-1 map at one level (k = 3, 5 or 7)."""
     check_conv_side(k, "conv_same_map")
     c2v = cell_to_voxel(level) if c2v is None else c2v
     brick, u = _cell_coords(level.cellslot)
@@ -305,14 +325,18 @@ def _staged_taps(stage: torch.Tensor, brick: torch.Tensor, u: torch.Tensor,
                  offs) -> torch.Tensor:
     """[R, T] entries of outputs at cell u [R, 3] of bricks `brick` [R]
     (sentinel NBtot): tap off reads cell u + off, which lies in the brick at
-    offset (u + off) >> 1 of its own."""
+    offset (u + off) >> 1 of its own, or reads the sentinel brick's where
+    that lies past the stage (`_beyond_reach`)."""
     off = torch.tensor(offs, dtype=torch.int32, device=u.device)
     p = u[:, None, :] + off[None]                                # [R, T, 3]
+    far = _beyond_reach(p)
+    p = p.clamp(-2, 3)
     d = (p >> 1) + 1
     n = (d[..., 0] * 9 + d[..., 1] * 3 + d[..., 2]).long()
     cell = (((p[..., 0] & 1) << 2) | ((p[..., 1] & 1) << 1)
             | (p[..., 2] & 1)).long()
-    return stage[brick.long()[:, None], n, cell]
+    b = torch.where(far, stage.shape[0] - 1, brick.long()[:, None])
+    return stage[b, n, cell]
 
 
 def conv_up_map_staged_plain(fine: BrickLevel, coarse_c2v: torch.Tensor,
@@ -404,7 +428,7 @@ _K12_SAME, _K12_DOWN, _K12_UP = 0, 1, 2
 _K12_ARGS = (ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
              ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
-_K12_TABLE = 8 * (27 + 125 + 27)    # csrc/conv_maps.cu: kTabSize
+_K12_TABLE = 27 + 125 + 8 * 27 + 343    # csrc/conv_maps.cu: kTabSize
 K12_ROWS = 32          # output rows a maps block (csrc/conv_maps.cu: kMaxRows)
 
 
@@ -495,7 +519,7 @@ def conv_maps(pyr: BrickPyramid, num_levels: int, conv1_kernel_size: int = 5,
     inverse carries a CollisionCheck (`collision_check`) that
     `SparseConvFunction.backward` raises on before it reads the inverse;
     the call makes no host sync. Both routes raise for a first conv of a
-    side other than 3 and 5 (`check_conv_side`)."""
+    side other than 3, 5 and 7 (`check_conv_side`)."""
     check_conv_side(conv1_kernel_size, "conv_maps")
     if pyr.levels[0].cellslot.is_cpu:
         return conv_maps_plain(pyr, num_levels, conv1_kernel_size, inverse)

@@ -10,8 +10,10 @@ side, `chip_smoke.make_train_batch`):
   512 (`bricks.K11_TILE`), 1024 and 2048 level-0 rows, each tile's output
   checked bit-equal to the plain version;
 - K12: each launch's device time (`tables`, `maps`) without and with the
-  inverses, and three ablations of csrc/conv_maps.cu's maps pass, built
-  beside it into build/probes/ by text edits of the source (the
+  inverses (and, at the eval shape, with the side-7 first map of FCGF's
+  3DMatch model in place of the side-5 one, checked bit-equal to the
+  plain version), and three ablations of csrc/conv_maps.cu's maps pass,
+  built beside it into build/probes/ by text edits of the source (the
   neighbourhood staging cut, the entries cut, the stores cut; their
   outputs are wrong and unused): they split the maps pass into staging,
   entry reads and stores.
@@ -142,6 +144,16 @@ def main() -> None:
                     print(f"  {name}: {device_us(call)}", flush=True)
                 finally:
                     kernels.load = real_load
+        if what == "eval":
+            def side7():
+                return brick_conv.conv_maps(pyr, 4, 7)
+            if cs._differ(side7(), brick_conv.conv_maps_staged_plain(
+                    pyr, 4, 7)):
+                raise AssertionError("K12 at side 7 differs from the plain "
+                                     "version")
+            print(f"{what} (B = {B}): K12 with the side-7 first map, "
+                  f"bit-equal; device us a call {device_us(side7)}",
+                  flush=True)
     print(f"card: {smi}")
 
 

@@ -27,10 +27,10 @@ and 10% inliers, 200 valid rows) and H = 512 hypotheses:
 - K17: the full counts over the kept hypotheses and every one, and the best
   row, bit-equal;
 - K18: `ransac_polish`'s pose within 1e-5 and its inlier count equal
-  (the rows above; `valid` with holes at N = 300 and at the kernel's row
-  cap; 2 and 3 inliers, the old pose kept below 3; 1 to 12 rounds, which
-  end at the fixed point with its bits), and the wrapper's
-  error past the cap; `icp_solve`'s pose and warped source within 1e-5
+  (the rows above; `valid` with holes at N = 300 and at the one-block
+  route's row cap; 2 and 3 inliers, the old pose kept below 3; 1 to 12
+  rounds, which end at the fixed point with its bits), and the wrapper's
+  error past the wide route's ceiling, before any launch; `icp_solve`'s pose and warped source within 1e-5
   (the warped source against the plain pose's, 1e-5 of the coordinates'
   reach);
 - the K18 probe's warp form of the Jacobi solve (csrc/probes/
@@ -358,11 +358,11 @@ def start_pose(T, seed):
                              @ T).astype(np.float32))[None]
 
 
-@pytest.mark.parametrize("n,hole,seed", [(300, 0.3, 5), (ransac.K18_MAX_ROWS,
-                                                          0.1, 6)])
+@pytest.mark.parametrize("n,hole,seed", [(300, 0.3, 5),
+                                         (ransac.K18_BLOCK_ROWS, 0.1, 6)])
 def test_k18_polish_source_holes_and_row_cap(on_host, n, hole, seed):
     """`valid` with holes anywhere (the kernel copies the valid rows in
-    index order), up to the kernel's row cap."""
+    index order), up to the one-block route's row cap."""
     src, tgt, _, T = correspondences(seed, n, 0.5, n)
     valid = np.random.default_rng(seed).random(n) >= hole
     src, tgt, valid = map(torch.from_numpy, (src, tgt, valid))
@@ -413,13 +413,24 @@ def test_k18_polish_source_stops_at_its_fixed_point(on_host, inlier, seed):
     assert int(got[5][1]) == int(got[12][1])
 
 
-def test_k18_polish_raises_past_the_row_cap(on_host):
+def test_k18_polish_raises_past_the_row_cap(on_host, monkeypatch):
+    """Past the wide route's ceiling (K18_CLUSTER CTAs of K18_BLOCK_ROWS
+    rows) the wrapper raises before any launch; one row past the one-block
+    route runs (tests/test_torch_ransac_wide_emulated.py holds it)."""
+    assert ransac.K18_MAX_ROWS == ransac.K18_CLUSTER * ransac.K18_BLOCK_ROWS
     n = ransac.K18_MAX_ROWS + 1
     src, tgt, valid, T = correspondences(8, n, 0.5, n)
     args = (start_pose(T, 8), torch.zeros((), dtype=torch.int32),
             *map(torch.from_numpy, (src, tgt, valid)))
-    with pytest.raises(ValueError, match=f"{n} rows"):
+    load, calls = kernels.load, []
+
+    def counted(*a, **kw):
+        fn = load(*a, **kw)
+        return lambda *b: calls.append(b) or fn(*b)
+    monkeypatch.setattr(kernels, "load", counted)
+    with pytest.raises(ValueError, match=f"{n} rows.*{ransac.K18_MAX_ROWS}"):
         ransac._launch_k18(*args, THR, 5)
+    assert calls == []
 
 
 def test_k18_icp_source_matches_plain(on_host):
